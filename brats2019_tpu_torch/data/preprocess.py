@@ -1,0 +1,224 @@
+"""Preprocessing (reference: ``brats2019_tpu/data/preprocess.py``).
+
+* Device ops in torch: :func:`zscore` (:45), :func:`mask_bbox_center`
+  (:308), :func:`centered_crop_start` (:330).
+* Copies of the host helpers the predict path uses — the original module
+  imports jax: ``BBox``, ``brain_bbox_np``, ``brain_bbox_fast_np``,
+  ``center_fit_axis``, ``crop_cast_fit_np``, ``crop_cast_bucket_np``,
+  ``uncrop_from_canvas_np``. tests/test_torch_cascade.py pins each copy to
+  its original. The crop/cast pair returns a CPU torch tensor: the bf16 cast
+  goes through torch instead of ``ml_dtypes`` (both round to nearest even,
+  bitwise equal).
+
+Convention: image is channels-last (X, Y, Z, C); background voxels are
+exactly zero and stay zero after normalisation.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+# ---------------------------------------------------------------- device ops --
+
+
+def zscore(image: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Per-channel z-score over nonzero voxels (masked reductions over all
+    leading axes); zeros stay zero. Returns f32."""
+    axes = tuple(range(image.dim() - 1))
+    mask = image != 0
+    n = torch.clamp_min(mask.sum(axes, dtype=torch.float32), 1.0)
+    s = torch.where(mask, image, 0.0).sum(axes, dtype=torch.float32)
+    mu = s / n
+    sq = torch.where(mask, (image - mu) ** 2, 0.0).sum(axes, dtype=torch.float32)
+    sd = torch.sqrt(sq / n)
+    z = (image - mu) / (sd + eps)
+    return torch.where(mask, z, 0.0).float()
+
+
+def mask_bbox_center(mask: torch.Tensor) -> torch.Tensor:
+    """Center (x, y, z) int32 of the bounding box of a boolean 3D mask; the
+    volume center when the mask is empty."""
+    centers = []
+    for ax in range(3):
+        other = tuple(a for a in range(3) if a != ax)
+        prof = mask.any(dim=other[1]).any(dim=other[0])
+        size = mask.shape[ax]
+        idx = torch.arange(size, dtype=torch.int32, device=mask.device)
+        lo = torch.where(prof, idx, size).min()
+        hi = torch.where(prof, idx, -1).max()
+        c = torch.where(hi < lo, size // 2, (lo + hi + 1) // 2)
+        centers.append(c.to(torch.int32))
+    return torch.stack(centers)
+
+
+def centered_crop_start(
+    center: torch.Tensor, roi: Tuple[int, int, int], full: Tuple[int, int, int]
+) -> torch.Tensor:
+    """Clamp a fixed-size ROI around ``center`` inside the volume; int32
+    start indices."""
+    starts = []
+    for ax in range(3):
+        s = center[ax] - roi[ax] // 2
+        s = torch.clamp(s, 0, max(full[ax] - roi[ax], 0))
+        starts.append(s.to(torch.int32))
+    return torch.stack(starts)
+
+
+# ---------------------------------------------------------- host helpers (copies) --
+
+
+@dataclasses.dataclass(frozen=True)
+class BBox:
+    """Half-open 3D bounding box with the original volume shape for un-crop."""
+
+    lo: Tuple[int, int, int]
+    hi: Tuple[int, int, int]
+    full_shape: Tuple[int, int, int]
+
+    @property
+    def shape(self) -> Tuple[int, int, int]:
+        return tuple(h - l for l, h in zip(self.lo, self.hi))
+
+
+def brain_bbox_np(image: np.ndarray, margin: int = 0) -> BBox:
+    """Nonzero bounding box over all channels (any-channel nonzero)."""
+    mask = np.any(image != 0, axis=-1) if image.ndim == 4 else image != 0
+    full = mask.shape
+    if not mask.any():
+        return BBox((0, 0, 0), full, full)
+    lo, hi = [], []
+    for ax in range(3):
+        other = tuple(a for a in range(3) if a != ax)
+        idx = np.where(mask.any(axis=other))[0]
+        lo.append(max(0, int(idx[0]) - margin))
+        hi.append(min(full[ax], int(idx[-1]) + 1 + margin))
+    return BBox(tuple(lo), tuple(hi), full)
+
+
+def brain_bbox_fast_np(
+    image: np.ndarray, stride: int = 4, margin: int = 0
+) -> BBox:
+    """Exact brain bbox from a strided pre-scan plus walk-out slab
+    refinement (equal to :func:`brain_bbox_np` whenever every foreground
+    component touches the ``stride``^3 sample grid)."""
+    full = image.shape[:3]
+    sub = image[::stride, ::stride, ::stride]
+    sub_mask = np.any(sub != 0, axis=-1) if image.ndim == 4 else sub != 0
+    if not sub_mask.any():
+        return brain_bbox_np(image, margin=margin)
+
+    def axis_any(mask: np.ndarray, ax: int) -> np.ndarray:
+        other = tuple(a for a in range(3) if a != ax)
+        return mask.any(axis=other)
+
+    def occupied_planes(ax: int, start: int, end: int) -> np.ndarray:
+        sl = [slice(None)] * 3
+        sl[ax] = slice(start, end)
+        slab = image[tuple(sl)]
+        m = np.any(slab != 0, axis=-1) if image.ndim == 4 else slab != 0
+        return axis_any(m, ax)
+
+    lo, hi = [], []
+    for ax in range(3):
+        idx = np.where(axis_any(sub_mask, ax))[0]
+        anchor_lo = int(idx[0]) * stride
+        anchor_hi = int(idx[-1]) * stride
+        start = max(0, anchor_lo - stride)
+        while True:
+            p = occupied_planes(ax, start, anchor_lo + 1)
+            first = start + int(np.where(p)[0][0])
+            if first > start or start == 0:
+                break
+            start = max(0, start - stride)
+        end = min(full[ax], anchor_hi + stride + 1)
+        while True:
+            p = occupied_planes(ax, anchor_hi, end)
+            last = anchor_hi + int(np.where(p)[0][-1])
+            if last < end - 1 or end == full[ax]:
+                break
+            end = min(full[ax], end + stride)
+        lo.append(max(0, first - margin))
+        hi.append(min(full[ax], last + 1 + margin))
+    return BBox(tuple(lo), tuple(hi), full)
+
+
+def center_fit_axis(s: int, t: int) -> Tuple[int, int, slice]:
+    """Center-fit a length-``s`` axis into a length-``t`` axis: copy
+    ``src[src_start : src_start + copy_len]`` into ``dst[dst_slice]``
+    (center-pad when s <= t, center-crop when s > t)."""
+    if s <= t:
+        off = (t - s) // 2
+        return 0, s, slice(off, off + s)
+    off = (s - t) // 2
+    return off, t, slice(0, t)
+
+
+def _cast_into(out: torch.Tensor, dst, image: np.ndarray, src) -> torch.Tensor:
+    out[dst] = torch.from_numpy(np.ascontiguousarray(image[src])).to(out.dtype)
+    return out
+
+
+def crop_cast_fit_np(
+    image: np.ndarray,
+    bbox: BBox,
+    canvas: Tuple[int, int, int],
+    dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Crop -> cast -> center-fit into a zero canvas (CPU tensor)."""
+    cshape = bbox.shape
+    out = torch.zeros(tuple(canvas) + image.shape[3:], dtype=dtype)
+    src_sl, dst_sl = [], []
+    for ax in range(3):
+        start, n, dst = center_fit_axis(cshape[ax], canvas[ax])
+        src_sl.append(slice(bbox.lo[ax] + start, bbox.lo[ax] + start + n))
+        dst_sl.append(dst)
+    return _cast_into(out, tuple(dst_sl), image, tuple(src_sl))
+
+
+def crop_cast_bucket_np(
+    image: np.ndarray,
+    bbox: BBox,
+    canvas: Tuple[int, int, int],
+    bucket: int = 16,
+    dtype: torch.dtype = torch.bfloat16,
+) -> Tuple[torch.Tensor, Tuple[int, int, int]]:
+    """Bucketed crop: ``(small, dst)`` such that embedding ``small`` into a
+    zero canvas at offset ``dst`` reproduces :func:`crop_cast_fit_np`
+    bitwise; ``small``'s extents are the bbox extents rounded up to
+    ``bucket`` (clamped to the canvas)."""
+    shape, dst, src_sl, copy_len = [], [], [], []
+    for ax in range(3):
+        s, t = bbox.shape[ax], canvas[ax]
+        start, n, dst_slice = center_fit_axis(s, t)
+        src_sl.append(slice(bbox.lo[ax] + start, bbox.lo[ax] + start + n))
+        dst.append(dst_slice.start)
+        copy_len.append(n)
+        shape.append(min(-(-n // bucket) * bucket, t - dst_slice.start))
+    small = torch.zeros(tuple(shape) + image.shape[3:], dtype=dtype)
+    region = tuple(slice(0, n) for n in copy_len)
+    return _cast_into(small, region, image, tuple(src_sl)), (dst[0], dst[1], dst[2])
+
+
+def uncrop_from_canvas_np(
+    labels_canvas: np.ndarray,
+    cropped_shape: Tuple[int, int, int],
+    bbox: BBox,
+    canvas: Tuple[int, int, int],
+) -> np.ndarray:
+    """Invert the center-fit and the bbox crop back to the full volume."""
+    src_sl, dst_sl = [], []
+    for ax in range(3):
+        start, n, fit_dst = center_fit_axis(cropped_shape[ax], canvas[ax])
+        src_sl.append(fit_dst)
+        dst_sl.append(slice(start, start + n))
+    extra = labels_canvas.shape[3:]
+    cropped = np.zeros(tuple(cropped_shape) + extra, dtype=labels_canvas.dtype)
+    cropped[tuple(dst_sl)] = labels_canvas[tuple(src_sl)]
+    out = np.zeros(tuple(bbox.full_shape) + extra, dtype=labels_canvas.dtype)
+    sl = tuple(slice(l, h) for l, h in zip(bbox.lo, bbox.hi))
+    out[sl] = cropped
+    return out

@@ -1,0 +1,99 @@
+"""3D U-Net encoder-decoder (reference: ``brats2019_tpu/models/unet3d.py``).
+
+NDHWC throughout. Average-pool down, half-pixel trilinear up, skip concat,
+an f32 1x1x1 head with bias; with ``stem_downsample=r>1`` the input is
+space-to-depth'd by r before the first conv and the head's K*r^3 channels
+are depth-to-space'd back (``subpixel=False`` returns them before that, for
+the low-res TTA reduce). The casts sit where the JAX module has them: the
+input to the compute dtype (:104), the skip concat (:135), the f32 head
+(:148-154).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..configs.presets import UNetConfig
+from ..ops import downsample2x, upsample2x
+from .blocks import DoubleConv
+
+
+def space_to_depth(x: torch.Tensor, r: int) -> torch.Tensor:
+    """(N, D, H, W, C) -> (N, D/r, H/r, W/r, C*r^3), channel order
+    ((rd*r + rh)*r + rw)*C + c, as in the JAX package."""
+    n, d, h, w, c = x.shape
+    x = x.reshape(n, d // r, r, h // r, r, w // r, r, c)
+    x = x.permute(0, 1, 3, 5, 2, 4, 6, 7)
+    return x.reshape(n, d // r, h // r, w // r, c * r * r * r)
+
+
+def depth_to_space(x: torch.Tensor, r: int) -> torch.Tensor:
+    """(N, D, H, W, C*r^3) -> (N, D*r, H*r, W*r, C); inverse of the above."""
+    n, d, h, w, c2 = x.shape
+    c = c2 // (r * r * r)
+    x = x.reshape(n, d, h, w, r, r, r, c)
+    x = x.permute(0, 1, 4, 2, 5, 3, 6, 7)
+    return x.reshape(n, d * r, h * r, w * r, c)
+
+
+class Conv1x1(nn.Module):
+    """f32 1x1x1 conv with bias; ``kernel`` is (1, 1, 1, Ci, Co)."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros(1, 1, 1, in_features, features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k = self.kernel.reshape(self.kernel.shape[3], self.kernel.shape[4])
+        return torch.matmul(x.float(), k.float()) + self.bias.float()
+
+
+class UNet3D(nn.Module):
+    """Returns logits (N, D, H, W, K) in f32. Blocks are named
+    ``DoubleConv_<i>`` in the JAX package's creation order (encoder levels,
+    then decoder levels from the bottom up)."""
+
+    def __init__(self, config: UNetConfig = UNetConfig()):
+        super().__init__()
+        cfg = self.config = config
+        dt = cfg.dtype
+        r = cfg.stem_downsample
+        c = cfg.in_channels * r ** 3
+        i = 0
+        for lvl in range(cfg.levels):
+            self.add_module(f"DoubleConv_{i}", DoubleConv(
+                c, cfg.feats(lvl), cfg.activation, dt))
+            c = cfg.feats(lvl)
+            i += 1
+        for lvl in reversed(range(cfg.levels - 1)):
+            self.add_module(f"DoubleConv_{i}", DoubleConv(
+                c + cfg.feats(lvl), cfg.feats(lvl), cfg.activation, dt))
+            c = cfg.feats(lvl)
+            i += 1
+        self.head = Conv1x1(c, cfg.num_classes * r ** 3)
+
+    def forward(self, x: torch.Tensor, subpixel: bool = True) -> torch.Tensor:
+        cfg = self.config
+        dt = cfg.dtype
+        x = x.to(dt)
+        r = cfg.stem_downsample
+        if r > 1:
+            x = space_to_depth(x, r)
+        blocks = iter(getattr(self, f"DoubleConv_{i}")
+                      for i in range(2 * cfg.levels - 1))
+        skips = []
+        for lvl in range(cfg.levels):
+            x = next(blocks)(x)
+            if lvl < cfg.levels - 1:
+                skips.append(x)
+                x = downsample2x(x)
+        for lvl in reversed(range(cfg.levels - 1)):
+            x = upsample2x(x)
+            x = torch.cat([x, skips[lvl].to(dt)], dim=-1)
+            x = next(blocks)(x)
+        logits = self.head(x)
+        if r > 1 and subpixel:
+            logits = depth_to_space(logits, r)
+        return logits

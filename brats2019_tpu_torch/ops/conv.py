@@ -1,0 +1,78 @@
+"""The 3^3 SAME conv seam (reference: ``brats2019_tpu/ops/pallas_conv.py``
+conv3d_pallas and the flax/XLA conv of ``models/blocks.py:35-43``).
+
+``conv3d(x, w)`` takes NDHWC ``x`` (N, D, H, W, Ci) and a DHWIO kernel
+``w`` (3, 3, 3, Ci, Co), and returns (N, D, H, W, Co) in ``x.dtype``:
+
+* on a CPU tensor, the plain version :func:`conv3d_plain` (f32 math);
+* on a CUDA tensor, the hand-written kernel ``csrc/conv3d.cu`` (bf16 in,
+  f32 accumulation, bf16 out), or an error. There is no fallback.
+
+``conv3d.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+_SIG = {
+    "conv3d_ndhwc_bf16": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+    + [ctypes.c_void_p],
+}
+
+
+def _lib() -> ctypes.CDLL:
+    return _build.load_library("conv3d", ["conv3d.cu"], _SIG)
+
+
+def conv3d_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """SAME stride-1 3^3 conv in f32 on x's values, cast back to x.dtype."""
+    xc = x.float().permute(0, 4, 1, 2, 3)            # NCDHW view of NDHWC
+    wc = w.float().permute(4, 3, 0, 1, 2)            # DHWIO -> OIDHW
+    y = F.conv3d(xc, wc, padding=1)
+    return y.permute(0, 2, 3, 4, 1).contiguous().to(x.dtype)
+
+
+def conv3d_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Launch csrc/conv3d.cu on CUDA bf16 tensors."""
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise TypeError(
+            f"conv3d kernel takes bf16 input and weight, got {x.dtype}, {w.dtype}"
+        )
+    if x.dim() != 5 or w.dim() != 5 or tuple(w.shape[:3]) != (3, 3, 3):
+        raise ValueError(f"conv3d: bad shapes x {tuple(x.shape)} w {tuple(w.shape)}")
+    n, d, h, wd, ci = x.shape
+    if w.shape[3] != ci:
+        raise ValueError(f"conv3d: x has {ci} channels, w expects {w.shape[3]}")
+    if w.device != x.device:
+        raise ValueError("conv3d: x and w on different devices")
+    if x.numel() == 0:
+        raise ValueError("conv3d: empty input")
+    x = x.contiguous()
+    w = w.contiguous()
+    co = w.shape[4]
+    y = torch.empty((n, d, h, wd, co), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _lib().conv3d_ndhwc_bf16(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), n, d, h, wd, ci, co, stream
+        )
+    _build.check(rc, "conv3d")
+    conv3d.launches += 1
+    return y
+
+
+def conv3d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return conv3d_plain(x, w)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"conv3d: no kernel for device {x.device}")
+    return conv3d_kernel(x, w)
+
+
+conv3d.launches = 0

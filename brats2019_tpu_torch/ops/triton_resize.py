@@ -1,0 +1,112 @@
+"""Triton kernels of the exact 2x resizes between U-Net levels.
+
+Imported only by ``ops/resize.py`` when it launches on a CUDA tensor (this
+module imports triton at the top; nothing else imports it).
+
+Replaces (``brats2019_tpu/ops/pallas_resize.py``):
+
+* ``downsample2x_pallas`` (:268, kernel ``_down_fwd_kernel`` :254): the 2^3
+  average pool, and the ``reduce_window`` path of ``ops/resize.py:59``;
+* ``upsample2x_pallas`` (:103, kernel ``_up_fwd_kernel`` :82): 2x trilinear
+  with half-pixel taps (0.25, 0.75) and replicate-clamped edges, and the
+  ``jax.image.resize`` path of ``ops/resize.py:70``.
+
+What bounds them on the card: device-memory bandwidth (8 loads and 1 store
+per output of the pool, 1 store per 1/8 load of the upsample; a few flops
+each).
+
+Design: one program per output (n, d, h) row and a block of the flattened
+(w, c) row, so loads and stores walk contiguous NDHWC memory with C minor.
+The TPU kernel gets edge clamping from clamped BlockSpec index maps; here
+each program computes its own clamped tap indices. All arithmetic is f32;
+the store casts to the output dtype.
+"""
+
+import triton
+import triton.language as tl
+
+
+@triton.jit
+def _down2x_kernel(x_ptr, y_ptr, D, H, W, C, Do, Ho, Wo,
+                   BLOCK: tl.constexpr):
+    row = tl.program_id(0)          # over N * Do * Ho output rows
+    blk = tl.program_id(1)
+    ho = row % Ho
+    t = row // Ho
+    do = t % Do
+    n = t // Do
+    offs = blk * BLOCK + tl.arange(0, BLOCK)
+    mask = offs < Wo * C
+    wo = offs // C
+    c = offs % C
+    acc = tl.zeros([BLOCK], dtype=tl.float32)
+    for a in tl.static_range(2):
+        for b in tl.static_range(2):
+            plane = ((n.to(tl.int64) * D + 2 * do + a) * H + 2 * ho + b) * W
+            for e in tl.static_range(2):
+                src = (plane + 2 * wo + e) * C + c
+                acc += tl.load(x_ptr + src, mask=mask, other=0.0).to(tl.float32)
+    out = row.to(tl.int64) * Wo * C + offs
+    tl.store(y_ptr + out, (acc * 0.125).to(y_ptr.dtype.element_ty), mask=mask)
+
+
+@triton.jit
+def _taps(o, size):
+    """Clamped half-pixel taps of output index o along an axis of ``size``."""
+    i = o // 2
+    even = (o % 2) == 0
+    t0 = tl.where(even, tl.maximum(i - 1, 0), i)
+    t1 = tl.where(even, i, tl.minimum(i + 1, size - 1))
+    w0 = tl.where(even, 0.25, 0.75)
+    return t0, t1, w0, 1.0 - w0
+
+
+@triton.jit
+def _w_interp(x_ptr, plane, t0, t1, w0, w1, c, C, mask):
+    v0 = tl.load(x_ptr + (plane + t0) * C + c, mask=mask, other=0.0)
+    v1 = tl.load(x_ptr + (plane + t1) * C + c, mask=mask, other=0.0)
+    return w0 * v0.to(tl.float32) + w1 * v1.to(tl.float32)
+
+
+@triton.jit
+def _up2x_kernel(x_ptr, y_ptr, D, H, W, C, BLOCK: tl.constexpr):
+    row = tl.program_id(0)          # over N * 2D * 2H output rows
+    blk = tl.program_id(1)
+    oh = row % (2 * H)
+    t = row // (2 * H)
+    od = t % (2 * D)
+    n = t // (2 * D)
+    offs = blk * BLOCK + tl.arange(0, BLOCK)
+    mask = offs < 2 * W * C
+    ow = offs // C
+    c = offs % C
+    d0, d1, wd0, wd1 = _taps(od, D)
+    h0, h1, wh0, wh1 = _taps(oh, H)
+    w0, w1, ww0, ww1 = _taps(ow, W)
+    nd = n.to(tl.int64) * D
+    r00 = _w_interp(x_ptr, ((nd + d0) * H + h0) * W, w0, w1, ww0, ww1, c, C, mask)
+    r01 = _w_interp(x_ptr, ((nd + d0) * H + h1) * W, w0, w1, ww0, ww1, c, C, mask)
+    r10 = _w_interp(x_ptr, ((nd + d1) * H + h0) * W, w0, w1, ww0, ww1, c, C, mask)
+    r11 = _w_interp(x_ptr, ((nd + d1) * H + h1) * W, w0, w1, ww0, ww1, c, C, mask)
+    acc = wd0 * (wh0 * r00 + wh1 * r01) + wd1 * (wh0 * r10 + wh1 * r11)
+    out = row.to(tl.int64) * 2 * W * C + offs
+    tl.store(y_ptr + out, acc.to(y_ptr.dtype.element_ty), mask=mask)
+
+
+_BLOCK = 1024
+
+
+def launch_down(x, y) -> None:
+    """x (N, D, H, W, C), y (N, D//2, H//2, W//2, C): contiguous, one device."""
+    n, d, h, w, c = x.shape
+    _, do, ho, wo, _ = y.shape
+    grid = (n * do * ho, triton.cdiv(wo * c, _BLOCK))
+    _down2x_kernel[grid](x, y, d, h, w, c, do, ho, wo, BLOCK=_BLOCK,
+                         num_warps=4)
+
+
+def launch_up(x, y) -> None:
+    """x (N, D, H, W, C), y (N, 2D, 2H, 2W, C): contiguous, one device."""
+    n, d, h, w, c = x.shape
+    grid = (n * 4 * d * h, triton.cdiv(2 * w * c, _BLOCK))
+    _up2x_kernel[grid](x, y, d, h, w, c, BLOCK=_BLOCK, num_warps=4)

@@ -1,0 +1,137 @@
+"""PyTorch port: the NumPy host copies (constants, NIfTI I/O, case loading,
+synthetic cases, label postprocessing) pinned to their originals in the JAX
+package."""
+
+import os
+import struct
+
+import numpy as np
+import pytest
+
+from brats2019_tpu.data import case as ref_case
+from brats2019_tpu.data import constants as ref_constants
+from brats2019_tpu.data import synthetic as ref_synthetic
+from brats2019_tpu.infer import postprocess as ref_post
+from brats2019_tpu.utils import nifti as ref_nifti
+from brats2019_tpu_torch.data import case, constants, synthetic
+from brats2019_tpu_torch.infer import postprocess
+from brats2019_tpu_torch.utils import nifti
+
+SHAPE = (28, 24, 18)
+
+
+def test_constants_match_reference():
+    for name in ("MODALITIES", "NUM_MODALITIES", "NUM_CLASSES", "VOLUME_SHAPE",
+                 "DISK_LABELS"):
+        assert getattr(constants, name) == getattr(ref_constants, name)
+    labels = np.random.default_rng(0).integers(0, 4, size=(5, 6, 7)).astype(np.uint8)
+    disk = constants.internal_to_disk(labels)
+    np.testing.assert_array_equal(disk, ref_constants.internal_to_disk(labels))
+    np.testing.assert_array_equal(constants.disk_to_internal(disk),
+                                  ref_constants.disk_to_internal(disk))
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_synthetic_case_arrays_match_reference(seed):
+    got = synthetic.make_case_arrays(seed=seed, shape=SHAPE)
+    want = ref_synthetic.make_case_arrays(seed=seed, shape=SHAPE)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+
+
+def test_written_dataset_is_byte_identical(tmp_path):
+    got = synthetic.write_dataset(str(tmp_path / "port"), 2, shape=SHAPE, seed0=4)
+    want = ref_synthetic.write_dataset(str(tmp_path / "ref"), 2, shape=SHAPE,
+                                       seed0=4)
+    assert [os.path.basename(d) for d in got] == [os.path.basename(d) for d in want]
+    for g, w in zip(got, want):
+        assert sorted(os.listdir(g)) == sorted(os.listdir(w))
+        for f in os.listdir(g):
+            with open(os.path.join(g, f), "rb") as a, open(os.path.join(w, f), "rb") as b:
+                assert a.read() == b.read(), f
+
+
+@pytest.mark.parametrize("ext", [".nii.gz", ".nii"])
+@pytest.mark.parametrize("dtype", [np.uint8, np.int16, np.float32])
+def test_nifti_roundtrip_matches_reference(tmp_path, ext, dtype):
+    rng = np.random.default_rng(1)
+    data = (rng.uniform(0, 100, size=(6, 5, 4))).astype(dtype)
+    affine = np.array([[-1.5, 0, 0, 3], [0, -1, 0, 239], [0, 0, 2, -7], [0, 0, 0, 1]])
+    p_got, p_want = str(tmp_path / f"a{ext}"), str(tmp_path / f"b{ext}")
+    nifti.write_nifti(p_got, data, affine=affine)
+    ref_nifti.write_nifti(p_want, data, affine=affine)
+    with open(p_got, "rb") as a, open(p_want, "rb") as b:
+        assert a.read() == b.read()
+    got, hdr = nifti.read_nifti(p_want)
+    want, ref_hdr = ref_nifti.read_nifti(p_want)
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(hdr.affine(), ref_hdr.affine())
+    assert hdr.raw == ref_hdr.raw
+    # write-back with the input header, as the predictor does
+    labels = rng.integers(0, 5, size=data.shape).astype(np.uint8)
+    nifti.write_nifti(p_got, labels, like=hdr)
+    ref_nifti.write_nifti(p_want, labels, like=ref_hdr)
+    with open(p_got, "rb") as a, open(p_want, "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_nifti_scaling_and_qform_match_reference(tmp_path):
+    """A header with scl_slope/scl_inter and a qform-only affine, read by
+    both readers."""
+    p = str(tmp_path / "s.nii")
+    ref_nifti.write_nifti(p, np.arange(60, dtype=np.int16).reshape(5, 4, 3))
+    with open(p, "rb") as f:
+        raw = bytearray(f.read())
+    struct.pack_into("<2f", raw, 112, 0.5, 3.0)           # slope, inter
+    struct.pack_into("<2h", raw, 252, 1, 0)               # qform only
+    struct.pack_into("<3f", raw, 256, 0.1, -0.2, 0.3)     # quatern b, c, d
+    struct.pack_into("<f", raw, 76, -1.0)                 # qfac
+    with open(p, "wb") as f:
+        f.write(bytes(raw))
+    for scaling in (True, False):
+        got, hdr = nifti.read_nifti(p, apply_scaling=scaling)
+        want, ref_hdr = ref_nifti.read_nifti(p, apply_scaling=scaling)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(hdr.affine(), ref_hdr.affine())
+
+
+def test_case_discovery_and_loading_match_reference(tmp_path):
+    root = str(tmp_path / "cases")
+    ref_synthetic.write_dataset(root, 2, shape=SHAPE, seed0=7)
+    os.makedirs(os.path.join(root, "not_a_case"))
+    got = case.discover_cases(root)
+    assert got == ref_case.discover_cases(root) and len(got) == 2
+    assert case.discover_cases(got[0]) == [got[0]]
+    assert case.discover_cases(str(tmp_path / "missing")) == []
+    for d in got:
+        c = case.load_case(d)
+        r = ref_case.load_case(d, load_seg=False, backend="python")
+        assert c.name == r.name
+        assert c.image.dtype == r.image.dtype == np.float32
+        np.testing.assert_array_equal(c.image, r.image)
+        assert c.header.raw == r.header.raw
+    os.remove(os.path.join(got[0], os.path.basename(got[0]) + "_t2.nii.gz"))
+    with pytest.raises(FileNotFoundError, match="t2"):
+        case.load_case(got[0])
+
+
+@pytest.mark.parametrize("min_voxels,et_min", [(16, 32), (0, 0), (200, 500)])
+def test_postprocess_matches_reference(min_voxels, et_min):
+    rng = np.random.default_rng(min_voxels)
+    labels = np.zeros((30, 28, 20), np.uint8)
+    labels[4:14, 5:15, 3:12] = rng.integers(1, 4, size=(10, 10, 9))
+    for _ in range(12):                       # small specks to filter
+        x, y, z = rng.integers(0, 18, size=3)
+        labels[x:x + 2, y + 10:y + 11, z] = rng.integers(1, 4)
+    got = postprocess.postprocess_labels(
+        labels, min_component_voxels=min_voxels, et_min_voxels=et_min)
+    want = ref_post.postprocess_labels(
+        labels, min_component_voxels=min_voxels, et_min_voxels=et_min)
+    np.testing.assert_array_equal(got, want)
+    tiny_et = np.zeros((8, 8, 8), np.uint8)
+    tiny_et[2:4, 2:4, 2:4] = 3
+    np.testing.assert_array_equal(postprocess.suppress_tiny_et_np(tiny_et, 32),
+                                  ref_post.suppress_tiny_et_np(tiny_et, 32))
