@@ -1,12 +1,11 @@
 """Shared CLI plumbing (reference: ``brats2019_tpu/cli/common.py``): preset
-overrides and stage params. Params load from the JAX package's export
-format, ``<workdir>/<stage>/params.npz``; reading orbax checkpoints is
-later work (ROADMAP queue 1 item 8)."""
+overrides and the trained params of a stage."""
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import sys
 from typing import Dict
 
 import numpy as np
@@ -14,11 +13,20 @@ import numpy as np
 from ..configs.presets import ExperimentConfig, get_preset
 from ..utils.weights import load_params_npz
 
+_TRAIN_FLAGS = ("steps", "checkpoint_every", "eval_every", "log_every",
+                "ema_decay", "rot90_axial", "gamma_range", "seed")
+
 
 def resolve_experiment(args) -> ExperimentConfig:
     exp = get_preset(args.preset)
     if getattr(args, "workdir", None):
         exp = dataclasses.replace(exp, workdir=args.workdir)
+    for flag in _TRAIN_FLAGS:
+        v = getattr(args, flag, None)
+        if v is not None and not (flag == "steps" and v == 0):
+            exp = dataclasses.replace(
+                exp, train=dataclasses.replace(exp.train, **{flag: v})
+            )
     for flag in ("min_component_voxels", "et_min_voxels"):
         v = getattr(args, flag, None)
         if v is not None:
@@ -28,13 +36,49 @@ def resolve_experiment(args) -> ExperimentConfig:
     return exp
 
 
+def _latest_checkpoint_mtime(workdir: str) -> float:
+    """Newest mtime among the step checkpoints and ``best/`` under
+    ``<workdir>/checkpoints`` (0.0 when none exist)."""
+    root = os.path.join(workdir, "checkpoints")
+    newest = 0.0
+    try:
+        for name in os.listdir(root):
+            p = os.path.join(root, name)
+            if name.isdigit() or (name == "best" and os.path.exists(
+                    os.path.join(p, "state.pt"))):
+                newest = max(newest, os.path.getmtime(p))
+    except OSError:
+        pass
+    return newest
+
+
 def load_stage_params(exp: ExperimentConfig, stage: str) -> Dict[str, np.ndarray]:
-    """The exported params of ``stage`` ("fine" or "coarse") as a flat dict;
-    FileNotFoundError when the workdir has none."""
-    path = os.path.join(exp.workdir, stage, "params.npz")
-    if not os.path.exists(path):
+    """Trained params of ``stage`` ("fine" or "coarse") as a flat export
+    dict, by the reference's priority (:335-393): an exported
+    ``<workdir>/<stage>/params.npz`` while it is at least as new as the
+    newest checkpoint; else ``checkpoints/best/``; else the latest step
+    checkpoint. FileNotFoundError when the workdir has none of them."""
+    from ..train.checkpoint import CheckpointManager, flat_numpy
+
+    workdir = os.path.join(exp.workdir, stage)
+    exported = os.path.join(workdir, "params.npz")
+    if os.path.exists(exported):
+        if _latest_checkpoint_mtime(workdir) > os.path.getmtime(exported):
+            print(f"[params] {stage}: checkpoint is NEWER than {exported}; "
+                  "loading the checkpoint", file=sys.stderr, flush=True)
+        else:
+            return load_params_npz(exported)
+    if not os.path.isdir(os.path.join(workdir, "checkpoints")):
         raise FileNotFoundError(
-            f"No exported params for stage '{stage}' at {path} (export them "
-            f"with the JAX package's export CLI)"
-        )
-    return load_params_npz(path)
+            f"No params for stage '{stage}': neither {exported} nor "
+            f"checkpoints under {workdir}")
+    ckpt = CheckpointManager(workdir)
+    best = ckpt.restore_best_params()
+    if best is not None:
+        return best
+    restored = ckpt.restore()
+    if restored is None:
+        raise FileNotFoundError(
+            f"No params for stage '{stage}': neither {exported} nor a "
+            f"checkpoint under {workdir}")
+    return flat_numpy(restored["params"])

@@ -5,9 +5,11 @@ Usage:
     python -m brats2019_tpu_torch.cli.predict <case_dir_or_root>
         [--preset cascade] [--workdir DIR] [--output PATH] [--device cuda]
 
-Loads ``<workdir>/{fine,coarse}/params.npz`` (the JAX package's export
-format) and writes ``<case>_pred.nii.gz`` with BraTS disk labels {0,1,2,4}
-next to each case, with the input header. ``--device cuda`` on a host
+Loads each stage's params from ``<workdir>/{fine,coarse}/`` (an exported
+``params.npz`` in the JAX package's format, or the port's own training
+checkpoints: ``cli/common.py`` load_stage_params) and writes
+``<case>_pred.nii.gz`` with BraTS disk labels {0,1,2,4} next to each case,
+with the input header. ``--device cuda`` on a host
 without a card is an error; ``--device cpu`` runs the plain torch ops.
 """
 

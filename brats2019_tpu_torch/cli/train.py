@@ -1,0 +1,135 @@
+"""``train`` for the PyTorch port (reference: ``brats2019_tpu/cli/train.py``).
+
+Usage:
+    python -m brats2019_tpu_torch.cli.train --data <BraTS_root>
+        [--preset cascade] [--stage all|fine|coarse] [--device cuda|cpu]
+        [--val-frac 0.2 | --folds K --fold I] [--steps N] [--workdir DIR]
+        [--synthetic N [--synthetic-shape X Y Z]]
+
+Trains the preset's stages on one device (coarse first when cascaded) and
+leaves ``<workdir>/<stage>/checkpoints/`` that ``cli.predict`` serves.
+``--device cuda`` runs the hand-written kernels and is an error on a host
+without a card; ``--device cpu`` runs the plain torch ops. Exit code 3
+means SIGTERM stopped the run with a resumable checkpoint.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+from ..configs.presets import PRESETS
+from ..data.case import discover_cases, kfold_split
+from .common import resolve_experiment
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="brats2019_tpu_torch.train",
+                                description=__doc__)
+    p.add_argument("--data", help="BraTS root (dir of case dirs)")
+    p.add_argument("--synthetic", type=int, default=0,
+                   help="generate N synthetic cases under --data first")
+    p.add_argument("--synthetic-shape", type=int, nargs=3, default=(96, 96, 80),
+                   help="synthetic volume shape (240 240 155 for realistic runs)")
+    p.add_argument("--preset", default="cascade", choices=sorted(PRESETS))
+    p.add_argument("--stage", default="all", choices=("all", "fine", "coarse"))
+    p.add_argument("--val-frac", type=float, default=0.2)
+    p.add_argument("--folds", type=int, default=None,
+                   help="K-fold mode: deterministic K-way split; needs --fold")
+    p.add_argument("--fold", type=int, default=None,
+                   help="which fold [0, K) is this run's validation set")
+    p.add_argument("--steps", type=int, default=None)
+    p.add_argument("--checkpoint-every", type=int, default=None)
+    p.add_argument("--eval-every", type=int, default=None)
+    p.add_argument("--log-every", type=int, default=None)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--workdir", default=None)
+    p.add_argument("--ema-decay", type=float, default=None,
+                   help="track an exponential moving average of the weights "
+                        "(e.g. 0.999) in the optimizer state")
+    p.add_argument("--rot90", dest="rot90_axial", action="store_true",
+                   default=None,
+                   help="augmentation extra: exact axial 90-degree rotations")
+    p.add_argument("--gamma", dest="gamma_range", type=float, default=None,
+                   metavar="R",
+                   help="augmentation extra: per-channel gamma in "
+                        "[1/(1+R), 1+R] (0 disables)")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="cuda (hand-written kernels) or cpu (plain torch ops)")
+    return p
+
+
+def _split(cases, args):
+    if args.folds is not None or args.fold is not None:
+        if args.folds is None or args.fold is None:
+            raise ValueError("--folds and --fold must be given together")
+        train_dirs, val_dirs = kfold_split(cases, args.folds, args.fold)
+        return train_dirs, val_dirs, f"fold {args.fold}/{args.folds}"
+    n_val = max(1, int(len(cases) * args.val_frac)) if len(cases) > 1 else 0
+    return cases[n_val:] or cases, cases[:n_val], f"val-frac {args.val_frac}"
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.ema_decay is not None and not 0.0 < args.ema_decay < 1.0:
+        print(f"error: --ema-decay must be in (0, 1), got {args.ema_decay}",
+              file=sys.stderr)
+        return 2
+    try:
+        from ..infer.predictor import resolve_device
+
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    exp = resolve_experiment(args)
+    t = exp.train
+    if t.rot90_axial and (t.patch[0] != t.patch[1]
+                          or t.coarse_patch[0] != t.coarse_patch[1]):
+        print("error: --rot90 needs square (X, Y) patch planes "
+              f"(patch={t.patch}, coarse={t.coarse_patch})", file=sys.stderr)
+        return 2
+    if not args.data:
+        print("error: --data is required (a BraTS root, or --synthetic N "
+              "--data <dir> to generate data)", file=sys.stderr)
+        return 2
+    if args.synthetic > 0:
+        from ..data.synthetic import write_dataset
+
+        os.makedirs(args.data, exist_ok=True)
+        write_dataset(args.data, args.synthetic, shape=tuple(args.synthetic_shape))
+    cases = discover_cases(args.data)
+    if not cases:
+        print(f"error: no BraTS cases found under {args.data}", file=sys.stderr)
+        return 2
+    try:
+        train_dirs, val_dirs, split = _split(cases, args)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    print(f"[train] {len(train_dirs)} train / {len(val_dirs)} val cases "
+          f"({split}); preset={exp.name} workdir={exp.workdir} "
+          f"device={device}", flush=True)
+
+    from ..train.loop import train_stage
+
+    stages = []
+    if args.stage in ("all", "coarse") and exp.coarse_unet is not None:
+        stages.append("coarse")
+    if args.stage in ("all", "fine"):
+        stages.append("fine")
+    for stage in stages:
+        res = train_stage(exp, train_dirs, stage=stage, val_dirs=val_dirs,
+                          device=device)
+        if res.preempted:
+            print(f"[train] stage {stage} PREEMPTED (SIGTERM): resumable "
+                  "checkpoint saved; rerun the same command to continue",
+                  flush=True)
+            return 3
+        print(f"[train] stage {stage} done: {res.final_metrics}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -2,20 +2,21 @@
 ``brats2019_tpu/data/case.py``).
 
 A case directory ``BraTS19_XXX_1/`` holds ``BraTS19_XXX_1_{t1,t1ce,t2,flair}
-.nii[.gz]``. ``load_case`` stacks the four modalities channel-last ->
-(X, Y, Z, 4) float32.
+.nii[.gz]`` (and ``_seg`` for training cases). ``load_case`` stacks the four
+modalities channel-last -> (X, Y, Z, 4) float32; with ``load_seg`` it also
+reads the labels as internal classes {0,1,2,3}.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
 from ..utils.nifti import NiftiHeader, read_nifti
-from .constants import MODALITIES
+from .constants import MODALITIES, disk_to_internal
 
 
 @dataclasses.dataclass
@@ -25,6 +26,7 @@ class Case:
     name: str
     image: np.ndarray                 # (X, Y, Z, 4) float32, raw intensities
     header: NiftiHeader               # header of the first modality (for write-back)
+    seg: Optional[np.ndarray] = None  # (X, Y, Z) uint8 internal labels, or None
 
 
 def modality_paths(case_dir: str) -> List[str]:
@@ -39,6 +41,15 @@ def modality_paths(case_dir: str) -> List[str]:
         else:
             raise FileNotFoundError(f"Missing modality '{m}' in {case_dir}")
     return paths
+
+
+def seg_path(case_dir: str) -> Optional[str]:
+    base = os.path.basename(os.path.normpath(case_dir))
+    for ext in (".nii.gz", ".nii"):
+        p = os.path.join(case_dir, f"{base}_seg{ext}")
+        if os.path.exists(p):
+            return p
+    return None
 
 
 def is_case_dir(path: str) -> bool:
@@ -64,9 +75,23 @@ def discover_cases(root: str) -> List[str]:
     return out
 
 
-def load_case(case_dir: str) -> Case:
-    """Load the 4 modalities of a case directory. The header is the t1
-    modality's, used to write the prediction with a matching affine."""
+def kfold_split(cases, folds: int, fold: int):
+    """Deterministic K-fold split over an ordered case list: fold ``fold``
+    (round-robin on the given order) is validation, the rest train.
+    Returns ``(train_dirs, val_dirs)``."""
+    if folds < 2:
+        raise ValueError(f"folds must be >= 2, got {folds}")
+    if not 0 <= fold < folds:
+        raise ValueError(f"fold must be in [0, {folds}), got {fold}")
+    val = [c for i, c in enumerate(cases) if i % folds == fold]
+    train = [c for i, c in enumerate(cases) if i % folds != fold]
+    return (train or list(cases)), val
+
+
+def load_case(case_dir: str, *, load_seg: bool = False) -> Case:
+    """Load the 4 modalities of a case directory (and, with ``load_seg``,
+    its labels when present). The header is the t1 modality's, used to
+    write the prediction with a matching affine."""
     vols, header = [], None
     for p in modality_paths(case_dir):
         arr, hdr = read_nifti(p, dtype=np.float32)
@@ -75,8 +100,14 @@ def load_case(case_dir: str) -> Case:
         if vols and arr.shape != vols[0].shape:
             raise ValueError(f"Inconsistent modality shapes in {case_dir}")
         vols.append(arr)
+    seg = None
+    sp = seg_path(case_dir) if load_seg else None
+    if sp is not None:
+        seg_arr, _ = read_nifti(sp, apply_scaling=False)
+        seg = disk_to_internal(seg_arr).astype(np.uint8)
     return Case(
         name=os.path.basename(os.path.normpath(case_dir)),
         image=np.stack(vols, axis=-1),
         header=header,
+        seg=seg,
     )

@@ -2,11 +2,12 @@
 
 * Device ops in torch: :func:`zscore` (:45), :func:`mask_bbox_center`
   (:308), :func:`centered_crop_start` (:330).
-* Copies of the host helpers the predict path uses — the original module
-  imports jax: ``BBox``, ``brain_bbox_np``, ``brain_bbox_fast_np``,
-  ``center_fit_axis``, ``crop_cast_fit_np``, ``crop_cast_bucket_np``,
-  ``uncrop_from_canvas_np``. tests/test_torch_cascade.py pins each copy to
-  its original. The crop/cast pair returns a CPU torch tensor: the bf16 cast
+* Copies of the host helpers the predict and train paths use — the
+  original module imports jax: ``zscore_np`` (:31), ``BBox``,
+  ``brain_bbox_np``, ``brain_bbox_fast_np``, ``center_fit_axis``,
+  ``crop_np`` (:254), ``crop_cast_fit_np``, ``crop_cast_bucket_np``,
+  ``uncrop_from_canvas_np``. tests/test_torch_cascade.py and
+  tests/test_torch_host.py pin each copy to its original. The crop/cast pair returns a CPU torch tensor: the bf16 cast
   goes through torch instead of ``ml_dtypes`` (both round to nearest even,
   bitwise equal).
 
@@ -69,6 +70,20 @@ def centered_crop_start(
 
 
 # ---------------------------------------------------------- host helpers (copies) --
+
+
+def zscore_np(image: np.ndarray, eps: float = 1e-6) -> np.ndarray:
+    """Per-channel z-score over nonzero voxels; zeros stay zero."""
+    out = np.zeros_like(image, dtype=np.float32)
+    for c in range(image.shape[-1]):
+        vol = image[..., c]
+        mask = vol != 0
+        if mask.any():
+            vals = vol[mask].astype(np.float64)
+            mu = vals.mean()
+            sd = vals.std()
+            out[..., c][mask] = ((vol[mask] - mu) / (sd + eps)).astype(np.float32)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,6 +170,11 @@ def center_fit_axis(s: int, t: int) -> Tuple[int, int, slice]:
         return 0, s, slice(off, off + s)
     off = (s - t) // 2
     return off, t, slice(0, t)
+
+
+def crop_np(vol: np.ndarray, bbox: BBox) -> np.ndarray:
+    sl = tuple(slice(l, h) for l, h in zip(bbox.lo, bbox.hi))
+    return vol[sl]
 
 
 def _cast_into(out: torch.Tensor, dst, image: np.ndarray, src) -> torch.Tensor:

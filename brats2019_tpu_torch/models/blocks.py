@@ -3,8 +3,11 @@
 NDHWC activations; parameters are f32 and named as the JAX package's
 flax variables (``Conv_0.kernel`` DHWIO, ``in_scale``, ``in_bias``), so the
 weight bridge (``utils/weights.py``) is a rename. The compute dtype casts
-the conv input and kernel, as flax's ``nn.Conv(dtype=...)`` does; the kernel
-is cast once, when it is loaded, not on every forward.
+the conv input and kernel, as flax's ``nn.Conv(dtype=...)`` does. When the
+f32 kernel takes a gradient, the cast runs inside the autograd graph on
+every forward; otherwise (eval, ``torch.inference_mode``) a cached copy in
+the compute dtype is used, re-cast whenever the kernel has changed (an
+optimizer step, a load, a move to another device).
 """
 
 from __future__ import annotations
@@ -17,24 +20,40 @@ from ..ops import conv3d, instance_norm_act
 
 class Conv3x3(nn.Module):
     """SAME 3^3 conv, no bias; ``kernel`` is DHWIO (3, 3, 3, Ci, Co) f32,
-    ``kernel_c`` its copy in the compute dtype (not saved; refreshed on every
-    ``load_state_dict``)."""
+    ``kernel_c`` its cached copy in the compute dtype (not saved), keyed on
+    the kernel's version counter, storage and device."""
 
     def __init__(self, in_features: int, features: int,
                  compute_dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.kernel = nn.Parameter(torch.zeros(3, 3, 3, in_features, features))
         self.compute_dtype = compute_dtype
-        self.register_buffer("kernel_c", self.kernel.detach().to(compute_dtype),
-                             persistent=False)
-        self.register_load_state_dict_post_hook(Conv3x3._cast_kernel)
+        self.register_buffer("kernel_c", None, persistent=False)
+        self._cast_key = None
+        self.register_load_state_dict_post_hook(Conv3x3._on_load)
 
     @staticmethod
-    def _cast_kernel(module: "Conv3x3", _incompatible_keys) -> None:
-        module.kernel_c = module.kernel.detach().to(module.compute_dtype)
+    def _on_load(module: "Conv3x3", _incompatible_keys) -> None:
+        module.cached_kernel()
+
+    def cached_kernel(self) -> torch.Tensor:
+        k = self.kernel
+        # a kernel made under torch.inference_mode has no version counter
+        # (and cannot be updated outside it)
+        version = None if k.is_inference() else k._version
+        key = (version, k.data_ptr(), k.device)
+        if self._cast_key != key or self.kernel_c is None:
+            with torch.no_grad():
+                self.kernel_c = k.detach().to(self.compute_dtype)
+            self._cast_key = key
+        return self.kernel_c
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv3d(x.to(self.compute_dtype), self.kernel_c)
+        if torch.is_grad_enabled() and self.kernel.requires_grad:
+            w = self.kernel.to(self.compute_dtype)
+        else:
+            w = self.cached_kernel()
+        return conv3d(x.to(self.compute_dtype), w)
 
 
 class ConvNormAct(nn.Module):

@@ -2,15 +2,26 @@
 hand-written Hopper kernel on a CUDA tensor, and counts its launches."""
 
 from .conv import conv3d
-from .norm import instance_norm_act
-from .resize import downsample2x, resize_trilinear, upsample2x
+from .norm import instance_norm_act, instance_norm_act_bwd
+from .resize import (
+    downsample2x,
+    downsample2x_bwd,
+    resize_trilinear,
+    upsample2x,
+    upsample2x_bwd,
+)
 
-# the four kernel wrappers of the predict path, by name
+# the kernel wrappers by name: the four forwards of the predict path (the
+# conv's dgrad counts under conv3d), then the three backward kernels of
+# the training path
 KERNEL_WRAPPERS = {
     "conv3d": conv3d,
     "instance_norm_act": instance_norm_act,
     "downsample2x": downsample2x,
     "upsample2x": upsample2x,
+    "instance_norm_act_bwd": instance_norm_act_bwd,
+    "downsample2x_bwd": downsample2x_bwd,
+    "upsample2x_bwd": upsample2x_bwd,
 }
 
 
@@ -27,9 +38,12 @@ __all__ = [
     "KERNEL_WRAPPERS",
     "conv3d",
     "downsample2x",
+    "downsample2x_bwd",
     "instance_norm_act",
+    "instance_norm_act_bwd",
     "launch_counts",
     "reset_launch_counts",
     "resize_trilinear",
     "upsample2x",
+    "upsample2x_bwd",
 ]

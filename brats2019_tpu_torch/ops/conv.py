@@ -8,6 +8,20 @@ conv3d_pallas and the flax/XLA conv of ``models/blocks.py:35-43``).
 * on a CUDA tensor, the hand-written kernel ``csrc/conv3d.cu`` (bf16 in,
   f32 accumulation, bf16 out), or an error. There is no fallback.
 
+It is an ``autograd.Function``. ``conv3d_pallas`` has no VJP in the JAX
+package (its gradient was XLA's), so the port builds one:
+
+* dgrad: for a SAME stride-1 3^3 conv the input gradient is exactly the
+  same conv of the output gradient with the spatially flipped,
+  Ci<->Co-transposed weight (:func:`dgrad_weight`). It runs through
+  :func:`conv3d` itself, so on CUDA it is the hand-written kernel and counts
+  in ``conv3d.launches``; it is skipped where the input needs no grad (the
+  stem's input).
+* wgrad: plain torch (``aten.convolution_backward`` with only the weight
+  mask), as the JAX package computed it outside any Pallas kernel. On CUDA
+  it runs on the bf16 operands (cuDNN, f32 accumulation) with TF32 off and
+  deterministic algorithms; on the CPU in f32.
+
 ``conv3d.launches`` counts kernel launches.
 """
 
@@ -67,12 +81,55 @@ def conv3d_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def conv3d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _conv3d_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return conv3d_plain(x, w)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"conv3d: no kernel for device {x.device}")
     return conv3d_kernel(x, w)
+
+
+def dgrad_weight(w: torch.Tensor) -> torch.Tensor:
+    """(3, 3, 3, Ci, Co) -> (3, 3, 3, Co, Ci): w_t[t, co, ci] = w[2-t, ci, co]."""
+    return w.flip(0, 1, 2).transpose(3, 4).contiguous()
+
+
+def conv3d_wgrad(x: torch.Tensor, gy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """dL/dw (DHWIO, w.dtype) of the SAME 3^3 conv for input x and output
+    gradient gy (both NDHWC)."""
+    on_cpu = x.device.type == "cpu"
+    xc = (x.float() if on_cpu else x).permute(0, 4, 1, 2, 3)
+    gc = (gy.float() if on_cpu else gy).permute(0, 4, 1, 2, 3)
+    wc = (w.float() if on_cpu else w).permute(4, 3, 0, 1, 2)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        _, dw, _ = torch.ops.aten.convolution_backward(
+            gc, xc, wc, None, [1, 1, 1], [1, 1, 1], [1, 1, 1], False,
+            [0, 0, 0], 1, [False, True, False],
+        )
+    return dw.permute(2, 3, 4, 1, 0).to(w.dtype)
+
+
+class _Conv3d(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _conv3d_fwd(x, w)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        gy = gy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _conv3d_fwd(gy, dgrad_weight(w))
+        if ctx.needs_input_grad[1]:
+            dw = conv3d_wgrad(x, gy, w)
+        return dx, dw
+
+
+def conv3d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    if x.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"conv3d: no kernel for device {x.device}")
+    return _Conv3d.apply(x, w)
 
 
 conv3d.launches = 0

@@ -1,17 +1,26 @@
 """Fused InstanceNorm3d + activation seam (reference:
 ``brats2019_tpu/ops/norm.py`` instance_norm_act, whose default jnp path is
-:49-67, and ``ops/pallas_norm.py`` instance_norm_act_pallas).
+:49-67, and ``ops/pallas_norm.py`` instance_norm_act_pallas with its VJP
+``_in_act_fwd``/``_in_act_bwd`` :324-337).
 
 NDHWC; statistics per (n, c) over the spatial axes, in f32, biased variance,
 ``eps`` inside the rsqrt; the output keeps ``x.dtype``.
 
-* CPU tensor: the plain version :func:`instance_norm_act_plain`.
+* CPU tensor: the plain versions :func:`instance_norm_act_plain` and
+  :func:`instance_norm_act_bwd_plain`.
 * CUDA tensor: the Triton kernels of ``ops/triton_norm.py`` (bf16, the
   compute dtype of the path), or an error. There is no fallback.
 
+:func:`instance_norm_act` is an ``autograd.Function``: the forward saves x,
+gamma, beta and the f32 (N, C) mean/rstd; the backward returns dx in
+``x.dtype`` and dgamma, dbeta in f32, summed over n. act' is taken at
+y_pre = xhat * gamma + beta with ``y_pre > 0`` (leaky: 0.01 at exactly 0),
+as ``pallas_norm._act_grad`` (:118-123).
+
 Activations: relu, leaky_relu (slope 0.01), none.
 
-``instance_norm_act.launches`` counts kernel launches (one per call).
+``instance_norm_act.launches`` and ``instance_norm_act_bwd.launches`` count
+kernel launches (one per call).
 """
 
 from __future__ import annotations
@@ -34,6 +43,29 @@ def _act(y: torch.Tensor, activation: str) -> torch.Tensor:
     raise ValueError(f"unknown activation {activation!r}; one of {ACTIVATIONS}")
 
 
+def _act_grad(y_pre: torch.Tensor, g: torch.Tensor, activation: str) -> torch.Tensor:
+    if activation == "relu":
+        return torch.where(y_pre > 0, g, 0.0)
+    if activation == "leaky_relu":
+        return torch.where(y_pre > 0, g, g * 0.01)
+    return g
+
+
+def _plain_stats(x, scale, bias, eps, activation):
+    red = tuple(range(1, x.dim() - 1))
+    xf = x.float()
+    mu = xf.mean(red, keepdim=True)
+    var = (xf - mu).square().mean(red, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    y = (xf - mu) * rstd
+    if scale is not None:
+        y = y * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    n, c = x.shape[0], x.shape[-1]
+    return _act(y, activation).to(x.dtype), mu.reshape(n, c), rstd.reshape(n, c)
+
+
 def instance_norm_act_plain(
     x: torch.Tensor,
     scale: Optional[torch.Tensor],
@@ -42,16 +74,49 @@ def instance_norm_act_plain(
     eps: float = 1e-5,
     activation: str = "relu",
 ) -> torch.Tensor:
+    return _plain_stats(x, scale, bias, eps, activation)[0]
+
+
+def instance_norm_act_bwd_plain(
+    x: torch.Tensor,
+    g: torch.Tensor,
+    gamma: torch.Tensor,
+    beta: torch.Tensor,
+    mean: torch.Tensor,
+    rstd: torch.Tensor,
+    activation: str = "relu",
+):
+    """The explicit VJP of ``pallas_norm.py:22-27`` in f32:
+    (dx in x.dtype, dgamma f32 (C,), dbeta f32 (C,))."""
+    n, c = x.shape[0], x.shape[-1]
     red = tuple(range(1, x.dim() - 1))
-    xf = x.float()
-    mu = xf.mean(red, keepdim=True)
-    var = (xf - mu).square().mean(red, keepdim=True)
-    y = (xf - mu) * torch.rsqrt(var + eps)
-    if scale is not None:
-        y = y * scale.float()
-    if bias is not None:
-        y = y + bias.float()
-    return _act(y, activation).to(x.dtype)
+    bshape = (n,) + (1,) * len(red) + (c,)
+    mu, rs = mean.reshape(bshape), rstd.reshape(bshape)
+    gam, bet = gamma.float(), beta.float()
+    xhat = (x.float() - mu) * rs
+    ga = _act_grad(xhat * gam + bet, g.float(), activation)
+    s1 = ga.sum(red, keepdim=True)
+    s2 = (ga * xhat).sum(red, keepdim=True)
+    inv_s = 1.0 / (x.numel() // (n * c))
+    dx = gam * rs * (ga - s1 * inv_s - xhat * (s2 * inv_s))
+    return dx.to(x.dtype), s2.reshape(n, c).sum(0), s1.reshape(n, c).sum(0)
+
+
+def _check_kernel_input(x: torch.Tensor, activation: str) -> None:
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {activation!r}; one of {ACTIVATIONS}")
+    if x.dim() != 5:
+        raise ValueError(f"instance_norm_act: expected NDHWC, got {tuple(x.shape)}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"instance_norm_act kernel takes bf16, not {x.dtype}")
+
+
+def _affine(x, scale, bias):
+    c = x.shape[-1]
+    gamma = torch.ones(c, device=x.device) if scale is None else scale
+    beta = torch.zeros(c, device=x.device) if bias is None else bias
+    return (gamma.to(device=x.device, dtype=torch.float32).contiguous(),
+            beta.to(device=x.device, dtype=torch.float32).contiguous())
 
 
 def instance_norm_act_kernel(
@@ -61,27 +126,82 @@ def instance_norm_act_kernel(
     *,
     eps: float = 1e-5,
     activation: str = "relu",
-) -> torch.Tensor:
-    """Launch the Triton kernels on a CUDA NDHWC bf16 tensor."""
-    if activation not in ACTIVATIONS:
-        raise ValueError(f"unknown activation {activation!r}; one of {ACTIVATIONS}")
-    if x.dim() != 5:
-        raise ValueError(f"instance_norm_act: expected NDHWC, got {tuple(x.shape)}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"instance_norm_act kernel takes bf16, not {x.dtype}")
+):
+    """Launch the Triton forward on a CUDA NDHWC bf16 tensor: (y, the f32
+    (N, C) mean, rstd)."""
+    _check_kernel_input(x, activation)
     from . import triton_norm
 
     n, d, h, w, c = x.shape
     x3 = x.contiguous().view(n, d * h * w, c)
-    gamma = (torch.ones(c, device=x.device) if scale is None else scale)
-    beta = (torch.zeros(c, device=x.device) if bias is None else bias)
-    gamma = gamma.to(device=x.device, dtype=torch.float32).contiguous()
-    beta = beta.to(device=x.device, dtype=torch.float32).contiguous()
+    gamma, beta = _affine(x, scale, bias)
     y3 = torch.empty_like(x3)
     with torch.cuda.device(x.device):
-        triton_norm.launch(x3, y3, gamma, beta, float(eps), activation)
+        mean, rstd = triton_norm.launch(x3, y3, gamma, beta, float(eps),
+                                        activation)
     instance_norm_act.launches += 1
-    return y3.view(n, d, h, w, c)
+    return y3.view(n, d, h, w, c), mean, rstd
+
+
+def instance_norm_act_bwd_kernel(x, g, gamma, beta, mean, rstd,
+                                 activation: str = "relu"):
+    """Launch the Triton backward on CUDA NDHWC bf16 x and g."""
+    _check_kernel_input(x, activation)
+    if g.shape != x.shape or g.dtype != x.dtype:
+        raise ValueError(f"instance_norm_act_bwd: g {tuple(g.shape)} {g.dtype} "
+                         f"vs x {tuple(x.shape)} {x.dtype}")
+    from . import triton_norm
+
+    n, d, h, w, c = x.shape
+    x3 = x.contiguous().view(n, d * h * w, c)
+    g3 = g.contiguous().view(n, d * h * w, c)
+    dx3 = torch.empty_like(x3)
+    f32 = lambda t: t.to(device=x.device, dtype=torch.float32).contiguous()
+    with torch.cuda.device(x.device):
+        dgamma, dbeta = triton_norm.launch_bwd(
+            x3, g3, dx3, f32(mean), f32(rstd), f32(gamma), f32(beta), activation
+        )
+    instance_norm_act_bwd.launches += 1
+    return dx3.view(n, d, h, w, c), dgamma, dbeta
+
+
+def _device_check(x: torch.Tensor, what: str) -> None:
+    if x.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"{what}: no kernel for device {x.device}")
+
+
+def instance_norm_act_bwd(x, g, gamma, beta, mean, rstd, activation="relu"):
+    """(dx, dgamma, dbeta): the plain VJP on the CPU, the kernel on CUDA."""
+    _device_check(x, "instance_norm_act_bwd")
+    if x.device.type == "cpu":
+        return instance_norm_act_bwd_plain(x, g, gamma, beta, mean, rstd,
+                                           activation)
+    return instance_norm_act_bwd_kernel(x, g, gamma, beta, mean, rstd,
+                                        activation)
+
+
+class _InstanceNormAct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps, activation):
+        if x.device.type == "cpu":
+            y, mean, rstd = _plain_stats(x, scale, bias, eps, activation)
+        else:
+            y, mean, rstd = instance_norm_act_kernel(
+                x, scale, bias, eps=eps, activation=activation)
+        gamma, beta = _affine(x, scale, bias)
+        ctx.save_for_backward(x, gamma, beta, mean, rstd)
+        ctx.activation = activation
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma, beta, mean, rstd = ctx.saved_tensors
+        dx, dgamma, dbeta = instance_norm_act_bwd(
+            x, g, gamma, beta, mean, rstd, ctx.activation
+        )
+        need = ctx.needs_input_grad
+        return (dx if need[0] else None, dgamma if need[1] else None,
+                dbeta if need[2] else None, None, None)
 
 
 def instance_norm_act(
@@ -93,13 +213,9 @@ def instance_norm_act(
     activation: str = "relu",
 ) -> torch.Tensor:
     """Fused InstanceNorm3d + activation. NDHWC; stats per (N, C)."""
-    if x.device.type == "cpu":
-        return instance_norm_act_plain(
-            x, scale, bias, eps=eps, activation=activation
-        )
-    if x.device.type != "cuda":
-        raise RuntimeError(f"instance_norm_act: no kernel for device {x.device}")
-    return instance_norm_act_kernel(x, scale, bias, eps=eps, activation=activation)
+    _device_check(x, "instance_norm_act")
+    return _InstanceNormAct.apply(x, scale, bias, float(eps), activation)
 
 
 instance_norm_act.launches = 0
+instance_norm_act_bwd.launches = 0

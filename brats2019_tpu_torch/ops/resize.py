@@ -5,7 +5,11 @@
 * :func:`upsample2x` — exact 2x trilinear up: half-pixel taps (0.25, 0.75)
   with replicate-clamped edges.
 
-Both run their plain version on a CPU tensor and the Triton kernels of
+Both are ``autograd.Function``s whose backward is the exact VJP
+(:func:`downsample2x_bwd`: g/8 broadcast to the 2^3 window;
+:func:`upsample2x_bwd`: the stride-2 4-tap correlation with the
+replicate-clamp edge folds, ``pallas_resize.py:128-234``). Forward and
+backward run their plain version on a CPU tensor and the Triton kernels of
 ``ops/triton_resize.py`` on a CUDA bf16 tensor (or raise); ``.launches``
 counts kernel launches.
 
@@ -56,6 +60,33 @@ def upsample2x_plain(x: torch.Tensor) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def downsample2x_bwd_plain(g: torch.Tensor, x_shape) -> torch.Tensor:
+    """VJP of the 2^3 average pool: g/8 on each voxel of its window; voxels
+    past an even extent (dropped by the forward) get 0."""
+    n, d2, h2, w2, c = g.shape
+    gf = (g.float() * 0.125)[:, :, None, :, None, :, None, :]
+    up = gf.expand(n, d2, 2, h2, 2, w2, 2, c).reshape(n, 2 * d2, 2 * h2, 2 * w2, c)
+    out = torch.zeros(tuple(x_shape), dtype=torch.float32, device=g.device)
+    out[:, : 2 * d2, : 2 * h2, : 2 * w2] = up
+    return out.to(g.dtype)
+
+
+def _up_axis_t(g: torch.Tensor, ax: int) -> torch.Tensor:
+    """Transpose of :func:`_up_axis`: dx[j] = 0.25 g[2j-1] + 0.75 (g[2j] +
+    g[2j+1]) + 0.25 g[2j+2], tap indices clamped to the axis."""
+    size2 = g.shape[ax]
+    j2 = 2 * torch.arange(size2 // 2, device=g.device)
+    tap = lambda k: g.index_select(ax, (j2 + k - 1).clamp(0, size2 - 1))
+    return 0.75 * (tap(1) + tap(2)) + 0.25 * (tap(0) + tap(3))
+
+
+def upsample2x_bwd_plain(g: torch.Tensor) -> torch.Tensor:
+    y = g.float()
+    for ax in (1, 2, 3):
+        y = _up_axis_t(y, ax)
+    return y.to(g.dtype)
+
+
 # ----------------------------------------------------------------- kernels --
 
 def _check5d(x: torch.Tensor, what: str) -> None:
@@ -93,26 +124,99 @@ def upsample2x_kernel(x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def downsample2x_bwd_kernel(g: torch.Tensor, x_shape) -> torch.Tensor:
+    _check5d(g, "downsample2x_bwd")
+    from . import triton_resize
+
+    n, d, h, w, c = x_shape
+    if tuple(g.shape) != (n, d // 2, h // 2, w // 2, c):
+        raise ValueError(f"downsample2x_bwd: g {tuple(g.shape)} for x {tuple(x_shape)}")
+    g = g.contiguous()
+    dx = torch.empty(tuple(x_shape), dtype=g.dtype, device=g.device)
+    with torch.cuda.device(g.device):
+        triton_resize.launch_down_bwd(g, dx)
+    downsample2x_bwd.launches += 1
+    return dx
+
+
+def upsample2x_bwd_kernel(g: torch.Tensor) -> torch.Tensor:
+    _check5d(g, "upsample2x_bwd")
+    from . import triton_resize
+
+    n, d2, h2, w2, c = g.shape
+    if d2 % 2 or h2 % 2 or w2 % 2:
+        raise ValueError(f"upsample2x_bwd: odd extent in {tuple(g.shape)}")
+    g = g.contiguous()
+    dx = torch.empty((n, d2 // 2, h2 // 2, w2 // 2, c), dtype=g.dtype,
+                     device=g.device)
+    with torch.cuda.device(g.device):
+        triton_resize.launch_up_bwd(g, dx)
+    upsample2x_bwd.launches += 1
+    return dx
+
+
+def _device_check(x: torch.Tensor, what: str) -> None:
+    if x.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"{what}: no kernel for device {x.device}")
+
+
+def downsample2x_bwd(g: torch.Tensor, x_shape) -> torch.Tensor:
+    """VJP of :func:`downsample2x` for an input of shape ``x_shape``."""
+    _device_check(g, "downsample2x_bwd")
+    if g.device.type == "cpu":
+        return downsample2x_bwd_plain(g, x_shape)
+    return downsample2x_bwd_kernel(g, x_shape)
+
+
+def upsample2x_bwd(g: torch.Tensor) -> torch.Tensor:
+    """VJP of :func:`upsample2x`: (N, 2D, 2H, 2W, C) -> (N, D, H, W, C)."""
+    _device_check(g, "upsample2x_bwd")
+    if g.device.type == "cpu":
+        return upsample2x_bwd_plain(g)
+    return upsample2x_bwd_kernel(g)
+
+
+class _Down2x(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.x_shape = tuple(x.shape)
+        if x.device.type == "cpu":
+            return downsample2x_plain(x)
+        return downsample2x_kernel(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return downsample2x_bwd(g, ctx.x_shape)
+
+
+class _Up2x(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        if x.device.type == "cpu":
+            return upsample2x_plain(x)
+        return upsample2x_kernel(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return upsample2x_bwd(g)
+
+
 def downsample2x(x: torch.Tensor) -> torch.Tensor:
     """(N, D, H, W, C) -> (N, D/2, H/2, W/2, C): 2^3 average pool."""
-    if x.device.type == "cpu":
-        return downsample2x_plain(x)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"downsample2x: no kernel for device {x.device}")
-    return downsample2x_kernel(x)
+    _device_check(x, "downsample2x")
+    return _Down2x.apply(x)
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
     """(N, D, H, W, C) -> (N, 2D, 2H, 2W, C): 2x trilinear, half-pixel."""
-    if x.device.type == "cpu":
-        return upsample2x_plain(x)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"upsample2x: no kernel for device {x.device}")
-    return upsample2x_kernel(x)
+    _device_check(x, "upsample2x")
+    return _Up2x.apply(x)
 
 
 downsample2x.launches = 0
 upsample2x.launches = 0
+downsample2x_bwd.launches = 0
+upsample2x_bwd.launches = 0
 
 
 # ----------------------------------------------------------- any-shape resize --

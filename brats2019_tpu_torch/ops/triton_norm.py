@@ -1,11 +1,13 @@
-"""Triton kernels of the fused InstanceNorm3d + activation forward.
+"""Triton kernels of the fused InstanceNorm3d + activation, forward and
+backward.
 
 Imported only by ``ops/norm.py`` when it launches on a CUDA tensor (this
 module imports triton at the top; nothing else imports it).
 
-Replaces: ``brats2019_tpu/ops/pallas_norm.py`` instance_norm_act_pallas
-(:340) -> _fwd_pallas (:176, kernel _fwd_kernel :142), and the jnp path the
-JAX package runs by default (``ops/norm.py:49-67``).
+Forward. Replaces ``brats2019_tpu/ops/pallas_norm.py``
+instance_norm_act_pallas (:340) -> _fwd_pallas (:176, kernel _fwd_kernel
+:142), and the jnp path the JAX package runs by default
+(``ops/norm.py:49-67``).
 
 What bounds it on the card: device-memory bandwidth. Per element it reads
 the bf16 input twice and writes bf16 once, with a handful of flops, far
@@ -28,7 +30,30 @@ step to the next; Hopper blocks run in no order, so the reduction is split:
    with masked block loads; NDHWC rows are contiguous along C.
 
 Statistics are f32 with biased variance, eps inside the rsqrt, as in the
-reference.
+reference. :func:`launch` returns the per-(n, c) f32 mean and rstd: the
+backward's residuals, as ``_in_act_fwd`` (:324-326) keeps them.
+
+Backward. Replaces ``_bwd_pallas`` (:265, kernel ``_bwd_kernel`` :225): with
+g_a = g * act'(y_pre) and xhat = (x - mean) * rstd,
+
+    dbeta = sum g_a     dgamma = sum g_a * xhat     (over n and space)
+    dx    = gamma * rstd * (g_a - mean_s(g_a) - xhat * mean_s(g_a * xhat))
+
+act' is taken at y_pre = xhat * gamma + beta with ``y_pre > 0`` (leaky: 0.01
+at exactly 0), as ``_act_grad`` (:118-123). Bound by bandwidth as the
+forward is: it reads x and g twice and writes dx once (bf16). The TPU
+kernel carries the two sums across its sequential grid; here the forward's
+split is reused:
+
+4. ``_in_bwd_partial_kernel``: grid (N*P, C blocks); each program folds its
+   chunk of voxels into (BLOCK_S, BLOCK_C) f32 tiles of g_a and g_a * xhat
+   (x-hat and y_pre recomputed from x, mean, rstd: nothing of the forward
+   but the two (N, C) vectors is kept) and reduces them once at the end.
+5. ``_in_bwd_merge_kernel``: grid (C blocks); walks n and the P partials in
+   a fixed order, writes the per-(n, c) sums and dgamma, dbeta (summed over
+   n). No atomics: repeat runs are bitwise equal.
+6. ``_in_bwd_dx_kernel``: grid (S blocks, N, C blocks), one fused pass that
+   writes dx.
 """
 
 import torch
@@ -129,8 +154,9 @@ def _pow2(v: int) -> int:
     return 1 << max(0, (v - 1).bit_length())
 
 
-def launch(x, y, gamma, beta, eps: float, activation: str) -> None:
-    """x, y: contiguous (N, S, C) on one CUDA device; gamma, beta: f32 (C,)."""
+def launch(x, y, gamma, beta, eps: float, activation: str):
+    """x, y: contiguous (N, S, C) on one CUDA device; gamma, beta: f32 (C,).
+    Writes y; returns the f32 (N, C) mean and rstd."""
     n, s, c = x.shape
     block_c = min(64, _pow2(c))
     block_s = max(16, 4096 // block_c)
@@ -154,3 +180,131 @@ def launch(x, y, gamma, beta, eps: float, activation: str) -> None:
         ACT=ACT_CODES[activation], BLOCK_S=block_s, BLOCK_C=block_c,
         num_warps=4,
     )
+    return mean, rstd
+
+
+# ------------------------------------------------------------------ backward --
+
+@triton.jit
+def _act_grad(y_pre, g, ACT: tl.constexpr):
+    r = g
+    if ACT == 1:
+        r = tl.where(y_pre > 0, g, 0.0)
+    elif ACT == 2:
+        r = tl.where(y_pre > 0, g, g * 0.01)
+    return r
+
+
+@triton.jit
+def _in_bwd_partial_kernel(x_ptr, g_ptr, mean_ptr, rstd_ptr, gam_ptr, bet_ptr,
+                           part_ptr, S, C, NP, P, chunk, ACT: tl.constexpr,
+                           BLOCK_S: tl.constexpr, BLOCK_C: tl.constexpr):
+    pid = tl.program_id(0)
+    cb = tl.program_id(1)
+    n = pid // P
+    p = pid % P
+    offs_c = cb * BLOCK_C + tl.arange(0, BLOCK_C)
+    cmask = offs_c < C
+    mean = tl.load(mean_ptr + n * C + offs_c, mask=cmask, other=0.0)
+    rstd = tl.load(rstd_ptr + n * C + offs_c, mask=cmask, other=0.0)
+    gam = tl.load(gam_ptr + offs_c, mask=cmask, other=0.0)
+    bet = tl.load(bet_ptr + offs_c, mask=cmask, other=0.0)
+    s_start = p * chunk
+    s_end = tl.minimum(s_start + chunk, S)
+    base = n.to(tl.int64) * S * C
+    acc1 = tl.zeros([BLOCK_S, BLOCK_C], dtype=tl.float32)
+    acc2 = tl.zeros([BLOCK_S, BLOCK_C], dtype=tl.float32)
+    for s0 in range(s_start, s_end, BLOCK_S):
+        offs_s = s0 + tl.arange(0, BLOCK_S)
+        mask = (offs_s < s_end)[:, None] & cmask[None, :]
+        off = base + offs_s.to(tl.int64)[:, None] * C + offs_c[None, :]
+        x = tl.load(x_ptr + off, mask=mask, other=0.0).to(tl.float32)
+        g = tl.load(g_ptr + off, mask=mask, other=0.0).to(tl.float32)
+        xhat = (x - mean[None, :]) * rstd[None, :]
+        ga = _act_grad(xhat * gam[None, :] + bet[None, :], g, ACT)
+        ga = tl.where(mask, ga, 0.0)
+        acc1 += ga
+        acc2 += ga * xhat
+    out = pid.to(tl.int64) * C + offs_c
+    tl.store(part_ptr + out, tl.sum(acc1, axis=0), mask=cmask)
+    tl.store(part_ptr + NP * C + out, tl.sum(acc2, axis=0), mask=cmask)
+
+
+@triton.jit
+def _in_bwd_merge_kernel(part_ptr, sums_ptr, dgam_ptr, dbet_ptr, N, P, C, NP,
+                         BLOCK_P: tl.constexpr, BLOCK_C: tl.constexpr):
+    cb = tl.program_id(0)
+    offs_p = tl.arange(0, BLOCK_P)
+    offs_c = cb * BLOCK_C + tl.arange(0, BLOCK_C)
+    cmask = offs_c < C
+    mask = (offs_p < P)[:, None] & cmask[None, :]
+    dgam = tl.zeros([BLOCK_C], dtype=tl.float32)
+    dbet = tl.zeros([BLOCK_C], dtype=tl.float32)
+    for n in range(0, N):
+        idx = (n * P + offs_p)[:, None] * C + offs_c[None, :]
+        s1 = tl.sum(tl.load(part_ptr + idx, mask=mask, other=0.0), axis=0)
+        s2 = tl.sum(tl.load(part_ptr + NP * C + idx, mask=mask, other=0.0),
+                    axis=0)
+        tl.store(sums_ptr + n * C + offs_c, s1, mask=cmask)
+        tl.store(sums_ptr + (N + n) * C + offs_c, s2, mask=cmask)
+        dbet += s1
+        dgam += s2
+    tl.store(dgam_ptr + offs_c, dgam, mask=cmask)
+    tl.store(dbet_ptr + offs_c, dbet, mask=cmask)
+
+
+@triton.jit
+def _in_bwd_dx_kernel(x_ptr, g_ptr, dx_ptr, mean_ptr, rstd_ptr, gam_ptr,
+                      bet_ptr, sums_ptr, N, S, C, inv_s, ACT: tl.constexpr,
+                      BLOCK_S: tl.constexpr, BLOCK_C: tl.constexpr):
+    sb = tl.program_id(0)
+    n = tl.program_id(1)
+    cb = tl.program_id(2)
+    offs_s = sb * BLOCK_S + tl.arange(0, BLOCK_S)
+    offs_c = cb * BLOCK_C + tl.arange(0, BLOCK_C)
+    cmask = offs_c < C
+    mask = (offs_s < S)[:, None] & cmask[None, :]
+    off = (n.to(tl.int64) * S * C + offs_s.to(tl.int64)[:, None] * C
+           + offs_c[None, :])
+    x = tl.load(x_ptr + off, mask=mask, other=0.0).to(tl.float32)
+    g = tl.load(g_ptr + off, mask=mask, other=0.0).to(tl.float32)
+    mean = tl.load(mean_ptr + n * C + offs_c, mask=cmask, other=0.0)
+    rstd = tl.load(rstd_ptr + n * C + offs_c, mask=cmask, other=0.0)
+    gam = tl.load(gam_ptr + offs_c, mask=cmask, other=0.0)
+    bet = tl.load(bet_ptr + offs_c, mask=cmask, other=0.0)
+    m1 = tl.load(sums_ptr + n * C + offs_c, mask=cmask, other=0.0) * inv_s
+    m2 = tl.load(sums_ptr + (N + n) * C + offs_c, mask=cmask, other=0.0) * inv_s
+    xhat = (x - mean[None, :]) * rstd[None, :]
+    ga = _act_grad(xhat * gam[None, :] + bet[None, :], g, ACT)
+    dx = (gam * rstd)[None, :] * (ga - m1[None, :] - xhat * m2[None, :])
+    tl.store(dx_ptr + off, dx.to(dx_ptr.dtype.element_ty), mask=mask)
+
+
+def launch_bwd(x, g, dx, mean, rstd, gamma, beta, activation: str):
+    """x, g, dx: contiguous (N, S, C) on one CUDA device; mean, rstd (N, C)
+    and gamma, beta (C,) f32. Writes dx; returns f32 (dgamma, dbeta)."""
+    n, s, c = x.shape
+    block_c = min(64, _pow2(c))
+    block_s = max(16, 2048 // block_c)
+    p_max = 128
+    chunk = triton.cdiv(triton.cdiv(s, p_max), block_s) * block_s
+    p = triton.cdiv(s, chunk)
+    c_blocks = triton.cdiv(c, block_c)
+    act = ACT_CODES[activation]
+    part = torch.empty((2, n * p, c), dtype=torch.float32, device=x.device)
+    sums = torch.empty((2, n, c), dtype=torch.float32, device=x.device)
+    dgamma = torch.empty((c,), dtype=torch.float32, device=x.device)
+    dbeta = torch.empty((c,), dtype=torch.float32, device=x.device)
+    _in_bwd_partial_kernel[(n * p, c_blocks)](
+        x, g, mean, rstd, gamma, beta, part, s, c, n * p, p, chunk,
+        ACT=act, BLOCK_S=block_s, BLOCK_C=block_c, num_warps=4,
+    )
+    _in_bwd_merge_kernel[(c_blocks,)](
+        part, sums, dgamma, dbeta, n, p, c, n * p,
+        BLOCK_P=_pow2(p), BLOCK_C=block_c, num_warps=4,
+    )
+    _in_bwd_dx_kernel[(triton.cdiv(s, block_s), n, c_blocks)](
+        x, g, dx, mean, rstd, gamma, beta, sums, n, s, c, 1.0 / s,
+        ACT=act, BLOCK_S=block_s, BLOCK_C=block_c, num_warps=4,
+    )
+    return dgamma, dbeta

@@ -1,0 +1,204 @@
+"""Training loop for one device (reference: ``brats2019_tpu/train/loop.py``).
+
+One :func:`train_stage` call trains one U-Net stage; the cascade is two
+calls, coarse first (on the half-resolution view of each case, canvas
+``max(m, (s // 2 // m) * m)`` per axis, :152-158) and fine. Sub-pixel nets
+train on the low-resolution loss (:189-198). The host refreshes the case
+pool, logs, validates on whole canvases and checkpoints, on the reference's
+cadence and metric names; SIGTERM stops at the next step boundary with a
+resumable checkpoint.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import signal
+import time
+from typing import Dict, List, Sequence
+
+import numpy as np
+import torch
+
+from ..configs.presets import ExperimentConfig, TrainConfig, UNetConfig
+from ..data.case import load_case
+from ..data.pipeline import CasePool, prepare_training_case
+from ..models.unet3d import UNet3D
+from ..utils.flops import mfu as _mfu, train_step_flops
+from ..utils.logging import MetricsLogger
+from ..utils.weights import init_params, state_dict_from_flat
+from .checkpoint import CheckpointManager
+from .metrics import region_dice_np
+from .step import Optimizer, TrainStep, eval_labels, make_microbatch_loss
+
+
+@dataclasses.dataclass
+class StageResult:
+    model: torch.nn.Module
+    final_metrics: Dict[str, float]
+    workdir: str
+    # stopped early on SIGTERM: a resumable checkpoint was saved and later
+    # stages must not start
+    preempted: bool = False
+
+
+def stage_config(exp: ExperimentConfig, stage: str):
+    """(unet config, train config, downsample) of a stage: the coarse
+    stage trains on 64^3 patches of the half-resolution canvas."""
+    cfg = exp.train
+    unet_cfg = exp.unet if stage == "fine" else exp.coarse_unet
+    if unet_cfg is None:
+        raise ValueError(f"no unet config for stage '{stage}'")
+    if stage == "coarse":
+        m = unet_cfg.min_spatial
+        canvas = tuple(max(m, (s // 2 // m) * m) for s in cfg.pool_shape)
+        cfg = dataclasses.replace(cfg, patch=cfg.coarse_patch, pool_shape=canvas)
+        return unet_cfg, cfg, 2
+    return unet_cfg, cfg, cfg.train_downsample
+
+
+def init_stage(unet_cfg: UNetConfig, train_cfg: TrainConfig,
+               device: torch.device):
+    """Model (seeded random init, train mode) and its optimizer."""
+    if unet_cfg.deep_supervision:
+        raise NotImplementedError(
+            "the deep-supervision aux heads are not ported (no preset uses "
+            "them); see ROADMAP.md")
+    model = UNet3D(unet_cfg)
+    model.load_state_dict(state_dict_from_flat(
+        init_params(unet_cfg, train_cfg.seed)))
+    model = model.to(device).train()
+    return model, Optimizer(dict(model.named_parameters()), train_cfg)
+
+
+def _validate(model, val_canvases: List[Dict[str, object]],
+              device: torch.device) -> Dict[str, float]:
+    dices = {"WT": [], "TC": [], "ET": []}
+    for c in val_canvases:
+        d = region_dice_np(eval_labels(model, c["image"], device), c["seg"])
+        for k in dices:
+            dices[k].append(d[k])
+    out = {f"dice_{k}": float(np.mean(v)) for k, v in dices.items()}
+    out["dice_mean"] = float(np.mean([out[f"dice_{k}"] for k in dices]))
+    return out
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def train_stage(
+    exp: ExperimentConfig,
+    case_dirs: Sequence[str],
+    *,
+    stage: str = "fine",
+    val_dirs: Sequence[str] = (),
+    device="cpu",
+) -> StageResult:
+    """Train one stage to ``exp.train.steps`` (resuming from the latest
+    checkpoint of its workdir)."""
+    device = torch.device(device)
+    unet_cfg, cfg, downsample = stage_config(exp, stage)
+    workdir = os.path.join(exp.workdir, stage)
+    os.makedirs(workdir, exist_ok=True)
+
+    model, opt = init_stage(unet_cfg, cfg, device)
+    lowres = unet_cfg.stem_downsample > 1
+    step_fn = TrainStep(model, cfg, make_microbatch_loss(
+        cfg, unet_cfg.stem_downsample, lowres=lowres), opt)
+    ckpt = CheckpointManager(workdir, keep=cfg.keep_checkpoints)
+    logger = MetricsLogger(workdir, name=f"{stage}")
+    pool = CasePool(case_dirs, device, canvas=cfg.pool_shape,
+                    cases=cfg.pool_cases_per_device, downsample=downsample,
+                    seed=cfg.seed)
+
+    start_step = 0
+    restored = ckpt.restore()
+    if restored is not None:
+        model.load_state_dict(state_dict_from_flat(
+            {k: v.numpy() for k, v in restored["params"].items()}))
+        note = opt.load_state_dict(restored["opt_state"])
+        if note:
+            print(f"[{stage}] note: checkpoint optimizer state {note} a weight "
+                  f"EMA; migrated to match ema_decay={cfg.ema_decay}", flush=True)
+        start_step = restored["step"]
+        pool.load_state(restored["cursor"])
+        print(f"[{stage}] resumed from step {start_step}", flush=True)
+
+    val_canvases = []
+    for d in val_dirs:
+        c = prepare_training_case(load_case(d, load_seg=True), cfg.pool_shape,
+                                  downsample=downsample)
+        val_canvases.append({"image": c["image"], "seg": c["seg"]})
+
+    if cfg.pool_refresh_every:
+        pool.start()
+    step_flops = train_step_flops(unet_cfg, cfg)
+    device_name = (torch.cuda.get_device_name(device)
+                   if device.type == "cuda" else "cpu")
+    t_last = time.time()
+    steps_since_log = 0
+    last_metrics: Dict[str, float] = {}
+    preempt = {"sig": None}
+    prev_handler = None
+    try:
+        prev_handler = signal.signal(
+            signal.SIGTERM, lambda s, f: preempt.__setitem__("sig", s))
+    except ValueError:  # not the main thread: no handler
+        pass
+    preempted = False
+    try:
+        for step in range(start_step, cfg.steps):
+            aux = step_fn(pool, step)
+            steps_since_log += 1
+            if cfg.pool_refresh_every and step % cfg.pool_refresh_every == 0:
+                pool.maybe_refresh()
+
+            if (cfg.log_every and (step + 1) % cfg.log_every == 0
+                    or step == cfg.steps - 1):
+                last_metrics = {k: float(v) for k, v in aux.items()}
+                _sync(device)
+                dt = time.time() - t_last
+                sps = steps_since_log / max(dt, 1e-9)
+                last_metrics["steps_per_sec"] = sps
+                last_metrics["patches_per_sec"] = sps * cfg.batch_per_device
+                m = _mfu(step_flops, 1.0 / max(sps, 1e-9), device_name)
+                if m is not None:
+                    last_metrics["mfu"] = m
+                logger.log(step + 1, last_metrics)
+                t_last = time.time()
+                steps_since_log = 0
+
+            if cfg.eval_every and (step + 1) % cfg.eval_every == 0 and val_canvases:
+                vm = _validate(model, val_canvases, device)
+                logger.log(step + 1, vm, prefix="val_")
+                ckpt.maybe_save_best(step + 1, model, vm["dice_mean"])
+            saved_now = bool(cfg.checkpoint_every) and (
+                (step + 1) % cfg.checkpoint_every == 0 or step == cfg.steps - 1)
+            if saved_now:
+                ckpt.save(step + 1, model, opt.state_dict(), pool.state())
+            if preempt["sig"] is not None:
+                if not saved_now:
+                    ckpt.save(step + 1, model, opt.state_dict(), pool.state())
+                preempted = True
+                print(f"[{stage}] SIGTERM at step {step + 1}: checkpoint saved, "
+                      "stopping gracefully (resume continues here)", flush=True)
+                break
+    finally:
+        if prev_handler is not None:
+            try:
+                signal.signal(signal.SIGTERM, prev_handler)
+            except ValueError:
+                pass
+        pool.stop()
+        logger.close()
+
+    # final checkpoint of a short run that never hit checkpoint_every (not
+    # after preemption: that save recorded the true step)
+    if not preempted and start_step < cfg.steps and (
+        cfg.checkpoint_every == 0 or cfg.steps < cfg.checkpoint_every
+    ):
+        ckpt.save(cfg.steps, model, opt.state_dict(), pool.state())
+    return StageResult(model=model, final_metrics=last_metrics,
+                       workdir=workdir, preempted=preempted)

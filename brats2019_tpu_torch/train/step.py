@@ -1,0 +1,225 @@
+"""The training step on one device (reference: ``brats2019_tpu/train/step.py``).
+
+Written to optax's semantics rather than ``torch.optim``'s defaults, so a
+run follows the JAX package's ``make_optimizer`` (:112-136) step for step:
+
+* **schedule** — ``warmup_cosine_decay_schedule`` with init lr/(warmup+1),
+  warmup = min(warmup_steps, steps // 2) (cosine decay alone when that is
+  0); the lr of step i is the schedule at count i, from 0;
+* **clip_by_global_norm** — every grad becomes (g / norm) * max_norm unless
+  norm < max_norm; no epsilon;
+* **adamw** — b1 0.9, b2 0.999, eps 1e-8 outside the sqrt, bias-corrected
+  moments, then weight decay on every parameter, then times -lr;
+* **EMA** (``params_ema_tracker`` :42-74) — ema <- decay * ema + (1 - decay)
+  * (params + update), initialised to a copy of the initial params.
+
+Gradients accumulate over k microbatches and are divided by k. The logged
+``grad_norm`` is the global norm of the unclipped grads (:286).
+
+RNG contract (:147-181): the random numbers of microbatch i of step s come
+from a ``torch.Generator`` seeded by (seed, s * k + i) alone, so resume needs
+no saved generator state. The draws run on the host; the pool slicing and
+augmentation run on the pool's device.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..configs.presets import TrainConfig
+from ..data.augment import apply_augment, draw_augment
+from ..data.sampling import sample_patch_impl
+from .loss import segmentation_loss, segmentation_loss_lowres
+
+
+# ----------------------------------------------------------------- schedule --
+
+def lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
+    """The learning rate at optimizer count i (``make_optimizer``'s
+    schedule)."""
+    decay_steps = max(cfg.steps, 2)
+    end = cfg.lr * cfg.end_lr_frac
+    warmup = min(cfg.warmup_steps, max(cfg.steps // 2, 0))
+
+    def cosine(init: float, steps: int, alpha: float, count: float) -> float:
+        count = min(count, steps)
+        return init * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * count / steps))
+                       + alpha)
+
+    if warmup <= 0:
+        return lambda i: cosine(cfg.lr, decay_steps, cfg.end_lr_frac, float(i))
+    init = cfg.lr / (warmup + 1)
+    alpha = 0.0 if cfg.lr == 0.0 else end / cfg.lr
+
+    def schedule(i: int) -> float:
+        if i < warmup:
+            frac = 1 - min(max(i, 0), warmup) / warmup
+            return (init - cfg.lr) * frac + cfg.lr
+        return cosine(cfg.lr, decay_steps - warmup, alpha, float(i - warmup))
+
+    return schedule
+
+
+# ---------------------------------------------------------------- optimizer --
+
+def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    return torch.stack([t.float().square().sum() for t in tensors]).sum().sqrt()
+
+
+class Optimizer:
+    """clip_by_global_norm -> adamw -> (EMA) over named f32 parameters,
+    updated in place."""
+
+    B1, B2, EPS = 0.9, 0.999, 1e-8
+
+    def __init__(self, params: Dict[str, torch.nn.Parameter], cfg: TrainConfig):
+        if cfg.ema_decay > 0.0 and not 0.0 < cfg.ema_decay < 1.0:
+            raise ValueError(f"ema decay must be in (0, 1), got {cfg.ema_decay}")
+        self.params = params
+        self.cfg = cfg
+        self.lr = lr_schedule(cfg)
+        self.count = 0
+        self.mu = {k: torch.zeros_like(p) for k, p in params.items()}
+        self.nu = {k: torch.zeros_like(p) for k, p in params.items()}
+        self.ema = self.fresh_ema() if cfg.ema_decay > 0.0 else None
+
+    def fresh_ema(self) -> Dict[str, torch.Tensor]:
+        return {k: p.detach().clone() for k, p in self.params.items()}
+
+    @torch.no_grad()
+    def step(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Apply one update; returns the global norm of ``grads``."""
+        cfg = self.cfg
+        names = list(self.params)
+        g_norm = global_norm([grads[k] for k in names])
+        keep = g_norm < cfg.grad_clip
+        lr = self.lr(self.count)
+        self.count += 1
+        bc1 = 1 - self.B1 ** self.count
+        bc2 = 1 - self.B2 ** self.count
+        for k in names:
+            p, g = self.params[k], grads[k].float()
+            g = torch.where(keep, g, (g / g_norm) * cfg.grad_clip)
+            mu = self.mu[k].mul_(self.B1).add_(g, alpha=1 - self.B1)
+            nu = self.nu[k].mul_(self.B2).add_(g.square(), alpha=1 - self.B2)
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.EPS)
+            u = (u + cfg.weight_decay * p) * (-lr)
+            if self.ema is not None:
+                d = cfg.ema_decay
+                self.ema[k].mul_(d).add_(p + u, alpha=1.0 - d)
+            p.add_(u)
+        return g_norm
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "mu": self.mu, "nu": self.nu,
+                "ema": self.ema}
+
+    def load_state_dict(self, s: dict) -> Optional[str]:
+        """Restore; returns a note when the checkpoint's EMA had to be
+        dropped or seeded to match this run's ema_decay."""
+        dev = next(iter(self.params.values())).device
+        to = lambda d: {k: v.to(dev) for k, v in d.items()}
+        self.count = int(s["count"])
+        self.mu, self.nu = to(s["mu"]), to(s["nu"])
+        note = None
+        if self.cfg.ema_decay > 0.0:
+            if s.get("ema") is None:
+                self.ema = self.fresh_ema()
+                note = "lacked"
+            else:
+                self.ema = to(s["ema"])
+        elif s.get("ema") is not None:
+            note = "carried"
+        return note
+
+
+# ------------------------------------------------------------------- losses --
+
+def make_microbatch_loss(cfg: TrainConfig, stem: int = 1,
+                         lowres: bool = False) -> Callable:
+    """``(model, imgs, segs) -> (loss, aux)``: Dice + CE (+ region). With
+    ``lowres`` and stem > 1 the loss is scored on the pre-depth-to-space
+    head output (same value, cheaper; train/loss.py)."""
+    kw = dict(dice_weight=cfg.dice_weight, ce_weight=cfg.ce_weight,
+              region_weight=cfg.region_weight)
+    if lowres and stem > 1:
+        return lambda model, imgs, segs: segmentation_loss_lowres(
+            model(imgs, subpixel=False), segs, stem, **kw)
+    return lambda model, imgs, segs: segmentation_loss(model(imgs), segs, **kw)
+
+
+def train_update(model: torch.nn.Module, opt: Optimizer, loss_fn: Callable,
+                 microbatches: Sequence[Tuple[torch.Tensor, torch.Tensor]]
+                 ) -> Dict[str, torch.Tensor]:
+    """Grads of each microbatch summed, divided by k, one optimizer
+    update. Returns the mean aux (device tensors) plus ``grad_norm``."""
+    k = len(microbatches)
+    model.zero_grad(set_to_none=True)
+    aux_sum: Dict[str, torch.Tensor] = {}
+    for imgs, segs in microbatches:
+        loss, aux = loss_fn(model, imgs, segs)
+        loss.backward()
+        for name, v in aux.items():
+            v = v.detach()
+            aux_sum[name] = v if name not in aux_sum else aux_sum[name] + v
+    grads = {}
+    for name, p in opt.params.items():
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        grads[name] = g / k if k > 1 else g
+    aux = {name: v / k for name, v in aux_sum.items()} if k > 1 else aux_sum
+    aux["grad_norm"] = opt.step(grads)
+    return aux
+
+
+# ----------------------------------------------------------------- sampling --
+
+def step_generator(seed: int, micro: int) -> torch.Generator:
+    """The host generator of one microbatch, from (seed, micro) alone."""
+    state = np.random.SeedSequence([seed, micro]).generate_state(1, np.uint64)
+    return torch.Generator().manual_seed(int(state[0]))
+
+
+def sample_microbatch(pool, cfg: TrainConfig, micro: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, *patch, 4) images and (B, *patch) int64 labels from the pool."""
+    gen = step_generator(cfg.seed, micro)
+    imgs, segs = [], []
+    for _ in range(cfg.batch_per_device):
+        ci = int(torch.randint(0, pool.image.shape[0], (), generator=gen))
+        img, seg = sample_patch_impl(gen, pool.image[ci], pool.seg[ci],
+                                     cfg.patch, pool.fg_host[ci], cfg.fg_prob)
+        if cfg.augment:
+            aug = draw_augment(gen, img.shape[-1], cfg.intensity_scale,
+                               cfg.intensity_shift, cfg.gamma_range)
+            img, seg = apply_augment(img, seg, aug, rot90=cfg.rot90_axial)
+        imgs.append(img)
+        segs.append(seg)
+    return torch.stack(imgs), torch.stack(segs).long()
+
+
+class TrainStep:
+    """``step(pool, i) -> aux``: sample k microbatches by the RNG contract,
+    accumulate their grads, update the model in place."""
+
+    def __init__(self, model: torch.nn.Module, cfg: TrainConfig,
+                 loss_fn: Callable, opt: Optional[Optimizer] = None):
+        self.model, self.cfg, self.loss_fn = model, cfg, loss_fn
+        self.opt = opt or Optimizer(dict(model.named_parameters()), cfg)
+
+    def __call__(self, pool, step: int) -> Dict[str, torch.Tensor]:
+        k = max(self.cfg.grad_accum_steps, 1)
+        batches = [sample_microbatch(pool, self.cfg, step * k + i)
+                   for i in range(k)]
+        return train_update(self.model, self.opt, self.loss_fn, batches)
+
+
+@torch.inference_mode()
+def eval_labels(model: torch.nn.Module, image: torch.Tensor,
+                device: torch.device) -> np.ndarray:
+    """Whole-canvas forward of one (X, Y, Z, C) volume -> uint8 labels."""
+    logits = model(image[None].to(device))[0]
+    return torch.argmax(logits, dim=-1).to(torch.uint8).cpu().numpy()

@@ -124,6 +124,12 @@ def test_port_runtime_imports_no_jax():
         "import sys\n"
         "import brats2019_tpu_torch.cli.predict, brats2019_tpu_torch.infer.predictor\n"
         "import brats2019_tpu_torch.cli.common, brats2019_tpu_torch.models.cascade\n"
+        "import brats2019_tpu_torch.cli.train, brats2019_tpu_torch.train.loop\n"
+        "import brats2019_tpu_torch.train.step, brats2019_tpu_torch.train.checkpoint\n"
+        "import brats2019_tpu_torch.train.loss, brats2019_tpu_torch.train.metrics\n"
+        "import brats2019_tpu_torch.data.pipeline, brats2019_tpu_torch.data.sampling\n"
+        "import brats2019_tpu_torch.data.augment, brats2019_tpu_torch.utils.flops\n"
+        "import brats2019_tpu_torch.utils.logging\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'ml_dtypes', 'safetensors',"
@@ -142,10 +148,10 @@ def test_kernel_modules_import_without_triton_or_nvcc():
         "import torch\n"
         "from brats2019_tpu_torch import ops\n"
         "from brats2019_tpu_torch.ops import conv, norm, resize, _build\n"
-        "x = torch.randn(1, 4, 4, 4, 8)\n"
-        "ops.conv3d(x, torch.randn(3, 3, 3, 8, 8))\n"
-        "ops.instance_norm_act(x, None, None)\n"
-        "ops.upsample2x(ops.downsample2x(x))\n"
+        "x = torch.randn(1, 4, 4, 4, 8, requires_grad=True)\n"
+        "y = ops.conv3d(x, torch.randn(3, 3, 3, 8, 8))\n"
+        "y = ops.instance_norm_act(y, None, None)\n"
+        "ops.upsample2x(ops.downsample2x(y)).sum().backward()\n"
         "assert sys.modules['triton'] is None\n"
         "try:\n"
         "    _build.find_nvcc()\n"

@@ -1,7 +1,10 @@
 """PyTorch port: the NumPy host copies (constants, NIfTI I/O, case loading,
-synthetic cases, label postprocessing) pinned to their originals in the JAX
+synthetic cases, label postprocessing, the training path's preprocessing,
+k-fold split and metrics logger) pinned to their originals in the JAX
 package."""
 
+import ast
+import inspect
 import os
 import struct
 
@@ -10,11 +13,14 @@ import pytest
 
 from brats2019_tpu.data import case as ref_case
 from brats2019_tpu.data import constants as ref_constants
+from brats2019_tpu.data import preprocess as ref_preprocess
 from brats2019_tpu.data import synthetic as ref_synthetic
 from brats2019_tpu.infer import postprocess as ref_post
+from brats2019_tpu.utils import logging as ref_logging
 from brats2019_tpu.utils import nifti as ref_nifti
-from brats2019_tpu_torch.data import case, constants, synthetic
+from brats2019_tpu_torch.data import case, constants, preprocess, synthetic
 from brats2019_tpu_torch.infer import postprocess
+from brats2019_tpu_torch.utils import logging as port_logging
 from brats2019_tpu_torch.utils import nifti
 
 SHAPE = (28, 24, 18)
@@ -135,3 +141,60 @@ def test_postprocess_matches_reference(min_voxels, et_min):
     tiny_et[2:4, 2:4, 2:4] = 3
     np.testing.assert_array_equal(postprocess.suppress_tiny_et_np(tiny_et, 32),
                                   ref_post.suppress_tiny_et_np(tiny_et, 32))
+
+
+def test_case_seg_loading_matches_reference(tmp_path):
+    root = str(tmp_path / "cases")
+    dirs = ref_synthetic.write_dataset(root, 2, shape=SHAPE, seed0=9)
+    for d in dirs:
+        c = case.load_case(d, load_seg=True)
+        r = ref_case.load_case(d, backend="python")
+        assert c.seg.dtype == r.seg.dtype == np.uint8
+        np.testing.assert_array_equal(c.seg, r.seg)
+        assert case.seg_path(d) == ref_case.seg_path(d)
+        assert case.load_case(d).seg is None
+    os.remove(case.seg_path(dirs[0]))
+    assert case.load_case(dirs[0], load_seg=True).seg is None
+
+
+@pytest.mark.parametrize("n,folds", [(7, 3), (2, 2), (5, 5)])
+def test_kfold_split_matches_reference(n, folds):
+    cases = [f"c{i}" for i in range(n)]
+    for fold in range(folds):
+        assert case.kfold_split(cases, folds, fold) == ref_case.kfold_split(
+            cases, folds, fold)
+    for bad in ((1, 0), (folds, folds), (folds, -1)):
+        with pytest.raises(ValueError):
+            case.kfold_split(cases, *bad)
+
+
+def test_zscore_and_crop_match_reference():
+    rng = np.random.default_rng(2)
+    img = rng.normal(3.0, 2.0, size=(12, 10, 8, 4)).astype(np.float32)
+    img[:3] = 0
+    img[..., 2] = 0                                  # an all-zero channel
+    np.testing.assert_array_equal(preprocess.zscore_np(img),
+                                  ref_preprocess.zscore_np(img))
+    bbox = ref_preprocess.brain_bbox_np(img)
+    np.testing.assert_array_equal(preprocess.crop_np(img, bbox),
+                                  ref_preprocess.crop_np(img, bbox))
+
+
+def test_metrics_logger_is_the_reference_but_for_the_primary_check(tmp_path):
+    """Every top-level statement of the copy equals the original's, except
+    the module docstring and ``_is_primary_process``, which asks jax in the
+    original and is always true in the one-process port."""
+    def body(mod):
+        tree = ast.parse(inspect.getsource(mod))
+        return {getattr(n, "name", i): ast.dump(n)
+                for i, n in enumerate(tree.body[1:])}
+
+    got, want = body(port_logging), body(ref_logging)
+    assert got.pop("_is_primary_process") != want.pop("_is_primary_process")
+    assert got == want
+    assert port_logging._is_primary_process()
+    lg = port_logging.MetricsLogger(str(tmp_path), name="fine")
+    lg.log(3, {"loss": 1.5})
+    lg.close()
+    with open(tmp_path / "fine_metrics.jsonl") as f:
+        assert '"loss": 1.5' in f.read()

@@ -1,6 +1,6 @@
-"""PyTorch port: the hand-written kernels against their plain torch versions
-on a CUDA card, at edge shapes (ragged spatial dims, channel counts that
-miss the 8-wide vector path, size-1 axes). Marked ``gpu``; without a card
+"""PyTorch port: the hand-written kernels, forward and backward, against
+their plain torch versions on a CUDA card, at edge shapes (ragged spatial
+dims, channel counts that miss the 8-wide vector path, size-1 axes). Marked ``gpu``; without a card
 each test skips. The card's host has no jax, so run these there without the
 suite's conftest (which imports jax):
 
@@ -62,9 +62,13 @@ def test_conv_kernel_is_deterministic(dev):
 
 def test_kernels_reject_f32(dev):
     x = torch.randn((1, 4, 4, 4, 8), device=dev)
+    v = torch.ones(8, device=dev)
     for fn, args in ((ops.conv3d, (x, torch.randn((3, 3, 3, 8, 8), device=dev))),
                      (ops.instance_norm_act, (x,)),
-                     (ops.downsample2x, (x,)), (ops.upsample2x, (x,))):
+                     (ops.downsample2x, (x,)), (ops.upsample2x, (x,)),
+                     (ops.instance_norm_act_bwd, (x, x, v, v, v, v)),
+                     (ops.downsample2x_bwd, (x, (1, 8, 8, 8, 8))),
+                     (ops.upsample2x_bwd, (x,))):
         with pytest.raises(TypeError):
             fn(*args)
 
@@ -109,3 +113,124 @@ def test_upsample_kernel_matches_plain(dev, shape):
     got, ref = ops.upsample2x(x), resize.upsample2x_plain(x)
     assert got.shape == ref.shape
     assert _ulps(got, ref) <= 1
+
+
+# ----------------------------------------------------------------- backward --
+
+def _rel(got, ref):
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max().clamp_min(1e-30)).item()
+
+
+def test_norm_kernel_returns_stats(dev):
+    x = (torch.randn((2, 5, 6, 7, 24), device=dev) * 2 + 1).bfloat16()
+    y, mean, rstd = norm.instance_norm_act_kernel(x, None, None)
+    _, mean_p, rstd_p = norm._plain_stats(x, None, None, 1e-5, "relu")
+    assert mean.shape == rstd.shape == (2, 24) and mean.dtype == torch.float32
+    torch.testing.assert_close(mean, mean_p, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rstd, rstd_p, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("activation", ["relu", "leaky_relu", "none"])
+@pytest.mark.parametrize("shape", [
+    (1, 6, 7, 5, 8), (2, 16, 16, 8, 64), (1, 3, 5, 7, 48), (1, 40, 40, 40, 3),
+    (1, 8, 8, 8, 320), (1, 1, 1, 1, 16),
+])
+def test_norm_bwd_kernel_matches_plain(dev, activation, shape):
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = (torch.randn(shape, generator=gen, device=dev) * 3 + 1).bfloat16()
+    g = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    gam = torch.rand(shape[-1], generator=gen, device=dev) + 0.5
+    bet = torch.randn(shape[-1], generator=gen, device=dev) * 0.2
+    _, mean, rstd = norm._plain_stats(x, gam, bet, 1e-5, activation)
+    before = ops.instance_norm_act_bwd.launches
+    dx, dgam, dbet = ops.instance_norm_act_bwd(x, g, gam, bet, mean, rstd,
+                                               activation)
+    rdx, rdgam, rdbet = norm.instance_norm_act_bwd_plain(
+        x, g, gam, bet, mean, rstd, activation)
+    torch.cuda.synchronize()
+    assert ops.instance_norm_act_bwd.launches == before + 1
+    assert dx.dtype == torch.bfloat16 and dgam.dtype == torch.float32
+    if shape[1:4] != (1, 1, 1):        # one voxel: dx is exactly 0
+        assert _rel(dx, rdx) <= 1e-2
+    torch.testing.assert_close(dgam, rdgam, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(dbet, rdbet, rtol=1e-3, atol=1e-3)
+
+
+def test_norm_bwd_kernel_is_deterministic(dev):
+    x = torch.randn((1, 32, 32, 32, 64), device=dev).bfloat16()
+    g = torch.randn_like(x)
+    gam, bet = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    _, mean, rstd = norm._plain_stats(x, gam, bet, 1e-5, "relu")
+    a = ops.instance_norm_act_bwd(x, g, gam, bet, mean, rstd)
+    b = ops.instance_norm_act_bwd(x, g, gam, bet, mean, rstd)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.parametrize("x_shape", [
+    (1, 4, 4, 4, 8), (2, 6, 10, 14, 16), (1, 7, 6, 5, 3), (1, 2, 2, 2, 320),
+    (1, 64, 64, 64, 64),
+])
+def test_down_bwd_kernel_matches_plain(dev, x_shape):
+    g = torch.randn((x_shape[0],) + tuple(s // 2 for s in x_shape[1:4])
+                    + x_shape[4:], device=dev).bfloat16()
+    got = ops.downsample2x_bwd(g, x_shape)
+    ref = resize.downsample2x_bwd_plain(g, x_shape)
+    assert got.shape == ref.shape == x_shape
+    assert _ulps(got, ref) <= 1
+
+
+@pytest.mark.parametrize("x_shape", [
+    (1, 4, 4, 4, 8), (2, 5, 6, 7, 16), (1, 1, 1, 1, 8), (1, 1, 3, 2, 3),
+    (1, 3, 4, 2, 320), (1, 2, 1, 2, 5), (1, 32, 32, 32, 128),
+])
+def test_up_bwd_kernel_matches_plain(dev, x_shape):
+    g = torch.randn((x_shape[0],) + tuple(2 * s for s in x_shape[1:4])
+                    + x_shape[4:], device=dev).bfloat16()
+    got = ops.upsample2x_bwd(g)
+    ref = resize.upsample2x_bwd_plain(g)
+    assert got.shape == ref.shape == x_shape
+    assert _ulps(got, ref) <= 1
+
+
+def test_conv_autograd_dgrad_uses_the_kernel(dev):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((1, 6, 7, 5, 40), generator=gen, device=dev).bfloat16()
+    w = (torch.randn((3, 3, 3, 40, 24), generator=gen, device=dev)
+         / (27 * 40) ** 0.5).bfloat16()
+    gy = torch.randn((1, 6, 7, 5, 24), generator=gen, device=dev).bfloat16()
+    xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    before = ops.conv3d.launches
+    ops.conv3d(xr, wr).backward(gy)
+    assert ops.conv3d.launches == before + 2       # forward + dgrad
+    ref = conv.conv3d_plain(gy, conv.dgrad_weight(w))
+    assert _rel(xr.grad, ref) <= 1e-2
+    xf, wf = x.float().requires_grad_(True), w.float().requires_grad_(True)
+    conv.conv3d_plain(xf, wf).backward(gy.float())
+    assert wr.grad.dtype == torch.bfloat16
+    assert _rel(wr.grad, wf.grad) <= 1e-2
+
+
+def test_train_step_runs_on_the_card(dev):
+    """One step of a small stem-2 net through every forward and backward
+    kernel: finite loss, nonzero grad norm, all seven counters moved."""
+    from brats2019_tpu_torch.configs.presets import TrainConfig, UNetConfig
+    from brats2019_tpu_torch.train.loop import init_stage
+    from brats2019_tpu_torch.train.step import make_microbatch_loss, train_update
+
+    ucfg = UNetConfig(levels=3, base_features=16, max_features=32,
+                      stem_downsample=2)
+    tcfg = TrainConfig(patch=(32, 32, 32), steps=4, warmup_steps=1)
+    model, opt = init_stage(ucfg, tcfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    imgs = torch.randn((1, 32, 32, 32, 4), generator=gen, device=dev)
+    segs = torch.randint(0, 4, (1, 32, 32, 32), generator=gen, device=dev)
+    ops.reset_launch_counts()
+    aux = train_update(model, opt, make_microbatch_loss(tcfg, 2, lowres=True),
+                       [(imgs, segs)])
+    torch.cuda.synchronize()
+    assert torch.isfinite(aux["loss"]) and aux["grad_norm"].item() > 0
+    counts = ops.launch_counts()
+    assert counts["instance_norm_act_bwd"] == 10
+    assert counts["downsample2x_bwd"] == counts["upsample2x_bwd"] == 2
+    assert counts["conv3d"] == 10 + 9             # forwards + dgrads
