@@ -1,11 +1,13 @@
 """Shared CLI plumbing (reference: ``brats2019_tpu/cli/common.py``): preset
-overrides and the trained params of a stage."""
+overrides, the trained params of a stage, the serving weights, and the
+shard assignment of scale-out serving."""
 
 from __future__ import annotations
 
 import dataclasses
 import os
 import sys
+import zlib
 from typing import Dict
 
 import numpy as np
@@ -82,3 +84,38 @@ def load_stage_params(exp: ExperimentConfig, stage: str) -> Dict[str, np.ndarray
             f"No params for stage '{stage}': neither {exported} nor a "
             f"checkpoint under {workdir}")
     return flat_numpy(restored["params"])
+
+
+def shard_of(name: str, n: int) -> int:
+    """Stable shard assignment by case name, the same on every host and in
+    every run (Python's ``hash()`` is salted per process)."""
+    return zlib.crc32(name.encode()) % n
+
+
+def parse_shard(spec: str):
+    try:
+        i_s, n_s = spec.split("/")
+        i, n = int(i_s), int(n_s)
+    except ValueError:
+        raise ValueError(f"--shard must be I/N (got {spec!r})")
+    if not (n >= 1 and 0 <= i < n):
+        raise ValueError(f"--shard needs 0 <= I < N (got {spec!r})")
+    return i, n
+
+
+def load_serving_params(exp: ExperimentConfig):
+    """The serving weights of an experiment: fine always, coarse when the
+    cascade wants it, degrading to ``cascade=False`` (in the returned exp)
+    when no coarse params exist. ``serve``'s SIGHUP reload does not use
+    this: turning the cascade off there would change the served program."""
+    params_fine = load_stage_params(exp, "fine")
+    params_coarse = None
+    if exp.infer.cascade and exp.coarse_unet is not None:
+        try:
+            params_coarse = load_stage_params(exp, "coarse")
+        except FileNotFoundError:
+            print("warning: no coarse checkpoint; cascade off", file=sys.stderr)
+            exp = dataclasses.replace(
+                exp, infer=dataclasses.replace(exp.infer, cascade=False)
+            )
+    return exp, params_fine, params_coarse

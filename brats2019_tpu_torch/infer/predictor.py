@@ -4,26 +4,42 @@ Host: NIfTI decode, brain bbox, bucketed crop + bf16 cast (:432-475). One
 host->device copy of the crop, embedded into the zero canvas on the device.
 Device: the split cascade (``models/cascade.py``) returns the ROI labels and
 their start. Host: paste into the canvas, un-crop, scipy postprocessing
-(:282-342), NIfTI write with the input header.
+unless the program already did it on the device (``postproc="device"``),
+NIfTI write with the input header.
 
-Cases run one after another. The reference's pipelined serving path, the
-payload cache and memo, int8 transfer and volume pairing are later work
-(ROADMAP queue 1 item 4).
+``predict_arrays`` / ``predict_dir`` run one case. ``predict_arrays_many`` /
+``predict_dirs`` are the serving path (:344, :700): host prep, the device
+program and host postprocessing overlap across the cases of a batch.
+``InferenceConfig.serving_depth`` threads prepare cases (decode or payload
+cache, encode, and on a card the copy from pinned memory on a copy stream,
+with an event the compute stream waits on); ONE thread, the caller's,
+launches every device program, in order; ``serving_depth`` threads fetch
+(from pinned memory the device->host copy was started into), paste, un-crop,
+postprocess and write. The labels equal the one-by-one path's bitwise.
+
+Not ported (ROADMAP queue 1 items 4 and 10 list them): the int8 transfer
+encoding and its transfer-bound hint, volume pairing (``batch_volumes=2``),
+the probability outputs, striping over several devices, and the native
+threaded NIfTI decoder with its fused bbox (``meta``).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
+import threading
 import time
+import weakref
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..configs.presets import ExperimentConfig
-from ..data.case import load_case
-from ..data.constants import internal_to_disk
+from ..data.case import load_case, modality_paths
+from ..data.constants import NUM_MODALITIES, internal_to_disk
 from ..data.preprocess import (
     BBox,
     brain_bbox_fast_np,
@@ -32,8 +48,9 @@ from ..data.preprocess import (
     uncrop_from_canvas_np,
 )
 from ..models.cascade import make_predict_fn
-from ..utils.nifti import write_nifti
-from ..utils.weights import build_unet
+from ..utils.nifti import read_header, write_nifti
+from ..utils.weights import build_unet, load_params_npz, state_dict_from_flat
+from .payload_cache import load_payload, payload_cache_path, store_payload
 from .postprocess import postprocess_labels
 
 
@@ -49,6 +66,23 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+def _start_host_copy(*tensors):
+    """Start the device->host readback of ``tensors`` into pinned memory on
+    the current stream, without blocking, so it overlaps the next volume's
+    device work (:62). Returns (host tensors, event to wait on); CPU tensors
+    come back as they are with no event."""
+    if not tensors or tensors[0].device.type != "cuda":
+        return tensors, None
+    host = tuple(
+        torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
+            t, non_blocking=True)
+        for t in tensors
+    )
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
 
 
 @dataclasses.dataclass
@@ -77,8 +111,13 @@ class Predictor:
         self.device = resolve_device(device)
         if exp.infer.transfer_dtype != "bfloat16":
             raise NotImplementedError(
-                "only the bf16 transfer encoding is ported; int8 is ROADMAP "
-                "queue 1 item 4"
+                "only the bf16 transfer encoding is ported; int8 is a "
+                "left-out of ROADMAP queue 1 item 10 (serving)"
+            )
+        if exp.infer.batch_volumes != 1:
+            raise NotImplementedError(
+                "volume pairing (batch_volumes=2) is not ported; ROADMAP "
+                "queue 1 item 10 lists it"
             )
         self.canvas = tuple(exp.infer.canvas or exp.train.pool_shape)
         self.fine = build_unet(exp.unet, params_fine, self.device)
@@ -90,6 +129,52 @@ class Predictor:
             self.fine, exp.infer, self.canvas,
             num_classes=exp.unet.num_classes, coarse=self.coarse,
         )
+        # bounded in-memory payload memo (InferenceConfig.payload_memo_volumes)
+        self._payload_memo: collections.OrderedDict = collections.OrderedDict()
+        self._memo_lock = threading.Lock()
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
+
+    # ---------------------------------------------------------------- weights --
+
+    def warmup(self, stage: str = "all") -> float:
+        """Run the serving device program once on a zero canvas and fetch
+        its outputs, so the first real case pays no first-use cost
+        (``serve --warmup``, :215): on a card that is the nvcc build of the
+        CUDA kernels, Triton's compiles, cuDNN/cuBLAS handles and the
+        allocator's first blocks. ``stage="primary"`` warms the label
+        program, the one program the first queued case needs; ``"rest"`` the
+        other arms, of which this port has none yet (pairing and the probs
+        program are not ported), so it returns at once; ``"all"`` both.
+        Returns wall seconds."""
+        if stage not in ("all", "primary", "rest"):
+            raise ValueError(f"warmup stage {stage!r}")
+        t0 = time.time()
+        if stage in ("all", "primary"):
+            x = torch.zeros(self.canvas + (NUM_MODALITIES,),
+                            dtype=torch.bfloat16, device=self.device)
+            (labels, start), event = _start_host_copy(*self.predict_device(x))
+            if event is not None:
+                event.synchronize()
+        return time.time() - t0
+
+    def reload_params(self, params_fine, params_coarse=None) -> None:
+        """Swap the serving weights in place (``serve``'s SIGHUP hot reload,
+        :263). The new params must match the current nets' structure (strict
+        load); the conv kernels' compute-dtype copies and Winograd transforms
+        follow the version counters, so the next volume uses the new
+        weights."""
+        if params_coarse is None and self.coarse is not None:
+            raise ValueError(
+                "reload_params: the cascade is active; pass params_coarse too "
+                "(or retire the coarse stage by rebuilding the Predictor)"
+            )
+        for model, params in ((self.fine, params_fine),
+                              (self.coarse, params_coarse)):
+            if model is None or params is None:
+                continue
+            flat = load_params_npz(params) if isinstance(params, str) else params
+            model.load_state_dict(state_dict_from_flat(flat), strict=True)
 
     # ------------------------------------------------------------- host side --
 
@@ -97,7 +182,9 @@ class Predictor:
         self, image: np.ndarray
     ) -> Tuple[torch.Tensor, Optional[Tuple[int, int, int]], BBox]:
         """Brain bbox -> (bucketed) crop + bf16 cast: the bytes that cross
-        to the device. ``dst is None`` means ``small`` is the whole canvas."""
+        to the device. ``dst is None`` means ``small`` is the whole canvas.
+        Deterministic for a fixed (input, canvas, bucket), which is what
+        makes the payload cacheable."""
         bbox = brain_bbox_fast_np(image)
         bucket = self.exp.infer.transfer_bucket
         if bucket:
@@ -105,9 +192,55 @@ class Predictor:
             return small, dst, bbox
         return crop_cast_fit_np(image, bbox, self.canvas), None, bbox
 
-    def _to_device(self, small: torch.Tensor,
-                   dst: Optional[Tuple[int, int, int]]) -> torch.Tensor:
-        """Copy the payload to the device and embed it into the zero canvas."""
+    def _memo_encode(self, image: np.ndarray):
+        """``_encode_host`` through the bounded in-memory payload memo, keyed
+        by array identity (:487): a volume submitted again skips the bbox
+        scan and the crop/cast; the transfer still happens per dispatch.
+        Entries hold a weak reference to the keyed array, so a stream of
+        distinct volumes pins nothing: a dead entry is swept on the next
+        call, and the liveness check makes a recycled ``id()`` read as a
+        miss. Submitted arrays must not be mutated in place afterwards."""
+        cap = self.exp.infer.payload_memo_volumes
+        if cap <= 0:
+            return self._encode_host(image)
+        key = id(image)
+        with self._memo_lock:
+            for k in [k for k, e in self._payload_memo.items() if e[0]() is None]:
+                del self._payload_memo[k]
+            ent = self._payload_memo.get(key)
+            if ent is not None and ent[0]() is image:
+                self._payload_memo.move_to_end(key)
+                return ent[1]
+        payload = self._encode_host(image)
+        try:
+            ref = weakref.ref(image)
+        except TypeError:
+            return payload  # an input that takes no weak reference: uncached
+        with self._memo_lock:
+            self._payload_memo[key] = (ref, payload)
+            self._payload_memo.move_to_end(key)
+            while len(self._payload_memo) > cap:
+                self._payload_memo.popitem(last=False)
+        return payload
+
+    def _payload_to_device(self, small: torch.Tensor,
+                           dst: Optional[Tuple[int, int, int]]):
+        """Copy the payload to the device and embed it into the zero canvas
+        (:477). On a card the copy leaves pinned memory on the copy stream
+        and the embed follows it there; the returned event marks the canvas
+        ready, and the thread that launches the device program waits on it
+        (``_await_canvas``). Returns (canvas, event or None)."""
+        if self.device.type != "cuda":
+            return self._embed(small, dst), None
+        with torch.cuda.stream(self._copy_stream):
+            canvas = self._embed(
+                small.pin_memory().to(self.device, non_blocking=True), dst)
+            event = torch.cuda.Event()
+            event.record()
+        return canvas, event
+
+    def _embed(self, small: torch.Tensor,
+               dst: Optional[Tuple[int, int, int]]) -> torch.Tensor:
         small = small.to(self.device)
         if dst is None:
             return small
@@ -118,11 +251,70 @@ class Predictor:
         canvas[x:x + sx, y:y + sy, z:z + sz] = small
         return canvas
 
+    def _await_canvas(self, canvas: torch.Tensor, event) -> torch.Tensor:
+        """Make the current stream wait for a canvas made on the copy stream."""
+        if event is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(event)
+            canvas.record_stream(stream)
+        return canvas
+
+    def _prep_to(self, image: np.ndarray):
+        """Host encode (memoized) + transfer: ((canvas, event), cropped
+        shape, bbox). Runs in a prep thread on the serving path."""
+        small, dst, bbox = self._memo_encode(image)
+        return self._payload_to_device(small, dst), bbox.shape, bbox
+
     def prepare(self, image: np.ndarray):
-        """Host encode + copy to the device: (canvas on the device, cropped
-        shape, bbox)."""
-        small, dst, bbox = self._encode_host(image)
-        return self._to_device(small, dst), bbox.shape, bbox
+        """Host encode + copy to the device, ready on the current stream:
+        (canvas on the device, cropped shape, bbox)."""
+        (canvas, event), shape, bbox = self._prep_to(image)
+        return self._await_canvas(canvas, event), shape, bbox
+
+    def _cache_path(self, case_dir: str) -> Optional[str]:
+        cache_dir = self.exp.infer.prep_cache_dir
+        if not cache_dir:
+            return None
+        return payload_cache_path(
+            cache_dir, case_dir, self.canvas, self.exp.infer.transfer_bucket,
+            self.exp.infer.transfer_dtype,
+        )
+
+    def _prep_dir_to(self, case_dir: str):
+        """Case-directory prep through the on-disk payload cache (:551): a
+        hit loads the stored payload and reads only the t1 header (for the
+        output's affine); a miss decodes, encodes and stores. The stored
+        payload is bitwise what the uncached path ships. Returns
+        ``(case_name, header, (canvas, event), cropped_shape, bbox)``."""
+        path = self._cache_path(case_dir)
+        if path is not None:
+            payload = load_payload(path)
+            if payload is not None:
+                small, dst, bbox = payload
+                name = os.path.basename(os.path.normpath(case_dir))
+                header = read_header(modality_paths(case_dir)[0])
+                return (name, header, self._payload_to_device(small, dst),
+                        bbox.shape, bbox)
+        case = load_case(case_dir)
+        small, dst, bbox = self._encode_host(case.image)
+        if path is not None:
+            store_payload(path, small, dst, bbox)
+        return (case.name, case.header, self._payload_to_device(small, dst),
+                bbox.shape, bbox)
+
+    def prefill_payload_cache(self, case_dir: str) -> bool:
+        """Decode + encode one case into the on-disk payload cache without
+        touching the device (:596): the serve daemon's watch loop calls this
+        from a background thread for arrivals queued behind the current
+        batch. True when it wrote a new entry (False: cache off, or warm)."""
+        path = self._cache_path(case_dir)
+        # the filename embeds the input signature, so a listed entry is warm
+        if path is None or os.path.exists(path):
+            return False
+        case = load_case(case_dir)
+        small, dst, bbox = self._encode_host(case.image)
+        store_payload(path, small, dst, bbox)
+        return True
 
     def _paste_roi(self, labels_r: np.ndarray, start: np.ndarray) -> np.ndarray:
         """Place the ROI labels into a zero canvas."""
@@ -134,15 +326,30 @@ class Predictor:
         out[sx:sx + rx, sy:sy + ry, sz:sz + rz] = labels_r
         return out
 
-    def _finish(self, labels_r: torch.Tensor, start: torch.Tensor,
-                cropped_shape, bbox: BBox) -> np.ndarray:
+    def _finish(self, fetched, cropped_shape, bbox: BBox) -> np.ndarray:
+        """Fetch + paste + un-crop + host postprocessing (skipped when the
+        device program already did it): the one tail of every path (:329).
+        ``fetched`` is ``_start_host_copy``'s return."""
+        (labels_r, start), event = fetched
+        if event is not None:
+            event.synchronize()
         labels_c = self._paste_roi(labels_r.cpu().numpy(), start.cpu().numpy())
         labels = uncrop_from_canvas_np(labels_c, cropped_shape, bbox, self.canvas)
+        if self.exp.infer.postproc == "device":
+            return labels
         return postprocess_labels(
             labels,
             min_component_voxels=self.exp.infer.min_component_voxels,
             et_min_voxels=self.exp.infer.et_min_voxels,
         )
+
+    def _finish_and_write(self, name, header, fetched, shape, bbox, case_dir,
+                          out) -> str:
+        labels = self._finish(fetched, shape, bbox)
+        if out is None:
+            out = os.path.join(case_dir, f"{name}_pred.nii.gz")
+        write_nifti(out, internal_to_disk(labels).astype(np.uint8), like=header)
+        return out
 
     # ------------------------------------------------------------ entry points --
 
@@ -151,18 +358,60 @@ class Predictor:
         with torch.inference_mode():
             return self.program(canvas_img)
 
+    def _dispatch(self, prepped):
+        """Wait for a prepared canvas, launch the device program on it and
+        start the readback. Called from one thread only."""
+        canvas = self._await_canvas(*prepped)
+        return _start_host_copy(*self.predict_device(canvas))
+
     def predict_arrays(
         self, image: np.ndarray
     ) -> Tuple[np.ndarray, PredictionStats]:
         """image: raw (X, Y, Z, 4) float32 -> internal labels (X, Y, Z) uint8."""
         t0 = time.time()
-        canvas_img, cropped_shape, bbox = self.prepare(image)
+        prepped, cropped_shape, bbox = self._prep_to(image)
         t1 = time.time()
-        labels_r, start = self.predict_device(canvas_img)
-        labels_r, start = labels_r.cpu(), start.cpu()
+        fetched = self._dispatch(prepped)
+        if fetched[1] is not None:
+            fetched[1].synchronize()
         t2 = time.time()
-        labels = self._finish(labels_r, start, cropped_shape, bbox)
+        labels = self._finish(fetched, cropped_shape, bbox)
         return labels, PredictionStats(t1 - t0, t2 - t1, time.time() - t2)
+
+    def predict_arrays_many(self, images) -> list:
+        """Pipelined batch prediction (:344): prep threads encode and
+        transfer, this thread launches the device programs in order, post
+        threads fetch and postprocess. Returns the label volumes in order."""
+        depth = max(1, self.exp.infer.serving_depth)
+        with ThreadPoolExecutor(depth) as prep_pool, \
+                ThreadPoolExecutor(depth) as post_pool:
+            preps = [prep_pool.submit(self._prep_to, img) for img in images]
+            posts = []
+            for fut in preps:
+                prepped, shape, bbox = fut.result()
+                posts.append(post_pool.submit(
+                    self._finish, self._dispatch(prepped), shape, bbox))
+            return [p.result() for p in posts]
+
+    def predict_dirs(self, case_dirs, output_paths=None) -> list:
+        """Pipelined multi-case path (:700), the one ``serve`` and the
+        multi-case CLI use: decode (or payload-cache hit), the device
+        program, and postprocess + NIfTI write overlap. ``output_paths[i]``
+        overrides where case i's prediction goes (default
+        ``<case_dir>/<case>_pred.nii.gz``). Returns the output paths."""
+        if output_paths is None:
+            output_paths = [None] * len(case_dirs)
+        depth = max(1, self.exp.infer.serving_depth)
+        with ThreadPoolExecutor(depth) as prep_pool, \
+                ThreadPoolExecutor(depth) as post_pool:
+            preps = [prep_pool.submit(self._prep_dir_to, d) for d in case_dirs]
+            posts = []
+            for fut, d, out in zip(preps, case_dirs, output_paths):
+                name, header, prepped, shape, bbox = fut.result()
+                posts.append(post_pool.submit(
+                    self._finish_and_write, name, header,
+                    self._dispatch(prepped), shape, bbox, d, out))
+            return [p.result() for p in posts]
 
     def predict_dir(
         self, case_dir: str, output_path: Optional[str] = None
@@ -170,22 +419,12 @@ class Predictor:
         """Predict one BraTS case directory and write ``<case>_pred.nii.gz``
         (BraTS disk labels, input header) next to it or at output_path."""
         t0 = time.time()
-        case = load_case(case_dir)
-        stats = PredictionStats(time.time() - t0, 0.0, 0.0)
-        labels, s = self.predict_arrays(case.image)
+        name, header, prepped, shape, bbox = self._prep_dir_to(case_dir)
         t1 = time.time()
-        if output_path is None:
-            output_path = os.path.join(case_dir, f"{case.name}_pred.nii.gz")
-        write_nifti(output_path, internal_to_disk(labels).astype(np.uint8),
-                    like=case.header)
-        stats.load_s += s.load_s
-        stats.device_s = s.device_s
-        stats.post_s = s.post_s + time.time() - t1
-        return output_path, stats
-
-    def predict_dirs(self, case_dirs, output_paths=None) -> list:
-        """Predict several case directories in order; returns output paths."""
-        if output_paths is None:
-            output_paths = [None] * len(case_dirs)
-        return [self.predict_dir(d, out)[0]
-                for d, out in zip(case_dirs, output_paths)]
+        fetched = self._dispatch(prepped)
+        if fetched[1] is not None:
+            fetched[1].synchronize()
+        t2 = time.time()
+        out = self._finish_and_write(name, header, fetched, shape, bbox,
+                                     case_dir, output_path)
+        return out, PredictionStats(t1 - t0, t2 - t1, time.time() - t2)

@@ -12,10 +12,17 @@ optimizer step, a load, a move to another device).
 
 from __future__ import annotations
 
+import threading
+
 import torch
 from torch import nn
 
 from ..ops import conv3d, instance_norm_act
+
+
+# guards every Conv3x3's cached compute-dtype kernel: a serving process has
+# prep and post threads beside the thread that runs the forward
+_cast_lock = threading.Lock()
 
 
 class Conv3x3(nn.Module):
@@ -42,11 +49,12 @@ class Conv3x3(nn.Module):
         # (and cannot be updated outside it)
         version = None if k.is_inference() else k._version
         key = (version, k.data_ptr(), k.device)
-        if self._cast_key != key or self.kernel_c is None:
-            with torch.no_grad():
-                self.kernel_c = k.detach().to(self.compute_dtype)
-            self._cast_key = key
-        return self.kernel_c
+        with _cast_lock:
+            if self._cast_key != key or self.kernel_c is None:
+                with torch.no_grad():
+                    self.kernel_c = k.detach().to(self.compute_dtype)
+                self._cast_key = key
+            return self.kernel_c
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if torch.is_grad_enabled() and self.kernel.requires_grad:

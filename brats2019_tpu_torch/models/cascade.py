@@ -12,8 +12,13 @@ The flagship predict program runs as two stages:
   FLIPS order, argmax) -> depth-to-space of the labels. With stem 1 the
   full-resolution reduce is used instead.
 
+With ``postproc="device"`` (``serve``'s default) the connected-component
+filter and the tiny-ET relabel run on the ROI labels inside
+``stage_finish`` (:247-251, :422-441; ``ops/connected_components.py``), so
+the host only pastes, un-crops and writes.
+
 The monolithic path and the staged multi-tile sweep are not ported yet
-(ROADMAP queue 1 item 7); nor is in-graph device postprocessing (item 6).
+(ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 from ..configs.presets import InferenceConfig
 from ..data.preprocess import centered_crop_start, mask_bbox_center, zscore
 from ..infer.tta import FLIPS, store_dtype, tta_reduce, tta_stack
+from ..ops.connected_components import postprocess_device
 from ..ops.resize import resize_trilinear
 from .unet3d import UNet3D
 
@@ -124,6 +130,10 @@ class SplitCascade:
             probs8 = torch.softmax(self.fine(tiles).float(), dim=-1)
             probs = tta_reduce(probs8.to(self.store_dt))
             labels = torch.argmax(probs, dim=-1).to(torch.uint8)
+        if self.cfg.postproc == "device":
+            labels = postprocess_device(
+                labels, self.cfg.min_component_voxels, self.cfg.et_min_voxels
+            )
         return labels, start
 
     def __call__(self, image: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -147,9 +157,5 @@ def make_predict_fn(
             "only the split single-tile cascade with 8-flip TTA is ported "
             "(cascade on, a coarse model, tta_flips, roi == tile); the "
             "monolithic and staged sweep paths are ROADMAP queue 1 item 7"
-        )
-    if cfg.postproc == "device":
-        raise NotImplementedError(
-            "device postprocessing is ROADMAP queue 1 item 6; use postproc='host'"
         )
     return SplitCascade(fine, coarse, cfg, canvas, num_classes)

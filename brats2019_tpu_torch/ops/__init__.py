@@ -1,7 +1,7 @@
 """Kernel seams. Each op runs its plain torch version on a CPU tensor and its
 hand-written Hopper kernel on a CUDA tensor, and counts its launches."""
 
-from .conv import conv3d
+from .conv import conv3d, get_backend, set_backend
 from .norm import instance_norm_act, instance_norm_act_bwd
 from .resize import (
     downsample2x,
@@ -10,10 +10,11 @@ from .resize import (
     upsample2x,
     upsample2x_bwd,
 )
+from .winograd import conv3d_winograd
 
 # the kernel wrappers by name: the four forwards of the predict path (the
 # conv's dgrad counts under conv3d), then the three backward kernels of
-# the training path
+# the training path, then the Winograd conv (the conv seam's second backend)
 KERNEL_WRAPPERS = {
     "conv3d": conv3d,
     "instance_norm_act": instance_norm_act,
@@ -22,6 +23,7 @@ KERNEL_WRAPPERS = {
     "instance_norm_act_bwd": instance_norm_act_bwd,
     "downsample2x_bwd": downsample2x_bwd,
     "upsample2x_bwd": upsample2x_bwd,
+    "conv3d_winograd": conv3d_winograd,
 }
 
 
@@ -37,13 +39,16 @@ def launch_counts() -> dict:
 __all__ = [
     "KERNEL_WRAPPERS",
     "conv3d",
+    "conv3d_winograd",
     "downsample2x",
     "downsample2x_bwd",
+    "get_backend",
     "instance_norm_act",
     "instance_norm_act_bwd",
     "launch_counts",
     "reset_launch_counts",
     "resize_trilinear",
+    "set_backend",
     "upsample2x",
     "upsample2x_bwd",
 ]

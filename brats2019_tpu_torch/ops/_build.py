@@ -28,7 +28,9 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: dict = {}
+_lib_locks: dict = {}
 # nvcc's stderr (ptxas register / shared-memory report) per built library
 build_logs: dict = {}
 
@@ -50,8 +52,14 @@ def find_nvcc() -> str:
 def load_library(name: str, sources, signatures: dict) -> ctypes.CDLL:
     """Build (if needed) and load ``lib<name>_<hash>.so`` from ``sources``
     (file names under csrc/). ``signatures`` maps each exported function
-    to its ctypes ``argtypes``; every function returns an int error code."""
+    to its ctypes ``argtypes``; every function returns an int error code.
+    One lock per library: two libraries build side by side when two threads
+    ask for them (:func:`build_all`)."""
     with _lock:
+        if name in _libs:
+            return _libs[name]
+        lib_lock = _lib_locks.setdefault(name, threading.Lock())
+    with lib_lock:
         if name in _libs:
             return _libs[name]
         paths = [CSRC / s for s in sources]
@@ -76,10 +84,40 @@ def load_library(name: str, sources, signatures: dict) -> ctypes.CDLL:
             f = getattr(lib, fn)
             f.argtypes = argtypes
             f.restype = ctypes.c_int
-        _libs[name] = lib
+        with _lock:
+            _libs[name] = lib
         return lib
+
+
+def build_all(loaders) -> None:
+    """Call each library loader (e.g. ``conv._lib``) on its own thread, so
+    every CUDA source compiles at once (one nvcc per source)."""
+    threads = []
+    errors = []
+
+    def run(fn):
+        try:
+            fn()
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    for fn in loaders:
+        t = threading.Thread(target=run, args=(fn,))
+        t.start()
+        threads.append(t)
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
 
 
 def check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (under a lock: a serving process has
+    prep and post threads beside the thread that launches kernels)."""
+    with _count_lock:
+        wrapper.launches += 1

@@ -23,6 +23,12 @@ package (its gradient was XLA's), so the port builds one:
   deterministic algorithms; on the CPU in f32.
 
 ``conv3d.launches`` counts kernel launches.
+
+Two kernels sit behind the seam (the pattern of the reference's
+``ops/norm.py`` ``set_backend``): ``"direct"`` (``csrc/conv3d.cu``, the
+default) and ``"winograd"`` (``ops/winograd.py``, ``csrc/winograd3d.cu``; even
+D, H, W only, launches counted in ``conv3d_winograd.launches``). The backward
+is shared: dgrad goes through whichever backend is set, wgrad is plain torch.
 """
 
 from __future__ import annotations
@@ -32,7 +38,23 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, winograd
+
+_BACKENDS = ("direct", "winograd")
+_backend = "direct"
+
+
+def set_backend(name: str) -> None:
+    """Choose the conv kernel for the whole process: "direct" or "winograd"."""
+    global _backend
+    if name not in _BACKENDS:
+        raise ValueError(f"conv backend must be one of {_BACKENDS}, got {name!r}")
+    _backend = name
+
+
+def get_backend() -> str:
+    return _backend
+
 
 _SIG = {
     "conv3d_ndhwc_bf16": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
@@ -77,11 +99,13 @@ def conv3d_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             x.data_ptr(), w.data_ptr(), y.data_ptr(), n, d, h, wd, ci, co, stream
         )
     _build.check(rc, "conv3d")
-    conv3d.launches += 1
+    _build.count_launch(conv3d)
     return y
 
 
 def _conv3d_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    if _backend == "winograd":
+        return winograd.conv3d_winograd(x, w)
     if x.device.type == "cpu":
         return conv3d_plain(x, w)
     return conv3d_kernel(x, w)

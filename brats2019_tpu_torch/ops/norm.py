@@ -30,6 +30,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from . import _build
+
 ACTIVATIONS = ("relu", "leaky_relu", "none")
 
 
@@ -139,7 +141,7 @@ def instance_norm_act_kernel(
     with torch.cuda.device(x.device):
         mean, rstd = triton_norm.launch(x3, y3, gamma, beta, float(eps),
                                         activation)
-    instance_norm_act.launches += 1
+    _build.count_launch(instance_norm_act)
     return y3.view(n, d, h, w, c), mean, rstd
 
 
@@ -161,7 +163,7 @@ def instance_norm_act_bwd_kernel(x, g, gamma, beta, mean, rstd,
         dgamma, dbeta = triton_norm.launch_bwd(
             x3, g3, dx3, f32(mean), f32(rstd), f32(gamma), f32(beta), activation
         )
-    instance_norm_act_bwd.launches += 1
+    _build.count_launch(instance_norm_act_bwd)
     return dx3.view(n, d, h, w, c), dgamma, dbeta
 
 

@@ -29,6 +29,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from . import _build
+
 
 # ----------------------------------------------------------- plain versions --
 
@@ -107,7 +109,7 @@ def downsample2x_kernel(x: torch.Tensor) -> torch.Tensor:
     y = torch.empty((n, d // 2, h // 2, w // 2, c), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         triton_resize.launch_down(x, y)
-    downsample2x.launches += 1
+    _build.count_launch(downsample2x)
     return y
 
 
@@ -120,7 +122,7 @@ def upsample2x_kernel(x: torch.Tensor) -> torch.Tensor:
     y = torch.empty((n, 2 * d, 2 * h, 2 * w, c), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         triton_resize.launch_up(x, y)
-    upsample2x.launches += 1
+    _build.count_launch(upsample2x)
     return y
 
 
@@ -135,7 +137,7 @@ def downsample2x_bwd_kernel(g: torch.Tensor, x_shape) -> torch.Tensor:
     dx = torch.empty(tuple(x_shape), dtype=g.dtype, device=g.device)
     with torch.cuda.device(g.device):
         triton_resize.launch_down_bwd(g, dx)
-    downsample2x_bwd.launches += 1
+    _build.count_launch(downsample2x_bwd)
     return dx
 
 
@@ -151,7 +153,7 @@ def upsample2x_bwd_kernel(g: torch.Tensor) -> torch.Tensor:
                      device=g.device)
     with torch.cuda.device(g.device):
         triton_resize.launch_up_bwd(g, dx)
-    upsample2x_bwd.launches += 1
+    _build.count_launch(upsample2x_bwd)
     return dx
 
 

@@ -23,6 +23,7 @@ import torch
 from ..configs.presets import ExperimentConfig, TrainConfig, UNetConfig
 from ..data.case import load_case
 from ..data.pipeline import CasePool, prepare_training_case
+from ..infer.predictor import resolve_device
 from ..models.unet3d import UNet3D
 from ..utils.flops import mfu as _mfu, train_step_flops
 from ..utils.logging import MetricsLogger
@@ -94,11 +95,12 @@ def train_stage(
     *,
     stage: str = "fine",
     val_dirs: Sequence[str] = (),
-    device="cpu",
+    device="cuda",
 ) -> StageResult:
     """Train one stage to ``exp.train.steps`` (resuming from the latest
-    checkpoint of its workdir)."""
-    device = torch.device(device)
+    checkpoint of its workdir). Runs on the card unless the caller asks for
+    ``device="cpu"``; a CUDA request without a card raises."""
+    device = resolve_device(device)
     unet_cfg, cfg, downsample = stage_config(exp, stage)
     workdir = os.path.join(exp.workdir, stage)
     os.makedirs(workdir, exist_ok=True)

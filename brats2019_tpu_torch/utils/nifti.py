@@ -195,6 +195,13 @@ def read_nifti(
     return arr, hdr
 
 
+def read_header(path: str) -> NiftiHeader:
+    """Only the 348-byte header (the payload-cache hit path needs nothing
+    else of the input files)."""
+    with _maybe_gzip_open(path) as f:
+        return _parse_header(f.read(HDR_SIZE))
+
+
 def _build_header(shape, dtype: np.dtype, affine: Optional[np.ndarray],
                   descrip: bytes) -> bytes:
     dtype = np.dtype(dtype)

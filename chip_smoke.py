@@ -17,7 +17,18 @@ Run from the root of a checkout. Phases:
    another order) max|d|/max|ref| <= 1e-3; 2x down/up and their backwards
    <= 1 bf16 ulp. Device time of both (repeated calls replayed from one
    CUDA graph), and their back-to-back wall time (CUDA events), which for a
-   small call reads the wrapper's host launch cost.
+   small call reads the wrapper's host launch cost. The Winograd conv at
+   every conv shape of the predict path against its plain version (the same
+   decomposition in f32 on the same bf16 inputs, rounded to bf16):
+   max|d|/max|ref| <= 2e-2 (V and U are each rounded to bf16 once; H100
+   readings 4.7e-3 to 7.8e-3, the direct kernel's 2.6e-3 to 5.3e-3), a repeat
+   run bitwise equal, its time beside the direct kernel's. Beside every
+   kernel of the record, at the same shapes: its bound (the larger of bytes
+   over 3.35 TB/s and operations over the peak of their type) and the device
+   time of the one PyTorch call that computes the same function (bf16
+   channels_last_3d ``F.conv3d``, ``F.instance_norm`` + relu,
+   ``F.avg_pool3d``, ``F.interpolate``; for a backward kernel that call's
+   autograd backward, read as forward+backward minus forward).
 3. The predict slice: CASES synthetic 240x240x155 cases and seeded random
    ``cascade`` weights saved as ``params.npz``, run through
    ``brats2019_tpu_torch.cli.predict`` on the card with the launch counters
@@ -37,10 +48,35 @@ Run from the root of a checkout. Phases:
    device memory, the kernels' device ms per step against their plain
    versions, and a torch.profiler table of the step's device time.
 
+5. The serving slice: ``brats2019_tpu_torch.cli.serve`` on the phase-3 cases
+   and weights at the full ``cascade`` width, in this process (so the launch
+   counters are its own) with the conv backend set to ``winograd``:
+   ``--warmup --http <free loopback port> --prep-cache DIR --postproc device
+   --device cuda``. A client thread waits for ``/healthz`` to say warm, zeroes
+   the counters, submits every case at once by ``POST /predict`` with
+   ``{"case_dir": ...}``, reads ``/result`` and ``/stats``, and stops the
+   daemon with SIGTERM (a clean drain is required). Checked: every request
+   answered and logged; 24 ``conv3d_winograd`` launches per volume and no
+   direct-conv launch, IN/down/up as in phase 3; labels in {0,1,2,4} at the
+   input's shape; Winograd masks against phase 3's direct-conv masks (voxel
+   agreement >= 0.995: both are bf16 paths); a second daemon on the same
+   output dir serves nothing (log replay); a daemon with a fresh log
+   re-serves the same directories from the payload cache without decoding
+   (the cache keys on the case directory and its files' signature, so a copy
+   under a new name is a new entry by design); with the direct backend,
+   ``--postproc host`` and ``--postproc device`` both give phase 3's masks
+   bitwise (pipelining changes nothing; device postprocessing equals host
+   scipy on the same labels). Printed: device ms/vol with each backend,
+   connected components ms on the ROI on the device and in host scipy, the
+   burst's e2e s/vol beside phase 3's serial one, and the device's idle
+   share over the burst.
+
 The line before the last holds the kernels' JSON record (forward kernels:
 launches on the predict slice, times per volume; backward kernels: launches
-on the training slice, times per fine train step; ``ms``/``plain_ms`` are
-device times, ``wall_ms``/``plain_wall_ms`` back-to-back wall times); the last line is
+on the training slice, times per fine train step; the Winograd conv:
+launches on the serving slice, times per volume; ``ms``/``plain_ms``/
+``library_ms``/``bound_ms`` are device times, ``wall_ms``/``plain_wall_ms``
+back-to-back wall times); the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Without a CUDA device the script exits 1 before doing anything.
 """
@@ -53,14 +89,19 @@ import json
 import math
 import os
 import shutil
+import signal
+import socket
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 # where the profiler tables go (set CHIP_SMOKE_OUT to collect them elsewhere)
 OUT = os.environ.get("CHIP_SMOKE_OUT", os.path.join(ROOT, "build", "profiles"))
+PRESET, DEVICE = "cascade", "cuda"   # what phase 5's daemons are started with
 CASES = 3   # synthetic 240x240x155 requests
 SEED = 0    # of the cases and of the random weights
 TRAIN_STEPS = 20   # per stage; log every 5, eval and checkpoint every 10
@@ -88,9 +129,15 @@ KERNELS = {
                          "brats2019_tpu/ops/pallas_resize.py:304"),
     "upsample2x_bwd": ("triton", "brats2019_tpu_torch/ops/triton_resize.py",
                        "brats2019_tpu/ops/pallas_resize.py:213"),
+    "conv3d_winograd": ("cuda", "brats2019_tpu_torch/csrc/winograd3d.cu",
+                        "brats2019_tpu/ops/pallas_winograd.py:181"),
 }
 FORWARD = ("conv3d", "instance_norm_act", "downsample2x", "upsample2x")
 BACKWARD = ("instance_norm_act_bwd", "downsample2x_bwd", "upsample2x_bwd")
+WINO_TOL = 2e-2        # Winograd kernel vs its plain version, max|d|/max|ref|
+MASK_AGREE = 0.995     # Winograd-backend masks vs direct-backend masks
+# published peaks of one H100 SXM: dense bf16 and f32 FLOP/s, HBM bytes/s
+PEAK_BF16, PEAK_F32, PEAK_BW = 989e12, 67e12, 3.35e12
 FAILURES: list = []
 
 
@@ -213,25 +260,99 @@ def device_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def check_kernels(calls, dev):
+def bound_terms(name, shape):
+    """The two terms of a call's bound in ms: the bytes it must move (every
+    input read once, every output written once) over the card's memory rate,
+    and its operations over the card's peak for their type (bf16 tensor
+    cores for the convs' products, f32 elsewhere). The Winograd conv counts
+    its 64 per-point products per 2^3 outputs (8/27 of the direct conv's)."""
+    if name in ("conv3d", "conv3d_winograd"):
+        n, d, h, w, ci, co = shape
+        m = n * d * h * w
+        macs = (27 if name == "conv3d" else 8) * ci * co * m
+        nbytes = 2 * (m * ci + 27 * ci * co + m * co)
+        return nbytes / PEAK_BW * 1e3, 2 * macs / PEAK_BF16 * 1e3
+    numel = math.prod(shape)     # the forward input's elements, bf16
+    nbytes, flops = {
+        "instance_norm_act": (4 * numel, 8 * numel),
+        "instance_norm_act_bwd": (6 * numel, 14 * numel),
+        "downsample2x": (2.25 * numel, numel),
+        "downsample2x_bwd": (2.25 * numel, numel),
+        "upsample2x": (18 * numel, 8 * 15 * numel),
+        "upsample2x_bwd": (18 * numel, 8 * 15 * numel),
+    }[name]
+    return nbytes / PEAK_BW * 1e3, flops / PEAK_F32 * 1e3
+
+
+def library_ms(name, x, reps, gy=None, wt=None, gam=None, bet=None):
+    """Device ms of the one PyTorch call that computes the kernel's function
+    on the same bf16 inputs (NDHWC memory seen as channels_last_3d NCDHW). A
+    backward kernel is held against that call's autograd backward, read as
+    (forward + backward) - forward, both replayed from a CUDA graph. Used
+    nowhere in the port."""
+    import torch
+    import torch.nn.functional as F
+
+    xc = x.permute(0, 4, 1, 2, 3)
+    base = name[:-4] if name.endswith("_bwd") else name
+    if base in ("conv3d", "conv3d_winograd"):
+        wc = wt.permute(4, 3, 0, 1, 2).contiguous(
+            memory_format=torch.channels_last_3d)
+        fwd = lambda t: F.conv3d(t, wc, padding=1)
+        params = ()
+    elif base == "instance_norm_act":
+        g_c = gam.to(x.dtype).requires_grad_(name.endswith("_bwd"))
+        b_c = bet.to(x.dtype).requires_grad_(name.endswith("_bwd"))
+        fwd = lambda t: F.relu(F.instance_norm(t, weight=g_c, bias=b_c, eps=1e-5))
+        params = (g_c, b_c)
+    elif base == "downsample2x":
+        fwd = lambda t: F.avg_pool3d(t, 2)
+        params = ()
+    else:
+        fwd = lambda t: F.interpolate(t, scale_factor=2, mode="trilinear",
+                                      align_corners=False)
+        params = ()
+    if not name.endswith("_bwd"):
+        with torch.no_grad():
+            return device_ms(lambda: fwd(xc), reps)
+    xr = xc.detach().requires_grad_()
+    gc = gy.permute(0, 4, 1, 2, 3)
+    both = device_ms(
+        lambda: torch.autograd.grad(fwd(xr), (xr,) + params, gc), reps)
+    with torch.no_grad():
+        only_fwd = device_ms(lambda: fwd(xc), reps)
+    return both - only_fwd
+
+
+def check_kernels(calls, dev, library_for=()):
     """Each unique (kernel, shape) once: error against the plain version,
     then the device time of both (CUDA graph) and their back-to-back wall time
-    (CUDA events). Returns {(name, shape): (err, max_abs_err, ms, plain_ms,
-    wall_ms, plain_wall_ms)}."""
+    (CUDA events); for the calls in ``library_for`` also the one PyTorch
+    call that computes the same function. Returns {(name, shape): (err,
+    max_abs_err, ms, plain_ms, wall_ms, plain_wall_ms, bytes-bound ms,
+    operations-bound ms, library_ms or None)}."""
     import torch
 
-    from brats2019_tpu_torch.ops import conv, norm, resize
+    from brats2019_tpu_torch.ops import conv, norm, resize, winograd
+
+    library_for = set(library_for)
+    conv_library = {}
 
     g = torch.Generator(device=dev).manual_seed(0)
     results = {}
     for name, shape in dict.fromkeys(calls):
-        if name == "conv3d":
+        gy = wt = gam = bet = None
+        if name in ("conv3d", "conv3d_winograd"):
             n, d, h, w, ci, co = shape
             x = torch.randn((n, d, h, w, ci), generator=g, device=dev).bfloat16()
             wt = (torch.randn((3, 3, 3, ci, co), generator=g, device=dev)
                   / (27 * ci) ** 0.5).bfloat16()
-            kern = lambda: conv.conv3d_kernel(x, wt)
-            plain = lambda: conv.conv3d_plain(x, wt)
+            if name == "conv3d":
+                kern = lambda: conv.conv3d_kernel(x, wt)
+                plain = lambda: conv.conv3d_plain(x, wt)
+            else:
+                kern = lambda: winograd.conv3d_winograd_kernel(x, wt)
+                plain = lambda: winograd.conv3d_winograd_plain(x, wt)
         elif name == "instance_norm_act":
             x = (torch.randn(shape, generator=g, device=dev) * 3 + 1).bfloat16()
             gam = torch.rand(shape[-1], generator=g, device=dev) + 0.5
@@ -272,7 +393,20 @@ def check_kernels(calls, dev):
             extra = f", dgamma/dbeta {sums_err:.3e} (tol 1e-3)"
             got, ref = got[0], ref[0]
         abs_err = (got.float() - ref.float()).abs().max().item()
-        if name in ("conv3d", "instance_norm_act_bwd"):
+        if name == "conv3d_winograd":
+            err = abs_err / ref.float().abs().max().item()
+            again = kern()
+            torch.cuda.synchronize()
+            same = bool((again == got).all())
+            direct = conv.conv3d_kernel(x, wt).float()
+            d_err = ((direct - ref.float()).abs().max()
+                     / ref.float().abs().max()).item()
+            ok = err <= WINO_TOL and same
+            what = (f"max|d|/max|ref| {err:.3e} (tol {WINO_TOL:g}; the direct "
+                    f"kernel against the same reference {d_err:.3e}), repeat "
+                    f"run bitwise equal: {same}")
+            del again, direct
+        elif name in ("conv3d", "instance_norm_act_bwd"):
             err = abs_err / ref.float().abs().max().item()
             ok = err <= 1e-2 and (not extra or sums_err <= 1e-3)
             what = f"max|d|/max|ref| {err:.3e} (tol 1e-2){extra}"
@@ -283,13 +417,29 @@ def check_kernels(calls, dev):
             what = f"{err:.2f} bf16 ulp (tol {tol})"
         finite = bool(torch.isfinite(got.float()).all())
         reps = 3 if got.numel() > 1e8 else 10
-        wall, plain_wall = cuda_ms(kern, reps), cuda_ms(plain, reps)
-        ms, plain_ms = device_ms(kern, reps), device_ms(plain, reps)
+        preps = 3 if name == "conv3d_winograd" else reps   # a heavy plain version
+        wall, plain_wall = cuda_ms(kern, reps), cuda_ms(plain, preps)
+        ms, plain_ms = device_ms(kern, reps), device_ms(plain, preps)
+        bytes_ms, ops_ms = bound_terms(name, shape)
+        lib = None
+        if (name, shape) in library_for:
+            if name in ("conv3d", "conv3d_winograd"):
+                if shape not in conv_library:
+                    conv_library[shape] = library_ms(name, x, reps, wt=wt)
+                lib = conv_library[shape]
+            else:
+                if name.endswith("_bwd") and name != "instance_norm_act_bwd":
+                    x = torch.randn(shape, generator=g, device=dev).bfloat16()
+                lib = library_ms(name, x, reps, gy=gy, gam=gam, bet=bet)
         check(ok and finite and got.shape == ref.shape,
               f"{name} {shape}: {what}, max|d| {abs_err:.3e}; device "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; wall "
-              f"kernel {wall:.4f} ms, plain {plain_wall:.4f} ms")
-        results[(name, shape)] = (err, abs_err, ms, plain_ms, wall, plain_wall)
+              f"kernel {wall:.4f} ms, plain {plain_wall:.4f} ms; bound "
+              f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, "
+              f"operations {ops_ms:.4f})"
+              + ("" if lib is None else f"; library call {lib:.4f} ms"))
+        results[(name, shape)] = (err, abs_err, ms, plain_ms, wall, plain_wall,
+                                  bytes_ms, ops_ms, lib)
         del got, ref, kern, plain
     return results
 
@@ -373,6 +523,7 @@ def time_slice(exp, work, case_dirs, dev, card):
     print(f"  e2e s/vol median {med(e2e):.3f} (all "
           f"{[round(v, 3) for v in e2e]}) on {card}; peak device memory "
           f"{peak:.2f} GiB", flush=True)
+    return med(e2e)
 
 
 # ------------------------------------------------------------------ phase 4 --
@@ -659,6 +810,298 @@ def time_training(exp, dev, card, results, stage_calls):
     return out
 
 
+# ------------------------------------------------------------------ phase 5 --
+
+def _get_json(url, timeout=30.0):
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_daemon(argv, client=None):
+    """``cli.serve.main(argv)`` on this (the main) thread, where it installs
+    its signal handlers and launches every kernel; ``client(daemon_done)``
+    runs on a second thread, gives up when the event is set (the daemon ended
+    by itself) and otherwise ends by sending this process SIGTERM. Returns
+    the daemon's exit code and what the client returned; re-raises what it
+    raised."""
+    from brats2019_tpu_torch.cli import serve as serve_cli
+
+    old = {sig: signal.getsignal(sig)
+           for sig in (signal.SIGTERM, signal.SIGINT, signal.SIGHUP)}
+    box = {}
+    daemon_done = threading.Event()
+
+    def run_client():
+        try:
+            box["value"] = client(daemon_done)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            box["error"] = e
+        finally:
+            if not daemon_done.is_set():
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    thread = None
+    if client is not None:
+        thread = threading.Thread(target=run_client, daemon=True)
+        thread.start()
+    try:
+        rc = serve_cli.main(argv)
+    finally:
+        daemon_done.set()
+        if thread is not None:
+            thread.join(60)
+        for sig, handler in old.items():
+            signal.signal(sig, handler)
+    if "error" in box:
+        raise box["error"]
+    return rc, box.get("value")
+
+
+def served_labels(out_dir, case_dirs):
+    from brats2019_tpu_torch.utils.nifti import read_nifti
+
+    return [read_nifti(os.path.join(out_dir, os.path.basename(d) + "_pred.nii.gz"),
+                       apply_scaling=False)[0] for d in case_dirs]
+
+
+def serve_log(out_dir):
+    with open(os.path.join(out_dir, "serve_log.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def time_backends(exp, work, case_dirs, dev, card):
+    """Device ms/vol of the predict program with each conv backend (CUDA
+    events, host postprocessing so only the program is read), then the
+    connected components + tiny-ET step on the ROI labels: on the device
+    (host clock around a synchronised call: it syncs to test convergence)
+    and in host scipy on the same labels."""
+    import dataclasses
+
+    import torch
+
+    from brats2019_tpu_torch import ops
+    from brats2019_tpu_torch.data.case import load_case
+    from brats2019_tpu_torch.infer.postprocess import postprocess_labels
+    from brats2019_tpu_torch.infer.predictor import Predictor
+    from brats2019_tpu_torch.ops.connected_components import postprocess_device
+
+    host_exp = dataclasses.replace(
+        exp, infer=dataclasses.replace(exp.infer, postproc="host"))
+    pred = Predictor(host_exp, os.path.join(work, "fine", "params.npz"),
+                     os.path.join(work, "coarse", "params.npz"), device=dev)
+    canvases = [pred.prepare(load_case(d).image)[0] for d in case_dirs]
+    med = lambda v: sorted(v)[len(v) // 2]
+    out = {}
+    for backend in ("direct", "winograd", "winograd", "direct"):
+        ops.set_backend(backend)
+        try:
+            pred.predict_device(canvases[0])
+            for canvas in canvases:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                pred.predict_device(canvas)
+                ev[1].record()
+                torch.cuda.synchronize()
+                out.setdefault(backend, []).append(ev[0].elapsed_time(ev[1]))
+        finally:
+            ops.set_backend("direct")
+    for backend, v in out.items():
+        print(f"  device ms/vol, {backend} conv backend: median {med(v):.3f} "
+              f"(all {[round(t, 3) for t in v]}) on {card}", flush=True)
+    cfg = exp.infer
+    dev_ms, host_ms = [], []
+    for canvas in canvases:
+        labels_r, _ = pred.predict_device(canvas)
+        labels_np = labels_r.cpu().numpy()
+        with torch.inference_mode():
+            postprocess_device(labels_r, cfg.min_component_voxels, cfg.et_min_voxels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = postprocess_device(labels_r, cfg.min_component_voxels,
+                                     cfg.et_min_voxels)
+            torch.cuda.synchronize()
+            dev_ms.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        want = postprocess_labels(labels_np,
+                                  min_component_voxels=cfg.min_component_voxels,
+                                  et_min_voxels=cfg.et_min_voxels)
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        check(bool((got.cpu().numpy() == want).all()),
+              f"device postprocessing equals host scipy on the ROI labels "
+              f"{tuple(labels_np.shape)} ({int((labels_np > 0).sum())} "
+              f"foreground voxels, {int((want != labels_np).sum())} changed)")
+    print(f"  connected components + tiny-ET on the ROI: device median "
+          f"{med(dev_ms):.3f} ms (all {[round(t, 3) for t in dev_ms]}), host "
+          f"scipy median {med(host_ms):.3f} ms (all "
+          f"{[round(t, 3) for t in host_ms]}) on {card}", flush=True)
+    return {k: med(v) for k, v in out.items()}
+
+
+def serve_slice(work, case_dirs, direct_masks, expect, serial_e2e, depth, card):
+    """Phase 5 (see the module docstring). Returns the launch counts of the
+    burst."""
+    import torch
+
+    from brats2019_tpu_torch import ops
+    from brats2019_tpu_torch.data.constants import VOLUME_SHAPE
+    from brats2019_tpu_torch.infer import predictor as pmod
+
+    root = os.path.join(WORK, "serve")
+    watch, out, cache = (os.path.join(root, d) for d in ("watch", "out", "cache"))
+    os.makedirs(watch)
+    port = _free_port()
+    base = f"http://127.0.0.1:{port}"
+    names = [os.path.basename(d) for d in case_dirs]
+    common = ["--preset", PRESET, "--workdir", work, "--device", DEVICE,
+              "--poll", "0.05"]
+
+    # the device program's span per volume, read with CUDA events
+    spans = []
+    real_predict_device = pmod.Predictor.predict_device
+
+    def timed_predict_device(self, canvas):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        result = real_predict_device(self, canvas)
+        ev[1].record()
+        spans.append(ev)
+        return result
+
+    def post_case(d, answers):
+        req = urllib.request.Request(
+            base + "/predict?format=json&timeout=300",
+            data=json.dumps({"case_dir": d}).encode(),
+            headers={"Content-Type": "application/json"}, method="POST")
+        with urllib.request.urlopen(req, timeout=330) as r:
+            answers[d] = json.loads(r.read())
+
+    def client(daemon_done):
+        deadline = time.time() + 600
+        health = {}
+        while time.time() < deadline and not daemon_done.is_set():
+            try:
+                health = _get_json(base + "/healthz", timeout=5)
+            except OSError:
+                health = {}
+            if health.get("warm"):
+                break
+            time.sleep(0.2)
+        if not health.get("warm"):
+            raise RuntimeError(f"the daemon never became warm: {health}")
+        spans.clear()
+        ops.reset_launch_counts()     # just before the main path is driven
+        answers = {}
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=post_case, args=(d, answers))
+                   for d in case_dirs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(400)
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()  # just after
+        results = {n: _get_json(base + f"/result?case={n}") for n in names}
+        return {"answers": answers, "wall": wall, "counts": counts,
+                "results": results, "stats": _get_json(base + "/stats"),
+                "health": health}
+
+    ops.set_backend("winograd")
+    pmod.Predictor.predict_device = timed_predict_device
+    try:
+        rc, got = run_daemon(
+            [watch, *common, "--output-dir", out, "--warmup", "--http",
+             str(port), "--prep-cache", cache, "--postproc", "device"], client)
+    finally:
+        pmod.Predictor.predict_device = real_predict_device
+        ops.set_backend("direct")
+    torch.cuda.synchronize()
+    check(rc == 0, f"serve daemon drained cleanly after SIGTERM (exit code {rc})")
+    answers, counts = got["answers"], got["counts"]
+    check(len(answers) == len(case_dirs)
+          and all(a.get("error") is None and a["case"] == os.path.basename(d)
+                  for d, a in answers.items()),
+          f"every POST /predict answered: {sorted(a['case'] for a in answers.values())}")
+    log = serve_log(out)
+    check(sorted(r["case"] for r in log) == sorted(names)
+          and all(r.get("error") is None for r in log),
+          f"serve_log.jsonl holds one clean record per case: "
+          f"{[(r['case'], r['batch_size']) for r in log]}")
+    check(all(got["results"][n].get("output", "").endswith(n + "_pred.nii.gz")
+              for n in names) and got["stats"]["served"] == len(names)
+          and got["stats"]["quarantined"] == 0,
+          f"GET /result and /stats: {got['stats']}")
+    n = len(case_dirs)
+    print(f"  launches on the serving slice: {counts} (expected per volume: "
+          f"conv3d_winograd {expect['conv3d']}, conv3d 0, "
+          f"{ {k: v for k, v in expect.items() if k != 'conv3d'} })", flush=True)
+    check(counts["conv3d_winograd"] == expect["conv3d"] * n and counts["conv3d"] == 0,
+          f"conv3d_winograd launched {counts['conv3d_winograd']} times on the "
+          f"serving slice ({expect['conv3d']} per volume), conv3d "
+          f"{counts['conv3d']} times")
+    for k in ("instance_norm_act", "downsample2x", "upsample2x"):
+        check(counts[k] == expect[k] * n,
+              f"{k} launched {counts[k]} times on the serving slice")
+    wino_masks = served_labels(out, case_dirs)
+    for name, seg, ref in zip(names, wino_masks, direct_masks):
+        vals = sorted(int(v) for v in set(seg.ravel().tolist()))
+        agree = float((seg == ref).mean())
+        fg = int(((seg > 0) | (ref > 0)).sum())
+        check(seg.shape == VOLUME_SHAPE and set(vals) <= {0, 1, 2, 4}
+              and agree >= MASK_AGREE,
+              f"{name} served: shape {seg.shape}, labels {vals}; voxel "
+              f"agreement with phase 3's direct-conv mask {agree:.6f} (bound "
+              f"{MASK_AGREE}; {int((seg != ref).sum())} of {fg} foreground "
+              f"voxels differ)")
+    span_ms = [a.elapsed_time(b) for a, b in spans]
+    burst = got["wall"]
+    idle = 1.0 - sum(span_ms) / 1e3 / burst
+    print(f"  burst of {n} over HTTP (serving depth {depth}, from the "
+          f"preset): wall {burst:.3f} s = e2e {burst / n:.3f} s/vol pipelined "
+          f"against {serial_e2e:.3f} s/vol one by one (phase 3); device program "
+          f"spans {[round(v, 3) for v in span_ms]} ms (device postprocessing "
+          f"and its host syncs inside), device idle share over the burst "
+          f"{100 * idle:.1f}% on {card}", flush=True)
+    check(len(span_ms) == n, f"{len(span_ms)} device programs ran in the burst")
+
+    # a second daemon on the same output dir: the log replays, nothing is served
+    rc, _ = run_daemon([watch, *common, "--output-dir", out, "--once",
+                        "--postproc", "device", "--prep-cache", cache])
+    check(rc == 0 and len(serve_log(out)) == n,
+          f"second daemon over the same watch root and log served nothing "
+          f"(exit code {rc}, {len(serve_log(out))} records)")
+
+    # fresh logs: the same directories come from the payload cache, undecoded;
+    # direct backend, host and device postprocessing: phase 3's masks bitwise
+    decodes = []
+    real_load_case = pmod.load_case
+    pmod.load_case = lambda *a, **k: decodes.append(a) or real_load_case(*a, **k)
+    try:
+        for postproc in ("host", "device"):
+            out2 = os.path.join(root, f"out_{postproc}")
+            t0 = time.perf_counter()
+            rc, _ = run_daemon([watch, *common, "--output-dir", out2, "--once",
+                                "--postproc", postproc, "--prep-cache", cache])
+            dt = time.perf_counter() - t0
+            masks = served_labels(out2, case_dirs)
+            same = [bool((a == b).all()) for a, b in zip(masks, direct_masks)]
+            check(rc == 0 and all(same),
+                  f"direct backend, --postproc {postproc}, pipelined: masks "
+                  f"bitwise equal phase 3's {same} ({dt:.1f} s with start-up)")
+    finally:
+        pmod.load_case = real_load_case
+    check(not decodes and len(os.listdir(cache)) == n,
+          f"re-served cases hit the payload cache: {len(decodes)} NIfTI "
+          f"decodes, {len(os.listdir(cache))} cache entries")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -671,7 +1114,7 @@ def main() -> int:
     from brats2019_tpu_torch.configs.presets import get_preset
     from brats2019_tpu_torch.data import synthetic
     from brats2019_tpu_torch.data.constants import VOLUME_SHAPE
-    from brats2019_tpu_torch.ops import _build, conv
+    from brats2019_tpu_torch.ops import _build, conv, winograd
     from brats2019_tpu_torch.train.loop import stage_config
     from brats2019_tpu_torch.utils.weights import init_params, save_params_npz
 
@@ -687,10 +1130,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    conv._lib()
-    print(f"  built conv3d.cu with nvcc in {time.perf_counter() - t0:.1f} s; "
-          f"ptxas: {_build.build_logs.get('conv3d', '(cached)').strip()}",
-          flush=True)
+    _build.build_all([conv._lib, winograd._lib])   # one nvcc each, side by side
+    print(f"  built conv3d.cu and winograd3d.cu with nvcc in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for lib in ("conv3d", "winograd3d"):
+        print(f"  ptxas, {lib}: {_build.build_logs.get(lib, '(cached)').strip()}",
+              flush=True)
 
     exp = get_preset("cascade")
     calls = (unet_calls(exp.coarse_unet, 1, exp.infer.coarse_shape)
@@ -704,8 +1149,11 @@ def main() -> int:
                   + unet_calls(exp.unet, 1, exp.train.pool_shape))
     print("== phase 2: kernels vs plain torch at the flagship shapes", flush=True)
     t0 = time.perf_counter()
+    wino_calls = [("conv3d_winograd", shape) for n, shape in calls if n == "conv3d"]
+    library_for = (calls + wino_calls
+                   + [c for c in stage_calls["fine"] if c[0] in BACKWARD])
     results = check_kernels(calls + stage_calls["coarse"] + stage_calls["fine"]
-                            + eval_calls, dev)
+                            + eval_calls + wino_calls, dev, library_for)
     print(f"  phase 2 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     print("== phase 3: the cascade predict slice on the card", flush=True)
@@ -746,15 +1194,23 @@ def main() -> int:
         check(a.shape == b.shape and bool((a == b).all()),
               f"{os.path.basename(d)}: repeat run bitwise equal")
     small_reference(exp, work, dev)
-    time_slice(exp, work, case_dirs, dev, card)
+    serial_e2e = time_slice(exp, work, case_dirs, dev, card)
 
     print("== phase 4: the cascade training slice on the card", flush=True)
     t0 = time.perf_counter()
     train_counts = train_slice(os.path.join(WORK, "cases"), case_dirs,
                                stage_calls)
     step_reference(exp, dev)
-    per_step = time_training(exp, dev, card, results, stage_calls)
+    time_training(exp, dev, card, results, stage_calls)
     print(f"  phase 4 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    print("== phase 5: the serving slice on the card (Winograd conv backend, "
+          "device postprocessing, HTTP)", flush=True)
+    t0 = time.perf_counter()
+    serve_counts = serve_slice(work, case_dirs, first, expect, serial_e2e,
+                               exp.infer.serving_depth, card)
+    backend_ms = time_backends(exp, work, case_dirs, dev, card)
+    print(f"  phase 5 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     record = []
     for k, (route, source, replaces) in KERNELS.items():
@@ -762,23 +1218,40 @@ def main() -> int:
         if k in FORWARD:
             # per volume: the predict slice's calls of this kernel, summed
             mine = [results[(n, shape)] for n, shape in calls if n == k]
-            times = tuple(sum(r[i] for r in mine) for i in (2, 3, 4, 5))
             launches = counts[k]
+        elif k == "conv3d_winograd":
+            # per volume: the serving slice's calls of this kernel, summed
+            mine = [results[c] for c in wino_calls]
+            launches = serve_counts[k]
         else:
             # per fine train step: the step's calls of this kernel, summed
-            times = per_step["fine"][k]
+            mine = [results[c] for c in stage_calls["fine"] if c[0] == k]
             launches = train_counts[k]
+        times = tuple(sum(r[i] for r in mine) for i in (2, 3, 4, 5))
+        bytes_ms, ops_ms = (sum(r[i] for r in mine) for i in (6, 7))
         record.append({
             "name": k, "route": route, "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max(errs),
             "ms": times[0], "plain_ms": times[1],
+            "bound_ms": sum(max(r[6], r[7]) for r in mine),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": sum(r[8] for r in mine),
             "wall_ms": times[2], "plain_wall_ms": times[3],
+            "bound_bytes_ms": bytes_ms, "bound_operations_ms": ops_ms,
+            "calls": len(mine),
         })
     for r in record:
-        unit = "vol" if r["name"] in FORWARD else "fine train step"
-        print(f"  {r['name']}: device {r['ms']:.4f} ms/{unit} in kernels vs "
-              f"{r['plain_ms']:.4f} plain torch (wall {r['wall_ms']:.4f} vs "
-              f"{r['plain_wall_ms']:.4f}) on {card}", flush=True)
+        unit = "fine train step" if r["name"] in BACKWARD else "vol"
+        print(f"  {r['name']}: {r['calls']} calls/{unit}, device {r['ms']:.4f} "
+              f"ms/{unit} in kernels vs {r['plain_ms']:.4f} plain torch, "
+              f"library call {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+              f"by {r['bound_by']} (bytes {r['bound_bytes_ms']:.4f}, operations "
+              f"{r['bound_operations_ms']:.4f}); wall {r['wall_ms']:.4f} vs "
+              f"{r['plain_wall_ms']:.4f}; {r['launches']} launches on its "
+              f"slice, on {card}", flush=True)
+    print(f"  whole predict program, device ms/vol: direct "
+          f"{backend_ms['direct']:.3f}, winograd {backend_ms['winograd']:.3f} "
+          f"on {card}", flush=True)
     print(f"== done in {time.perf_counter() - t_start:.1f} s; "
           f"{len(FAILURES)} failure(s)", flush=True)
     shutil.rmtree(WORK, ignore_errors=True)

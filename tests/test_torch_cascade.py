@@ -222,6 +222,55 @@ def test_split_cascade_matches_make_predict_fn(nets, fine):
         assert diff.mean() < 1e-3
 
 
+@pytest.mark.parametrize("min_voxels,et_min", [(16, 32), (300, 100000)])
+def test_split_cascade_device_postproc_matches_make_predict_fn(nets, min_voxels,
+                                                               et_min):
+    """postproc="device": ROI start equal and labels equal to the JAX
+    program's labels after its in-graph postprocessing step, except where a numerical tie of the
+    mean probabilities flipped a voxel before the filter (none on these
+    inputs: the raw labels are checked equal first). The second case's
+    thresholds remove components and relabel all ET."""
+    import dataclasses
+
+    jcfg, jp, tm = nets["stem2"]
+    ccfg, cp, cm = nets["fixture"]
+    jfine, jcoarse = JaxUNet3D(jcfg), JaxUNet3D(ccfg)
+    tile = (32, 32, 32)
+    kw = dict(postproc="device", min_component_voxels=min_voxels,
+              et_min_voxels=et_min)
+
+    def jax_fn(cfg):
+        return jcascade.make_predict_fn(
+            lambda p, x: jfine.apply(p, x), cfg, CANVAS,
+            coarse_apply=lambda p, x: jcoarse.apply(p, x),
+            fine_lowres_apply=lambda p, x: jfine.apply(p, x, subpixel=False),
+            stem=jcfg.stem_downsample,
+        )
+
+    jcfg_host = _infer_cfg(JaxInferenceConfig, tile)
+    tcfg_host = _infer_cfg(InferenceConfig, tile)
+    fn_raw = jax_fn(jcfg_host)
+    raw = tcascade.make_predict_fn(tm, tcfg_host, CANVAS, coarse=cm)
+    dev = tcascade.make_predict_fn(tm, dataclasses.replace(tcfg_host, **kw),
+                                   CANVAS, coarse=cm)
+    changed = 0
+    for seed in (10, 13):
+        img = _image(seed)
+        raw_j, start_j = fn_raw(jp, cp, jnp.asarray(img))
+        # what the JAX program's _finish_one applies in-graph (:247-251)
+        want = jcascade._postprocess_device(raw_j, min_voxels, et_min)
+        with torch.no_grad():
+            raw_t, _ = raw(torch.from_numpy(img))
+            got, start_t = dev(torch.from_numpy(img))
+        np.testing.assert_array_equal(raw_t.numpy(), np.asarray(raw_j))
+        np.testing.assert_array_equal(start_t.numpy(), np.asarray(start_j))
+        assert got.dtype == torch.uint8
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        changed += int((got.numpy() != raw_t.numpy()).sum())
+    if et_min > 32:             # these thresholds must change something
+        assert changed > 0
+
+
 def test_lowres_reduce_equals_fullres_reduce():
     """d2s is a permutation: the low-res reduce equals softmax -> unflip ->
     mean -> argmax at full resolution, exactly."""
@@ -249,8 +298,9 @@ def test_unported_paths_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tcascade.make_predict_fn(m, dataclasses.replace(cfg, **bad),
                                      CANVAS, coarse=m)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # device postprocessing is ported: the same split program, no error
+    assert isinstance(
         tcascade.make_predict_fn(m, dataclasses.replace(cfg, postproc="device"),
-                                 CANVAS, coarse=m)
+                                 CANVAS, coarse=m), tcascade.SplitCascade)
     with pytest.raises(NotImplementedError):
         tcascade.make_predict_fn(m, cfg, CANVAS, coarse=None)

@@ -1,0 +1,139 @@
+"""PyTorch port: device connected components and postprocessing
+(``ops/connected_components.py``) against the JAX package's, on the masks of
+``tests/test_connected_components.py``: ids, sizes and filtered labels equal."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from brats2019_tpu.infer.postprocess import postprocess_labels as ref_postprocess
+from brats2019_tpu.models.cascade import _postprocess_device as ref_postprocess_device
+from brats2019_tpu.ops import connected_components as ref_cc
+from brats2019_tpu_torch.ops import connected_components as cc
+
+
+def _random_blobs(seed, shape=(24, 24, 24), p=0.12):
+    return np.random.default_rng(seed).random(shape) < p
+
+
+def _snake(shape, axis_plane):
+    """A boustrophedon 1-voxel path: one component of large graph diameter."""
+    m = np.zeros(shape, bool)
+    rows, cols = (shape[1], shape[2]) if axis_plane == 0 else (shape[0], shape[1])
+    for r in range(0, rows, 2):
+        end = (cols - 1) if (r // 2) % 2 == 0 else 0
+        if axis_plane == 0:
+            m[0, r, :] = True
+            if r + 1 < rows:
+                m[0, r + 1, end] = True
+        else:
+            m[r, :, 1] = True
+            if r + 1 < rows:
+                m[r + 1, end, 1] = True
+    return m
+
+
+def _sparse_grid():
+    vol = np.zeros((16, 16, 16), bool)
+    vol[1::4, 1::4, 1::4] = True          # 64 single-voxel components
+    return vol
+
+
+MASKS = {
+    "blobs0": (_random_blobs(0), {}),
+    "blobs1": (_random_blobs(1), {}),
+    "blobs2": (_random_blobs(2), {}),
+    "sparse_grid": (_sparse_grid(), {}),
+    "snake_plane": (_snake((1, 24, 24), 0), {}),
+    # diameter ~512 >> the 24-iteration pool cap: phase 2 must finish it
+    "snake_needs_jump": (_snake((32, 32, 3), 1), {"max_pool_iters": 24}),
+    "empty": (np.zeros((8, 8, 8), bool), {}),
+    "full": (np.ones((6, 7, 5), bool), {}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MASKS))
+def test_component_ids_equal_reference(name):
+    fg, kw = MASKS[name]
+    want = np.asarray(ref_cc.label_components(jnp.asarray(fg), **kw))
+    got = cc.label_components(torch.from_numpy(fg), **kw)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("check_every", [1, 5, 8, 64])
+def test_check_interval_does_not_change_ids(check_every):
+    for name in ("blobs0", "snake_needs_jump"):
+        fg, kw = MASKS[name]
+        want = np.asarray(ref_cc.label_components(jnp.asarray(fg), **kw))
+        if kw.get("max_pool_iters", 192) % check_every:
+            continue
+        got = cc.label_components(torch.from_numpy(fg), check_every=check_every, **kw)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("name,max_components", [
+    ("blobs0", 128), ("blobs1", 8), ("sparse_grid", 16), ("sparse_grid", 128),
+    ("snake_plane", 128), ("empty", 128), ("full", 4),
+])
+def test_component_sizes_equal_reference(name, max_components):
+    fg, _ = MASKS[name]
+    comp = np.asarray(ref_cc.label_components(jnp.asarray(fg)))
+    want = np.asarray(ref_cc.component_sizes(jnp.asarray(comp),
+                                             max_components=max_components))
+    got = cc.component_sizes(torch.from_numpy(comp), max_components=max_components)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    if name == "sparse_grid" and max_components == 16:
+        fg_sizes = got.numpy()[comp > 0]       # 48 unmeasured, read huge, kept
+        assert (fg_sizes >= 2 ** 30).sum() == 64 - 16
+
+
+def _label_volume(seed):
+    rng = np.random.default_rng(seed)
+    labels = np.zeros((20, 20, 20), np.uint8)
+    labels[2:10, 2:10, 2:10] = rng.integers(1, 4, size=(8, 8, 8))
+    labels[15, 15, 15] = 1
+    labels[0, 0, 0:3] = 3
+    labels[13:15, 3:5, 17] = 2
+    return labels
+
+
+@pytest.mark.parametrize("min_voxels", [0, 1, 4, 8, 600])
+def test_filtered_labels_equal_reference(min_voxels):
+    labels = _label_volume(0)
+    want = ref_cc.filter_small_components_device(labels, min_voxels)
+    got = cc.filter_small_components_device(labels, min_voxels)
+    assert got.dtype == labels.dtype
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("min_voxels,et_min", [(16, 32), (4, 0), (0, 32), (8, 500)])
+def test_postprocess_device_equals_reference(min_voxels, et_min):
+    """Including the tiny-ET -> NCR relabel (the volume holds ~170 ET voxels,
+    so et_min 500 relabels and 32 does not), against the JAX in-graph
+    version and the host scipy one."""
+    labels = _label_volume(1)
+    want = np.asarray(ref_postprocess_device(jnp.asarray(labels), min_voxels, et_min))
+    got = cc.postprocess_device(torch.from_numpy(labels), min_voxels, et_min)
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        got.numpy(), ref_postprocess(labels, min_component_voxels=min_voxels,
+                                     et_min_voxels=et_min))
+
+
+def test_tiny_et_relabelled_to_ncr():
+    labels = np.zeros((8, 8, 8), np.uint8)
+    labels[1:5, 1:5, 1:5] = 2
+    labels[2:4, 2:4, 2:4] = 3                  # 8 ET voxels inside the blob
+    got = cc.postprocess_device(torch.from_numpy(labels), 4, 32).numpy()
+    want = np.asarray(ref_postprocess_device(jnp.asarray(labels), 4, 32))
+    np.testing.assert_array_equal(got, want)
+    assert (got[2:4, 2:4, 2:4] == 1).all() and (got == 3).sum() == 0
+
+
+def test_too_many_voxels_for_exact_ids_raise():
+    with pytest.raises(ValueError, match="exact"):
+        cc.label_components(torch.zeros((256, 256, 256), dtype=torch.bool))

@@ -130,6 +130,10 @@ def test_port_runtime_imports_no_jax():
         "import brats2019_tpu_torch.data.pipeline, brats2019_tpu_torch.data.sampling\n"
         "import brats2019_tpu_torch.data.augment, brats2019_tpu_torch.utils.flops\n"
         "import brats2019_tpu_torch.utils.logging\n"
+        "import brats2019_tpu_torch.cli.serve, brats2019_tpu_torch.cli.http_api\n"
+        "import brats2019_tpu_torch.infer.payload_cache\n"
+        "import brats2019_tpu_torch.ops.winograd\n"
+        "import brats2019_tpu_torch.ops.connected_components\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'ml_dtypes', 'safetensors',"
@@ -147,7 +151,7 @@ def test_kernel_modules_import_without_triton_or_nvcc():
         "sys.modules['triton'] = None  # any import of triton now fails\n"
         "import torch\n"
         "from brats2019_tpu_torch import ops\n"
-        "from brats2019_tpu_torch.ops import conv, norm, resize, _build\n"
+        "from brats2019_tpu_torch.ops import conv, norm, resize, winograd, _build\n"
         "x = torch.randn(1, 4, 4, 4, 8, requires_grad=True)\n"
         "y = ops.conv3d(x, torch.randn(3, 3, 3, 8, 8))\n"
         "y = ops.instance_norm_act(y, None, None)\n"

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from brats2019_tpu_torch import ops
-from brats2019_tpu_torch.ops import conv, norm, resize
+from brats2019_tpu_torch.ops import conv, norm, resize, winograd
 
 pytestmark = pytest.mark.gpu
 
@@ -234,3 +234,91 @@ def test_train_step_runs_on_the_card(dev):
     assert counts["instance_norm_act_bwd"] == 10
     assert counts["downsample2x_bwd"] == counts["upsample2x_bwd"] == 2
     assert counts["conv3d"] == 10 + 9             # forwards + dgrads
+
+
+# ------------------------------------------------------ the Winograd conv --
+
+@pytest.fixture()
+def winograd_backend():
+    conv.set_backend("winograd")
+    yield
+    conv.set_backend("direct")
+
+
+@pytest.mark.parametrize("shape,co", [
+    ((2, 8, 8, 8, 32), 64),        # N > 1, whole bricks
+    ((1, 12, 14, 10, 96), 192),    # ragged tile counts: 6 x 7 x 5 tiles
+    ((3, 2, 2, 2, 16), 16),        # one tile per sample, a brick mostly masked
+    ((1, 6, 10, 4, 24), 48),       # Ci not a multiple of 16, Co = 48
+    ((1, 4, 4, 6, 20), 12),        # scalar path: Ci, Co not multiples of 8
+    ((1, 8, 8, 8, 576), 48),       # the widest Ci (18 chunks), a Co tail
+    ((1, 4, 4, 4, 40), 200),       # Ci tail inside a chunk, 4 Co blocks
+])
+def test_winograd_kernel_matches_plain_and_direct(dev, shape, co):
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(shape, generator=g, device=dev).bfloat16()
+    w = (torch.randn((3, 3, 3, shape[-1], co), generator=g, device=dev)
+         / (27 * shape[-1]) ** 0.5).bfloat16()
+    before = ops.conv3d_winograd.launches
+    got = ops.conv3d_winograd(x, w)
+    torch.cuda.synchronize()
+    assert ops.conv3d_winograd.launches == before + 1
+    assert got.shape == shape[:4] + (co,) and got.dtype == torch.bfloat16
+    assert torch.equal(got, ops.conv3d_winograd(x, w))       # fixed order
+    scale = conv.conv3d_plain(x, w).float().abs().max()
+    for ref in (winograd.conv3d_winograd_plain(x, w), conv.conv3d_plain(x, w)):
+        err = (got.float() - ref.float()).abs().max() / scale
+        assert err.item() <= 2e-2
+
+
+def test_winograd_kernel_rejects_odd_dims_and_f32(dev):
+    w = torch.zeros((3, 3, 3, 8, 8), device=dev).bfloat16()
+    with pytest.raises(ValueError, match="even"):
+        ops.conv3d_winograd(torch.zeros((1, 4, 5, 4, 8), device=dev).bfloat16(), w)
+    with pytest.raises(TypeError):
+        ops.conv3d_winograd(torch.zeros((1, 4, 4, 4, 8), device=dev), w.float())
+
+
+def test_winograd_backend_under_autograd(dev, winograd_backend):
+    """The seam's shared backward: dgrad through the Winograd kernel, wgrad
+    cuDNN; the grads match the direct backend's within bf16 noise."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    x0 = torch.randn((1, 8, 8, 8, 32), generator=g, device=dev).bfloat16()
+    w0 = (torch.randn((3, 3, 3, 32, 48), generator=g, device=dev) / 30).bfloat16()
+    gy = torch.randn((1, 8, 8, 8, 48), generator=g, device=dev).bfloat16()
+    grads = {}
+    for backend in ("winograd", "direct"):
+        conv.set_backend(backend)
+        x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+        before = (ops.conv3d_winograd.launches, ops.conv3d.launches)
+        ops.conv3d(x, w).backward(gy)
+        after = (ops.conv3d_winograd.launches, ops.conv3d.launches)
+        used = 0 if backend == "winograd" else 1
+        assert after[used] == before[used] + 2 and after[1 - used] == before[1 - used]
+        grads[backend] = (x.grad.float(), w.grad.float())
+    for a, b in zip(grads["winograd"], grads["direct"]):
+        assert ((a - b).abs().max() / b.abs().max()).item() <= 2e-2
+
+
+def test_winograd_weight_cache_follows_updates(dev):
+    w = (torch.randn((3, 3, 3, 16, 16), device=dev) / 20).bfloat16()
+    x = torch.randn((1, 4, 4, 4, 16), device=dev).bfloat16()
+    a = ops.conv3d_winograd(x, w)
+    assert winograd.padded_u(w) is winograd.padded_u(w)
+    w.mul_(2)
+    b = ops.conv3d_winograd(x, w)
+    assert ((b.float() - 2 * a.float()).abs().max() / b.float().abs().max()
+            ).item() <= 2e-2
+
+
+def test_device_connected_components_on_the_card_equal_cpu(dev):
+    from brats2019_tpu_torch.ops import connected_components as cc
+
+    g = torch.Generator().manual_seed(2)
+    labels = (torch.rand((40, 48, 36), generator=g) < 0.12).to(torch.uint8) * 2
+    labels[5:20, 5:20, 5:20] = 3
+    want = cc.postprocess_device(labels, 16, 32)
+    got = cc.postprocess_device(labels.to(dev), 16, 32)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(cc.label_components(labels.to(dev) > 0).cpu(),
+                       cc.label_components(labels > 0))

@@ -156,3 +156,164 @@ def test_int8_transfer_not_ported(workdir):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Predictor(exp, _npz(workdir, "fine"), _npz(workdir, "coarse"),
                   device="cpu")
+
+
+# ------------------------------------------------ the pipelined serving path --
+
+def _port(workdir, **infer):
+    return Predictor(_exp(presets, **infer), _npz(workdir, "fine"),
+                     _npz(workdir, "coarse"), device="cpu")
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+@pytest.mark.parametrize("postproc", ["host", "device"])
+def test_predict_arrays_many_equals_one_by_one(workdir, depth, postproc):
+    port = _port(workdir, serving_depth=depth, postproc=postproc)
+    images = [synthetic.make_hard_case_arrays(seed=s, shape=SHAPE)[0]
+              for s in (10, 11, 12)]
+    serial = [port.predict_arrays(img)[0] for img in images]
+    piped = port.predict_arrays_many(images)
+    assert len(piped) == 3
+    for a, b in zip(serial, piped):
+        assert b.dtype == np.uint8 and b.shape == SHAPE
+        np.testing.assert_array_equal(a, b)
+
+
+def test_device_postproc_labels_equal_host_postproc_labels(workdir):
+    """The same labels through the device filter and through host scipy."""
+    image = synthetic.make_hard_case_arrays(seed=10, shape=SHAPE)[0]
+    kw = dict(min_component_voxels=40, et_min_voxels=100000)
+    host = _port(workdir, postproc="host", **kw).predict_arrays(image)[0]
+    dev = _port(workdir, postproc="device", **kw).predict_arrays(image)[0]
+    raw = _port(workdir, min_component_voxels=0, et_min_voxels=0
+                ).predict_arrays(image)[0]
+    np.testing.assert_array_equal(host, dev)
+    assert (raw != host).any() and (host == 3).sum() == 0
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_predict_dirs_equals_predict_dir_bitwise(tmp_path, workdir, depth):
+    port = _port(workdir, serving_depth=depth, postproc="device",
+                 prep_cache_dir=str(tmp_path / "cache"))
+    dirs = synthetic.write_dataset(str(tmp_path / "cases"), 3, shape=(48, 40, 36))
+    serial = [read_nifti(port.predict_dir(d, str(tmp_path / f"s{i}.nii.gz"))[0],
+                         apply_scaling=False)[0] for i, d in enumerate(dirs)]
+    outs = port.predict_dirs(dirs, [str(tmp_path / f"p{i}.nii.gz")
+                                    for i in range(3)])
+    for a, out in zip(serial, outs):
+        np.testing.assert_array_equal(a, read_nifti(out, apply_scaling=False)[0])
+
+
+def test_payload_cache_hit_ships_the_miss_payload(tmp_path, workdir, monkeypatch):
+    import torch
+
+    from brats2019_tpu.infer import payload_cache as ref_cache
+    from brats2019_tpu_torch.infer import payload_cache, predictor as pmod
+
+    cache = str(tmp_path / "cache")
+    port = _port(workdir, prep_cache_dir=cache)
+    d = synthetic.write_dataset(str(tmp_path / "cases"), 1, shape=(48, 40, 36))[0]
+    args = (cache, d, port.canvas, port.exp.infer.transfer_bucket, "bfloat16")
+    path = payload_cache.payload_cache_path(*args)
+    assert path == ref_cache.payload_cache_path(*args)   # one cache, two packages
+    miss = port._prep_dir_to(d)
+    assert os.listdir(cache) == [os.path.basename(path)]
+    monkeypatch.setattr(pmod, "load_case",
+                        lambda *a, **k: pytest.fail("decoded on a cache hit"))
+    hit = port._prep_dir_to(d)
+    assert hit[0] == miss[0] and hit[1].raw == miss[1].raw
+    assert hit[3] == miss[3] and hit[4] == miss[4]
+    assert torch.equal(hit[2][0].view(torch.int16), miss[2][0].view(torch.int16))
+    assert port.prefill_payload_cache(d) is False          # already warm
+    # the entry reads in the JAX package, bit for bit, and the other way round
+    small_j, dst_j, bbox_j = ref_cache.load_payload(path)
+    small_t, dst_t, bbox_t = payload_cache.load_payload(path)
+    np.testing.assert_array_equal(small_j.view(np.int16),
+                                  small_t.view(torch.int16).numpy())
+    assert tuple(int(v) for v in dst_j) == dst_t
+    assert (bbox_j.lo, bbox_j.hi, bbox_j.full_shape) == (
+        bbox_t.lo, bbox_t.hi, bbox_t.full_shape)
+    other = str(tmp_path / "from_jax.npz")
+    ref_cache.store_payload(other, small_j, dst_j, bbox_j)
+    again = payload_cache.load_payload(other)
+    assert torch.equal(again[0].view(torch.int16), small_t.view(torch.int16))
+    # a corrupt entry is a miss, rebuilt on the next prep
+    with open(path, "wb") as f:
+        f.write(b"not an npz")
+    assert payload_cache.load_payload(path) is None
+
+
+def test_prefill_then_serve_is_a_hit(tmp_path, workdir, monkeypatch):
+    from brats2019_tpu_torch.infer import predictor as pmod
+
+    port = _port(workdir, prep_cache_dir=str(tmp_path / "cache"))
+    d = synthetic.write_dataset(str(tmp_path / "cases"), 1, shape=(48, 40, 36))[0]
+    assert _port(workdir).prefill_payload_cache(d) is False     # cache off
+    want = read_nifti(_port(workdir).predict_dir(
+        d, str(tmp_path / "nocache.nii.gz"))[0], apply_scaling=False)[0]
+    assert port.prefill_payload_cache(d) is True
+    monkeypatch.setattr(pmod, "load_case",
+                        lambda *a, **k: pytest.fail("decoded after a prefill"))
+    out, _ = port.predict_dir(d, str(tmp_path / "cached.nii.gz"))
+    np.testing.assert_array_equal(read_nifti(out, apply_scaling=False)[0], want)
+    # a re-uploaded case (new mtime) supersedes the entry: one file remains
+    monkeypatch.undo()
+    os.utime(os.path.join(d, os.path.basename(d) + "_t1.nii.gz"),
+             ns=(1, 1_000_000_000))
+    assert port.prefill_payload_cache(d) is True
+    assert len(os.listdir(str(tmp_path / "cache"))) == 1
+
+
+def test_payload_memo_hit_miss_and_weakref_death(workdir, monkeypatch):
+    import gc
+
+    port = _port(workdir, payload_memo_volumes=2)
+    calls = []
+    real = port._encode_host
+    monkeypatch.setattr(port, "_encode_host",
+                        lambda img: calls.append(id(img)) or real(img))
+    a = synthetic.make_hard_case_arrays(seed=10, shape=SHAPE)[0]
+    b = synthetic.make_hard_case_arrays(seed=11, shape=SHAPE)[0]
+    p1 = port._memo_encode(a)
+    assert port._memo_encode(a) is p1 and len(calls) == 1      # hit
+    port._memo_encode(b)
+    assert len(calls) == 2 and len(port._payload_memo) == 2     # miss
+    c = a.copy()
+    port._memo_encode(c)                                        # evicts the oldest
+    assert len(port._payload_memo) == 2 and id(a) not in port._payload_memo
+    del b, c
+    gc.collect()
+    port._memo_encode(a)                 # dead entries are swept on the next call
+    assert list(port._payload_memo) == [id(a)]
+    off = _port(workdir, payload_memo_volumes=0)
+    assert off._memo_encode(a) is not off._memo_encode(a)
+
+
+def test_reload_params_and_warmup(workdir):
+    from brats2019_tpu_torch.utils.weights import init_params, load_params_npz
+
+    port = _port(workdir)
+    image = synthetic.make_hard_case_arrays(seed=10, shape=SHAPE)[0]
+    before = port.predict_arrays(image)[0]
+    assert port.warmup(stage="primary") > 0 and port.warmup(stage="rest") >= 0
+    with pytest.raises(ValueError):
+        port.warmup(stage="everything")
+    new_fine = init_params(presets.UNetConfig(**FINE_KW), seed=3)
+    with pytest.raises(ValueError, match="params_coarse"):
+        port.reload_params(new_fine)
+    port.reload_params(new_fine, _npz(workdir, "coarse"))
+    after = port.predict_arrays(image)[0]
+    fresh = Predictor(_exp(presets), new_fine, _npz(workdir, "coarse"),
+                      device="cpu").predict_arrays(image)[0]
+    np.testing.assert_array_equal(after, fresh)
+    assert (after != before).any()
+    port.reload_params(load_params_npz(_npz(workdir, "fine")),
+                       _npz(workdir, "coarse"))
+    np.testing.assert_array_equal(port.predict_arrays(image)[0], before)
+    with pytest.raises((RuntimeError, KeyError)):      # structure must match
+        port.reload_params({"params/nope": np.zeros(1)}, _npz(workdir, "coarse"))
+
+
+def test_pairing_not_ported(workdir):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _port(workdir, batch_volumes=2)

@@ -464,12 +464,12 @@ def _read_log(workdir):
 
 
 def test_resume_is_bitwise(tmp_path, cases, monkeypatch):
-    straight = loop.train_stage(_tiny_exp(tmp_path / "a"), cases[:2])
+    straight = loop.train_stage(_tiny_exp(tmp_path / "a"), cases[:2], device="cpu")
     with monkeypatch.context() as m:
         _preempt_after(m, 2)
-        first = loop.train_stage(_tiny_exp(tmp_path / "b"), cases[:2])
+        first = loop.train_stage(_tiny_exp(tmp_path / "b"), cases[:2], device="cpu")
     assert first.preempted
-    resumed = loop.train_stage(_tiny_exp(tmp_path / "b"), cases[:2])
+    resumed = loop.train_stage(_tiny_exp(tmp_path / "b"), cases[:2], device="cpu")
     assert not resumed.preempted
     sa = torch.load(tmp_path / "a" / "fine" / "checkpoints" / "4" / "state.pt")
     sb = torch.load(tmp_path / "b" / "fine" / "checkpoints" / "4" / "state.pt")
@@ -486,11 +486,11 @@ def test_resume_is_bitwise(tmp_path, cases, monkeypatch):
 
 def test_resume_migrates_the_ema_and_keeps_checkpoints(tmp_path, cases):
     exp = _tiny_exp(tmp_path, ema_decay=0.0, keep_checkpoints=1)
-    loop.train_stage(exp, cases[:2])
+    loop.train_stage(exp, cases[:2], device="cpu")
     ckpt = CheckpointManager(os.path.join(exp.workdir, "fine"))
     assert ckpt.all_steps() == [4]
     exp6 = _tiny_exp(tmp_path, ema_decay=0.5, steps=6, keep_checkpoints=1)
-    res = loop.train_stage(exp6, cases[:2])
+    res = loop.train_stage(exp6, cases[:2], device="cpu")
     state = ckpt.restore()
     assert state["step"] == 6 and state["opt_state"]["ema"] is not None
     assert res.final_metrics["loss"] > 0
@@ -500,7 +500,7 @@ def test_load_stage_params_priority(tmp_path, cases):
     """Best beats the latest step; an export wins while it is at least as
     new as the newest checkpoint; a newer checkpoint beats a stale export."""
     exp = _tiny_exp(tmp_path, eval_every=2, steps=4)
-    loop.train_stage(exp, cases[:2], val_dirs=cases[2:])
+    loop.train_stage(exp, cases[:2], val_dirs=cases[2:], device="cpu")
     wd = os.path.join(exp.workdir, "fine")
     ckpt = CheckpointManager(wd)
     with open(os.path.join(ckpt.best_dir, "metric.json")) as f:
@@ -594,3 +594,14 @@ def test_train_cli_errors(tmp_path, capsys):
         assert train_cli.main(["--preset", "unit", "--device", "cuda",
                                "--data", str(tmp_path)]) == 2
         assert "cuda" in capsys.readouterr().err
+
+
+def test_train_stage_runs_on_the_card_unless_asked_for_the_cpu(tmp_path):
+    """The library entry point defaults to CUDA like the CLI: without a card
+    that is an error, never a silent CPU run."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    with pytest.raises(RuntimeError, match="cuda"):
+        loop.train_stage(_tiny_exp(tmp_path / "w"), [])
