@@ -200,7 +200,11 @@ __global__ void __launch_bounds__(THREADS)
       for (int i = 0; i < 2; ++i)
 #pragma unroll
         for (int j = 0; j < 2; ++j)
+#ifndef CONV3D_LOADS_ONLY  // a probe build times the fills alone
           wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
+#else
+          ;
+#endif
     }
     __syncthreads();
   }

@@ -30,6 +30,7 @@ KERNEL_WRAPPERS = {
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+    conv3d.launches_wgmma = 0   # the share of conv3d.launches on conv3d_wgmma.cu
 
 
 def launch_counts() -> dict:

@@ -49,10 +49,12 @@ def find_nvcc() -> str:
     )
 
 
-def load_library(name: str, sources, signatures: dict) -> ctypes.CDLL:
+def load_library(name: str, sources, signatures: dict,
+                 extra_flags=()) -> ctypes.CDLL:
     """Build (if needed) and load ``lib<name>_<hash>.so`` from ``sources``
     (file names under csrc/). ``signatures`` maps each exported function
     to its ctypes ``argtypes``; every function returns an int error code.
+    ``extra_flags`` go to nvcc after the common ones (a probe build's -D).
     One lock per library: two libraries build side by side when two threads
     ask for them (:func:`build_all`)."""
     with _lock:
@@ -63,14 +65,15 @@ def load_library(name: str, sources, signatures: dict) -> ctypes.CDLL:
         if name in _libs:
             return _libs[name]
         paths = [CSRC / s for s in sources]
-        h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+        flags = (*NVCC_FLAGS, *extra_flags)
+        h = hashlib.sha1(" ".join(flags).encode())
         for p in paths:
             h.update(p.read_bytes())
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         so = BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
         if not so.exists():
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]
+            cmd = [find_nvcc(), *flags, "-o", str(tmp), *map(str, paths)]
             res = subprocess.run(cmd, capture_output=True, text=True)
             build_logs[name] = res.stderr
             if res.returncode != 0:
@@ -116,8 +119,10 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches`` (under a lock: a serving process has
-    prep and post threads beside the thread that launches kernels)."""
+def count_launch(wrapper, *counters: str) -> None:
+    """Add one to ``wrapper.launches`` (or to each named counter of the
+    wrapper), under a lock: a serving process has prep and post threads beside
+    the thread that launches kernels."""
     with _count_lock:
-        wrapper.launches += 1
+        for counter in counters or ("launches",):
+            setattr(wrapper, counter, getattr(wrapper, counter) + 1)

@@ -5,8 +5,11 @@ conv3d_pallas and the flax/XLA conv of ``models/blocks.py:35-43``).
 ``w`` (3, 3, 3, Ci, Co), and returns (N, D, H, W, Co) in ``x.dtype``:
 
 * on a CPU tensor, the plain version :func:`conv3d_plain` (f32 math);
-* on a CUDA tensor, the hand-written kernel ``csrc/conv3d.cu`` (bf16 in,
-  f32 accumulation, bf16 out), or an error. There is no fallback.
+* on a CUDA tensor, a hand-written kernel (bf16 in, f32 accumulation, bf16
+  out), or an error. There is no fallback. :func:`plan_conv` picks the
+  instance from the shape (and the device's SM count) alone: ``csrc/conv3d_wgmma.cu`` (wgmma on a box of
+  voxels whose halo patch sits in shared memory) where Ci % 16 == 0 and
+  Co % 8 == 0, else ``csrc/conv3d.cu`` (mma.sync implicit GEMM, any Ci, Co).
 
 It is an ``autograd.Function``. ``conv3d_pallas`` has no VJP in the JAX
 package (its gradient was XLA's), so the port builds one:
@@ -22,10 +25,14 @@ package (its gradient was XLA's), so the port builds one:
   it runs on the bf16 operands (cuDNN, f32 accumulation) with TF32 off and
   deterministic algorithms; on the CPU in f32.
 
-``conv3d.launches`` counts kernel launches.
+``conv3d.launches`` counts kernel launches of both instances,
+``conv3d.launches_wgmma`` those of the wgmma instance.
+:func:`conv3d_boxed_plain` is plain torch organised as the wgmma kernel is
+(boxes, zero-filled halo patches, channel chunks, tap-shifted views, masked
+tails), so its index arithmetic is tested on the CPU.
 
-Two kernels sit behind the seam (the pattern of the reference's
-``ops/norm.py`` ``set_backend``): ``"direct"`` (``csrc/conv3d.cu``, the
+Two backends sit behind the seam (the pattern of the reference's
+``ops/norm.py`` ``set_backend``): ``"direct"`` (the two sources above, the
 default) and ``"winograd"`` (``ops/winograd.py``, ``csrc/winograd3d.cu``; even
 D, H, W only, launches counted in ``conv3d_winograd.launches``). The backward
 is shared: dgrad goes through whichever backend is set, wgrad is plain torch.
@@ -34,6 +41,8 @@ is shared: dgrad goes through whichever backend is set, wgrad is plain torch.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -60,10 +69,111 @@ _SIG = {
     "conv3d_ndhwc_bf16": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
 }
+_SIG_WGMMA = {
+    "conv3d_wgmma_ndhwc_bf16": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
+    + [ctypes.c_void_p],
+    "conv3d_wgmma_smem_bytes": [ctypes.c_int] * 2,
+}
 
 
 def _lib() -> ctypes.CDLL:
     return _build.load_library("conv3d", ["conv3d.cu"], _SIG)
+
+
+def _lib_wgmma() -> ctypes.CDLL:
+    return _build.load_library("conv3d_wgmma", ["conv3d_wgmma.cu"], _SIG_WGMMA)
+
+
+# ------------------------------------------------------------- the planner --
+
+SMEM_LIMIT = 232_448      # dynamic shared memory a block may ask for (H100)
+SM_COUNT = 132            # an H100's SMs: what a plan made off the card assumes
+BOX_HW = 8                # the wgmma kernel's box extent along h and w
+CHUNK = 64                # its channel chunk
+B_STAGES, PATCH_STAGES = 4, 2
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvPlan:
+    """How one conv call runs on the card: a pure function of its shape."""
+
+    instance: str          # "wgmma" (conv3d_wgmma.cu) or "mma_sync" (conv3d.cu)
+    box: tuple             # (bd, bh, bw) voxels of an M tile; mma_sync: (128,) rows
+    bn: int                # output channels per block
+    chunk: int             # input channels per K chunk
+    stages: int            # weight slabs (wgmma) / (A, B) chunk pairs in the ring
+    smem_bytes: int
+    boxes: tuple           # M tiles per axis (nbd, nbh, nbw) per sample; mma_sync: (tiles,)
+    n_tiles: int           # Co tiles
+    grid: int              # output tiles
+    blocks: int            # thread blocks (wgmma: persistent, at most one per SM, walk the tiles)
+    flop_per_filled_byte: float   # the call's flops over bytes filled into shared memory
+
+
+def wgmma_smem_bytes(bd: int, bn: int) -> int:
+    """Dynamic shared memory of the (bd, bn) instance; the same arithmetic as
+    ``smem_bytes`` in csrc/conv3d_wgmma.cu."""
+    nvox = (bd + 2) * (BOX_HW + 2) * (BOX_HW + 2)
+    patch = (CHUNK // 8) * (nvox + 1) * 16
+    slab = (bn // 64) * CHUNK * 128
+    return (1024 + B_STAGES * slab + PATCH_STAGES * patch
+            + 8 * (2 * B_STAGES + 2 * PATCH_STAGES))
+
+
+# The wgmma kernel's instances: (box depth, Co tile, one tile's time relative
+# to (4, 64)). The weights are read from ``tools/torch_conv_check.py --time``
+# on an H100, which also prints how far the planner's choice is from the
+# fastest instance at every flagship shape: the 128-row box refetches the
+# weight twice as often, the 128-wide tile shares one A read between two
+# 64-channel products. (2, 64) is there for the levels whose 256-row tiles
+# would leave most SMs idle. On a tie the earlier entry wins.
+_INSTANCE_COST = ((4, 128, 1.45), (4, 64, 1.0), (2, 64, 0.75))
+WGMMA_INSTANCES = tuple((bd, bn) for bd, bn, _ in _INSTANCE_COST)
+
+
+@functools.lru_cache(maxsize=4096)   # a process sees a few dozen shapes
+def plan_conv(n: int, d: int, h: int, w: int, ci: int, co: int,
+              sms: int = SM_COUNT) -> ConvPlan:
+    """The instance, tile and grid for a (n, d, h, w, ci) -> co conv on a
+    device of ``sms`` SMs."""
+    flops = 2.0 * 27 * ci * co * n * d * h * w
+    if ci % 16 or co % 8:
+        tiles = -(-(n * d * h * w) // 128)
+        n_tiles = -(-co // 64)
+        filled = tiles * n_tiles * 27 * -(-ci // 32) * (128 + 64) * 32 * 2
+        return ConvPlan("mma_sync", (128,), 64, 32, 2, 128 * 68 * 4, (tiles,),
+                        n_tiles, tiles * n_tiles, tiles * n_tiles, flops / filled)
+    # One block per SM walks the tiles, so a call costs about (tiles per SM,
+    # rounded up) x one tile's time.
+    best = None
+    for bd, bn, weight in _INSTANCE_COST:
+        if bn == 128 and co <= 64:
+            continue
+        plan = wgmma_plan(n, d, h, w, ci, co, bd, bn, sms)
+        cost = -(-plan.grid // plan.blocks) * weight
+        if best is None or cost < best[0]:
+            best = (cost, plan)
+    return best[1]
+
+
+def wgmma_plan(n: int, d: int, h: int, w: int, ci: int, co: int,
+               bd: int, bn: int, sms: int = SM_COUNT) -> ConvPlan:
+    """The plan of the wgmma kernel's (bd, bn) instance at this shape
+    (:func:`plan_conv` chooses bd and bn)."""
+    if ci % 16 or co % 8 or (bd, bn) not in WGMMA_INSTANCES or sms < 1:
+        raise ValueError(f"no wgmma instance for Ci {ci}, Co {co}, box depth "
+                         f"{bd}, Co tile {bn}")
+    n_tiles = -(-co // bn)
+    nbd, nbh, nbw = -(-d // bd), -(-h // BOX_HW), -(-w // BOX_HW)
+    grid = n * nbd * nbh * nbw * n_tiles
+    nvox = (bd + 2) * (BOX_HW + 2) * (BOX_HW + 2)
+    # a weight slab is 64 K rows: one tap of a chunk, or 64 // ci whole taps
+    slabs = -(-ci // CHUNK) * -(-27 // (CHUNK // ci if CHUNK % ci == 0 else 1))
+    filled = grid * (nvox * ci * 2 + slabs * CHUNK * bn * 2)
+    return ConvPlan("wgmma", (bd, BOX_HW, BOX_HW), bn, CHUNK, B_STAGES,
+                    wgmma_smem_bytes(bd, bn), (nbd, nbh, nbw), n_tiles, grid,
+                    min(grid, sms),
+                    2.0 * 27 * ci * co * n * d * h * w / filled)
 
 
 def conv3d_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -74,21 +184,83 @@ def conv3d_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 4, 1).contiguous().to(x.dtype)
 
 
-def conv3d_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Launch csrc/conv3d.cu on CUDA bf16 tensors."""
+def conv3d_boxed_plain(x: torch.Tensor, w: torch.Tensor,
+                       plan: ConvPlan) -> torch.Tensor:
+    """The conv in plain torch, organised as csrc/conv3d_wgmma.cu is: per
+    sample and box a zero-filled halo patch, per Co tile an f32 accumulator
+    summed over (channel chunk, tap) from tap-shifted views of the patch
+    against the zero-padded weight slab, then a store masked to the volume
+    and to Co. f32 math on x's values, cast back to x.dtype."""
+    if plan.instance != "wgmma":
+        raise ValueError("conv3d_boxed_plain follows the wgmma instance's plan")
+    n, d, h, wd, ci = x.shape
+    co = w.shape[4]
+    bd, bh, bw = plan.box
+    nbd, nbh, nbw = plan.boxes
+    bn, ck = plan.bn, plan.chunk
+    xf, wf = x.float(), w.float()
+    y = torch.zeros((n, d, h, wd, co), dtype=torch.float32, device=x.device)
+    for s in range(n):
+        for d0 in range(0, nbd * bd, bd):
+            for h0 in range(0, nbh * bh, bh):
+                for w0 in range(0, nbw * bw, bw):
+                    # patch voxel (a, b, c) is volume voxel (d0-1+a, h0-1+b, w0-1+c)
+                    patch = xf.new_zeros((bd + 2, bh + 2, bw + 2, ci))
+                    lo = [max(0, v - 1) for v in (d0, h0, w0)]
+                    hi = [min(lim, v + e + 1) for lim, v, e in
+                          ((d, d0, bd), (h, h0, bh), (wd, w0, bw))]
+                    patch[lo[0] - d0 + 1:hi[0] - d0 + 1,
+                          lo[1] - h0 + 1:hi[1] - h0 + 1,
+                          lo[2] - w0 + 1:hi[2] - w0 + 1] = xf[
+                              s, lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]]
+                    vd, vh, vw = min(bd, d - d0), min(bh, h - h0), min(bw, wd - w0)
+                    for n0 in range(0, plan.n_tiles * bn, bn):
+                        vn = min(bn, co - n0)
+                        acc = xf.new_zeros((bd * bh * bw, bn))
+                        for c0 in range(0, ci, ck):
+                            kc = min(ck, ci - c0)
+                            for tap in range(27):
+                                kd, kh, kw = tap // 9, (tap // 3) % 3, tap % 3
+                                a = patch[kd:kd + bd, kh:kh + bh, kw:kw + bw,
+                                          c0:c0 + kc].reshape(-1, kc)
+                                slab = xf.new_zeros((kc, bn))
+                                slab[:, :vn] = wf[kd, kh, kw, c0:c0 + kc, n0:n0 + vn]
+                                acc += a @ slab
+                        y[s, d0:d0 + vd, h0:h0 + vh, w0:w0 + vw, n0:n0 + vn] = (
+                            acc.view(bd, bh, bw, bn)[:vd, :vh, :vw, :vn])
+    return y.to(x.dtype)
+
+
+def _check_kernel_args(x: torch.Tensor, w: torch.Tensor) -> None:
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
         raise TypeError(
             f"conv3d kernel takes bf16 input and weight, got {x.dtype}, {w.dtype}"
         )
     if x.dim() != 5 or w.dim() != 5 or tuple(w.shape[:3]) != (3, 3, 3):
         raise ValueError(f"conv3d: bad shapes x {tuple(x.shape)} w {tuple(w.shape)}")
-    n, d, h, wd, ci = x.shape
-    if w.shape[3] != ci:
-        raise ValueError(f"conv3d: x has {ci} channels, w expects {w.shape[3]}")
-    if w.device != x.device:
-        raise ValueError("conv3d: x and w on different devices")
+    if w.shape[3] != x.shape[4]:
+        raise ValueError(
+            f"conv3d: x has {x.shape[4]} channels, w expects {w.shape[3]}")
+    if x.device.type != "cuda" or w.device != x.device:
+        raise ValueError(f"conv3d kernel takes x and w on one CUDA device, got "
+                         f"{x.device}, {w.device}")
     if x.numel() == 0:
         raise ValueError("conv3d: empty input")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def conv3d_kernel_mma_sync(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Launch csrc/conv3d.cu (any Ci, Co) on CUDA bf16 tensors."""
+    _check_kernel_args(x, w)
+    return _launch_mma_sync(x, w)
+
+
+def _launch_mma_sync(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    n, d, h, wd, ci = x.shape
     x = x.contiguous()
     w = w.contiguous()
     co = w.shape[4]
@@ -101,6 +273,48 @@ def conv3d_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _build.check(rc, "conv3d")
     _build.count_launch(conv3d)
     return y
+
+
+def conv3d_kernel_wgmma(x: torch.Tensor, w: torch.Tensor,
+                        plan: ConvPlan | None = None) -> torch.Tensor:
+    """Launch csrc/conv3d_wgmma.cu on CUDA bf16 tensors (Ci % 16 == 0,
+    Co % 8 == 0), with the shape's own plan unless one is given."""
+    _check_kernel_args(x, w)
+    n, d, h, wd, ci = x.shape
+    co = w.shape[4]
+    if plan is None:
+        plan = plan_conv(n, d, h, wd, ci, co, _sm_count(x.device))
+    if plan.instance != "wgmma":
+        raise ValueError(
+            f"conv3d: the wgmma kernel takes Ci % 16 == 0 and Co % 8 == 0, "
+            f"got Ci {ci}, Co {co}")
+    return _launch_wgmma(x, w, plan)
+
+
+def _launch_wgmma(x: torch.Tensor, w: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
+    n, d, h, wd, ci = x.shape
+    co = w.shape[4]
+    x = x.contiguous()
+    w = w.contiguous()
+    y = torch.empty((n, d, h, wd, co), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _lib_wgmma().conv3d_wgmma_ndhwc_bf16(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), n, d, h, wd, ci, co,
+            plan.box[0], plan.bn, plan.blocks, stream
+        )
+    _build.check(rc, "conv3d (wgmma)")
+    _build.count_launch(conv3d, "launches", "launches_wgmma")
+    return y
+
+
+def conv3d_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Launch the instance :func:`plan_conv` names for this shape."""
+    _check_kernel_args(x, w)
+    plan = plan_conv(*x.shape, w.shape[4], _sm_count(x.device))
+    if plan.instance == "wgmma":
+        return _launch_wgmma(x, w, plan)
+    return _launch_mma_sync(x, w)
 
 
 def _conv3d_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -157,3 +371,4 @@ def conv3d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 conv3d.launches = 0
+conv3d.launches_wgmma = 0

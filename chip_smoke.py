@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. Phases:
+Run from the root of a checkout (``--phases 2`` stops after the kernel checks
+and prints no result lines). Phases:
 
 1. Setup: torch/CUDA versions, the card's name and power limit, TF32 off for
    the plain references, and the kernels built from the checkout's sources.
@@ -13,7 +14,13 @@ Run from the root of a checkout. Phases:
    and backward (conv dgrad is the conv kernel with Ci and Co swapped), and
    the whole-canvas evals (160,224,160) and (80,112,80). Tolerances: conv and
    IN dx max|d|/max|ref| <= 1e-2 against f32 math on the same bf16 inputs
-   rounded to bf16; IN+act forward <= 2 bf16 ulp; dgamma/dbeta (f32 sums in
+   rounded to bf16 (the conv also: a repeat run bitwise equal, the instance
+   the planner chose and the launch counters show, the mma.sync kernel
+   ``conv3d.cu`` held to the same reference and tolerance and timed in the
+   same call as ``prev_ms``, achieved TFLOP/s and the plan's flop per filled
+   byte; and three shapes with Ci % 16 or Co % 8 nonzero, which the planner
+   must send to ``conv3d.cu``);
+   IN+act forward <= 2 bf16 ulp; dgamma/dbeta (f32 sums in
    another order) max|d|/max|ref| <= 1e-3; 2x down/up and their backwards
    <= 1 bf16 ulp. Device time of both (repeated calls replayed from one
    CUDA graph), and their back-to-back wall time (CUDA events), which for a
@@ -33,7 +40,8 @@ Run from the root of a checkout. Phases:
    ``cascade`` weights saved as ``params.npz``, run through
    ``brats2019_tpu_torch.cli.predict`` on the card with the launch counters
    zeroed just before; outputs checked (shape, labels in {0,1,2,4}), every
-   forward kernel launched (24 convs per volume), a repeat run bitwise
+   forward kernel launched (24 convs per volume, all on the wgmma
+   instance), a repeat run bitwise
    equal, the kernel path held against the plain torch path on the CPU at a
    small input, and device ms/volume (CUDA events) and end-to-end s/volume.
 4. The training slice: ``brats2019_tpu_torch.cli.train --preset cascade
@@ -115,7 +123,9 @@ GRAD_FACTOR, GRAD_FACTOR_ALL, GRAD_ABS = 1.3, 1.1, 2e-3
 
 KERNELS = {
     # name: (route, source, the TPU kernel it replaces)
-    "conv3d": ("cuda", "brats2019_tpu_torch/csrc/conv3d.cu",
+    # the wgmma instance runs every conv of the three slices; conv3d.cu is the
+    # general instance (Ci % 16 or Co % 8 nonzero), timed beside it as prev_ms
+    "conv3d": ("cuda", "brats2019_tpu_torch/csrc/conv3d_wgmma.cu",
                "brats2019_tpu/ops/pallas_conv.py:79"),
     "instance_norm_act": ("triton", "brats2019_tpu_torch/ops/triton_norm.py",
                           "brats2019_tpu/ops/pallas_norm.py:340"),
@@ -132,6 +142,12 @@ KERNELS = {
     "conv3d_winograd": ("cuda", "brats2019_tpu_torch/csrc/winograd3d.cu",
                         "brats2019_tpu/ops/pallas_winograd.py:181"),
 }
+# shapes off the three slices that the planner sends to the general instance
+# (csrc/conv3d.cu): Ci % 16 != 0 (four raw modalities), Co % 8 != 0, both,
+# ragged against its 128-row tile
+GENERAL_CONV_CALLS = [("conv3d", (1, 24, 28, 20, 4, 32)),
+                      ("conv3d", (1, 12, 14, 10, 48, 4)),
+                      ("conv3d", (2, 9, 7, 13, 40, 20))]
 FORWARD = ("conv3d", "instance_norm_act", "downsample2x", "upsample2x")
 BACKWARD = ("instance_norm_act_bwd", "downsample2x_bwd", "upsample2x_bwd")
 WINO_TOL = 2e-2        # Winograd kernel vs its plain version, max|d|/max|ref|
@@ -330,7 +346,8 @@ def check_kernels(calls, dev, library_for=()):
     (CUDA events); for the calls in ``library_for`` also the one PyTorch
     call that computes the same function. Returns {(name, shape): (err,
     max_abs_err, ms, plain_ms, wall_ms, plain_wall_ms, bytes-bound ms,
-    operations-bound ms, library_ms or None)}."""
+    operations-bound ms, library_ms or None, prev_ms or None: the conv's
+    mma.sync kernel)}."""
     import torch
 
     from brats2019_tpu_torch.ops import conv, norm, resize, winograd
@@ -350,6 +367,7 @@ def check_kernels(calls, dev, library_for=()):
             if name == "conv3d":
                 kern = lambda: conv.conv3d_kernel(x, wt)
                 plain = lambda: conv.conv3d_plain(x, wt)
+                plan = conv.plan_conv(*shape)
             else:
                 kern = lambda: winograd.conv3d_winograd_kernel(x, wt)
                 plain = lambda: winograd.conv3d_winograd_plain(x, wt)
@@ -406,9 +424,37 @@ def check_kernels(calls, dev, library_for=()):
                     f"kernel against the same reference {d_err:.3e}), repeat "
                     f"run bitwise equal: {same}")
             del again, direct
-        elif name in ("conv3d", "instance_norm_act_bwd"):
+        elif name == "conv3d":
             err = abs_err / ref.float().abs().max().item()
-            ok = err <= 1e-2 and (not extra or sums_err <= 1e-3)
+            before = (conv.conv3d.launches, conv.conv3d.launches_wgmma)
+            again = kern()
+            torch.cuda.synchronize()
+            took = (conv.conv3d.launches - before[0],
+                    conv.conv3d.launches_wgmma - before[1])
+            same = bool((again == got).all())
+            # the planner's rule, and the instance the launch really took
+            want = "mma_sync" if shape[4] % 16 or shape[5] % 8 else "wgmma"
+            ok = (err <= 1e-2 and same and plan.instance == want
+                  and took == (1, int(want == "wgmma"))
+                  and plan.smem_bytes <= conv.SMEM_LIMIT)
+            what = (f"max|d|/max|ref| {err:.3e} (tol 1e-2), repeat run bitwise "
+                    f"equal: {same}, instance {plan.instance} box "
+                    f"{'x'.join(map(str, plan.box))} Co tile {plan.bn} "
+                    f"({plan.grid} tiles, {plan.smem_bytes} B shared)")
+            if want == "wgmma":
+                # the general instance (csrc/conv3d.cu) on the same inputs,
+                # held to the same reference before it is timed as prev_ms
+                old = conv.conv3d_kernel_mma_sync(x, wt)
+                torch.cuda.synchronize()
+                p_err = ((old.float() - ref.float()).abs().max()
+                         / ref.float().abs().max()).item()
+                ok = ok and p_err <= 1e-2 and old.shape == ref.shape
+                what += f"; mma.sync kernel (prev) {p_err:.3e} (tol 1e-2)"
+                del old
+            del again
+        elif name == "instance_norm_act_bwd":
+            err = abs_err / ref.float().abs().max().item()
+            ok = err <= 1e-2 and sums_err <= 1e-3
             what = f"max|d|/max|ref| {err:.3e} (tol 1e-2){extra}"
         else:
             err = bf16_ulps(got, ref)
@@ -421,7 +467,17 @@ def check_kernels(calls, dev, library_for=()):
         wall, plain_wall = cuda_ms(kern, reps), cuda_ms(plain, preps)
         ms, plain_ms = device_ms(kern, reps), device_ms(plain, preps)
         bytes_ms, ops_ms = bound_terms(name, shape)
-        lib = None
+        lib = prev = None
+        if name == "conv3d":
+            # the mma.sync kernel on the same inputs, in the same call (where
+            # the planner chose it, it is the kernel timed above)
+            prev = (ms if plan.instance == "mma_sync" else
+                    device_ms(lambda: conv.conv3d_kernel_mma_sync(x, wt), reps))
+            tflops = 2 * 27 * math.prod(shape) / ms / 1e9
+            extra = (f"; mma.sync kernel (prev) {prev:.4f} ms; {tflops:.0f} "
+                     f"TFLOP/s = {100 * tflops * 1e12 / PEAK_BF16:.1f}% of "
+                     f"{PEAK_BF16 / 1e12:.0f}; {plan.flop_per_filled_byte:.0f} "
+                     f"flop per filled byte")
         if (name, shape) in library_for:
             if name in ("conv3d", "conv3d_winograd"):
                 if shape not in conv_library:
@@ -437,9 +493,10 @@ def check_kernels(calls, dev, library_for=()):
               f"kernel {wall:.4f} ms, plain {plain_wall:.4f} ms; bound "
               f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, "
               f"operations {ops_ms:.4f})"
-              + ("" if lib is None else f"; library call {lib:.4f} ms"))
+              + ("" if lib is None else f"; library call {lib:.4f} ms")
+              + (extra if name == "conv3d" else ""))
         results[(name, shape)] = (err, abs_err, ms, plain_ms, wall, plain_wall,
-                                  bytes_ms, ops_ms, lib)
+                                  bytes_ms, ops_ms, lib, prev)
         del got, ref, kern, plain
     return results
 
@@ -582,6 +639,7 @@ def train_slice(cases_root, case_dirs, stage_calls):
     t0 = time.perf_counter()
     rc, _ = run_cli(train_cli.main, args + ["--steps", str(TRAIN_STEPS)])
     counts = ops.launch_counts()
+    on_wgmma = ops.conv3d.launches_wgmma
     check(rc == 0, f"train CLI exit code {rc} ({time.perf_counter() - t0:.1f} s "
                    f"for {TRAIN_STEPS} steps of each stage)")
     for stage in ("coarse", "fine"):
@@ -597,6 +655,9 @@ def train_slice(cases_root, case_dirs, stage_calls):
               f"(expected {want})")
     for k in FORWARD:
         check(counts[k] > 0, f"{k} launched {counts[k]} times on the training slice")
+    check(on_wgmma == counts["conv3d"],
+          f"{on_wgmma} of the {counts['conv3d']} conv launches (forward, dgrad, "
+          f"evals) of the training slice took the wgmma instance")
     rc, out = run_cli(train_cli.main, args + ["--steps", str(TRAIN_STEPS + 4)])
     for stage in ("coarse", "fine"):
         check(rc == 0 and f"[{stage}] resumed from step {TRAIN_STEPS}" in out,
@@ -799,8 +860,10 @@ def time_training(exp, dev, card, results, stage_calls):
         for kname in BACKWARD + FORWARD:
             mine = [results[(n, sh)] for n, sh in stage_calls[stage] if n == kname]
             kern[kname] = tuple(sum(r[i] for r in mine) for i in (2, 3, 4, 5))
+            prev = (f" (mma.sync kernel, prev: {sum(r[9] for r in mine):.4f})"
+                    if kname == "conv3d" else "")
             print(f"    {kname}: {len(mine)} calls/step, device "
-                  f"{kern[kname][0]:.4f} ms/step in kernels vs "
+                  f"{kern[kname][0]:.4f} ms/step in kernels{prev} vs "
                   f"{kern[kname][1]:.4f} ms/step plain torch; wall "
                   f"{kern[kname][2]:.4f} vs {kern[kname][3]:.4f}", flush=True)
         out[stage] = kern
@@ -1103,8 +1166,16 @@ def serve_slice(work, case_dirs, direct_masks, expect, serial_e2e, depth, card):
 
 
 def main() -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Smoke test of the PyTorch port "
+                                 "on one CUDA card; no argument runs it whole.")
+    ap.add_argument("--phases", type=int, choices=(2, 5), default=5,
+                    help="2: stop after the kernel checks of phase 2 (no "
+                         "result lines are printed); 5 (default): everything")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("error: torch.cuda.is_available() is False; this smoke test "
               "needs a CUDA card", file=sys.stderr)
@@ -1130,12 +1201,18 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    _build.build_all([conv._lib, winograd._lib])   # one nvcc each, side by side
-    print(f"  built conv3d.cu and winograd3d.cu with nvcc in "
+    # one nvcc each, side by side
+    _build.build_all([conv._lib_wgmma, conv._lib, winograd._lib])
+    print(f"  built conv3d_wgmma.cu, conv3d.cu and winograd3d.cu with nvcc in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for lib in ("conv3d", "winograd3d"):
-        print(f"  ptxas, {lib}: {_build.build_logs.get(lib, '(cached)').strip()}",
-              flush=True)
+    for lib in ("conv3d_wgmma", "conv3d", "winograd3d"):
+        # registers, spills and warnings; not the per-function banners
+        log = [ln.strip() for ln in
+               _build.build_logs.get(lib, "(cached)").splitlines()
+               if ln.strip() and "Compiling entry" not in ln
+               and "Function properties" not in ln and "Compile time" not in ln
+               and "(C7519)" not in ln]
+        print(f"  ptxas, {lib}: " + " | ".join(log), flush=True)
 
     exp = get_preset("cascade")
     calls = (unet_calls(exp.coarse_unet, 1, exp.infer.coarse_shape)
@@ -1153,8 +1230,24 @@ def main() -> int:
     library_for = (calls + wino_calls
                    + [c for c in stage_calls["fine"] if c[0] in BACKWARD])
     results = check_kernels(calls + stage_calls["coarse"] + stage_calls["fine"]
-                            + eval_calls + wino_calls, dev, library_for)
+                            + eval_calls + GENERAL_CONV_CALLS + wino_calls,
+                            dev, library_for)
+    for what, group in (("volume (predict)", calls),
+                        ("fine train step", stage_calls["fine"]),
+                        ("coarse train step", stage_calls["coarse"])):
+        mine = [results[c] for c in group if c[0] == "conv3d"]
+        print(f"  conv3d per {what}: {len(mine)} calls, wgmma kernel "
+              f"{sum(r[2] for r in mine):.4f} ms, mma.sync kernel (prev) "
+              f"{sum(r[9] for r in mine):.4f} ms, library call "
+              f"{sum(r[8] or 0 for r in mine):.4f} ms"
+              f"{'' if all(r[8] is not None for r in mine) else ' (not timed at every shape)'}"
+              f", bound {sum(max(r[6], r[7]) for r in mine):.4f} ms on {card}",
+              flush=True)
     print(f"  phase 2 took {time.perf_counter() - t0:.1f} s", flush=True)
+    if args.phases == 2:
+        print(f"== stopped after phase 2 as asked; {len(FAILURES)} failure(s)",
+              flush=True)
+        return 1 if FAILURES else 0
 
     print("== phase 3: the cascade predict slice on the card", flush=True)
     shutil.rmtree(WORK, ignore_errors=True)
@@ -1175,6 +1268,7 @@ def main() -> int:
     ops.reset_launch_counts()
     rc = predict_cli.main(cli_args)
     counts = ops.launch_counts()
+    on_wgmma = ops.conv3d.launches_wgmma
     check(rc == 0, f"predict CLI exit code {rc}")
     per_vol = {k: v / CASES for k, v in counts.items()}
     expect = {k: sum(1 for n, _ in calls if n == k) for k in FORWARD}
@@ -1183,6 +1277,9 @@ def main() -> int:
     for k in FORWARD:
         check(counts[k] > 0 and counts[k] == expect[k] * CASES,
               f"{k} launched {counts[k]} times on the slice")
+    check(on_wgmma == counts["conv3d"],
+          f"{on_wgmma} of the {counts['conv3d']} conv launches took the wgmma "
+          f"instance (conv3d_wgmma.cu)")
     first = read_labels(case_dirs)
     for d, seg in zip(case_dirs, first):
         vals = sorted(int(v) for v in set(seg.ravel().tolist()))
@@ -1240,10 +1337,16 @@ def main() -> int:
             "bound_bytes_ms": bytes_ms, "bound_operations_ms": ops_ms,
             "calls": len(mine),
         })
+        if k == "conv3d":
+            record[-1]["prev_ms"] = sum(r[9] for r in mine)
+            record[-1]["prev_source"] = "brats2019_tpu_torch/csrc/conv3d.cu"
     for r in record:
         unit = "fine train step" if r["name"] in BACKWARD else "vol"
         print(f"  {r['name']}: {r['calls']} calls/{unit}, device {r['ms']:.4f} "
-              f"ms/{unit} in kernels vs {r['plain_ms']:.4f} plain torch, "
+              f"ms/{unit} in kernels"
+              + (f" (mma.sync kernel, prev: {r['prev_ms']:.4f})"
+                 if "prev_ms" in r else "")
+              + f" vs {r['plain_ms']:.4f} plain torch, "
               f"library call {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
               f"by {r['bound_by']} (bytes {r['bound_bytes_ms']:.4f}, operations "
               f"{r['bound_operations_ms']:.4f}); wall {r['wall_ms']:.4f} vs "

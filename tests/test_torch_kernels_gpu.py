@@ -31,33 +31,128 @@ def _ulps(got, ref, floor=2.0 ** -10):
     return ((got.float() - ref).abs() / ulp).max().item()
 
 
-@pytest.mark.parametrize("shape,co", [
-    ((1, 5, 6, 7, 8), 16),        # vector path, ragged spatial
-    ((2, 8, 8, 8, 32), 48),       # Co tail inside a 64-wide tile
-    ((1, 12, 14, 10, 96), 192),   # the coarse net's deepest level
-    ((1, 3, 4, 5, 4), 6),         # scalar path: Ci, Co not multiples of 8
-    ((1, 1, 1, 3, 40), 8),        # size-1 axes, Ci tail inside a chunk
-    ((2, 9, 3, 130, 16), 24),     # M not a multiple of the 128-row tile
-])
-def test_conv_kernel_matches_plain(dev, shape, co):
-    g = torch.Generator(device=dev).manual_seed(0)
+def _conv_inputs(dev, shape, co, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn(shape, generator=g, device=dev).bfloat16()
     w = (torch.randn((3, 3, 3, shape[-1], co), generator=g, device=dev)
          / (27 * shape[-1]) ** 0.5).bfloat16()
-    before = ops.conv3d.launches
+    return x, w
+
+
+@pytest.mark.parametrize("shape,co,instance", [
+    ((1, 5, 6, 7, 8), 16, "mma_sync"),        # Ci % 16 != 0: vector path, ragged
+    ((2, 8, 8, 8, 32), 48, "wgmma"),          # Co = 48 tail inside a 64-wide tile
+    ((1, 12, 14, 10, 96), 192, "wgmma"),      # the coarse net's deepest level
+    ((1, 3, 4, 5, 4), 6, "mma_sync"),         # scalar path: Ci, Co not multiples of 8
+    ((1, 1, 1, 3, 40), 8, "mma_sync"),        # size-1 axes, Ci tail inside a chunk
+    ((2, 9, 3, 130, 16), 24, "wgmma"),        # ragged on every axis, 17 boxes along w
+    ((1, 5, 6, 7, 16), 16, "wgmma"),          # one ragged box, one k-step
+    ((1, 8, 16, 8, 64), 96, "wgmma"),         # Co = 96: a 128-wide tile with a tail
+    ((1, 12, 14, 10, 192), 192, "wgmma"),     # three whole chunks
+    ((2, 4, 8, 8, 16), 8, "wgmma"),           # N = 2: boxes must not read across samples
+    ((1, 4, 8, 8, 576), 256, "wgmma"),        # nine chunks: both rings wrap
+    ((1, 16, 16, 16, 144), 40, "wgmma"),      # 64 + 64 + 16 channels, Co = 40
+    ((1, 8, 8, 8, 16), 20, "mma_sync"),       # Co % 8 != 0
+])
+def test_conv_kernel_matches_plain(dev, shape, co, instance):
+    x, w = _conv_inputs(dev, shape, co)
+    assert conv.plan_conv(*shape, co).instance == instance
+    before = (ops.conv3d.launches, ops.conv3d.launches_wgmma)
     got = ops.conv3d(x, w)
     ref = conv.conv3d_plain(x, w)
     torch.cuda.synchronize()
-    assert ops.conv3d.launches == before + 1
+    assert ops.conv3d.launches == before[0] + 1
+    assert ops.conv3d.launches_wgmma == before[1] + (instance == "wgmma")
     assert got.shape == ref.shape and got.dtype == torch.bfloat16
     err = (got.float() - ref.float()).abs().max() / ref.float().abs().max()
     assert err.item() <= 1e-2
 
 
+@pytest.mark.parametrize("bd,bn", conv.WGMMA_INSTANCES)
+@pytest.mark.parametrize("shape,co", [
+    ((1, 5, 6, 7, 16), 16),        # one box, ragged on every axis
+    ((2, 3, 9, 10, 32), 48),       # N = 2, D smaller than any box
+    ((1, 12, 14, 10, 96), 192),
+    ((1, 8, 8, 16, 80), 136),      # Ci tail in a chunk; Co tail in the third 64-wide box
+])
+def test_every_wgmma_instance_matches_plain(dev, shape, co, bd, bn):
+    x, w = _conv_inputs(dev, shape, co, seed=1)
+    plan = conv.wgmma_plan(*shape, co, bd, bn)
+    assert conv._lib_wgmma().conv3d_wgmma_smem_bytes(bd, bn) == plan.smem_bytes
+    got = conv.conv3d_kernel_wgmma(x, w, plan)
+    ref = conv.conv3d_plain(x, w)
+    err = (got.float() - ref.float()).abs().max() / ref.float().abs().max()
+    assert err.item() <= 1e-2
+    assert torch.equal(got, conv.conv3d_kernel_wgmma(x, w, plan))
+
+
+@pytest.mark.parametrize("sms", [1, 3, 7])
+def test_wgmma_blocks_walk_many_tiles(dev, sms):
+    """Planned for a device of a few SMs, each persistent block walks many
+    tiles and its rings wrap across them: bitwise the one-block-per-tile run."""
+    shape, co = (2, 9, 16, 24, 80), 136
+    x, w = _conv_inputs(dev, shape, co, seed=4)
+    for bd, bn in conv.WGMMA_INSTANCES:
+        few = conv.wgmma_plan(*shape, co, bd, bn, sms)
+        many = conv.wgmma_plan(*shape, co, bd, bn, 10 ** 6)
+        assert few.blocks == sms and many.blocks == many.grid > sms
+        assert torch.equal(conv.conv3d_kernel_wgmma(x, w, few),
+                           conv.conv3d_kernel_wgmma(x, w, many))
+
+
+def test_wgmma_halo_is_zero_at_every_face(dev):
+    """An all-ones volume and an all-ones kernel: each output is Ci x the
+    number of taps inside the volume (27 inside, 18 on a face, 12 on an edge,
+    8 at a corner). A loader that read across a face, into the next sample or
+    past the end would change a count."""
+    n, d, h, wd, ci = 2, 9, 10, 17, 16
+    x = torch.ones((n, d, h, wd, ci), device=dev).bfloat16()
+    w = torch.ones((3, 3, 3, ci, 8), device=dev).bfloat16()
+    got = ops.conv3d(x, w).float()
+    cnt = lambda size: torch.tensor([3 - (i == 0) - (i == size - 1)
+                                     for i in range(size)], device=dev).float()
+    want = (cnt(d)[:, None, None] * cnt(h)[None, :, None] * cnt(wd)[None, None, :]
+            * ci)
+    assert torch.equal(got, want[None, ..., None].expand_as(got))   # exact in bf16
+
+
+def test_wgmma_boxes_do_not_read_across_samples(dev):
+    x, w = _conv_inputs(dev, (2, 4, 8, 8, 32), 64, seed=2)
+    both = ops.conv3d(x, w)
+    for s in range(2):
+        assert torch.equal(both[s:s + 1], ops.conv3d(x[s:s + 1].contiguous(), w))
+
+
+@pytest.mark.parametrize("shape,co", [
+    ((1, 12, 14, 10, 192), 192), ((2, 8, 8, 8, 32), 48), ((1, 4, 8, 8, 576), 256),
+])
+def test_wgmma_kernel_against_mma_sync_kernel(dev, shape, co):
+    """Both kernels on the same input: each within 1e-2 of the plain f32
+    version, and within 2 bf16 ulp of each other on >= 99% of elements (the
+    same products, f32 sums in another order, one rounding)."""
+    x, w = _conv_inputs(dev, shape, co, seed=3)
+    new = conv.conv3d_kernel_wgmma(x, w).float()
+    old = conv.conv3d_kernel_mma_sync(x, w).float()
+    ref = conv.conv3d_plain(x, w).float()
+    for got in (new, old):
+        assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-2
+    ulp = torch.exp2(torch.floor(torch.log2(old.abs().clamp_min(2.0 ** -10))) - 7)
+    assert ((new - old).abs() <= 2 * ulp).float().mean().item() >= 0.99
+
+
 def test_conv_kernel_is_deterministic(dev):
     x = torch.randn((2, 8, 8, 8, 64), device=dev).bfloat16()
     w = torch.randn((3, 3, 3, 64, 64), device=dev).bfloat16() * 0.02
+    before = ops.conv3d.launches_wgmma
     assert torch.equal(ops.conv3d(x, w), ops.conv3d(x, w))
+    assert ops.conv3d.launches_wgmma == before + 2
+
+
+def test_wgmma_wrapper_rejects_other_channel_counts(dev):
+    x = torch.zeros((1, 4, 4, 4, 8), device=dev).bfloat16()
+    w = torch.zeros((3, 3, 3, 8, 8), device=dev).bfloat16()
+    with pytest.raises(ValueError, match="wgmma"):
+        conv.conv3d_kernel_wgmma(x, w)
 
 
 def test_kernels_reject_f32(dev):
@@ -200,14 +295,34 @@ def test_conv_autograd_dgrad_uses_the_kernel(dev):
          / (27 * 40) ** 0.5).bfloat16()
     gy = torch.randn((1, 6, 7, 5, 24), generator=gen, device=dev).bfloat16()
     xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
-    before = ops.conv3d.launches
+    before = (ops.conv3d.launches, ops.conv3d.launches_wgmma)
     ops.conv3d(xr, wr).backward(gy)
-    assert ops.conv3d.launches == before + 2       # forward + dgrad
+    assert ops.conv3d.launches == before[0] + 2       # forward + dgrad
+    assert ops.conv3d.launches_wgmma == before[1]     # Ci = 40, 24: mma.sync both
     ref = conv.conv3d_plain(gy, conv.dgrad_weight(w))
     assert _rel(xr.grad, ref) <= 1e-2
     xf, wf = x.float().requires_grad_(True), w.float().requires_grad_(True)
     conv.conv3d_plain(xf, wf).backward(gy.float())
     assert wr.grad.dtype == torch.bfloat16
+    assert _rel(wr.grad, wf.grad) <= 1e-2
+
+
+def test_conv_autograd_dgrad_through_the_wgmma_kernel(dev):
+    """Forward (32 -> 144) and dgrad (144 -> 32, the flipped, transposed
+    weight) both on the wgmma instance; wgrad is cuDNN."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((1, 6, 10, 12, 32), generator=gen, device=dev).bfloat16()
+    w = (torch.randn((3, 3, 3, 32, 144), generator=gen, device=dev)
+         / (27 * 32) ** 0.5).bfloat16()
+    gy = torch.randn((1, 6, 10, 12, 144), generator=gen, device=dev).bfloat16()
+    xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    before = (ops.conv3d.launches, ops.conv3d.launches_wgmma)
+    ops.conv3d(xr, wr).backward(gy)
+    assert ops.conv3d.launches == before[0] + 2
+    assert ops.conv3d.launches_wgmma == before[1] + 2
+    assert _rel(xr.grad, conv.conv3d_plain(gy, conv.dgrad_weight(w))) <= 1e-2
+    xf, wf = x.float().requires_grad_(True), w.float().requires_grad_(True)
+    conv.conv3d_plain(xf, wf).backward(gy.float())
     assert _rel(wr.grad, wf.grad) <= 1e-2
 
 
@@ -234,6 +349,7 @@ def test_train_step_runs_on_the_card(dev):
     assert counts["instance_norm_act_bwd"] == 10
     assert counts["downsample2x_bwd"] == counts["upsample2x_bwd"] == 2
     assert counts["conv3d"] == 10 + 9             # forwards + dgrads
+    assert ops.conv3d.launches_wgmma == 19        # every width a multiple of 16
 
 
 # ------------------------------------------------------ the Winograd conv --
