@@ -41,6 +41,10 @@
 //   * Ragged tile counts (e.g. 6 x 7 x 5 tiles) are masked at the loader
 //     (zeros) and at the store; D, H, W must be even, as in the reference.
 //   * No atomics, fixed order: repeat runs are bitwise equal.
+//
+// Probe builds, for timing only (tools/torch_conv_check.py --winograd --probe):
+// -DWINOGRAD_NO_PRODUCTS leaves out the U loads and the multiplies,
+// -DWINOGRAD_NO_TRANSFORMS the making of V and the A^T sign-adds.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -180,6 +184,7 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
     for (int p = 0; p < 4; ++p) {
       // V for d-point p: one (tile, channel pair) per thread and turn
+#ifndef WINOGRAD_NO_TRANSFORMS
       for (int unit = tid; unit < BT * (CK / 2); unit += THREADS) {
         const int cp = unit % (CK / 2), t = unit / (CK / 2);
         const int iw = t % TW, ih = (t / TW) % TH, id = t / (TW * TH);
@@ -210,6 +215,7 @@ __global__ void __launch_bounds__(THREADS, 2)
                 Vs + ((q * 4 + r) * BT + t) * V_LD + 2 * cp) =
                 __floats2bfloat162_rn(g[q][r].x, g[q][r].y);
       }
+#endif
       __syncthreads();
 
       // 16 points x (16 tiles x 32 ci) @ (32 ci x 16 co) per warp; the next
@@ -218,18 +224,24 @@ __global__ void __launch_bounds__(THREADS, 2)
           u + ((long long)(p * 16) * CiP + ci0) * CoP + n0 + wn * 16;
       const long long u_point = (long long)CiP * CoP;
       BFrag bf[2][2];
+#ifndef WINOGRAD_NO_PRODUCTS
       wmma::load_matrix_sync(bf[0][0], up, CoP);
       wmma::load_matrix_sync(bf[0][1], up + 16LL * CoP, CoP);
+#endif
 #pragma unroll
       for (int qr = 0; qr < 16; ++qr) {
         const int cur = qr & 1;
+        AccFrag m;
+#ifdef WINOGRAD_NO_PRODUCTS
+        // a value the compiler cannot fold, so the sign-adds stay
+        wmma::fill_fragment(m, __bfloat162float(Vs[qr * BT * V_LD + tid]));
+#else
+        wmma::fill_fragment(m, 0.0f);
         if (qr + 1 < 16) {
           const __nv_bfloat16* nx = up + (qr + 1) * u_point;
           wmma::load_matrix_sync(bf[cur ^ 1][0], nx, CoP);
           wmma::load_matrix_sync(bf[cur ^ 1][1], nx + 16LL * CoP, CoP);
         }
-        AccFrag m;
-        wmma::fill_fragment(m, 0.0f);
 #pragma unroll
         for (int k = 0; k < 2; ++k) {
           AFrag af;
@@ -237,7 +249,19 @@ __global__ void __launch_bounds__(THREADS, 2)
                                  V_LD);
           wmma::mma_sync(m, af, bf[cur][k], m);
         }
+#endif
+#ifdef WINOGRAD_NO_PRODUCTS
+        (void)cur;
+        (void)up;
+        (void)u_point;
+#endif
         const int q = qr >> 2, r = qr & 3;
+#ifdef WINOGRAD_NO_TRANSFORMS
+        (void)q;
+        (void)r;
+#pragma unroll
+        for (int i = 0; i < m.num_elements; ++i) acc[qr & 7].x[i] += m.x[i];
+#else
 #pragma unroll
         for (int sd = 0; sd < 2; ++sd)
 #pragma unroll
@@ -255,6 +279,7 @@ __global__ void __launch_bounds__(THREADS, 2)
                   acc[sd * 4 + sh * 2 + sw].x[i] -= m.x[i];
               }
             }
+#endif
       }
       __syncthreads();
     }

@@ -31,6 +31,7 @@ def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
     conv3d.launches_wgmma = 0   # the share of conv3d.launches on conv3d_wgmma.cu
+    conv3d_winograd.launches_wgmma = 0   # likewise, on winograd3d_wgmma.cu
 
 
 def launch_counts() -> dict:

@@ -12,6 +12,7 @@ build raises: there is no fallback.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -112,6 +113,14 @@ def build_all(loaders) -> None:
         t.join()
     if errors:
         raise errors[0]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The SMs of a CUDA device (a launch plan counts its tile waves in them)."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check(rc: int, what: str) -> None:

@@ -33,8 +33,8 @@ tails), so its index arithmetic is tested on the CPU.
 
 Two backends sit behind the seam (the pattern of the reference's
 ``ops/norm.py`` ``set_backend``): ``"direct"`` (the two sources above, the
-default) and ``"winograd"`` (``ops/winograd.py``, ``csrc/winograd3d.cu``; even
-D, H, W only, launches counted in ``conv3d_winograd.launches``). The backward
+default) and ``"winograd"`` (``ops/winograd.py``, ``csrc/winograd3d_wgmma.cu`` and
+``csrc/winograd3d.cu``; even D, H, W only, launches counted in ``conv3d_winograd.launches``). The backward
 is shared: dgrad goes through whichever backend is set, wgrad is plain torch.
 """
 
@@ -248,9 +248,7 @@ def _check_kernel_args(x: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError("conv3d: empty input")
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+_sm_count = _build.sm_count
 
 
 def conv3d_kernel_mma_sync(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

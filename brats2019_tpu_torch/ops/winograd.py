@@ -9,19 +9,31 @@ W and a DHWIO kernel ``w`` (3, 3, 3, Ci, Co), and returns (N, D, H, W, Co) in
 * on a CPU tensor, the plain version :func:`conv3d_winograd_plain`: the same
   decomposition step by step in f32 (U = (G x G x G) g, V = B^T d B on the
   unfolded 4^3 tiles, 64 per-point matmuls, A^T);
-* on a CUDA tensor, the hand-written kernel ``csrc/winograd3d.cu`` (bf16 in,
-  V made in f32 and rounded to bf16 once, f32 accumulation, bf16 out), or an
-  error. There is no fallback, and odd D/H/W raise as in the reference.
+* on a CUDA tensor, a hand-written kernel (bf16 in, f32 accumulation, bf16
+  out), or an error. There is no fallback, and odd D/H/W raise as in the
+  reference. :func:`plan_winograd` picks the instance from the shape (and the
+  device's SM count) alone: ``csrc/winograd3d_wgmma.cu`` (wgmma on bricks of
+  4^3 tiles, V made in packed bf16 by a transformer warpgroup, U by TMA)
+  where Ci % 16 == 0 and Co % 8 == 0, else ``csrc/winograd3d.cu`` (mma.sync,
+  V made in f32 and rounded to bf16 once; any Ci, Co).
 
 The weight transform runs outside the kernel in the reference (an XLA
 einsum) and here (a torch einsum); its bf16, zero-padded result is cached
 per weight tensor and version, so a served model transforms each kernel
-once. ``conv3d_winograd.launches`` counts kernel launches.
+once. ``conv3d_winograd.launches`` counts kernel launches of both instances,
+``conv3d_winograd.launches_wgmma`` those of the wgmma instance.
+:func:`conv3d_winograd_bricked_plain` is plain torch organised as the wgmma
+kernel is (bricks, zero-filled raw patches, channel chunks against the padded
+U, groups of four w-points folded in place, masked ragged tiles), so its index
+arithmetic is tested on the CPU.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
+import math
 import threading
 import weakref
 
@@ -37,6 +49,11 @@ _SIG = {
     "winograd3d_ndhwc_bf16": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
     + [ctypes.c_void_p],
 }
+_SIG_WGMMA = {
+    "winograd3d_wgmma_ndhwc_bf16": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
+    + [ctypes.c_void_p],
+    "winograd3d_wgmma_smem_bytes": [],
+}
 # the kernel's channel chunk and Co block: U is zero-padded to multiples
 _CI_PAD, _CO_PAD = 32, 64
 
@@ -47,6 +64,80 @@ _g_cache: dict = {}
 
 def _lib() -> ctypes.CDLL:
     return _build.load_library("winograd3d", ["winograd3d.cu"], _SIG)
+
+
+def _lib_wgmma() -> ctypes.CDLL:
+    return _build.load_library("winograd3d_wgmma", ["winograd3d_wgmma.cu"],
+                               _SIG_WGMMA)
+
+
+# ------------------------------------------------------------- the planner --
+
+SMEM_LIMIT = 232_448      # dynamic shared memory a block may ask for (H100)
+SM_COUNT = 132            # an H100's SMs: what a plan made off the card assumes
+BRICK = 4                 # the wgmma kernel's brick: 4 tiles along d, h and w
+GROUP = 4                 # points a product step: the 4 w-points of a (d, h) point
+U_STAGES, V_STAGES, RAW_STAGES = 3, 3, 2   # U slabs, V buffers, raw patch buffers
+
+
+@dataclasses.dataclass(frozen=True)
+class WinogradPlan:
+    """How one Winograd conv call runs on the card: a pure function of its
+    shape."""
+
+    instance: str          # "wgmma" (winograd3d_wgmma.cu) or "mma_sync" (winograd3d.cu)
+    brick: tuple           # tiles of a block along d, h, w
+    bn: int                # output channels per block
+    chunk: int             # input channels per K chunk
+    smem_bytes: int
+    bricks: tuple          # bricks per axis (nbd, nbh, nbw) per sample
+    n_tiles: int           # Co tiles
+    grid: int              # (brick, Co tile) pairs
+    blocks: int            # thread blocks (wgmma: persistent, at most one per SM)
+    fill: float            # share of the bricks' tile slots that hold a real tile
+
+
+def wgmma_smem_bytes() -> int:
+    """Dynamic shared memory of the wgmma instance; the same arithmetic as
+    ``SMEM_BYTES`` in csrc/winograd3d_wgmma.cu."""
+    pieces = _CI_PAD // 8
+    raw = pieces * ((2 * BRICK + 2) ** 3 + 1) * 16
+    v = GROUP * pieces * (BRICK ** 3 * 16 + 64)
+    u = GROUP * _CI_PAD * _CO_PAD * 2
+    return (1024 + U_STAGES * u + RAW_STAGES * raw + V_STAGES * v
+            + 8 * (2 * (U_STAGES + V_STAGES + RAW_STAGES) + 1))
+
+
+def instance_plan(instance: str, n: int, d: int, h: int, w: int, ci: int,
+                  co: int, sms: int = SM_COUNT) -> WinogradPlan:
+    """The plan of the named instance at this shape (:func:`plan_winograd`
+    chooses the instance)."""
+    if instance == "wgmma":
+        if ci % 16 or co % 8:
+            raise ValueError(f"no wgmma instance for Ci {ci}, Co {co}")
+        brick, smem = (BRICK,) * 3, wgmma_smem_bytes()
+    elif instance == "mma_sync":
+        # a 2 x 4 x 4 brick: its 6 x 10 x 10 raw patch and 16 points of V
+        brick, smem = (2, 4, 4), (600 + 16 * 32) * (_CI_PAD + 8) * 2
+    else:
+        raise ValueError(f"unknown Winograd instance {instance!r}")
+    tiles = (d // 2, h // 2, w // 2)
+    n_tiles = -(-co // _CO_PAD)
+    bricks = tuple(-(-t // b) for t, b in zip(tiles, brick))
+    grid = n * math.prod(bricks) * n_tiles
+    fill = math.prod(tiles) / (math.prod(bricks) * math.prod(brick))
+    blocks = min(grid, sms) if instance == "wgmma" else grid
+    return WinogradPlan(instance, brick, _CO_PAD, _CI_PAD, smem, bricks,
+                        n_tiles, grid, blocks, fill)
+
+
+@functools.lru_cache(maxsize=4096)   # a process sees a few dozen shapes
+def plan_winograd(n: int, d: int, h: int, w: int, ci: int, co: int,
+                  sms: int = SM_COUNT) -> WinogradPlan:
+    """The instance, brick and grid for a (n, d, h, w, ci) -> co Winograd conv
+    (even d, h, w) on a device of ``sms`` SMs."""
+    instance = "mma_sync" if ci % 16 or co % 8 else "wgmma"
+    return instance_plan(instance, n, d, h, w, ci, co, sms)
 
 
 def transform_weights(w: torch.Tensor) -> torch.Tensor:
@@ -106,6 +197,86 @@ def conv3d_winograd_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.stack(out).to(x.dtype)
 
 
+def conv3d_winograd_bricked_plain(x: torch.Tensor, w: torch.Tensor,
+                                  plan: WinogradPlan) -> torch.Tensor:
+    """The conv in plain torch, organised as csrc/winograd3d_wgmma.cu is: per
+    sample and brick of 4^3 tiles a zero-filled 10^3 raw patch; per Co tile 8
+    output-phase accumulators; per 32-channel chunk (against the zero-padded
+    U) and (d-point, h-point) the 4 w-points of V from two planes and two rows
+    of the patch, their 4 products, A^T along w in place and the sign-add
+    into the phases; then a store masked to the real tiles and to Co. f32 math
+    on x's and w's values, cast back to x.dtype."""
+    if plan.instance != "wgmma":
+        raise ValueError("conv3d_winograd_bricked_plain follows the wgmma "
+                         "instance's plan")
+    _check_shapes(x, w)
+    n, d, h, wd, ci = x.shape
+    co = w.shape[4]
+    td, th, tw = d // 2, h // 2, wd // 2
+    bt = plan.brick[0]
+    ck, bn = plan.chunk, plan.bn
+    cip = -(-ci // _CI_PAD) * _CI_PAD
+    cop = -(-co // _CO_PAD) * _CO_PAD
+    u = x.new_zeros((64, cip, cop), dtype=torch.float32)
+    u[:, :ci, :co] = transform_weights(w)
+    xf = x.float()
+    y = torch.zeros((n, d, h, wd, co), dtype=torch.float32, device=x.device)
+    bt_pick = ((0, 2, -1.0), (1, 2, 1.0), (2, 1, -1.0), (1, 3, -1.0))
+    at = ((1, 1, 1, 0), (0, 1, -1, -1))
+    win = torch.arange(bt) * 2       # a tile's window starts at patch voxel 2i
+    for s in range(n):
+        for td0 in range(0, plan.bricks[0] * bt, bt):
+            for th0 in range(0, plan.bricks[1] * bt, bt):
+                for tw0 in range(0, plan.bricks[2] * bt, bt):
+                    # patch voxel (a, b, c) is volume voxel (2 td0 - 1 + a, ...)
+                    o = [2 * t0 - 1 for t0 in (td0, th0, tw0)]
+                    pe = 2 * bt + 2
+                    patch = xf.new_zeros((pe, pe, pe, cip))
+                    lo = [max(0, v) for v in o]
+                    hi = [min(lim, v + pe) for lim, v in zip((d, h, wd), o)]
+                    patch[lo[0] - o[0]:hi[0] - o[0], lo[1] - o[1]:hi[1] - o[1],
+                          lo[2] - o[2]:hi[2] - o[2], :ci] = xf[
+                              s, lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]]
+                    for n0 in range(0, plan.n_tiles * bn, bn):
+                        ph = xf.new_zeros((2, 2, 2, bt ** 3, bn))
+                        for c0 in range(0, cip, ck):
+                            pc = patch[..., c0:c0 + ck]
+                            for p in range(4):
+                                a1, a2, sgn_d = bt_pick[p]
+                                for q in range(4):
+                                    b1, b2, sgn_h = bt_pick[q]
+                                    # rows[k][c]: (id, ih, iw, ck) at window voxel c
+                                    def comb(b):
+                                        r1 = pc[win + a1][:, win + b]
+                                        r2 = pc[win + a2][:, win + b]
+                                        return r1 + sgn_d * r2
+                                    rows = comb(b1) + sgn_h * comb(b2)
+                                    hc = [rows[:, :, win + c] for c in range(4)]
+                                    vs = (hc[0] - hc[2], hc[1] + hc[2],
+                                          hc[2] - hc[1], hc[1] - hc[3])
+                                    m = [v.reshape(bt ** 3, ck)
+                                         @ u[(p * 4 + q) * 4 + r, c0:c0 + ck,
+                                             n0:n0 + bn] for r, v in enumerate(vs)]
+                                    m0 = m[0] + m[1] + m[2]
+                                    m1 = m[1] - m[2] - m[3]
+                                    for sd in range(2):
+                                        for sh in range(2):
+                                            coef = at[sd][p] * at[sh][q]
+                                            if coef:
+                                                ph[sd, sh, 0] += coef * m0
+                                                ph[sd, sh, 1] += coef * m1
+                        vd, vh, vw = (min(bt, t - t0) for t, t0 in
+                                      ((td, td0), (th, th0), (tw, tw0)))
+                        vn = min(bn, co - n0)
+                        # (sd, sh, sw, id, ih, iw, co) -> (id, sd, ih, sh, iw, sw, co)
+                        out = ph.view(2, 2, 2, bt, bt, bt, bn)[
+                            :, :, :, :vd, :vh, :vw, :vn].permute(3, 0, 4, 1, 5, 2, 6)
+                        y[s, 2 * td0:2 * (td0 + vd), 2 * th0:2 * (th0 + vh),
+                          2 * tw0:2 * (tw0 + vw), n0:n0 + vn] = out.reshape(
+                              2 * vd, 2 * vh, 2 * vw, vn)
+    return y.to(x.dtype)
+
+
 def padded_u(w: torch.Tensor) -> torch.Tensor:
     """The kernel's weight operand: ``transform_weights(w)`` in bf16,
     zero-padded to (64, Ci up to 32k, Co up to 64k). Cached per weight tensor
@@ -131,14 +302,17 @@ def padded_u(w: torch.Tensor) -> torch.Tensor:
     return u
 
 
-def conv3d_winograd_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Launch csrc/winograd3d.cu on CUDA bf16 tensors."""
+def _check_kernel_args(x: torch.Tensor, w: torch.Tensor) -> None:
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
         raise TypeError("conv3d_winograd kernel takes bf16 input and weight, "
                         f"got {x.dtype}, {w.dtype}")
     _check_shapes(x, w)
-    if w.device != x.device:
-        raise ValueError("conv3d_winograd: x and w on different devices")
+    if x.device.type != "cuda" or w.device != x.device:
+        raise ValueError("conv3d_winograd kernel takes x and w on one CUDA "
+                         f"device, got {x.device}, {w.device}")
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, plan: WinogradPlan) -> torch.Tensor:
     n, d, h, wd, ci = x.shape
     co = w.shape[4]
     x = x.contiguous()
@@ -146,13 +320,36 @@ def conv3d_winograd_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     y = torch.empty((n, d, h, wd, co), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _lib().winograd3d_ndhwc_bf16(
-            x.data_ptr(), u.data_ptr(), y.data_ptr(), n, d, h, wd, ci, co,
-            u.shape[1], u.shape[2], stream,
-        )
-    _build.check(rc, "conv3d_winograd")
-    _build.count_launch(conv3d_winograd)
+        if plan.instance == "wgmma":
+            rc = _lib_wgmma().winograd3d_wgmma_ndhwc_bf16(
+                x.data_ptr(), u.data_ptr(), y.data_ptr(), n, d, h, wd, ci, co,
+                u.shape[1], u.shape[2], plan.blocks, stream,
+            )
+        else:
+            rc = _lib().winograd3d_ndhwc_bf16(
+                x.data_ptr(), u.data_ptr(), y.data_ptr(), n, d, h, wd, ci, co,
+                u.shape[1], u.shape[2], stream,
+            )
+    _build.check(rc, f"conv3d_winograd ({plan.instance})")
+    if plan.instance == "wgmma":
+        _build.count_launch(conv3d_winograd, "launches", "launches_wgmma")
+    else:
+        _build.count_launch(conv3d_winograd)
     return y
+
+
+def conv3d_winograd_kernel_mma_sync(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Launch csrc/winograd3d.cu (any Ci, Co) on CUDA bf16 tensors."""
+    _check_kernel_args(x, w)
+    return _launch(x, w, instance_plan("mma_sync", *x.shape, w.shape[4]))
+
+
+def conv3d_winograd_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Launch the instance :func:`plan_winograd` names for this shape on CUDA
+    bf16 tensors."""
+    _check_kernel_args(x, w)
+    plan = plan_winograd(*x.shape, w.shape[4], _build.sm_count(x.device))
+    return _launch(x, w, plan)
 
 
 def conv3d_winograd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -167,3 +364,4 @@ def conv3d_winograd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 conv3d_winograd.launches = 0
+conv3d_winograd.launches_wgmma = 0

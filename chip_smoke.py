@@ -20,16 +20,22 @@ and prints no result lines). Phases:
    same call as ``prev_ms``, achieved TFLOP/s and the plan's flop per filled
    byte; and three shapes with Ci % 16 or Co % 8 nonzero, which the planner
    must send to ``conv3d.cu``);
-   IN+act forward <= 2 bf16 ulp; dgamma/dbeta (f32 sums in
+   IN+act forward <= 2 bf16 ulp, a repeat run bitwise equal, and the bytes/s
+   of the bytes its bound counts; dgamma/dbeta (f32 sums in
    another order) max|d|/max|ref| <= 1e-3; 2x down/up and their backwards
    <= 1 bf16 ulp. Device time of both (repeated calls replayed from one
    CUDA graph), and their back-to-back wall time (CUDA events), which for a
    small call reads the wrapper's host launch cost. The Winograd conv at
    every conv shape of the predict path against its plain version (the same
    decomposition in f32 on the same bf16 inputs, rounded to bf16):
-   max|d|/max|ref| <= 2e-2 (V and U are each rounded to bf16 once; H100
-   readings 4.7e-3 to 7.8e-3, the direct kernel's 2.6e-3 to 5.3e-3), a repeat
-   run bitwise equal, its time beside the direct kernel's. Beside every
+   max|d|/max|ref| <= 2e-2 (U is rounded to bf16 once, V after each of its
+   three axis passes in the wgmma instance ``winograd3d_wgmma.cu`` and once in
+   the mma.sync instance ``winograd3d.cu``; H100 readings 5.3e-3 to 7.7e-3,
+   the direct kernel's 2.6e-3 to 5.3e-3), a repeat run bitwise equal, the
+   instance the planner chose and the launch counters show, ``winograd3d.cu``
+   held to the same reference and timed in the same call as ``prev_ms``, and
+   three odd-channel shapes through the Winograd seam to ``winograd3d.cu``.
+   Beside every
    kernel of the record, at the same shapes: its bound (the larger of bytes
    over 3.35 TB/s and operations over the peak of their type) and the device
    time of the one PyTorch call that computes the same function (bf16
@@ -64,8 +70,8 @@ and prints no result lines). Phases:
    the counters, submits every case at once by ``POST /predict`` with
    ``{"case_dir": ...}``, reads ``/result`` and ``/stats``, and stops the
    daemon with SIGTERM (a clean drain is required). Checked: every request
-   answered and logged; 24 ``conv3d_winograd`` launches per volume and no
-   direct-conv launch, IN/down/up as in phase 3; labels in {0,1,2,4} at the
+   answered and logged; 24 ``conv3d_winograd`` launches per volume, all on the
+   wgmma instance, and no direct-conv launch, IN/down/up as in phase 3; labels in {0,1,2,4} at the
    input's shape; Winograd masks against phase 3's direct-conv masks (voxel
    agreement >= 0.995: both are bf16 paths); a second daemon on the same
    output dir serves nothing (log replay); a daemon with a fresh log
@@ -139,7 +145,8 @@ KERNELS = {
                          "brats2019_tpu/ops/pallas_resize.py:304"),
     "upsample2x_bwd": ("triton", "brats2019_tpu_torch/ops/triton_resize.py",
                        "brats2019_tpu/ops/pallas_resize.py:213"),
-    "conv3d_winograd": ("cuda", "brats2019_tpu_torch/csrc/winograd3d.cu",
+    # likewise: winograd3d.cu is the general instance, timed as prev_ms
+    "conv3d_winograd": ("cuda", "brats2019_tpu_torch/csrc/winograd3d_wgmma.cu",
                         "brats2019_tpu/ops/pallas_winograd.py:181"),
 }
 # shapes off the three slices that the planner sends to the general instance
@@ -148,6 +155,11 @@ KERNELS = {
 GENERAL_CONV_CALLS = [("conv3d", (1, 24, 28, 20, 4, 32)),
                       ("conv3d", (1, 12, 14, 10, 48, 4)),
                       ("conv3d", (2, 9, 7, 13, 40, 20))]
+# the same through the Winograd seam (``winograd3d.cu``, its general instance):
+# the Winograd conv needs even D, H, W, so the third shape is an even one
+GENERAL_WINO_CALLS = [("conv3d_winograd", (1, 24, 28, 20, 4, 32)),
+                      ("conv3d_winograd", (1, 12, 14, 10, 48, 4)),
+                      ("conv3d_winograd", (2, 10, 8, 14, 40, 20))]
 FORWARD = ("conv3d", "instance_norm_act", "downsample2x", "upsample2x")
 BACKWARD = ("instance_norm_act_bwd", "downsample2x_bwd", "upsample2x_bwd")
 WINO_TOL = 2e-2        # Winograd kernel vs its plain version, max|d|/max|ref|
@@ -346,8 +358,8 @@ def check_kernels(calls, dev, library_for=()):
     (CUDA events); for the calls in ``library_for`` also the one PyTorch
     call that computes the same function. Returns {(name, shape): (err,
     max_abs_err, ms, plain_ms, wall_ms, plain_wall_ms, bytes-bound ms,
-    operations-bound ms, library_ms or None, prev_ms or None: the conv's
-    mma.sync kernel)}."""
+    operations-bound ms, library_ms or None, prev_ms or None: the convs'
+    mma.sync kernels)}."""
     import torch
 
     from brats2019_tpu_torch.ops import conv, norm, resize, winograd
@@ -371,6 +383,7 @@ def check_kernels(calls, dev, library_for=()):
             else:
                 kern = lambda: winograd.conv3d_winograd_kernel(x, wt)
                 plain = lambda: winograd.conv3d_winograd_plain(x, wt)
+                plan = winograd.plan_winograd(*shape)
         elif name == "instance_norm_act":
             x = (torch.randn(shape, generator=g, device=dev) * 3 + 1).bfloat16()
             gam = torch.rand(shape[-1], generator=g, device=dev) + 0.5
@@ -413,16 +426,36 @@ def check_kernels(calls, dev, library_for=()):
         abs_err = (got.float() - ref.float()).abs().max().item()
         if name == "conv3d_winograd":
             err = abs_err / ref.float().abs().max().item()
+            wino = winograd.conv3d_winograd
+            before = (wino.launches, wino.launches_wgmma)
             again = kern()
             torch.cuda.synchronize()
+            took = (wino.launches - before[0], wino.launches_wgmma - before[1])
             same = bool((again == got).all())
             direct = conv.conv3d_kernel(x, wt).float()
             d_err = ((direct - ref.float()).abs().max()
                      / ref.float().abs().max()).item()
-            ok = err <= WINO_TOL and same
+            # the planner's rule, and the instance the launch really took
+            want = "mma_sync" if shape[4] % 16 or shape[5] % 8 else "wgmma"
+            ok = (err <= WINO_TOL and same and plan.instance == want
+                  and took == (1, int(want == "wgmma"))
+                  and plan.smem_bytes <= winograd.SMEM_LIMIT)
             what = (f"max|d|/max|ref| {err:.3e} (tol {WINO_TOL:g}; the direct "
                     f"kernel against the same reference {d_err:.3e}), repeat "
-                    f"run bitwise equal: {same}")
+                    f"run bitwise equal: {same}, instance {plan.instance} brick "
+                    f"{'x'.join(map(str, plan.brick))} tiles ({plan.grid} (brick, "
+                    f"Co tile) pairs on {plan.blocks} blocks, fill "
+                    f"{plan.fill:.2f}, {plan.smem_bytes} B shared)")
+            if want == "wgmma":
+                # the general instance (csrc/winograd3d.cu) on the same inputs,
+                # held to the same reference before it is timed as prev_ms
+                old = winograd.conv3d_winograd_kernel_mma_sync(x, wt)
+                torch.cuda.synchronize()
+                p_err = ((old.float() - ref.float()).abs().max()
+                         / ref.float().abs().max()).item()
+                ok = ok and p_err <= WINO_TOL and old.shape == ref.shape
+                what += f"; mma.sync kernel (prev) {p_err:.3e} (tol {WINO_TOL:g})"
+                del old
             del again, direct
         elif name == "conv3d":
             err = abs_err / ref.float().abs().max().item()
@@ -456,11 +489,19 @@ def check_kernels(calls, dev, library_for=()):
             err = abs_err / ref.float().abs().max().item()
             ok = err <= 1e-2 and sums_err <= 1e-3
             what = f"max|d|/max|ref| {err:.3e} (tol 1e-2){extra}"
+        elif name == "instance_norm_act":
+            err = bf16_ulps(got, ref)
+            again = kern()
+            torch.cuda.synchronize()
+            same = bool((again == got).all())
+            ok = err <= 2 and same
+            what = (f"{err:.2f} bf16 ulp (tol 2), repeat run bitwise equal: "
+                    f"{same}")
+            del again
         else:
             err = bf16_ulps(got, ref)
-            tol = 2 if name == "instance_norm_act" else 1
-            ok = err <= tol
-            what = f"{err:.2f} bf16 ulp (tol {tol})"
+            ok = err <= 1
+            what = f"{err:.2f} bf16 ulp (tol 1)"
         finite = bool(torch.isfinite(got.float()).all())
         reps = 3 if got.numel() > 1e8 else 10
         preps = 3 if name == "conv3d_winograd" else reps   # a heavy plain version
@@ -478,6 +519,19 @@ def check_kernels(calls, dev, library_for=()):
                      f"TFLOP/s = {100 * tflops * 1e12 / PEAK_BF16:.1f}% of "
                      f"{PEAK_BF16 / 1e12:.0f}; {plan.flop_per_filled_byte:.0f} "
                      f"flop per filled byte")
+        elif name == "instance_norm_act":
+            # the bytes the bound counts (x read once, y written once)
+            extra = (f"; {4 * math.prod(shape) / ms / 1e9:.3f} TB/s of counted "
+                     f"bytes ({100 * bytes_ms / ms:.0f}% of "
+                     f"{PEAK_BW / 1e12:.2f})")
+        elif name == "conv3d_winograd":
+            prev = (ms if plan.instance == "mma_sync" else device_ms(
+                lambda: winograd.conv3d_winograd_kernel_mma_sync(x, wt), reps))
+            tflops = 2 * 8 * math.prod(shape) / ms / 1e9   # the 64 products
+            extra = (f"; mma.sync kernel (prev) {prev:.4f} ms; products "
+                     f"{tflops:.0f} TFLOP/s = "
+                     f"{100 * tflops * 1e12 / PEAK_BF16:.1f}% of "
+                     f"{PEAK_BF16 / 1e12:.0f}")
         if (name, shape) in library_for:
             if name in ("conv3d", "conv3d_winograd"):
                 if shape not in conv_library:
@@ -494,7 +548,8 @@ def check_kernels(calls, dev, library_for=()):
               f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, "
               f"operations {ops_ms:.4f})"
               + ("" if lib is None else f"; library call {lib:.4f} ms")
-              + (extra if name == "conv3d" else ""))
+              + (extra if name in ("conv3d", "conv3d_winograd",
+                                   "instance_norm_act") else ""))
         results[(name, shape)] = (err, abs_err, ms, plain_ms, wall, plain_wall,
                                   bytes_ms, ops_ms, lib, prev)
         del got, ref, kern, plain
@@ -1070,8 +1125,10 @@ def serve_slice(work, case_dirs, direct_masks, expect, serial_e2e, depth, card):
             t.join(400)
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()  # just after
+        on_wgmma = ops.conv3d_winograd.launches_wgmma
         results = {n: _get_json(base + f"/result?case={n}") for n in names}
         return {"answers": answers, "wall": wall, "counts": counts,
+                "on_wgmma": on_wgmma,
                 "results": results, "stats": _get_json(base + "/stats"),
                 "health": health}
 
@@ -1108,6 +1165,9 @@ def serve_slice(work, case_dirs, direct_masks, expect, serial_e2e, depth, card):
           f"conv3d_winograd launched {counts['conv3d_winograd']} times on the "
           f"serving slice ({expect['conv3d']} per volume), conv3d "
           f"{counts['conv3d']} times")
+    check(got["on_wgmma"] == counts["conv3d_winograd"],
+          f"{got['on_wgmma']} of the {counts['conv3d_winograd']} Winograd "
+          f"launches took the wgmma instance (winograd3d_wgmma.cu)")
     for k in ("instance_norm_act", "downsample2x", "upsample2x"):
         check(counts[k] == expect[k] * n,
               f"{k} launched {counts[k]} times on the serving slice")
@@ -1202,10 +1262,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
     # one nvcc each, side by side
-    _build.build_all([conv._lib_wgmma, conv._lib, winograd._lib])
-    print(f"  built conv3d_wgmma.cu, conv3d.cu and winograd3d.cu with nvcc in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for lib in ("conv3d_wgmma", "conv3d", "winograd3d"):
+    _build.build_all([conv._lib_wgmma, conv._lib, winograd._lib_wgmma,
+                      winograd._lib])
+    print(f"  built conv3d_wgmma.cu, conv3d.cu, winograd3d_wgmma.cu and "
+          f"winograd3d.cu with nvcc in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for lib in ("conv3d_wgmma", "conv3d", "winograd3d_wgmma", "winograd3d"):
         # registers, spills and warnings; not the per-function banners
         log = [ln.strip() for ln in
                _build.build_logs.get(lib, "(cached)").splitlines()
@@ -1230,8 +1292,8 @@ def main() -> int:
     library_for = (calls + wino_calls
                    + [c for c in stage_calls["fine"] if c[0] in BACKWARD])
     results = check_kernels(calls + stage_calls["coarse"] + stage_calls["fine"]
-                            + eval_calls + GENERAL_CONV_CALLS + wino_calls,
-                            dev, library_for)
+                            + eval_calls + GENERAL_CONV_CALLS + wino_calls
+                            + GENERAL_WINO_CALLS, dev, library_for)
     for what, group in (("volume (predict)", calls),
                         ("fine train step", stage_calls["fine"]),
                         ("coarse train step", stage_calls["coarse"])):
@@ -1243,7 +1305,16 @@ def main() -> int:
               f"{'' if all(r[8] is not None for r in mine) else ' (not timed at every shape)'}"
               f", bound {sum(max(r[6], r[7]) for r in mine):.4f} ms on {card}",
               flush=True)
-    print(f"  phase 2 took {time.perf_counter() - t0:.1f} s", flush=True)
+    mine = [results[c] for c in wino_calls]
+    print(f"  conv3d_winograd per volume (predict): {len(mine)} calls, wgmma "
+          f"kernel {sum(r[2] for r in mine):.4f} ms, mma.sync kernel (prev) "
+          f"{sum(r[9] for r in mine):.4f} ms, direct conv kernel "
+          f"{sum(results[('conv3d', c[1])][2] for c in wino_calls):.4f} ms, "
+          f"library call {sum(r[8] for r in mine):.4f} ms, bound "
+          f"{sum(max(r[6], r[7]) for r in mine):.4f} ms on {card}", flush=True)
+    print(f"  phase 2 took {time.perf_counter() - t0:.1f} s; device memory "
+          f"still allocated after it: "
+          f"{torch.cuda.memory_allocated() / 2 ** 20:.1f} MiB", flush=True)
     if args.phases == 2:
         print(f"== stopped after phase 2 as asked; {len(FAILURES)} failure(s)",
               flush=True)
@@ -1337,9 +1408,11 @@ def main() -> int:
             "bound_bytes_ms": bytes_ms, "bound_operations_ms": ops_ms,
             "calls": len(mine),
         })
-        if k == "conv3d":
+        if k in ("conv3d", "conv3d_winograd"):
             record[-1]["prev_ms"] = sum(r[9] for r in mine)
-            record[-1]["prev_source"] = "brats2019_tpu_torch/csrc/conv3d.cu"
+            record[-1]["prev_source"] = (
+                "brats2019_tpu_torch/csrc/conv3d.cu" if k == "conv3d"
+                else "brats2019_tpu_torch/csrc/winograd3d.cu")
     for r in record:
         unit = "fine train step" if r["name"] in BACKWARD else "vol"
         print(f"  {r['name']}: {r['calls']} calls/{unit}, device {r['ms']:.4f} "

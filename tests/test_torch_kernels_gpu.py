@@ -387,6 +387,35 @@ def test_winograd_kernel_matches_plain_and_direct(dev, shape, co):
         assert err.item() <= 2e-2
 
 
+@pytest.mark.parametrize("shape,co,instance", [
+    ((1, 8, 8, 8, 16), 8, "wgmma"),           # one brick, half a chunk, 8 channels
+    ((1, 8, 8, 8, 64), 32, "wgmma"),          # one consumer half of N masked
+    ((1, 12, 14, 10, 96), 192, "wgmma"),      # ragged bricks: 6 x 7 x 5 tiles
+    ((2, 6, 4, 18, 48), 40, "wgmma"),         # 3 x 2 x 9 tiles, Ci and Co tails
+    ((2, 24, 28, 20, 32), 48, "wgmma"),       # 72 bricks, ragged on every axis
+    ((1, 4, 8, 8, 576), 256, "wgmma"),        # 18 chunks: the rings wrap
+    ((1, 32, 64, 64, 16), 16, "wgmma"),       # 256 bricks: blocks walk several
+    ((1, 6, 10, 4, 24), 48, "mma_sync"),      # Ci % 16 != 0
+    ((1, 8, 8, 8, 16), 20, "mma_sync"),       # Co % 8 != 0
+])
+def test_winograd_instances_match_plain(dev, shape, co, instance):
+    """Both instances behind the planner, against the plain version; the
+    launch counters show which one ran; a repeat run is bitwise equal."""
+    x, w = _conv_inputs(dev, shape, co)
+    assert winograd.plan_winograd(*shape, co).instance == instance
+    wino = ops.conv3d_winograd
+    before = (wino.launches, wino.launches_wgmma)
+    got = winograd.conv3d_winograd_kernel(x, w)
+    torch.cuda.synchronize()
+    assert (wino.launches - before[0], wino.launches_wgmma - before[1]) == (
+        1, int(instance == "wgmma"))
+    assert torch.equal(got, winograd.conv3d_winograd_kernel(x, w))
+    ref = winograd.conv3d_winograd_plain(x, w).float()
+    assert ((got.float() - ref).abs().max() / ref.abs().max()).item() <= 2e-2
+    old = winograd.conv3d_winograd_kernel_mma_sync(x, w)     # the general instance
+    assert ((old.float() - ref).abs().max() / ref.abs().max()).item() <= 2e-2
+
+
 def test_winograd_kernel_rejects_odd_dims_and_f32(dev):
     w = torch.zeros((3, 3, 3, 8, 8), device=dev).bfloat16()
     with pytest.raises(ValueError, match="even"):

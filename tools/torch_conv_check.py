@@ -1,9 +1,13 @@
 #!/usr/bin/env python3
-"""Standalone check of the PyTorch port's direct conv kernels on a CUDA card.
+"""Standalone check of the PyTorch port's conv kernels on a CUDA card.
 
     timeout 300 python3 tools/torch_conv_check.py            # build + correctness
     timeout 600 python3 tools/torch_conv_check.py --time     # + times per shape
     timeout 600 python3 tools/torch_conv_check.py --probe    # + the fill probe
+    timeout 600 python3 tools/torch_conv_check.py --winograd [--time] [--probe]
+
+Without ``--winograd`` it checks the direct conv; with it, the Winograd conv
+(see the end of this text).
 
 Builds ``csrc/conv3d_wgmma.cu`` and ``csrc/conv3d.cu`` side by side (one nvcc
 each), prints ptxas's report for the wgmma source, and holds every
@@ -19,11 +23,23 @@ wgmma instances, the mma.sync kernel and cuDNN's bf16 conv at the flagship
 shapes, with the achieved TFLOP/s. ``--probe``: the mma.sync kernel built with
 its products removed (-DCONV3D_LOADS_ONLY), to read how much of its time the
 shared-memory fills alone take.
+
+``--winograd``: builds ``csrc/winograd3d_wgmma.cu`` and ``csrc/winograd3d.cu``,
+prints ptxas's report for the first (registers, spills), checks its shared
+memory against the planner's, and holds both against ``conv3d_winograd_plain``
+at small shapes (ragged bricks, N > 1, Ci tails in a chunk, Co tails, many
+chunks; tolerance 2e-2 of max|ref|, a repeat run bitwise equal). With
+``--time``: device ms of the wgmma instance, the mma.sync instance, the direct
+conv kernel and cuDNN at every conv shape of the flagship predict path, and
+their sums per volume. With ``--probe``: the mma.sync instance built without
+its products (-DWINOGRAD_NO_PRODUCTS) and without its transforms
+(-DWINOGRAD_NO_TRANSFORMS).
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import os
 import subprocess
 import sys
@@ -34,7 +50,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from brats2019_tpu_torch.ops import _build, conv  # noqa: E402
+from brats2019_tpu_torch.ops import _build, conv, winograd  # noqa: E402
 from brats2019_tpu_torch.configs.presets import get_preset  # noqa: E402
 from chip_smoke import device_ms, unet_calls  # noqa: E402  (graph-replay timing)
 
@@ -196,10 +212,209 @@ def probe(dev, card) -> None:
               f"{filled / full / 1e9:.2f} TB/s as built", flush=True)
 
 
+# ------------------------------------------------------------ the Winograd conv --
+
+WINO_TOL = 2e-2
+WINO_SMALL = [
+    # (N, D, H, W, Ci), Co; D, H, W even
+    ((1, 8, 8, 8, 16), 8),         # one brick, half a chunk, one 8-channel group
+    ((1, 8, 8, 8, 32), 64),        # one brick, one whole chunk, a whole Co tile
+    ((1, 8, 8, 8, 64), 32),        # two chunks, one consumer half of N masked
+    ((1, 12, 14, 10, 96), 192),    # the coarse net's deepest level: ragged bricks
+    ((2, 6, 4, 18, 48), 40),       # N = 2, a Ci tail in a chunk, a Co tail
+    ((1, 16, 16, 16, 144), 96),    # 8 bricks, 4.5 chunks, Co tail in the 2nd tile
+    ((2, 24, 28, 20, 32), 48),     # 72 bricks, ragged on every axis
+    ((1, 4, 8, 8, 576), 256),      # 18 chunks: the rings wrap many times
+    ((1, 64, 64, 64, 32), 64),     # 512 bricks on 132 blocks: persistent walk
+]
+
+
+def predict_conv_calls():
+    """((N, D, H, W, Ci), Co) -> calls per volume on the flagship predict path."""
+    exp = get_preset("cascade")
+    calls = (unet_calls(exp.coarse_unet, 1, exp.infer.coarse_shape)
+             + unet_calls(exp.unet, 8, exp.infer.roi_shape))
+    return collections.Counter((sh[:5], sh[5]) for name, sh in calls
+                               if name == "conv3d")
+
+
+def wino_check_small(dev) -> int:
+    failures = 0
+    for shape, co in WINO_SMALL:
+        x, w = make(shape, co, dev)
+        ref = winograd.conv3d_winograd_plain(x, w)
+        plan = winograd.plan_winograd(*shape, co)
+        for which, fn in (("wgmma", winograd.conv3d_winograd_kernel),
+                          ("mma.sync", winograd.conv3d_winograd_kernel_mma_sync)):
+            got = fn(x, w)
+            again = fn(x, w)
+            torch.cuda.synchronize()
+            err = rel_err(got, ref)
+            same = bool(torch.equal(got, again))
+            ok = (err <= WINO_TOL and same
+                  and bool(torch.isfinite(got.float()).all()))
+            failures += not ok
+            print(f"  [{'PASS' if ok else 'FAIL'}] {which} {shape}->{co}: "
+                  f"max|d|/max|ref| {err:.3e} (tol {WINO_TOL:g}), repeat bitwise "
+                  f"{same}; plan {plan.instance}, {plan.grid} (brick, Co tile) "
+                  f"pairs on {plan.blocks} blocks, fill {plan.fill:.2f}",
+                  flush=True)
+            if not ok and which == "wgmma":
+                bad = ((got.float() - ref.float()).abs()
+                       > WINO_TOL * ref.float().abs().max())
+                idx = bad.nonzero()
+                print(f"    {int(bad.sum())} of {bad.numel()} off; first "
+                      f"{idx[0].tolist()}; d {sorted(set(idx[:, 1].tolist()))[:10]}, "
+                      f"h {sorted(set(idx[:, 2].tolist()))[:10]}, "
+                      f"w {sorted(set(idx[:, 3].tolist()))[:10]}, "
+                      f"co {sorted(set(idx[:, 4].tolist()))[:12]}", flush=True)
+    return failures
+
+
+def wino_time(dev, card) -> None:
+    print(f"== Winograd times on {card} (device ms, CUDA-graph replay): wgmma "
+          f"instance, mma.sync instance, direct conv kernel, cuDNN", flush=True)
+    tot = collections.Counter()
+    for (shape, co), count in predict_conv_calls().items():
+        x, w = make(shape, co, dev)
+        reps = 3 if x.numel() > 1e8 else 10
+        m = x.numel() // shape[-1]
+        macs = 8.0 * shape[-1] * co * m
+        nbytes = 2.0 * (x.numel() + 27 * shape[-1] * co + m * co)
+        bound = max(nbytes / 3.35e12, 2 * macs / 989e12) * 1e3
+        row = {
+            "wgmma": device_ms(lambda: winograd.conv3d_winograd_kernel(x, w), reps),
+            "mma.sync": device_ms(
+                lambda: winograd.conv3d_winograd_kernel_mma_sync(x, w), reps),
+            "direct": device_ms(lambda: conv.conv3d_kernel(x, w), reps),
+        }
+        xc = x.permute(0, 4, 1, 2, 3)
+        wc = w.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
+        with torch.no_grad():
+            row["cudnn"] = device_ms(lambda: F.conv3d(xc, wc, padding=1), reps)
+        row["bound"] = bound
+        plan = winograd.plan_winograd(*shape, co)
+        for k, v in row.items():
+            tot[k] += count * v
+        print(f"  {shape}->{co} x{count}: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in row.items())
+              + f"; products {2 * macs / row['wgmma'] / 1e9:.0f} TFLOP/s "
+              f"({100 * 2 * macs / row['wgmma'] / 1e9 / 989:.1f}% of 989), "
+              f"{plan.grid} pairs / {plan.blocks} blocks, fill {plan.fill:.2f}",
+              flush=True)
+    print("  sums per volume (24 convs): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in tot.items()), flush=True)
+
+
+def wino_probe(dev, card) -> None:
+    """The mma.sync Winograd kernel as built, without its products, without
+    its transforms."""
+    sig = {"winograd3d_ndhwc_bf16": winograd._SIG["winograd3d_ndhwc_bf16"]}
+    libs = {
+        "no products": _build.load_library(
+            "winograd3d_no_products", ["winograd3d.cu"], sig,
+            extra_flags=("-DWINOGRAD_NO_PRODUCTS",)),
+        "no transforms": _build.load_library(
+            "winograd3d_no_transforms", ["winograd3d.cu"], sig,
+            extra_flags=("-DWINOGRAD_NO_TRANSFORMS",)),
+        "neither": _build.load_library(
+            "winograd3d_neither", ["winograd3d.cu"], sig,
+            extra_flags=("-DWINOGRAD_NO_PRODUCTS", "-DWINOGRAD_NO_TRANSFORMS")),
+    }
+    print(f"== probe on {card}: winograd3d.cu as built, without the U loads and "
+          f"products, without the two transforms, with neither (device ms)",
+          flush=True)
+    for (shape, co), _ in predict_conv_calls().items():
+        if shape[0] != 8 or shape[1] < 32:
+            continue            # the fine net's two largest levels
+        x, w = make(shape, co, dev)
+        u = winograd.padded_u(w)
+        y = torch.empty(shape[:4] + (co,), dtype=x.dtype, device=dev)
+        row = {"whole": device_ms(
+            lambda: winograd.conv3d_winograd_kernel_mma_sync(x, w), 3)}
+        for name, lib in libs.items():
+            def run(lib=lib):
+                rc = lib.winograd3d_ndhwc_bf16(
+                    x.data_ptr(), u.data_ptr(), y.data_ptr(), *shape, co,
+                    u.shape[1], u.shape[2],
+                    torch.cuda.current_stream().cuda_stream)
+                _build.check(rc, "winograd3d probe")
+            row[name] = device_ms(run, 3)
+        print(f"  {shape}->{co}: "
+              + ", ".join(f"{k} {v:.4f} ms ({100 * v / row['whole']:.0f}%)"
+                          for k, v in row.items()), flush=True)
+
+
+def wino_probe_wgmma(dev, card) -> None:
+    """The wgmma Winograd kernel as built and with one or two of its four
+    kinds of work left out (-DWINOGRAD_PROBE=bits)."""
+    variants = {"no copies": 1, "no V": 2, "no products": 4, "no A^T": 8,
+                "no V, no A^T": 10, "none of the four": 15}
+    sig = {"winograd3d_wgmma_ndhwc_bf16":
+           winograd._SIG_WGMMA["winograd3d_wgmma_ndhwc_bf16"]}
+    libs = {}
+
+    def loader(name, bits):
+        def load():
+            libs[name] = _build.load_library(
+                f"winograd3d_wgmma_probe{bits}", ["winograd3d_wgmma.cu"], sig,
+                extra_flags=(f"-DWINOGRAD_PROBE={bits}",))
+        return load
+
+    _build.build_all([loader(n, b) for n, b in variants.items()])
+    print(f"== probe on {card}: winograd3d_wgmma.cu as built and with work "
+          f"left out (device ms)", flush=True)
+    for shape, co in (((8, 64, 64, 64, 64), 64), ((8, 64, 64, 64, 192), 64),
+                      ((8, 32, 32, 32, 128), 128), ((8, 16, 16, 16, 256), 256)):
+        x, w = make(shape, co, dev)
+        u = winograd.padded_u(w)
+        y = torch.empty(shape[:4] + (co,), dtype=x.dtype, device=dev)
+        plan = winograd.plan_winograd(*shape, co)
+        row = {"whole": device_ms(
+            lambda: winograd.conv3d_winograd_kernel(x, w), 3)}
+        for name in variants:
+            def run(lib=libs[name]):
+                rc = lib.winograd3d_wgmma_ndhwc_bf16(
+                    x.data_ptr(), u.data_ptr(), y.data_ptr(), *shape, co,
+                    u.shape[1], u.shape[2], plan.blocks,
+                    torch.cuda.current_stream().cuda_stream)
+                _build.check(rc, "winograd3d_wgmma probe")
+            row[name] = device_ms(run, 3)
+        print(f"  {shape}->{co}: "
+              + ", ".join(f"{k} {v:.4f} ms ({100 * v / row['whole']:.0f}%)"
+                          for k, v in row.items()), flush=True)
+
+
+def main_winograd(args, dev, card) -> int:
+    t0 = time.perf_counter()
+    _build.build_all([winograd._lib_wgmma, winograd._lib, conv._lib_wgmma])
+    print(f"built winograd3d_wgmma.cu, winograd3d.cu and conv3d_wgmma.cu in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print("ptxas, winograd3d_wgmma:\n"
+          + _build.build_logs.get("winograd3d_wgmma", "(cached)"), flush=True)
+    have = winograd._lib_wgmma().winograd3d_wgmma_smem_bytes()
+    want = winograd.wgmma_smem_bytes()
+    ok = have == want and want <= winograd.SMEM_LIMIT
+    failures = int(not ok)
+    print(f"  [{'PASS' if ok else 'FAIL'}] shared memory: kernel {have}, planner "
+          f"{want} bytes (limit {winograd.SMEM_LIMIT})", flush=True)
+    if args.probe:      # first: it does not depend on the new kernel
+        wino_probe(dev, card)
+    failures += wino_check_small(dev)
+    if args.probe:
+        wino_probe_wgmma(dev, card)
+    if args.time:
+        wino_time(dev, card)
+    print(f"{failures} failure(s)", flush=True)
+    return 1 if failures else 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--time", action="store_true")
     ap.add_argument("--probe", action="store_true")
+    ap.add_argument("--winograd", action="store_true",
+                    help="check the Winograd conv kernels instead of the direct")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("error: needs a CUDA card", file=sys.stderr)
@@ -214,6 +429,8 @@ def main() -> int:
                           text=True).stdout.strip().splitlines()[-2:]
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; {'; '.join(nvcc)}; card: {card}", flush=True)
+    if args.winograd:
+        return main_winograd(args, dev, card)
     t0 = time.perf_counter()
     _build.build_all([conv._lib_wgmma, conv._lib])
     print(f"built conv3d_wgmma.cu and conv3d.cu in {time.perf_counter() - t0:.1f} s",
