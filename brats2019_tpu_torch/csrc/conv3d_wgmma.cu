@@ -65,6 +65,26 @@
 //     are bitwise equal.
 //   * A barrier wait that has not completed after 20 s of the card's clock
 //     traps instead of hanging the card.
+//
+// The STATS instance (conv3d_wgmma_stats_ndhwc_bf16) also writes, for every
+// (box, output channel), the InstanceNorm statistics of the values it stores,
+// so that the norm after the conv need not read y a first time (replaces the
+// statistics pass of brats2019_tpu/ops/pallas_norm.py _fwd_pallas, :176; the
+// merge and the apply pass are ops/triton_norm.py). Its epilogue:
+//   * takes each value after its rounding to bf16 (the norm normalises the
+//     bf16 output) and only the box's rows inside the volume; the count of a
+//     box is known from its extent and is not reduced;
+//   * two passes over the registers, the box's sum then its centred sum of
+//     squares around the box's mean (never E[x^2] - mean^2): each thread sums
+//     its PPW planes x 2 rows per column, the 8 lanes that share a column are
+//     folded by a reduce-scatter, 16 columns at a time (shuffles xor 16, 8,
+//     4: 14 for 16 columns, not 3 per column), and the 8 consumer warps
+//     through shared memory of
+//     its own (the rings run on into the next tile, so no slab is free), in
+//     one fixed order;
+//   * writes (count, mean, M2) in f32 to partials[3][n][box][co], the box's
+//     own slot, so repeat runs are bitwise equal whatever order the
+//     persistent blocks walk. y is bitwise the plain instance's.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -100,10 +120,17 @@ struct Geo {
   static constexpr int PATCH_BYTES = NPIECE * PIECE_BYTES;
 };
 
-template <int BD, int NB>
+// the STATS epilogue's scratch: a row of column sums per consumer warp and
+// the box means, 64 * NB columns each
+template <int NB>
+constexpr int stats_bytes() {
+  return (CONSUMER_WARPS + 1) * NB * 64 * 4;
+}
+
+template <int BD, int NB, bool STATS = false>
 constexpr int smem_bytes() {
   return 1024 + BSTAGES * NB * SLAB_BOX_BYTES + PSTAGES * Geo<BD>::PATCH_BYTES +
-         8 * (2 * BSTAGES + 2 * PSTAGES);
+         8 * (2 * BSTAGES + 2 * PSTAGES) + (STATS ? stats_bytes<NB>() : 0);
 }
 
 // ---------------------------------------------------------------- PTX --
@@ -240,6 +267,37 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(1));
 }
 
+// the 256 consumer threads (warps 0..7) only
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Sums v[c] over the 8 lanes that share lane & 3, as a reduce-scatter:
+// rounds xor 16, 8, 4 each keep half of the values and add the partner's
+// copy of that half. Lane l ends with r[k] = the sum of v[k + NV/8 * (l >> 2)],
+// k < NV/8. One fixed order: repeat runs are bitwise equal.
+template <int SPAN, int NV>
+__device__ __forceinline__ void scatter_round(float (&v)[NV], int lane,
+                                              int bit) {
+  const bool up = lane & bit;
+#pragma unroll
+  for (int k = 0; k < SPAN; ++k) {
+    const float send = up ? v[k] : v[k + SPAN];
+    const float keep = up ? v[k + SPAN] : v[k];
+    v[k] = keep + __shfl_xor_sync(0xffffffffu, send, bit);
+  }
+}
+template <int NV>
+__device__ __forceinline__ void lane_reduce_scatter(float (&v)[NV], int lane) {
+  scatter_round<NV / 2>(v, lane, 16);
+  scatter_round<NV / 4>(v, lane, 8);
+  scatter_round<NV / 8>(v, lane, 4);
+}
+
 // keeps the compiler from moving reads of the accumulators across the wait
 // that completes the asynchronous products
 template <int R>
@@ -278,11 +336,102 @@ __device__ __forceinline__ Tile decode_tile(int t, int nbd, int nbh, int nbw,
   return r;
 }
 
+// The STATS epilogue of one tile (see the head of the file): (count, mean, M2)
+// of each of the tile's output channels over the box's rows inside the volume,
+// from the accumulators already rounded to bf16 with the outside rows zeroed.
+// Column c of this thread's values is 8 * (c / 2) + 2 * (lane & 3) + c % 2.
 template <int BD, int NB>
+__device__ __forceinline__ void box_stats(
+    float (&acc)[BD / 2][NB * 32], float* red, float* box_mean,
+    float* __restrict__ part, const Tile& tl, int N, int D, int H, int W,
+    int Co, int nbh, int nbw, int nboxes, int tid, int warp, int lane) {
+  constexpr int PPW = BD / 2;
+  constexpr int NV = NB * 16;       // this thread's columns
+  constexpr int NCOL = NB * 64;     // the tile's
+  const int wg = warp >> 2, q = warp & 3;
+  const int ww = tl.w0 + (lane >> 2);
+  const int vd = min(BD, D - tl.d0), vh = min(BH, H - tl.h0),
+            vw = min(BW, W - tl.w0);
+  const float cnt = (float)(vd * vh * vw);
+  const bool full = vd == BD && vh == BH && vw == BW;
+  auto col_of = [&](int c) { return 8 * (c >> 1) + 2 * (lane & 3) + (c & 1); };
+
+  // the columns go in groups of 16 (NB groups), which keeps the 128
+  // accumulators of the 128-wide tile and the reduction within 168 registers
+  consumer_sync();  // the previous tile's readers of the scratch are done
+  // pass 1: the box's sum of each column
+#pragma unroll
+  for (int g = 0; g < NV; g += 16) {
+    float v[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const int c = g + k;
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < PPW; ++i)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          s += acc[i][4 * (c >> 1) + 2 * half + (c & 1)];
+      v[k] = s;
+    }
+    lane_reduce_scatter<16>(v, lane);
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      red[warp * NCOL + col_of(g + k + 2 * (lane >> 2))] = v[k];
+  }
+  consumer_sync();
+  if (tid < NCOL) {
+    float s = 0.f;
+#pragma unroll
+    for (int w8 = 0; w8 < CONSUMER_WARPS; ++w8) s += red[w8 * NCOL + tid];
+    box_mean[tid] = s / cnt;
+  }
+  consumer_sync();
+  // pass 2: the centred sum of squares around the box's mean
+#pragma unroll
+  for (int g = 0; g < NV; g += 16) {
+    float v[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const int c = g + k;
+      const float mu = box_mean[col_of(c)];
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < PPW; ++i)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float d = acc[i][4 * (c >> 1) + 2 * half + (c & 1)] - mu;
+          const bool ok = full || (tl.d0 + wg * PPW + i < D &&
+                                   tl.h0 + 2 * q + half < H && ww < W);
+          s += ok ? d * d : 0.f;
+        }
+      v[k] = s;
+    }
+    lane_reduce_scatter<16>(v, lane);
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      red[warp * NCOL + col_of(g + k + 2 * (lane >> 2))] = v[k];
+  }
+  consumer_sync();
+  if (tid < NCOL && tl.n0 + tid < Co) {
+    float m2 = 0.f;
+#pragma unroll
+    for (int w8 = 0; w8 < CONSUMER_WARPS; ++w8) m2 += red[w8 * NCOL + tid];
+    const int box = ((tl.d0 / BD) * nbh + tl.h0 / BH) * nbw + tl.w0 / BW;
+    const long long stride = (long long)N * nboxes * Co;
+    const long long slot = ((long long)tl.n * nboxes + box) * Co + tl.n0 + tid;
+    part[slot] = cnt;
+    part[stride + slot] = box_mean[tid];
+    part[2 * stride + slot] = m2;
+  }
+}
+
+template <int BD, int NB, bool STATS>
 __global__ void __launch_bounds__(THREADS, 1)
     conv3d_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
                         const __nv_bfloat16* __restrict__ x,
-                        __nv_bfloat16* __restrict__ y, int D, int H, int W,
+                        __nv_bfloat16* __restrict__ y,
+                        float* __restrict__ part, int N, int D, int H, int W,
                         int Ci, int Co, int nbd, int nbh, int nbw, int ntiles,
                         int total) {
   using G = Geo<BD>;
@@ -298,6 +447,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   const uint32_t empty_b = full_b + 8 * BSTAGES;
   const uint32_t full_p = empty_b + 8 * BSTAGES;
   const uint32_t empty_p = full_p + 8 * PSTAGES;
+  // the STATS scratch: [CONSUMER_WARPS][NB * 64] column sums, [NB * 64] means
+  float* const red = reinterpret_cast<float*>(
+      smem_raw + (empty_p + 8 * PSTAGES -
+                  (uint32_t)__cvta_generic_to_shared(smem_raw)));
+  float* const box_mean = red + CONSUMER_WARPS * NB * 64;
 
   const int tid = threadIdx.x;
   // through a shuffle, so the compiler knows the role branches below are
@@ -476,6 +630,24 @@ __global__ void __launch_bounds__(THREADS, 1)
       // a warp's store covers 64 contiguous bytes of each of 8 rows.
       const int m = lane & 3;
       const int ww = tl.w0 + (lane >> 2);
+      if constexpr (STATS) {
+        // the values as stored (y's stores below round them again, exactly),
+        // rows outside the volume zeroed: they are never stored
+#pragma unroll
+        for (int i = 0; i < PPW; ++i)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const bool ok = tl.d0 + wg * PPW + i < D &&
+                            tl.h0 + 2 * q + half < H && ww < W;
+#pragma unroll
+            for (int j = 0; j < NB * 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                float& a = acc[i][4 * j + 2 * half + e];
+                a = ok ? bf16_round(a) : 0.f;
+              }
+          }
+      }
 #pragma unroll
       for (int i = 0; i < PPW; ++i) {
         const int dd = tl.d0 + wg * PPW + i;
@@ -517,6 +689,9 @@ __global__ void __launch_bounds__(THREADS, 1)
           }
         }
       }
+      if constexpr (STATS)
+        box_stats<BD, NB>(acc, red, box_mean, part, tl, N, D, H, W, Co, nbh,
+                          nbw, nbd * nbh * nbw, tid, warp, lane);
     }
   }
 }
@@ -546,13 +721,13 @@ EncodeTiledFn lookup_encode() {
   return reinterpret_cast<EncodeTiledFn>(fn);
 }
 
-template <int BD, int NB>
+template <int BD, int NB, bool STATS>
 int launch(const CUtensorMap& wmap, const __nv_bfloat16* x, __nv_bfloat16* y,
-           int N, int D, int H, int W, int Ci, int Co, int blocks,
+           float* part, int N, int D, int H, int W, int Ci, int Co, int blocks,
            cudaStream_t s) {
-  constexpr int SMEM = smem_bytes<BD, NB>();
+  constexpr int SMEM = smem_bytes<BD, NB, STATS>();
   constexpr int MAX_DEVICES = 64;
-  auto kern = conv3d_wgmma_kernel<BD, NB>;
+  auto kern = conv3d_wgmma_kernel<BD, NB, STATS>;
   // once per instance and device, outside any stream capture
   static bool ready[MAX_DEVICES] = {};
   int dev = 0;
@@ -573,8 +748,11 @@ int launch(const CUtensorMap& wmap, const __nv_bfloat16* x, __nv_bfloat16* y,
   // persistent blocks: the caller's plan gives their number, one per SM of
   // the device (the shared memory admits no second one) or one per tile
   if (blocks < 1 || blocks > total) return (int)cudaErrorInvalidValue;
-  kern<<<(unsigned)blocks, THREADS, SMEM, s>>>(wmap, x, y, D, H, W, Ci, Co, nbd, nbh, nbw,
-                                     ntiles, (int)total);
+  if (STATS && (long long)nbd * nbh * nbw > 0x7FFFFFFFLL / Co)
+    return (int)cudaErrorInvalidValue;
+  kern<<<(unsigned)blocks, THREADS, SMEM, s>>>(wmap, x, y, part, N, D, H, W,
+                                              Ci, Co, nbd, nbh, nbw, ntiles,
+                                              (int)total);
   return (int)cudaGetLastError();
 }
 
@@ -588,16 +766,19 @@ extern "C" int conv3d_wgmma_smem_bytes(int box_d, int bn) {
   return 0;
 }
 
-// x (N,D,H,W,Ci), w (3,3,3,Ci,Co), y (N,D,H,W,Co): contiguous bf16 on the
-// current device, Ci % 16 == 0, Co % 8 == 0. (box_d, bn), the box depth and
-// the Co tile, is (4, 64), (4, 128) or (2, 64); `blocks` persistent blocks
-// walk the tiles (at most one per tile). Launches on `stream`; returns
-// cudaGetLastError() (cudaErrorInvalidValue for a shape or instance it does
-// not take, cudaErrorNotSupported where no tensor-map encoder is to be had).
-extern "C" int conv3d_wgmma_ndhwc_bf16(const void* x, const void* w, void* y,
-                                       int N, int D, int H, int W, int Ci,
-                                       int Co, int box_d, int bn, int blocks,
-                                       void* stream) {
+// The same for the STATS instance.
+extern "C" int conv3d_wgmma_stats_smem_bytes(int box_d, int bn) {
+  if (box_d == 4 && bn == 64) return smem_bytes<4, 1, true>();
+  if (box_d == 4 && bn == 128) return smem_bytes<4, 2, true>();
+  if (box_d == 2 && bn == 64) return smem_bytes<2, 1, true>();
+  return 0;
+}
+
+namespace {
+
+int run(const void* x, const void* w, void* y, float* part, int N, int D,
+        int H, int W, int Ci, int Co, int box_d, int bn, int blocks,
+        void* stream) {
   if (N < 1 || D < 1 || H < 1 || W < 1 || Ci < 16 || Ci % 16 || Co < 8 ||
       Co % 8 || 27LL * Ci > 0x7FFFFFFFLL ||
       (long long)D * H * W > 0x7FFFFFFFLL)
@@ -617,11 +798,45 @@ extern "C" int conv3d_wgmma_ndhwc_bf16(const void* x, const void* w, void* y,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   auto* yb = static_cast<__nv_bfloat16*>(y);
-  if (box_d == 4 && bn == 64)
-    return launch<4, 1>(wmap, xb, yb, N, D, H, W, Ci, Co, blocks, s);
-  if (box_d == 4 && bn == 128)
-    return launch<4, 2>(wmap, xb, yb, N, D, H, W, Ci, Co, blocks, s);
-  if (box_d == 2 && bn == 64)
-    return launch<2, 1>(wmap, xb, yb, N, D, H, W, Ci, Co, blocks, s);
+#define CONV3D_WGMMA_INSTANCE(BD, NB)                                        \
+  if (box_d == BD && bn == NB * 64)                                          \
+    return part ? launch<BD, NB, true>(wmap, xb, yb, part, N, D, H, W, Ci,   \
+                                       Co, blocks, s)                        \
+                : launch<BD, NB, false>(wmap, xb, yb, nullptr, N, D, H, W,   \
+                                        Ci, Co, blocks, s);
+  CONV3D_WGMMA_INSTANCE(4, 1)
+  CONV3D_WGMMA_INSTANCE(4, 2)
+  CONV3D_WGMMA_INSTANCE(2, 1)
+#undef CONV3D_WGMMA_INSTANCE
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// x (N,D,H,W,Ci), w (3,3,3,Ci,Co), y (N,D,H,W,Co): contiguous bf16 on the
+// current device, Ci % 16 == 0, Co % 8 == 0. (box_d, bn), the box depth and
+// the Co tile, is (4, 64), (4, 128) or (2, 64); `blocks` persistent blocks
+// walk the tiles (at most one per tile). Launches on `stream`; returns
+// cudaGetLastError() (cudaErrorInvalidValue for a shape or instance it does
+// not take, cudaErrorNotSupported where no tensor-map encoder is to be had).
+extern "C" int conv3d_wgmma_ndhwc_bf16(const void* x, const void* w, void* y,
+                                       int N, int D, int H, int W, int Ci,
+                                       int Co, int box_d, int bn, int blocks,
+                                       void* stream) {
+  return run(x, w, y, nullptr, N, D, H, W, Ci, Co, box_d, bn, blocks, stream);
+}
+
+// The same, and the STATS epilogue: `part` is f32 (3, N, boxes, Co), boxes =
+// ceil(D / box_d) * ceil(H / 8) * ceil(W / 8) of one sample, box index
+// (bd * nbh + bh) * nbw + bw; part[0] the count of the box's voxels inside the
+// volume, part[1] their mean, part[2] their centred sum of squares, of the
+// bf16 values written to y. Every slot is written.
+extern "C" int conv3d_wgmma_stats_ndhwc_bf16(const void* x, const void* w,
+                                             void* y, void* part, int N, int D,
+                                             int H, int W, int Ci, int Co,
+                                             int box_d, int bn, int blocks,
+                                             void* stream) {
+  if (!part) return (int)cudaErrorInvalidValue;
+  return run(x, w, y, static_cast<float*>(part), N, D, H, W, Ci, Co, box_d, bn,
+             blocks, stream);
 }

@@ -56,16 +56,19 @@ class Conv3x3(nn.Module):
                 self._cast_key = key
             return self.kernel_c
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, stats: bool = False):
+        """y, or with ``stats`` (y, the InstanceNorm partials of y or None):
+        ``ops.conv3d``."""
         if torch.is_grad_enabled() and self.kernel.requires_grad:
             w = self.kernel.to(self.compute_dtype)
         else:
             w = self.cached_kernel()
-        return conv3d(x.to(self.compute_dtype), w)
+        return conv3d(x.to(self.compute_dtype), w, stats=stats)
 
 
 class ConvNormAct(nn.Module):
-    """conv3x3x3 -> fused InstanceNorm+activation."""
+    """conv3x3x3 -> fused InstanceNorm+activation; the norm takes its
+    statistics from the conv's epilogue where the conv's route gives them."""
 
     def __init__(self, in_features: int, features: int,
                  activation: str = "relu",
@@ -77,9 +80,10 @@ class ConvNormAct(nn.Module):
         self.activation = activation
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y, partials = self.Conv_0(x, stats=True)
         return instance_norm_act(
-            self.Conv_0(x), self.in_scale, self.in_bias,
-            activation=self.activation,
+            y, self.in_scale, self.in_bias, activation=self.activation,
+            partials=partials,
         )
 
 

@@ -12,6 +12,10 @@ The flagship predict program runs as two stages:
   FLIPS order, argmax) -> depth-to-space of the labels. With stem 1 the
   full-resolution reduce is used instead.
 
+``stage_roi`` never waits for the card: the ROI start stays a device tensor
+and the region is gathered with it (:func:`crop_region`); the constants it
+needs on the device are built at the first call on each device.
+
 With ``postproc="device"`` (``serve``'s default) the connected-component
 filter and the tiny-ET relabel run on the ROI labels inside
 ``stage_finish`` (:247-251, :422-441; ``ops/connected_components.py``), so
@@ -23,6 +27,7 @@ The monolithic path and the staged multi-tile sweep are not ported yet
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -48,16 +53,33 @@ def coarse_locate(
     logits_c = coarse(coarse_in[None])[0]
     tumor = torch.argmax(logits_c, dim=-1) > 0
     center_c = mask_bbox_center(tumor)
-    scale = torch.tensor(
-        [c / s for c, s in zip(canvas, cfg.coarse_shape)],
-        dtype=torch.float32, device=image.device,
-    )
+    scale = _grid_scale(tuple(canvas), tuple(cfg.coarse_shape), image.device)
     # truncating cast, as the reference's .astype(int32) (:52)
     center = (center_c.float() * scale).to(torch.int32)
     start = centered_crop_start(center, roi, canvas)
-    sx, sy, sz = start.tolist()
-    region = image[sx:sx + roi[0], sy:sy + roi[1], sz:sz + roi[2]]
-    return region, start
+    return crop_region(image, start, roi), start
+
+
+@functools.lru_cache(maxsize=64)
+def _grid_scale(canvas, coarse_shape, device) -> torch.Tensor:
+    """Canvas / coarse-grid ratio per axis, f32, built once per device (the
+    host-to-device copy that builds it waits for the card)."""
+    with torch.inference_mode(False):
+        return torch.tensor([c / s for c, s in zip(canvas, coarse_shape)],
+                            dtype=torch.float32, device=device)
+
+
+def crop_region(image: torch.Tensor, start: torch.Tensor,
+                roi: Tuple[int, int, int]) -> torch.Tensor:
+    """``image[sx:sx+roi[0], sy:sy+roi[1], sz:sz+roi[2]]`` for a device
+    ``start``, gathered on the device as the reference's
+    ``jax.lax.dynamic_slice`` (:54-55): index tensors built from ``start``, so
+    the host never reads it."""
+    region = image
+    for ax, r in enumerate(roi):
+        idx = torch.arange(r, device=image.device) + start[ax].long()
+        region = region.index_select(ax, idx)
+    return region
 
 
 def lowres_mean_probs(

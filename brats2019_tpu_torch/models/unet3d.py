@@ -6,7 +6,8 @@ space-to-depth'd by r before the first conv and the head's K*r^3 channels
 are depth-to-space'd back (``subpixel=False`` returns them before that, for
 the low-res TTA reduce). The casts sit where the JAX module has them: the
 input to the compute dtype (:104), the skip concat (:135), the f32 head
-(:148-154).
+(:148-154). The up and the skip concat are one op, ``ops.upsample2x_concat``
+(the kernel writes the up half into the concat buffer).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 from torch import nn
 
 from ..configs.presets import UNetConfig
-from ..ops import downsample2x, upsample2x
+from ..ops import downsample2x, upsample2x_concat
 from .blocks import DoubleConv
 
 
@@ -90,8 +91,7 @@ class UNet3D(nn.Module):
                 skips.append(x)
                 x = downsample2x(x)
         for lvl in reversed(range(cfg.levels - 1)):
-            x = upsample2x(x)
-            x = torch.cat([x, skips[lvl].to(dt)], dim=-1)
+            x = upsample2x_concat(x, skips[lvl].to(dt))
             x = next(blocks)(x)
         logits = self.head(x)
         if r > 1 and subpixel:

@@ -9,6 +9,7 @@ from .resize import (
     resize_trilinear,
     upsample2x,
     upsample2x_bwd,
+    upsample2x_concat,
 )
 from .winograd import conv3d_winograd
 
@@ -31,6 +32,10 @@ def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
     conv3d.launches_wgmma = 0   # the share of conv3d.launches on conv3d_wgmma.cu
+    conv3d.launches_stats = 0   # of those, with the InstanceNorm-statistics epilogue
+    instance_norm_act.launches_partials = 0   # IN+act from the conv's partials
+    upsample2x.launches_cuda = 0     # the 2x up on resize2x.cu
+    upsample2x.launches_concat = 0   # of those, into the decoder's concat buffer
     conv3d_winograd.launches_wgmma = 0   # likewise, on winograd3d_wgmma.cu
 
 
@@ -53,4 +58,5 @@ __all__ = [
     "set_backend",
     "upsample2x",
     "upsample2x_bwd",
+    "upsample2x_concat",
 ]

@@ -25,8 +25,19 @@ package (its gradient was XLA's), so the port builds one:
   it runs on the bf16 operands (cuDNN, f32 accumulation) with TF32 off and
   deterministic algorithms; on the CPU in f32.
 
+``conv3d(x, w, stats=True)`` returns ``(y, partials)``: on the wgmma
+instance ``partials`` is the f32 (3, N, boxes, Co) InstanceNorm statistics
+of y, (count, mean, centred M2) per box of the plan and output channel,
+written by the kernel's STATS epilogue (``ops/norm.py`` merges them, so the
+norm after the conv reads y once); on a CPU tensor whose shape the planner
+gives the wgmma instance, :func:`conv_stats_plain` of the plain output, box
+by box as the kernel folds it; on every other route (``csrc/conv3d.cu``, the
+Winograd backend) None, and the norm takes its own statistics. The partials
+are not differentiable.
+
 ``conv3d.launches`` counts kernel launches of both instances,
-``conv3d.launches_wgmma`` those of the wgmma instance.
+``conv3d.launches_wgmma`` those of the wgmma instance,
+``conv3d.launches_stats`` those of them with the STATS epilogue.
 :func:`conv3d_boxed_plain` is plain torch organised as the wgmma kernel is
 (boxes, zero-filled halo patches, channel chunks, tap-shifted views, masked
 tails), so its index arithmetic is tested on the CPU.
@@ -43,6 +54,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -73,6 +85,9 @@ _SIG_WGMMA = {
     "conv3d_wgmma_ndhwc_bf16": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
     + [ctypes.c_void_p],
     "conv3d_wgmma_smem_bytes": [ctypes.c_int] * 2,
+    "conv3d_wgmma_stats_ndhwc_bf16": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+    + [ctypes.c_void_p],
+    "conv3d_wgmma_stats_smem_bytes": [ctypes.c_int] * 2,
 }
 
 
@@ -110,14 +125,17 @@ class ConvPlan:
     flop_per_filled_byte: float   # the call's flops over bytes filled into shared memory
 
 
-def wgmma_smem_bytes(bd: int, bn: int) -> int:
-    """Dynamic shared memory of the (bd, bn) instance; the same arithmetic as
-    ``smem_bytes`` in csrc/conv3d_wgmma.cu."""
+def wgmma_smem_bytes(bd: int, bn: int, stats: bool = False) -> int:
+    """Dynamic shared memory of the (bd, bn) instance, with the STATS
+    epilogue's scratch (a row of column sums per consumer warp and the box
+    means) if ``stats``; the same arithmetic as ``smem_bytes`` in
+    csrc/conv3d_wgmma.cu."""
     nvox = (bd + 2) * (BOX_HW + 2) * (BOX_HW + 2)
     patch = (CHUNK // 8) * (nvox + 1) * 16
     slab = (bn // 64) * CHUNK * 128
     return (1024 + B_STAGES * slab + PATCH_STAGES * patch
-            + 8 * (2 * B_STAGES + 2 * PATCH_STAGES))
+            + 8 * (2 * B_STAGES + 2 * PATCH_STAGES)
+            + (9 * bn * 4 if stats else 0))
 
 
 # The wgmma kernel's instances: (box depth, Co tile, one tile's time relative
@@ -231,6 +249,34 @@ def conv3d_boxed_plain(x: torch.Tensor, w: torch.Tensor,
     return y.to(x.dtype)
 
 
+def conv_stats_plain(y: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
+    """The STATS epilogue in plain torch: for each sample, box of ``plan``
+    (``plan.box``, ``plan.boxes``, boxes numbered (bd * nbh + bh) * nbw + bw
+    as the kernel walks them) and channel, the count of the box's voxels
+    inside the volume, their mean and their centred sum of squares, in f32,
+    of ``y`` as stored (the conv output in the compute dtype). Returns
+    (3, N, boxes, C)."""
+    if plan.instance != "wgmma":
+        raise ValueError("conv_stats_plain follows the wgmma instance's plan")
+    n, d, h, w, c = y.shape
+    bd, bh, bw = plan.box
+    nbd, nbh, nbw = plan.boxes
+    pad = (0, 0, 0, nbw * bw - w, 0, nbh * bh - h, 0, nbd * bd - d)
+
+    def boxed(t):   # (n, D, H, W, c) -> (n, boxes, voxels of a box, c)
+        t = F.pad(t, pad)
+        t = t.reshape(t.shape[0], nbd, bd, nbh, bh, nbw, bw, t.shape[-1])
+        t = t.permute(0, 1, 3, 5, 2, 4, 6, 7)
+        return t.reshape(t.shape[0], nbd * nbh * nbw, bd * bh * bw, t.shape[-1])
+
+    vals = boxed(y.float())
+    inside = boxed(torch.ones((1, d, h, w, 1), device=y.device))
+    cnt = inside.sum(2)                                   # (1, boxes, 1)
+    mean = vals.sum(2) / cnt
+    m2 = (((vals - mean[:, :, None]) * inside) ** 2).sum(2)
+    return torch.stack([cnt.expand_as(mean), mean, m2])
+
+
 def _check_kernel_args(x: torch.Tensor, w: torch.Tensor) -> None:
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
         raise TypeError(
@@ -274,9 +320,10 @@ def _launch_mma_sync(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def conv3d_kernel_wgmma(x: torch.Tensor, w: torch.Tensor,
-                        plan: ConvPlan | None = None) -> torch.Tensor:
+                        plan: ConvPlan | None = None, stats: bool = False):
     """Launch csrc/conv3d_wgmma.cu on CUDA bf16 tensors (Ci % 16 == 0,
-    Co % 8 == 0), with the shape's own plan unless one is given."""
+    Co % 8 == 0), with the shape's own plan unless one is given: y, or with
+    ``stats`` the STATS instance's (y, partials)."""
     _check_kernel_args(x, w)
     n, d, h, wd, ci = x.shape
     co = w.shape[4]
@@ -286,41 +333,62 @@ def conv3d_kernel_wgmma(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(
             f"conv3d: the wgmma kernel takes Ci % 16 == 0 and Co % 8 == 0, "
             f"got Ci {ci}, Co {co}")
-    return _launch_wgmma(x, w, plan)
+    return _launch_wgmma(x, w, plan, stats)
 
 
-def _launch_wgmma(x: torch.Tensor, w: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
+def _launch_wgmma(x: torch.Tensor, w: torch.Tensor, plan: ConvPlan,
+                  stats: bool = False):
     n, d, h, wd, ci = x.shape
     co = w.shape[4]
     x = x.contiguous()
     w = w.contiguous()
     y = torch.empty((n, d, h, wd, co), dtype=x.dtype, device=x.device)
+    part = None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _lib_wgmma().conv3d_wgmma_ndhwc_bf16(
-            x.data_ptr(), w.data_ptr(), y.data_ptr(), n, d, h, wd, ci, co,
-            plan.box[0], plan.bn, plan.blocks, stream
-        )
+        if stats:
+            part = torch.empty((3, n, math.prod(plan.boxes), co),
+                               dtype=torch.float32, device=x.device)
+            rc = _lib_wgmma().conv3d_wgmma_stats_ndhwc_bf16(
+                x.data_ptr(), w.data_ptr(), y.data_ptr(), part.data_ptr(), n, d,
+                h, wd, ci, co, plan.box[0], plan.bn, plan.blocks, stream
+            )
+        else:
+            rc = _lib_wgmma().conv3d_wgmma_ndhwc_bf16(
+                x.data_ptr(), w.data_ptr(), y.data_ptr(), n, d, h, wd, ci, co,
+                plan.box[0], plan.bn, plan.blocks, stream
+            )
     _build.check(rc, "conv3d (wgmma)")
-    _build.count_launch(conv3d, "launches", "launches_wgmma")
-    return y
+    _build.count_launch(conv3d, "launches", "launches_wgmma",
+                        *(("launches_stats",) if stats else ()))
+    return (y, part) if stats else y
 
 
-def conv3d_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Launch the instance :func:`plan_conv` names for this shape."""
+def conv3d_kernel(x: torch.Tensor, w: torch.Tensor, stats: bool = False):
+    """Launch the instance :func:`plan_conv` names for this shape: y, or with
+    ``stats`` (y, partials), partials None on the mma.sync instance."""
     _check_kernel_args(x, w)
     plan = plan_conv(*x.shape, w.shape[4], _sm_count(x.device))
     if plan.instance == "wgmma":
-        return _launch_wgmma(x, w, plan)
-    return _launch_mma_sync(x, w)
+        return _launch_wgmma(x, w, plan, stats)
+    y = _launch_mma_sync(x, w)
+    return (y, None) if stats else y
 
 
-def _conv3d_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _conv3d_fwd(x: torch.Tensor, w: torch.Tensor, stats: bool = False):
+    """y, or with ``stats`` (y, partials or None) by the route the module
+    docstring gives."""
     if _backend == "winograd":
-        return winograd.conv3d_winograd(x, w)
+        y = winograd.conv3d_winograd(x, w)
+        return (y, None) if stats else y
     if x.device.type == "cpu":
-        return conv3d_plain(x, w)
-    return conv3d_kernel(x, w)
+        y = conv3d_plain(x, w)
+        if not stats:
+            return y
+        plan = plan_conv(*x.shape, w.shape[4])
+        return y, (conv_stats_plain(y, plan) if plan.instance == "wgmma"
+                   else None)
+    return conv3d_kernel(x, w, stats)
 
 
 def dgrad_weight(w: torch.Tensor) -> torch.Tensor:
@@ -346,12 +414,17 @@ def conv3d_wgrad(x: torch.Tensor, gy: torch.Tensor, w: torch.Tensor) -> torch.Te
 
 class _Conv3d(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, stats):
         ctx.save_for_backward(x, w)
-        return _conv3d_fwd(x, w)
+        if not stats:
+            return _conv3d_fwd(x, w)
+        y, part = _conv3d_fwd(x, w, True)
+        if part is not None:
+            ctx.mark_non_differentiable(part)
+        return y, part
 
     @staticmethod
-    def backward(ctx, gy):
+    def backward(ctx, gy, *_g_part):
         x, w = ctx.saved_tensors
         gy = gy.contiguous()
         dx = dw = None
@@ -359,14 +432,16 @@ class _Conv3d(torch.autograd.Function):
             dx = _conv3d_fwd(gy, dgrad_weight(w))
         if ctx.needs_input_grad[1]:
             dw = conv3d_wgrad(x, gy, w)
-        return dx, dw
+        return dx, dw, None
 
 
-def conv3d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def conv3d(x: torch.Tensor, w: torch.Tensor, *, stats: bool = False):
+    """y, or with ``stats`` (y, partials or None): see the module docstring."""
     if x.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"conv3d: no kernel for device {x.device}")
-    return _Conv3d.apply(x, w)
+    return _Conv3d.apply(x, w, stats)
 
 
 conv3d.launches = 0
 conv3d.launches_wgmma = 0
+conv3d.launches_stats = 0

@@ -11,6 +11,12 @@ NDHWC; statistics per (n, c) over the spatial axes, in f32, biased variance,
 * CUDA tensor: the Triton kernels of ``ops/triton_norm.py`` (bf16, the
   compute dtype of the path), or an error. There is no fallback.
 
+``partials``: the f32 (3, N, P, C) per-box (count, mean, centred M2) of x
+that the conv before the norm computed in its epilogue (``ops/conv.py``
+``conv3d(..., stats=True)``). Given them, the forward skips its statistics
+pass: it merges them (:func:`merge_partials_plain` on the CPU, the Triton
+merge on CUDA) and applies, reading x once.
+
 :func:`instance_norm_act` is an ``autograd.Function``: the forward saves x,
 gamma, beta and the f32 (N, C) mean/rstd; the backward returns dx in
 ``x.dtype`` and dgamma, dbeta in f32, summed over n. act' is taken at
@@ -20,7 +26,8 @@ as ``pallas_norm._act_grad`` (:118-123).
 Activations: relu, leaky_relu (slope 0.01), none.
 
 ``instance_norm_act.launches`` and ``instance_norm_act_bwd.launches`` count
-kernel launches (one per call).
+kernel launches (one per call); ``instance_norm_act.launches_partials`` those
+of them that took the conv's partials.
 """
 
 from __future__ import annotations
@@ -53,19 +60,37 @@ def _act_grad(y_pre: torch.Tensor, g: torch.Tensor, activation: str) -> torch.Te
     return g
 
 
+def _plain_apply(x, mean, rstd, scale, bias, activation):
+    n, c = x.shape[0], x.shape[-1]
+    bshape = (n,) + (1,) * (x.dim() - 2) + (c,)
+    y = (x.float() - mean.reshape(bshape)) * rstd.reshape(bshape)
+    if scale is not None:
+        y = y * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return _act(y, activation).to(x.dtype)
+
+
 def _plain_stats(x, scale, bias, eps, activation):
     red = tuple(range(1, x.dim() - 1))
     xf = x.float()
     mu = xf.mean(red, keepdim=True)
     var = (xf - mu).square().mean(red, keepdim=True)
     rstd = torch.rsqrt(var + eps)
-    y = (xf - mu) * rstd
-    if scale is not None:
-        y = y * scale.float()
-    if bias is not None:
-        y = y + bias.float()
     n, c = x.shape[0], x.shape[-1]
-    return _act(y, activation).to(x.dtype), mu.reshape(n, c), rstd.reshape(n, c)
+    mu, rstd = mu.reshape(n, c), rstd.reshape(n, c)
+    return _plain_apply(x, mu, rstd, scale, bias, activation), mu, rstd
+
+
+def merge_partials_plain(part: torch.Tensor, eps: float = 1e-5):
+    """(3, N, P, C) per-box (count, mean, centred M2) -> the f32 (N, C) mean
+    and rstd, by the parallel formula of ``_in_merge_kernel``: mean = sum
+    n_i mu_i / n, M2 = sum (M2_i + n_i (mu_i - mean)^2), biased variance."""
+    cnt, mu, m2 = part.float()
+    total = cnt.sum(1)
+    mean = (cnt * mu).sum(1) / total
+    var = (m2 + cnt * (mu - mean[:, None]) ** 2).sum(1) / total
+    return mean, torch.rsqrt(var + eps)
 
 
 def instance_norm_act_plain(
@@ -121,6 +146,16 @@ def _affine(x, scale, bias):
             beta.to(device=x.device, dtype=torch.float32).contiguous())
 
 
+def _check_partials(part: torch.Tensor, x: torch.Tensor) -> None:
+    n, c = x.shape[0], x.shape[-1]
+    if (part.dim() != 4 or part.shape[0] != 3 or part.shape[1] != n
+            or part.shape[3] != c or part.dtype != torch.float32
+            or part.device != x.device):
+        raise ValueError(f"instance_norm_act: partials {tuple(part.shape)} "
+                         f"{part.dtype} on {part.device} do not fit x "
+                         f"{tuple(x.shape)} on {x.device}")
+
+
 def instance_norm_act_kernel(
     x: torch.Tensor,
     scale: Optional[torch.Tensor],
@@ -128,9 +163,11 @@ def instance_norm_act_kernel(
     *,
     eps: float = 1e-5,
     activation: str = "relu",
+    partials: Optional[torch.Tensor] = None,
 ):
     """Launch the Triton forward on a CUDA NDHWC bf16 tensor: (y, the f32
-    (N, C) mean, rstd)."""
+    (N, C) mean, rstd); from the conv's ``partials`` when given (merge and
+    apply), else statistics, finalize and apply."""
     _check_kernel_input(x, activation)
     from . import triton_norm
 
@@ -139,9 +176,16 @@ def instance_norm_act_kernel(
     gamma, beta = _affine(x, scale, bias)
     y3 = torch.empty_like(x3)
     with torch.cuda.device(x.device):
-        mean, rstd = triton_norm.launch(x3, y3, gamma, beta, float(eps),
-                                        activation)
-    _build.count_launch(instance_norm_act)
+        if partials is None:
+            mean, rstd = triton_norm.launch(x3, y3, gamma, beta, float(eps),
+                                            activation)
+        else:
+            _check_partials(partials, x)
+            mean, rstd = triton_norm.launch_from_partials(
+                x3, y3, partials.contiguous(), gamma, beta, float(eps),
+                activation)
+    _build.count_launch(instance_norm_act, "launches",
+                        *(() if partials is None else ("launches_partials",)))
     return y3.view(n, d, h, w, c), mean, rstd
 
 
@@ -184,12 +228,17 @@ def instance_norm_act_bwd(x, g, gamma, beta, mean, rstd, activation="relu"):
 
 class _InstanceNormAct(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, scale, bias, eps, activation):
-        if x.device.type == "cpu":
+    def forward(ctx, x, scale, bias, eps, activation, partials):
+        if x.device.type == "cuda":
+            y, mean, rstd = instance_norm_act_kernel(
+                x, scale, bias, eps=eps, activation=activation,
+                partials=partials)
+        elif partials is None:
             y, mean, rstd = _plain_stats(x, scale, bias, eps, activation)
         else:
-            y, mean, rstd = instance_norm_act_kernel(
-                x, scale, bias, eps=eps, activation=activation)
+            _check_partials(partials, x)
+            mean, rstd = merge_partials_plain(partials, eps)
+            y = _plain_apply(x, mean, rstd, scale, bias, activation)
         gamma, beta = _affine(x, scale, bias)
         ctx.save_for_backward(x, gamma, beta, mean, rstd)
         ctx.activation = activation
@@ -203,7 +252,7 @@ class _InstanceNormAct(torch.autograd.Function):
         )
         need = ctx.needs_input_grad
         return (dx if need[0] else None, dgamma if need[1] else None,
-                dbeta if need[2] else None, None, None)
+                dbeta if need[2] else None, None, None, None)
 
 
 def instance_norm_act(
@@ -213,11 +262,15 @@ def instance_norm_act(
     *,
     eps: float = 1e-5,
     activation: str = "relu",
+    partials: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Fused InstanceNorm3d + activation. NDHWC; stats per (N, C)."""
+    """Fused InstanceNorm3d + activation. NDHWC; stats per (N, C), from the
+    conv's ``partials`` when given."""
     _device_check(x, "instance_norm_act")
-    return _InstanceNormAct.apply(x, scale, bias, float(eps), activation)
+    return _InstanceNormAct.apply(x, scale, bias, float(eps), activation,
+                                  partials)
 
 
 instance_norm_act.launches = 0
+instance_norm_act.launches_partials = 0
 instance_norm_act_bwd.launches = 0

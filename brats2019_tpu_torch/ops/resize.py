@@ -5,13 +5,20 @@
 * :func:`upsample2x` — exact 2x trilinear up: half-pixel taps (0.25, 0.75)
   with replicate-clamped edges.
 
-Both are ``autograd.Function``s whose backward is the exact VJP
+* :func:`upsample2x_concat` — ``cat([upsample2x(x), skip], -1)``, the
+  decoder's (up, skip) concat, with the up half written by the kernel
+  straight into the concat buffer.
+
+All are ``autograd.Function``s whose backward is the exact VJP
 (:func:`downsample2x_bwd`: g/8 broadcast to the 2^3 window;
 :func:`upsample2x_bwd`: the stride-2 4-tap correlation with the
 replicate-clamp edge folds, ``pallas_resize.py:128-234``). Forward and
-backward run their plain version on a CPU tensor and the Triton kernels of
-``ops/triton_resize.py`` on a CUDA bf16 tensor (or raise); ``.launches``
-counts kernel launches.
+backward run their plain version on a CPU tensor and a kernel on a CUDA bf16
+tensor (or raise): the 2x up forward is ``csrc/resize2x.cu`` where C is a
+multiple of 8 (the Triton ``_up2x_kernel`` for other C, chosen by shape), the
+rest the Triton kernels of ``ops/triton_resize.py``. ``.launches`` counts
+kernel launches; ``upsample2x.launches_cuda`` those of them on resize2x.cu,
+``upsample2x.launches_concat`` those that wrote into a concat buffer.
 
 * :func:`resize_trilinear` — arbitrary target shape, plain torch on every
   device, as the JAX package runs it outside any Pallas kernel. It is
@@ -24,12 +31,23 @@ counts kernel launches.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Sequence
 
 import numpy as np
 import torch
 
 from . import _build
+
+_SIG = {
+    "upsample2x_ndhwc_bf16": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
+    + [ctypes.c_void_p],
+}
+
+
+def _lib() -> ctypes.CDLL:
+    return _build.load_library("resize2x", ["resize2x.cu"], _SIG)
 
 
 # ----------------------------------------------------------- plain versions --
@@ -59,6 +77,44 @@ def upsample2x_plain(x: torch.Tensor) -> torch.Tensor:
     y = x.float()
     for ax in (1, 2, 3):
         y = _up_axis(y, ax)
+    return y.to(x.dtype)
+
+
+UP_TILE = (4, 4, 8)   # csrc/resize2x.cu: input voxels of a block's tile (d, h, w)
+
+
+def upsample2x_tiled_plain(x: torch.Tensor) -> torch.Tensor:
+    """The 2x up in plain torch, organised as csrc/resize2x.cu is: per tile
+    of UP_TILE input voxels (all samples and channels at once: the kernel's
+    channel chunks do not interact), a halo tile gathered at clamped indices
+    (the replicate edge), each halo d-row interpolated along w then h, and
+    the d phases of a voxel completed from two consecutive rows as the kernel
+    walks them. f32 math, x.dtype out."""
+    n, d, h, w, c = x.shape
+    td, th, tw = UP_TILE
+    xf = x.float()
+    y = torch.empty((n, 2 * d, 2 * h, 2 * w, c), dtype=torch.float32,
+                    device=x.device)
+    clamp = lambda lo, size, lim: torch.arange(lo - 1, lo + size + 1).clamp(0, lim - 1)
+    for d0 in range(0, d, td):
+        for h0 in range(0, h, th):
+            for w0 in range(0, w, tw):
+                halo = xf[:, clamp(d0, td, d)][:, :, clamp(h0, th, h)][
+                    :, :, :, clamp(w0, tw, w)]         # (n, td+2, th+2, tw+2, c)
+                we = 0.25 * halo[:, :, :, :-2] + 0.75 * halo[:, :, :, 1:-1]
+                wo = 0.75 * halo[:, :, :, 1:-1] + 0.25 * halo[:, :, :, 2:]
+                rw = torch.stack([we, wo], 4)          # (n, td+2, th+2, tw, 2, c)
+                he = 0.25 * rw[:, :, :-2] + 0.75 * rw[:, :, 1:-1]
+                ho = 0.75 * rw[:, :, 1:-1] + 0.25 * rw[:, :, 2:]
+                row = torch.stack([he, ho], 3)         # (n, td+2, th, 2, tw, 2, c)
+                dn, hn, wn = min(td, d - d0), min(th, h - h0), min(tw, w - w0)
+                for v in range(dn):                    # rows v, v+1, v+2 of voxel v
+                    ev = 0.25 * row[:, v] + 0.75 * row[:, v + 1]
+                    od = 0.75 * row[:, v + 1] + 0.25 * row[:, v + 2]
+                    for a, ph in ((0, ev), (1, od)):
+                        y[:, 2 * (d0 + v) + a, 2 * h0:2 * (h0 + hn),
+                          2 * w0:2 * (w0 + wn)] = ph[:, :hn, :, :wn].reshape(
+                              n, 2 * hn, 2 * wn, c)
     return y.to(x.dtype)
 
 
@@ -113,7 +169,9 @@ def downsample2x_kernel(x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def upsample2x_kernel(x: torch.Tensor) -> torch.Tensor:
+def upsample2x_kernel_triton(x: torch.Tensor) -> torch.Tensor:
+    """The Triton ``_up2x_kernel`` (any C): what :func:`upsample2x_kernel`
+    launches where C is not a multiple of 8."""
     _check5d(x, "upsample2x")
     from . import triton_resize
 
@@ -124,6 +182,54 @@ def upsample2x_kernel(x: torch.Tensor) -> torch.Tensor:
         triton_resize.launch_up(x, y)
     _build.count_launch(upsample2x)
     return y
+
+
+def _launch_up_cuda(x: torch.Tensor, out: torch.Tensor, offset: int) -> None:
+    """csrc/resize2x.cu: up(x) into channels [offset, offset + C) of the
+    contiguous (N, 2D, 2H, 2W, pitch) ``out``."""
+    n, d, h, w, c = x.shape
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _lib().upsample2x_ndhwc_bf16(x.data_ptr(), out.data_ptr(), n, d, h,
+                                          w, c, out.shape[-1], offset, stream)
+    _build.check(rc, "upsample2x (resize2x.cu)")
+
+
+def upsample2x_kernel(x: torch.Tensor) -> torch.Tensor:
+    """The 2x up on a CUDA bf16 tensor: csrc/resize2x.cu where C % 8 == 0,
+    else the Triton kernel."""
+    _check5d(x, "upsample2x")
+    n, d, h, w, c = x.shape
+    if c % 8:
+        return upsample2x_kernel_triton(x)
+    x = x.contiguous()
+    y = torch.empty((n, 2 * d, 2 * h, 2 * w, c), dtype=x.dtype, device=x.device)
+    _launch_up_cuda(x, y, 0)
+    _build.count_launch(upsample2x, "launches", "launches_cuda")
+    return y
+
+
+def upsample2x_concat_kernel(x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+    """``cat([up(x), skip], -1)`` on CUDA bf16 tensors: csrc/resize2x.cu
+    writes up(x) into the concat buffer's first C channels where C and the
+    buffer's channels are multiples of 8 (else the up is made apart and
+    copied in), and skip is copied into the rest."""
+    _check5d(x, "upsample2x_concat")
+    _check5d(skip, "upsample2x_concat")
+    n, d, h, w, cu = x.shape
+    if tuple(skip.shape[:4]) != (n, 2 * d, 2 * h, 2 * w) or skip.device != x.device:
+        raise ValueError(f"upsample2x_concat: skip {tuple(skip.shape)} on "
+                         f"{skip.device} for x {tuple(x.shape)} on {x.device}")
+    buf = torch.empty((n, 2 * d, 2 * h, 2 * w, cu + skip.shape[-1]),
+                      dtype=x.dtype, device=x.device)
+    if cu % 8 or buf.shape[-1] % 8:
+        buf[..., :cu] = upsample2x_kernel(x)
+    else:
+        _launch_up_cuda(x.contiguous(), buf, 0)
+        _build.count_launch(upsample2x, "launches", "launches_cuda",
+                            "launches_concat")
+    buf[..., cu:] = skip
+    return buf
 
 
 def downsample2x_bwd_kernel(g: torch.Tensor, x_shape) -> torch.Tensor:
@@ -191,6 +297,20 @@ class _Down2x(torch.autograd.Function):
         return downsample2x_bwd(g, ctx.x_shape)
 
 
+class _Up2xConcat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, skip):
+        ctx.cu = x.shape[-1]
+        if x.device.type == "cpu":
+            return torch.cat([upsample2x_plain(x), skip], -1)
+        return upsample2x_concat_kernel(x, skip)
+
+    @staticmethod
+    def backward(ctx, g):
+        cu = ctx.cu
+        return upsample2x_bwd(g[..., :cu].contiguous()), g[..., cu:]
+
+
 class _Up2x(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
@@ -215,8 +335,20 @@ def upsample2x(x: torch.Tensor) -> torch.Tensor:
     return _Up2x.apply(x)
 
 
+def upsample2x_concat(x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+    """(N, D, H, W, Cu), (N, 2D, 2H, 2W, Cs) -> (N, 2D, 2H, 2W, Cu + Cs):
+    ``cat([upsample2x(x), skip], -1)`` (the order of the JAX package's
+    decoder, ``models/unet3d.py:135``) without a second copy of the up half."""
+    _device_check(x, "upsample2x_concat")
+    if skip.dtype != x.dtype:
+        raise TypeError(f"upsample2x_concat: skip {skip.dtype}, x {x.dtype}")
+    return _Up2xConcat.apply(x, skip)
+
+
 downsample2x.launches = 0
 upsample2x.launches = 0
+upsample2x.launches_cuda = 0
+upsample2x.launches_concat = 0
 downsample2x_bwd.launches = 0
 upsample2x_bwd.launches = 0
 
@@ -241,6 +373,15 @@ def linear_weight_matrix(n_in: int, n_out: int) -> np.ndarray:
     return np.where(inside[None, :], weights, 0).astype(f32)
 
 
+@functools.lru_cache(maxsize=64)
+def _weight_matrix(n_in: int, n_out: int, device) -> torch.Tensor:
+    """:func:`linear_weight_matrix` on ``device``, built once per device (the
+    host-to-device copy that builds it waits for the card). Not an inference
+    tensor, so autograd may save it whichever mode first asked for it."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(linear_weight_matrix(n_in, n_out)).to(device)
+
+
 def resize_trilinear(x: torch.Tensor, spatial: Sequence[int]) -> torch.Tensor:
     """Resize the 3 spatial dims of (..., D, H, W, C); f32 math, x.dtype out."""
     nd = x.dim()
@@ -251,7 +392,7 @@ def resize_trilinear(x: torch.Tensor, spatial: Sequence[int]) -> torch.Tensor:
         n_in = y.shape[ax]
         if n_in == n_out:
             continue  # jax skips identity axes
-        wmat = torch.from_numpy(linear_weight_matrix(n_in, n_out)).to(y.device)
+        wmat = _weight_matrix(n_in, n_out, y.device)
         out = letters[:ax] + "z" + letters[ax + 1:]
         y = torch.einsum(f"{letters},{letters[ax]}z->{out}", y, wmat)
     return y.contiguous().to(x.dtype)

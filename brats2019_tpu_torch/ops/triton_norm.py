@@ -29,6 +29,19 @@ step to the next; Hopper blocks run in no order, so the reduction is split:
    elementwise pass ((x - mean) * rstd * gamma + beta, then the activation)
    with masked block loads; NDHWC rows are contiguous along C.
 
+Where the conv before the norm ran with its STATS epilogue
+(``csrc/conv3d_wgmma.cu``: (count, mean, centred M2) per box of the conv's
+plan and channel, f32 (3, N, P, C)), :func:`launch_from_partials` skips the
+statistics pass: two launches and two passes, x read once and y written once.
+
+4. ``_in_merge_kernel``: grid (N, C blocks of 16). At (8, 64^3) a sample
+   has 1,024 boxes, too many for one tile in registers as
+   ``_in_finalize_kernel`` holds its P, so it walks P in chunks of 256 in a
+   fixed order, twice: sum of counts and of count * mean, then, around the
+   merged mean, the sum of M2 + count * (mean_i - mean)^2 (the same parallel
+   formula; bitwise repeatable).
+5. ``_in_apply_kernel`` as above.
+
 Statistics are f32 with biased variance, eps inside the rsqrt, as in the
 reference. :func:`launch` returns the per-(n, c) f32 mean and rstd: the
 backward's residuals, as ``_in_act_fwd`` (:324-326) keeps them.
@@ -45,14 +58,14 @@ forward is: it reads x and g twice and writes dx once (bf16). The TPU
 kernel carries the two sums across its sequential grid; here the forward's
 split is reused:
 
-4. ``_in_bwd_partial_kernel``: grid (N*P, C blocks); each program folds its
+6. ``_in_bwd_partial_kernel``: grid (N*P, C blocks); each program folds its
    chunk of voxels into (BLOCK_S, BLOCK_C) f32 tiles of g_a and g_a * xhat
    (x-hat and y_pre recomputed from x, mean, rstd: nothing of the forward
    but the two (N, C) vectors is kept) and reduces them once at the end.
-5. ``_in_bwd_merge_kernel``: grid (C blocks); walks n and the P partials in
+7. ``_in_bwd_merge_kernel``: grid (C blocks); walks n and the P partials in
    a fixed order, writes the per-(n, c) sums and dgamma, dbeta (summed over
    n). No atomics: repeat runs are bitwise equal.
-6. ``_in_bwd_dx_kernel``: grid (S blocks, N, C blocks), one fused pass that
+8. ``_in_bwd_dx_kernel``: grid (S blocks, N, C blocks), one fused pass that
    writes dx.
 """
 
@@ -124,6 +137,42 @@ def _in_finalize_kernel(part_ptr, mean_ptr, rstd_ptr, NP, P, C, eps,
 
 
 @triton.jit
+def _in_merge_kernel(part_ptr, mean_ptr, rstd_ptr, P, C, NPC, eps,
+                     BLOCK_P: tl.constexpr, BLOCK_C: tl.constexpr):
+    n = tl.program_id(0)
+    cb = tl.program_id(1)
+    offs_c = cb * BLOCK_C + tl.arange(0, BLOCK_C)
+    cmask = offs_c < C
+    base = n.to(tl.int64) * P * C
+    acc_n = tl.zeros([BLOCK_P, BLOCK_C], dtype=tl.float32)
+    acc_s = tl.zeros([BLOCK_P, BLOCK_C], dtype=tl.float32)
+    for p0 in range(0, P, BLOCK_P):
+        offs_p = p0 + tl.arange(0, BLOCK_P)
+        mask = (offs_p < P)[:, None] & cmask[None, :]
+        idx = base + offs_p.to(tl.int64)[:, None] * C + offs_c[None, :]
+        cnt = tl.load(part_ptr + idx, mask=mask, other=0.0)
+        mu = tl.load(part_ptr + NPC + idx, mask=mask, other=0.0)
+        acc_n += cnt
+        acc_s += cnt * mu
+    total = tl.sum(acc_n, axis=0)
+    mean = tl.sum(acc_s, axis=0) / total
+    acc_m2 = tl.zeros([BLOCK_P, BLOCK_C], dtype=tl.float32)
+    for p0 in range(0, P, BLOCK_P):
+        offs_p = p0 + tl.arange(0, BLOCK_P)
+        mask = (offs_p < P)[:, None] & cmask[None, :]
+        idx = base + offs_p.to(tl.int64)[:, None] * C + offs_c[None, :]
+        cnt = tl.load(part_ptr + idx, mask=mask, other=0.0)
+        mu = tl.load(part_ptr + NPC + idx, mask=mask, other=0.0)
+        m2 = tl.load(part_ptr + 2 * NPC + idx, mask=mask, other=0.0)
+        dev = mu - mean[None, :]
+        acc_m2 += m2 + cnt * dev * dev
+    var = tl.sum(acc_m2, axis=0) / total
+    rstd = 1.0 / tl.sqrt(var + eps)
+    tl.store(mean_ptr + n * C + offs_c, mean, mask=cmask)
+    tl.store(rstd_ptr + n * C + offs_c, rstd, mask=cmask)
+
+
+@triton.jit
 def _in_apply_kernel(x_ptr, y_ptr, mean_ptr, rstd_ptr, g_ptr, b_ptr, S, C,
                      ACT: tl.constexpr, BLOCK_S: tl.constexpr,
                      BLOCK_C: tl.constexpr):
@@ -154,12 +203,27 @@ def _pow2(v: int) -> int:
     return 1 << max(0, (v - 1).bit_length())
 
 
+def _blocks(c: int):
+    block_c = min(64, _pow2(c))
+    return block_c, max(16, 4096 // block_c)
+
+
+def apply(x, y, mean, rstd, gamma, beta, activation: str) -> None:
+    """The apply pass: y = act((x - mean) * rstd * gamma + beta)."""
+    n, s, c = x.shape
+    block_c, block_s = _blocks(c)
+    _in_apply_kernel[(triton.cdiv(s, block_s), n, triton.cdiv(c, block_c))](
+        x, y, mean, rstd, gamma, beta, s, c,
+        ACT=ACT_CODES[activation], BLOCK_S=block_s, BLOCK_C=block_c,
+        num_warps=4,
+    )
+
+
 def launch(x, y, gamma, beta, eps: float, activation: str):
     """x, y: contiguous (N, S, C) on one CUDA device; gamma, beta: f32 (C,).
     Writes y; returns the f32 (N, C) mean and rstd."""
     n, s, c = x.shape
-    block_c = min(64, _pow2(c))
-    block_s = max(16, 4096 // block_c)
+    block_c, block_s = _blocks(c)
     p_max = 128
     chunk = triton.cdiv(triton.cdiv(s, p_max), block_s) * block_s
     p = triton.cdiv(s, chunk)
@@ -175,11 +239,35 @@ def launch(x, y, gamma, beta, eps: float, activation: str):
         part, mean, rstd, n * p, p, c, eps,
         BLOCK_P=_pow2(p), BLOCK_C=block_c, num_warps=4,
     )
-    _in_apply_kernel[(triton.cdiv(s, block_s), n, c_blocks)](
-        x, y, mean, rstd, gamma, beta, s, c,
-        ACT=ACT_CODES[activation], BLOCK_S=block_s, BLOCK_C=block_c,
-        num_warps=4,
+    apply(x, y, mean, rstd, gamma, beta, activation)
+    return mean, rstd
+
+
+# 256 boxes x 16 channels a step, 8 warps: the merge is latency-bound (its
+# partials sit in L2), so each step keeps many loads in flight
+MERGE_BLOCK_P, MERGE_BLOCK_C = 256, 16
+
+
+def merge(part, eps: float):
+    """``part`` f32 contiguous (3, N, P, C) per-box (count, mean, M2) -> the
+    f32 (N, C) mean and rstd."""
+    _, n, p, c = part.shape
+    mean = torch.empty((n, c), dtype=torch.float32, device=part.device)
+    rstd = torch.empty((n, c), dtype=torch.float32, device=part.device)
+    block_c = min(MERGE_BLOCK_C, _pow2(c))
+    _in_merge_kernel[(n, triton.cdiv(c, block_c))](
+        part, mean, rstd, p, c, n * p * c, eps,
+        BLOCK_P=MERGE_BLOCK_P, BLOCK_C=block_c, num_warps=8,
     )
+    return mean, rstd
+
+
+def launch_from_partials(x, y, part, gamma, beta, eps: float, activation: str):
+    """The forward from the conv's partials (:func:`merge`, then
+    :func:`apply`); x, y as in :func:`launch`. Writes y; returns the f32
+    (N, C) mean and rstd."""
+    mean, rstd = merge(part, eps)
+    apply(x, y, mean, rstd, gamma, beta, activation)
     return mean, rstd
 
 

@@ -35,7 +35,19 @@ and prints no result lines). Phases:
    instance the planner chose and the launch counters show, ``winograd3d.cu``
    held to the same reference and timed in the same call as ``prev_ms``, and
    three odd-channel shapes through the Winograd seam to ``winograd3d.cu``.
-   Beside every
+   The IN+act forward of the predict path takes its statistics from the
+   conv's epilogue: at every conv that an IN follows (predict, train and
+   eval shapes) the STATS conv's y bitwise equal to the conv's without it,
+   its partials bitwise repeatable, the merged mean and rstd within 1e-5
+   relative of y's plain statistics, and IN+act from the partials within 2
+   bf16 ulp of the plain version and bitwise repeatable; at the predict
+   shapes the three terms of its time (the epilogue: STATS conv less the
+   conv, timed in turns; the merge; the apply) beside the three-launch
+   forward (``prev_ms``). The 2x up (``csrc/resize2x.cu``) is held to 1 bf16
+   ulp with the Triton kernel (``prev_ms``) held to the same, and at the
+   predict shapes written into the decoder's concat buffer: up half within 1
+   ulp, skip half bitwise, timed against the Triton up followed by
+   ``torch.cat``. Beside every
    kernel of the record, at the same shapes: its bound (the larger of bytes
    over 3.35 TB/s and operations over the peak of their type) and the device
    time of the one PyTorch call that computes the same function (bf16
@@ -47,7 +59,10 @@ and prints no result lines). Phases:
    ``brats2019_tpu_torch.cli.predict`` on the card with the launch counters
    zeroed just before; outputs checked (shape, labels in {0,1,2,4}), every
    forward kernel launched (24 convs per volume, all on the wgmma
-   instance), a repeat run bitwise
+   instance with the statistics epilogue, 24 IN+act from its partials, 5
+   ups on ``resize2x.cu`` into the concat buffer), ``stage_roi`` under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no device-to-host wait; the
+   same start and tiles), a repeat run bitwise
    equal, the kernel path held against the plain torch path on the CPU at a
    small input, and device ms/volume (CUDA events) and end-to-end s/volume.
 4. The training slice: ``brats2019_tpu_torch.cli.train --preset cascade
@@ -71,7 +86,9 @@ and prints no result lines). Phases:
    ``{"case_dir": ...}``, reads ``/result`` and ``/stats``, and stops the
    daemon with SIGTERM (a clean drain is required). Checked: every request
    answered and logged; 24 ``conv3d_winograd`` launches per volume, all on the
-   wgmma instance, and no direct-conv launch, IN/down/up as in phase 3; labels in {0,1,2,4} at the
+   wgmma instance, and no direct-conv launch, IN/down/up as in phase 3 (the
+   IN taking its own statistics: the Winograd conv has no epilogue for
+   them); labels in {0,1,2,4} at the
    input's shape; Winograd masks against phase 3's direct-conv masks (voxel
    agreement >= 0.995: both are bf16 paths); a second daemon on the same
    output dir serves nothing (log replay); a daemon with a fresh log
@@ -133,11 +150,14 @@ KERNELS = {
     # general instance (Ci % 16 or Co % 8 nonzero), timed beside it as prev_ms
     "conv3d": ("cuda", "brats2019_tpu_torch/csrc/conv3d_wgmma.cu",
                "brats2019_tpu/ops/pallas_conv.py:79"),
+    # statistics from the conv's epilogue (csrc/conv3d_wgmma.cu, STATS), then
+    # the Triton merge and apply; the three-launch forward is timed as prev_ms
     "instance_norm_act": ("triton", "brats2019_tpu_torch/ops/triton_norm.py",
                           "brats2019_tpu/ops/pallas_norm.py:340"),
     "downsample2x": ("triton", "brats2019_tpu_torch/ops/triton_resize.py",
                      "brats2019_tpu/ops/pallas_resize.py:268"),
-    "upsample2x": ("triton", "brats2019_tpu_torch/ops/triton_resize.py",
+    # the Triton _up2x_kernel stays for C % 8 != 0, timed as prev_ms
+    "upsample2x": ("cuda", "brats2019_tpu_torch/csrc/resize2x.cu",
                    "brats2019_tpu/ops/pallas_resize.py:103"),
     "instance_norm_act_bwd": ("triton", "brats2019_tpu_torch/ops/triton_norm.py",
                               "brats2019_tpu/ops/pallas_norm.py:265"),
@@ -160,6 +180,7 @@ GENERAL_CONV_CALLS = [("conv3d", (1, 24, 28, 20, 4, 32)),
 GENERAL_WINO_CALLS = [("conv3d_winograd", (1, 24, 28, 20, 4, 32)),
                       ("conv3d_winograd", (1, 12, 14, 10, 48, 4)),
                       ("conv3d_winograd", (2, 10, 8, 14, 40, 20))]
+EPILOGUE_SOURCE = "brats2019_tpu_torch/csrc/conv3d_wgmma.cu"   # row 2's statistics
 FORWARD = ("conv3d", "instance_norm_act", "downsample2x", "upsample2x")
 BACKWARD = ("instance_norm_act_bwd", "downsample2x_bwd", "upsample2x_bwd")
 WINO_TOL = 2e-2        # Winograd kernel vs its plain version, max|d|/max|ref|
@@ -498,6 +519,22 @@ def check_kernels(calls, dev, library_for=()):
             what = (f"{err:.2f} bf16 ulp (tol 2), repeat run bitwise equal: "
                     f"{same}")
             del again
+        elif name == "upsample2x":
+            # resize2x.cu; the Triton kernel held to the same before it is
+            # timed as prev_ms
+            err = bf16_ulps(got, ref)
+            before = resize.upsample2x.launches_cuda
+            again = kern()
+            old = resize.upsample2x_kernel_triton(x)
+            torch.cuda.synchronize()
+            same = bool((again == got).all())
+            p_err = bf16_ulps(old, ref)
+            on_cuda = resize.upsample2x.launches_cuda - before
+            ok = err <= 1 and p_err <= 1 and same and on_cuda == 1
+            what = (f"{err:.2f} bf16 ulp (tol 1), repeat run bitwise equal: "
+                    f"{same}, {on_cuda} launch on resize2x.cu; Triton kernel "
+                    f"(prev) {p_err:.2f} ulp (tol 1)")
+            del again, old
         else:
             err = bf16_ulps(got, ref)
             ok = err <= 1
@@ -524,6 +561,9 @@ def check_kernels(calls, dev, library_for=()):
             extra = (f"; {4 * math.prod(shape) / ms / 1e9:.3f} TB/s of counted "
                      f"bytes ({100 * bytes_ms / ms:.0f}% of "
                      f"{PEAK_BW / 1e12:.2f})")
+        elif name == "upsample2x":
+            prev = device_ms(lambda: resize.upsample2x_kernel_triton(x), reps)
+            extra = f"; Triton kernel (prev) {prev:.4f} ms"
         elif name == "conv3d_winograd":
             prev = (ms if plan.instance == "mma_sync" else device_ms(
                 lambda: winograd.conv3d_winograd_kernel_mma_sync(x, wt), reps))
@@ -549,11 +589,126 @@ def check_kernels(calls, dev, library_for=()):
               f"operations {ops_ms:.4f})"
               + ("" if lib is None else f"; library call {lib:.4f} ms")
               + (extra if name in ("conv3d", "conv3d_winograd",
-                                   "instance_norm_act") else ""))
+                                   "instance_norm_act", "upsample2x") else ""))
         results[(name, shape)] = (err, abs_err, ms, plain_ms, wall, plain_wall,
                                   bytes_ms, ops_ms, lib, prev)
         del got, ref, kern, plain
     return results
+
+
+def conv_norm_shapes(calls):
+    """The shape of each conv of ``calls`` that an IN+act follows (the
+    ConvNormAct blocks: the conv gives the norm its statistics)."""
+    return [sh for (name, sh), (nxt, _) in zip(calls, calls[1:])
+            if name == "conv3d" and nxt == "instance_norm_act"]
+
+
+def check_norm_partials(shapes, dev, timed=()):
+    """Row 2's route at every conv shape in ``shapes`` (phase 2 in the module
+    docstring); for the shapes in ``timed`` also its three terms and the
+    three-launch forward on the same y. Returns {conv shape: dict}."""
+    import torch
+
+    from brats2019_tpu_torch.ops import conv, norm, triton_norm
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+    out = {}
+    for shape in dict.fromkeys(shapes):
+        n, d, h, w, ci, co = shape
+        x = torch.randn((n, d, h, w, ci), generator=g, device=dev).bfloat16()
+        wt = (torch.randn((3, 3, 3, ci, co), generator=g, device=dev)
+              / (27 * ci) ** 0.5).bfloat16()
+        gam = torch.rand(co, generator=g, device=dev) + 0.5
+        bet = torch.randn(co, generator=g, device=dev) * 0.2
+        before = conv.conv3d.launches_stats
+        y0 = conv.conv3d_kernel(x, wt)
+        y, part = conv.conv3d_kernel(x, wt, stats=True)
+        _, part2 = conv.conv3d_kernel(x, wt, stats=True)
+        mean, rstd = triton_norm.merge(part, 1e-5)
+        _, rmean, rrstd = norm._plain_stats(y, None, None, 1e-5, "none")
+        with_part = lambda: norm.instance_norm_act_kernel(y, gam, bet,
+                                                          partials=part)[0]
+        got, again = with_part(), with_part()
+        ref = norm.instance_norm_act_plain(y, gam, bet)
+        torch.cuda.synchronize()
+        same = (bool(torch.equal(y, y0)), bool(torch.equal(part, part2)),
+                bool(torch.equal(got, again)))
+        stats_err = max(rel(mean, rmean), rel(rstd, rrstd))
+        err = bf16_ulps(got, ref)
+        rec = {"err": err, "abs_err": (got.float() - ref.float()).abs().max().item()}
+        ok = (all(same) and stats_err <= 1e-5 and err <= 2
+              and conv.conv3d.launches_stats - before == 2)
+        what = ""
+        if shape in timed:
+            n_, d_, h_, w_, c_ = y.shape
+            y3 = y.view(n_, d_ * h_ * w_, c_)
+            o3 = torch.empty_like(y3)
+            reps = 3 if y.numel() > 1e8 else 10
+            plain_conv = lambda: conv.conv3d_kernel(x, wt)
+            stats_conv = lambda: conv.conv3d_kernel(x, wt, stats=True)
+            t = [device_ms(f, reps) for f in (plain_conv, stats_conv,
+                                              stats_conv, plain_conv)]
+            rec["conv_ms"], rec["stats_conv_ms"] = min(t[0], t[3]), min(t[1], t[2])
+            rec["epilogue_ms"] = rec["stats_conv_ms"] - rec["conv_ms"]
+            rec["merge_ms"] = device_ms(lambda: triton_norm.merge(part, 1e-5), reps)
+            rec["apply_ms"] = device_ms(lambda: triton_norm.apply(
+                y3, o3, mean, rstd, gam, bet, "relu"), reps)
+            rec["ms"] = rec["merge_ms"] + rec["apply_ms"] + rec["epilogue_ms"]
+            rec["prev_ms"] = device_ms(
+                lambda: norm.instance_norm_act_kernel(y, gam, bet), reps)
+            rec["wall_ms"] = cuda_ms(with_part, reps)
+            what = (f"; device: merge {rec['merge_ms']:.4f} + apply "
+                    f"{rec['apply_ms']:.4f} + epilogue {rec['epilogue_ms']:.4f} "
+                    f"(conv with it {rec['stats_conv_ms']:.4f}, without "
+                    f"{rec['conv_ms']:.4f}) = {rec['ms']:.4f} ms against the "
+                    f"three launches (prev) {rec['prev_ms']:.4f} ms")
+        check(ok, f"IN+act from the conv's partials, conv {shape}: STATS y "
+                  f"bitwise the plain instance's {same[0]}, partials bitwise "
+                  f"repeatable {same[1]}; merged mean/rstd vs y's plain "
+                  f"statistics {stats_err:.1e} (tol 1e-5); IN+act {err:.2f} bf16 "
+                  f"ulp (tol 2), repeat bitwise {same[2]}" + what)
+        out[shape] = rec
+        del x, y, y0, part, part2, got, again, ref
+    return out
+
+
+def check_up_concat(calls, dev):
+    """The decoder's up + skip concat at each upsample of ``calls``: up(x)
+    written by resize2x.cu into the concat buffer, against the plain up (1
+    bf16 ulp) and the skip (bitwise); device ms against the Triton up followed
+    by ``torch.cat``. Returns {(up shape, skip channels): (ms, prev_ms)}."""
+    import torch
+
+    from brats2019_tpu_torch.ops import resize
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    out = {}
+    for i, (name, shape) in enumerate(calls):
+        cs = calls[i + 1][1][4] - shape[4] if name == "upsample2x" else 0
+        if name != "upsample2x" or (shape, cs) in out:
+            continue
+        n, d, h, w, c = shape
+        x = torch.randn(shape, generator=g, device=dev).bfloat16()
+        skip = torch.randn((n, 2 * d, 2 * h, 2 * w, cs), generator=g,
+                           device=dev).bfloat16()
+        before = resize.upsample2x.launches_concat
+        got = resize.upsample2x_concat_kernel(x, skip)
+        torch.cuda.synchronize()
+        err = bf16_ulps(got[..., :c], resize.upsample2x_plain(x))
+        same = bool(torch.equal(got[..., c:], skip))
+        into = resize.upsample2x.launches_concat - before
+        ms = device_ms(lambda: resize.upsample2x_concat_kernel(x, skip), 10)
+        prev = device_ms(lambda: torch.cat(
+            [resize.upsample2x_kernel_triton(x), skip], -1), 10)
+        check(err <= 1 and same and into == 1,
+              f"up + skip concat {shape} + {cs}: up half {err:.2f} bf16 ulp "
+              f"(tol 1), skip half bitwise {same}, {into} launch into the "
+              f"buffer; device {ms:.4f} ms against Triton up + torch.cat "
+              f"(prev) {prev:.4f} ms")
+        out[(shape, cs)] = (ms, prev)
+        del x, skip, got
+    return out
 
 
 # ------------------------------------------------------------------ phase 3 --
@@ -619,6 +774,23 @@ def time_slice(exp, work, case_dirs, dev, card):
             roi_ms.append(ev[0].elapsed_time(ev[1]))
             fin_ms.append(ev[1].elapsed_time(ev[2]))
             dev_ms.append(ev[0].elapsed_time(ev[2]))
+    # F1: the crop handoff stays on the device
+    with torch.inference_mode():
+        tiles0, start0 = pred.program.stage_roi(canvas)
+        torch.cuda.synchronize()
+        err = None
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            tiles1, start1 = pred.program.stage_roi(canvas)
+        except RuntimeError as e:
+            err = e
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        same = err is None and bool(torch.equal(start0, start1)
+                                    and torch.equal(tiles0, tiles1))
+    check(same, f"stage_roi under torch.cuda.set_sync_debug_mode('error'): "
+                f"{'no device-to-host wait' if err is None else err}; start "
+                f"{start0.tolist()} and tiles equal to a call outside it: {same}")
     e2e = []
     for d in case_dirs:
         t0 = time.perf_counter()
@@ -1126,9 +1298,10 @@ def serve_slice(work, case_dirs, direct_masks, expect, serial_e2e, depth, card):
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()  # just after
         on_wgmma = ops.conv3d_winograd.launches_wgmma
+        from_partials = ops.instance_norm_act.launches_partials
         results = {n: _get_json(base + f"/result?case={n}") for n in names}
         return {"answers": answers, "wall": wall, "counts": counts,
-                "on_wgmma": on_wgmma,
+                "on_wgmma": on_wgmma, "from_partials": from_partials,
                 "results": results, "stats": _get_json(base + "/stats"),
                 "health": health}
 
@@ -1171,6 +1344,9 @@ def serve_slice(work, case_dirs, direct_masks, expect, serial_e2e, depth, card):
     for k in ("instance_norm_act", "downsample2x", "upsample2x"):
         check(counts[k] == expect[k] * n,
               f"{k} launched {counts[k]} times on the serving slice")
+    check(got["from_partials"] == 0,
+          f"{got['from_partials']} IN+act launches took partials on the "
+          f"Winograd backend (it computes none: each IN takes its own statistics)")
     wino_masks = served_labels(out, case_dirs)
     for name, seg, ref in zip(names, wino_masks, direct_masks):
         vals = sorted(int(v) for v in set(seg.ravel().tolist()))
@@ -1245,7 +1421,7 @@ def main() -> int:
     from brats2019_tpu_torch.configs.presets import get_preset
     from brats2019_tpu_torch.data import synthetic
     from brats2019_tpu_torch.data.constants import VOLUME_SHAPE
-    from brats2019_tpu_torch.ops import _build, conv, winograd
+    from brats2019_tpu_torch.ops import _build, conv, resize, winograd
     from brats2019_tpu_torch.train.loop import stage_config
     from brats2019_tpu_torch.utils.weights import init_params, save_params_npz
 
@@ -1263,11 +1439,12 @@ def main() -> int:
     t0 = time.perf_counter()
     # one nvcc each, side by side
     _build.build_all([conv._lib_wgmma, conv._lib, winograd._lib_wgmma,
-                      winograd._lib])
-    print(f"  built conv3d_wgmma.cu, conv3d.cu, winograd3d_wgmma.cu and "
-          f"winograd3d.cu with nvcc in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    for lib in ("conv3d_wgmma", "conv3d", "winograd3d_wgmma", "winograd3d"):
+                      winograd._lib, resize._lib])
+    print(f"  built conv3d_wgmma.cu, conv3d.cu, winograd3d_wgmma.cu, "
+          f"winograd3d.cu and resize2x.cu with nvcc in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for lib in ("conv3d_wgmma", "conv3d", "winograd3d_wgmma", "winograd3d",
+                "resize2x"):
         # registers, spills and warnings; not the per-function banners
         log = [ln.strip() for ln in
                _build.build_logs.get(lib, "(cached)").splitlines()
@@ -1305,6 +1482,31 @@ def main() -> int:
               f"{'' if all(r[8] is not None for r in mine) else ' (not timed at every shape)'}"
               f", bound {sum(max(r[6], r[7]) for r in mine):.4f} ms on {card}",
               flush=True)
+    pred_pairs = conv_norm_shapes(calls)
+    partials = check_norm_partials(
+        pred_pairs + conv_norm_shapes(stage_calls["coarse"])
+        + conv_norm_shapes(stage_calls["fine"]) + conv_norm_shapes(eval_calls),
+        dev, timed=set(pred_pairs))
+    terms = {k: sum(partials[sh][k] for sh in pred_pairs)
+             for k in ("merge_ms", "apply_ms", "epilogue_ms", "ms", "prev_ms",
+                       "wall_ms")}
+    in_bound = sum(max(results[c][6], results[c][7]) for c in calls
+                   if c[0] == "instance_norm_act")
+    print(f"  instance_norm_act per volume (predict), from the conv's partials: "
+          f"{len(pred_pairs)} calls, merge {terms['merge_ms']:.4f} + apply "
+          f"{terms['apply_ms']:.4f} + conv epilogue {terms['epilogue_ms']:.4f} "
+          f"= {terms['ms']:.4f} ms, three launches (prev) "
+          f"{terms['prev_ms']:.4f} ms, bound {in_bound:.4f} ms on {card}",
+          flush=True)
+    concat = check_up_concat(calls, dev)
+    up = [results[c] for c in calls if c[0] == "upsample2x"]
+    print(f"  upsample2x per volume (predict): {len(up)} calls, resize2x.cu "
+          f"{sum(r[2] for r in up):.4f} ms, Triton kernel (prev) "
+          f"{sum(r[9] for r in up):.4f} ms, bound "
+          f"{sum(max(r[6], r[7]) for r in up):.4f} ms; up + skip concat "
+          f"{sum(v[0] for v in concat.values()):.4f} ms against Triton up + "
+          f"torch.cat {sum(v[1] for v in concat.values()):.4f} ms on {card}",
+          flush=True)
     mine = [results[c] for c in wino_calls]
     print(f"  conv3d_winograd per volume (predict): {len(mine)} calls, wgmma "
           f"kernel {sum(r[2] for r in mine):.4f} ms, mma.sync kernel (prev) "
@@ -1340,6 +1542,11 @@ def main() -> int:
     rc = predict_cli.main(cli_args)
     counts = ops.launch_counts()
     on_wgmma = ops.conv3d.launches_wgmma
+    routes = {"conv3d with the statistics epilogue": ops.conv3d.launches_stats,
+              "instance_norm_act from partials":
+                  ops.instance_norm_act.launches_partials,
+              "upsample2x on resize2x.cu": ops.upsample2x.launches_cuda,
+              "upsample2x into the concat buffer": ops.upsample2x.launches_concat}
     check(rc == 0, f"predict CLI exit code {rc}")
     per_vol = {k: v / CASES for k, v in counts.items()}
     expect = {k: sum(1 for n, _ in calls if n == k) for k in FORWARD}
@@ -1351,6 +1558,11 @@ def main() -> int:
     check(on_wgmma == counts["conv3d"],
           f"{on_wgmma} of the {counts['conv3d']} conv launches took the wgmma "
           f"instance (conv3d_wgmma.cu)")
+    want = {"conv3d with the statistics epilogue": counts["conv3d"],
+            "instance_norm_act from partials": counts["instance_norm_act"],
+            "upsample2x on resize2x.cu": counts["upsample2x"],
+            "upsample2x into the concat buffer": counts["upsample2x"]}
+    check(routes == want, f"routes on the slice: {routes} (expected {want})")
     first = read_labels(case_dirs)
     for d, seg in zip(case_dirs, first):
         vals = sorted(int(v) for v in set(seg.ravel().tolist()))
@@ -1408,17 +1620,27 @@ def main() -> int:
             "bound_bytes_ms": bytes_ms, "bound_operations_ms": ops_ms,
             "calls": len(mine),
         })
-        if k in ("conv3d", "conv3d_winograd"):
+        if k in ("conv3d", "conv3d_winograd", "upsample2x"):
             record[-1]["prev_ms"] = sum(r[9] for r in mine)
-            record[-1]["prev_source"] = (
-                "brats2019_tpu_torch/csrc/conv3d.cu" if k == "conv3d"
-                else "brats2019_tpu_torch/csrc/winograd3d.cu")
+            record[-1]["prev_source"] = {
+                "conv3d": "brats2019_tpu_torch/csrc/conv3d.cu",
+                "conv3d_winograd": "brats2019_tpu_torch/csrc/winograd3d.cu",
+                "upsample2x": "brats2019_tpu_torch/ops/triton_resize.py"}[k]
+        if k == "instance_norm_act":
+            # the predict path's route: merge + apply + the conv's epilogue
+            record[-1].update(
+                ms=terms["ms"], wall_ms=terms["wall_ms"],
+                max_abs_err=max(partials[sh]["abs_err"] for sh in partials),
+                prev_ms=terms["prev_ms"],
+                prev_source="brats2019_tpu_torch/ops/triton_norm.py (three launches)",
+                merge_ms=terms["merge_ms"], apply_ms=terms["apply_ms"],
+                epilogue_ms=terms["epilogue_ms"],
+                epilogue_source=EPILOGUE_SOURCE)
     for r in record:
         unit = "fine train step" if r["name"] in BACKWARD else "vol"
         print(f"  {r['name']}: {r['calls']} calls/{unit}, device {r['ms']:.4f} "
               f"ms/{unit} in kernels"
-              + (f" (mma.sync kernel, prev: {r['prev_ms']:.4f})"
-                 if "prev_ms" in r else "")
+              + (f" (prev: {r['prev_ms']:.4f})" if "prev_ms" in r else "")
               + f" vs {r['plain_ms']:.4f} plain torch, "
               f"library call {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
               f"by {r['bound_by']} (bytes {r['bound_bytes_ms']:.4f}, operations "

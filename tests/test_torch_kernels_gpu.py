@@ -352,6 +352,176 @@ def test_train_step_runs_on_the_card(dev):
     assert ops.conv3d.launches_wgmma == 19        # every width a multiple of 16
 
 
+# ---------------------------------- the conv's statistics epilogue (STATS) --
+
+def _norm_affine(dev, c, seed=5):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.rand(c, generator=g, device=dev) + 0.5,
+            torch.randn(c, generator=g, device=dev) * 0.2)
+
+
+@pytest.mark.parametrize("bd,bn", conv.WGMMA_INSTANCES)
+@pytest.mark.parametrize("shape,co", [
+    ((1, 5, 6, 7, 16), 16),        # one box, ragged on every face
+    ((2, 9, 7, 13, 32), 24),       # N = 2, Co tail inside the tile
+    ((1, 8, 8, 16, 80), 136),      # Ci tail in a chunk; Co tail in the third box
+    ((1, 4, 8, 8, 64), 64),        # whole boxes only
+])
+def test_stats_conv_y_bitwise_and_partials_match_plain(dev, shape, co, bd, bn):
+    x, w = _conv_inputs(dev, shape, co, seed=6)
+    plan = conv.wgmma_plan(*shape, co, bd, bn)
+    assert (conv._lib_wgmma().conv3d_wgmma_stats_smem_bytes(bd, bn)
+            == conv.wgmma_smem_bytes(bd, bn, stats=True) <= conv.SMEM_LIMIT)
+    before = ops.conv3d.launches_stats
+    y0 = conv.conv3d_kernel_wgmma(x, w, plan)
+    y, part = conv.conv3d_kernel_wgmma(x, w, plan, stats=True)
+    torch.cuda.synchronize()
+    assert ops.conv3d.launches_stats == before + 1
+    assert torch.equal(y, y0)
+    ref = conv.conv_stats_plain(y, plan)
+    assert part.shape == ref.shape
+    assert torch.equal(part[0], ref[0])            # counts are exact
+    for i in (1, 2):
+        assert _rel(part[i], ref[i]) <= 1e-5
+    mean, rstd = norm.merge_partials_plain(part)
+    _, rmean, rrstd = norm._plain_stats(y, None, None, 1e-5, "none")
+    assert _rel(mean, rmean) <= 1e-5 and _rel(rstd, rrstd) <= 1e-5
+
+
+def test_stats_partials_are_deterministic(dev):
+    x, w = _conv_inputs(dev, (8, 16, 16, 16, 64), 64, seed=7)
+    y, part = ops.conv3d(x, w, stats=True)
+    for _ in range(2):
+        y2, part2 = ops.conv3d(x, w, stats=True)
+        assert torch.equal(y, y2) and torch.equal(part, part2)
+
+
+@pytest.mark.parametrize("activation", ["relu", "leaky_relu", "none"])
+@pytest.mark.parametrize("shape,co", [((2, 9, 7, 13, 32), 24),
+                                      ((1, 12, 14, 10, 96), 192)])
+def test_norm_from_partials_matches_plain(dev, activation, shape, co):
+    x, w = _conv_inputs(dev, shape, co, seed=8)
+    y, part = ops.conv3d(x, w, stats=True)
+    gam, bet = _norm_affine(dev, co)
+    before = (ops.instance_norm_act.launches,
+              ops.instance_norm_act.launches_partials)
+    got = ops.instance_norm_act(y, gam, bet, activation=activation, partials=part)
+    again = ops.instance_norm_act(y, gam, bet, activation=activation,
+                                  partials=part)
+    ref = norm.instance_norm_act_plain(y, gam, bet, activation=activation)
+    torch.cuda.synchronize()
+    assert (ops.instance_norm_act.launches - before[0],
+            ops.instance_norm_act.launches_partials - before[1]) == (2, 2)
+    assert _ulps(got, ref) <= 2 and torch.equal(got, again)
+
+
+def test_conv_norm_block_takes_the_partials_route(dev):
+    """ConvNormAct on the card: the wgmma conv with its epilogue, then IN+act
+    from its partials; an odd-channel conv (csrc/conv3d.cu) gives none."""
+    from brats2019_tpu_torch.models.blocks import ConvNormAct
+
+    for ci, wgmma in ((32, True), (8, False)):
+        block = ConvNormAct(ci, 16).to(dev)
+        with torch.no_grad():
+            block.Conv_0.kernel.normal_(0, 0.1)
+        x = torch.randn((1, 6, 7, 9, ci), device=dev)
+        ops.reset_launch_counts()
+        with torch.inference_mode():
+            got = block(x)
+        xc = x.bfloat16()
+        ref = norm.instance_norm_act_plain(
+            ops.conv3d(xc, block.Conv_0.kernel.detach().bfloat16()),
+            block.in_scale, block.in_bias)
+        torch.cuda.synchronize()
+        assert ops.conv3d.launches_stats == int(wgmma)
+        assert ops.instance_norm_act.launches_partials == int(wgmma)
+        assert _ulps(got, ref) <= 2
+
+
+# ------------------------------------------------ the 2x up (resize2x.cu) --
+
+@pytest.mark.parametrize("shape", [
+    (1, 1, 1, 1, 8),          # extent 1: every tap lands on the one voxel
+    (1, 1, 3, 1, 16),
+    (2, 5, 7, 9, 24),         # odd extents, ragged tiles on every axis
+    (1, 9, 5, 17, 72),        # C = 64 + 8: a one-piece chunk
+    (1, 3, 4, 2, 320),        # five chunks
+    (3, 4, 4, 8, 40),         # C < 64, N = 3
+])
+def test_upsample_cuda_kernel_matches_plain(dev, shape):
+    x = torch.randn(shape, device=dev).bfloat16()
+    before = ops.upsample2x.launches_cuda
+    got = resize.upsample2x_kernel(x)
+    again = resize.upsample2x_kernel(x)
+    ref = resize.upsample2x_plain(x)
+    torch.cuda.synchronize()
+    assert ops.upsample2x.launches_cuda == before + 2
+    assert got.shape == ref.shape and _ulps(got, ref) <= 1
+    assert torch.equal(got, again)
+    assert _ulps(got, resize.upsample2x_kernel_triton(x)) <= 1
+
+
+@pytest.mark.parametrize("shape,cs", [((2, 5, 6, 7, 16), 24), ((1, 4, 4, 4, 128), 64),
+                                      ((1, 3, 4, 5, 3), 5), ((1, 2, 3, 2, 8), 3)])
+def test_upsample_concat_slice(dev, shape, cs):
+    """up(x) written into the concat buffer's first C channels, skip copied
+    into the rest: equal to cat of the separate ops; gradients split back."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(shape, generator=g, device=dev).bfloat16()
+    n, d, h, w, c = shape
+    skip = torch.randn((n, 2 * d, 2 * h, 2 * w, cs), generator=g,
+                       device=dev).bfloat16()
+    before = ops.upsample2x.launches_concat
+    got = ops.upsample2x_concat(x, skip)
+    torch.cuda.synchronize()
+    into = c % 8 == 0 and (c + cs) % 8 == 0
+    assert ops.upsample2x.launches_concat == before + into
+    assert torch.equal(got[..., c:], skip)
+    assert _ulps(got[..., :c], resize.upsample2x_plain(x)) <= 1
+    xr, sr = x.clone().requires_grad_(), skip.clone().requires_grad_()
+    gy = torch.randn(got.shape, generator=g, device=dev).bfloat16()
+    ops.upsample2x_concat(xr, sr).backward(gy)
+    assert torch.equal(sr.grad, gy[..., c:])
+    assert torch.equal(xr.grad, resize.upsample2x_bwd_kernel(gy[..., :c].contiguous()))
+
+
+# ------------------------------------------------ the crop handoff (F1) --
+
+def test_stage_roi_never_waits_for_the_card(dev):
+    """stage_roi under torch.cuda.set_sync_debug_mode("error") (after one
+    call that builds its device constants): no device-to-host read; the same
+    start and tiles as a call outside that mode."""
+    from brats2019_tpu_torch.configs.presets import InferenceConfig, UNetConfig
+    from brats2019_tpu_torch.models.cascade import SplitCascade
+    from brats2019_tpu_torch.utils.weights import build_unet, init_params
+
+    cfg_u = UNetConfig(levels=2, base_features=16, stem_downsample=2)
+    fine = build_unet(cfg_u, init_params(cfg_u, seed=1), dev)
+    coarse = build_unet(cfg_u, init_params(cfg_u, seed=2), dev)
+    canvas = (64, 64, 48)
+    icfg = InferenceConfig(canvas=canvas, tile=(32, 32, 32),
+                           roi_shape=(32, 32, 32), coarse_shape=(32, 32, 24),
+                           cascade=True, tta_flips=True)
+    prog = SplitCascade(fine, coarse, icfg, canvas)
+    image = torch.randn(canvas + (4,), generator=torch.Generator(device=dev)
+                        .manual_seed(10), device=dev)
+    with torch.inference_mode():
+        tiles0, start0 = prog.stage_roi(image)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            tiles, start = prog.stage_roi(image)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(start, start0) and torch.equal(tiles, tiles0)
+    assert tiles.shape == (8, 32, 32, 32, 4)
+    from brats2019_tpu_torch.data.preprocess import zscore
+
+    sx, sy, sz = start.tolist()
+    want = zscore(image.float())[sx:sx + 32, sy:sy + 32, sz:sz + 32]
+    assert torch.equal(tiles[0], want.to(tiles.dtype))   # the identity flip
+
+
 # ------------------------------------------------------ the Winograd conv --
 
 @pytest.fixture()

@@ -15,6 +15,17 @@ read once, y written once) against 3.35 TB/s, and the sum per volume.
 whose ``launch(x, y, gamma, beta, eps, activation)`` has the same interface)
 on the same inputs in the same call, in turns (parent, this, this, parent):
 the way to hold a redesign of the forward against the one in the tree.
+
+The partials path (the conv's STATS epilogue, ``csrc/conv3d_wgmma.cu``, then
+the Triton merge and apply): at small conv shapes (ragged boxes, N > 1, both
+box depths) and at every (conv, IN) pair of the flagship predict path, the
+STATS conv's y bitwise equal to the conv's without it, its partials within
+1e-5 of ``conv_stats_plain`` of y and bitwise repeatable, the merged mean and
+rstd within 1e-5 relative of y's plain statistics, and IN+act from the
+partials within 2 bf16 ulp of the plain version and bitwise repeatable.
+``--time`` then gives, per pair, the three terms of the partials path (the
+epilogue: the STATS conv less the conv, in turns; the merge; the apply) beside
+the three-launch forward on the same y (and the parent's, with ``--parent``).
 """
 
 from __future__ import annotations
@@ -31,7 +42,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 
 from brats2019_tpu_torch.configs.presets import get_preset  # noqa: E402
-from brats2019_tpu_torch.ops import norm  # noqa: E402
+from brats2019_tpu_torch.ops import conv, norm  # noqa: E402
 from chip_smoke import bf16_ulps, device_ms, unet_calls  # noqa: E402
 
 SMALL = [
@@ -57,6 +68,105 @@ def make(shape, dev, seed=0):
     gam = torch.rand(shape[-1], generator=g, device=dev) + 0.5
     bet = torch.randn(shape[-1], generator=g, device=dev) * 0.2
     return x, gam, bet
+
+
+CONV_SMALL = [
+    # (N, D, H, W, Ci), Co, box depth of the instance to force (None: the plan's)
+    ((1, 5, 6, 7, 16), 16, None), ((2, 9, 7, 13, 32), 24, 4),
+    ((2, 9, 7, 13, 32), 24, 2), ((1, 12, 14, 10, 96), 192, None),
+    ((1, 8, 8, 16, 80), 136, 4), ((3, 3, 9, 10, 32), 48, 2),
+]
+
+
+def predict_conv_norm_pairs():
+    """((N, D, H, W, Ci), Co) of each conv followed by an IN on the flagship
+    predict path -> calls per volume."""
+    exp = get_preset("cascade")
+    calls = (unet_calls(exp.coarse_unet, 1, exp.infer.coarse_shape)
+             + unet_calls(exp.unet, 8, exp.infer.roi_shape))
+    return collections.Counter(
+        (sh[:5], sh[5]) for (name, sh), nxt in zip(calls, calls[1:])
+        if name == "conv3d" and nxt[0] == "instance_norm_act")
+
+
+def conv_inputs(shape, co, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=dev).bfloat16()
+    w = (torch.randn((3, 3, 3, shape[-1], co), generator=g, device=dev)
+         / (27 * shape[-1]) ** 0.5).bfloat16()
+    gam = torch.rand(co, generator=g, device=dev) + 0.5
+    bet = torch.randn(co, generator=g, device=dev) * 0.2
+    return x, w, gam, bet
+
+
+def check_partials(shape, co, bd, dev) -> bool:
+    """The checks of the partials path at one conv shape (module docstring)."""
+    from brats2019_tpu_torch.ops import triton_norm
+
+    x, w, gam, bet = conv_inputs(shape, co, dev)
+    plan = conv.plan_conv(*shape, co)
+    if bd is not None and bd != plan.box[0]:
+        plan = conv.wgmma_plan(*shape, co, bd, 64)
+    y0 = conv.conv3d_kernel_wgmma(x, w, plan)
+    y, part = conv.conv3d_kernel_wgmma(x, w, plan, stats=True)
+    _, part2 = conv.conv3d_kernel_wgmma(x, w, plan, stats=True)
+    ref_part = conv.conv_stats_plain(y, plan)
+    mean, rstd = triton_norm.merge(part, 1e-5)
+    got = norm.instance_norm_act_kernel(y, gam, bet, partials=part)[0]
+    again = norm.instance_norm_act_kernel(y, gam, bet, partials=part)[0]
+    ref, rmean, rrstd = norm._plain_stats(y, gam, bet, 1e-5, "relu")
+    torch.cuda.synchronize()
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+    part_err = max(rel(part[i], ref_part[i]) for i in range(3))
+    stats = max(rel(mean, rmean), rel(rstd, rrstd))
+    err = bf16_ulps(got, ref)
+    same = (torch.equal(y, y0), torch.equal(part, part2), torch.equal(got, again))
+    ok = all(same) and part_err <= 1e-5 and stats <= 1e-5 and err <= 2
+    print(f"  [{'PASS' if ok else 'FAIL'}] STATS conv {shape} -> {co}, box "
+          f"{plan.box[0]}x8x8 Co tile {plan.bn}: y bitwise the plain instance's "
+          f"{same[0]}; partials vs conv_stats_plain {part_err:.1e}, repeat "
+          f"bitwise {same[1]}; merged mean/rstd vs y's plain statistics "
+          f"{stats:.1e} (tol 1e-5); IN+act from partials {err:.2f} bf16 ulp "
+          f"(tol 2), repeat bitwise {same[2]}", flush=True)
+    return ok
+
+
+def time_partials(dev, card, parent) -> None:
+    from brats2019_tpu_torch.ops import triton_norm
+
+    print(f"== IN+act from the conv's partials on {card} (device ms, CUDA-graph "
+          "replay)", flush=True)
+    tot = collections.Counter()
+    for (shape, co), count in predict_conv_norm_pairs().items():
+        x, w, gam, bet = conv_inputs(shape, co, dev)
+        reps = 3 if x.numel() * co / shape[-1] > 1e8 else 10
+        y, part = conv.conv3d_kernel(x, w, stats=True)
+        n, d, h, wd, c = y.shape
+        y3 = y.view(n, d * h * wd, c)
+        out = torch.empty_like(y3)
+        mean, rstd = triton_norm.merge(part, 1e-5)
+        plain_conv = lambda: conv.conv3d_kernel(x, w)
+        stats_conv = lambda: conv.conv3d_kernel(x, w, stats=True)
+        t = [device_ms(f, reps) for f in (plain_conv, stats_conv, stats_conv,
+                                          plain_conv)]
+        row = {"conv": min(t[0], t[3]), "conv+STATS": min(t[1], t[2])}
+        row["epilogue"] = row["conv+STATS"] - row["conv"]
+        row["merge"] = device_ms(lambda: triton_norm.merge(part, 1e-5), reps)
+        row["apply"] = device_ms(lambda: triton_norm.apply(
+            y3, out, mean, rstd, gam, bet, "relu"), reps)
+        row["IN from partials"] = row["merge"] + row["apply"] + row["epilogue"]
+        row["three launches (prev)"] = device_ms(
+            lambda: norm.instance_norm_act_kernel(y, gam, bet), reps)
+        if parent is not None:
+            row["parent"] = device_ms(
+                lambda: parent.launch(y3, out, gam, bet, 1e-5, "relu"), reps)
+        row["bound"] = 4.0 * y.numel() / 3.35e12 * 1e3
+        for k, v in row.items():
+            tot[k] += count * v
+        print(f"  {shape} -> {co} x{count}: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in row.items()), flush=True)
+    print("  sums per volume (24 pairs): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in tot.items()), flush=True)
 
 
 def check_small(dev) -> int:
@@ -132,8 +242,20 @@ def main() -> int:
         parent = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(parent)
     failures = check_small(dev)
+    conv._lib_wgmma()
+    from brats2019_tpu_torch.ops import _build
+
+    print("  ptxas, conv3d_wgmma: " + " | ".join(
+        ln.strip() for ln in _build.build_logs.get("conv3d_wgmma", "(cached)").splitlines()
+        if ln.strip() and "Compiling entry" not in ln and "(C7519)" not in ln),
+        flush=True)
+    for shape, co, bd in CONV_SMALL:
+        failures += not check_partials(shape, co, bd, dev)
+    for shape, co in predict_conv_norm_pairs():
+        failures += not check_partials(shape, co, None, dev)
     if args.time:
         time_shapes(dev, card, parent)
+        time_partials(dev, card, parent)
     print(f"{failures} failure(s)", flush=True)
     return 1 if failures else 0
 

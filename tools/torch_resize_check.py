@@ -1,0 +1,224 @@
+#!/usr/bin/env python3
+"""Standalone check of the PyTorch port's 2x trilinear up on a CUDA card.
+
+    timeout 300 python3 tools/torch_resize_check.py            # correctness
+    timeout 600 python3 tools/torch_resize_check.py --time     # + ms per shape
+    timeout 600 python3 tools/torch_resize_check.py --probe    # the Triton kernel
+
+Holds ``csrc/resize2x.cu`` (``ops.resize.upsample2x_kernel``) and its concat
+form (``upsample2x_concat_kernel``) against ``upsample2x_plain`` at edge
+shapes (extent 1, odd extents, C not a multiple of 64, a C that is not a
+multiple of 8 and goes to the Triton kernel): up within 1 bf16 ulp, the
+concat's skip half bitwise equal to skip, a repeat run bitwise equal.
+``--time``: device ms (CUDA-graph replay) at every upsample shape of the
+flagship predict path: resize2x.cu, the Triton ``_up2x_kernel`` (prev), the
+bound, ``F.interpolate``, and the concat op against the Triton up followed by
+``torch.cat``; sums per volume. ``--probe``: the Triton kernel as it is, with
+C a compile-time constant (no runtime division), with one load per output
+instead of eight gathers, and with neither, at the same shapes: what holds it
+back.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import os
+import subprocess
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import torch  # noqa: E402
+import triton  # noqa: E402
+import triton.language as tl  # noqa: E402
+
+from brats2019_tpu_torch.configs.presets import get_preset  # noqa: E402
+from brats2019_tpu_torch.ops import resize  # noqa: E402
+from brats2019_tpu_torch.ops.triton_resize import _BLOCK, _taps, _w_interp  # noqa: E402,F401
+from chip_smoke import bf16_ulps, bound_terms, device_ms, library_ms, unet_calls  # noqa: E402
+
+SMALL = [
+    # (N, D, H, W, C), skip channels
+    ((1, 1, 1, 1, 8), 8), ((2, 5, 6, 7, 16), 24), ((1, 3, 4, 2, 320), 256),
+    ((1, 9, 3, 17, 72), 8), ((2, 1, 5, 1, 40), 16), ((1, 12, 14, 10, 192), 96),
+    ((1, 7, 6, 5, 3), 5), ((8, 4, 4, 4, 128), 64),
+]
+
+
+@triton.jit
+def _up2x_probe_kernel(x_ptr, y_ptr, D, H, W, C, CC: tl.constexpr,
+                       CONST_C: tl.constexpr, GATHER: tl.constexpr,
+                       BLOCK: tl.constexpr):
+    row = tl.program_id(0)
+    blk = tl.program_id(1)
+    oh = row % (2 * H)
+    t = row // (2 * H)
+    od = t % (2 * D)
+    n = t // (2 * D)
+    offs = blk * BLOCK + tl.arange(0, BLOCK)
+    if CONST_C:
+        mask = offs < 2 * W * CC
+        ow = offs // CC
+        c = offs % CC
+        cw = CC
+    else:
+        mask = offs < 2 * W * C
+        ow = offs // C
+        c = offs % C
+        cw = C
+    nd = n.to(tl.int64) * D
+    if GATHER:
+        d0, d1, wd0, wd1 = _taps(od, D)
+        h0, h1, wh0, wh1 = _taps(oh, H)
+        w0, w1, ww0, ww1 = _taps(ow, W)
+        r00 = _w_interp(x_ptr, ((nd + d0) * H + h0) * W, w0, w1, ww0, ww1, c, cw, mask)
+        r01 = _w_interp(x_ptr, ((nd + d0) * H + h1) * W, w0, w1, ww0, ww1, c, cw, mask)
+        r10 = _w_interp(x_ptr, ((nd + d1) * H + h0) * W, w0, w1, ww0, ww1, c, cw, mask)
+        r11 = _w_interp(x_ptr, ((nd + d1) * H + h1) * W, w0, w1, ww0, ww1, c, cw, mask)
+        acc = wd0 * (wh0 * r00 + wh1 * r01) + wd1 * (wh0 * r10 + wh1 * r11)
+    else:
+        src = (((nd + od // 2) * H + oh // 2) * W + ow // 2) * cw + c
+        acc = tl.load(x_ptr + src, mask=mask, other=0.0).to(tl.float32)
+    out = row.to(tl.int64) * 2 * W * cw + offs
+    tl.store(y_ptr + out, acc.to(y_ptr.dtype.element_ty), mask=mask)
+
+
+def probe(x, y, const_c: bool, gather: bool) -> None:
+    n, d, h, w, c = x.shape
+    grid = (n * 4 * d * h, triton.cdiv(2 * w * c, _BLOCK))
+    _up2x_probe_kernel[grid](x, y, d, h, w, c, CC=c, CONST_C=const_c,
+                             GATHER=gather, BLOCK=_BLOCK, num_warps=4)
+
+
+def predict_up_calls():
+    """((N, D, H, W, C), skip channels) -> calls per volume on the flagship
+    predict path; the skip's channels are the next conv's input less C."""
+    exp = get_preset("cascade")
+    out = collections.Counter()
+    for cfg, batch, spatial in ((exp.coarse_unet, 1, exp.infer.coarse_shape),
+                                (exp.unet, 8, exp.infer.roi_shape)):
+        calls = unet_calls(cfg, batch, spatial)
+        for i, (name, shape) in enumerate(calls):
+            if name == "upsample2x":
+                out[(shape, calls[i + 1][1][4] - shape[4])] += 1
+    return out
+
+
+def make(shape, cs, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=dev).bfloat16()
+    n, d, h, w, _ = shape
+    skip = torch.randn((n, 2 * d, 2 * h, 2 * w, cs), generator=g,
+                       device=dev).bfloat16()
+    return x, skip
+
+
+def check_small(dev) -> int:
+    failures = 0
+    for shape, cs in SMALL:
+        x, skip = make(shape, cs, dev)
+        before = (resize.upsample2x.launches_cuda, resize.upsample2x.launches_concat)
+        got = resize.upsample2x_kernel(x)
+        again = resize.upsample2x_kernel(x)
+        cat = resize.upsample2x_concat_kernel(x, skip)
+        ref = resize.upsample2x_plain(x)
+        torch.cuda.synchronize()
+        took = (resize.upsample2x.launches_cuda - before[0],
+                resize.upsample2x.launches_concat - before[1])
+        cuda = shape[4] % 8 == 0 and (shape[4] + cs) % 8 == 0
+        err = bf16_ulps(got, ref)
+        cat_err = bf16_ulps(cat[..., :shape[4]], ref)
+        ok = (err <= 1 and cat_err <= 1 and torch.equal(got, again)
+              and torch.equal(cat[..., shape[4]:], skip)
+              and took == ((3, 1) if cuda else (0, 0)))
+        failures += not ok
+        print(f"  [{'PASS' if ok else 'FAIL'}] {shape} + skip {cs}: up {err:.2f} "
+              f"bf16 ulp, into the concat {cat_err:.2f} (tol 1), skip half "
+              f"bitwise, repeat bitwise, launches on resize2x.cu / into the "
+              f"concat {took}", flush=True)
+    return failures
+
+
+def time_shapes(dev, card) -> None:
+    print(f"== 2x up on {card} (device ms, CUDA-graph replay)", flush=True)
+    tot = collections.Counter()
+    for (shape, cs), count in predict_up_calls().items():
+        x, skip = make(shape, cs, dev)
+        reps = 10
+        row = {
+            "resize2x.cu": device_ms(lambda: resize.upsample2x_kernel(x), reps),
+            "triton (prev)": device_ms(
+                lambda: resize.upsample2x_kernel_triton(x), reps),
+            "bound": max(bound_terms("upsample2x", shape)),
+            "F.interpolate": library_ms("upsample2x", x, reps),
+            "concat op": device_ms(
+                lambda: resize.upsample2x_concat_kernel(x, skip), reps),
+            "triton up + cat (prev)": device_ms(lambda: torch.cat(
+                [resize.upsample2x_kernel_triton(x), skip], -1), reps),
+        }
+        for k, v in row.items():
+            tot[k] += count * v
+        print(f"  {shape} + skip {cs} x{count}: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in row.items()), flush=True)
+    print("  sums per volume: " + ", ".join(f"{k} {v:.4f}" for k, v in tot.items()),
+          flush=True)
+
+
+def run_probe(dev, card) -> None:
+    print(f"== probe of the Triton _up2x_kernel on {card} (device ms)", flush=True)
+    tot = collections.Counter()
+    for (shape, _), count in predict_up_calls().items():
+        x, _ = make(shape, 8, dev)
+        n, d, h, w, c = shape
+        y = torch.empty((n, 2 * d, 2 * h, 2 * w, c), dtype=x.dtype, device=dev)
+        row = {}
+        for label, const_c, gather in (("as is", False, True),
+                                       ("C constant", True, True),
+                                       ("one load", False, False),
+                                       ("neither", True, False)):
+            row[label] = device_ms(lambda: probe(x, y, const_c, gather), 10)
+        ref = resize.upsample2x_kernel_triton(x)
+        probe(x, y, True, True)
+        torch.cuda.synchronize()
+        same = torch.equal(y, ref)
+        row["bound"] = max(bound_terms("upsample2x", shape))
+        for k, v in row.items():
+            tot[k] += count * v
+        print(f"  {shape} x{count}: " + ", ".join(f"{k} {v:.4f}" for k, v in row.items())
+              + f"; C-constant form bitwise equal to the kernel: {same}", flush=True)
+    print("  sums per volume: " + ", ".join(f"{k} {v:.4f}" for k, v in tot.items()),
+          flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--time", action="store_true")
+    ap.add_argument("--probe", action="store_true")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("error: needs a CUDA card", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, triton "
+          f"{triton.__version__}; card: {card}", flush=True)
+    resize._lib()
+    from brats2019_tpu_torch.ops import _build
+
+    print("  ptxas, resize2x: " + " | ".join(
+        ln.strip() for ln in _build.build_logs.get("resize2x", "(cached)").splitlines()
+        if ln.strip() and "Compiling entry" not in ln), flush=True)
+    failures = check_small(dev)
+    if args.probe:
+        run_probe(dev, card)
+    if args.time:
+        time_shapes(dev, card)
+    print(f"{failures} failure(s)", flush=True)
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
