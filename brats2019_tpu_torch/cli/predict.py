@@ -4,6 +4,7 @@
 Usage:
     python -m brats2019_tpu_torch.cli.predict <case_dir_or_root>
         [--preset cascade] [--workdir DIR] [--output PATH] [--device cuda]
+        [--no-tta] [--no-cascade]
 
 Loads each stage's params from ``<workdir>/{fine,coarse}/`` (an exported
 ``params.npz`` in the JAX package's format, or the port's own training
@@ -11,11 +12,17 @@ checkpoints: ``cli/common.py`` load_stage_params) and writes
 ``<case>_pred.nii.gz`` with BraTS disk labels {0,1,2,4} next to each case,
 with the input header. ``--device cuda`` on a host
 without a card is an error; ``--device cpu`` runs the plain torch ops.
+Every preset predicts: ``models/cascade.py`` ``make_predict_fn`` picks the
+split cascade, the staged multi-tile sweep or the monolithic program.
+``--no-tta`` (one forward per tile) and ``--no-cascade`` (no coarse stage,
+the whole canvas swept) change the preset's inference config as the
+reference's flags do.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 
@@ -32,6 +39,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--workdir", default=None)
     p.add_argument("--output", default=None,
                    help="output path (single-case mode only)")
+    p.add_argument("--no-tta", action="store_true",
+                   help="one forward per tile, no 8-flip TTA")
+    p.add_argument("--no-cascade", action="store_true",
+                   help="no coarse stage: sweep the whole canvas")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (hand-written kernels) or cpu "
                         "(plain torch ops)")
@@ -47,6 +58,12 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     exp = resolve_experiment(args)
+    if args.no_tta:
+        exp = dataclasses.replace(
+            exp, infer=dataclasses.replace(exp.infer, tta_flips=False))
+    if args.no_cascade:
+        exp = dataclasses.replace(
+            exp, infer=dataclasses.replace(exp.infer, cascade=False))
     cases = discover_cases(args.case_dir)
     if not cases:
         print(f"error: no BraTS case found at {args.case_dir}", file=sys.stderr)

@@ -26,11 +26,14 @@ retry in this process can succeed: the daemon logs the case as transient and
 exits with code 5; under ``--supervise`` the supervisor restarts it and the
 completion log replays what was served.
 
-Not ported (ROADMAP queue 1 item 10 lists them): ``--transfer-dtype int8``
-and the transfer-bound hint, ``--rss-limit-mb`` (with its exit-4 recycle),
-``--multichip``, ``--batch-volumes``, ``--ensemble``, ``--save-probs``,
-``--save-uncertainty``, ``--no-tta`` and ``--no-cascade`` (the port's
-predictor serves the split cascade with TTA only).
+``--no-tta`` and ``--no-cascade`` turn the 8-flip TTA and the coarse stage
+off, as in the reference; every preset is served (``models/cascade.py``
+``make_predict_fn`` picks the program).
+
+Not ported (ROADMAP queue 1 items 3, 5 and 6 list them): ``--save-probs``,
+``--save-uncertainty`` and ``--ensemble`` (item 3), ``--multichip`` (item 5),
+``--transfer-dtype int8`` and the transfer-bound hint, ``--rss-limit-mb``
+(with its exit-4 recycle) and ``--batch-volumes`` (item 6).
 """
 
 from __future__ import annotations
@@ -106,6 +109,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="seconds between watch-root scans")
     p.add_argument("--once", action="store_true",
                    help="drain current cases and exit")
+    p.add_argument("--no-tta", action="store_true",
+                   help="one forward per tile, no 8-flip TTA")
+    p.add_argument("--no-cascade", action="store_true",
+                   help="no coarse stage: sweep the whole canvas")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (hand-written kernels) or cpu "
                         "(plain torch ops)")
@@ -644,6 +651,10 @@ def main(argv=None) -> int:
         return supervise_loop(cmd, max_crash_restarts=args.max_crash_restarts)
     exp = resolve_experiment(args)
     infer = dataclasses.replace(exp.infer, postproc=args.postproc)
+    if args.no_tta:
+        infer = dataclasses.replace(infer, tta_flips=False)
+    if args.no_cascade:
+        infer = dataclasses.replace(infer, cascade=False)
     if args.serving_depth:
         infer = dataclasses.replace(infer, serving_depth=args.serving_depth)
     if args.prep_cache:

@@ -1,8 +1,10 @@
-// Exact 2x trilinear upsample of NDHWC bf16 volumes on Hopper: half-pixel
-// taps (0.25, 0.75) with replicate-clamped edges, f32 math, bf16 out (round
-// to nearest even). Built by brats2019_tpu_torch/ops/_build.py with nvcc
-// -gencode arch=compute_90a,code=sm_90a; called through ctypes from
-// brats2019_tpu_torch/ops/resize.py (upsample2x_kernel, upsample2x_concat).
+// Exact 2x trilinear upsample of NDHWC bf16 volumes on Hopper, and its
+// transpose: half-pixel taps (0.25, 0.75) with replicate-clamped edges, f32
+// math, bf16 out (round to nearest even). Built by
+// brats2019_tpu_torch/ops/_build.py with nvcc -gencode
+// arch=compute_90a,code=sm_90a; called through ctypes from
+// brats2019_tpu_torch/ops/resize.py (upsample2x_kernel, upsample2x_concat,
+// upsample2x_bwd_kernel). The forward comes first, the backward after it.
 //
 // Replaces: brats2019_tpu/ops/pallas_resize.py upsample2x_pallas (:103,
 // kernel _up_fwd_kernel :82). Per axis, out[2i] = 0.25 x[i-1] + 0.75 x[i] and
@@ -177,6 +179,158 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
+// ------------------------------------------------------------- backward --
+//
+// Replaces: brats2019_tpu/ops/pallas_resize.py _upsample2x_bwd_impl (:213,
+// kernel _up_bwd_kernel :188). The exact transpose of the forward: per axis
+// dx[j] = 0.25 g[2j-1] + 0.75 g[2j] + 0.75 g[2j+1] + 0.25 g[2j+2], fine
+// indices clamped to the axis (so at an edge the clamped tap folds into the
+// edge voxel's weight: the replicate clamp transposed).
+//
+// What bounds it on the card: device-memory bytes; g (8 values per dx value)
+// is 8/9 of the traffic. What held the Triton kernel (ops/triton_resize.py
+// _up2x_bwd_kernel) was 64 clamped scalar 2-byte gathers per dx element,
+// and the decoder's backward first copied the concat gradient's up half to
+// a contiguous tensor. The design:
+//
+//   * A block owns BTH x BTW = 4 x 8 dx voxels in (h, w), a run of `td` dx
+//     voxels along d (8, 4, 2 or 1, whichever makes the busiest SM walk the
+//     fewest fine rows at two blocks per SM), and a chunk of up to 64
+//     channels (8 pieces of 16 bytes).
+//   * It walks the 2 td + 2 fine d-rows its run reads. Each fine row's
+//     (2 BTH + 2) x (2 BTW + 2) patch comes into a 4-row ring in shared
+//     memory (23,040 bytes a row) by 16-byte cp.async at CLAMPED addresses,
+//     read straight from g with a channel pitch: g may be the up half of the
+//     decoder's (up, skip) concat gradient, pitch Cu + Cskip, with no copy.
+//     Three rows stay in flight while one is used.
+//   * Thread (h, w, piece) reduces each fine row separably from shared
+//     memory: 4 taps along w for each of its 4 fine h rows, then 4 along h;
+//     the d taps are folded in registers as the rows pass (each fine row
+//     feeds two dx rows), all in f32; one rounding to bf16 and one 16-byte
+//     store per output.
+
+constexpr int BTH = 4, BTW = 8;                        // dx voxels of a tile
+constexpr int FH = 2 * BTH + 2, FW = 2 * BTW + 2;      // its fine patch: 10 x 18
+constexpr int RING = 4;                                // fine rows in shared memory
+constexpr int BTHREADS = BTH * BTW * PIECES;           // 256
+constexpr int ROW_SLOTS = FH * FW * PIECES;            // 16-byte slots of a row
+constexpr int BWD_SMEM = RING * ROW_SLOTS * 16;        // 92,160 bytes
+
+__global__ void __launch_bounds__(BTHREADS, 2)
+    upsample2x_bwd_kernel(const __nv_bfloat16* __restrict__ g,
+                          __nv_bfloat16* __restrict__ dx, int D, int H, int W,
+                          int C, int pitch, int td, int nth, int ntw) {
+  extern __shared__ __align__(16) uint4 ring[];
+  int t = blockIdx.x;
+  const int d0 = (t / (nth * ntw)) * td;
+  t %= nth * ntw;
+  const int h0 = (t / ntw) * BTH, w0 = (t % ntw) * BTW;
+  const int c0 = blockIdx.y * CHUNK;
+  const int n = blockIdx.z;
+  const int np = min(PIECES, (C - c0) >> 3);
+  const int dn = min(td, D - d0);
+  const int rows = 2 * dn + 2;  // fine rows 2 d0 - 1 .. 2 (d0 + dn)
+  const long long Do = 2LL * D, Ho = 2LL * H, Wo = 2LL * W;
+  const __nv_bfloat16* gn = g + (long long)n * Do * Ho * Wo * pitch + c0;
+  const uint32_t sbase = (uint32_t)__cvta_generic_to_shared(ring);
+
+  auto load_row = [&](int k) {
+    const long long fd = min(max(2 * d0 - 1 + k, 0), (int)Do - 1);
+    const uint32_t slot = sbase + (uint32_t)((k % RING) * ROW_SLOTS) * 16;
+    for (int i = threadIdx.x; i < ROW_SLOTS; i += BTHREADS) {
+      const int p = i & (PIECES - 1);
+      if (p >= np) continue;
+      const int v = i / PIECES, a = v / FW, b = v % FW;
+      const long long fh = min(max(2 * h0 - 1 + a, 0), (int)Ho - 1);
+      const long long fw = min(max(2 * w0 - 1 + b, 0), (int)Wo - 1);
+      cp_async16(slot + i * 16, gn + ((fd * Ho + fh) * Wo + fw) * pitch + p * 8);
+    }
+  };
+  auto commit = [] { asm volatile("cp.async.commit_group;\n" ::: "memory"); };
+
+  const int p = threadIdx.x % PIECES;
+  const int lw = (threadIdx.x / PIECES) % BTW;
+  const int lh = threadIdx.x / (PIECES * BTW);
+  const int h = h0 + lh, w = w0 + lw;
+  const bool active = p < np && h < H && w < W;
+  __nv_bfloat16* out = dx + (((long long)n * D + d0) * H + h) * W * C +
+                       (long long)w * C + c0 + p * 8;
+  const long long drow = (long long)H * W * C;  // one dx d-row
+
+  // row sums of the d taps: (inner, outer) of row l - 1 (a) and row l (b)
+  float in_a[8], out_a[8], in_b[8], out_b[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) in_a[k] = out_a[k] = in_b[k] = out_b[k] = 0.f;
+
+  for (int k = 0; k < RING - 1; ++k) {
+    if (k < rows) load_row(k);
+    commit();
+  }
+  for (int k = 0; k < rows; ++k) {
+    if (k + RING - 1 < rows) load_row(k + RING - 1);
+    commit();
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(RING - 1) : "memory");
+    __syncthreads();
+    if (active) {
+      // this fine row reduced over its 4 x 4 (h, w) taps, each axis as
+      // 0.75 (tap 1 + tap 2) + 0.25 (tap 0 + tap 3)
+      const uint4* s = ring + (k % RING) * ROW_SLOTS + p;
+      float hi[8], ho[8], tk[8];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        float wi[8], wo[8], v[8];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          unpack8(s[((2 * lh + b) * FW + 2 * lw + e) * PIECES], v);
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            if (e == 0) wo[c] = v[c];
+            else if (e == 1) wi[c] = v[c];
+            else if (e == 2) wi[c] += v[c];
+            else wo[c] += v[c];
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const float r = 0.75f * wi[c] + 0.25f * wo[c];
+          if (b == 0) ho[c] = r;
+          else if (b == 1) hi[c] = r;
+          else if (b == 2) hi[c] += r;
+          else ho[c] += r;
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < 8; ++c) tk[c] = 0.75f * hi[c] + 0.25f * ho[c];
+      if ((k & 1) == 0) {
+        // fine row k is the second inner tap of row l - 1 and the first
+        // outer tap of row l = k / 2
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          in_a[c] = in_b[c] + tk[c];
+          out_a[c] = out_b[c];
+          out_b[c] = tk[c];
+        }
+      } else {
+        // the first inner tap of row l = (k - 1) / 2, the last outer tap of
+        // row l - 1, which is then complete
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          in_b[c] = tk[c];
+          out_a[c] += tk[c];
+        }
+        const int l = (k - 1) / 2 - 1;
+        if (l >= 0) {
+          float o[8];
+#pragma unroll
+          for (int c = 0; c < 8; ++c) o[c] = 0.75f * in_a[c] + 0.25f * out_a[c];
+          *reinterpret_cast<uint4*>(out + l * drow) = pack8(o);
+        }
+      }
+    }
+    __syncthreads();  // the slot is refilled three rows on
+  }
+}
+
 }  // namespace
 
 // x (N, D, H, W, C) contiguous bf16; y: (N, 2D, 2H, 2W, pitch) bf16, of which
@@ -201,5 +355,58 @@ extern "C" int upsample2x_ndhwc_bf16(const void* x, void* y, int N, int D,
   upsample2x_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y), D,
       H, W, C, pitch, offset, nth, ntw);
+  return (int)cudaGetLastError();
+}
+
+// g: (N, 2D, 2H, 2W) voxels of C channels at a channel pitch of `pitch`
+// elements (pitch = C for a contiguous g; Cu + Cskip for the up half of a
+// concat gradient, g pointing at its first channel); dx: (N, D, H, W, C)
+// contiguous. C and pitch multiples of 8, both pointers 16-byte aligned.
+// Launches on `stream`; returns cudaGetLastError() (cudaErrorInvalidValue
+// for arguments it does not take).
+extern "C" int upsample2x_bwd_ndhwc_bf16(const void* g, void* dx, int N, int D,
+                                         int H, int W, int C, int pitch,
+                                         void* stream) {
+  if (N < 1 || D < 1 || H < 1 || W < 1 || C < 8 || C % 8 || pitch % 8 ||
+      pitch < C || N > 65535 ||
+      (reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(dx)) % 16)
+    return (int)cudaErrorInvalidValue;
+  constexpr int MAX_DEVICES = 64;
+  static int sms[MAX_DEVICES] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= MAX_DEVICES)
+    return (int)cudaErrorInvalidDevice;
+  if (sms[dev] == 0) {
+    int count = 0;
+    cudaError_t err = cudaFuncSetAttribute(
+        upsample2x_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        BWD_SMEM);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    sms[dev] = count;
+  }
+  const int nth = (H + BTH - 1) / BTH, ntw = (W + BTW - 1) / BTW;
+  const int chunks = (C + CHUNK - 1) / CHUNK;
+  // the d run with the fewest fine rows walked in a row by the busiest SM:
+  // waves of two blocks per SM times the 2 td + 2 rows of a block (the
+  // longer run on a tie)
+  auto blocks = [&](int run) {
+    return (long long)((D + run - 1) / run) * nth * ntw * chunks * N;
+  };
+  int td = 8;
+  long long best = -1;
+  for (int run = 8; run >= 1; run /= 2) {
+    const long long cost =
+        (blocks(run) + 2LL * sms[dev] - 1) / (2LL * sms[dev]) * (2 * run + 2);
+    if (best < 0 || cost < best) best = cost, td = run;
+  }
+  const long long tiles = (long long)((D + td - 1) / td) * nth * ntw;
+  if (tiles > 0x7FFFFFFFLL || chunks > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)tiles, (unsigned)chunks, (unsigned)N);
+  upsample2x_bwd_kernel<<<grid, BTHREADS, BWD_SMEM,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(g), static_cast<__nv_bfloat16*>(dx), D,
+      H, W, C, pitch, td, nth, ntw);
   return (int)cudaGetLastError();
 }

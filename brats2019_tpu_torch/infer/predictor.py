@@ -2,8 +2,10 @@
 
 Host: NIfTI decode, brain bbox, bucketed crop + bf16 cast (:432-475). One
 host->device copy of the crop, embedded into the zero canvas on the device.
-Device: the split cascade (``models/cascade.py``) returns the ROI labels and
-their start. Host: paste into the canvas, un-crop, scipy postprocessing
+Device: the program ``models/cascade.py`` ``make_predict_fn`` chose (the
+split cascade, the staged sweep or the monolithic program) returns the ROI
+labels and their start; without a cascade the ROI is the whole canvas and
+the start is zeros. Host: paste into the canvas, un-crop, scipy postprocessing
 unless the program already did it on the device (``postproc="device"``),
 NIfTI write with the input header.
 
@@ -17,10 +19,11 @@ launches every device program, in order; ``serving_depth`` threads fetch
 (from pinned memory the device->host copy was started into), paste, un-crop,
 postprocess and write. The labels equal the one-by-one path's bitwise.
 
-Not ported (ROADMAP queue 1 items 4 and 10 list them): the int8 transfer
+Not ported (ROADMAP queue 1 items 3, 5 and 6 list them): the probability
+outputs (item 3), striping over several devices (item 5), the int8 transfer
 encoding and its transfer-bound hint, volume pairing (``batch_volumes=2``),
-the probability outputs, striping over several devices, and the native
-threaded NIfTI decoder with its fused bbox (``meta``).
+and the native threaded NIfTI decoder with its fused bbox (``meta``) (item
+6).
 """
 
 from __future__ import annotations
@@ -112,12 +115,12 @@ class Predictor:
         if exp.infer.transfer_dtype != "bfloat16":
             raise NotImplementedError(
                 "only the bf16 transfer encoding is ported; int8 is a "
-                "left-out of ROADMAP queue 1 item 10 (serving)"
+                "left-out of ROADMAP queue 1 item 6 (serving)"
             )
         if exp.infer.batch_volumes != 1:
             raise NotImplementedError(
                 "volume pairing (batch_volumes=2) is not ported; ROADMAP "
-                "queue 1 item 10 lists it"
+                "queue 1 item 6 lists it"
             )
         self.canvas = tuple(exp.infer.canvas or exp.train.pool_shape)
         self.fine = build_unet(exp.unet, params_fine, self.device)

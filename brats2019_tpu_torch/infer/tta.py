@@ -8,7 +8,7 @@ fix the f32 averaging order.
 from __future__ import annotations
 
 import itertools
-from typing import Sequence, Tuple
+from typing import Callable, Sequence, Tuple
 
 import torch
 
@@ -39,3 +39,20 @@ def tta_reduce(probs: torch.Tensor) -> torch.Tensor:
     for i, f in enumerate(FLIPS):
         acc = acc + flip_volume(probs[i], f).float()
     return acc * (1.0 / len(FLIPS))
+
+
+def tta_probs(
+    apply_fn: Callable[[torch.Tensor], torch.Tensor],
+    tile: torch.Tensor,
+    enabled: bool = True,
+    precision: str = "float32",
+) -> torch.Tensor:
+    """Mean softmax probabilities over the 8 flip variants of one (X, Y, Z, C)
+    tile (:29-55). ``apply_fn(batch (N,X,Y,Z,C)) -> logits (N,X,Y,Z,K)``.
+    Disabled: the f32 softmax of one forward pass. Otherwise the 8-flip
+    stack in one forward, softmax in f32, stored in the TTA dtype, unflipped
+    and averaged in FLIPS order with f32 accumulation."""
+    if not enabled:
+        return torch.softmax(apply_fn(tile[None])[0].float(), dim=-1)
+    probs = torch.softmax(apply_fn(tta_stack(tile, precision)).float(), dim=-1)
+    return tta_reduce(probs.to(store_dtype(precision)))

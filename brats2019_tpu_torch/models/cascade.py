@@ -21,20 +21,33 @@ filter and the tiny-ET relabel run on the ROI labels inside
 ``stage_finish`` (:247-251, :422-441; ``ops/connected_components.py``), so
 the host only pastes, un-crops and writes.
 
-The monolithic path and the staged multi-tile sweep are not ported yet
-(ROADMAP queue 1 item 7).
+:func:`make_predict_fn` chooses among three programs with the reference's
+own predicates (:119-122, :187-200): the split single-tile cascade above;
+:class:`StagedSweep` (:254-337), the multi-tile TTA sweep for a whole canvas
+or an ROI larger than one tile, which stacks the flips of every tile and then
+runs, per tile, the fine forward at batch 8 up to the pre-depth-to-space
+head and the low-res TTA reduce, blended into a low-res block canvas; and
+:class:`Monolithic` (:135-168), z-score -> coarse ROI when cascading ->
+blended sliding window of ``tta_probs`` -> argmax, for everything else (no
+TTA, stem 1 with several tiles). Each is called with the (X, Y, Z, C) canvas
+and returns ``(labels_roi uint8, start int32)``; without a cascade the ROI
+is the whole canvas and start is zeros. The probability outputs
+(``predict_probs_monolithic``, ``stage_sweep_probs``) are not ported (ROADMAP
+queue 1 item 3).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..configs.presets import InferenceConfig
 from ..data.preprocess import centered_crop_start, mask_bbox_center, zscore
-from ..infer.tta import FLIPS, store_dtype, tta_reduce, tta_stack
+from ..infer.tiling import blend_weight, sliding_window_probs, tile_origins
+from ..infer.tta import FLIPS, store_dtype, tta_probs, tta_reduce, tta_stack
 from ..ops.connected_components import postprocess_device
 from ..ops.resize import resize_trilinear
 from .unet3d import UNet3D
@@ -163,21 +176,165 @@ class SplitCascade:
         return self.stage_finish(tiles, start)
 
 
+def lowres_blend_weight(
+    weight_np: np.ndarray, tile: Tuple[int, int, int], stem: int
+) -> np.ndarray:
+    """Blend weight in low-res block form (:59-70): (tx, ty, tz, 1) ->
+    (tx/r, ty/r, tz/r, r, r, r, 1), the space-to-depth rearrange of the
+    full-res weight, so low-res blended accumulation is the exact permutation
+    of full-res blended accumulation."""
+    r = stem
+    return weight_np.reshape(
+        tile[0] // r, r, tile[1] // r, r, tile[2] // r, r, 1
+    ).transpose(0, 2, 4, 1, 3, 5, 6)
+
+
+class _Program:
+    """What the monolithic and staged programs share: the configuration,
+    the sweep's static origins and blend weight, the z-score and the coarse
+    ROI (or the whole canvas and a zero start), and the device
+    postprocessing of the labels."""
+
+    def __init__(self, fine: UNet3D, coarse: Optional[UNet3D],
+                 cfg: InferenceConfig, canvas: Tuple[int, int, int],
+                 num_classes: int):
+        self.fine, self.coarse, self.cfg = fine, coarse, cfg
+        self.canvas = tuple(canvas)
+        self.num_classes = num_classes
+        self.stem = fine.config.stem_downsample
+        self.tile = tuple(cfg.tile)
+        self.roi = tuple(min(r, c) for r, c in zip(cfg.roi_shape, canvas))
+        self.sweep_shape = self.roi if self.coarse is not None else self.canvas
+        self.origins = tile_origins(self.sweep_shape, self.tile, cfg.overlap)
+        self.weight_np = blend_weight(self.tile, cfg.blend,
+                                      cfg.gaussian_sigma_frac)
+        self.store_dt = store_dtype(cfg.tta_precision)
+        self._consts: dict = {}
+
+    def _const(self, name: str, array: np.ndarray, device) -> torch.Tensor:
+        """``array`` on ``device``, copied there once (the copy waits for the
+        card); not an inference tensor."""
+        key = (name, str(device))
+        if key not in self._consts:
+            with torch.inference_mode(False):
+                self._consts[key] = torch.from_numpy(
+                    np.ascontiguousarray(array)).to(device)
+        return self._consts[key]
+
+    def _region(self, image: torch.Tensor):
+        """z-score, then the coarse ROI when cascading, else the canvas."""
+        image = zscore(image.float())
+        if self.coarse is not None:
+            return coarse_locate(self.coarse, image, self.cfg, self.canvas,
+                                 self.roi)
+        return image, torch.zeros(3, dtype=torch.int32, device=image.device)
+
+    def _finish_one(self, labels: torch.Tensor) -> torch.Tensor:
+        if self.cfg.postproc == "device":
+            return postprocess_device(labels, self.cfg.min_component_voxels,
+                                      self.cfg.et_min_voxels)
+        return labels
+
+
+class Monolithic(_Program):
+    """The reference's monolithic ``predict`` (:135-168): z-score + (coarse
+    ROI) + the blended sliding window of ``tta_probs`` + argmax (+ device
+    postprocessing)."""
+
+    def probs(self, image: torch.Tensor):
+        """(mean probabilities f32 over the ROI, start) (:135-155)."""
+        region, start = self._region(image)
+        weight = self._const("weight", self.weight_np, region.device)
+        probs = sliding_window_probs(
+            lambda p: tta_probs(self.fine, p, enabled=self.cfg.tta_flips,
+                                precision=self.cfg.tta_precision),
+            region, self.origins, self.tile, weight, self.num_classes)
+        return probs, start
+
+    def __call__(self, image: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        probs, start = self.probs(image)
+        labels = torch.argmax(probs, dim=-1).to(torch.uint8)
+        return self._finish_one(labels), start
+
+
+class StagedSweep(_Program):
+    """The staged multi-tile TTA sweep (:254-337): ``stage_sweep_stack``
+    then ``stage_sweep_finish``; the convs never see a flip."""
+
+    def stage_sweep_stack(self, image: torch.Tensor):
+        """z-score (+ coarse ROI) + every origin's flip stack:
+        ((T, 8, tx, ty, tz, C), start)."""
+        region, start = self._region(image)
+        tx, ty, tz = self.tile
+        stacks = torch.stack([
+            tta_stack(region[o0:o0 + tx, o1:o1 + ty, o2:o2 + tz],
+                      self.cfg.tta_precision)
+            for o0, o1, o2 in self.origins.tolist()
+        ])
+        return stacks, start
+
+    def sweep_probs_lr(self, stacks: torch.Tensor) -> torch.Tensor:
+        """Per tile, in origin order: the fine forward at batch 8 up to the
+        pre-d2s head, the low-res TTA mean, blended into a low-res block
+        canvas (d, h, w, r, r, r, K) of weight-normalised probabilities."""
+        r, k = self.stem, self.num_classes
+        tile_lr = tuple(t // r for t in self.tile)
+        sweep_lr = tuple(s // r for s in self.sweep_shape)
+        dev = stacks.device
+        w_lr = self._const("weight_lr", lowres_blend_weight(
+            self.weight_np, self.tile, r), dev)
+        canvas = torch.zeros(sweep_lr + (r, r, r, k), dtype=torch.float32,
+                             device=dev)
+        wsum = torch.zeros(sweep_lr + (r, r, r, 1), dtype=torch.float32,
+                           device=dev)
+        for chunk, (o0, o1, o2) in zip(stacks, (self.origins // r).tolist()):
+            probs = lowres_mean_probs(self.fine(chunk, subpixel=False), r, k,
+                                      self.store_dt)
+            sl = (slice(o0, o0 + tile_lr[0]), slice(o1, o1 + tile_lr[1]),
+                  slice(o2, o2 + tile_lr[2]))
+            canvas[sl] += probs * w_lr
+            wsum[sl] += w_lr
+        return canvas / torch.clamp(wsum, min=1e-8)
+
+    def stage_sweep_finish(self, stacks: torch.Tensor, start: torch.Tensor):
+        blk = torch.argmax(self.sweep_probs_lr(stacks), dim=-1).to(torch.uint8)
+        return self._finish_one(labels_from_blocks(blk, self.stem)), start
+
+    def __call__(self, image: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.stage_sweep_finish(*self.stage_sweep_stack(image))
+
+
 def make_predict_fn(
     fine: UNet3D,
     cfg: InferenceConfig,
     canvas: Tuple[int, int, int],
     num_classes: int = 4,
-    coarse: UNet3D = None,
-) -> SplitCascade:
-    """The port of ``make_predict_fn`` (:73) for its split single-tile
-    path; other configurations raise NotImplementedError."""
+    coarse: Optional[UNet3D] = None,
+    allow_split: bool = True,
+):
+    """The port of ``make_predict_fn`` (:73-339): the split single-tile
+    cascade, the staged sweep or the monolithic program, chosen by the
+    reference's predicates (the port's fine net always has the pre-d2s
+    head the reference passes as ``fine_lowres_apply``). Each is called
+    with the canvas and returns ``(labels_roi uint8, start int32)``."""
+    tile = tuple(cfg.tile)
+    use_cascade = cfg.cascade and coarse is not None
     roi = tuple(min(r, c) for r, c in zip(cfg.roi_shape, canvas))
-    if not (cfg.cascade and coarse is not None and cfg.tta_flips
-            and roi == tuple(cfg.tile)):
-        raise NotImplementedError(
-            "only the split single-tile cascade with 8-flip TTA is ported "
-            "(cascade on, a coarse model, tta_flips, roi == tile); the "
-            "monolithic and staged sweep paths are ROADMAP queue 1 item 7"
-        )
-    return SplitCascade(fine, coarse, cfg, canvas, num_classes)
+    sweep_shape = roi if use_cascade else tuple(canvas)
+    origins = tile_origins(sweep_shape, tile, cfg.overlap)
+    stem = fine.config.stem_downsample
+    split_tta = (allow_split and use_cascade and cfg.tta_flips
+                 and len(origins) == 1 and roi == tile)
+    if split_tta:
+        return SplitCascade(fine, coarse, cfg, canvas, num_classes)
+    staged_sweep = (
+        allow_split
+        and cfg.tta_flips
+        and stem > 1
+        and len(origins) > 1
+        and all(t % stem == 0 for t in tile)
+        and all(s % stem == 0 for s in sweep_shape)
+        and bool((origins % stem == 0).all())
+    )
+    cls = StagedSweep if staged_sweep else Monolithic
+    return cls(fine, coarse if use_cascade else None, cfg, canvas, num_classes)

@@ -37,6 +37,8 @@ def reset_launch_counts() -> None:
     upsample2x.launches_cuda = 0     # the 2x up on resize2x.cu
     upsample2x.launches_concat = 0   # of those, into the decoder's concat buffer
     conv3d_winograd.launches_wgmma = 0   # likewise, on winograd3d_wgmma.cu
+    instance_norm_act_bwd.launches_cuda = 0   # the IN+act backward on in_act_bwd.cu
+    upsample2x_bwd.launches_cuda = 0     # the 2x up backward on resize2x.cu
 
 
 def launch_counts() -> dict:

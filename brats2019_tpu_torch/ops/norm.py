@@ -8,8 +8,12 @@ NDHWC; statistics per (n, c) over the spatial axes, in f32, biased variance,
 
 * CPU tensor: the plain versions :func:`instance_norm_act_plain` and
   :func:`instance_norm_act_bwd_plain`.
-* CUDA tensor: the Triton kernels of ``ops/triton_norm.py`` (bf16, the
-  compute dtype of the path), or an error. There is no fallback.
+* CUDA tensor (bf16, the compute dtype of the path), or an error; there is
+  no fallback. Forward: the Triton kernels of ``ops/triton_norm.py``.
+  Backward: ``csrc/in_act_bwd.cu`` (one persistent launch, the launch plan
+  of :func:`plan_in_bwd`) where C % 8 == 0, the Triton kernels for other C
+  (by plan); :func:`instance_norm_act_bwd_blocked_plain` is the plain
+  version organised as that kernel is.
 
 ``partials``: the f32 (3, N, P, C) per-box (count, mean, centred M2) of x
 that the conv before the norm computed in its epilogue (``ops/conv.py``
@@ -27,12 +31,15 @@ Activations: relu, leaky_relu (slope 0.01), none.
 
 ``instance_norm_act.launches`` and ``instance_norm_act_bwd.launches`` count
 kernel launches (one per call); ``instance_norm_act.launches_partials`` those
-of them that took the conv's partials.
+of them that took the conv's partials, ``instance_norm_act_bwd.launches_cuda``
+those on ``csrc/in_act_bwd.cu``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +47,24 @@ import torch.nn.functional as F
 from . import _build
 
 ACTIVATIONS = ("relu", "leaky_relu", "none")
+ACT_CODES = {"none": 0, "relu": 1, "leaky_relu": 2}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIG = {
+    "in_act_bwd_ndhwc_bf16": [_P] * 11 + [_I, ctypes.c_longlong] + [_I] * 6
+    + [_P],
+    "in_act_bwd_column_ndhwc_bf16": [_P] * 9 + [_I] * 6 + [_P],
+}
+SMEM_LIMIT = 232_448      # dynamic shared memory a block may ask for (H100)
+BWD_MAX_THREADS = 512
+BWD_MAX_C = 1024   # the per-sample sums (2C f32) reuse the reduction rows
+# N S up to this: the one-block-per-column form (csrc/in_act_bwd.cu takes
+# up to 4096; at 4096 its fewer blocks read slower than the grid form's)
+BWD_COLUMN_VOXELS = 2048
+
+
+def _lib() -> ctypes.CDLL:
+    return _build.load_library("in_act_bwd", ["in_act_bwd.cu"], _SIG)
 
 
 def _act(y: torch.Tensor, activation: str) -> torch.Tensor:
@@ -129,6 +154,96 @@ def instance_norm_act_bwd_plain(
     return dx.to(x.dtype), s2.reshape(n, c).sum(0), s1.reshape(n, c).sum(0)
 
 
+MERGE_LANES = 32   # csrc/in_act_bwd.cu sums a column of partials with one warp
+
+
+class InBwdPlan(NamedTuple):
+    """Launch plan of ``csrc/in_act_bwd.cu``. The grid form: ``bps`` blocks
+    per sample of ``threads`` threads (a multiple of C/8, so each thread
+    keeps its 8 channels), each holding up to ``keep`` 16-byte vectors of x
+    and of g in ``smem`` bytes of shared memory. The ``column`` form (N S <=
+    BWD_COLUMN_VOXELS): one block of ``threads`` per 8-channel column over
+    all samples, which is one block range per sample (``bps`` 1)."""
+    threads: int
+    bps: int
+    keep: int
+    smem: int
+    column: bool = False
+
+
+@functools.lru_cache(maxsize=None)
+def plan_in_bwd(n: int, s: int, c: int, sms: int = 132) -> InBwdPlan:
+    """The plan for x of N samples, S voxels and C channels on a card of
+    ``sms`` SMs: one block per SM at most (the grid barrier needs them all
+    resident), the samples' voxels cut into equal block-contiguous ranges,
+    no more blocks than give each thread one vector of x. Raises for what
+    the kernel does not take (C % 8 != 0 goes to the Triton kernels before
+    this is asked)."""
+    c8 = c // 8
+    if c % 8 or not 0 < c8 <= BWD_MAX_C // 8 or n < 1 or s < 1:
+        raise ValueError(f"in_act_bwd.cu: no plan for N={n} S={s} C={c}")
+    if n * s <= BWD_COLUMN_VOXELS:
+        threads = min(BWD_MAX_THREADS, -(-n * s // 32) * 32)
+        return InBwdPlan(threads, 1, s * c8,
+                         32 * n * s + 2 * threads + 64 * n, column=True)
+    if n > sms:
+        raise ValueError(f"in_act_bwd.cu: N={n} samples need more blocks than "
+                         f"the {sms} SMs hold at once")
+    threads = (BWD_MAX_THREADS // c8) * c8
+    bps = max(1, min(sms // n, -(-s * c8 // threads)))
+    fixed = 32 * threads                   # the block reduction's rows
+    # whole voxels: a thread's vectors past the held ones keep its channels
+    keep = min(-(-s // bps), (SMEM_LIMIT - fixed) // (32 * c8)) * c8
+    return InBwdPlan(threads, bps, keep, 32 * keep + fixed)
+
+
+def _tree(vals: torch.Tensor) -> torch.Tensor:
+    """Sum over dim 0 (a power of two) as the kernel's xor butterfly does:
+    adjacent pairs, then pairs of pairs."""
+    while vals.shape[0] > 1:
+        vals = vals[0::2] + vals[1::2]
+    return vals[0]
+
+
+def instance_norm_act_bwd_blocked_plain(x, g, gamma, beta, mean, rstd,
+                                        activation: str = "relu",
+                                        sms: int = 132):
+    """:func:`instance_norm_act_bwd_plain` organised as ``csrc/in_act_bwd.cu``
+    is, in f32: per block range of :func:`plan_in_bwd` (one per sample in
+    its column form), the partial sums of ga
+    and ga * xhat over its voxel range; per (n, c) the partials merged in
+    the kernel's order (lane q of a warp sums r = q, q + 32, ... in turn,
+    then a butterfly over the 32 lanes); dgamma, dbeta summed over n in
+    order. (dx in x.dtype, dgamma f32 (C,), dbeta f32 (C,))."""
+    n, c = x.shape[0], x.shape[-1]
+    s = x.numel() // (n * c)
+    plan = plan_in_bwd(n, s, c, sms)
+    x3, g3 = x.reshape(n, s, c).float(), g.reshape(n, s, c).float()
+    mu, rs = mean.reshape(n, 1, c).float(), rstd.reshape(n, 1, c).float()
+    gam, bet = gamma.float(), beta.float()
+    xhat = (x3 - mu) * rs
+    ga = _act_grad(xhat * gam + bet, g3, activation)
+    part = torch.zeros((2, n, plan.bps, c), dtype=torch.float32, device=x.device)
+    for r in range(plan.bps):
+        v0, v1 = s * r // plan.bps, s * (r + 1) // plan.bps
+        part[0, :, r] = ga[:, v0:v1].sum(1)
+        part[1, :, r] = (ga * xhat)[:, v0:v1].sum(1)
+    lanes = torch.zeros((MERGE_LANES, 2, n, c), dtype=torch.float32,
+                        device=x.device)
+    for r in range(plan.bps):
+        lanes[r % MERGE_LANES] += part[:, :, r]
+    tot = _tree(lanes)                                   # (2, n, c)
+    dbeta = torch.zeros(c, dtype=torch.float32, device=x.device)
+    dgamma = torch.zeros(c, dtype=torch.float32, device=x.device)
+    for i in range(n):
+        dbeta += tot[0, i]
+        dgamma += tot[1, i]
+    inv_s = 1.0 / s
+    m1, m2 = (tot[0] * inv_s)[:, None], (tot[1] * inv_s)[:, None]
+    dx = (gam * rs) * (ga - m1 - xhat * m2)
+    return dx.to(x.dtype).reshape(x.shape), dgamma, dbeta
+
+
 def _check_kernel_input(x: torch.Tensor, activation: str) -> None:
     if activation not in ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r}; one of {ACTIVATIONS}")
@@ -189,26 +304,73 @@ def instance_norm_act_kernel(
     return y3.view(n, d, h, w, c), mean, rstd
 
 
-def instance_norm_act_bwd_kernel(x, g, gamma, beta, mean, rstd,
-                                 activation: str = "relu"):
-    """Launch the Triton backward on CUDA NDHWC bf16 x and g."""
+def _bwd_inputs(x, g, gamma, beta, mean, rstd, activation):
     _check_kernel_input(x, activation)
     if g.shape != x.shape or g.dtype != x.dtype:
         raise ValueError(f"instance_norm_act_bwd: g {tuple(g.shape)} {g.dtype} "
                          f"vs x {tuple(x.shape)} {x.dtype}")
-    from . import triton_norm
-
     n, d, h, w, c = x.shape
     x3 = x.contiguous().view(n, d * h * w, c)
     g3 = g.contiguous().view(n, d * h * w, c)
-    dx3 = torch.empty_like(x3)
     f32 = lambda t: t.to(device=x.device, dtype=torch.float32).contiguous()
+    return x3, g3, f32(mean), f32(rstd), f32(gamma), f32(beta)
+
+
+def instance_norm_act_bwd_kernel_triton(x, g, gamma, beta, mean, rstd,
+                                        activation: str = "relu"):
+    """The Triton backward (partials, merge, dx: three launches) on CUDA
+    NDHWC bf16 x and g: what :func:`instance_norm_act_bwd_kernel` launches
+    where C is not a multiple of 8."""
+    from . import triton_norm
+
+    x3, g3, *consts = _bwd_inputs(x, g, gamma, beta, mean, rstd, activation)
+    dx3 = torch.empty_like(x3)
     with torch.cuda.device(x.device):
-        dgamma, dbeta = triton_norm.launch_bwd(
-            x3, g3, dx3, f32(mean), f32(rstd), f32(gamma), f32(beta), activation
-        )
+        dgamma, dbeta = triton_norm.launch_bwd(x3, g3, dx3, *consts, activation)
     _build.count_launch(instance_norm_act_bwd)
-    return dx3.view(n, d, h, w, c), dgamma, dbeta
+    return dx3.view(x.shape), dgamma, dbeta
+
+
+def instance_norm_act_bwd_kernel(x, g, gamma, beta, mean, rstd,
+                                 activation: str = "relu"):
+    """The backward on CUDA NDHWC bf16 x and g: ``csrc/in_act_bwd.cu`` (one
+    launch) where C % 8 == 0, else the Triton kernels. (dx, dgamma, dbeta)."""
+    c = x.shape[-1]
+    if c % 8:
+        return instance_norm_act_bwd_kernel_triton(x, g, gamma, beta, mean,
+                                                   rstd, activation)
+    x3, g3, mean, rstd, gamma, beta = _bwd_inputs(x, g, gamma, beta, mean,
+                                                  rstd, activation)
+    n, s, _ = x3.shape
+    plan = plan_in_bwd(n, s, c, _build.sm_count(x.device))
+    dx3 = torch.empty_like(x3)
+    # the blocks' partials, then the per-sample sums (the grid form's)
+    part = (None if plan.column else
+            torch.empty(2 * n * (plan.bps + 1) * c, dtype=torch.float32,
+                        device=x.device))
+    dgamma = torch.empty(c, dtype=torch.float32, device=x.device)
+    dbeta = torch.empty(c, dtype=torch.float32, device=x.device)
+    # the grid barrier's (arrivals, generation): zeroed on this stream for
+    # this launch alone, so no two launches (other streams, graph replays)
+    # ever share a counter
+    bar = None if plan.column else torch.zeros(2, dtype=torch.int32,
+                                               device=x.device)
+    ptr = lambda t: t.data_ptr()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if plan.column:
+            rc = _lib().in_act_bwd_column_ndhwc_bf16(
+                *map(ptr, (x3, g3, dx3, mean, rstd, gamma, beta, dgamma, dbeta)),
+                n, s, c, ACT_CODES[activation], plan.threads, plan.smem, stream)
+        else:
+            rc = _lib().in_act_bwd_ndhwc_bf16(
+                *map(ptr, (x3, g3, dx3, mean, rstd, gamma, beta, part, dgamma,
+                           dbeta, bar)),
+                n, s, c, ACT_CODES[activation], plan.bps, plan.threads,
+                plan.keep, plan.smem, stream)
+    _build.check(rc, "instance_norm_act_bwd (in_act_bwd.cu)")
+    _build.count_launch(instance_norm_act_bwd, "launches", "launches_cuda")
+    return dx3.view(x.shape), dgamma, dbeta
 
 
 def _device_check(x: torch.Tensor, what: str) -> None:
@@ -274,3 +436,4 @@ def instance_norm_act(
 instance_norm_act.launches = 0
 instance_norm_act.launches_partials = 0
 instance_norm_act_bwd.launches = 0
+instance_norm_act_bwd.launches_cuda = 0

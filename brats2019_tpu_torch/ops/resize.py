@@ -14,11 +14,15 @@ All are ``autograd.Function``s whose backward is the exact VJP
 :func:`upsample2x_bwd`: the stride-2 4-tap correlation with the
 replicate-clamp edge folds, ``pallas_resize.py:128-234``). Forward and
 backward run their plain version on a CPU tensor and a kernel on a CUDA bf16
-tensor (or raise): the 2x up forward is ``csrc/resize2x.cu`` where C is a
-multiple of 8 (the Triton ``_up2x_kernel`` for other C, chosen by shape), the
-rest the Triton kernels of ``ops/triton_resize.py``. ``.launches`` counts
-kernel launches; ``upsample2x.launches_cuda`` those of them on resize2x.cu,
-``upsample2x.launches_concat`` those that wrote into a concat buffer.
+tensor (or raise): the 2x up forward and backward are ``csrc/resize2x.cu``
+where C is a multiple of 8 (the Triton ``_up2x_kernel`` and
+``_up2x_bwd_kernel`` for other C, or a gradient whose channel pitch is not a
+multiple of 8, chosen by shape), the rest the Triton kernels of
+``ops/triton_resize.py``. The up backward reads the concat gradient's up
+half in place, at the concat's channel pitch. ``.launches`` counts kernel
+launches; ``upsample2x.launches_cuda`` and ``upsample2x_bwd.launches_cuda``
+those of them on resize2x.cu, ``upsample2x.launches_concat`` those that
+wrote into a concat buffer.
 
 * :func:`resize_trilinear` — arbitrary target shape, plain torch on every
   device, as the JAX package runs it outside any Pallas kernel. It is
@@ -42,6 +46,8 @@ from . import _build
 
 _SIG = {
     "upsample2x_ndhwc_bf16": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
+    + [ctypes.c_void_p],
+    "upsample2x_bwd_ndhwc_bf16": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
 }
 
@@ -247,7 +253,10 @@ def downsample2x_bwd_kernel(g: torch.Tensor, x_shape) -> torch.Tensor:
     return dx
 
 
-def upsample2x_bwd_kernel(g: torch.Tensor) -> torch.Tensor:
+def upsample2x_bwd_kernel_triton(g: torch.Tensor) -> torch.Tensor:
+    """The Triton ``_up2x_bwd_kernel`` (any C) on a contiguous copy of g:
+    what :func:`upsample2x_bwd_kernel` launches where C is not a multiple of
+    8 or g's channel pitch is not one."""
     _check5d(g, "upsample2x_bwd")
     from . import triton_resize
 
@@ -260,6 +269,47 @@ def upsample2x_bwd_kernel(g: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(g.device):
         triton_resize.launch_up_bwd(g, dx)
     _build.count_launch(upsample2x_bwd)
+    return dx
+
+
+def channel_pitch(t: torch.Tensor):
+    """The channel pitch of an NDHWC ``t`` that is C channels of a
+    contiguous (N, D, H, W, pitch) buffer (all of it, or a channel slice such
+    as a concat's first half), else None."""
+    n, d, h, w, c = t.shape
+    pitch = t.stride(3)
+    want = (d * h * w * pitch, h * w * pitch, w * pitch, pitch, 1)
+    if pitch < c or any(size > 1 and st != ws for size, st, ws
+                        in zip(t.shape, t.stride(), want)):
+        return None
+    return pitch
+
+
+def upsample2x_bwd_kernel(g: torch.Tensor) -> torch.Tensor:
+    """The VJP of the 2x up on a CUDA bf16 g (N, 2D, 2H, 2W, C):
+    csrc/resize2x.cu where C is a multiple of 8, read in place at g's channel
+    pitch (a copy at pitch C first where g is not C channels of an NDHWC
+    buffer, or not 16-byte aligned); the Triton kernel where C or the pitch
+    is not a multiple of 8."""
+    _check5d(g, "upsample2x_bwd")
+    n, d2, h2, w2, c = g.shape
+    if d2 % 2 or h2 % 2 or w2 % 2:
+        raise ValueError(f"upsample2x_bwd: odd extent in {tuple(g.shape)}")
+    pitch = channel_pitch(g)
+    if c % 8 or (pitch is not None and pitch % 8):
+        return upsample2x_bwd_kernel_triton(g)
+    if pitch is None or g.data_ptr() % 16:
+        g = g.clone(memory_format=torch.contiguous_format)
+        pitch = c
+    dx = torch.empty((n, d2 // 2, h2 // 2, w2 // 2, c), dtype=g.dtype,
+                     device=g.device)
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        rc = _lib().upsample2x_bwd_ndhwc_bf16(g.data_ptr(), dx.data_ptr(), n,
+                                              d2 // 2, h2 // 2, w2 // 2, c,
+                                              pitch, stream)
+    _build.check(rc, "upsample2x_bwd (resize2x.cu)")
+    _build.count_launch(upsample2x_bwd, "launches", "launches_cuda")
     return dx
 
 
@@ -308,7 +358,8 @@ class _Up2xConcat(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         cu = ctx.cu
-        return upsample2x_bwd(g[..., :cu].contiguous()), g[..., cu:]
+        # the up half is read in place, at the concat's channel pitch
+        return upsample2x_bwd(g[..., :cu]), g[..., cu:]
 
 
 class _Up2x(torch.autograd.Function):
@@ -351,6 +402,7 @@ upsample2x.launches_cuda = 0
 upsample2x.launches_concat = 0
 downsample2x_bwd.launches = 0
 upsample2x_bwd.launches = 0
+upsample2x_bwd.launches_cuda = 0
 
 
 # ----------------------------------------------------------- any-shape resize --

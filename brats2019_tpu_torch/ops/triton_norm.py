@@ -67,6 +67,10 @@ split is reused:
    n). No atomics: repeat runs are bitwise equal.
 8. ``_in_bwd_dx_kernel``: grid (S blocks, N, C blocks), one fused pass that
    writes dx.
+
+Since the backward moved to ``csrc/in_act_bwd.cu`` (one launch, x and g
+read once where they fit in shared memory), kernels 6-8 run where C is not
+a multiple of 8, and ``chip_smoke.py`` times them as its ``prev_ms``.
 """
 
 import torch

@@ -2,7 +2,11 @@
 backward.
 
 Imported only by ``ops/resize.py`` when it launches on a CUDA tensor (this
-module imports triton at the top; nothing else imports it).
+module imports triton at the top; nothing else imports it). The 2x up and
+its backward run on ``csrc/resize2x.cu`` where C is a multiple of 8; the
+Triton up kernels here take the other channel counts (and a gradient whose
+channel pitch is not a multiple of 8), and ``chip_smoke.py`` times them as
+the CUDA kernels' ``prev_ms``.
 
 Replaces (``brats2019_tpu/ops/pallas_resize.py``):
 

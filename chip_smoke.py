@@ -47,7 +47,15 @@ and prints no result lines). Phases:
    ulp with the Triton kernel (``prev_ms``) held to the same, and at the
    predict shapes written into the decoder's concat buffer: up half within 1
    ulp, skip half bitwise, timed against the Triton up followed by
-   ``torch.cat``. Beside every
+   ``torch.cat``. The IN+act backward (``csrc/in_act_bwd.cu``, one
+   cooperative launch) and the 2x up backward (``csrc/resize2x.cu``, read in
+   place from the concat gradient's up half at its channel pitch) at every
+   train shape and at edge shapes (C = 48, an odd extent, a size-1 axis; C =
+   12 goes to the Triton kernels by plan): their tolerances as above, a
+   repeat run bitwise equal, the route the counters show, and the Triton
+   kernels they replaced held to the same and timed in the same run as
+   ``prev_ms`` (the up backward's after the copy of the up half it needed).
+   Beside every
    kernel of the record, at the same shapes: its bound (the larger of bytes
    over 3.35 TB/s and operations over the peak of their type) and the device
    time of the one PyTorch call that computes the same function (bf16
@@ -69,7 +77,8 @@ and prints no result lines). Phases:
    --stage all --device cuda`` on the phase-3 cases (2 train, 1 val) for
    TRAIN_STEPS steps per stage, counters zeroed just before; every logged
    loss finite and grad_norm > 0; the three backward kernels launched exactly
-   (14 IN, 3 down, 3 up per fine step; 10, 2, 2 per coarse step); a rerun
+   (14 IN, 3 down, 3 up per fine step; 10, 2, 2 per coarse step), the IN and
+   up backward all on their CUDA C++ kernels; a rerun
    with more steps resumes; ``cli.predict`` serves the trained workdir. Then
    one train step of the kernel path on the card against the plain path on
    the CPU (bf16 both, same weights and batch, a 64^3 patch), and per stage
@@ -101,6 +110,20 @@ and prints no result lines). Phases:
    connected components ms on the ROI on the device and in host scipy, the
    burst's e2e s/vol beside phase 3's serial one, and the device's idle
    share over the burst.
+
+6. The other predict programs, through ``brats2019_tpu_torch.cli.predict
+   --device cuda`` with seeded random weights saved as ``params.npz``, the
+   counters zeroed just before each run: ``single_chip`` at the flagship fine
+   width (no cascade: the staged sweep, 12 tiles of 128^3 at batch 8) on the
+   phase-3 cases, ``reference_parity`` (the monolithic program with
+   full-resolution TTA; its first level on ``conv3d.cu`` and the
+   three-launch IN) and ``cascade --no-tta`` (monolithic, one tile) on one
+   case each: labels in {0,1,2,4} at the input's shape, a repeat run bitwise
+   equal, launch counts equal to what the program's tiles and nets give, on
+   their routes, the program ``make_predict_fn`` chose, the staged sweep on
+   the card against the plain path on the CPU at a small input, and device
+   ms/volume (CUDA events) and e2e s/volume. It runs last, so that phases 4
+   and 5 meet the card as they did before it was added.
 
 The line before the last holds the kernels' JSON record (forward kernels:
 launches on the predict slice, times per volume; backward kernels: launches
@@ -159,11 +182,15 @@ KERNELS = {
     # the Triton _up2x_kernel stays for C % 8 != 0, timed as prev_ms
     "upsample2x": ("cuda", "brats2019_tpu_torch/csrc/resize2x.cu",
                    "brats2019_tpu/ops/pallas_resize.py:103"),
-    "instance_norm_act_bwd": ("triton", "brats2019_tpu_torch/ops/triton_norm.py",
+    # one persistent launch (csrc/in_act_bwd.cu); the Triton kernels stay for
+    # C % 8 != 0 and are timed beside it as prev_ms
+    "instance_norm_act_bwd": ("cuda", "brats2019_tpu_torch/csrc/in_act_bwd.cu",
                               "brats2019_tpu/ops/pallas_norm.py:265"),
     "downsample2x_bwd": ("triton", "brats2019_tpu_torch/ops/triton_resize.py",
                          "brats2019_tpu/ops/pallas_resize.py:304"),
-    "upsample2x_bwd": ("triton", "brats2019_tpu_torch/ops/triton_resize.py",
+    # read in place from the concat gradient; the Triton kernel (after the
+    # copy of the up half it needed) is timed beside it as prev_ms
+    "upsample2x_bwd": ("cuda", "brats2019_tpu_torch/csrc/resize2x.cu",
                        "brats2019_tpu/ops/pallas_resize.py:213"),
     # likewise: winograd3d.cu is the general instance, timed as prev_ms
     "conv3d_winograd": ("cuda", "brats2019_tpu_torch/csrc/winograd3d_wgmma.cu",
@@ -180,7 +207,26 @@ GENERAL_CONV_CALLS = [("conv3d", (1, 24, 28, 20, 4, 32)),
 GENERAL_WINO_CALLS = [("conv3d_winograd", (1, 24, 28, 20, 4, 32)),
                       ("conv3d_winograd", (1, 12, 14, 10, 48, 4)),
                       ("conv3d_winograd", (2, 10, 8, 14, 40, 20))]
+# edge shapes of the two backward kernels (forward input shapes): C = 48, an
+# odd extent, a size-1 axis, C = 48 with part of x and g held; C = 12 goes to
+# the Triton kernels by plan
+BWD_EDGE_CALLS = [("instance_norm_act_bwd", (1, 9, 7, 11, 48)),
+                  ("instance_norm_act_bwd", (1, 64, 64, 64, 48)),   # part held
+                  ("instance_norm_act_bwd", (1, 1, 4, 1, 64)),
+                  ("instance_norm_act_bwd", (2, 5, 6, 7, 12)),
+                  ("upsample2x_bwd", (1, 5, 3, 9, 48)),
+                  ("upsample2x_bwd", (1, 1, 7, 1, 64)),
+                  ("upsample2x_bwd", (1, 4, 4, 4, 12))]
 EPILOGUE_SOURCE = "brats2019_tpu_torch/csrc/conv3d_wgmma.cu"   # row 2's statistics
+# the tree's earlier kernel of a row, timed beside it in the same run
+PREV_SOURCE = {
+    "conv3d": "brats2019_tpu_torch/csrc/conv3d.cu",
+    "conv3d_winograd": "brats2019_tpu_torch/csrc/winograd3d.cu",
+    "upsample2x": "brats2019_tpu_torch/ops/triton_resize.py",
+    "instance_norm_act_bwd": "brats2019_tpu_torch/ops/triton_norm.py (three launches)",
+    "upsample2x_bwd": "brats2019_tpu_torch/ops/triton_resize.py (after a copy of "
+                      "the concat gradient's up half)",
+}
 FORWARD = ("conv3d", "instance_norm_act", "downsample2x", "upsample2x")
 BACKWARD = ("instance_norm_act_bwd", "downsample2x_bwd", "upsample2x_bwd")
 WINO_TOL = 2e-2        # Winograd kernel vs its plain version, max|d|/max|ref|
@@ -373,19 +419,21 @@ def library_ms(name, x, reps, gy=None, wt=None, gam=None, bet=None):
     return both - only_fwd
 
 
-def check_kernels(calls, dev, library_for=()):
+def check_kernels(calls, dev, library_for=(), up_skips=None):
     """Each unique (kernel, shape) once: error against the plain version,
     then the device time of both (CUDA graph) and their back-to-back wall time
     (CUDA events); for the calls in ``library_for`` also the one PyTorch
     call that computes the same function. Returns {(name, shape): (err,
     max_abs_err, ms, plain_ms, wall_ms, plain_wall_ms, bytes-bound ms,
-    operations-bound ms, library_ms or None, prev_ms or None: the convs'
-    mma.sync kernels)}."""
+    operations-bound ms, library_ms or None, prev_ms or None: the tree's
+    earlier kernel on the same inputs)}. ``up_skips`` maps an up backward's
+    shape to the skip channels of its concat gradient (8 where absent)."""
     import torch
 
     from brats2019_tpu_torch.ops import conv, norm, resize, winograd
 
     library_for = set(library_for)
+    up_skips = up_skips or {}
     conv_library = {}
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -420,14 +468,19 @@ def check_kernels(calls, dev, library_for=()):
             args = (x, gy, gam, bet, mean, rstd)
             kern = lambda: norm.instance_norm_act_bwd_kernel(*args)
             plain = lambda: norm.instance_norm_act_bwd_plain(*args)
+            triton_bwd = lambda: norm.instance_norm_act_bwd_kernel_triton(*args)
         elif name == "downsample2x_bwd":
             gy = torch.randn((shape[0],) + tuple(v // 2 for v in shape[1:4])
                              + shape[4:], generator=g, device=dev).bfloat16()
             kern = lambda: resize.downsample2x_bwd_kernel(gy, shape)
             plain = lambda: resize.downsample2x_bwd_plain(gy, shape)
         elif name == "upsample2x_bwd":
-            gy = torch.randn((shape[0],) + tuple(2 * v for v in shape[1:4])
-                             + shape[4:], generator=g, device=dev).bfloat16()
+            # the up half of the decoder's concat gradient, read in place
+            cs = up_skips.get(shape, 8)
+            cat = torch.randn((shape[0],) + tuple(2 * v for v in shape[1:4])
+                              + (shape[4] + cs,), generator=g,
+                              device=dev).bfloat16()
+            gy = cat[..., :shape[4]]
             kern = lambda: resize.upsample2x_bwd_kernel(gy)
             plain = lambda: resize.upsample2x_bwd_plain(gy)
         else:
@@ -443,6 +496,7 @@ def check_kernels(calls, dev, library_for=()):
             rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
             sums_err = max(rel(got[1], ref[1]), rel(got[2], ref[2]))
             extra = f", dgamma/dbeta {sums_err:.3e} (tol 1e-3)"
+            sums, ref_sums = got[1:], ref[1:]
             got, ref = got[0], ref[0]
         abs_err = (got.float() - ref.float()).abs().max().item()
         if name == "conv3d_winograd":
@@ -507,9 +561,45 @@ def check_kernels(calls, dev, library_for=()):
                 del old
             del again
         elif name == "instance_norm_act_bwd":
+            # in_act_bwd.cu where C % 8 == 0, the Triton kernels by plan else;
+            # the Triton kernels held to the same before timed as prev_ms
             err = abs_err / ref.float().abs().max().item()
-            ok = err <= 1e-2 and sums_err <= 1e-3
-            what = f"max|d|/max|ref| {err:.3e} (tol 1e-2){extra}"
+            before = norm.instance_norm_act_bwd.launches_cuda
+            again = kern()
+            old = triton_bwd()
+            torch.cuda.synchronize()
+            on_cuda = norm.instance_norm_act_bwd.launches_cuda - before
+            same = all(torch.equal(a, b) for a, b in zip(again, (got, *sums)))
+            rel = lambda a, b: ((a.float() - b.float()).abs().max()
+                                / b.float().abs().max()).item()
+            p_err = rel(old[0], ref)
+            p_sums = max(rel(old[1], ref_sums[0]), rel(old[2], ref_sums[1]))
+            ok = (err <= 1e-2 and sums_err <= 1e-3 and same and p_err <= 1e-2
+                  and p_sums <= 1e-3 and on_cuda == int(shape[-1] % 8 == 0))
+            what = (f"max|d|/max|ref| {err:.3e} (tol 1e-2){extra}, repeat run "
+                    f"bitwise equal: {same}, {on_cuda} launch on in_act_bwd.cu; "
+                    f"Triton kernels (prev) {p_err:.3e}, dgamma/dbeta "
+                    f"{p_sums:.3e}")
+            del again, old
+        elif name == "upsample2x_bwd":
+            # resize2x.cu reading the concat gradient in place where C and the
+            # pitch are multiples of 8; the Triton kernel held to the same
+            err = bf16_ulps(got, ref)
+            before = resize.upsample2x_bwd.launches_cuda
+            again = kern()
+            contig = resize.upsample2x_bwd_kernel(gy.contiguous())
+            old = resize.upsample2x_bwd_kernel_triton(gy)
+            torch.cuda.synchronize()
+            on_cuda = resize.upsample2x_bwd.launches_cuda - before
+            same = bool(torch.equal(again, got) and torch.equal(contig, got))
+            p_err = bf16_ulps(old, ref)
+            ok = (err <= 1 and p_err <= 1 and same
+                  and on_cuda == 2 * int(shape[-1] % 8 == 0))
+            what = (f"{err:.2f} bf16 ulp (tol 1) from a concat gradient of "
+                    f"{gy.shape[-1] + cs} channels, repeat run and contiguous "
+                    f"copy bitwise equal: {same}, {on_cuda} launches on "
+                    f"resize2x.cu; Triton kernel (prev) {p_err:.2f} ulp (tol 1)")
+            del again, contig, old
         elif name == "instance_norm_act":
             err = bf16_ulps(got, ref)
             again = kern()
@@ -564,6 +654,13 @@ def check_kernels(calls, dev, library_for=()):
         elif name == "upsample2x":
             prev = device_ms(lambda: resize.upsample2x_kernel_triton(x), reps)
             extra = f"; Triton kernel (prev) {prev:.4f} ms"
+        elif name == "instance_norm_act_bwd":
+            prev = device_ms(triton_bwd, reps)
+            extra = f"; Triton kernels (prev) {prev:.4f} ms"
+        elif name == "upsample2x_bwd":
+            prev = device_ms(lambda: resize.upsample2x_bwd_kernel_triton(gy), reps)
+            extra = (f"; Triton kernel after the copy of the up half (prev) "
+                     f"{prev:.4f} ms")
         elif name == "conv3d_winograd":
             prev = (ms if plan.instance == "mma_sync" else device_ms(
                 lambda: winograd.conv3d_winograd_kernel_mma_sync(x, wt), reps))
@@ -589,7 +686,9 @@ def check_kernels(calls, dev, library_for=()):
               f"operations {ops_ms:.4f})"
               + ("" if lib is None else f"; library call {lib:.4f} ms")
               + (extra if name in ("conv3d", "conv3d_winograd",
-                                   "instance_norm_act", "upsample2x") else ""))
+                                   "instance_norm_act", "upsample2x",
+                                   "instance_norm_act_bwd", "upsample2x_bwd")
+                 else ""))
         results[(name, shape)] = (err, abs_err, ms, plain_ms, wall, plain_wall,
                                   bytes_ms, ops_ms, lib, prev)
         del got, ref, kern, plain
@@ -810,6 +909,176 @@ def time_slice(exp, work, case_dirs, dev, card):
     return med(e2e)
 
 
+# ------------------------------------------------------------------ phase 6 --
+
+# the predict programs besides the split cascade: (preset, CLI flags, the
+# program make_predict_fn must choose, how many of the phase-3 cases)
+OTHER_PROGRAMS = [("single_chip", [], "StagedSweep", CASES),
+                  ("reference_parity", [], "Monolithic", 1),
+                  ("cascade", ["--no-tta"], "Monolithic", 1)]
+
+
+def program_calls(exp):
+    """The kernel calls of one volume of ``exp``'s predict program: per
+    origin of the sweep, the fine net at batch 8 with TTA (1 without), after
+    the coarse net at batch 1 when cascading."""
+    from brats2019_tpu_torch.infer.tiling import tile_origins
+
+    inf = exp.infer
+    canvas = tuple(inf.canvas)
+    cascade = inf.cascade and exp.coarse_unet is not None
+    roi = tuple(min(r, c) for r, c in zip(inf.roi_shape, canvas))
+    origins = tile_origins(roi if cascade else canvas, inf.tile, inf.overlap)
+    calls = unet_calls(exp.coarse_unet, 1, inf.coarse_shape) if cascade else []
+    return calls + len(origins) * unet_calls(exp.unet, 8 if inf.tta_flips else 1,
+                                             tuple(inf.tile))
+
+
+def other_programs(work, case_dirs, dev, card):
+    """Phase 6: the staged sweep (``single_chip`` at the flagship fine
+    width, no cascade: 12 tiles of 128^3), the monolithic program
+    (``reference_parity``: full-resolution TTA, its first level on
+    ``conv3d.cu`` and the three-launch IN; the flagship ``cascade`` with
+    ``--no-tta``) through ``cli.predict --device cuda`` with seeded random
+    weights, the counters zeroed just before each run: labels in {0,1,2,4}
+    at the input's shape, a repeat run bitwise equal, every launch counted
+    and on its route; the staged sweep on the card against the CPU plain path
+    at a small input; device ms/vol (CUDA events) and e2e s/vol."""
+    import dataclasses
+
+    import torch
+
+    from brats2019_tpu_torch import ops
+    from brats2019_tpu_torch.cli import predict as predict_cli
+    from brats2019_tpu_torch.configs.presets import get_preset
+    from brats2019_tpu_torch.data.case import load_case
+    from brats2019_tpu_torch.data.constants import VOLUME_SHAPE
+    from brats2019_tpu_torch.infer.predictor import Predictor
+    from brats2019_tpu_torch.ops import conv
+    from brats2019_tpu_torch.utils.nifti import read_nifti
+    from brats2019_tpu_torch.utils.weights import init_params, save_params_npz
+
+    out = {}
+    for preset, flags, program, n_cases in OTHER_PROGRAMS:
+        exp = get_preset(preset)
+        if "--no-tta" in flags:
+            exp = dataclasses.replace(
+                exp, infer=dataclasses.replace(exp.infer, tta_flips=False))
+        wd = work if preset == "cascade" else os.path.join(WORK, preset)
+        if preset != "cascade":
+            os.makedirs(os.path.join(wd, "fine"), exist_ok=True)
+            save_params_npz(os.path.join(wd, "fine", "params.npz"),
+                            init_params(exp.unet, SEED))
+        label = f"{preset} {' '.join(flags)}".strip()
+        dirs = case_dirs[:n_cases]
+        outs = {}
+        for run in ("first", "repeat"):
+            paths = [os.path.join(WORK, f"{preset}_{run}_{os.path.basename(d)}.nii.gz")
+                     for d in dirs]
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            rcs = [predict_cli.main([d, "--preset", preset, "--workdir", wd,
+                                     "--device", "cuda", "--output", p, *flags])
+                   for d, p in zip(dirs, paths)]
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            routes = {"conv3d on the wgmma instance": ops.conv3d.launches_wgmma,
+                      "conv3d with the statistics epilogue": ops.conv3d.launches_stats,
+                      "instance_norm_act from partials":
+                          ops.instance_norm_act.launches_partials,
+                      "upsample2x into the concat buffer":
+                          ops.upsample2x.launches_concat}
+            check(rcs == [0] * len(dirs), f"{label}: predict CLI exit codes {rcs} "
+                                          f"({wall:.1f} s for {len(dirs)} case(s))")
+            outs[run] = [read_nifti(p, apply_scaling=False)[0] for p in paths]
+        for d, a, b in zip(dirs, outs["first"], outs["repeat"]):
+            vals = sorted(int(v) for v in set(a.ravel().tolist()))
+            check(a.shape == VOLUME_SHAPE and set(vals) <= {0, 1, 2, 4}
+                  and bool((a == b).all()),
+                  f"{label}, {os.path.basename(d)}: shape {a.shape}, labels "
+                  f"{vals}, repeat run bitwise equal {bool((a == b).all())}")
+        # every launch of the repeat run, and its route
+        calls = program_calls(exp)
+        want = {k: len(dirs) * sum(1 for n_, _ in calls if n_ == k) for k in FORWARD}
+        convs = [sh for n_, sh in calls if n_ == "conv3d"]
+        general = len(dirs) * sum(conv.plan_conv(*sh).instance == "mma_sync"
+                                  for sh in convs)
+        want_routes = {"conv3d on the wgmma instance": want["conv3d"] - general,
+                       "conv3d with the statistics epilogue": want["conv3d"] - general,
+                       "instance_norm_act from partials":
+                           want["instance_norm_act"] - general,
+                       "upsample2x into the concat buffer": want["upsample2x"]}
+        got = {k: counts[k] for k in FORWARD}
+        check(got == want and routes == want_routes and counts["conv3d"] > 0,
+              f"{label}: launches {got} (expected {want}); routes {routes} "
+              f"(expected {want_routes}; {general} convs on conv3d.cu, each "
+              f"followed by the three-launch IN)")
+        # the program's class, device ms/vol and e2e s/vol
+        pc = (os.path.join(wd, "coarse", "params.npz")
+              if exp.infer.cascade and exp.coarse_unet is not None else None)
+        pred = Predictor(exp, os.path.join(wd, "fine", "params.npz"), pc, device=dev)
+        check(type(pred.program).__name__ == program,
+              f"{label}: make_predict_fn chose {type(pred.program).__name__} "
+              f"(expected {program})")
+        dev_ms, e2e = [], []
+        for d in dirs:
+            canvas, _, _ = pred.prepare(load_case(d).image)
+            pred.predict_device(canvas)
+            for _ in range(2):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                pred.predict_device(canvas)
+                ev[1].record()
+                torch.cuda.synchronize()
+                dev_ms.append(ev[0].elapsed_time(ev[1]))
+            t0 = time.perf_counter()
+            pred.predict_dir(d, os.path.join(WORK, "timed_pred.nii.gz"))
+            e2e.append(time.perf_counter() - t0)
+        med = lambda v: sorted(v)[len(v) // 2]
+        print(f"  {label} ({program}, {len(pred.program.origins)} tile(s)): "
+              f"device ms/vol median {med(dev_ms):.3f} (all "
+              f"{[round(v, 3) for v in dev_ms]}), e2e s/vol median "
+              f"{med(e2e):.3f} on {card}", flush=True)
+        out[label] = (med(dev_ms), med(e2e))
+        if program == "StagedSweep":
+            small_sweep_reference(exp, wd, dev)
+        del pred
+        torch.cuda.empty_cache()
+    return out
+
+
+def small_sweep_reference(exp, wd, dev) -> None:
+    """The staged sweep on the card against the plain path on the CPU, same
+    weights, bf16 compute on both, at a small input: a (24, 16, 16) canvas
+    swept by two 16^3 tiles."""
+    import dataclasses
+
+    import torch
+
+    from brats2019_tpu_torch.models.cascade import StagedSweep, make_predict_fn
+    from brats2019_tpu_torch.utils.weights import build_unet
+
+    cfg = dataclasses.replace(exp.infer, canvas=(24, 16, 16), tile=(16, 16, 16),
+                              postproc="host")
+    npz = os.path.join(wd, "fine", "params.npz")
+    img = torch.randn((24, 16, 16, 4), generator=torch.Generator().manual_seed(4))
+    res = {}
+    for where in ("cpu", dev):
+        prog = make_predict_fn(build_unet(exp.unet, npz, where), cfg, cfg.canvas)
+        with torch.inference_mode():
+            stacks, _ = prog.stage_sweep_stack(img.to(where))
+            res[str(where)] = prog.sweep_probs_lr(stacks).cpu()
+        ok_type = isinstance(prog, StagedSweep) and len(prog.origins) == 2
+    ref, got = res["cpu"], res[str(dev)]
+    err = (got - ref).abs().max().item()
+    agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    check(ok_type and bool(torch.isfinite(got).all()) and err <= 5e-2
+          and agree >= 0.98,
+          f"staged sweep (2 tiles of 16^3, fine net at full width) card vs CPU "
+          f"plain: mean probabilities max|d| {err:.3e} (tol 5e-2), argmax "
+          f"agreement {agree:.5f} (tol 0.98)")
+
+
 # ------------------------------------------------------------------ phase 4 --
 
 class _Tee(io.TextIOBase):
@@ -867,6 +1136,8 @@ def train_slice(cases_root, case_dirs, stage_calls):
     rc, _ = run_cli(train_cli.main, args + ["--steps", str(TRAIN_STEPS)])
     counts = ops.launch_counts()
     on_wgmma = ops.conv3d.launches_wgmma
+    bwd_cuda = {"instance_norm_act_bwd": ops.instance_norm_act_bwd.launches_cuda,
+                "upsample2x_bwd": ops.upsample2x_bwd.launches_cuda}
     check(rc == 0, f"train CLI exit code {rc} ({time.perf_counter() - t0:.1f} s "
                    f"for {TRAIN_STEPS} steps of each stage)")
     for stage in ("coarse", "fine"):
@@ -880,6 +1151,9 @@ def train_slice(cases_root, case_dirs, stage_calls):
         check(counts[k] > 0 and counts[k] == want,
               f"{k} launched {counts[k]} times on the training slice "
               f"(expected {want})")
+    check(all(v == counts[k] for k, v in bwd_cuda.items()),
+          f"backward launches on the CUDA C++ kernels: {bwd_cuda} of "
+          f"{ {k: counts[k] for k in bwd_cuda} } (in_act_bwd.cu, resize2x.cu)")
     for k in FORWARD:
         check(counts[k] > 0, f"{k} launched {counts[k]} times on the training slice")
     check(on_wgmma == counts["conv3d"],
@@ -1421,7 +1695,7 @@ def main() -> int:
     from brats2019_tpu_torch.configs.presets import get_preset
     from brats2019_tpu_torch.data import synthetic
     from brats2019_tpu_torch.data.constants import VOLUME_SHAPE
-    from brats2019_tpu_torch.ops import _build, conv, resize, winograd
+    from brats2019_tpu_torch.ops import _build, conv, norm, resize, winograd
     from brats2019_tpu_torch.train.loop import stage_config
     from brats2019_tpu_torch.utils.weights import init_params, save_params_npz
 
@@ -1439,12 +1713,12 @@ def main() -> int:
     t0 = time.perf_counter()
     # one nvcc each, side by side
     _build.build_all([conv._lib_wgmma, conv._lib, winograd._lib_wgmma,
-                      winograd._lib, resize._lib])
+                      winograd._lib, resize._lib, norm._lib])
     print(f"  built conv3d_wgmma.cu, conv3d.cu, winograd3d_wgmma.cu, "
-          f"winograd3d.cu and resize2x.cu with nvcc in "
+          f"winograd3d.cu, resize2x.cu and in_act_bwd.cu with nvcc in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for lib in ("conv3d_wgmma", "conv3d", "winograd3d_wgmma", "winograd3d",
-                "resize2x"):
+                "resize2x", "in_act_bwd"):
         # registers, spills and warnings; not the per-function banners
         log = [ln.strip() for ln in
                _build.build_logs.get(lib, "(cached)").splitlines()
@@ -1468,9 +1742,17 @@ def main() -> int:
     wino_calls = [("conv3d_winograd", shape) for n, shape in calls if n == "conv3d"]
     library_for = (calls + wino_calls
                    + [c for c in stage_calls["fine"] if c[0] in BACKWARD])
+    up_skips = {}   # the up backward's concat gradient: skip channels by shape
+    for cfg, patch in ((exp.coarse_unet, exp.train.coarse_patch),
+                       (exp.unet, exp.train.patch)):
+        fwd = unet_calls(cfg, 1, patch)
+        for i, (n_, sh) in enumerate(fwd):
+            if n_ == "upsample2x":
+                up_skips[sh] = fwd[i + 1][1][4] - sh[4]
     results = check_kernels(calls + stage_calls["coarse"] + stage_calls["fine"]
                             + eval_calls + GENERAL_CONV_CALLS + wino_calls
-                            + GENERAL_WINO_CALLS, dev, library_for)
+                            + GENERAL_WINO_CALLS + BWD_EDGE_CALLS, dev,
+                            library_for, up_skips)
     for what, group in (("volume (predict)", calls),
                         ("fine train step", stage_calls["fine"]),
                         ("coarse train step", stage_calls["coarse"])):
@@ -1592,6 +1874,11 @@ def main() -> int:
     backend_ms = time_backends(exp, work, case_dirs, dev, card)
     print(f"  phase 5 took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    print("== phase 6: the other predict programs on the card", flush=True)
+    t0 = time.perf_counter()
+    other_programs(work, case_dirs, dev, card)
+    print(f"  phase 6 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     record = []
     for k, (route, source, replaces) in KERNELS.items():
         errs = [r[1] for (n, _), r in results.items() if n == k]
@@ -1620,12 +1907,9 @@ def main() -> int:
             "bound_bytes_ms": bytes_ms, "bound_operations_ms": ops_ms,
             "calls": len(mine),
         })
-        if k in ("conv3d", "conv3d_winograd", "upsample2x"):
+        if k in PREV_SOURCE:
             record[-1]["prev_ms"] = sum(r[9] for r in mine)
-            record[-1]["prev_source"] = {
-                "conv3d": "brats2019_tpu_torch/csrc/conv3d.cu",
-                "conv3d_winograd": "brats2019_tpu_torch/csrc/winograd3d.cu",
-                "upsample2x": "brats2019_tpu_torch/ops/triton_resize.py"}[k]
+            record[-1]["prev_source"] = PREV_SOURCE[k]
         if k == "instance_norm_act":
             # the predict path's route: merge + apply + the conv's epilogue
             record[-1].update(

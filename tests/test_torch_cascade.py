@@ -287,20 +287,40 @@ def test_lowres_reduce_equals_fullres_reduce():
 
 
 def test_unported_paths_raise():
+    """What is still not ported raises and names its ROADMAP item: volume
+    pairing (batch_volumes=2) and the int8 transfer encoding. Both are
+    refused before any weights are read."""
+    import dataclasses
+
+    from brats2019_tpu_torch.configs.presets import get_preset
+    from brats2019_tpu_torch.infer.predictor import Predictor
+
+    exp = get_preset("unit")
+    for bad in (dict(batch_volumes=2), dict(transfer_dtype="int8")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Predictor(dataclasses.replace(
+                exp, infer=dataclasses.replace(exp.infer, **bad)),
+                params_fine=None, device="cpu")
+
+
+def test_every_configuration_gets_a_program():
+    """No configuration of make_predict_fn raises any more (F2): the paths
+    that raised before get the reference's staged sweep or monolithic
+    program, and the flagship keeps the split program."""
     from brats2019_tpu_torch.models.unet3d import UNet3D
 
     m = UNet3D(UNetConfig(**FIXTURE_KW))
     cfg = _infer_cfg(InferenceConfig, (32, 32, 32))
     import dataclasses
 
-    for bad in (dict(tta_flips=False), dict(cascade=False),
-                dict(roi_shape=(48, 48, 48))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tcascade.make_predict_fn(m, dataclasses.replace(cfg, **bad),
-                                     CANVAS, coarse=m)
-    # device postprocessing is ported: the same split program, no error
+    for bad, program in ((dict(tta_flips=False), tcascade.Monolithic),
+                         (dict(cascade=False), tcascade.Monolithic),
+                         (dict(roi_shape=(48, 48, 48)), tcascade.Monolithic)):
+        assert isinstance(tcascade.make_predict_fn(
+            m, dataclasses.replace(cfg, **bad), CANVAS, coarse=m), program)
+    # device postprocessing: the same split program
     assert isinstance(
         tcascade.make_predict_fn(m, dataclasses.replace(cfg, postproc="device"),
                                  CANVAS, coarse=m), tcascade.SplitCascade)
-    with pytest.raises(NotImplementedError):
-        tcascade.make_predict_fn(m, cfg, CANVAS, coarse=None)
+    assert isinstance(tcascade.make_predict_fn(m, cfg, CANVAS, coarse=None),
+                      tcascade.Monolithic)

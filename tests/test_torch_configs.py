@@ -131,7 +131,7 @@ def test_port_runtime_imports_no_jax():
         "import brats2019_tpu_torch.data.augment, brats2019_tpu_torch.utils.flops\n"
         "import brats2019_tpu_torch.utils.logging\n"
         "import brats2019_tpu_torch.cli.serve, brats2019_tpu_torch.cli.http_api\n"
-        "import brats2019_tpu_torch.infer.payload_cache\n"
+        "import brats2019_tpu_torch.infer.payload_cache, brats2019_tpu_torch.infer.tiling\n"
         "import brats2019_tpu_torch.ops.winograd\n"
         "import brats2019_tpu_torch.ops.connected_components\n"
         "import chip_smoke\n"

@@ -16,10 +16,11 @@ from brats2019_tpu.data import constants as ref_constants
 from brats2019_tpu.data import preprocess as ref_preprocess
 from brats2019_tpu.data import synthetic as ref_synthetic
 from brats2019_tpu.infer import postprocess as ref_post
+from brats2019_tpu.infer import tiling as ref_tiling
 from brats2019_tpu.utils import logging as ref_logging
 from brats2019_tpu.utils import nifti as ref_nifti
 from brats2019_tpu_torch.data import case, constants, preprocess, synthetic
-from brats2019_tpu_torch.infer import postprocess
+from brats2019_tpu_torch.infer import postprocess, tiling
 from brats2019_tpu_torch.utils import logging as port_logging
 from brats2019_tpu_torch.utils import nifti
 
@@ -198,3 +199,31 @@ def test_metrics_logger_is_the_reference_but_for_the_primary_check(tmp_path):
     lg.close()
     with open(tmp_path / "fine_metrics.jsonl") as f:
         assert '"loss": 1.5' in f.read()
+
+
+def test_tile_origins_and_blend_weight_are_the_reference_copies():
+    """The NumPy functions of infer/tiling.py are the reference's statement
+    for statement, and give byte-equal arrays."""
+    def fn(mod, name):
+        tree = ast.parse(inspect.getsource(getattr(mod, name)))
+        return ast.dump(tree.body[0])
+
+    for name in ("tile_origins", "blend_weight"):
+        assert fn(tiling, name) == fn(ref_tiling, name), name
+    for vol, tile, overlap in (((192, 224, 160), (128, 128, 128), 0.5),
+                               ((24, 16, 16), (16, 16, 16), 0.5),
+                               ((37, 16, 9), (16, 16, 16), 0.25),
+                               ((128, 128, 128), (128, 128, 128), 0.5)):
+        got = tiling.tile_origins(vol, tile, overlap)
+        want = ref_tiling.tile_origins(vol, tile, overlap)
+        assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+    got = tiling.tile_origins((192, 224, 160), (128, 128, 128))
+    assert sorted(map(tuple, got.tolist())) == [
+        (x, y, z) for x in (0, 64) for y in (0, 48, 96) for z in (0, 32)]
+    for tile, mode, sigma in (((128, 128, 128), "gaussian", 0.125),
+                              ((16, 8, 32), "gaussian", 0.25),
+                              ((16, 16, 16), "softmax", 0.125)):
+        got = tiling.blend_weight(tile, mode, sigma)
+        want = ref_tiling.blend_weight(tile, mode, sigma)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert got.tobytes() == want.tobytes()

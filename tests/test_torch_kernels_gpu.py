@@ -637,3 +637,163 @@ def test_device_connected_components_on_the_card_equal_cpu(dev):
     assert torch.equal(got.cpu(), want)
     assert torch.equal(cc.label_components(labels.to(dev) > 0).cpu(),
                        cc.label_components(labels > 0))
+
+
+# --------------------------- the IN+act backward and the up backward in CUDA --
+
+def _norm_bwd_inputs(dev, shape, activation, seed=11):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(shape, generator=gen, device=dev) * 3 + 1).bfloat16()
+    g = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    gam = torch.rand(shape[-1], generator=gen, device=dev) + 0.5
+    bet = torch.randn(shape[-1], generator=gen, device=dev) * 0.2
+    _, mean, rstd = norm._plain_stats(x, gam, bet, 1e-5, activation)
+    return x, g, gam, bet, mean, rstd
+
+
+@pytest.mark.parametrize("activation", ["relu", "leaky_relu", "none"])
+@pytest.mark.parametrize("shape", [
+    (1, 6, 7, 5, 8),          # C = 8: one vector a voxel (column form)
+    (1, 3, 5, 7, 48),         # C = 48 (column form)
+    (1, 8, 8, 8, 320),        # C = 320: the fine step's deepest level (column form)
+    (1, 1, 4, 1, 64),         # extents of 1 (column form)
+    (1, 9, 7, 11, 16),        # odd extents (column form)
+    (2, 16, 16, 8, 64),       # N = 2: 66 blocks a sample (grid form)
+    (1, 12, 11, 17, 48),      # C = 48: 510 threads, odd extents (grid form)
+    (1, 64, 64, 64, 64),      # the fine step's top level: 42% held in shared memory
+    (1, 64, 64, 64, 48),      # part held, C/8 = 6 does not divide the thread count
+])
+def test_norm_bwd_cuda_kernel_matches_blocked_plain(dev, activation, shape):
+    args = _norm_bwd_inputs(dev, shape, activation)
+    before = (ops.instance_norm_act_bwd.launches,
+              ops.instance_norm_act_bwd.launches_cuda)
+    got = ops.instance_norm_act_bwd(*args, activation)
+    again = ops.instance_norm_act_bwd(*args, activation)
+    blocked = norm.instance_norm_act_bwd_blocked_plain(
+        *args, activation, sms=torch.cuda.get_device_properties(dev).multi_processor_count)
+    ref = norm.instance_norm_act_bwd_plain(*args, activation)
+    torch.cuda.synchronize()
+    assert (ops.instance_norm_act_bwd.launches - before[0],
+            ops.instance_norm_act_bwd.launches_cuda - before[1]) == (2, 2)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    assert got[0].dtype == torch.bfloat16 and got[0].shape == shape
+    for want in (blocked, ref):
+        assert _rel(got[0], want[0]) <= 1e-2
+        torch.testing.assert_close(got[1], want[1], rtol=1e-3, atol=1e-3)
+        torch.testing.assert_close(got[2], want[2], rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("shape", [(1, 6, 7, 5, 3), (2, 4, 4, 4, 12)])
+def test_norm_bwd_other_channels_go_to_triton_by_plan(dev, shape):
+    args = _norm_bwd_inputs(dev, shape, "relu")
+    before = (ops.instance_norm_act_bwd.launches,
+              ops.instance_norm_act_bwd.launches_cuda)
+    dx, dgam, dbet = ops.instance_norm_act_bwd(*args)
+    rdx, rdgam, rdbet = norm.instance_norm_act_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert (ops.instance_norm_act_bwd.launches - before[0],
+            ops.instance_norm_act_bwd.launches_cuda - before[1]) == (1, 0)
+    assert _rel(dx, rdx) <= 1e-2
+    torch.testing.assert_close(dgam, rdgam, rtol=1e-3, atol=1e-3)
+
+
+def test_norm_bwd_cuda_kernel_replays_from_a_cuda_graph(dev):
+    """The cooperative launch and its grid barrier under graph capture:
+    replays equal the eager call (chip_smoke.py times kernels this way)."""
+    args = _norm_bwd_inputs(dev, (1, 32, 32, 32, 128), "relu")
+    want = ops.instance_norm_act_bwd(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.instance_norm_act_bwd(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [ops.instance_norm_act_bwd(*args) for _ in range(3)]
+    for _ in range(2):
+        graph.replay()
+    torch.cuda.synchronize()
+    for got in outs:
+        assert all(torch.equal(u, v) for u, v in zip(got, want))
+
+
+@pytest.mark.parametrize("x_shape", [
+    (1, 4, 4, 4, 8),          # C = 8
+    (1, 5, 3, 9, 48),         # C = 48, odd extents
+    (1, 3, 4, 2, 320),        # C = 320: five channel chunks
+    (1, 1, 1, 1, 16),         # extents of 1: every tap on one voxel
+    (1, 1, 7, 1, 64),
+    (2, 6, 10, 14, 16),       # N = 2, ragged tiles
+    (1, 32, 32, 32, 128),     # the fine step's top up
+])
+def test_up_bwd_cuda_kernel_matches_plain(dev, x_shape):
+    g = torch.randn((x_shape[0],) + tuple(2 * s for s in x_shape[1:4])
+                    + x_shape[4:], device=dev).bfloat16()
+    before = (ops.upsample2x_bwd.launches, ops.upsample2x_bwd.launches_cuda)
+    got = ops.upsample2x_bwd(g)
+    again = ops.upsample2x_bwd(g)
+    ref = resize.upsample2x_bwd_plain(g)
+    torch.cuda.synchronize()
+    assert (ops.upsample2x_bwd.launches - before[0],
+            ops.upsample2x_bwd.launches_cuda - before[1]) == (2, 2)
+    assert got.shape == ref.shape == x_shape and torch.equal(got, again)
+    assert _ulps(got, ref) <= 1
+
+
+@pytest.mark.parametrize("x_shape,cs", [((1, 16, 16, 16, 128), 128),
+                                        ((2, 5, 6, 7, 16), 24),
+                                        ((1, 4, 4, 4, 320), 64)])
+def test_up_bwd_reads_the_strided_concat_gradient(dev, x_shape, cs):
+    n, d, h, w, cu = x_shape
+    cat = torch.randn((n, 2 * d, 2 * h, 2 * w, cu + cs), device=dev).bfloat16()
+    view = cat[..., :cu]
+    before = ops.upsample2x_bwd.launches_cuda
+    got = ops.upsample2x_bwd(view)
+    want = ops.upsample2x_bwd(view.contiguous())
+    torch.cuda.synchronize()
+    assert ops.upsample2x_bwd.launches_cuda - before == 2
+    assert torch.equal(got, want)
+    assert _ulps(got, resize.upsample2x_bwd_plain(view)) <= 1
+    # through the decoder's concat op: the same gradient as up + torch.cat
+    x = torch.randn(x_shape, device=dev).bfloat16().requires_grad_()
+    skip = torch.randn((n, 2 * d, 2 * h, 2 * w, cs), device=dev).bfloat16()
+    skip.requires_grad_()
+    ops.upsample2x_concat(x, skip).backward(cat)
+    assert torch.equal(x.grad, got) and torch.equal(skip.grad, cat[..., cu:])
+
+
+@pytest.mark.parametrize("layout", ["transposed", "misaligned"])
+def test_up_bwd_other_layouts_are_copied_for_the_cuda_kernel(dev, layout):
+    """C % 8 == 0 always runs on resize2x.cu: a gradient with non-standard
+    strides, or one whose data is not 16-byte aligned, is copied first."""
+    x_shape = (1, 3, 4, 5, 16)
+    n, d, h, w, c = x_shape
+    if layout == "transposed":
+        g = torch.randn((n, 2 * h, 2 * d, 2 * w, c), device=dev).bfloat16()
+        g = g.transpose(1, 2)
+    else:
+        buf = torch.randn((n, 2 * d, 2 * h, 2 * w, c + 8), device=dev).bfloat16()
+        g = buf[..., 1:1 + c]
+        assert g.data_ptr() % 16 and resize.channel_pitch(g) == c + 8
+    before = (ops.upsample2x_bwd.launches, ops.upsample2x_bwd.launches_cuda)
+    got = ops.upsample2x_bwd(g)
+    torch.cuda.synchronize()
+    assert (ops.upsample2x_bwd.launches - before[0],
+            ops.upsample2x_bwd.launches_cuda - before[1]) == (1, 1)
+    assert got.shape == x_shape
+    assert torch.equal(got, ops.upsample2x_bwd(g.contiguous()))
+    assert _ulps(got, resize.upsample2x_bwd_plain(g)) <= 1
+
+
+@pytest.mark.parametrize("x_shape,pitch", [((1, 4, 4, 4, 3), 3),
+                                           ((1, 4, 4, 4, 16), 20)])
+def test_up_bwd_other_channels_or_pitch_go_to_triton_by_plan(dev, x_shape, pitch):
+    n, d, h, w, c = x_shape
+    buf = torch.randn((n, 2 * d, 2 * h, 2 * w, pitch), device=dev).bfloat16()
+    g = buf[..., :c]
+    before = (ops.upsample2x_bwd.launches, ops.upsample2x_bwd.launches_cuda)
+    got = ops.upsample2x_bwd(g)
+    torch.cuda.synchronize()
+    assert (ops.upsample2x_bwd.launches - before[0],
+            ops.upsample2x_bwd.launches_cuda - before[1]) == (1, 0)
+    assert _ulps(got, resize.upsample2x_bwd_plain(g)) <= 1

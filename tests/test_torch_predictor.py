@@ -114,6 +114,44 @@ def test_port_cli_matches_jax_predictor(tmp_path, workdir, monkeypatch, capsys):
         np.testing.assert_allclose(hdr.affine(), src.affine())
 
 
+@pytest.mark.parametrize("flags", [["--no-tta"], ["--no-cascade"],
+                                   ["--no-tta", "--no-cascade"]])
+def test_port_cli_no_tta_no_cascade_match_jax_predictor(tmp_path, workdir,
+                                                        monkeypatch, flags):
+    """--no-tta / --no-cascade: the reference's semantics (tta_flips=False,
+    cascade=False); the labels equal the JAX Predictor's on the same
+    config (monolithic with a cascade, the staged sweep over the canvas, the
+    monolithic sweep over the canvas)."""
+    from brats2019_tpu_torch.models import cascade as tcascade
+
+    monkeypatch.setitem(presets.PRESETS, "tiny_cascade", _exp(presets))
+    d = synthetic.write_case(str(tmp_path / "BraTS19_F_1"), shape=SHAPE, seed=23,
+                             hard=True)
+    out = str(tmp_path / "pred.nii.gz")
+    rc = port_cli.main([d, "--preset", "tiny_cascade", "--workdir", workdir,
+                        "--device", "cpu", "--output", out, *flags])
+    assert rc == 0
+    infer = dict(tta_flips="--no-tta" not in flags,
+                 cascade="--no-cascade" not in flags)
+    exp_j = _exp(jax_presets)
+    exp_j = dataclasses.replace(exp_j, infer=dataclasses.replace(exp_j.infer,
+                                                                 **infer))
+    pf, pc = _jax_params(workdir)
+    want_path, _ = JaxPredictor(exp_j, pf, pc if infer["cascade"] else None
+                                ).predict_dir(d, str(tmp_path / "ref.nii.gz"))
+    got, _ = read_nifti(out, apply_scaling=False)
+    want, _ = read_nifti(want_path, apply_scaling=False)
+    assert got.shape == SHAPE and set(np.unique(got)) <= {0, 1, 2, 4}
+    assert (got != want).mean() < 1e-4, int((got != want).sum())
+    exp_t = _exp(presets)
+    exp_t = dataclasses.replace(exp_t, infer=dataclasses.replace(exp_t.infer,
+                                                                 **infer))
+    program = Predictor(exp_t, _npz(workdir, "fine"), None, device="cpu").program
+    want_cls = (tcascade.StagedSweep if flags == ["--no-cascade"]
+                else tcascade.Monolithic)
+    assert isinstance(program, want_cls)
+
+
 def test_port_cli_errors(tmp_path, workdir, monkeypatch, capsys):
     monkeypatch.setitem(presets.PRESETS, "tiny_cascade", _exp(presets))
     assert port_cli.main([str(tmp_path / "none"), "--preset", "tiny_cascade",

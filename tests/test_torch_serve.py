@@ -310,8 +310,7 @@ def test_strip_supervisor_flags_and_parser():
     # a flag that is not ported is absent, not accepted and ignored
     for flag in (["--transfer-dtype", "int8"], ["--rss-limit-mb", "9"],
                  ["--multichip", "cascade"], ["--batch-volumes", "2"],
-                 ["--ensemble", "x"], ["--save-probs"], ["--save-uncertainty"],
-                 ["--no-tta"], ["--no-cascade"]):
+                 ["--ensemble", "x"], ["--save-probs"], ["--save-uncertainty"]):
         with pytest.raises(SystemExit):
             parser.parse_args(["w", *flag])
     # every ported flag has the reference's default
@@ -539,3 +538,30 @@ def test_port_daemon_and_jax_daemon_write_equal_labels(tmp_path, workdir, preset
     assert got.shape == SHAPE and (got > 0).sum() > 100
     np.testing.assert_array_equal(got, want)
     np.testing.assert_allclose(hdr_g.affine(), hdr_w.affine())
+
+
+@pytest.mark.parametrize("flags", [["--no-tta"], ["--no-cascade"]])
+def test_port_daemon_no_tta_no_cascade_match_jax_daemon(tmp_path, workdir, preset,
+                                                         keep_signal_handlers,
+                                                         flags):
+    """--no-tta and --no-cascade on both daemons, same weights: the port's
+    labels equal the JAX daemon's except on numerical ties."""
+    case = synthetic.write_dataset(str(tmp_path / "src"), 1, shape=SHAPE,
+                                   seed0=24, hard=True)[0]
+    name = os.path.basename(case)
+    outs = {}
+    for key, mod, extra in (("port", cli_serve, ["--device", "cpu"]),
+                            ("jax", jax_serve, [])):
+        watch, out = tmp_path / f"watch_{key}", tmp_path / f"out_{key}"
+        watch.mkdir()
+        shutil.copytree(case, watch / name)
+        rc = mod.main([str(watch), "--preset", PRESET, "--workdir", workdir,
+                       "--output-dir", str(out), "--once", "--poll", "0.05",
+                       "--postproc", "host", *flags, *extra])
+        assert rc == 0
+        rec = _log(out)[0]
+        assert rec["case"] == name and rec.get("error") is None
+        outs[key] = read_nifti(rec["output"], apply_scaling=False)[0]
+    got, want = outs["port"], outs["jax"]
+    assert got.shape == SHAPE and set(np.unique(got)) <= {0, 1, 2, 4}
+    assert (got != want).mean() < 1e-4, int((got != want).sum())

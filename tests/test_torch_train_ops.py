@@ -7,6 +7,8 @@ held against torch autograd of its own plain forward. Tolerance 1e-5 abs +
 1e-4 rel, as tests/test_torch_ops.py: the same math summed in another order.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -254,3 +256,94 @@ def test_backward_counters_stay_zero_on_cpu():
                      (ops.upsample2x_bwd, (m,))):
         with pytest.raises(RuntimeError, match="no kernel"):
             fn(*args)
+
+
+# ------------------------------------------ the kernels' launch plans, on CPU --
+
+@pytest.mark.parametrize("activation", ["relu", "leaky_relu", "none"])
+@pytest.mark.parametrize("sms,shape", [(7, NORM_SHAPE), (132, NORM_SHAPE),
+                                       (132, (2, 8, 8, 8, 8))])
+def test_norm_bwd_blocked_plain_matches_pallas_interpret(activation, sms, shape):
+    """The plain version organised as csrc/in_act_bwd.cu (its block ranges
+    and merge order: several blocks a sample in the grid form, one in the
+    column form of N S <= 2048) against the reference's VJP, the Pallas
+    kernel in interpret mode, within 1e-5."""
+    x, g, b, ct = _norm_case(shape, 40)
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(
+            lambda *a: instance_norm_act_pallas(*a, activation=activation),
+            jnp.asarray(x), jnp.asarray(g), jnp.asarray(b))
+        want = vjp(jnp.asarray(ct))
+    xt = torch.from_numpy(x)
+    _, mean, rstd = norm._plain_stats(xt, torch.from_numpy(g),
+                                      torch.from_numpy(b), 1e-5, activation)
+    n, c = shape[0], shape[-1]
+    plan = norm.plan_in_bwd(n, x.size // (n * c), c, sms)
+    assert plan.column == (x.size // c <= norm.BWD_COLUMN_VOXELS)
+    assert (plan.bps > 1) != plan.column
+    got = norm.instance_norm_act_bwd_blocked_plain(
+        xt, torch.from_numpy(ct), torch.from_numpy(g), torch.from_numpy(b),
+        mean, rstd, activation, sms=sms)
+    for a, w in zip(got, want):
+        _close(a, w, atol=1e-5, rtol=1e-5)
+
+
+def _train_norm_shapes():
+    from brats2019_tpu_torch.configs.presets import get_preset
+
+    exp = get_preset("cascade")
+    out = set()
+    for cfg, patch in ((exp.unet, exp.train.patch),
+                       (exp.coarse_unet, exp.train.coarse_patch)):
+        s = tuple(v // cfg.stem_downsample for v in patch)
+        for lvl in range(cfg.levels):
+            out.add((1, math.prod(v >> lvl for v in s), cfg.feats(lvl)))
+    return sorted(out)
+
+
+@pytest.mark.parametrize("n,s,c", _train_norm_shapes() + [(2, 105, 8),
+                                                          (1, 1, 320),
+                                                          (1, 64 ** 3, 48)])
+def test_norm_bwd_plan_fits_the_card(n, s, c):
+    """Every block resident at once (one per SM of 132), shared memory under
+    the limit, each thread on fixed channels; levels below the top hold all
+    of x and g in shared memory; N S <= 2048 takes the column form."""
+    p = norm.plan_in_bwd(n, s, c)
+    c8 = c // 8
+    assert p.smem <= norm.SMEM_LIMIT and p.threads <= 512
+    if p.column:                 # one block a column, every voxel held
+        assert n * s <= norm.BWD_COLUMN_VOXELS and p.bps == 1
+        assert p.threads % 32 == 0
+        assert p.smem == 32 * n * s + 2 * p.threads + 64 * n
+        return
+    assert n * p.bps <= 132 and p.threads % c8 == 0
+    assert p.smem == 32 * p.keep + 32 * p.threads
+    assert p.keep % c8 == 0      # whole voxels held: the rest keeps its channels
+    assert p.bps <= s
+    if s * c * 4 <= 16.8e6:      # x + g of the level fit the card's blocks
+        assert p.keep >= -(-s // p.bps) * c8
+
+
+def test_norm_bwd_plan_refuses_what_the_kernel_does_not_take():
+    for args in ((1, 64, 12), (133, 64, 64), (1, 4097, 1032)):
+        with pytest.raises(ValueError):
+            norm.plan_in_bwd(*args)
+
+
+def test_up_bwd_reads_a_strided_concat_gradient():
+    """The up half of a concat gradient is read in place at the concat's
+    channel pitch: equal to the contiguous copy's VJP, and the concat op's
+    backward equals that of the plain up followed by torch.cat."""
+    cat = torch.from_numpy(_rand((2, 8, 6, 4, 24), 41))
+    view = cat[..., :16]
+    assert resize.channel_pitch(view) == 24 and resize.channel_pitch(cat) == 24
+    assert resize.channel_pitch(cat.permute(0, 2, 1, 3, 4)) is None
+    torch.testing.assert_close(ops.upsample2x_bwd(view),
+                               ops.upsample2x_bwd(view.contiguous()),
+                               rtol=0, atol=0)
+    x, skip = _leaf(_rand((2, 4, 3, 2, 16), 42)), _leaf(_rand((2, 8, 6, 4, 8), 43))
+    ops.upsample2x_concat(x, skip).backward(cat)
+    xr, sr = _leaf(x.detach().numpy()), _leaf(skip.detach().numpy())
+    torch.cat([resize.upsample2x_plain(xr), sr], -1).backward(cat)
+    _close(x.grad, xr.grad.numpy())
+    torch.testing.assert_close(skip.grad, sr.grad, rtol=0, atol=0)
