@@ -1,6 +1,6 @@
 """Shared CLI plumbing (reference: ``brats2019_tpu/cli/common.py``): preset
-overrides, the trained params of a stage, the serving weights, and the
-shard assignment of scale-out serving."""
+overrides, the trained params of a stage, the serving weights, the members of
+a checkpoint ensemble, and the shard assignment of scale-out runs."""
 
 from __future__ import annotations
 
@@ -86,6 +86,39 @@ def load_stage_params(exp: ExperimentConfig, stage: str) -> Dict[str, np.ndarray
     return flat_numpy(restored["params"])
 
 
+def load_ensemble_members(exp: ExperimentConfig, workdirs, primary):
+    """The primary model plus one member per extra workdir, for
+    ``EnsemblePredictor`` (:241-277). Each member workdir is read with the
+    primary's preset and stage rules (:func:`load_stage_params`); a member
+    without coarse params reuses the primary's coarse stage (the cascade only
+    localises the ROI), with a warning. A workdir named twice (or the
+    primary's own) is warned about: its probabilities count twice in the
+    mean."""
+    seen = {os.path.abspath(exp.workdir)}
+    for w in workdirs:
+        a = os.path.abspath(w)
+        if a in seen:
+            print(f"warning: ensemble member {w} appears more than once "
+                  f"(or is the primary --workdir); its probabilities are "
+                  f"double-weighted in the mean", file=sys.stderr)
+        seen.add(a)
+    members = [primary]
+    for w in workdirs:
+        exp_w = dataclasses.replace(exp, workdir=w)
+        pf = load_stage_params(exp_w, "fine")
+        pc = None
+        if exp.infer.cascade and exp.coarse_unet is not None:
+            try:
+                pc = load_stage_params(exp_w, "coarse")
+            except FileNotFoundError:
+                print(f"warning: no coarse checkpoint under {w}; this "
+                      f"member reuses the primary coarse stage",
+                      file=sys.stderr)
+                pc = primary[1]
+        members.append((pf, pc))
+    return members
+
+
 def shard_of(name: str, n: int) -> int:
     """Stable shard assignment by case name, the same on every host and in
     every run (Python's ``hash()`` is salted per process)."""
@@ -101,6 +134,16 @@ def parse_shard(spec: str):
     if not (n >= 1 and 0 <= i < n):
         raise ValueError(f"--shard needs 0 <= I < N (got {spec!r})")
     return i, n
+
+
+def filter_shard(case_dirs, spec):
+    """Apply an ``I/N`` shard spec to a case list (None: all of it): the
+    batch CLIs' scale-out filter, the assignment ``serve --shard`` uses."""
+    if not spec:
+        return list(case_dirs)
+    i, n = parse_shard(spec)
+    return [d for d in case_dirs
+            if shard_of(os.path.basename(os.path.normpath(d)), n) == i]
 
 
 def load_serving_params(exp: ExperimentConfig):

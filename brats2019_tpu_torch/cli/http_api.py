@@ -18,9 +18,10 @@ original by ``tests/test_torch_serve.py``. Endpoints:
 HTTP threads never touch the device. They only spool uploads into the
 daemon's watch root, where the single device loop in ``Server.run`` picks
 them up at poll cadence like file-system arrivals, and block on
-``Server.wait_result``. Binds 127.0.0.1 by default. The probs and
-uncertainty artifact kinds are listed but never exist until
-``--save-probs``/``--save-uncertainty`` are ported (a 404 with a hint).
+``Server.wait_result``. Binds 127.0.0.1 by default. The ``probs`` and
+``unc_{whole,core,enhance}`` artifact kinds exist for cases served by a
+daemon started with ``--save-probs`` / ``--save-uncertainty`` (else a 404
+with a hint).
 """
 
 from __future__ import annotations

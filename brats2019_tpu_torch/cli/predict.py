@@ -1,34 +1,54 @@
 """``predict <case_dir>`` for the PyTorch port (reference:
-``brats2019_tpu/cli/predict.py:256-370``).
+``brats2019_tpu/cli/predict.py``).
 
 Usage:
     python -m brats2019_tpu_torch.cli.predict <case_dir_or_root>
         [--preset cascade] [--workdir DIR] [--output PATH] [--device cuda]
-        [--no-tta] [--no-cascade]
+        [--no-tta] [--no-cascade] [--postproc host|device]
+        [--prep-cache DIR] [--serving-depth N] [--shard I/N] [--seed N]
+        [--save-probs] [--save-uncertainty] [--ensemble WORKDIR ...]
 
 Loads each stage's params from ``<workdir>/{fine,coarse}/`` (an exported
 ``params.npz`` in the JAX package's format, or the port's own training
 checkpoints: ``cli/common.py`` load_stage_params) and writes
 ``<case>_pred.nii.gz`` with BraTS disk labels {0,1,2,4} next to each case,
-with the input header. ``--device cuda`` on a host
+with the input header. One case goes through ``Predictor.predict_dir``, a
+root of cases through the pipelined ``predict_dirs`` (decode, the device
+program and postprocess + write overlap). ``--device cuda`` on a host
 without a card is an error; ``--device cpu`` runs the plain torch ops.
 Every preset predicts: ``models/cascade.py`` ``make_predict_fn`` picks the
 split cascade, the staged multi-tile sweep or the monolithic program.
 ``--no-tta`` (one forward per tile) and ``--no-cascade`` (no coarse stage,
 the whole canvas swept) change the preset's inference config as the
 reference's flags do.
+
+``--save-probs`` also writes ``<case>_probs.npz`` (float16 (X, Y, Z, 4) mean
+class probabilities, BraTS disk class order [0, 1, 2, 4]) and
+``--save-uncertainty`` the QU-BraTS maps ``<case>_unc_{whole,core,enhance}
+.nii.gz``, from one probability pass per case. ``--ensemble W ...`` averages
+the class probabilities of the primary ``--workdir`` model and each listed
+workdir's model, then takes the argmax (``infer/ensemble.py``).
+
+Not ported (ROADMAP queue 1): ``--multichip`` (item 5), ``--transfer-dtype``
+and ``--batch-volumes 2`` (item 6), ``--profile`` (item 4).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 import time
 
 from ..configs.presets import PRESETS
 from ..data.case import discover_cases
-from .common import load_stage_params, resolve_experiment
+from .common import (
+    filter_shard,
+    load_ensemble_members,
+    load_serving_params,
+    resolve_experiment,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -46,25 +66,111 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (hand-written kernels) or cpu "
                         "(plain torch ops)")
+    p.add_argument("--postproc", default=None, choices=("host", "device"),
+                   help="where the connected-component filter runs")
     p.add_argument("--min-component-voxels", type=int, default=None,
                    help="override the preset's small-component filter "
                         "(0 disables)")
     p.add_argument("--et-min-voxels", type=int, default=None,
                    help="override the preset's tiny-ET relabel threshold "
                         "(0 disables)")
+    p.add_argument("--prep-cache", default=None, metavar="DIR",
+                   help="on-disk transfer-payload cache: a repeat of the same "
+                        "case files skips NIfTI decode, brain bbox and "
+                        "crop/cast")
+    p.add_argument("--serving-depth", type=int, default=None,
+                   help="volumes concurrently in host prep / postprocess on "
+                        "a root of cases")
+    p.add_argument("--save-probs", action="store_true",
+                   help="also write <case>_probs.npz: the TTA (and ensemble) "
+                        "mean class probabilities, float16 (X,Y,Z,4), BraTS "
+                        "disk class order [0,1,2,4] (one more device pass "
+                        "per case)")
+    p.add_argument("--save-uncertainty", action="store_true",
+                   help="also write the QU-BraTS uncertainty maps "
+                        "<case>_unc_{whole,core,enhance}.nii.gz (uint8 "
+                        "[0,100], 0 = certain: the binary entropy of each "
+                        "region's mean probability; shares the probability "
+                        "pass with --save-probs)")
+    p.add_argument("--ensemble", default=None, nargs="+", metavar="WORKDIR",
+                   help="checkpoint ensemble: average the class "
+                        "probabilities of the primary --workdir model and "
+                        "each listed workdir's model, then argmax")
+    p.add_argument("--shard", default=None, metavar="I/N",
+                   help="process only the cases whose stable name-hash lands "
+                        "in shard I of N (the assignment of serve --shard)")
+    p.add_argument("--seed", type=int, default=None)
     return p
+
+
+def _emit_probs_artifacts(pred, cases, save_probs, save_unc,
+                          output_dir=None) -> None:
+    """One probability pass per case feeds both opt-in artifacts (the probs
+    npz and the uncertainty maps), for ``Predictor`` and
+    ``EnsemblePredictor`` alike; ``serve`` calls it with its output dir. It
+    goes through ``probs_for_dir``, so the decode rides the payload cache."""
+    if not (save_probs or save_unc):
+        return
+    from ..infer.predictor import save_probs_npz
+    from ..infer.uncertainty import region_uncertainty_maps
+    from ..utils.nifti import write_nifti
+
+    for d in cases:
+        case_name, header, probs = pred.probs_for_dir(d)
+        dst = output_dir or d
+        if save_probs:
+            out = save_probs_npz(os.path.join(dst, f"{case_name}_probs.npz"),
+                                 probs)
+            print(f"[predict] {d} probs -> {out}", flush=True)
+        if save_unc:
+            for name, u in region_uncertainty_maps(probs).items():
+                out = os.path.join(dst, f"{case_name}_unc_{name}.nii.gz")
+                write_nifti(out, u, like=header)
+                print(f"[predict] {d} uncertainty -> {out}", flush=True)
+
+
+def _ensemble_predictor(args, exp, primary):
+    """--ensemble: the mean-probability checkpoint ensemble (FileNotFoundError
+    when a member's workdir has no params)."""
+    from ..infer.ensemble import EnsemblePredictor
+
+    members = load_ensemble_members(exp, args.ensemble, primary)
+    if exp.infer.postproc == "device":
+        print("note: --postproc device has no effect with --ensemble: it "
+              "postprocesses on the host (the device connected components "
+              "live in the label program, which the ensemble's probability "
+              "path bypasses)", file=sys.stderr)
+    pred = EnsemblePredictor(exp, members, device=args.device)
+    print(f"[predict] ensemble of {pred.num_members} members", flush=True)
+    return pred
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     exp = resolve_experiment(args)
+    infer = exp.infer
     if args.no_tta:
-        exp = dataclasses.replace(
-            exp, infer=dataclasses.replace(exp.infer, tta_flips=False))
+        infer = dataclasses.replace(infer, tta_flips=False)
     if args.no_cascade:
-        exp = dataclasses.replace(
-            exp, infer=dataclasses.replace(exp.infer, cascade=False))
+        infer = dataclasses.replace(infer, cascade=False)
+    if args.postproc:
+        infer = dataclasses.replace(infer, postproc=args.postproc)
+    if args.serving_depth:
+        infer = dataclasses.replace(infer, serving_depth=args.serving_depth)
+    if args.prep_cache:
+        infer = dataclasses.replace(infer, prep_cache_dir=args.prep_cache)
+    exp = dataclasses.replace(exp, infer=infer)
+
     cases = discover_cases(args.case_dir)
+    if args.shard:
+        try:
+            cases = filter_shard(cases, args.shard)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        print(f"[predict] shard {args.shard}: {len(cases)} case(s)", flush=True)
+        if not cases:
+            return 0     # a legitimately empty shard is not an error
     if not cases:
         print(f"error: no BraTS case found at {args.case_dir}", file=sys.stderr)
         return 2
@@ -72,29 +178,29 @@ def main(argv=None) -> int:
         print("error: --output only valid for a single case", file=sys.stderr)
         return 2
     try:
-        params_fine = load_stage_params(exp, "fine")
-        params_coarse = (
-            load_stage_params(exp, "coarse")
-            if exp.infer.cascade and exp.coarse_unet is not None else None
-        )
+        exp, params_fine, params_coarse = load_serving_params(exp)
+        if args.ensemble:
+            pred = _ensemble_predictor(args, exp, (params_fine, params_coarse))
+        else:
+            from ..infer.predictor import Predictor
+
+            pred = Predictor(exp, params_fine, params_coarse, device=args.device)
     except FileNotFoundError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-
-    from ..infer.predictor import Predictor
-
-    predictor = Predictor(exp, params_fine, params_coarse, device=args.device)
     t0 = time.time()
-    for d in cases:
-        out, stats = predictor.predict_dir(
-            d, args.output if len(cases) == 1 else None
-        )
-        print(f"[predict] {d} -> {out} (load {stats.load_s:.2f}s, device "
+    if len(cases) == 1:
+        out, stats = pred.predict_dir(cases[0], args.output)
+        print(f"[predict] {cases[0]} -> {out} (load {stats.load_s:.2f}s, device "
               f"{stats.device_s:.2f}s, post {stats.post_s:.2f}s)", flush=True)
+    else:
+        for d, out in zip(cases, pred.predict_dirs(cases)):
+            print(f"[predict] {d} -> {out}", flush=True)
+    _emit_probs_artifacts(pred, cases, args.save_probs, args.save_uncertainty)
     dt = time.time() - t0
     print(f"[predict] {len(cases)} case(s) in {dt:.2f}s "
-          f"({len(cases) / dt:.3f} volumes/sec on {predictor.device})",
-          flush=True)
+          f"({len(cases) / dt:.3f} volumes/sec on {pred.device}"
+          f"{', ensemble' if args.ensemble else ''})", flush=True)
     return 0
 
 

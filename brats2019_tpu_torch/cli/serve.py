@@ -30,9 +30,17 @@ completion log replays what was served.
 off, as in the reference; every preset is served (``models/cascade.py``
 ``make_predict_fn`` picks the program).
 
-Not ported (ROADMAP queue 1 items 3, 5 and 6 list them): ``--save-probs``,
-``--save-uncertainty`` and ``--ensemble`` (item 3), ``--multichip`` (item 5),
-``--transfer-dtype int8`` and the transfer-bound hint, ``--rss-limit-mb``
+``--ensemble W ...`` serves the checkpoint ensemble of the primary
+``--workdir`` model and each listed workdir's model (mean probabilities,
+``infer/ensemble.py``; postprocessing on the host). ``--save-probs`` and
+``--save-uncertainty`` also write ``<case>_probs.npz`` and the QU-BraTS maps
+``<case>_unc_{whole,core,enhance}.nii.gz`` per served case (one probability
+pass shared by both, best effort: a failed artifact pass is logged and the
+case stays served), before the case's completion is published, so ``GET
+/artifact`` finds them as soon as ``/result`` does.
+
+Not ported (ROADMAP queue 1 items 5 and 6 list them): ``--multichip`` (item
+5), ``--transfer-dtype int8`` and the transfer-bound hint, ``--rss-limit-mb``
 (with its exit-4 recycle) and ``--batch-volumes`` (item 6).
 """
 
@@ -53,6 +61,7 @@ from typing import Optional
 from ..configs.presets import PRESETS
 from ..data.case import discover_cases, modality_paths
 from .common import (
+    load_ensemble_members,
     load_serving_params,
     load_stage_params,
     parse_shard,
@@ -133,6 +142,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "bitwise what the uncached path ships)")
     p.add_argument("--serving-depth", type=int, default=None,
                    help="volumes concurrently in host prep/postprocess")
+    p.add_argument("--ensemble", default=None, nargs="+", metavar="WORKDIR",
+                   help="checkpoint-ensemble serving: average the class "
+                        "probabilities of the primary --workdir model and "
+                        "each listed workdir's model (M member passes per "
+                        "case; host postprocessing)")
+    p.add_argument("--save-probs", action="store_true",
+                   help="also write <case>_probs.npz per served case (one "
+                        "more device pass per case)")
+    p.add_argument("--save-uncertainty", action="store_true",
+                   help="also write the QU-BraTS uncertainty maps "
+                        "<case>_unc_{whole,core,enhance}.nii.gz per served "
+                        "case (shares the --save-probs pass)")
     p.add_argument("--http", type=int, default=None, metavar="PORT",
                    help="also expose an HTTP API (GET /healthz /stats "
                         "/metrics /result /artifact, POST /predict with a "
@@ -275,15 +296,38 @@ class Server:
     # set after a CUDA error that outlives the call: run() exits
     device_lost = False
     _warmup_rest_pending = False
+    # --save-probs / --save-uncertainty / --ensemble (set by __init__)
+    save_probs = False
+    save_uncertainty = False
+    ensemble_workdirs: tuple = ()
 
     def __init__(self, exp, output_dir=None, log_dir=None, retries=1,
-                 retry_backoff=1.0, device="cuda"):
-        from ..infer.predictor import Predictor
-
+                 retry_backoff=1.0, device="cuda", ensemble_workdirs=None,
+                 save_probs=False, save_uncertainty=False):
         exp, params_fine, params_coarse = load_serving_params(exp)
         self.exp = exp
-        self.predictor = Predictor(exp, params_fine, params_coarse,
-                                   device=device)
+        self.save_probs = save_probs
+        self.save_uncertainty = save_uncertainty
+        self.ensemble_workdirs = list(ensemble_workdirs or [])
+        if self.ensemble_workdirs:
+            from ..infer.ensemble import EnsemblePredictor
+
+            members = load_ensemble_members(
+                exp, self.ensemble_workdirs, (params_fine, params_coarse))
+            if exp.infer.postproc == "device":
+                print("serve: --postproc device has no effect with "
+                      "--ensemble: it postprocesses on the host (the device "
+                      "connected components live in the label program, "
+                      "which the ensemble's probability path bypasses)",
+                      file=sys.stderr)
+            self.predictor = EnsemblePredictor(exp, members, device=device)
+            print(f"serve: ensemble of {self.predictor.num_members} members",
+                  flush=True)
+        else:
+            from ..infer.predictor import Predictor
+
+            self.predictor = Predictor(exp, params_fine, params_coarse,
+                                       device=device)
         self.output_dir = output_dir
         self.retries = retries
         self.retry_backoff = retry_backoff
@@ -388,8 +432,15 @@ class Server:
             pc = None
             if self.exp.infer.cascade and self.exp.coarse_unet is not None:
                 pc = load_stage_params(self.exp, "coarse")
-            self.predictor.reload_params(pf, pc)
-            print("serve: weights hot-reloaded (SIGHUP)", flush=True)
+            if self.ensemble_workdirs:
+                members = load_ensemble_members(
+                    self.exp, self.ensemble_workdirs, (pf, pc))
+                self.predictor.reload_members(members)
+                print(f"serve: {len(members)} ensemble members hot-reloaded "
+                      "(SIGHUP)", flush=True)
+            else:
+                self.predictor.reload_params(pf, pc)
+                print("serve: weights hot-reloaded (SIGHUP)", flush=True)
             return True
         except Exception as e:  # noqa: BLE001 — keep serving on failure
             print(f"serve: weight reload FAILED, keeping current weights: "
@@ -407,7 +458,8 @@ class Server:
         if stage in ("all", "primary"):
             self.warm = False
         t0 = time.time()
-        self.predictor.warmup(stage=stage)
+        self.predictor.warmup(probs=self.save_probs or self.save_uncertainty,
+                              stage=stage)
         if stage in ("all", "primary"):
             self.warm = True
         return time.time() - t0
@@ -492,8 +544,25 @@ class Server:
             f"({len(case_dirs) / wall:.3f} vol/s)",
             flush=True,
         )
+        # best-effort artifacts of the served cases: the prediction already
+        # succeeded and is logged, so an artifact failure must neither
+        # quarantine the case nor stop the daemon
+        if self.save_probs or self.save_uncertainty:
+            from .predict import _emit_probs_artifacts
+
+            for d, e in zip(case_dirs, errs):
+                if e is not None:
+                    continue
+                try:
+                    _emit_probs_artifacts(
+                        self.predictor, [d], self.save_probs,
+                        self.save_uncertainty, output_dir=self.output_dir)
+                except Exception as ex:  # noqa: BLE001 — best effort
+                    print(f"serve: artifact pass failed for {d}: "
+                          f"{type(ex).__name__}: {ex}", file=sys.stderr,
+                          flush=True)
         # publish last: an HTTP /predict waiter woken by this must find the
-        # atomically renamed outputs in place
+        # atomically renamed outputs and the artifacts in place
         self._publish(records)
         return outs
 
@@ -665,7 +734,8 @@ def main(argv=None) -> int:
         server = Server(
             exp, output_dir=args.output_dir, log_dir=args.watch_root,
             retries=args.retries, retry_backoff=args.retry_backoff,
-            device=args.device,
+            device=args.device, ensemble_workdirs=args.ensemble,
+            save_probs=args.save_probs, save_uncertainty=args.save_uncertainty,
         )
     except (FileNotFoundError, ValueError, NotImplementedError,
             RuntimeError) as e:

@@ -4,7 +4,7 @@ Usage:
     python -m brats2019_tpu_torch.cli.train --data <BraTS_root>
         [--preset cascade] [--stage all|fine|coarse] [--device cuda|cpu]
         [--val-frac 0.2 | --folds K --fold I] [--steps N] [--workdir DIR]
-        [--synthetic N [--synthetic-shape X Y Z]]
+        [--synthetic N [--synthetic-shape X Y Z] [--synthetic-hard]]
 
 Trains the preset's stages on one device (coarse first when cascaded) and
 leaves ``<workdir>/<stage>/checkpoints/`` that ``cli.predict`` serves.
@@ -32,6 +32,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="generate N synthetic cases under --data first")
     p.add_argument("--synthetic-shape", type=int, nargs=3, default=(96, 96, 80),
                    help="synthetic volume shape (240 240 155 for realistic runs)")
+    p.add_argument("--synthetic-hard", action="store_true",
+                   help="generate the v2 (hard) synthetic cases: irregular "
+                        "multi-component tumors, low-contrast ET rims, bias "
+                        "fields, empty-ET cases (data/synthetic.py "
+                        "make_hard_case_arrays)")
     p.add_argument("--preset", default="cascade", choices=sorted(PRESETS))
     p.add_argument("--stage", default="all", choices=("all", "fine", "coarse"))
     p.add_argument("--val-frac", type=float, default=0.2)
@@ -98,7 +103,8 @@ def main(argv=None) -> int:
         from ..data.synthetic import write_dataset
 
         os.makedirs(args.data, exist_ok=True)
-        write_dataset(args.data, args.synthetic, shape=tuple(args.synthetic_shape))
+        write_dataset(args.data, args.synthetic, shape=tuple(args.synthetic_shape),
+                      hard=args.synthetic_hard)
     cases = discover_cases(args.data)
     if not cases:
         print(f"error: no BraTS cases found under {args.data}", file=sys.stderr)

@@ -1,5 +1,7 @@
-// SAME stride-1 3x3x3 conv3d for NDHWC volumes: bf16 in, f32 accumulation,
-// bf16 out, no bias. Built by brats2019_tpu_torch/ops/_build.py with
+// SAME stride-1 3x3x3 conv3d for NDHWC volumes, no bias, in two instances:
+// bf16 in, f32 accumulation, bf16 out (conv3d_ndhwc_bf16, tensor cores), and
+// f32 in, f32 FFMA accumulation, f32 out (conv3d_ndhwc_f32, at the end of
+// this file). Built by brats2019_tpu_torch/ops/_build.py with
 // nvcc -gencode arch=compute_90a,code=sm_90a; called through ctypes from
 // brats2019_tpu_torch/ops/conv.py (conv3d).
 //
@@ -257,5 +259,133 @@ extern "C" int conv3d_ndhwc_bf16(const void* x, const void* w, void* y, int N,
   else
     conv3d_kernel<false><<<grid, THREADS, 0, s>>>(xb, wb, yb, N, D, H, W, Ci,
                                                   Co);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The f32 instance: what a configuration with compute_dtype "float32" runs
+// (the presets unit and smoke, the accuracy benchmark's config). The JAX
+// package computes those convs in f32 on every backend, so this one does too:
+// f32 operands, f32 FFMA accumulation on the CUDA cores, f32 out. No tensor
+// cores (no TF32: it keeps about three decimal digits).
+//
+// What bounds it on the card: the FP32 pipe, 67 TFLOP/s dense on an H100 SXM;
+// a conv of the f32 configurations does 27 * Ci * 2 flops per output value
+// against 4 + 4 bytes, far above the f32 ridge (~20 flop/byte).
+//
+// Design, written for correctness first (the same implicit GEMM and masked
+// halo as the bf16 instance above, without tensor cores or cp.async):
+//   * a block computes a 64-voxel x 64-channel output tile with 256 threads,
+//     each thread a 4 x 4 register tile (4 voxels x 4 channels);
+//   * K advances one (tap, 16-channel chunk) at a time: the A chunk (64
+//     voxels x 16 channels, masked to zero outside the volume and past Ci)
+//     is stored transposed in shared memory so a thread reads its 4 voxels
+//     as one float4, the B chunk (16 x 64 of the DHWIO weight) as it lies;
+//   * the sum of each output runs over (tap, chunk, channel) in one fixed
+//     order: repeat runs are bitwise equal.
+
+namespace {
+
+constexpr int F_BM = 64;        // output voxels per block
+constexpr int F_BN = 64;        // output channels per block
+constexpr int F_BK = 16;        // contraction chunk: 16 channels of one tap
+constexpr int F_THREADS = 256;  // 16 x 16 threads of 4 x 4 outputs
+constexpr int F_LD = F_BM + 4;  // shared row pitch (float4-aligned)
+
+__global__ void __launch_bounds__(F_THREADS)
+    conv3d_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                      float* __restrict__ y, int N, int D, int H, int W,
+                      int Ci, int Co) {
+  __shared__ __align__(16) float As[F_BK][F_LD];   // [channel][voxel]
+  __shared__ __align__(16) float Bs[F_BK][F_LD];   // [channel][out channel]
+
+  const int tid = threadIdx.x;
+  const int tm = tid & 15;          // voxels tm*4 .. tm*4+3 of the tile
+  const int tn = tid >> 4;          // channels tn*4 .. tn*4+3 of the tile
+  const long long M = (long long)N * D * H * W;
+  const long long m0 = (long long)blockIdx.x * F_BM;
+  const int n0 = blockIdx.y * F_BN;
+  const long long HW = (long long)H * W;
+
+  // A loader: voxel row a_row, channels a_col .. a_col+3 of each chunk
+  const int a_row = tid >> 2;
+  const int a_col = (tid & 3) * 4;
+  const long long am = m0 + a_row;
+  const bool a_in = am < M;
+  const long long amm = a_in ? am : 0;
+  const int a_w = (int)(amm % W);
+  const int a_h = (int)((amm / W) % H);
+  const int a_d = (int)((amm / HW) % D);
+  // B loader: weight row b_row of the chunk, out channels b_col .. b_col+3
+  const int b_row = tid >> 4;
+  const int b_col = (tid & 15) * 4;
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  const int n_ci_chunks = (Ci + F_BK - 1) / F_BK;
+  for (int tap = 0; tap < 27; ++tap) {
+    const int kd = tap / 9, kh = (tap / 3) % 3, kw = tap % 3;
+    const int dd = a_d + kd - 1, hh = a_h + kh - 1, ww = a_w + kw - 1;
+    const bool ok = a_in && dd >= 0 && dd < D && hh >= 0 && hh < H &&
+                    ww >= 0 && ww < W;
+    const long long shift = (kd - 1) * HW + (long long)(kh - 1) * W + (kw - 1);
+    const float* xs = x + (amm + shift) * Ci;
+    for (int cc = 0; cc < n_ci_chunks; ++cc) {
+      const int ci0 = cc * F_BK;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int ci = ci0 + a_col + j;
+        As[a_col + j][a_row] = (ok && ci < Ci) ? xs[ci] : 0.f;
+      }
+      const int k = ci0 + b_row;
+      const float* wsrc = w + ((long long)tap * Ci + k) * Co + n0 + b_col;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        Bs[b_row][b_col + j] =
+            (k < Ci && n0 + b_col + j < Co) ? wsrc[j] : 0.f;
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < F_BK; ++kk) {
+        const float4 a = *reinterpret_cast<const float4*>(&As[kk][tm * 4]);
+        const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tn * 4]);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+        const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long m = m0 + tm * 4 + i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int co = n0 + tn * 4 + j;
+      if (co < Co) y[m * Co + co] = acc[i][j];
+    }
+  }
+}
+
+}  // namespace
+
+// x (N,D,H,W,Ci), w (3,3,3,Ci,Co), y (N,D,H,W,Co): contiguous f32 on the
+// current device. Launches on `stream`; returns cudaGetLastError().
+extern "C" int conv3d_ndhwc_f32(const void* x, const void* w, void* y, int N,
+                                int D, int H, int W, int Ci, int Co,
+                                void* stream) {
+  const long long M = (long long)N * D * H * W;
+  dim3 grid((unsigned)((M + F_BM - 1) / F_BM), (unsigned)((Co + F_BN - 1) / F_BN));
+  conv3d_f32_kernel<<<grid, F_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<float*>(y), N, D, H, W, Ci, Co);
   return (int)cudaGetLastError();
 }

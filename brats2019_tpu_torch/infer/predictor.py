@@ -19,11 +19,17 @@ launches every device program, in order; ``serving_depth`` threads fetch
 (from pinned memory the device->host copy was started into), paste, un-crop,
 postprocess and write. The labels equal the one-by-one path's bitwise.
 
-Not ported (ROADMAP queue 1 items 3, 5 and 6 list them): the probability
-outputs (item 3), striping over several devices (item 5), the int8 transfer
-encoding and its transfer-bound hint, volume pairing (``batch_volumes=2``),
-and the native threaded NIfTI decoder with its fused bbox (``meta``) (item
-6).
+The probability path (:628-695): ``predict_probs_arrays``, ``probs_for_dir``
+(through the payload cache) and ``predict_probs_dir`` run the program's
+``probs`` (the mean class probabilities the labels are argmaxed from), paste
+the ROI at its start into an f32 canvas, un-crop, and give voxels no tile
+wrote exact background; ``save_probs_npz`` writes the ``<case>_probs.npz``
+artifact.
+
+Not ported (ROADMAP queue 1 items 5 and 6 list them): striping over several
+devices (item 5), the int8 transfer encoding and its transfer-bound hint,
+volume pairing (``batch_volumes=2``), and the native threaded NIfTI decoder
+with its fused bbox (``meta``) (item 6).
 """
 
 from __future__ import annotations
@@ -55,6 +61,30 @@ from ..utils.nifti import read_header, write_nifti
 from ..utils.weights import build_unet, load_params_npz, state_dict_from_flat
 from .payload_cache import load_payload, payload_cache_path, store_payload
 from .postprocess import postprocess_labels
+
+
+def save_probs_npz(output_path: str, probs: np.ndarray) -> str:
+    """The ``<case>_probs.npz`` artifact contract, in one place (predictor,
+    ensemble, and the predict CLI all write through here; :43-60): float16
+    ``probs`` (X, Y, Z, C) + ``classes`` naming the channel order in BraTS
+    disk labels [0, 1, 2, 4]."""
+    # temp+rename: a reader (GET /artifact) must never see a torn file
+    tmp = f"{output_path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        np.savez_compressed(
+            f,
+            probs=probs.astype(np.float16),
+            classes=np.array([0, 1, 2, 4], np.int32),
+        )
+    os.replace(tmp, output_path)
+    return output_path
+
+
+def background_fill(probs: np.ndarray) -> np.ndarray:
+    """Voxels that no tile or member wrote (all-zero probabilities) become
+    exact background one-hot, in place; returns ``probs``."""
+    probs[probs.sum(-1) == 0, 0] = 1.0
+    return probs
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -140,23 +170,28 @@ class Predictor:
 
     # ---------------------------------------------------------------- weights --
 
-    def warmup(self, stage: str = "all") -> float:
-        """Run the serving device program once on a zero canvas and fetch
-        its outputs, so the first real case pays no first-use cost
+    def warmup(self, probs: bool = False, stage: str = "all") -> float:
+        """Run the serving device programs once on a zero canvas and fetch
+        their outputs, so the first real case pays no first-use cost
         (``serve --warmup``, :215): on a card that is the nvcc build of the
         CUDA kernels, Triton's compiles, cuDNN/cuBLAS handles and the
         allocator's first blocks. ``stage="primary"`` warms the label
         program, the one program the first queued case needs; ``"rest"`` the
-        other arms, of which this port has none yet (pairing and the probs
-        program are not ported), so it returns at once; ``"all"`` both.
-        Returns wall seconds."""
+        other arm, the probability program when ``probs`` (the daemon emits
+        probability or uncertainty artifacts; volume pairing is not ported);
+        ``"all"`` both. Returns wall seconds."""
         if stage not in ("all", "primary", "rest"):
             raise ValueError(f"warmup stage {stage!r}")
         t0 = time.time()
+        x = torch.zeros(self.canvas + (NUM_MODALITIES,),
+                        dtype=torch.bfloat16, device=self.device)
+        outs = []
         if stage in ("all", "primary"):
-            x = torch.zeros(self.canvas + (NUM_MODALITIES,),
-                            dtype=torch.bfloat16, device=self.device)
-            (labels, start), event = _start_host_copy(*self.predict_device(x))
+            outs.append(self.predict_device(x))
+        if stage in ("all", "rest") and probs:
+            outs.append(self.probs_device(x))
+        for out in outs:
+            _, event = _start_host_copy(*out)
             if event is not None:
                 event.synchronize()
         return time.time() - t0
@@ -361,6 +396,12 @@ class Predictor:
         with torch.inference_mode():
             return self.program(canvas_img)
 
+    def probs_device(self, canvas_img: torch.Tensor):
+        """The probability program on an embedded canvas: (probs_roi f32,
+        start)."""
+        with torch.inference_mode():
+            return self.program.probs(canvas_img)
+
     def _dispatch(self, prepped):
         """Wait for a prepared canvas, launch the device program on it and
         start the readback. Called from one thread only."""
@@ -395,6 +436,70 @@ class Predictor:
                 posts.append(post_pool.submit(
                     self._finish, self._dispatch(prepped), shape, bbox))
             return [p.result() for p in posts]
+
+    def predict_case(self, case) -> Tuple[np.ndarray, PredictionStats]:
+        """``predict_arrays`` on a loaded case (``evaluate`` calls this)."""
+        return self.predict_arrays(case.image)
+
+    # -------------------------------------------------------- probabilities --
+
+    def predict_probs_arrays(
+        self, image: np.ndarray
+    ) -> Tuple[np.ndarray, PredictionStats]:
+        """Mean class probabilities for the whole volume (X, Y, Z, C) f32
+        (:628): the same TTA-averaged canvas the labels are argmaxed from.
+        Voxels outside the predicted ROI or the brain bbox get exact
+        background one-hot."""
+        t0 = time.time()
+        canvas, shape, bbox = self.prepare(image)
+        t1 = time.time()
+        probs, dev_s, post_s = self._probs_from_prepped(canvas, shape, bbox)
+        return probs, PredictionStats(t1 - t0, dev_s, post_s)
+
+    def _probs_from_prepped(self, canvas_img, cropped_shape, bbox):
+        """The probability program + host un-crop for a prepared canvas
+        (:645): (probs, device s, post s)."""
+        t1 = time.time()
+        canvas_p = self._probs_canvas_np(canvas_img)
+        t2 = time.time()
+        probs = uncrop_from_canvas_np(canvas_p, cropped_shape, bbox, self.canvas)
+        return background_fill(probs), t2 - t1, time.time() - t2
+
+    def _probs_canvas_np(self, canvas_img: torch.Tensor) -> np.ndarray:
+        """Run the probability program and paste its ROI at its start into
+        a zero host f32 canvas (:658)."""
+        (probs_r, start), event = _start_host_copy(*self.probs_device(canvas_img))
+        if event is not None:
+            event.synchronize()
+        probs_r = probs_r.numpy()
+        if probs_r.shape[:3] == self.canvas:
+            return probs_r
+        canvas_p = np.zeros(self.canvas + (probs_r.shape[-1],), np.float32)
+        sx, sy, sz = (int(v) for v in start)
+        rx, ry, rz = probs_r.shape[:3]
+        canvas_p[sx:sx + rx, sy:sy + ry, sz:sz + rz] = probs_r
+        return canvas_p
+
+    def probs_for_dir(self, case_dir: str):
+        """The probability pass for one case directory through the payload
+        cache (``--prep-cache``), as the label pass decodes (:674). Returns
+        ``(name, header, probs)``."""
+        name, header, prepped, shape, bbox = self._prep_dir_to(case_dir)
+        canvas = self._await_canvas(*prepped)
+        probs, _, _ = self._probs_from_prepped(canvas, shape, bbox)
+        return name, header, probs
+
+    def predict_probs_dir(self, case_dir: str,
+                          output_path: Optional[str] = None) -> str:
+        """Write a case's probability canvas as ``<case>_probs.npz``
+        (float16 ``probs`` (X, Y, Z, 4) + ``classes`` naming the channel
+        order in BraTS disk labels [0, 1, 2, 4]) (:686)."""
+        name, _header, probs = self.probs_for_dir(case_dir)
+        if output_path is None:
+            output_path = os.path.join(case_dir, f"{name}_probs.npz")
+        return save_probs_npz(output_path, probs)
+
+    # ----------------------------------------------------------- many cases --
 
     def predict_dirs(self, case_dirs, output_paths=None) -> list:
         """Pipelined multi-case path (:700), the one ``serve`` and the

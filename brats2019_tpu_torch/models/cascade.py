@@ -31,9 +31,15 @@ head and the low-res TTA reduce, blended into a low-res block canvas; and
 blended sliding window of ``tta_probs`` -> argmax, for everything else (no
 TTA, stem 1 with several tiles). Each is called with the (X, Y, Z, C) canvas
 and returns ``(labels_roi uint8, start int32)``; without a cascade the ROI
-is the whole canvas and start is zeros. The probability outputs
-(``predict_probs_monolithic``, ``stage_sweep_probs``) are not ported (ROADMAP
-queue 1 item 3).
+is the whole canvas and start is zeros.
+
+Each also has ``probs(image) -> (probs_roi f32 (rx, ry, rz, K), start)``, the
+counterpart of the reference's ``fn.probs_fn`` (:201, :338, :418): the mean
+probabilities the labels are argmaxed from, before any postprocessing
+(``stage_finish_probs`` :390-402 through :func:`probs_from_blocks` or the
+full-resolution ``tta_reduce``; ``stage_sweep_probs`` :322-323;
+``predict_probs_monolithic`` :170-174). The ensemble
+(``infer/ensemble.py``) averages them.
 """
 
 from __future__ import annotations
@@ -123,6 +129,17 @@ def labels_from_blocks(blk: torch.Tensor, stem: int) -> torch.Tensor:
     return blk.permute(0, 3, 1, 4, 2, 5).reshape(d * r, h * r, w * r)
 
 
+def probs_from_blocks(blk: torch.Tensor, stem: int) -> torch.Tensor:
+    """(d, h, w, r, r, r, K) block probabilities -> (d*r, h*r, w*r, K)
+    (:236-245): the rearrange of :func:`labels_from_blocks` with the class
+    axis riding along, so ``argmax(probs_from_blocks(p)) ==
+    labels_from_blocks(argmax(p))`` exactly."""
+    r = stem
+    d, h, w = blk.shape[:3]
+    return blk.permute(0, 3, 1, 4, 2, 5, 6).reshape(
+        d * r, h * r, w * r, blk.shape[-1])
+
+
 class SplitCascade:
     """The flagship split program: ``stage_roi`` then ``stage_finish``.
     Calling it runs both and returns ``(labels_roi uint8, start int32)``."""
@@ -170,6 +187,27 @@ class SplitCascade:
                 labels, self.cfg.min_component_voxels, self.cfg.et_min_voxels
             )
         return labels, start
+
+    def stage_finish_probs(
+        self, tiles: torch.Tensor, start: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The probability sibling of :meth:`stage_finish` (:390-402): the
+        same mean probabilities the labels are argmaxed from, at full
+        resolution, f32, not postprocessed."""
+        if self.stem > 1:
+            logits = self.fine(tiles, subpixel=False)
+            probs = probs_from_blocks(lowres_mean_probs(
+                logits, self.stem, self.num_classes, self.store_dt), self.stem)
+        else:
+            probs8 = torch.softmax(self.fine(tiles).float(), dim=-1)
+            probs = tta_reduce(probs8.to(self.store_dt))
+        return probs.float(), start
+
+    def probs(self, image: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(mean probabilities f32 over the ROI, start): ``stage_roi`` (the
+        label path's, still without a host wait) then
+        :meth:`stage_finish_probs`."""
+        return self.stage_finish_probs(*self.stage_roi(image))
 
     def __call__(self, image: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         tiles, start = self.stage_roi(image)
@@ -242,14 +280,16 @@ class Monolithic(_Program):
     postprocessing)."""
 
     def probs(self, image: torch.Tensor):
-        """(mean probabilities f32 over the ROI, start) (:135-155)."""
+        """(mean probabilities f32 over the ROI, start): the shared core of
+        the label and probability outputs (:135-155), the latter
+        ``predict_probs_monolithic`` (:170-174)."""
         region, start = self._region(image)
         weight = self._const("weight", self.weight_np, region.device)
         probs = sliding_window_probs(
             lambda p: tta_probs(self.fine, p, enabled=self.cfg.tta_flips,
                                 precision=self.cfg.tta_precision),
             region, self.origins, self.tile, weight, self.num_classes)
-        return probs, start
+        return probs.float(), start
 
     def __call__(self, image: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         probs, start = self.probs(image)
@@ -299,6 +339,15 @@ class StagedSweep(_Program):
     def stage_sweep_finish(self, stacks: torch.Tensor, start: torch.Tensor):
         blk = torch.argmax(self.sweep_probs_lr(stacks), dim=-1).to(torch.uint8)
         return self._finish_one(labels_from_blocks(blk, self.stem)), start
+
+    def stage_sweep_probs(self, stacks: torch.Tensor, start: torch.Tensor):
+        """(:322-323) The blended low-res probabilities at full
+        resolution, f32."""
+        return probs_from_blocks(self.sweep_probs_lr(stacks), self.stem), start
+
+    def probs(self, image: torch.Tensor):
+        """(mean probabilities f32 over the sweep, start)."""
+        return self.stage_sweep_probs(*self.stage_sweep_stack(image))
 
     def __call__(self, image: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return self.stage_sweep_finish(*self.stage_sweep_stack(image))

@@ -5,11 +5,15 @@ conv3d_pallas and the flax/XLA conv of ``models/blocks.py:35-43``).
 ``w`` (3, 3, 3, Ci, Co), and returns (N, D, H, W, Co) in ``x.dtype``:
 
 * on a CPU tensor, the plain version :func:`conv3d_plain` (f32 math);
-* on a CUDA tensor, a hand-written kernel (bf16 in, f32 accumulation, bf16
-  out), or an error. There is no fallback. :func:`plan_conv` picks the
-  instance from the shape (and the device's SM count) alone: ``csrc/conv3d_wgmma.cu`` (wgmma on a box of
-  voxels whose halo patch sits in shared memory) where Ci % 16 == 0 and
-  Co % 8 == 0, else ``csrc/conv3d.cu`` (mma.sync implicit GEMM, any Ci, Co).
+* on a CUDA tensor, a hand-written kernel, or an error. There is no
+  fallback. :func:`plan_conv` picks the instance from the dtype and the
+  shape (and the device's SM count) alone. bf16 (bf16 in, f32 accumulation,
+  bf16 out): ``csrc/conv3d_wgmma.cu`` (wgmma on a box of voxels whose halo
+  patch sits in shared memory) where Ci % 16 == 0 and Co % 8 == 0, else
+  ``csrc/conv3d.cu`` (mma.sync implicit GEMM, any Ci, Co). f32 (the
+  configurations whose compute dtype is float32, as the JAX package computes
+  them): the FFMA instance of ``csrc/conv3d.cu`` (f32 in, f32 accumulation,
+  f32 out; no tensor cores, no TF32). Any other dtype raises TypeError.
 
 It is an ``autograd.Function``. ``conv3d_pallas`` has no VJP in the JAX
 package (its gradient was XLA's), so the port builds one:
@@ -22,22 +26,23 @@ package (its gradient was XLA's), so the port builds one:
   stem's input).
 * wgrad: plain torch (``aten.convolution_backward`` with only the weight
   mask), as the JAX package computed it outside any Pallas kernel. On CUDA
-  it runs on the bf16 operands (cuDNN, f32 accumulation) with TF32 off and
-  deterministic algorithms; on the CPU in f32.
+  it runs on the operands in their dtype (cuDNN, f32 accumulation) with
+  TF32 off and deterministic algorithms; on the CPU in f32.
 
-``conv3d(x, w, stats=True)`` returns ``(y, partials)``: on the wgmma
+``conv3d(x, w, stats=True)`` returns ``(y, partials)``: on the bf16 wgmma
 instance ``partials`` is the f32 (3, N, boxes, Co) InstanceNorm statistics
 of y, (count, mean, centred M2) per box of the plan and output channel,
 written by the kernel's STATS epilogue (``ops/norm.py`` merges them, so the
-norm after the conv reads y once); on a CPU tensor whose shape the planner
-gives the wgmma instance, :func:`conv_stats_plain` of the plain output, box
-by box as the kernel folds it; on every other route (``csrc/conv3d.cu``, the
-Winograd backend) None, and the norm takes its own statistics. The partials
-are not differentiable.
+norm after the conv reads y once); on a CPU tensor (of any dtype) whose
+shape the bf16 planner gives the wgmma instance, :func:`conv_stats_plain` of
+the plain output, box by box as the kernel folds it; on every other route
+(``csrc/conv3d.cu`` in either dtype, the Winograd backend) None, and the
+norm takes its own statistics. The partials are not differentiable.
 
-``conv3d.launches`` counts kernel launches of both instances,
+``conv3d.launches`` counts kernel launches of every instance,
 ``conv3d.launches_wgmma`` those of the wgmma instance,
-``conv3d.launches_stats`` those of them with the STATS epilogue.
+``conv3d.launches_stats`` those of them with the STATS epilogue,
+``conv3d.launches_f32`` those of the f32 FFMA instance.
 :func:`conv3d_boxed_plain` is plain torch organised as the wgmma kernel is
 (boxes, zero-filled halo patches, channel chunks, tap-shifted views, masked
 tails), so its index arithmetic is tested on the CPU.
@@ -80,7 +85,10 @@ def get_backend() -> str:
 _SIG = {
     "conv3d_ndhwc_bf16": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
+    "conv3d_ndhwc_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+    + [ctypes.c_void_p],
 }
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 _SIG_WGMMA = {
     "conv3d_wgmma_ndhwc_bf16": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
     + [ctypes.c_void_p],
@@ -112,8 +120,8 @@ B_STAGES, PATCH_STAGES = 4, 2
 class ConvPlan:
     """How one conv call runs on the card: a pure function of its shape."""
 
-    instance: str          # "wgmma" (conv3d_wgmma.cu) or "mma_sync" (conv3d.cu)
-    box: tuple             # (bd, bh, bw) voxels of an M tile; mma_sync: (128,) rows
+    instance: str          # "wgmma" (conv3d_wgmma.cu), "mma_sync" or "ffma_f32" (conv3d.cu)
+    box: tuple             # (bd, bh, bw) voxels of an M tile; else (rows,)
     bn: int                # output channels per block
     chunk: int             # input channels per K chunk
     stages: int            # weight slabs (wgmma) / (A, B) chunk pairs in the ring
@@ -149,12 +157,34 @@ _INSTANCE_COST = ((4, 128, 1.45), (4, 64, 1.0), (2, 64, 0.75))
 WGMMA_INSTANCES = tuple((bd, bn) for bd, bn, _ in _INSTANCE_COST)
 
 
+def check_dtype(dtype: torch.dtype, what: str) -> None:
+    """bf16 and f32 have kernels; any other dtype raises TypeError."""
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{what}: the kernels take bf16 or f32, not {dtype}")
+
+
+def f32_counter(t: torch.Tensor) -> tuple:
+    """The f32 route's counter name, for a launch on ``t`` (none in bf16)."""
+    return ("launches_f32",) if t.dtype == torch.float32 else ()
+
+
 @functools.lru_cache(maxsize=4096)   # a process sees a few dozen shapes
 def plan_conv(n: int, d: int, h: int, w: int, ci: int, co: int,
-              sms: int = SM_COUNT) -> ConvPlan:
-    """The instance, tile and grid for a (n, d, h, w, ci) -> co conv on a
-    device of ``sms`` SMs."""
+              sms: int = SM_COUNT, dtype: torch.dtype = torch.bfloat16
+              ) -> ConvPlan:
+    """The instance, tile and grid for a (n, d, h, w, ci) -> co conv in
+    ``dtype`` on a device of ``sms`` SMs."""
+    check_dtype(dtype, "conv3d")
     flops = 2.0 * 27 * ci * co * n * d * h * w
+    if dtype == torch.float32:
+        # 64-voxel x 64-channel tiles, a (tap, 16-channel) chunk of A and B
+        # (f32) through shared memory per K step
+        tiles = -(-(n * d * h * w) // 64)
+        n_tiles = -(-co // 64)
+        filled = tiles * n_tiles * 27 * -(-ci // 16) * (64 + 64) * 16 * 4
+        return ConvPlan("ffma_f32", (64,), 64, 16, 1, 2 * 16 * 68 * 4,
+                        (tiles,), n_tiles, tiles * n_tiles, tiles * n_tiles,
+                        flops / filled)
     if ci % 16 or co % 8:
         tiles = -(-(n * d * h * w) // 128)
         n_tiles = -(-co // 64)
@@ -277,11 +307,12 @@ def conv_stats_plain(y: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
     return torch.stack([cnt.expand_as(mean), mean, m2])
 
 
-def _check_kernel_args(x: torch.Tensor, w: torch.Tensor) -> None:
-    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise TypeError(
-            f"conv3d kernel takes bf16 input and weight, got {x.dtype}, {w.dtype}"
-        )
+def _check_kernel_args(x: torch.Tensor, w: torch.Tensor,
+                       dtypes=(torch.bfloat16,)) -> None:
+    if x.dtype not in dtypes or w.dtype != x.dtype:
+        names = " or ".join(str(t).replace("torch.", "") for t in dtypes)
+        raise TypeError(f"conv3d kernel takes {names} input and weight of one "
+                        f"dtype, got {x.dtype}, {w.dtype}")
     if x.dim() != 5 or w.dim() != 5 or tuple(w.shape[:3]) != (3, 3, 3):
         raise ValueError(f"conv3d: bad shapes x {tuple(x.shape)} w {tuple(w.shape)}")
     if w.shape[3] != x.shape[4]:
@@ -364,14 +395,34 @@ def _launch_wgmma(x: torch.Tensor, w: torch.Tensor, plan: ConvPlan,
     return (y, part) if stats else y
 
 
+def conv3d_kernel_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Launch the f32 FFMA instance of csrc/conv3d.cu on CUDA f32 tensors."""
+    _check_kernel_args(x, w, (torch.float32,))
+    n, d, h, wd, ci = x.shape
+    x = x.contiguous()
+    w = w.contiguous()
+    co = w.shape[4]
+    y = torch.empty((n, d, h, wd, co), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _lib().conv3d_ndhwc_f32(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), n, d, h, wd, ci, co, stream
+        )
+    _build.check(rc, "conv3d (f32)")
+    _build.count_launch(conv3d, "launches", "launches_f32")
+    return y
+
+
 def conv3d_kernel(x: torch.Tensor, w: torch.Tensor, stats: bool = False):
-    """Launch the instance :func:`plan_conv` names for this shape: y, or with
-    ``stats`` (y, partials), partials None on the mma.sync instance."""
-    _check_kernel_args(x, w)
-    plan = plan_conv(*x.shape, w.shape[4], _sm_count(x.device))
+    """Launch the instance :func:`plan_conv` names for this dtype and
+    shape: y, or with ``stats`` (y, partials), partials None off the wgmma
+    instance."""
+    _check_kernel_args(x, w, KERNEL_DTYPES)
+    plan = plan_conv(*x.shape, w.shape[4], _sm_count(x.device), x.dtype)
     if plan.instance == "wgmma":
         return _launch_wgmma(x, w, plan, stats)
-    y = _launch_mma_sync(x, w)
+    y = (conv3d_kernel_f32(x, w) if plan.instance == "ffma_f32"
+         else _launch_mma_sync(x, w))
     return (y, None) if stats else y
 
 
@@ -385,6 +436,9 @@ def _conv3d_fwd(x: torch.Tensor, w: torch.Tensor, stats: bool = False):
         y = conv3d_plain(x, w)
         if not stats:
             return y
+        # by the bf16 plan in any dtype: the CPU tests hold the merged
+        # partials against the JAX package in f32 (an f32 conv on the card
+        # takes the FFMA instance, which gives none)
         plan = plan_conv(*x.shape, w.shape[4])
         return y, (conv_stats_plain(y, plan) if plan.instance == "wgmma"
                    else None)
@@ -445,3 +499,4 @@ def conv3d(x: torch.Tensor, w: torch.Tensor, *, stats: bool = False):
 conv3d.launches = 0
 conv3d.launches_wgmma = 0
 conv3d.launches_stats = 0
+conv3d.launches_f32 = 0

@@ -8,12 +8,14 @@ NDHWC; statistics per (n, c) over the spatial axes, in f32, biased variance,
 
 * CPU tensor: the plain versions :func:`instance_norm_act_plain` and
   :func:`instance_norm_act_bwd_plain`.
-* CUDA tensor (bf16, the compute dtype of the path), or an error; there is
-  no fallback. Forward: the Triton kernels of ``ops/triton_norm.py``.
-  Backward: ``csrc/in_act_bwd.cu`` (one persistent launch, the launch plan
-  of :func:`plan_in_bwd`) where C % 8 == 0, the Triton kernels for other C
-  (by plan); :func:`instance_norm_act_bwd_blocked_plain` is the plain
-  version organised as that kernel is.
+* CUDA tensor, bf16 or f32 (the compute dtype of the path), or an error;
+  there is no fallback. Forward: the Triton kernels of
+  ``ops/triton_norm.py`` (their loads and stores take the tensor's dtype;
+  statistics are f32 in both). Backward: in bf16, ``csrc/in_act_bwd.cu``
+  (one persistent launch, the launch plan of :func:`plan_in_bwd`) where C %
+  8 == 0, the Triton kernels for other C; in f32 the Triton kernels (by
+  plan); :func:`instance_norm_act_bwd_blocked_plain` is the plain version
+  organised as that kernel is.
 
 ``partials``: the f32 (3, N, P, C) per-box (count, mean, centred M2) of x
 that the conv before the norm computed in its epilogue (``ops/conv.py``
@@ -32,7 +34,8 @@ Activations: relu, leaky_relu (slope 0.01), none.
 ``instance_norm_act.launches`` and ``instance_norm_act_bwd.launches`` count
 kernel launches (one per call); ``instance_norm_act.launches_partials`` those
 of them that took the conv's partials, ``instance_norm_act_bwd.launches_cuda``
-those on ``csrc/in_act_bwd.cu``.
+those on ``csrc/in_act_bwd.cu``, ``.launches_f32`` of each those on f32
+tensors.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .conv import check_dtype, f32_counter
 
 ACTIVATIONS = ("relu", "leaky_relu", "none")
 ACT_CODES = {"none": 0, "relu": 1, "leaky_relu": 2}
@@ -169,16 +173,26 @@ class InBwdPlan(NamedTuple):
     keep: int
     smem: int
     column: bool = False
+    route: str = "in_act_bwd.cu"    # or "triton": the three Triton kernels
+
+
+TRITON_BWD = InBwdPlan(0, 0, 0, 0, route="triton")
 
 
 @functools.lru_cache(maxsize=None)
-def plan_in_bwd(n: int, s: int, c: int, sms: int = 132) -> InBwdPlan:
-    """The plan for x of N samples, S voxels and C channels on a card of
-    ``sms`` SMs: one block per SM at most (the grid barrier needs them all
-    resident), the samples' voxels cut into equal block-contiguous ranges,
-    no more blocks than give each thread one vector of x. Raises for what
-    the kernel does not take (C % 8 != 0 goes to the Triton kernels before
-    this is asked)."""
+def plan_in_bwd(n: int, s: int, c: int, sms: int = 132,
+                dtype: torch.dtype = torch.bfloat16) -> InBwdPlan:
+    """The plan for x of N samples, S voxels and C channels in ``dtype`` on
+    a card of ``sms`` SMs. f32: the Triton kernels (:data:`TRITON_BWD`).
+    bf16: ``csrc/in_act_bwd.cu``, one block per SM at most (the grid barrier
+    needs them all resident), the samples' voxels cut into equal
+    block-contiguous ranges, no more blocks than give each thread one vector
+    of x. Raises TypeError for another dtype and ValueError for what the
+    kernel does not take (a bf16 C % 8 != 0 goes to the Triton kernels
+    before this is asked)."""
+    check_dtype(dtype, "instance_norm_act_bwd")
+    if dtype == torch.float32:
+        return TRITON_BWD
     c8 = c // 8
     if c % 8 or not 0 < c8 <= BWD_MAX_C // 8 or n < 1 or s < 1:
         raise ValueError(f"in_act_bwd.cu: no plan for N={n} S={s} C={c}")
@@ -249,8 +263,7 @@ def _check_kernel_input(x: torch.Tensor, activation: str) -> None:
         raise ValueError(f"unknown activation {activation!r}; one of {ACTIVATIONS}")
     if x.dim() != 5:
         raise ValueError(f"instance_norm_act: expected NDHWC, got {tuple(x.shape)}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"instance_norm_act kernel takes bf16, not {x.dtype}")
+    check_dtype(x.dtype, "instance_norm_act")
 
 
 def _affine(x, scale, bias):
@@ -280,9 +293,9 @@ def instance_norm_act_kernel(
     activation: str = "relu",
     partials: Optional[torch.Tensor] = None,
 ):
-    """Launch the Triton forward on a CUDA NDHWC bf16 tensor: (y, the f32
-    (N, C) mean, rstd); from the conv's ``partials`` when given (merge and
-    apply), else statistics, finalize and apply."""
+    """Launch the Triton forward on a CUDA NDHWC bf16 or f32 tensor: (y,
+    the f32 (N, C) mean, rstd); from the conv's ``partials`` when given
+    (merge and apply), else statistics, finalize and apply."""
     _check_kernel_input(x, activation)
     from . import triton_norm
 
@@ -299,7 +312,7 @@ def instance_norm_act_kernel(
             mean, rstd = triton_norm.launch_from_partials(
                 x3, y3, partials.contiguous(), gamma, beta, float(eps),
                 activation)
-    _build.count_launch(instance_norm_act, "launches",
+    _build.count_launch(instance_norm_act, "launches", *f32_counter(x),
                         *(() if partials is None else ("launches_partials",)))
     return y3.view(n, d, h, w, c), mean, rstd
 
@@ -319,30 +332,33 @@ def _bwd_inputs(x, g, gamma, beta, mean, rstd, activation):
 def instance_norm_act_bwd_kernel_triton(x, g, gamma, beta, mean, rstd,
                                         activation: str = "relu"):
     """The Triton backward (partials, merge, dx: three launches) on CUDA
-    NDHWC bf16 x and g: what :func:`instance_norm_act_bwd_kernel` launches
-    where C is not a multiple of 8."""
+    NDHWC x and g: what :func:`instance_norm_act_bwd_kernel` launches in f32
+    and, in bf16, where C is not a multiple of 8."""
     from . import triton_norm
 
     x3, g3, *consts = _bwd_inputs(x, g, gamma, beta, mean, rstd, activation)
     dx3 = torch.empty_like(x3)
     with torch.cuda.device(x.device):
         dgamma, dbeta = triton_norm.launch_bwd(x3, g3, dx3, *consts, activation)
-    _build.count_launch(instance_norm_act_bwd)
+    _build.count_launch(instance_norm_act_bwd, "launches", *f32_counter(x))
     return dx3.view(x.shape), dgamma, dbeta
 
 
 def instance_norm_act_bwd_kernel(x, g, gamma, beta, mean, rstd,
                                  activation: str = "relu"):
-    """The backward on CUDA NDHWC bf16 x and g: ``csrc/in_act_bwd.cu`` (one
-    launch) where C % 8 == 0, else the Triton kernels. (dx, dgamma, dbeta)."""
+    """The backward on CUDA NDHWC x and g, by :func:`plan_in_bwd`: in bf16
+    ``csrc/in_act_bwd.cu`` (one launch) where C % 8 == 0; the Triton kernels
+    in f32 and for other C. (dx, dgamma, dbeta)."""
     c = x.shape[-1]
-    if c % 8:
+    check_dtype(x.dtype, "instance_norm_act_bwd")
+    n, s = x.shape[0], x.numel() // max(1, x.shape[0] * c)
+    plan = (TRITON_BWD if c % 8 else
+            plan_in_bwd(n, s, c, _build.sm_count(x.device), x.dtype))
+    if plan.route == "triton":
         return instance_norm_act_bwd_kernel_triton(x, g, gamma, beta, mean,
                                                    rstd, activation)
     x3, g3, mean, rstd, gamma, beta = _bwd_inputs(x, g, gamma, beta, mean,
                                                   rstd, activation)
-    n, s, _ = x3.shape
-    plan = plan_in_bwd(n, s, c, _build.sm_count(x.device))
     dx3 = torch.empty_like(x3)
     # the blocks' partials, then the per-sample sums (the grid form's)
     part = (None if plan.column else
@@ -437,3 +453,5 @@ instance_norm_act.launches = 0
 instance_norm_act.launches_partials = 0
 instance_norm_act_bwd.launches = 0
 instance_norm_act_bwd.launches_cuda = 0
+instance_norm_act.launches_f32 = 0
+instance_norm_act_bwd.launches_f32 = 0

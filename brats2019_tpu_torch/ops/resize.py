@@ -14,15 +14,17 @@ All are ``autograd.Function``s whose backward is the exact VJP
 :func:`upsample2x_bwd`: the stride-2 4-tap correlation with the
 replicate-clamp edge folds, ``pallas_resize.py:128-234``). Forward and
 backward run their plain version on a CPU tensor and a kernel on a CUDA bf16
-tensor (or raise): the 2x up forward and backward are ``csrc/resize2x.cu``
-where C is a multiple of 8 (the Triton ``_up2x_kernel`` and
-``_up2x_bwd_kernel`` for other C, or a gradient whose channel pitch is not a
-multiple of 8, chosen by shape), the rest the Triton kernels of
-``ops/triton_resize.py``. The up backward reads the concat gradient's up
-half in place, at the concat's channel pitch. ``.launches`` counts kernel
-launches; ``upsample2x.launches_cuda`` and ``upsample2x_bwd.launches_cuda``
-those of them on resize2x.cu, ``upsample2x.launches_concat`` those that
-wrote into a concat buffer.
+or f32 tensor (or raise), by :func:`plan_resize`: in bf16 the 2x up forward
+and backward are ``csrc/resize2x.cu`` where C is a multiple of 8 (the Triton
+``_up2x_kernel`` and ``_up2x_bwd_kernel`` for other C, or a gradient whose
+channel pitch is not a multiple of 8), in f32 the Triton kernels, and the 2x
+down and its backward are the Triton kernels of ``ops/triton_resize.py`` in
+both (their loads and stores take the tensor's dtype; arithmetic is f32).
+The up backward reads the concat gradient's up half in place, at the
+concat's channel pitch. ``.launches`` counts kernel launches;
+``upsample2x.launches_cuda`` and ``upsample2x_bwd.launches_cuda`` those of
+them on resize2x.cu, ``upsample2x.launches_concat`` those that wrote into a
+concat buffer, ``.launches_f32`` of each those on f32 tensors.
 
 * :func:`resize_trilinear` — arbitrary target shape, plain torch on every
   device, as the JAX package runs it outside any Pallas kernel. It is
@@ -37,12 +39,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from . import _build
+from .conv import check_dtype, f32_counter
 
 _SIG = {
     "upsample2x_ndhwc_bf16": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
@@ -153,11 +156,29 @@ def upsample2x_bwd_plain(g: torch.Tensor) -> torch.Tensor:
 
 # ----------------------------------------------------------------- kernels --
 
+RESIZE_OPS = ("downsample2x", "downsample2x_bwd", "upsample2x", "upsample2x_bwd")
+
+
+def plan_resize(op: str, c: int, dtype: torch.dtype,
+                pitch: Optional[int] = None) -> str:
+    """The kernel that runs ``op`` (one of :data:`RESIZE_OPS`) on a CUDA
+    tensor of C channels in ``dtype`` (``pitch``: the up backward's gradient
+    channel pitch, None where it is not C channels of an NDHWC buffer):
+    ``"resize2x.cu"`` or ``"triton"``. bf16 and f32; any other dtype raises
+    TypeError."""
+    if op not in RESIZE_OPS:
+        raise ValueError(f"unknown resize op {op!r}; one of {RESIZE_OPS}")
+    check_dtype(dtype, op)
+    if (dtype == torch.float32 or op.startswith("down") or c % 8
+            or (pitch is not None and pitch % 8)):
+        return "triton"
+    return "resize2x.cu"
+
+
 def _check5d(x: torch.Tensor, what: str) -> None:
     if x.dim() != 5:
         raise ValueError(f"{what}: expected NDHWC, got {tuple(x.shape)}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{what} kernel takes bf16, not {x.dtype}")
+    check_dtype(x.dtype, what)
 
 
 def downsample2x_kernel(x: torch.Tensor) -> torch.Tensor:
@@ -171,13 +192,13 @@ def downsample2x_kernel(x: torch.Tensor) -> torch.Tensor:
     y = torch.empty((n, d // 2, h // 2, w // 2, c), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         triton_resize.launch_down(x, y)
-    _build.count_launch(downsample2x)
+    _build.count_launch(downsample2x, "launches", *f32_counter(x))
     return y
 
 
 def upsample2x_kernel_triton(x: torch.Tensor) -> torch.Tensor:
     """The Triton ``_up2x_kernel`` (any C): what :func:`upsample2x_kernel`
-    launches where C is not a multiple of 8."""
+    launches in f32 and, in bf16, where C is not a multiple of 8."""
     _check5d(x, "upsample2x")
     from . import triton_resize
 
@@ -186,7 +207,7 @@ def upsample2x_kernel_triton(x: torch.Tensor) -> torch.Tensor:
     y = torch.empty((n, 2 * d, 2 * h, 2 * w, c), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         triton_resize.launch_up(x, y)
-    _build.count_launch(upsample2x)
+    _build.count_launch(upsample2x, "launches", *f32_counter(x))
     return y
 
 
@@ -202,11 +223,11 @@ def _launch_up_cuda(x: torch.Tensor, out: torch.Tensor, offset: int) -> None:
 
 
 def upsample2x_kernel(x: torch.Tensor) -> torch.Tensor:
-    """The 2x up on a CUDA bf16 tensor: csrc/resize2x.cu where C % 8 == 0,
-    else the Triton kernel."""
+    """The 2x up on a CUDA tensor, by :func:`plan_resize`: csrc/resize2x.cu
+    (bf16, C % 8 == 0) or the Triton kernel."""
     _check5d(x, "upsample2x")
     n, d, h, w, c = x.shape
-    if c % 8:
+    if plan_resize("upsample2x", c, x.dtype) == "triton":
         return upsample2x_kernel_triton(x)
     x = x.contiguous()
     y = torch.empty((n, 2 * d, 2 * h, 2 * w, c), dtype=x.dtype, device=x.device)
@@ -216,10 +237,11 @@ def upsample2x_kernel(x: torch.Tensor) -> torch.Tensor:
 
 
 def upsample2x_concat_kernel(x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-    """``cat([up(x), skip], -1)`` on CUDA bf16 tensors: csrc/resize2x.cu
-    writes up(x) into the concat buffer's first C channels where C and the
-    buffer's channels are multiples of 8 (else the up is made apart and
-    copied in), and skip is copied into the rest."""
+    """``cat([up(x), skip], -1)`` on CUDA tensors: csrc/resize2x.cu writes
+    up(x) into the concat buffer's first C channels where :func:`plan_resize`
+    gives it x and the buffer's channels are multiples of 8; else (f32, or C
+    not a multiple of 8) the Triton up is made apart and copied into the
+    buffer. skip is copied into the rest."""
     _check5d(x, "upsample2x_concat")
     _check5d(skip, "upsample2x_concat")
     n, d, h, w, cu = x.shape
@@ -228,7 +250,8 @@ def upsample2x_concat_kernel(x: torch.Tensor, skip: torch.Tensor) -> torch.Tenso
                          f"{skip.device} for x {tuple(x.shape)} on {x.device}")
     buf = torch.empty((n, 2 * d, 2 * h, 2 * w, cu + skip.shape[-1]),
                       dtype=x.dtype, device=x.device)
-    if cu % 8 or buf.shape[-1] % 8:
+    if (plan_resize("upsample2x", cu, x.dtype) == "triton"
+            or buf.shape[-1] % 8):
         buf[..., :cu] = upsample2x_kernel(x)
     else:
         _launch_up_cuda(x.contiguous(), buf, 0)
@@ -249,14 +272,14 @@ def downsample2x_bwd_kernel(g: torch.Tensor, x_shape) -> torch.Tensor:
     dx = torch.empty(tuple(x_shape), dtype=g.dtype, device=g.device)
     with torch.cuda.device(g.device):
         triton_resize.launch_down_bwd(g, dx)
-    _build.count_launch(downsample2x_bwd)
+    _build.count_launch(downsample2x_bwd, "launches", *f32_counter(g))
     return dx
 
 
 def upsample2x_bwd_kernel_triton(g: torch.Tensor) -> torch.Tensor:
     """The Triton ``_up2x_bwd_kernel`` (any C) on a contiguous copy of g:
-    what :func:`upsample2x_bwd_kernel` launches where C is not a multiple of
-    8 or g's channel pitch is not one."""
+    what :func:`upsample2x_bwd_kernel` launches in f32 and, in bf16, where C
+    is not a multiple of 8 or g's channel pitch is not one."""
     _check5d(g, "upsample2x_bwd")
     from . import triton_resize
 
@@ -268,7 +291,7 @@ def upsample2x_bwd_kernel_triton(g: torch.Tensor) -> torch.Tensor:
                      device=g.device)
     with torch.cuda.device(g.device):
         triton_resize.launch_up_bwd(g, dx)
-    _build.count_launch(upsample2x_bwd)
+    _build.count_launch(upsample2x_bwd, "launches", *f32_counter(g))
     return dx
 
 
@@ -286,17 +309,17 @@ def channel_pitch(t: torch.Tensor):
 
 
 def upsample2x_bwd_kernel(g: torch.Tensor) -> torch.Tensor:
-    """The VJP of the 2x up on a CUDA bf16 g (N, 2D, 2H, 2W, C):
-    csrc/resize2x.cu where C is a multiple of 8, read in place at g's channel
-    pitch (a copy at pitch C first where g is not C channels of an NDHWC
-    buffer, or not 16-byte aligned); the Triton kernel where C or the pitch
-    is not a multiple of 8."""
+    """The VJP of the 2x up on a CUDA g (N, 2D, 2H, 2W, C), by
+    :func:`plan_resize`: in bf16 csrc/resize2x.cu where C is a multiple of 8,
+    read in place at g's channel pitch (a copy at pitch C first where g is
+    not C channels of an NDHWC buffer, or not 16-byte aligned); the Triton
+    kernel in f32 and where C or the pitch is not a multiple of 8."""
     _check5d(g, "upsample2x_bwd")
     n, d2, h2, w2, c = g.shape
     if d2 % 2 or h2 % 2 or w2 % 2:
         raise ValueError(f"upsample2x_bwd: odd extent in {tuple(g.shape)}")
     pitch = channel_pitch(g)
-    if c % 8 or (pitch is not None and pitch % 8):
+    if plan_resize("upsample2x_bwd", c, g.dtype, pitch) == "triton":
         return upsample2x_bwd_kernel_triton(g)
     if pitch is None or g.data_ptr() % 16:
         g = g.clone(memory_format=torch.contiguous_format)
@@ -403,6 +426,10 @@ upsample2x.launches_concat = 0
 downsample2x_bwd.launches = 0
 upsample2x_bwd.launches = 0
 upsample2x_bwd.launches_cuda = 0
+downsample2x.launches_f32 = 0
+upsample2x.launches_f32 = 0
+downsample2x_bwd.launches_f32 = 0
+upsample2x_bwd.launches_f32 = 0
 
 
 # ----------------------------------------------------------- any-shape resize --

@@ -71,6 +71,11 @@ split is reused:
 Since the backward moved to ``csrc/in_act_bwd.cu`` (one launch, x and g
 read once where they fit in shared memory), kernels 6-8 run where C is not
 a multiple of 8, and ``chip_smoke.py`` times them as its ``prev_ms``.
+
+dtypes: every load converts to f32 and every store to the output tensor's
+dtype, so the same kernels serve bf16 and f32 tensors (the f32 route of the
+configurations whose compute dtype is float32: ``ops/norm.py``); the
+statistics and sums are f32 in both.
 """
 
 import torch

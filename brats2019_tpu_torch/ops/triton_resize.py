@@ -44,7 +44,8 @@ Design: one program per output (n, d, h) row and a block of the flattened
 (w, c) row, so loads and stores walk contiguous NDHWC memory with C minor.
 The TPU kernel gets edge clamping from clamped BlockSpec index maps; here
 each program computes its own clamped tap indices. All arithmetic is f32;
-the store casts to the output dtype.
+the store casts to the output dtype, so the same kernels take bf16 and f32
+tensors (the f32 route of ``ops/resize.py`` ``plan_resize``).
 """
 
 import triton

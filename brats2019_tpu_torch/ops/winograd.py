@@ -11,7 +11,9 @@ W and a DHWIO kernel ``w`` (3, 3, 3, Ci, Co), and returns (N, D, H, W, Co) in
   unfolded 4^3 tiles, 64 per-point matmuls, A^T);
 * on a CUDA tensor, a hand-written kernel (bf16 in, f32 accumulation, bf16
   out), or an error. There is no fallback, and odd D/H/W raise as in the
-  reference. :func:`plan_winograd` picks the instance from the shape (and the
+  reference. There is no f32 instance: an f32 tensor (the configurations
+  whose compute dtype is float32) raises :class:`WinogradF32Error`, which
+  names the direct backend (``set_backend("direct")``) that has one. :func:`plan_winograd` picks the instance from the shape (and the
   device's SM count) alone: ``csrc/winograd3d_wgmma.cu`` (wgmma on bricks of
   4^3 tiles, V made in packed bf16 by a transformer warpgroup, U by TMA)
   where Ci % 16 == 0 and Co % 8 == 0, else ``csrc/winograd3d.cu`` (mma.sync,
@@ -131,11 +133,25 @@ def instance_plan(instance: str, n: int, d: int, h: int, w: int, ci: int,
                         n_tiles, grid, blocks, fill)
 
 
+class WinogradF32Error(TypeError):
+    """The Winograd backend has bf16 instances only."""
+
+    def __init__(self, dtype: torch.dtype = torch.float32):
+        super().__init__(
+            f"the Winograd conv has bf16 kernels only, no {dtype} instance; "
+            "for float32 configurations use the direct backend "
+            "(ops.set_backend('direct')), whose csrc/conv3d.cu has an f32 "
+            "FFMA instance")
+
+
 @functools.lru_cache(maxsize=4096)   # a process sees a few dozen shapes
 def plan_winograd(n: int, d: int, h: int, w: int, ci: int, co: int,
-                  sms: int = SM_COUNT) -> WinogradPlan:
+                  sms: int = SM_COUNT,
+                  dtype: torch.dtype = torch.bfloat16) -> WinogradPlan:
     """The instance, brick and grid for a (n, d, h, w, ci) -> co Winograd conv
-    (even d, h, w) on a device of ``sms`` SMs."""
+    (even d, h, w) in ``dtype`` on a device of ``sms`` SMs: bf16 only
+    (:class:`WinogradF32Error` for f32, TypeError for any other dtype)."""
+    _check_dtype(dtype)
     instance = "mma_sync" if ci % 16 or co % 8 else "wgmma"
     return instance_plan(instance, n, d, h, w, ci, co, sms)
 
@@ -302,10 +318,17 @@ def padded_u(w: torch.Tensor) -> torch.Tensor:
     return u
 
 
+def _check_dtype(dtype: torch.dtype) -> None:
+    if dtype == torch.float32:
+        raise WinogradF32Error()
+    if dtype != torch.bfloat16:
+        raise TypeError(f"conv3d_winograd kernel takes bf16, not {dtype}")
+
+
 def _check_kernel_args(x: torch.Tensor, w: torch.Tensor) -> None:
-    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise TypeError("conv3d_winograd kernel takes bf16 input and weight, "
-                        f"got {x.dtype}, {w.dtype}")
+    _check_dtype(x.dtype)
+    if w.dtype != torch.bfloat16:
+        raise TypeError(f"conv3d_winograd kernel takes a bf16 weight, not {w.dtype}")
     _check_shapes(x, w)
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError("conv3d_winograd kernel takes x and w on one CUDA "

@@ -62,6 +62,16 @@ and prints no result lines). Phases:
    channels_last_3d ``F.conv3d``, ``F.instance_norm`` + relu,
    ``F.avg_pool3d``, ``F.interpolate``; for a backward kernel that call's
    autograd backward, read as forward+backward minus forward).
+   The f32 routes (the configurations whose compute dtype is float32): the
+   FFMA instance of ``csrc/conv3d.cu`` and the Triton IN+act, down, up and
+   their backwards in f32, at the accuracy config's forward at its TTA tile
+   batch (8, 32^3), the ``smoke`` train step (1, 64^3) and the ``unit`` train
+   step (C = 4: C % 8 != 0), each against its plain version (f32 math, TF32
+   off): conv forward and dgrad, IN+act forward and backward, dgamma/dbeta
+   max|d|/max|ref| <= 1e-5, down, up and their backwards <= 1e-6, a repeat
+   run bitwise equal, every launch on ``launches_f32`` and none on a bf16-only
+   route, and device time beside the bound (f32 bytes, the f32 pipe) and the
+   library call on the same f32 inputs.
 3. The predict slice: CASES synthetic 240x240x155 cases and seeded random
    ``cascade`` weights saved as ``params.npz``, run through
    ``brats2019_tpu_torch.cli.predict`` on the card with the launch counters
@@ -122,13 +132,40 @@ and prints no result lines). Phases:
    equal, launch counts equal to what the program's tiles and nets give, on
    their routes, the program ``make_predict_fn`` chose, the staged sweep on
    the card against the plain path on the CPU at a small input, and device
-   ms/volume (CUDA events) and e2e s/volume. It runs last, so that phases 4
-   and 5 meet the card as they did before it was added.
+   ms/volume (CUDA events) and e2e s/volume. It runs after phase 5, so that
+   phases 4 and 5 meet the card as they did before it was added.
+
+7. The accuracy slice, after phase 6 so that phases 4-6 meet the card as
+   before: (0) the f32 presets ``unit`` and ``smoke`` train 3 steps with an
+   eval and predict through the CLIs on the card, every launch on an f32
+   route; (1) the five arms of the accuracy benchmark (single view, TTA, the
+   2-member ensemble, EMA weights, the empty-ET case) at f32 on the card on
+   the committed fixtures (``tests/fixtures/accuracy``) and the hard cases of
+   seeds 10, 11, 13 at (64, 64, 48) from the port's generator: every bound of
+   ``tests/test_accuracy_benchmark.py:108-183`` (restated in
+   :func:`accuracy_bounds`), only f32 routes launched, labels equal to the CPU
+   plain path's but on ties (the count printed); (2) the flagship ensemble,
+   ``cli.predict --preset cascade --ensemble W2 --save-probs
+   --save-uncertainty`` on the phase-3 cases with a second seeded random
+   member: labels in {0,1,2,4}, probabilities summing to 1 within f16
+   rounding, their argmax against the labels before postprocessing, the
+   uncertainty maps in [0, 100], a repeat run bitwise equal, the primary as
+   its own second member giving the Predictor's probabilities bitwise and
+   phase 3's labels, 24 wgmma convs per member per volume per pass; (3)
+   ``cli.evaluate --ensemble W2 --hd95 --sens-spec``; (4) one ``serve``
+   daemon with ``--ensemble --save-probs --save-uncertainty --http``: POST
+   /predict one case, GET its probs and whole-tumour uncertainty artifacts;
+   (5) the ensemble's device ms/vol (CUDA events around the members'
+   probability programs and the accumulation) for K = 1 and 2, e2e s/vol and
+   peak device memory.
 
 The line before the last holds the kernels' JSON record (forward kernels:
 launches on the predict slice, times per volume; backward kernels: launches
 on the training slice, times per fine train step; the Winograd conv:
-launches on the serving slice, times per volume; ``ms``/``plain_ms``/
+launches on the serving slice, times per volume; the f32 instances
+(``*_f32``): forward launches on phase 7's accuracy arms, times per
+accuracy-config tile batch, backward launches on phase 7's ``smoke``
+training, times per smoke train step; ``ms``/``plain_ms``/
 ``library_ms``/``bound_ms`` are device times, ``wall_ms``/``plain_wall_ms``
 back-to-back wall times); the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
@@ -157,6 +194,7 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 OUT = os.environ.get("CHIP_SMOKE_OUT", os.path.join(ROOT, "build", "profiles"))
 PRESET, DEVICE = "cascade", "cuda"   # what phase 5's daemons are started with
 CASES = 3   # synthetic 240x240x155 requests
+ACC_SHAPE = (64, 64, 48)   # the accuracy benchmark's cases and canvas
 SEED = 0    # of the cases and of the random weights
 TRAIN_STEPS = 20   # per stage; log every 5, eval and checkpoint every 10
 # the one-step check of the kernel train step against the plain path: its
@@ -355,19 +393,22 @@ def device_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_terms(name, shape):
+def bound_terms(name, shape, itemsize=2):
     """The two terms of a call's bound in ms: the bytes it must move (every
-    input read once, every output written once) over the card's memory rate,
-    and its operations over the card's peak for their type (bf16 tensor
-    cores for the convs' products, f32 elsewhere). The Winograd conv counts
-    its 64 per-point products per 2^3 outputs (8/27 of the direct conv's)."""
+    input read once, every output written once, ``itemsize`` bytes an element:
+    2 for bf16, 4 for f32) over the card's memory rate, and its operations
+    over the card's peak for their type (bf16 tensor cores for the bf16
+    convs' products, the f32 pipe for the f32 convs and everything else).
+    The Winograd conv counts its 64 per-point products per 2^3 outputs (8/27
+    of the direct conv's)."""
     if name in ("conv3d", "conv3d_winograd"):
         n, d, h, w, ci, co = shape
         m = n * d * h * w
         macs = (27 if name == "conv3d" else 8) * ci * co * m
-        nbytes = 2 * (m * ci + 27 * ci * co + m * co)
-        return nbytes / PEAK_BW * 1e3, 2 * macs / PEAK_BF16 * 1e3
-    numel = math.prod(shape)     # the forward input's elements, bf16
+        nbytes = itemsize * (m * ci + 27 * ci * co + m * co)
+        peak = PEAK_BF16 if itemsize == 2 else PEAK_F32
+        return nbytes / PEAK_BW * 1e3, 2 * macs / peak * 1e3
+    numel = math.prod(shape) * itemsize / 2   # the forward input, in bf16 elements
     nbytes, flops = {
         "instance_norm_act": (4 * numel, 8 * numel),
         "instance_norm_act_bwd": (6 * numel, 14 * numel),
@@ -376,7 +417,7 @@ def bound_terms(name, shape):
         "upsample2x": (18 * numel, 8 * 15 * numel),
         "upsample2x_bwd": (18 * numel, 8 * 15 * numel),
     }[name]
-    return nbytes / PEAK_BW * 1e3, flops / PEAK_F32 * 1e3
+    return nbytes / PEAK_BW * 1e3, flops * 2 / itemsize / PEAK_F32 * 1e3
 
 
 def library_ms(name, x, reps, gy=None, wt=None, gam=None, bet=None):
@@ -1077,6 +1118,552 @@ def small_sweep_reference(exp, wd, dev) -> None:
           f"staged sweep (2 tiles of 16^3, fine net at full width) card vs CPU "
           f"plain: mean probabilities max|d| {err:.3e} (tol 5e-2), argmax "
           f"agreement {agree:.5f} (tol 0.98)")
+
+
+# ------------------------------------------------- phase 2: the f32 routes --
+
+# the f32 instances' tolerances against their plain versions (f32 math, TF32
+# off), max|d|/max|ref|: f32 sums in another order
+F32_TOL = {"conv3d": 1e-5, "instance_norm_act": 1e-5,
+           "instance_norm_act_bwd": 1e-5}
+F32_RESIZE_TOL = 1e-6
+F32_SOURCE = {
+    "conv3d": ("cuda", "brats2019_tpu_torch/csrc/conv3d.cu (conv3d_ndhwc_f32)"),
+    "instance_norm_act": ("triton", "brats2019_tpu_torch/ops/triton_norm.py"),
+    "instance_norm_act_bwd": ("triton", "brats2019_tpu_torch/ops/triton_norm.py"),
+    "downsample2x": ("triton", "brats2019_tpu_torch/ops/triton_resize.py"),
+    "upsample2x": ("triton", "brats2019_tpu_torch/ops/triton_resize.py"),
+    "downsample2x_bwd": ("triton", "brats2019_tpu_torch/ops/triton_resize.py"),
+    "upsample2x_bwd": ("triton", "brats2019_tpu_torch/ops/triton_resize.py"),
+}
+
+
+def accuracy_exp(tta=True):
+    """The accuracy benchmark's configuration
+    (``tests/test_accuracy_benchmark.py:43-56``): a 2-level, base-8 f32 net,
+    no cascade, 32^3 tiles over a (64, 64, 48) canvas."""
+    from brats2019_tpu_torch.configs import presets as P
+
+    return P.ExperimentConfig(
+        name="accuracy_benchmark",
+        unet=P.UNetConfig(levels=2, base_features=8, compute_dtype="float32"),
+        coarse_unet=None, train=P.TrainConfig(pool_shape=ACC_SHAPE),
+        infer=P.InferenceConfig(
+            canvas=ACC_SHAPE, tile=(32, 32, 32), cascade=False, tta_flips=tta,
+            min_component_voxels=0, et_min_voxels=0, compute_dtype="float32",
+            tta_precision="float32"))
+
+
+def check_f32_kernels(calls, dev):
+    """The f32 route of every kernel seam at each unique (kernel, shape) of
+    ``calls``: within its tolerance of the plain version (f32 math, TF32
+    off), a repeat run bitwise equal, the route the counters show (every
+    launch on ``launches_f32``; no wgmma conv, no CUDA C++ IN backward or 2x
+    up), device time beside the plain version, the bound (f32 bytes, the f32
+    pipe) and the library call on the same f32 inputs. Returns {(name,
+    shape): the tuple of :func:`check_kernels`}."""
+    import torch
+
+    from brats2019_tpu_torch import ops
+    from brats2019_tpu_torch.ops import conv, norm, resize
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    rel = lambda a, b: ((a.float() - b.float()).abs().max()
+                        / b.float().abs().max().clamp_min(1e-30)).item()
+    results = {}
+    for name, shape in dict.fromkeys(calls):
+        gy = wt = gam = bet = None
+        lib_x = None
+        if name == "conv3d":
+            n, d, h, w, ci, co = shape
+            x = torch.randn((n, d, h, w, ci), generator=g, device=dev)
+            wt = torch.randn((3, 3, 3, ci, co), generator=g, device=dev) / (27 * ci) ** 0.5
+            kern = lambda: conv.conv3d_kernel(x, wt)
+            plain = lambda: conv.conv3d_plain(x, wt)
+        elif name in ("instance_norm_act", "instance_norm_act_bwd"):
+            x = torch.randn(shape, generator=g, device=dev) * 3 + 1
+            gam = torch.rand(shape[-1], generator=g, device=dev) + 0.5
+            bet = torch.randn(shape[-1], generator=g, device=dev) * 0.2
+            if name == "instance_norm_act":
+                kern = lambda: norm.instance_norm_act_kernel(x, gam, bet)[0]
+                plain = lambda: norm.instance_norm_act_plain(x, gam, bet)
+            else:
+                gy = torch.randn(shape, generator=g, device=dev)
+                _, mean, rstd = norm._plain_stats(x, gam, bet, 1e-5, "relu")
+                args = (x, gy, gam, bet, mean, rstd)
+                kern = lambda: norm.instance_norm_act_bwd_kernel(*args)
+                plain = lambda: norm.instance_norm_act_bwd_plain(*args)
+        elif name == "downsample2x_bwd":
+            gy = torch.randn((shape[0],) + tuple(v // 2 for v in shape[1:4])
+                             + shape[4:], generator=g, device=dev)
+            kern = lambda: resize.downsample2x_bwd_kernel(gy, shape)
+            plain = lambda: resize.downsample2x_bwd_plain(gy, shape)
+        elif name == "upsample2x_bwd":
+            # the up half of a concat gradient, as the decoder's backward gives it
+            cat = torch.randn((shape[0],) + tuple(2 * v for v in shape[1:4])
+                              + (2 * shape[4],), generator=g, device=dev)
+            gy = cat[..., :shape[4]]
+            kern = lambda: resize.upsample2x_bwd_kernel(gy)
+            plain = lambda: resize.upsample2x_bwd_plain(gy)
+        else:
+            x = torch.randn(shape, generator=g, device=dev)
+            kfn, pfn = (getattr(resize, f"{name}_kernel"), getattr(resize, f"{name}_plain"))
+            kern = lambda: kfn(x)
+            plain = lambda: pfn(x)
+        if name in ("downsample2x_bwd", "upsample2x_bwd"):
+            lib_x = torch.randn(shape, generator=g, device=dev)
+        wrapper = getattr(ops, name)
+        side = ((conv.conv3d, "launches_wgmma"),) if name == "conv3d" else (
+            ((wrapper, "launches_cuda"),) if hasattr(wrapper, "launches_cuda") else ())
+        before = [wrapper.launches, wrapper.launches_f32] + [getattr(f, a) for f, a in side]
+        got, again, ref = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        took = [wrapper.launches - before[0], wrapper.launches_f32 - before[1]] + [
+            getattr(f, a) - b for (f, a), b in zip(side, before[2:])]
+        route_ok = took == [2, 2] + [0] * len(side)
+        extra = ""
+        if name == "instance_norm_act_bwd":
+            sums_err = max(rel(got[1], ref[1]), rel(got[2], ref[2]))
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            extra = f", dgamma/dbeta {sums_err:.3e} (tol {F32_TOL[name]:g})"
+            got, ref = got[0], ref[0]
+        else:
+            sums_err = 0.0
+            same = bool(torch.equal(got, again))
+        tol = F32_TOL.get(name, F32_RESIZE_TOL)
+        err = rel(got, ref)
+        abs_err = (got - ref).abs().max().item()
+        ok = (err <= tol and sums_err <= tol and same and route_ok
+              and got.dtype == torch.float32 and got.shape == ref.shape
+              and bool(torch.isfinite(got).all()))
+        reps = 10
+        ms, plain_ms = device_ms(kern, reps), device_ms(plain, reps)
+        wall, plain_wall = cuda_ms(kern, reps), cuda_ms(plain, reps)
+        bytes_ms, ops_ms = bound_terms(name, shape, itemsize=4)
+        lib = library_ms(name, lib_x if lib_x is not None else x, reps, gy=gy,
+                         wt=wt, gam=gam, bet=bet)
+        check(ok, f"{name} f32 {shape}: max|d|/max|ref| {err:.3e} (tol {tol:g})"
+                  f"{extra}, max|d| {abs_err:.3e}, repeat run bitwise equal: "
+                  f"{same}, launches (all, f32, bf16-only routes) {took}; device "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library call "
+                  f"{lib:.4f} ms; bound {max(bytes_ms, ops_ms):.4f} ms (bytes "
+                  f"{bytes_ms:.4f}, operations {ops_ms:.4f})")
+        results[(name, shape)] = (err, abs_err, ms, plain_ms, wall, plain_wall,
+                                  bytes_ms, ops_ms, lib, None)
+        del got, again, ref, kern, plain
+    return results
+
+
+# ------------------------------------------------------------------ phase 7 --
+
+def accuracy_bounds(arms):
+    """The bounds of ``tests/test_accuracy_benchmark.py:108-183`` on the
+    arms {arm: [(labels, seg), ...]} (restated here: this script imports
+    nothing of the JAX package's tests). Returns [(ok, what)]."""
+    from brats2019_tpu_torch.infer.postprocess import postprocess_labels
+    from brats2019_tpu_torch.train.metrics import region_dice_np
+
+    dice = lambda arm: [region_dice_np(lab, seg) for lab, seg in arms[arm]]
+    mean = lambda rows, r: float(sum(x[r] for x in rows) / len(rows))
+    tta, no, ens, ema = (dice(a) for a in ("tta", "no_tta", "ensemble2", "ema"))
+    out = []
+    fmt = lambda rows: "/".join(f"{mean(rows, r):.4f}" for r in ("WT", "TC", "ET"))
+    out.append((mean(tta, "WT") >= 0.88 and mean(tta, "TC") >= 0.88
+                and mean(tta, "ET") >= 0.80,
+                f"fixture validity: TTA WT/TC/ET {fmt(tta)} (bounds 0.88/0.88/0.80)"))
+    out.append((mean(tta, "WT") >= mean(no, "WT") - 0.005
+                and mean(tta, "TC") >= mean(no, "TC") + 0.01
+                and mean(tta, "ET") >= mean(no, "ET") + 0.01,
+                f"TTA beats a single view: {fmt(tta)} against {fmt(no)} "
+                f"(WT -0.005, TC +0.01, ET +0.01)"))
+    out.append((mean(ens, "WT") >= mean(tta, "WT") - 0.01
+                and mean(ens, "TC") >= mean(tta, "TC") + 0.005,
+                f"the 2-member ensemble buys WT/TC: {fmt(ens)} against TTA "
+                f"{fmt(tta)} (WT -0.01, TC +0.005)"))
+    out.append((all(abs(mean(ema, r) - mean(tta, r)) <= 0.05 for r in ("WT", "TC", "ET")),
+                f"EMA weights track the final weights: {fmt(ema)} against "
+                f"{fmt(tta)} (band 0.05)"))
+    labels, seg = arms["no_tta_empty_et"][0]
+    spurious = int((labels == 3).sum())
+    raw = region_dice_np(labels, seg)
+    fixed = region_dice_np(postprocess_labels(labels.copy(), min_component_voxels=0,
+                                              et_min_voxels=200), seg)
+    out.append((0 < spurious < 200 and raw["ET"] == 0.0 and fixed["ET"] == 1.0
+                and fixed["WT"] == raw["WT"] and fixed["TC"] == raw["TC"],
+                f"empty-ET case: {spurious} spurious ET voxels (bound (0, 200)), "
+                f"ET Dice {raw['ET']} -> {fixed['ET']} with et_min_voxels 200, "
+                f"WT/TC kept"))
+    rows = arms["no_tta"] + arms["no_tta_empty_et"]
+    raw = [region_dice_np(lab, s) for lab, s in rows]
+    filt = [region_dice_np(postprocess_labels(lab.copy(), min_component_voxels=16,
+                                              et_min_voxels=0), s) for lab, s in rows]
+    out.append((mean(filt, "WT") >= mean(raw, "WT") and mean(filt, "TC") >= mean(raw, "TC"),
+                f"small-component filter (16 voxels) helps WT: WT/TC "
+                f"{mean(filt, 'WT'):.4f}/{mean(filt, 'TC'):.4f} against "
+                f"{mean(raw, 'WT'):.4f}/{mean(raw, 'TC'):.4f}"))
+    return out
+
+
+# the f32 presets on the card (F3): each trains a few steps on hard synthetic
+# cases of this shape and predicts one of them
+F32_PRESETS = (("unit", (40, 40, 32)), ("smoke", (96, 96, 80)))
+# top-2 gap of the CPU plain path's mean probabilities below which the card's
+# f32 labels may differ from the CPU's (f32 sums in another order)
+CARD_TIE = 1e-4
+# the routes that only bf16 takes: every launch of an f32 slice leaves them at 0
+BF16_ROUTES = (("conv3d", "launches_wgmma"), ("instance_norm_act", "launches_partials"),
+               ("upsample2x", "launches_cuda"), ("upsample2x", "launches_concat"),
+               ("instance_norm_act_bwd", "launches_cuda"),
+               ("upsample2x_bwd", "launches_cuda"))
+
+
+def f32_counts():
+    """{kernel: (launches, launches_f32)} of the seams with an f32 route, and
+    the bf16-only route counters."""
+    from brats2019_tpu_torch import ops
+
+    counts = {k: (getattr(ops, k).launches, getattr(ops, k).launches_f32)
+              for k in F32_SOURCE}
+    bf16 = {f"{k}.{a}": getattr(getattr(ops, k), a) for k, a in BF16_ROUTES}
+    return counts, bf16
+
+
+def check_f32_route(counts, bf16, kernels, what):
+    check(all(counts[k][0] == counts[k][1] > 0 for k in kernels)
+          and not any(bf16.values()),
+          f"{what}: launches (all, f32) {({k: counts[k] for k in kernels})}; "
+          f"bf16-only routes {bf16}")
+
+
+def f32_presets_slice():
+    """Phase 7 part 0 (F3): ``unit`` and ``smoke`` train 3 steps (with an
+    eval) and predict on the card, every launch on an f32 route. Returns the
+    launch counts of the last training run (the f32 backward kernels'
+    record)."""
+    import numpy as np
+
+    from brats2019_tpu_torch.cli import predict as predict_cli
+    from brats2019_tpu_torch.cli import train as train_cli
+    from brats2019_tpu_torch.data.case import discover_cases
+    from brats2019_tpu_torch.utils.nifti import read_nifti
+
+    from brats2019_tpu_torch import ops
+
+    train_counts = None
+    for preset, shape in F32_PRESETS:
+        data = os.path.join(WORK, f"{preset}_cases")
+        wd = os.path.join(WORK, f"{preset}_workdir")
+        args = ["--preset", preset, "--synthetic", "2", "--synthetic-shape",
+                *map(str, shape), "--synthetic-hard", "--data", data,
+                "--workdir", wd, "--device", "cuda", "--steps", "3",
+                "--log-every", "1", "--eval-every", "3"]
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc, _ = run_cli(train_cli.main, args)
+        train_counts = f32_counts()
+        with open(os.path.join(wd, "fine", "fine_metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        steps = [r for r in recs if "loss" in r]
+        evals = [r for r in recs if "val_dice_mean" in r]
+        check(rc == 0 and [r["step"] for r in steps] == [1, 2, 3]
+              and all(math.isfinite(r["loss"]) and r["grad_norm"] > 0 for r in steps)
+              and len(evals) == 1,
+              f"{preset} (f32) trains on the card: exit code {rc}, losses "
+              f"{[round(r['loss'], 4) for r in steps]}, {len(evals)} eval "
+              f"({time.perf_counter() - t0:.1f} s)")
+        check_f32_route(*train_counts, list(F32_SOURCE), f"{preset} training")
+        case = discover_cases(data)[0]
+        out = os.path.join(WORK, f"{preset}_pred.nii.gz")
+        ops.reset_launch_counts()
+        rc = predict_cli.main([case, "--preset", preset, "--workdir", wd,
+                               "--device", "cuda", "--output", out])
+        counts, bf16 = f32_counts()
+        seg = read_nifti(out, apply_scaling=False)[0] if rc == 0 else None
+        check(rc == 0 and seg.shape == shape and set(np.unique(seg)) <= {0, 1, 2, 4},
+              f"{preset} (f32) predicts on the card: exit code {rc}, shape "
+              f"{None if seg is None else seg.shape}")
+        check_f32_route(counts, bf16, FORWARD, f"{preset} predict")
+    return train_counts
+
+
+def accuracy_on_card(dev, card):
+    """Phase 7 part 1: the five arms of the accuracy benchmark at f32 on the
+    card (the committed fixtures through the weight bridge, the hard cases of
+    seeds 10, 11 and 13 from the port's generator): every bound, the route
+    (f32 only), and labels against the CPU plain path except on ties.
+    Returns the launch counts of the card's arms."""
+    import numpy as np
+
+    import torch
+
+    from brats2019_tpu_torch import ops
+    from brats2019_tpu_torch.data.synthetic import make_hard_case_arrays
+    from brats2019_tpu_torch.infer.ensemble import EnsemblePredictor
+    from brats2019_tpu_torch.infer.predictor import Predictor
+    from brats2019_tpu_torch.utils.weights import load_params_npz
+
+    fix = os.path.join(ROOT, "tests", "fixtures", "accuracy")
+    m0, m1, ema = (load_params_npz(os.path.join(fix, f"{n}.npz"))
+                   for n in ("hard_member0", "hard_member1", "hard_member0_ema"))
+    hard = [make_hard_case_arrays(seed=s, shape=ACC_SHAPE) for s in (10, 11)]
+    empty = [make_hard_case_arrays(seed=13, shape=ACC_SHAPE)]
+
+    def arms_on(device):
+        no = Predictor(accuracy_exp(tta=False), m0, device=device)
+        preds = {"no_tta": no, "no_tta_empty_et": no,
+                 "tta": Predictor(accuracy_exp(), m0, device=device),
+                 "ensemble2": EnsemblePredictor(accuracy_exp(), [(m0, None), (m1, None)],
+                                                device=device),
+                 "ema": Predictor(accuracy_exp(), ema, device=device)}
+        arms = {arm: [(p.predict_arrays(img)[0], seg) for img, seg in
+                      (empty if arm == "no_tta_empty_et" else hard)]
+                for arm, p in preds.items()}
+        return arms, preds
+
+    arms_on(dev)                        # first use: Triton's compiles
+    ops.reset_launch_counts()           # just before the main path is driven
+    t0 = time.perf_counter()
+    on_card, _ = arms_on(dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, bf16 = f32_counts()         # just after
+    check_f32_route(counts, bf16, FORWARD, "accuracy arms on the card")
+    print(f"  accuracy arms (7 Predictor passes and 2 ensemble passes over the "
+          f"hard cases, f32) on the card in {wall:.2f} s on {card}", flush=True)
+    for ok, what in accuracy_bounds(on_card):
+        check(ok, f"on the card: {what}")
+    cpu, cpu_preds = arms_on("cpu")
+    for arm in on_card:
+        diff = ties = 0
+        for (got, _), (want, _), (img, _) in zip(
+                on_card[arm], cpu[arm], empty if arm == "no_tta_empty_et" else hard):
+            mism = got != want
+            if mism.any():
+                probs = cpu_preds[arm].predict_probs_arrays(img)[0]
+                top2 = np.sort(probs, axis=-1)[..., -2:]
+                ties += int((mism & ((top2[..., 1] - top2[..., 0]) < CARD_TIE)).sum())
+            diff += int(mism.sum())
+        check(diff == ties, f"{arm}: labels on the card equal the CPU plain path's "
+                            f"but on ties: {diff} voxel(s) differ, {ties} of them "
+                            f"ties (top-2 gap < {CARD_TIE:g})")
+    return counts
+
+
+def read_case_outputs(case_dirs):
+    """(labels, probs, uncertainty maps) written next to each case."""
+    import numpy as np
+
+    from brats2019_tpu_torch.utils.nifti import read_nifti
+
+    out = []
+    for d in case_dirs:
+        name = os.path.basename(d)
+        with np.load(os.path.join(d, f"{name}_probs.npz")) as z:
+            probs, classes = z["probs"], z["classes"]
+        unc = {r: read_nifti(os.path.join(d, f"{name}_unc_{r}.nii.gz"),
+                             apply_scaling=False)[0]
+               for r in ("whole", "core", "enhance")}
+        out.append((read_labels([d])[0], probs, classes, unc))
+    return out
+
+
+def flagship_ensemble(exp, work, case_dirs, first, dev, card):
+    """Phase 7 parts 2-5: the K = 2 flagship ensemble through the predict CLI
+    with --save-probs and --save-uncertainty, ``evaluate``, the ensemble
+    daemon's artifacts, and the ensemble's device ms/vol, e2e s/vol and peak
+    memory."""
+    import numpy as np
+
+    import torch
+
+    from brats2019_tpu_torch import ops
+    from brats2019_tpu_torch.cli import evaluate as evaluate_cli
+    from brats2019_tpu_torch.cli import predict as predict_cli
+    from brats2019_tpu_torch.data.case import load_case
+    from brats2019_tpu_torch.data.constants import VOLUME_SHAPE
+    from brats2019_tpu_torch.data.preprocess import uncrop_from_canvas_np
+    from brats2019_tpu_torch.infer.ensemble import EnsemblePredictor
+    from brats2019_tpu_torch.infer.predictor import Predictor
+    from brats2019_tpu_torch.utils.nifti import read_nifti
+    from brats2019_tpu_torch.utils.weights import init_params, save_params_npz
+
+    w2 = os.path.join(WORK, "member2")
+    for stage, cfg, seed in (("fine", exp.unet, SEED + 2),
+                             ("coarse", exp.coarse_unet, SEED + 3)):
+        os.makedirs(os.path.join(w2, stage))
+        save_params_npz(os.path.join(w2, stage, "params.npz"), init_params(cfg, seed))
+    pair = lambda w: tuple(os.path.join(w, s, "params.npz") for s in ("fine", "coarse"))
+    root = os.path.dirname(case_dirs[0])
+    cli = [root, "--preset", "cascade", "--workdir", work, "--device", "cuda",
+           "--save-probs", "--save-uncertainty"]
+    convs = sum(1 for n, _ in unet_calls(exp.coarse_unet, 1, exp.infer.coarse_shape)
+                + unet_calls(exp.unet, 8, exp.infer.roi_shape) if n == "conv3d")
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = predict_cli.main(cli + ["--ensemble", w2])
+    wall = time.perf_counter() - t0
+    counts, on_wgmma = ops.launch_counts(), ops.conv3d.launches_wgmma
+    want = convs * 2 * 2 * len(case_dirs)      # members x (label pass, probs pass)
+    check(rc == 0 and counts["conv3d"] == on_wgmma == want,
+          f"predict --ensemble (K = 2) --save-probs --save-uncertainty: exit code "
+          f"{rc} ({wall:.1f} s for {len(case_dirs)} cases), {on_wgmma} wgmma convs "
+          f"of {counts['conv3d']} (expected {want}: {convs} per member per volume "
+          f"per pass, a label pass and a probability pass)")
+    outs = read_case_outputs(case_dirs)
+    ens = EnsemblePredictor(exp, [pair(work), pair(w2)], device=dev)
+    for d, (labels, probs, classes, unc) in zip(case_dirs, outs):
+        name = os.path.basename(d)
+        vals = sorted(int(v) for v in np.unique(labels))
+        psum = np.abs(probs.astype(np.float32).sum(-1) - 1.0).max()
+        canvas, shape, bbox = ens._p.prepare(load_case(d).image)
+        raw = uncrop_from_canvas_np(ens.labels_device(canvas).cpu().numpy(), shape,
+                                    bbox, ens._p.canvas)
+        agree = float((np.argmax(probs, -1) == raw).mean())
+        check(labels.shape == VOLUME_SHAPE and set(vals) <= {0, 1, 2, 4}
+              and probs.shape == VOLUME_SHAPE + (4,) and probs.dtype == np.float16
+              and list(classes) == [0, 1, 2, 4] and psum <= 4e-3 and agree >= 0.999
+              and all(u.dtype == np.uint8 and u.shape == VOLUME_SHAPE and u.max() <= 100
+                      for u in unc.values()),
+              f"{name}: labels {vals} at {labels.shape}; probs {probs.dtype} "
+              f"{probs.shape}, classes {list(classes)}, |sum - 1| <= {psum:.2e} "
+              f"(f16 rounding, tol 4e-3); argmax of the saved probs agrees with "
+              f"the ensemble's labels before postprocessing on {agree:.6f} of "
+              f"voxels (tol 0.999); uncertainty maxima "
+              f"{ {r: int(u.max()) for r, u in unc.items()} } (<= 100)")
+    rc = predict_cli.main(cli + ["--ensemble", w2])
+    again = read_case_outputs(case_dirs)
+    same = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+               and all(np.array_equal(a[3][r], b[3][r]) for r in a[3])
+               for a, b in zip(outs, again))
+    check(rc == 0 and same, f"repeat predict --ensemble: labels, probs and "
+                            f"uncertainty bitwise equal {same}")
+
+    # the primary twice: (a + a) / 2 is the Predictor's probability path
+    rc = predict_cli.main(cli + ["--ensemble", work])
+    twice = read_case_outputs(case_dirs)
+    pred = Predictor(exp, *pair(work), device=dev)
+    for d, (labels, probs, _, _), ref in zip(case_dirs, twice, first):
+        path = pred.predict_probs_dir(d, os.path.join(WORK, "one_probs.npz"))
+        with np.load(path) as z:
+            same = np.array_equal(z["probs"], probs)
+        agree = float((labels == ref).mean())
+        check(rc == 0 and same and agree >= 0.999,
+              f"{os.path.basename(d)}: --ensemble of the primary itself: probs "
+              f"bitwise the Predictor's probability path {same}; labels agree "
+              f"with phase 3's on {agree:.6f} of voxels (tol 0.999)")
+    del pred
+
+    # evaluate, the ensemble, on the labelled phase-3 cases
+    out_json = os.path.join(WORK, "evaluate.json")
+    rc = evaluate_cli.main([root, "--preset", "cascade", "--workdir", work,
+                            "--ensemble", w2, "--hd95", "--sens-spec", "--device",
+                            "cuda", "--out", out_json])
+    with open(out_json) as f:
+        rep = json.load(f)
+    dice = [v for c in rep["per_case"].values() for k, v in c.items()
+            if k in ("WT", "TC", "ET")]
+    check(rc == 0 and rep["n_cases"] == len(case_dirs) and len(dice) == 3 * len(case_dirs)
+          and all(0.0 <= v <= 1.0 for v in dice)
+          and all(f"HD95_{r}" in rep["mean"] and f"Sens_{r}" in rep["mean"]
+                  for r in ("WT", "TC", "ET")),
+          f"evaluate --ensemble --hd95 --sens-spec: exit code {rc}, mean {rep['mean']}")
+
+    ensemble_daemon(work, w2, case_dirs[0])
+
+    # device ms/vol of the members' probability programs and the
+    # accumulation, K = 1 and 2; e2e s/vol; peak memory
+    med = lambda v: sorted(v)[len(v) // 2]
+    ens1 = EnsemblePredictor(exp, [pair(work)], device=dev)
+    canvases = [ens._p.prepare(load_case(d).image)[0] for d in case_dirs]
+    for k, e in ((1, ens1), (2, ens)):
+        e.accumulate(canvases[0])
+        ms = []
+        for canvas in canvases:
+            for _ in range(2):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                e.accumulate(canvas)
+                ev[1].record()
+                torch.cuda.synchronize()
+                ms.append(ev[0].elapsed_time(ev[1]))
+        print(f"  ensemble K = {k}: device ms/vol median {med(ms):.3f} (all "
+              f"{[round(v, 3) for v in ms]}) on {card}", flush=True)
+    e2e = []
+    for d in case_dirs:
+        t0 = time.perf_counter()
+        ens.predict_dir(d, os.path.join(WORK, "ens_pred.nii.gz"))
+        e2e.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ens.accumulate(canvases[0])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  ensemble K = 2: e2e s/vol median {med(e2e):.3f} (all "
+          f"{[round(v, 3) for v in e2e]}), peak device memory {peak:.2f} GiB "
+          f"on {card}", flush=True)
+    del ens, ens1, canvases
+    torch.cuda.empty_cache()
+
+
+def ensemble_daemon(work, w2, case_dir):
+    """Phase 7 part 4: one serve daemon with --ensemble, --save-probs and
+    --save-uncertainty over HTTP; POST /predict one case and GET its probs
+    and whole-tumour uncertainty artifacts."""
+    import numpy as np
+
+    import tempfile
+
+    from brats2019_tpu_torch.data.constants import VOLUME_SHAPE
+    from brats2019_tpu_torch.utils.nifti import read_nifti
+
+    root = os.path.join(WORK, "serve_ensemble")
+    watch, out = os.path.join(root, "watch"), os.path.join(root, "out")
+    os.makedirs(watch)
+    port = _free_port()
+    base = f"http://127.0.0.1:{port}"
+    name = os.path.basename(case_dir)
+
+    def client(daemon_done):
+        deadline = time.time() + 600
+        while time.time() < deadline and not daemon_done.is_set():
+            try:
+                if _get_json(base + "/healthz", timeout=5).get("warm"):
+                    break
+            except OSError:
+                pass
+            time.sleep(0.2)
+        req = urllib.request.Request(
+            base + "/predict?format=json&timeout=300",
+            data=json.dumps({"case_dir": case_dir}).encode(),
+            headers={"Content-Type": "application/json"}, method="POST")
+        with urllib.request.urlopen(req, timeout=330) as r:
+            answer = json.loads(r.read())
+        arts = {}
+        for kind in ("probs", "unc_whole"):
+            with urllib.request.urlopen(f"{base}/artifact?case={name}&kind={kind}",
+                                        timeout=60) as r:
+                arts[kind] = r.read()
+        return answer, arts
+
+    rc, (answer, arts) = run_daemon(
+        [watch, "--preset", "cascade", "--workdir", work, "--device", "cuda",
+         "--poll", "0.05", "--output-dir", out, "--ensemble", w2, "--save-probs",
+         "--save-uncertainty", "--http", str(port), "--warmup"], client)
+    with np.load(io.BytesIO(arts["probs"])) as z:
+        probs_shape = z["probs"].shape
+    with tempfile.NamedTemporaryFile(suffix=".nii.gz", dir=WORK) as f:
+        f.write(arts["unc_whole"])
+        f.flush()
+        unc = read_nifti(f.name, apply_scaling=False)[0]
+    check(rc == 0 and answer.get("error") is None and answer["case"] == name
+          and probs_shape == VOLUME_SHAPE + (4,) and unc.shape == VOLUME_SHAPE
+          and unc.max() <= 100,
+          f"serve --ensemble --save-probs --save-uncertainty --http: exit code "
+          f"{rc}, POST /predict answered {answer.get('case')}, GET "
+          f"/artifact?kind=probs {len(arts['probs'])} bytes {probs_shape}, "
+          f"kind=unc_whole {len(arts['unc_whole'])} bytes {unc.shape} max "
+          f"{int(unc.max())}")
 
 
 # ------------------------------------------------------------------ phase 4 --
@@ -1796,6 +2383,25 @@ def main() -> int:
           f"{sum(results[('conv3d', c[1])][2] for c in wino_calls):.4f} ms, "
           f"library call {sum(r[8] for r in mine):.4f} ms, bound "
           f"{sum(max(r[6], r[7]) for r in mine):.4f} ms on {card}", flush=True)
+    # the f32 routes (F3): the accuracy config's forward at its TTA tile
+    # batch, the smoke preset's train step, the unit preset's (C = 4: C % 8
+    # != 0) train step
+    acc_exp, smoke, unit = accuracy_exp(), get_preset("smoke"), get_preset("unit")
+    f32_fwd = unet_calls(acc_exp.unet, 8, acc_exp.infer.tile)
+    f32_train = train_calls(smoke.unet, 1, smoke.train.patch)
+    f32_results = check_f32_kernels(
+        f32_fwd + f32_train + train_calls(unit.unet, 1, unit.train.patch), dev)
+    for what, group in (("accuracy-config tile batch (8, 32^3)", f32_fwd),
+                        ("smoke train step (1, 64^3)", f32_train)):
+        for k in F32_SOURCE:
+            mine = [f32_results[c] for c in group if c[0] == k]
+            if mine:
+                print(f"  {k} f32 per {what}: {len(mine)} calls, kernel "
+                      f"{sum(r[2] for r in mine):.4f} ms, plain "
+                      f"{sum(r[3] for r in mine):.4f} ms, library call "
+                      f"{sum(r[8] for r in mine):.4f} ms, bound "
+                      f"{sum(max(r[6], r[7]) for r in mine):.4f} ms on {card}",
+                      flush=True)
     print(f"  phase 2 took {time.perf_counter() - t0:.1f} s; device memory "
           f"still allocated after it: "
           f"{torch.cuda.memory_allocated() / 2 ** 20:.1f} MiB", flush=True)
@@ -1879,6 +2485,14 @@ def main() -> int:
     other_programs(work, case_dirs, dev, card)
     print(f"  phase 6 took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    print("== phase 7: the accuracy slice (f32 presets, the accuracy arms at "
+          "f32, the flagship ensemble, evaluate, the ensemble daemon)", flush=True)
+    t0 = time.perf_counter()
+    f32_train_counts, _ = f32_presets_slice()
+    f32_fwd_counts = accuracy_on_card(dev, card)
+    flagship_ensemble(exp, work, case_dirs, first, dev, card)
+    print(f"  phase 7 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     record = []
     for k, (route, source, replaces) in KERNELS.items():
         errs = [r[1] for (n, _), r in results.items() if n == k]
@@ -1920,8 +2534,29 @@ def main() -> int:
                 merge_ms=terms["merge_ms"], apply_ms=terms["apply_ms"],
                 epilogue_ms=terms["epilogue_ms"],
                 epilogue_source=EPILOGUE_SOURCE)
+    for k, (route, source) in F32_SOURCE.items():
+        # per accuracy-config tile batch (forward) or smoke train step
+        # (backward); launches on phase 7's accuracy arms or f32 training
+        fwd = k in FORWARD
+        mine = [f32_results[c] for c in (f32_fwd if fwd else f32_train) if c[0] == k]
+        bytes_ms, ops_ms = (sum(r[i] for r in mine) for i in (6, 7))
+        record.append({
+            "name": f"{k}_f32", "route": route, "source": source,
+            "replaces": KERNELS[k][2],
+            "launches": (f32_fwd_counts if fwd else f32_train_counts)[k][1],
+            "max_abs_err": max(r[1] for (n, _), r in f32_results.items() if n == k),
+            "ms": sum(r[2] for r in mine), "plain_ms": sum(r[3] for r in mine),
+            "bound_ms": sum(max(r[6], r[7]) for r in mine),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": sum(r[8] for r in mine),
+            "wall_ms": sum(r[4] for r in mine), "plain_wall_ms": sum(r[5] for r in mine),
+            "bound_bytes_ms": bytes_ms, "bound_operations_ms": ops_ms,
+            "calls": len(mine),
+            "unit": "accuracy-config tile batch" if fwd else "smoke train step",
+        })
     for r in record:
-        unit = "fine train step" if r["name"] in BACKWARD else "vol"
+        unit = r.get("unit") or ("fine train step" if r["name"] in BACKWARD
+                                 else "vol")
         print(f"  {r['name']}: {r['calls']} calls/{unit}, device {r['ms']:.4f} "
               f"ms/{unit} in kernels"
               + (f" (prev: {r['prev_ms']:.4f})" if "prev_ms" in r else "")

@@ -257,12 +257,24 @@ def test_launch_counters_reset_together():
 
 
 def test_kernel_wrappers_refuse_cpu_tensors_and_f32():
+    """The bf16 instances refuse f32 (the planner sends it to the FFMA
+    instance), the FFMA instance refuses bf16, and no wrapper takes float16
+    or a CPU tensor."""
     x = torch.zeros((1, 4, 4, 4, 16))
     w = torch.zeros((3, 3, 3, 16, 16))
-    for fn in (conv.conv3d_kernel, conv.conv3d_kernel_wgmma,
-               conv.conv3d_kernel_mma_sync):
+    for fn in (conv.conv3d_kernel_wgmma, conv.conv3d_kernel_mma_sync):
         with pytest.raises(TypeError):
-            fn(x, w)                                  # f32: no kernel takes it
+            fn(x, w)                          # f32: a bf16 instance
+    with pytest.raises(TypeError):
+        conv.conv3d_kernel_f32(x.bfloat16(), w.bfloat16())
+    for fn in (conv.conv3d_kernel, conv.conv3d_kernel_wgmma,
+               conv.conv3d_kernel_mma_sync, conv.conv3d_kernel_f32):
+        with pytest.raises(TypeError):
+            fn(x.half(), w.half())            # float16: no kernel takes it
+    with pytest.raises(ValueError, match="CUDA"):
+        conv.conv3d_kernel(x, w)              # f32, but on the CPU
+    with pytest.raises(ValueError, match="CUDA"):
+        conv.conv3d_kernel_f32(x, w)
     for fn in (conv.conv3d_kernel, conv.conv3d_kernel_wgmma,
                conv.conv3d_kernel_mma_sync):
         with pytest.raises(ValueError, match="CUDA"):

@@ -1,7 +1,7 @@
 """PyTorch port: the NumPy host copies (constants, NIfTI I/O, case loading,
-synthetic cases, label postprocessing, the training path's preprocessing,
-k-fold split and metrics logger) pinned to their originals in the JAX
-package."""
+synthetic cases of both generators, label postprocessing, the training path's
+preprocessing, k-fold split, metrics logger, the evaluation metrics and the
+uncertainty maps) pinned to their originals in the JAX package."""
 
 import ast
 import inspect
@@ -17,10 +17,13 @@ from brats2019_tpu.data import preprocess as ref_preprocess
 from brats2019_tpu.data import synthetic as ref_synthetic
 from brats2019_tpu.infer import postprocess as ref_post
 from brats2019_tpu.infer import tiling as ref_tiling
+from brats2019_tpu.infer import uncertainty as ref_uncertainty
+from brats2019_tpu.train import metrics as ref_metrics
 from brats2019_tpu.utils import logging as ref_logging
 from brats2019_tpu.utils import nifti as ref_nifti
 from brats2019_tpu_torch.data import case, constants, preprocess, synthetic
-from brats2019_tpu_torch.infer import postprocess, tiling
+from brats2019_tpu_torch.infer import postprocess, tiling, uncertainty
+from brats2019_tpu_torch.train import metrics
 from brats2019_tpu_torch.utils import logging as port_logging
 from brats2019_tpu_torch.utils import nifti
 
@@ -227,3 +230,98 @@ def test_tile_origins_and_blend_weight_are_the_reference_copies():
         want = ref_tiling.blend_weight(tile, mode, sigma)
         assert got.dtype == want.dtype and got.shape == want.shape
         assert got.tobytes() == want.tobytes()
+
+
+def _fn_ast(mod, name, drop_docstring=False):
+    """The AST of ``mod.name``'s source (its docstring dropped if asked)."""
+    node = ast.parse(inspect.getsource(getattr(mod, name))).body[0]
+    if drop_docstring and ast.get_docstring(node) is not None:
+        node.body = node.body[1:]
+    return ast.dump(node)
+
+
+HARD = ("_smooth_field", "_blob_rho", "_blob_mask", "make_hard_case_arrays")
+
+
+@pytest.mark.parametrize("name", HARD)
+def test_hard_generator_functions_are_the_reference_copies(name):
+    """Statement for statement the original (make_hard_case_arrays' docstring
+    is the port's own)."""
+    assert _fn_ast(synthetic, name, True) == _fn_ast(ref_synthetic, name, True)
+
+
+@pytest.mark.parametrize("seed", [10, 11, 13])
+def test_hard_case_arrays_are_byte_equal(seed):
+    got = synthetic.make_hard_case_arrays(seed=seed, shape=(64, 64, 48))
+    want = ref_synthetic.make_hard_case_arrays(seed=seed, shape=(64, 64, 48))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.tobytes() == w.tobytes()
+
+
+def test_written_hard_dataset_is_byte_identical(tmp_path):
+    got = synthetic.write_dataset(str(tmp_path / "port"), 2, shape=SHAPE, seed0=12,
+                                  hard=True)
+    want = ref_synthetic.write_dataset(str(tmp_path / "ref"), 2, shape=SHAPE,
+                                       seed0=12, hard=True)
+    for g, w in zip(got, want):
+        assert sorted(os.listdir(g)) == sorted(os.listdir(w))
+        for f in os.listdir(g):
+            with open(os.path.join(g, f), "rb") as a, open(os.path.join(w, f), "rb") as b:
+                assert a.read() == b.read(), f
+
+
+METRICS = ("_surface", "hd95_np", "region_hd95_np", "region_sens_spec_np")
+
+
+@pytest.mark.parametrize("name", METRICS)
+def test_eval_metrics_are_the_reference_copies(name):
+    assert _fn_ast(metrics, name) == _fn_ast(ref_metrics, name)
+
+
+def test_eval_metrics_give_the_reference_values():
+    rng = np.random.default_rng(3)
+    gt = np.zeros((20, 18, 16), np.uint8)
+    gt[4:14, 3:12, 2:11] = rng.integers(1, 4, size=(10, 9, 9))
+    pred = gt.copy()
+    pred[5:9, 4:8, 3:6] = 0
+    pred[15:17, 14:16, 12:14] = 3                      # a false-positive island
+    for spacing in ((1.0, 1.0, 1.0), (0.9, 1.2, 2.5)):
+        assert metrics.region_hd95_np(pred, gt, spacing) == \
+            ref_metrics.region_hd95_np(pred, gt, spacing)
+    assert metrics.region_sens_spec_np(pred, gt) == ref_metrics.region_sens_spec_np(
+        pred, gt)
+    empty = np.zeros_like(gt)
+    assert metrics.hd95_np(empty, empty) == 0.0
+    assert metrics.hd95_np(empty, gt > 0) == float("inf")
+    assert metrics.region_dice_np(pred, gt) == ref_metrics.region_dice_np(pred, gt)
+
+
+def test_uncertainty_maps_are_the_reference_copies():
+    assert uncertainty.REGION_CHANNELS == ref_uncertainty.REGION_CHANNELS
+    assert (_fn_ast(uncertainty, "region_uncertainty_maps")
+            == _fn_ast(ref_uncertainty, "region_uncertainty_maps"))
+    probs = np.random.default_rng(4).dirichlet(np.ones(4), size=(9, 8, 7))
+    probs = probs.astype(np.float32)
+    probs[0, 0, 0] = (1.0, 0.0, 0.0, 0.0)
+    probs[0, 0, 1] = (0.5, 0.5, 0.0, 0.0)
+    got = uncertainty.region_uncertainty_maps(probs)
+    want = ref_uncertainty.region_uncertainty_maps(probs)
+    assert got.keys() == want.keys()
+    for k in got:
+        assert got[k].dtype == np.uint8 and got[k].tobytes() == want[k].tobytes()
+    assert got["whole"][0, 0, 0] == 0 and got["whole"][0, 0, 1] == 100
+
+
+def test_uncertainty_dir_is_the_reference_but_for_the_decoder_meta():
+    """``predict_uncertainty_dir`` is the original statement for statement,
+    but for the ``meta=case.meta`` the reference hands its native decoder's
+    bbox on with (the port reads NIfTI in NumPy; its docstring is its own)."""
+    got = ast.parse(inspect.getsource(uncertainty.predict_uncertainty_dir)).body[0]
+    want = ast.parse(inspect.getsource(ref_uncertainty.predict_uncertainty_dir)).body[0]
+    calls = [n for n in ast.walk(want) if isinstance(n, ast.Call)
+             and getattr(n.func, "attr", None) == "predict_probs_arrays"]
+    assert len(calls) == 1 and [k.arg for k in calls[0].keywords] == ["meta"]
+    calls[0].keywords = []
+    for node in (got, want):
+        node.body = node.body[1:]                      # the docstrings
+    assert ast.dump(got) == ast.dump(want)

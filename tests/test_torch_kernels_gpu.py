@@ -156,9 +156,11 @@ def test_wgmma_wrapper_rejects_other_channel_counts(dev):
 
 
 def test_kernels_reject_f32(dev):
-    x = torch.randn((1, 4, 4, 4, 8), device=dev)
+    """float16 has no kernel (bf16 and f32 do: the f32 routes are held
+    below)."""
+    x = torch.randn((1, 4, 4, 4, 8), device=dev).half()
     v = torch.ones(8, device=dev)
-    for fn, args in ((ops.conv3d, (x, torch.randn((3, 3, 3, 8, 8), device=dev))),
+    for fn, args in ((ops.conv3d, (x, torch.randn((3, 3, 3, 8, 8), device=dev).half())),
                      (ops.instance_norm_act, (x,)),
                      (ops.downsample2x, (x,)), (ops.upsample2x, (x,)),
                      (ops.instance_norm_act_bwd, (x, x, v, v, v, v)),
@@ -590,7 +592,7 @@ def test_winograd_kernel_rejects_odd_dims_and_f32(dev):
     w = torch.zeros((3, 3, 3, 8, 8), device=dev).bfloat16()
     with pytest.raises(ValueError, match="even"):
         ops.conv3d_winograd(torch.zeros((1, 4, 5, 4, 8), device=dev).bfloat16(), w)
-    with pytest.raises(TypeError):
+    with pytest.raises(winograd.WinogradF32Error, match="direct"):
         ops.conv3d_winograd(torch.zeros((1, 4, 4, 4, 8), device=dev), w.float())
 
 
@@ -797,3 +799,173 @@ def test_up_bwd_other_channels_or_pitch_go_to_triton_by_plan(dev, x_shape, pitch
     assert (ops.upsample2x_bwd.launches - before[0],
             ops.upsample2x_bwd.launches_cuda - before[1]) == (1, 0)
     assert _ulps(got, resize.upsample2x_bwd_plain(g)) <= 1
+
+
+# ------------------------------------------------------------ the f32 routes --
+# A configuration whose compute dtype is float32 (the presets unit and smoke,
+# the accuracy benchmark's config) runs every kernel seam in f32: the conv on
+# the FFMA instance of csrc/conv3d.cu, IN+act and the resizes on the Triton
+# kernels. Each is held to its plain version (f32 math, TF32 off).
+
+def _rel(got, ref):
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("shape,co", [
+    ((1, 16, 16, 16, 4), 8),      # the accuracy config's first conv
+    ((1, 32, 32, 32, 8), 16),
+    ((2, 9, 7, 13, 12), 20),      # ragged tile, Ci and Co off the 16/64 grid
+    ((1, 16, 16, 16, 32), 32),
+    ((1, 1, 3, 1, 3), 5),         # size-1 axes, scalar everything
+    ((1, 8, 8, 8, 80), 136),      # several chunks and Co tiles, both ragged
+])
+def test_f32_conv_instance_matches_plain(dev, shape, co):
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(shape, generator=g, device=dev)
+    w = torch.randn((3, 3, 3, shape[-1], co), generator=g,
+                    device=dev) / (27 * shape[-1]) ** 0.5
+    assert conv.plan_conv(*shape, co, dtype=torch.float32).instance == "ffma_f32"
+    before = (ops.conv3d.launches, ops.conv3d.launches_f32,
+              ops.conv3d.launches_wgmma)
+    got = ops.conv3d(x, w)
+    again = ops.conv3d(x, w)
+    ref = conv.conv3d_plain(x, w)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert _rel(got, ref) <= 1e-5
+    assert torch.equal(got, again)
+    assert (ops.conv3d.launches - before[0], ops.conv3d.launches_f32 - before[1],
+            ops.conv3d.launches_wgmma - before[2]) == (2, 2, 0)
+
+
+def test_f32_conv_halo_counts(dev):
+    """All-ones volume and kernel: each output is Ci x the taps inside."""
+    n, d, h, wd, ci = 2, 5, 6, 7, 3
+    x = torch.ones((n, d, h, wd, ci), device=dev)
+    got = ops.conv3d(x, torch.ones((3, 3, 3, ci, 4), device=dev))
+    cnt = lambda size: torch.tensor([3 - (i == 0) - (i == size - 1)
+                                     for i in range(size)], device=dev).float()
+    want = (cnt(d)[:, None, None] * cnt(h)[None, :, None] * cnt(wd)[None, None, :]
+            * ci)
+    assert torch.equal(got, want[None, ..., None].expand_as(got))
+
+
+def test_f32_conv_autograd_dgrad_on_the_ffma_instance(dev):
+    """dgrad through the FFMA instance, wgrad by the library with TF32 off:
+    both within 1e-5 of the CPU's f32 autograd."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((1, 6, 7, 5, 8), generator=g)
+    w = torch.randn((3, 3, 3, 8, 12), generator=g) / 14.7
+    gy = torch.randn((1, 6, 7, 5, 12), generator=g)
+    grads = {}
+    for where in ("cpu", dev):
+        xd = x.to(where).detach().requires_grad_()
+        wdev = w.to(where).detach().requires_grad_()
+        ops.conv3d(xd, wdev).backward(gy.to(where))
+        grads[str(where)] = (xd.grad.cpu(), wdev.grad.cpu())
+    before = ops.conv3d.launches_f32
+    xd = x.to(dev).requires_grad_()
+    ops.conv3d(xd, w.to(dev)).backward(gy.to(dev))
+    assert ops.conv3d.launches_f32 - before == 2      # forward and dgrad
+    for got, ref in zip(grads[str(dev)], grads["cpu"]):
+        assert _rel(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("activation", ["relu", "leaky_relu", "none"])
+@pytest.mark.parametrize("shape", [(1, 16, 16, 16, 8), (2, 9, 7, 13, 12),
+                                   (1, 32, 32, 32, 16), (1, 5, 6, 7, 3)])
+def test_f32_norm_forward_and_backward_match_plain(dev, activation, shape):
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn(shape, generator=g, device=dev) * 3 + 1
+    gy = torch.randn(shape, generator=g, device=dev)
+    gam = torch.rand(shape[-1], generator=g, device=dev) + 0.5
+    bet = torch.randn(shape[-1], generator=g, device=dev) * 0.2
+    f0 = (ops.instance_norm_act.launches_f32, ops.instance_norm_act_bwd.launches_f32,
+          ops.instance_norm_act_bwd.launches_cuda)
+    y, mean, rstd = norm.instance_norm_act_kernel(x, gam, bet, activation=activation)
+    y2 = norm.instance_norm_act_kernel(x, gam, bet, activation=activation)[0]
+    ref = norm.instance_norm_act_plain(x, gam, bet, activation=activation)
+    assert y.dtype == torch.float32 and _rel(y, ref) <= 1e-5
+    assert torch.equal(y, y2)
+    _, rmean, rrstd = norm._plain_stats(x, gam, bet, 1e-5, activation)
+    got = norm.instance_norm_act_bwd_kernel(x, gy, gam, bet, rmean, rrstd, activation)
+    again = norm.instance_norm_act_bwd_kernel(x, gy, gam, bet, rmean, rrstd,
+                                              activation)
+    want = norm.instance_norm_act_bwd_plain(x, gy, gam, bet, rmean, rrstd,
+                                            activation)
+    torch.cuda.synchronize()
+    assert got[0].dtype == torch.float32
+    for a, b in zip(got, want):
+        assert _rel(a, b) <= 1e-5
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert (ops.instance_norm_act.launches_f32 - f0[0],
+            ops.instance_norm_act_bwd.launches_f32 - f0[1],
+            ops.instance_norm_act_bwd.launches_cuda - f0[2]) == (2, 2, 0)
+
+
+@pytest.mark.parametrize("op", ["downsample2x", "upsample2x", "downsample2x_bwd",
+                                "upsample2x_bwd"])
+@pytest.mark.parametrize("shape", [(1, 16, 16, 16, 8), (2, 6, 10, 4, 12),
+                                   (1, 8, 8, 8, 3)])
+def test_f32_resizes_match_plain(dev, op, shape):
+    """shape: the forward's input. Within 1e-6 of the plain version (f32
+    sums of a few taps in another order), repeat runs bitwise equal, on the
+    Triton route by plan, counted as f32 launches."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    n, d, h, w, c = shape
+    if op == "downsample2x_bwd":
+        t = torch.randn((n, d // 2, h // 2, w // 2, c), generator=g, device=dev)
+        kern = lambda: resize.downsample2x_bwd_kernel(t, shape)
+        plain = lambda: resize.downsample2x_bwd_plain(t, shape)
+    elif op == "upsample2x_bwd":
+        t = torch.randn((n, 2 * d, 2 * h, 2 * w, c), generator=g, device=dev)
+        kern = lambda: resize.upsample2x_bwd_kernel(t)
+        plain = lambda: resize.upsample2x_bwd_plain(t)
+    else:
+        t = torch.randn(shape, generator=g, device=dev)
+        kern = lambda: getattr(resize, f"{op}_kernel")(t)
+        plain = lambda: getattr(resize, f"{op}_plain")(t)
+    assert resize.plan_resize(op, c, torch.float32) == "triton"
+    wrapper = getattr(ops, op)
+    before = (wrapper.launches, wrapper.launches_f32,
+              getattr(wrapper, "launches_cuda", 0))
+    got, again, ref = kern(), kern(), plain()
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert _rel(got, ref) <= 1e-6 and torch.equal(got, again)
+    assert (wrapper.launches - before[0], wrapper.launches_f32 - before[1],
+            getattr(wrapper, "launches_cuda", 0) - before[2]) == (2, 2, 0)
+
+
+def test_f32_up_concat_copies_the_triton_up_into_the_buffer(dev):
+    g = torch.Generator(device=dev).manual_seed(10)
+    x = torch.randn((1, 4, 5, 6, 16), generator=g, device=dev)
+    skip = torch.randn((1, 8, 10, 12, 8), generator=g, device=dev)
+    before = (ops.upsample2x.launches_f32, ops.upsample2x.launches_concat)
+    got = ops.upsample2x_concat(x, skip)
+    assert _rel(got[..., :16], resize.upsample2x_plain(x)) <= 1e-6
+    assert torch.equal(got[..., 16:], skip)
+    assert (ops.upsample2x.launches_f32 - before[0],
+            ops.upsample2x.launches_concat - before[1]) == (1, 0)
+
+
+def test_f32_unit_forward_runs_on_the_f32_routes(dev):
+    """F3: a float32 configuration's U-Net on the card (before, the first
+    conv raised TypeError): every launch on an f32 route, logits within 1e-4
+    of the CPU plain path."""
+    from brats2019_tpu_torch.configs.presets import get_preset
+    from brats2019_tpu_torch.utils.weights import build_unet, init_params
+
+    cfg = get_preset("smoke").unet
+    params = init_params(cfg, 0)
+    x = torch.randn((1, 32, 32, 32, 4), generator=torch.Generator().manual_seed(2))
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        got = build_unet(cfg, params, dev)(x.to(dev)).cpu()
+        counts = ops.launch_counts()
+        ref = build_unet(cfg, params, "cpu")(x)
+    assert counts["conv3d"] == ops.conv3d.launches_f32 > 0
+    assert counts["instance_norm_act"] == ops.instance_norm_act.launches_f32 > 0
+    assert ops.conv3d.launches_wgmma == 0
+    assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-4

@@ -309,10 +309,13 @@ def test_strip_supervisor_flags_and_parser():
     assert args.poll == 0.5 and args.retries == 1 and not args.warmup
     # a flag that is not ported is absent, not accepted and ignored
     for flag in (["--transfer-dtype", "int8"], ["--rss-limit-mb", "9"],
-                 ["--multichip", "cascade"], ["--batch-volumes", "2"],
-                 ["--ensemble", "x"], ["--save-probs"], ["--save-uncertainty"]):
+                 ["--multichip", "cascade"], ["--batch-volumes", "2"]):
         with pytest.raises(SystemExit):
             parser.parse_args(["w", *flag])
+    # the ensemble and artifact flags are ported
+    args2 = parser.parse_args(["w", "--ensemble", "x", "y", "--save-probs",
+                               "--save-uncertainty"])
+    assert args2.ensemble == ["x", "y"] and args2.save_probs and args2.save_uncertainty
     # every ported flag has the reference's default
     ref = jax_serve.build_parser().parse_args(["w"])
     for k, v in vars(args).items():
@@ -565,3 +568,40 @@ def test_port_daemon_no_tta_no_cascade_match_jax_daemon(tmp_path, workdir, prese
     got, want = outs["port"], outs["jax"]
     assert got.shape == SHAPE and set(np.unique(got)) <= {0, 1, 2, 4}
     assert (got != want).mean() < 1e-4, int((got != want).sum())
+
+
+def test_ensemble_daemon_artifacts_match_jax_daemon(tmp_path, workdir, preset,
+                                                    keep_signal_handlers):
+    """``--ensemble W --save-probs --save-uncertainty`` on both daemons, same
+    exported weights (the second member another fine net, no coarse params:
+    it reuses the primary's): the labels, the probability npz and the
+    uncertainty maps agree; the artifacts sit beside the prediction."""
+    member = tmp_path / "member"
+    os.makedirs(member / "fine")
+    pf = JaxUNet3D(JaxUNetConfig(**FINE_KW)).init(
+        jax.random.PRNGKey(9), jnp.zeros((1, 16, 16, 16, 4)))
+    export_params(str(member / "fine" / "params.npz"), pf)
+    case = synthetic.write_dataset(str(tmp_path / "src"), 1, shape=SHAPE,
+                                   seed0=23, hard=True)[0]
+    name = os.path.basename(case)
+    outs = {}
+    for key, mod, extra in (("port", cli_serve, ["--device", "cpu"]),
+                            ("jax", jax_serve, [])):
+        watch, out = tmp_path / f"watch_{key}", tmp_path / f"out_{key}"
+        watch.mkdir()
+        shutil.copytree(case, watch / name)
+        rc = mod.main([str(watch), "--preset", PRESET, "--workdir", workdir,
+                       "--output-dir", str(out), "--once", "--poll", "0.05",
+                       "--ensemble", str(member), "--save-probs",
+                       "--save-uncertainty", *extra])
+        assert rc == 0 and _log(out)[0].get("error") is None
+        with np.load(out / f"{name}_probs.npz") as z:
+            probs = z["probs"].astype(np.float32)
+        unc = read_nifti(str(out / f"{name}_unc_whole.nii.gz"), apply_scaling=False)[0]
+        seg = read_nifti(str(out / f"{name}_pred.nii.gz"), apply_scaling=False)[0]
+        outs[key] = (seg, probs, unc.astype(int))
+    (seg, probs, unc), (seg_j, probs_j, unc_j) = outs["port"], outs["jax"]
+    assert seg.shape == SHAPE and probs.shape == SHAPE + (4,)
+    np.testing.assert_allclose(probs, probs_j, atol=2e-3)      # f16 on disk
+    assert (seg != seg_j).mean() < 1e-4
+    assert np.abs(unc - unc_j).max() <= 1 and unc.max() <= 100
