@@ -13,10 +13,11 @@ from typing import Dict
 import numpy as np
 
 from ..configs.presets import ExperimentConfig, get_preset
-from ..utils.weights import load_params_npz
+from ..utils.weights import load_params
 
 _TRAIN_FLAGS = ("steps", "checkpoint_every", "eval_every", "log_every",
-                "ema_decay", "rot90_axial", "gamma_range", "seed")
+                "ema_decay", "prep_cache_dir", "rot90_axial", "gamma_range",
+                "seed")
 
 
 def resolve_experiment(args) -> ExperimentConfig:
@@ -35,6 +36,9 @@ def resolve_experiment(args) -> ExperimentConfig:
             exp = dataclasses.replace(
                 exp, infer=dataclasses.replace(exp.infer, **{flag: v})
             )
+    if getattr(args, "debug_checks", False):
+        exp = dataclasses.replace(
+            exp, train=dataclasses.replace(exp.train, debug_checks=True))
     return exp
 
 
@@ -56,20 +60,24 @@ def _latest_checkpoint_mtime(workdir: str) -> float:
 
 def load_stage_params(exp: ExperimentConfig, stage: str) -> Dict[str, np.ndarray]:
     """Trained params of ``stage`` ("fine" or "coarse") as a flat export
-    dict, by the reference's priority (:335-393): an exported
-    ``<workdir>/<stage>/params.npz`` while it is at least as new as the
-    newest checkpoint; else ``checkpoints/best/``; else the latest step
-    checkpoint. FileNotFoundError when the workdir has none of them."""
+    dict, by the reference's priority (:335-393): the newer of the exported
+    ``<workdir>/<stage>/params.{safetensors,npz}`` while it is at least as
+    new as the newest checkpoint; else ``checkpoints/best/``; else the
+    latest step checkpoint. FileNotFoundError when the workdir has none of
+    them."""
     from ..train.checkpoint import CheckpointManager, flat_numpy
 
     workdir = os.path.join(exp.workdir, stage)
     exported = os.path.join(workdir, "params.npz")
-    if os.path.exists(exported):
-        if _latest_checkpoint_mtime(workdir) > os.path.getmtime(exported):
-            print(f"[params] {stage}: checkpoint is NEWER than {exported}; "
+    found = [p for p in (os.path.join(workdir, "params.safetensors"), exported)
+             if os.path.exists(p)]
+    if found:
+        newest = max(found, key=os.path.getmtime)
+        if _latest_checkpoint_mtime(workdir) > os.path.getmtime(newest):
+            print(f"[params] {stage}: checkpoint is NEWER than {newest}; "
                   "loading the checkpoint", file=sys.stderr, flush=True)
         else:
-            return load_params_npz(exported)
+            return load_params(newest)
     if not os.path.isdir(os.path.join(workdir, "checkpoints")):
         raise FileNotFoundError(
             f"No params for stage '{stage}': neither {exported} nor "

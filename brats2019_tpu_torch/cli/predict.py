@@ -7,10 +7,11 @@ Usage:
         [--no-tta] [--no-cascade] [--postproc host|device]
         [--prep-cache DIR] [--serving-depth N] [--shard I/N] [--seed N]
         [--save-probs] [--save-uncertainty] [--ensemble WORKDIR ...]
+        [--profile DIR]
 
 Loads each stage's params from ``<workdir>/{fine,coarse}/`` (an exported
-``params.npz`` in the JAX package's format, or the port's own training
-checkpoints: ``cli/common.py`` load_stage_params) and writes
+``params.{npz,safetensors}`` in the JAX package's format, or the port's own
+training checkpoints: ``cli/common.py`` load_stage_params) and writes
 ``<case>_pred.nii.gz`` with BraTS disk labels {0,1,2,4} next to each case,
 with the input header. One case goes through ``Predictor.predict_dir``, a
 root of cases through the pipelined ``predict_dirs`` (decode, the device
@@ -28,9 +29,11 @@ class probabilities, BraTS disk class order [0, 1, 2, 4]) and
 .nii.gz``, from one probability pass per case. ``--ensemble W ...`` averages
 the class probabilities of the primary ``--workdir`` model and each listed
 workdir's model, then takes the argmax (``infer/ensemble.py``).
+``--profile DIR`` writes a torch.profiler trace of the predict calls to
+``DIR/trace.json``.
 
 Not ported (ROADMAP queue 1): ``--multichip`` (item 5), ``--transfer-dtype``
-and ``--batch-volumes 2`` (item 6), ``--profile`` (item 4).
+and ``--batch-volumes 2`` (item 6).
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ import time
 
 from ..configs.presets import PRESETS
 from ..data.case import discover_cases
+from ..utils.profile import start_trace, stop_trace
 from .common import (
     filter_shard,
     load_ensemble_members,
@@ -100,6 +104,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="process only the cases whose stable name-hash lands "
                         "in shard I of N (the assignment of serve --shard)")
     p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="capture a torch.profiler trace of the predict calls "
+                        "into DIR/trace.json")
     return p
 
 
@@ -188,15 +195,23 @@ def main(argv=None) -> int:
     except FileNotFoundError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    prof = start_trace(pred.device) if args.profile else None
     t0 = time.time()
-    if len(cases) == 1:
-        out, stats = pred.predict_dir(cases[0], args.output)
-        print(f"[predict] {cases[0]} -> {out} (load {stats.load_s:.2f}s, device "
-              f"{stats.device_s:.2f}s, post {stats.post_s:.2f}s)", flush=True)
-    else:
-        for d, out in zip(cases, pred.predict_dirs(cases)):
-            print(f"[predict] {d} -> {out}", flush=True)
-    _emit_probs_artifacts(pred, cases, args.save_probs, args.save_uncertainty)
+    try:
+        if len(cases) == 1:
+            out, stats = pred.predict_dir(cases[0], args.output)
+            print(f"[predict] {cases[0]} -> {out} (load {stats.load_s:.2f}s, "
+                  f"device {stats.device_s:.2f}s, post {stats.post_s:.2f}s)",
+                  flush=True)
+        else:
+            for d, out in zip(cases, pred.predict_dirs(cases)):
+                print(f"[predict] {d} -> {out}", flush=True)
+        _emit_probs_artifacts(pred, cases, args.save_probs,
+                              args.save_uncertainty)
+    finally:
+        if prof is not None:
+            path = stop_trace(prof, pred.device, args.profile)
+            print(f"[predict] profiler trace written to {path}", flush=True)
     dt = time.time() - t0
     print(f"[predict] {len(cases)} case(s) in {dt:.2f}s "
           f"({len(cases) / dt:.3f} volumes/sec on {pred.device}"

@@ -5,9 +5,15 @@ Usage:
         [--preset cascade] [--stage all|fine|coarse] [--device cuda|cpu]
         [--val-frac 0.2 | --folds K --fold I] [--steps N] [--workdir DIR]
         [--synthetic N [--synthetic-shape X Y Z] [--synthetic-hard]]
+        [--distill-from WORKDIR ... [--kd-weight W] [--kd-temperature T]]
+        [--init-from PATH] [--prep-cache DIR] [--debug-nans] [--debug-checks]
+        [--profile]
 
 Trains the preset's stages on one device (coarse first when cascaded) and
 leaves ``<workdir>/<stage>/checkpoints/`` that ``cli.predict`` serves.
+``--distill-from`` trains the fine stage as the KD student of those
+workdirs' fine params (``train/distill.py``); ``--init-from`` warm-starts
+one stage from exported params or a reference torch checkpoint.
 ``--device cuda`` runs the hand-written kernels and is an error on a host
 without a card; ``--device cpu`` runs the plain torch ops. Exit code 3
 means SIGTERM stopped the run with a resumable checkpoint.
@@ -60,6 +66,34 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar="R",
                    help="augmentation extra: per-channel gamma in "
                         "[1/(1+R), 1+R] (0 disables)")
+    p.add_argument("--profile", action="store_true",
+                   help="capture a torch.profiler trace of steps 10-20 into "
+                        "<workdir>/<stage>/profile")
+    p.add_argument("--distill-from", nargs="*", default=None, metavar="WORKDIR",
+                   help="teacher experiment workdir(s): train the fine stage "
+                        "as a KD student of those fine checkpoints")
+    p.add_argument("--kd-weight", type=float, default=1.0)
+    p.add_argument("--kd-temperature", type=float, default=2.0)
+    p.add_argument("--init-from", default=None, metavar="PATH",
+                   help="warm-start the trained stage's params from an "
+                        "exported params.{npz,safetensors} or a reference "
+                        "torch checkpoint (.pt/.pth, imported by "
+                        "utils/torch_import). Fresh optimizer state; an "
+                        "existing resumable checkpoint wins. Requires an "
+                        "explicit --stage fine|coarse (one file cannot seed "
+                        "both stages)")
+    p.add_argument("--prep-cache", dest="prep_cache_dir", default=None,
+                   metavar="DIR",
+                   help="on-disk cache of prepped cases: skips the NIfTI "
+                        "decode, z-score and bbox when the pool revisits a "
+                        "case (one canvas-sized npz per case; the JAX "
+                        "package's file names, so one DIR serves both)")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="stop with FloatingPointError at the first step whose "
+                        "loss or gradient norm is not finite")
+    p.add_argument("--debug-checks", action="store_true",
+                   help="check the pool's foreground tables and patch bounds "
+                        "at start-up")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda (hand-written kernels) or cpu (plain torch ops)")
     return p
@@ -125,9 +159,32 @@ def main(argv=None) -> int:
         stages.append("coarse")
     if args.stage in ("all", "fine"):
         stages.append("fine")
+    if args.init_from and len(stages) != 1:
+        print("error: --init-from requires an explicit --stage "
+              "fine|coarse (one weights file cannot seed both cascade "
+              "stages)", file=sys.stderr)
+        return 2
+    kd_teachers = kd_config = None
+    if args.distill_from:
+        import dataclasses
+
+        from ..train.distill import KDConfig, build_teachers
+        from .common import load_stage_params
+
+        kd_teachers = build_teachers(
+            exp.unet, [load_stage_params(dataclasses.replace(exp, workdir=wd),
+                                         "fine") for wd in args.distill_from],
+            device)
+        kd_config = KDConfig(kd_weight=args.kd_weight,
+                             temperature=args.kd_temperature)
+        print(f"[train] distilling from {len(kd_teachers)} teacher(s)",
+              flush=True)
     for stage in stages:
         res = train_stage(exp, train_dirs, stage=stage, val_dirs=val_dirs,
-                          device=device)
+                          device=device, profile=args.profile,
+                          kd_teachers=kd_teachers if stage == "fine" else None,
+                          kd_config=kd_config, init_from=args.init_from,
+                          debug_nans=args.debug_nans)
         if res.preempted:
             print(f"[train] stage {stage} PREEMPTED (SIGTERM): resumable "
                   "checkpoint saved; rerun the same command to continue",

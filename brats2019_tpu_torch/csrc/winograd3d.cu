@@ -363,3 +363,238 @@ extern "C" int winograd3d_ndhwc_bf16(const void* x, const void* u, void* y,
   }
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// The f32 instance: what a configuration with compute_dtype "float32" runs
+// with the Winograd backend (the presets unit and smoke, the accuracy
+// benchmark's config). The JAX package's Winograd conv computes in the dtype
+// it is given, so this one does too: f32 in, f32 out, f32 U and V (never
+// rounded), the 64 per-point products as FFMA on the CUDA cores (no tensor
+// cores, no TF32).
+//
+// What bounds it on the card: the FP32 pipe (67 TFLOP/s dense on an H100
+// SXM), against 8/27 of the direct conv's multiply-adds plus the transforms;
+// written for correctness first.
+//
+// Design (the same F(2^3,3^3) as the bf16 instance above):
+//   * a block owns the same brick of 2 x 4 x 4 tiles (its 6 x 10 x 10 raw
+//     patch) times 64 output channels, with 256 threads; thread (tm, tn)
+//     holds tiles 2 tm, 2 tm + 1 and channels 4 tn .. 4 tn + 3 of all 8
+//     output phases (64 f32 accumulators);
+//   * Ci advances in chunks of 16: the raw patch chunk goes to shared memory
+//     with the bf16 instance's masking (halo and channel tail zero-filled,
+//     ragged tiles read zeros); for each of the 4 d-points the 16 (h, w)
+//     points of V are made in f32 registers (B^T along d, h, w, in the plain
+//     version's order, so V is the plain version's value) into shared memory
+//     as [point][channel][tile];
+//   * per point, a thread sums its 2 x 4 products over the chunk's 16
+//     channels (V from shared memory, U, zero-padded to CiP % 16 == 0 and
+//     CoP % 64 == 0 by the wrapper, as float4 from global memory), then
+//     sign-adds them into the output phases by A^T, as the bf16 instance;
+//   * every output's sum runs over (chunk, d-point, point, channel) in one
+//     fixed order: repeat runs are bitwise equal.
+
+namespace {
+
+constexpr int F_CK = 16;                 // input channels per chunk
+constexpr int F_R_LD = F_CK + 1;         // raw voxel pitch in floats
+constexpr int F_RAW = NVOX * F_R_LD;     // floats of raw patch
+constexpr int F_V = 16 * F_CK * BT;      // floats of V: one d-point's 16 points
+constexpr int F_SMEM_BYTES = (F_RAW + F_V) * 4;
+
+__global__ void __launch_bounds__(THREADS)
+    winograd_f32_kernel(const float* __restrict__ x,
+                        const float* __restrict__ u, float* __restrict__ y,
+                        int D, int H, int W, int Ci, int Co, int CiP, int CoP,
+                        int nbd, int nbh, int nbw) {
+  extern __shared__ __align__(16) float fsmem[];
+  float* raw = fsmem;        // [voxel][channel], pitch F_R_LD
+  float* Vs = fsmem + F_RAW; // [point][channel][tile]
+
+  const int tid = threadIdx.x;
+  const int tm = tid & 15;   // tiles 2 tm, 2 tm + 1
+  const int tn = tid >> 4;   // channels 4 tn .. 4 tn + 3 of the block's 64
+
+  int b = blockIdx.x;
+  const int bw_i = b % nbw;
+  b /= nbw;
+  const int bh_i = b % nbh;
+  b /= nbh;
+  const int bd_i = b % nbd;
+  const int n = b / nbd;
+  const int td0 = bd_i * TD, th0 = bh_i * TH, tw0 = bw_i * TW;
+  const int d0 = 2 * td0 - 1, h0 = 2 * th0 - 1, w0 = 2 * tw0 - 1;
+  const int n0 = blockIdx.y * BN;
+  const float* xn = x + (long long)n * D * H * W * Ci;
+
+  float acc[8][2][4];  // [phase sd * 4 + sh * 2 + sw][tile][channel]
+#pragma unroll
+  for (int ph = 0; ph < 8; ++ph)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[ph][i][j] = 0.f;
+
+  const long long u_point = (long long)CiP * CoP;
+  const int n_chunks = CiP / F_CK;
+  for (int chunk = 0; chunk < n_chunks; ++chunk) {
+    const int ci0 = chunk * F_CK;
+    // raw patch chunk -> shared memory, halo and channel tail zero-filled
+    for (int e = tid; e < NVOX * F_CK; e += THREADS) {
+      const int v = e / F_CK, j = e % F_CK;
+      const int a = v / (PH * PW);
+      const int rem = v - a * (PH * PW);
+      const int bb = rem / PW;
+      const int c = rem - bb * PW;
+      const int dd = d0 + a, hh = h0 + bb, ww = w0 + c;
+      const int ci = ci0 + j;
+      const bool ok = dd >= 0 && dd < D && hh >= 0 && hh < H && ww >= 0 &&
+                      ww < W && ci < Ci;
+      raw[v * F_R_LD + j] =
+          ok ? xn[(((long long)dd * H + hh) * W + ww) * Ci + ci] : 0.f;
+    }
+    __syncthreads();
+
+#pragma unroll 1
+    for (int p = 0; p < 4; ++p) {
+      // V for d-point p: one (tile, channel) per thread and turn
+      const int a1 = (p == 0) ? 0 : (p == 2 ? 2 : 1);
+      const int a2 = (p == 0) ? 2 : (p == 1 ? 2 : (p == 2 ? 1 : 3));
+      for (int unit = tid; unit < BT * F_CK; unit += THREADS) {
+        const int t = unit % BT, c = unit / BT;
+        const int iw = t % TW, ih = (t / TW) % TH, id = t / (TW * TH);
+        const float* base =
+            raw + (((2 * id) * PH + 2 * ih) * PW + 2 * iw) * F_R_LD + c;
+        float g[4][4];
+#pragma unroll
+        for (int bb = 0; bb < 4; ++bb)
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc) {
+            const float v1 = base[((a1 * PH + bb) * PW + cc) * F_R_LD];
+            const float v2 = base[((a2 * PH + bb) * PW + cc) * F_R_LD];
+            g[bb][cc] = (p == 1) ? v1 + v2 : v1 - v2;
+          }
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {   // B^T along h
+          const float t0 = g[0][cc], t1 = g[1][cc], t2 = g[2][cc], t3 = g[3][cc];
+          g[0][cc] = t0 - t2;
+          g[1][cc] = t1 + t2;
+          g[2][cc] = t2 - t1;
+          g[3][cc] = t1 - t3;
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {      // B^T along w
+          const float t0 = g[q][0], t1 = g[q][1], t2 = g[q][2], t3 = g[q][3];
+          g[q][0] = t0 - t2;
+          g[q][1] = t1 + t2;
+          g[q][2] = t2 - t1;
+          g[q][3] = t1 - t3;
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            Vs[((q * 4 + r) * F_CK + c) * BT + t] = g[q][r];
+      }
+      __syncthreads();
+
+      const float* up = u + ((long long)(p * 16) * CiP + ci0) * CoP + n0 + tn * 4;
+#pragma unroll 1
+      for (int qr = 0; qr < 16; ++qr) {
+        float m[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) m[i][j] = 0.f;
+        const float* vq = Vs + qr * F_CK * BT + 2 * tm;
+        const float* uq = up + qr * u_point;
+#pragma unroll
+        for (int k = 0; k < F_CK; ++k) {
+          const float2 v = *reinterpret_cast<const float2*>(vq + k * BT);
+          const float4 w4 =
+              __ldg(reinterpret_cast<const float4*>(uq + (long long)k * CoP));
+          const float vv[2] = {v.x, v.y};
+          const float uu[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) m[i][j] = fmaf(vv[i], uu[j], m[i][j]);
+        }
+        const int q = qr >> 2, r = qr & 3;
+#pragma unroll
+        for (int sd = 0; sd < 2; ++sd)
+#pragma unroll
+          for (int sh = 0; sh < 2; ++sh)
+#pragma unroll
+            for (int sw = 0; sw < 2; ++sw) {
+              const int coef = at_coef(sd, p) * at_coef(sh, q) * at_coef(sw, r);
+              const int ph = sd * 4 + sh * 2 + sw;
+              if (coef > 0) {
+#pragma unroll
+                for (int i = 0; i < 2; ++i)
+#pragma unroll
+                  for (int j = 0; j < 4; ++j) acc[ph][i][j] += m[i][j];
+              } else if (coef < 0) {
+#pragma unroll
+                for (int i = 0; i < 2; ++i)
+#pragma unroll
+                  for (int j = 0; j < 4; ++j) acc[ph][i][j] -= m[i][j];
+              }
+            }
+      }
+      __syncthreads();
+    }
+  }
+
+  // accumulators -> f32 NDHWC, masked to the real tiles and to Co
+  const int Td = D / 2, Th = H / 2, Tw = W / 2;
+  float* yn = y + (long long)n * D * H * W * Co;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = 2 * tm + i;
+    const int iw = t % TW, ih = (t / TW) % TH, id = t / (TW * TH);
+    const int td = td0 + id, th = th0 + ih, tw = tw0 + iw;
+    if (td >= Td || th >= Th || tw >= Tw) continue;
+#pragma unroll
+    for (int ph = 0; ph < 8; ++ph) {
+      const int od = 2 * td + (ph >> 2), oh = 2 * th + ((ph >> 1) & 1),
+                ow = 2 * tw + (ph & 1);
+      float* dst = yn + (((long long)od * H + oh) * W + ow) * Co;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int co = n0 + tn * 4 + j;
+        if (co < Co) dst[co] = acc[ph][i][j];
+      }
+    }
+  }
+}
+
+}  // namespace
+
+// x (N,D,H,W,Ci), y (N,D,H,W,Co): contiguous f32 on the current device,
+// D, H, W even. u (64, CiP, CoP): the transformed weight in f32, zero-padded
+// to CiP % 16 == 0 >= Ci and CoP % 64 == 0 >= Co. Launches on `stream`;
+// returns cudaGetLastError() (cudaErrorInvalidValue for a bad shape).
+extern "C" int winograd3d_ndhwc_f32(const void* x, const void* u, void* y,
+                                    int N, int D, int H, int W, int Ci, int Co,
+                                    int CiP, int CoP, void* stream) {
+  if (N < 1 || D < 2 || H < 2 || W < 2 || (D | H | W) & 1 || CiP % F_CK ||
+      CoP % BN || CiP < Ci || CoP < Co)
+    return (int)cudaErrorInvalidValue;
+  const int nbd = (D / 2 + TD - 1) / TD, nbh = (H / 2 + TH - 1) / TH,
+            nbw = (W / 2 + TW - 1) / TW;
+  dim3 grid((unsigned)((long long)N * nbd * nbh * nbw), (unsigned)(CoP / BN));
+  static bool ready = false;  // once, outside any stream capture
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        winograd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        F_SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    ready = true;
+  }
+  winograd_f32_kernel<<<grid, THREADS, F_SMEM_BYTES,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(u),
+      static_cast<float*>(y), D, H, W, Ci, Co, CiP, CoP, nbd, nbh, nbw);
+  return (int)cudaGetLastError();
+}

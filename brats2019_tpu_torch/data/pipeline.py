@@ -15,11 +15,18 @@ Layout (one device):
                            drawing one needs no device read
 
 The case cursor (epoch, index) is part of the training checkpoint.
+
+The prep cache (``prep_cache_dir``, :105-183): an uncompressed npz per
+(case, canvas, downsample, input-file signature) holding the prepared
+canvas, so a pool that revisits a case skips the NIfTI decode, z-score and
+bbox scan. File names and fields are the JAX package's, so one cache
+directory serves both packages.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import queue
 import sys
 import threading
@@ -28,9 +35,15 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .case import Case, load_case
+from .case import Case, load_case, modality_paths, seg_path
 from .preprocess import brain_bbox_fast_np, center_fit_axis, crop_np, zscore_np
 from .sampling import FG_TABLE_SIZE, build_fg_table_np
+
+# bump when prepare_training_case's output semantics change — stale cache
+# entries (older version, different canvas/downsample, touched inputs) are
+# never read because the version + prep params + input file signature are
+# all part of the cache filename
+PREP_CACHE_VERSION = 1
 
 
 def fit_to_canvas(vol: np.ndarray, canvas: Tuple[int, int, int], fill=0) -> np.ndarray:
@@ -81,6 +94,102 @@ def prepare_training_case(
     }
 
 
+def _case_signature_hash(case_dir: str, with_seg: bool = True) -> str:
+    """sha1 of the (mtime_ns, size) signature of every input file — editing
+    or re-uploading a case invalidates any cache entry keyed on this.
+    st_mtime_ns, not whole seconds: a case rewritten within the same second
+    with unchanged sizes must still invalidate its entry."""
+    import hashlib
+
+    paths = list(modality_paths(case_dir))
+    if with_seg:
+        sp = seg_path(case_dir)
+        if sp:
+            paths.append(sp)
+    sig = "|".join(
+        f"{os.path.basename(p)}:{os.stat(p).st_mtime_ns}:{os.path.getsize(p)}"
+        for p in paths
+    )
+    return hashlib.sha1(sig.encode()).hexdigest()[:16]
+
+
+def _prep_cache_path(
+    cache_dir: str, case_dir: str, canvas, downsample: int
+) -> str:
+    """Cache filename keyed by everything that determines the prep output:
+    version, canvas, downsample, and the input-file signature hash."""
+    h = _case_signature_hash(case_dir)
+    base = os.path.basename(os.path.normpath(case_dir))
+    c = "x".join(map(str, canvas))
+    return os.path.join(
+        cache_dir,
+        f"{base}.v{PREP_CACHE_VERSION}.c{c}.d{downsample}.{h}.npz",
+    )
+
+
+def cached_prepare_training_case(
+    case_dir: str, canvas, downsample: int = 1,
+    cache_dir: Optional[str] = None,
+) -> Dict[str, object]:
+    """prepare_training_case with an optional on-disk cache of the prepped
+    arrays (z-scored bf16 canvas + labels + fg table), as the JAX package's
+    (:126-183): an entry is an uncompressed npz (the bf16 image as its
+    uint16 bit pattern, ``seg``, ``fg``), written to a temporary name and
+    renamed, and older entries of the same case and prep params are pruned;
+    a corrupt entry is rebuilt."""
+    if not cache_dir:
+        return prepare_training_case(
+            load_case(case_dir, load_seg=True), canvas, downsample=downsample
+        )
+    path = _prep_cache_path(cache_dir, case_dir, canvas, downsample)
+    if os.path.exists(path):
+        try:
+            with np.load(path) as z:
+                return {
+                    "image": torch.from_numpy(z["image_u16"].view(np.int16)
+                                              ).view(torch.bfloat16),
+                    "seg": z["seg"],
+                    "fg": z["fg"],
+                }
+        except Exception as e:  # noqa: BLE001 — corrupt entry: rebuild
+            print(f"[pool] discarding corrupt cache entry {path}: {e}",
+                  file=sys.stderr, flush=True)
+    out = prepare_training_case(
+        load_case(case_dir, load_seg=True), canvas, downsample=downsample
+    )
+    os.makedirs(cache_dir, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        # savez gets a file object so it cannot append its own .npz suffix
+        with open(tmp, "wb") as f:
+            np.savez(f, image_u16=out["image"].view(torch.int16).numpy()
+                     .view(np.uint16), seg=out["seg"], fg=out["fg"])
+        os.replace(tmp, path)
+        # prune superseded entries for the same case + prep params (older
+        # input signature or older PREP_CACHE_VERSION); file name =
+        # base.vN.cC.dD.hash.npz: match on (base, cC, dD)
+        def _entry_key(fn: str):
+            parts = fn.rsplit(".", 5)
+            return (parts[0], parts[2], parts[3]) if len(parts) == 6 else None
+
+        mine = os.path.basename(path)
+        key = _entry_key(mine)
+        for fn in os.listdir(cache_dir):
+            if fn.endswith(".npz") and fn != mine and _entry_key(fn) == key:
+                try:
+                    os.remove(os.path.join(cache_dir, fn))
+                except OSError:
+                    pass
+    except OSError as e:
+        print(f"[pool] prep-cache write failed ({e}); continuing uncached",
+              file=sys.stderr, flush=True)
+        try:
+            os.remove(tmp)
+        except OSError:
+            pass
+    return out
+
+
 @dataclasses.dataclass
 class CaseCursor:
     """Deterministic shuffled traversal of the case list; checkpointable.
@@ -122,7 +231,8 @@ class CaseCursor:
 
 class CasePool:
     """Device-resident pool of ``cases`` prepared cases with a background
-    host refresh."""
+    host refresh, read through the prep cache when ``prep_cache_dir`` is
+    set."""
 
     def __init__(
         self,
@@ -133,6 +243,7 @@ class CasePool:
         downsample: int = 1,
         seed: int = 0,
         prefetch: int = 2,
+        prep_cache_dir: Optional[str] = None,
     ):
         if not case_dirs:
             raise ValueError("CasePool needs at least one case")
@@ -140,6 +251,7 @@ class CasePool:
         self.device = torch.device(device)
         self.canvas = tuple(canvas)
         self.downsample = downsample
+        self.prep_cache_dir = prep_cache_dir
         self.k = cases
         self.cursor = CaseCursor(len(self.case_dirs), seed=seed)
         self._queue: "queue.Queue[Dict[str, object]]" = queue.Queue(maxsize=prefetch)
@@ -153,8 +265,9 @@ class CasePool:
         self.fg_host = np.stack([c["fg"] for c in first])
 
     def _prepare(self, d: str) -> Dict[str, object]:
-        return prepare_training_case(load_case(d, load_seg=True), self.canvas,
-                                     downsample=self.downsample)
+        return cached_prepare_training_case(d, self.canvas,
+                                            downsample=self.downsample,
+                                            cache_dir=self.prep_cache_dir)
 
     def _load_next(self) -> Dict[str, object]:
         return self._prepare(self.case_dirs[self.cursor.next_index()])

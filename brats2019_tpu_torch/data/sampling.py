@@ -11,6 +11,10 @@ Two layers, so that the draws and the slicing can be held apart:
 
 ``jax.random`` gives other numbers than torch for the same seed; the tests
 feed the JAX draws to the deterministic layer.
+
+:func:`checked_sample_batch` is the ``--debug-checks`` sampler (:133-162):
+the JAX package's checkify bound on the foreground table becomes an
+explicit check that raises ValueError on the same condition.
 """
 
 from __future__ import annotations
@@ -120,3 +124,28 @@ def sample_patch_impl(
     draw = draw_patch(gen, vol_shape, patch, n_rows, fg_prob)
     origin = patch_origin(draw, vol_shape, patch, fg_table, fg_prob)
     return slice_patch(image, seg, origin, patch)
+
+
+def checked_sample_batch(
+    gen: torch.Generator,
+    image: torch.Tensor,
+    seg: torch.Tensor,
+    patch: Sequence[int],
+    batch: int,
+    fg_table: Optional[np.ndarray] = None,
+    fg_prob: float = 0.5,
+):
+    """``batch`` patches as :func:`sample_patch_impl` draws them, after the
+    bounds checks: a patch larger than the volume and a foreground table
+    with a coordinate outside it (the JAX package's checkify bound, :92-100)
+    raise ValueError instead of clamping."""
+    vol_shape = tuple(image.shape[:3])
+    check_patch_fits(patch, vol_shape, seg.shape)
+    if fg_table is not None:
+        table = np.asarray(fg_table)
+        if not bool(np.all((table >= 0) & (table < np.asarray(vol_shape)[None, :]))):
+            raise ValueError(
+                "fg table coordinate out of volume bounds (mis-sized table?)")
+    imgs, segs = zip(*(sample_patch_impl(gen, image, seg, patch, fg_table,
+                                         fg_prob) for _ in range(batch)))
+    return torch.stack(imgs), torch.stack(segs)

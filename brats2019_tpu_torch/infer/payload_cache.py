@@ -26,24 +26,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..data.case import modality_paths
+from ..data.pipeline import _case_signature_hash
 from ..data.preprocess import BBox
 
 # bump when the payload semantics change (the version is part of the filename)
 PAYLOAD_CACHE_VERSION = 1
 
 Payload = Tuple[torch.Tensor, Optional[Tuple[int, int, int]], BBox]
-
-
-def case_signature_hash(case_dir: str) -> str:
-    """sha1 of the (mtime_ns, size) signature of the modality files (the
-    reference's ``_case_signature_hash(case_dir, with_seg=False)``): editing
-    or re-uploading a case invalidates its entries; a seg file does not."""
-    sig = "|".join(
-        f"{os.path.basename(p)}:{os.stat(p).st_mtime_ns}:{os.path.getsize(p)}"
-        for p in modality_paths(case_dir)
-    )
-    return hashlib.sha1(sig.encode()).hexdigest()[:16]
 
 
 def payload_cache_path(
@@ -58,7 +47,7 @@ def payload_cache_path(
     signature. The case identity is the basename plus a short hash of the
     absolute directory, so same-named cases under two roots never evict each
     other."""
-    h = case_signature_hash(case_dir)
+    h = _case_signature_hash(case_dir, with_seg=False)
     norm = os.path.normpath(os.path.abspath(case_dir))
     dirh = hashlib.sha1(norm.encode()).hexdigest()[:8]
     base = f"{os.path.basename(norm)}-{dirh}"

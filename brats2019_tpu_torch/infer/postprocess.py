@@ -1,5 +1,7 @@
-"""Host label cleanup (copy of the scipy backend of
-``brats2019_tpu/infer/postprocess.py``).
+"""Label cleanup (copy of the scipy backend of
+``brats2019_tpu/infer/postprocess.py``; ``postprocess_labels(backend=
+"device")`` takes the small-component filter from
+``ops/connected_components.py`` instead, as the reference's).
 
 1. drop foreground components (26-connectivity) smaller than
    ``min_component_voxels``;
@@ -56,8 +58,22 @@ def suppress_tiny_et_np(labels: np.ndarray, et_min_voxels: int) -> np.ndarray:
 
 
 def postprocess_labels(
-    labels: np.ndarray, *, min_component_voxels: int = 16, et_min_voxels: int = 32
+    labels: np.ndarray,
+    *,
+    min_component_voxels: int = 16,
+    et_min_voxels: int = 32,
+    backend: str = "scipy",
+    device="cuda",
 ) -> np.ndarray:
-    """Full label cleanup on internal labels {0..3}."""
-    labels = filter_small_components_np(labels, min_component_voxels)
+    """Full label cleanup on internal labels {0..3}: the small-component
+    filter in host scipy (``backend="scipy"``) or by the device connected
+    components (``backend="device"``, on ``device``: the card unless the
+    caller asks for the CPU), as the reference's ``backend=`` (:74-89)."""
+    if backend == "device":
+        from ..ops.connected_components import filter_small_components_device
+
+        labels = filter_small_components_device(labels, min_component_voxels,
+                                                device)
+    else:
+        labels = filter_small_components_np(labels, min_component_voxels)
     return suppress_tiny_et_np(labels, et_min_voxels)

@@ -58,7 +58,7 @@ from ..data.preprocess import (
 )
 from ..models.cascade import make_predict_fn
 from ..utils.nifti import read_header, write_nifti
-from ..utils.weights import build_unet, load_params_npz, state_dict_from_flat
+from ..utils.weights import build_unet, load_params, state_dict_from_flat
 from .payload_cache import load_payload, payload_cache_path, store_payload
 from .postprocess import postprocess_labels
 
@@ -211,7 +211,7 @@ class Predictor:
                               (self.coarse, params_coarse)):
             if model is None or params is None:
                 continue
-            flat = load_params_npz(params) if isinstance(params, str) else params
+            flat = load_params(params) if isinstance(params, str) else params
             model.load_state_dict(state_dict_from_flat(flat), strict=True)
 
     # ------------------------------------------------------------- host side --

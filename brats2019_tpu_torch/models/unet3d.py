@@ -8,12 +8,24 @@ the low-res TTA reduce). The casts sit where the JAX module has them: the
 input to the compute dtype (:104), the skip concat (:135), the f32 head
 (:148-154). The up and the skip concat are one op, ``ops.upsample2x_concat``
 (the kernel writes the up half into the concat buffer).
+
+Deep supervision (:132-145, 157-158): a config with ``deep_supervision``
+has an f32 1x1x1 head ``aux_head_<lvl>`` after the decoder block of every
+level > 0; ``forward(x, deep_outputs=True)`` then returns ``(logits,
+[aux logits of the decoder levels, deepest first])``. ``remat_levels``
+(:109-116): the ``DoubleConv`` blocks of the first N levels (encoder and
+decoder) run under ``torch.utils.checkpoint`` (non-reentrant) when a
+gradient is being recorded, so what their ops save for the backward is
+rebuilt by running them again in the backward, not held; the module names
+stay ``DoubleConv_<i>``, so checkpoints of any ``remat_levels`` are
+interchangeable.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.presets import UNetConfig
 from ..ops import downsample2x, upsample2x_concat
@@ -54,7 +66,8 @@ class Conv1x1(nn.Module):
 class UNet3D(nn.Module):
     """Returns logits (N, D, H, W, K) in f32. Blocks are named
     ``DoubleConv_<i>`` in the JAX package's creation order (encoder levels,
-    then decoder levels from the bottom up)."""
+    then decoder levels from the bottom up, each followed by its
+    ``aux_head_<lvl>`` under deep supervision)."""
 
     def __init__(self, config: UNetConfig = UNetConfig()):
         super().__init__()
@@ -73,27 +86,43 @@ class UNet3D(nn.Module):
                 c + cfg.feats(lvl), cfg.feats(lvl), cfg.activation, dt))
             c = cfg.feats(lvl)
             i += 1
+            if cfg.deep_supervision and lvl > 0:
+                self.add_module(f"aux_head_{lvl}", Conv1x1(c, cfg.num_classes))
         self.head = Conv1x1(c, cfg.num_classes * r ** 3)
 
-    def forward(self, x: torch.Tensor, subpixel: bool = True) -> torch.Tensor:
+    def _block(self, i: int, lvl: int, x: torch.Tensor) -> torch.Tensor:
+        block = getattr(self, f"DoubleConv_{i}")
+        if lvl < self.config.remat_levels and torch.is_grad_enabled():
+            return checkpoint(block, x, use_reentrant=False)
+        return block(x)
+
+    def forward(self, x: torch.Tensor, subpixel: bool = True,
+                deep_outputs: bool = False):
         cfg = self.config
         dt = cfg.dtype
         x = x.to(dt)
         r = cfg.stem_downsample
         if r > 1:
             x = space_to_depth(x, r)
-        blocks = iter(getattr(self, f"DoubleConv_{i}")
-                      for i in range(2 * cfg.levels - 1))
+        deep = cfg.deep_supervision and deep_outputs
+        i = 0
         skips = []
         for lvl in range(cfg.levels):
-            x = next(blocks)(x)
+            x = self._block(i, lvl, x)
+            i += 1
             if lvl < cfg.levels - 1:
                 skips.append(x)
                 x = downsample2x(x)
+        aux_logits = []
         for lvl in reversed(range(cfg.levels - 1)):
             x = upsample2x_concat(x, skips[lvl].to(dt))
-            x = next(blocks)(x)
+            x = self._block(i, lvl, x)
+            i += 1
+            if deep and lvl > 0:
+                aux_logits.append(getattr(self, f"aux_head_{lvl}")(x))
         logits = self.head(x)
         if r > 1 and subpixel:
             logits = depth_to_space(logits, r)
+        if deep:
+            return logits, aux_logits
         return logits

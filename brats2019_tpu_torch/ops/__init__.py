@@ -40,8 +40,7 @@ def reset_launch_counts() -> None:
     instance_norm_act_bwd.launches_cuda = 0   # the IN+act backward on in_act_bwd.cu
     upsample2x_bwd.launches_cuda = 0     # the 2x up backward on resize2x.cu
     for fn in KERNEL_WRAPPERS.values():
-        if fn is not conv3d_winograd:    # bf16 only: no f32 instance
-            fn.launches_f32 = 0          # those on the f32 routes
+        fn.launches_f32 = 0              # those on the f32 routes
 
 
 def launch_counts() -> dict:

@@ -109,9 +109,11 @@ def filter_device(labels_in: torch.Tensor, min_voxels: int) -> torch.Tensor:
 
 
 def filter_small_components_device(labels: np.ndarray, min_voxels: int,
-                                   device="cpu") -> np.ndarray:
+                                   device="cuda") -> np.ndarray:
     """Device-backed equivalent of ``infer.postprocess``'s
-    ``filter_small_components_np`` (26-connectivity)."""
+    ``filter_small_components_np`` (26-connectivity), on the card unless the
+    caller asks for ``device="cpu"`` (the reference runs it on the default
+    device, :166)."""
     if min_voxels <= 1:
         return labels
     t = torch.from_numpy(np.ascontiguousarray(labels)).to(device)

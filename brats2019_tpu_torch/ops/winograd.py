@@ -9,21 +9,25 @@ W and a DHWIO kernel ``w`` (3, 3, 3, Ci, Co), and returns (N, D, H, W, Co) in
 * on a CPU tensor, the plain version :func:`conv3d_winograd_plain`: the same
   decomposition step by step in f32 (U = (G x G x G) g, V = B^T d B on the
   unfolded 4^3 tiles, 64 per-point matmuls, A^T);
-* on a CUDA tensor, a hand-written kernel (bf16 in, f32 accumulation, bf16
-  out), or an error. There is no fallback, and odd D/H/W raise as in the
-  reference. There is no f32 instance: an f32 tensor (the configurations
-  whose compute dtype is float32) raises :class:`WinogradF32Error`, which
-  names the direct backend (``set_backend("direct")``) that has one. :func:`plan_winograd` picks the instance from the shape (and the
-  device's SM count) alone: ``csrc/winograd3d_wgmma.cu`` (wgmma on bricks of
-  4^3 tiles, V made in packed bf16 by a transformer warpgroup, U by TMA)
-  where Ci % 16 == 0 and Co % 8 == 0, else ``csrc/winograd3d.cu`` (mma.sync,
-  V made in f32 and rounded to bf16 once; any Ci, Co).
+* on a CUDA tensor, a hand-written kernel, or an error. There is no
+  fallback, and odd D/H/W raise as in the reference. :func:`plan_winograd`
+  picks the instance from the dtype and the shape (and the device's SM
+  count) alone. bf16 (bf16 in, f32 accumulation, bf16 out):
+  ``csrc/winograd3d_wgmma.cu`` (wgmma on bricks of 4^3 tiles, V made in
+  packed bf16 by a transformer warpgroup, U by TMA) where Ci % 16 == 0 and
+  Co % 8 == 0, else ``csrc/winograd3d.cu`` (mma.sync, V made in f32 and
+  rounded to bf16 once; any Ci, Co). f32 (the configurations whose compute
+  dtype is float32; the reference computes in the dtype it is given): the
+  FFMA instance of ``csrc/winograd3d.cu`` (f32 U and V, f32 products on the
+  CUDA cores, f32 out; no tensor cores, no TF32). Any other dtype raises
+  TypeError.
 
 The weight transform runs outside the kernel in the reference (an XLA
-einsum) and here (a torch einsum); its bf16, zero-padded result is cached
-per weight tensor and version, so a served model transforms each kernel
-once. ``conv3d_winograd.launches`` counts kernel launches of both instances,
-``conv3d_winograd.launches_wgmma`` those of the wgmma instance.
+einsum) and here (a torch einsum); its zero-padded result, in the input's
+dtype, is cached per weight tensor and version, so a served model
+transforms each kernel once. ``conv3d_winograd.launches`` counts kernel
+launches of every instance, ``conv3d_winograd.launches_wgmma`` those of the
+wgmma instance, ``conv3d_winograd.launches_f32`` those of the f32 one.
 :func:`conv3d_winograd_bricked_plain` is plain torch organised as the wgmma
 kernel is (bricks, zero-filled raw patches, channel chunks against the padded
 U, groups of four w-points folded in place, masked ragged tiles), so its index
@@ -50,14 +54,19 @@ _G = ((1.0, 0.0, 0.0), (0.5, 0.5, 0.5), (0.5, -0.5, 0.5), (0.0, 0.0, 1.0))
 _SIG = {
     "winograd3d_ndhwc_bf16": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
     + [ctypes.c_void_p],
+    "winograd3d_ndhwc_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+    + [ctypes.c_void_p],
 }
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 _SIG_WGMMA = {
     "winograd3d_wgmma_ndhwc_bf16": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
     + [ctypes.c_void_p],
     "winograd3d_wgmma_smem_bytes": [],
 }
 # the kernel's channel chunk and Co block: U is zero-padded to multiples
+# (the f32 instance's chunk is 16 channels)
 _CI_PAD, _CO_PAD = 32, 64
+_CI_PAD_F32 = 16
 
 _u_cache: dict = {}
 _u_lock = threading.Lock()
@@ -87,7 +96,7 @@ class WinogradPlan:
     """How one Winograd conv call runs on the card: a pure function of its
     shape."""
 
-    instance: str          # "wgmma" (winograd3d_wgmma.cu) or "mma_sync" (winograd3d.cu)
+    instance: str          # "wgmma" (winograd3d_wgmma.cu), "mma_sync" or "ffma_f32" (winograd3d.cu)
     brick: tuple           # tiles of a block along d, h, w
     bn: int                # output channels per block
     chunk: int             # input channels per K chunk
@@ -114,6 +123,7 @@ def instance_plan(instance: str, n: int, d: int, h: int, w: int, ci: int,
                   co: int, sms: int = SM_COUNT) -> WinogradPlan:
     """The plan of the named instance at this shape (:func:`plan_winograd`
     chooses the instance)."""
+    chunk = _CI_PAD
     if instance == "wgmma":
         if ci % 16 or co % 8:
             raise ValueError(f"no wgmma instance for Ci {ci}, Co {co}")
@@ -121,6 +131,11 @@ def instance_plan(instance: str, n: int, d: int, h: int, w: int, ci: int,
     elif instance == "mma_sync":
         # a 2 x 4 x 4 brick: its 6 x 10 x 10 raw patch and 16 points of V
         brick, smem = (2, 4, 4), (600 + 16 * 32) * (_CI_PAD + 8) * 2
+    elif instance == "ffma_f32":
+        # the same brick in f32: the raw patch at a pitch of 17 channels and
+        # one d-point's 16 points of V, per 16-channel chunk
+        brick, smem = (2, 4, 4), (600 * (_CI_PAD_F32 + 1) + 16 * 32 * _CI_PAD_F32) * 4
+        chunk = _CI_PAD_F32
     else:
         raise ValueError(f"unknown Winograd instance {instance!r}")
     tiles = (d // 2, h // 2, w // 2)
@@ -129,19 +144,8 @@ def instance_plan(instance: str, n: int, d: int, h: int, w: int, ci: int,
     grid = n * math.prod(bricks) * n_tiles
     fill = math.prod(tiles) / (math.prod(bricks) * math.prod(brick))
     blocks = min(grid, sms) if instance == "wgmma" else grid
-    return WinogradPlan(instance, brick, _CO_PAD, _CI_PAD, smem, bricks,
+    return WinogradPlan(instance, brick, _CO_PAD, chunk, smem, bricks,
                         n_tiles, grid, blocks, fill)
-
-
-class WinogradF32Error(TypeError):
-    """The Winograd backend has bf16 instances only."""
-
-    def __init__(self, dtype: torch.dtype = torch.float32):
-        super().__init__(
-            f"the Winograd conv has bf16 kernels only, no {dtype} instance; "
-            "for float32 configurations use the direct backend "
-            "(ops.set_backend('direct')), whose csrc/conv3d.cu has an f32 "
-            "FFMA instance")
 
 
 @functools.lru_cache(maxsize=4096)   # a process sees a few dozen shapes
@@ -149,10 +153,13 @@ def plan_winograd(n: int, d: int, h: int, w: int, ci: int, co: int,
                   sms: int = SM_COUNT,
                   dtype: torch.dtype = torch.bfloat16) -> WinogradPlan:
     """The instance, brick and grid for a (n, d, h, w, ci) -> co Winograd conv
-    (even d, h, w) in ``dtype`` on a device of ``sms`` SMs: bf16 only
-    (:class:`WinogradF32Error` for f32, TypeError for any other dtype)."""
+    (even d, h, w) in ``dtype`` (bf16 or f32; TypeError for any other) on a
+    device of ``sms`` SMs."""
     _check_dtype(dtype)
-    instance = "mma_sync" if ci % 16 or co % 8 else "wgmma"
+    if dtype == torch.float32:
+        instance = "ffma_f32"
+    else:
+        instance = "mma_sync" if ci % 16 or co % 8 else "wgmma"
     return instance_plan(instance, n, d, h, w, ci, co, sms)
 
 
@@ -294,10 +301,12 @@ def conv3d_winograd_bricked_plain(x: torch.Tensor, w: torch.Tensor,
 
 
 def padded_u(w: torch.Tensor) -> torch.Tensor:
-    """The kernel's weight operand: ``transform_weights(w)`` in bf16,
-    zero-padded to (64, Ci up to 32k, Co up to 64k). Cached per weight tensor
-    (weakly) and version counter, under a lock, so the threads of a serving
-    process share one transform per kernel."""
+    """The kernel's weight operand: ``transform_weights(w)`` in w's dtype
+    (bf16, or f32 for the f32 instance, which is never rounded),
+    zero-padded to (64, Ci up to 32k, Co up to 64k) in bf16 and (64, Ci up
+    to 16k, Co up to 64k) in f32. Cached per weight tensor (weakly) and
+    version counter, under a lock, so the threads of a serving process share
+    one transform per kernel."""
     version = None if w.is_inference() else w._version
     key = id(w)
     with _u_lock:
@@ -306,11 +315,12 @@ def padded_u(w: torch.Tensor) -> torch.Tensor:
                 and ent[2] == w.data_ptr()):
             return ent[3]
     ci, co = w.shape[3], w.shape[4]
-    cip = -(-ci // _CI_PAD) * _CI_PAD
+    pad = _CI_PAD_F32 if w.dtype == torch.float32 else _CI_PAD
+    cip = -(-ci // pad) * pad
     cop = -(-co // _CO_PAD) * _CO_PAD
     with torch.no_grad():
-        u = torch.zeros((64, cip, cop), dtype=torch.bfloat16, device=w.device)
-        u[:, :ci, :co] = transform_weights(w.detach()).to(torch.bfloat16)
+        u = torch.zeros((64, cip, cop), dtype=w.dtype, device=w.device)
+        u[:, :ci, :co] = transform_weights(w.detach()).to(w.dtype)
     with _u_lock:
         for k in [k for k, e in _u_cache.items() if e[0]() is None]:
             del _u_cache[k]
@@ -319,16 +329,16 @@ def padded_u(w: torch.Tensor) -> torch.Tensor:
 
 
 def _check_dtype(dtype: torch.dtype) -> None:
-    if dtype == torch.float32:
-        raise WinogradF32Error()
-    if dtype != torch.bfloat16:
-        raise TypeError(f"conv3d_winograd kernel takes bf16, not {dtype}")
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"conv3d_winograd: the kernels take bf16 or f32, not {dtype}")
 
 
-def _check_kernel_args(x: torch.Tensor, w: torch.Tensor) -> None:
+def _check_kernel_args(x: torch.Tensor, w: torch.Tensor,
+                       dtypes=KERNEL_DTYPES) -> None:
     _check_dtype(x.dtype)
-    if w.dtype != torch.bfloat16:
-        raise TypeError(f"conv3d_winograd kernel takes a bf16 weight, not {w.dtype}")
+    if x.dtype not in dtypes or w.dtype != x.dtype:
+        raise TypeError(f"conv3d_winograd instance takes {dtypes} x and a "
+                        f"weight of its dtype, got {x.dtype}, {w.dtype}")
     _check_shapes(x, w)
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError("conv3d_winograd kernel takes x and w on one CUDA "
@@ -348,6 +358,11 @@ def _launch(x: torch.Tensor, w: torch.Tensor, plan: WinogradPlan) -> torch.Tenso
                 x.data_ptr(), u.data_ptr(), y.data_ptr(), n, d, h, wd, ci, co,
                 u.shape[1], u.shape[2], plan.blocks, stream,
             )
+        elif plan.instance == "ffma_f32":
+            rc = _lib().winograd3d_ndhwc_f32(
+                x.data_ptr(), u.data_ptr(), y.data_ptr(), n, d, h, wd, ci, co,
+                u.shape[1], u.shape[2], stream,
+            )
         else:
             rc = _lib().winograd3d_ndhwc_bf16(
                 x.data_ptr(), u.data_ptr(), y.data_ptr(), n, d, h, wd, ci, co,
@@ -356,6 +371,8 @@ def _launch(x: torch.Tensor, w: torch.Tensor, plan: WinogradPlan) -> torch.Tenso
     _build.check(rc, f"conv3d_winograd ({plan.instance})")
     if plan.instance == "wgmma":
         _build.count_launch(conv3d_winograd, "launches", "launches_wgmma")
+    elif plan.instance == "ffma_f32":
+        _build.count_launch(conv3d_winograd, "launches", "launches_f32")
     else:
         _build.count_launch(conv3d_winograd)
     return y
@@ -363,15 +380,16 @@ def _launch(x: torch.Tensor, w: torch.Tensor, plan: WinogradPlan) -> torch.Tenso
 
 def conv3d_winograd_kernel_mma_sync(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Launch csrc/winograd3d.cu (any Ci, Co) on CUDA bf16 tensors."""
-    _check_kernel_args(x, w)
+    _check_kernel_args(x, w, (torch.bfloat16,))
     return _launch(x, w, instance_plan("mma_sync", *x.shape, w.shape[4]))
 
 
 def conv3d_winograd_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Launch the instance :func:`plan_winograd` names for this shape on CUDA
-    bf16 tensors."""
+    """Launch the instance :func:`plan_winograd` names for this dtype and
+    shape on CUDA tensors."""
     _check_kernel_args(x, w)
-    plan = plan_winograd(*x.shape, w.shape[4], _build.sm_count(x.device))
+    plan = plan_winograd(*x.shape, w.shape[4], _build.sm_count(x.device),
+                         x.dtype)
     return _launch(x, w, plan)
 
 
@@ -388,3 +406,4 @@ def conv3d_winograd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 conv3d_winograd.launches = 0
 conv3d_winograd.launches_wgmma = 0
+conv3d_winograd.launches_f32 = 0

@@ -11,7 +11,8 @@ renamed into place, and ``metric.json`` is written after the params, so a
 crash never leaves a best metric ahead of its weights. Resume needs no
 generator state: step RNG derives from (seed, step) (train/step.py).
 
-:func:`export_params` writes the flat npz that ``utils/weights.py`` reads.
+:func:`export_params` writes the flat npz (or safetensors) that
+``utils/weights.py`` reads.
 """
 
 from __future__ import annotations
@@ -38,8 +39,11 @@ def flat_numpy(flat: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 
 
 def export_params(path: str, model: torch.nn.Module) -> None:
-    """Inference-only params as ``params.npz`` (``utils/weights.py``)."""
-    np.savez(path, **flat_numpy(params_flat(model)))
+    """Inference-only params as ``params.npz``, or ``.safetensors`` by
+    extension (``utils/weights.py`` ``save_params``)."""
+    from ..utils.weights import save_params
+
+    save_params(path, flat_numpy(params_flat(model)))
 
 
 def _atomic_save(obj: Any, final_dir: str) -> None:

@@ -1,0 +1,92 @@
+"""Knowledge distillation (reference: ``brats2019_tpu/train/distill.py``,
+:29-110; the method of arXiv:2002.03688): a teacher ensemble's
+temperature-softened probabilities supervise a student beside the
+ground-truth loss,
+
+    L = gt_weight * seg_loss(student, y) + kd_weight * T^2 * KL(teacher_T || student_T),
+
+the KL averaged over voxels. The KD microbatch loss plugs into
+``train_update`` / ``TrainStep`` (``train/step.py``), so distillation shares
+the sampling, ``grad_accum_steps`` and the optimizer with plain training.
+Teachers are ``UNet3D`` modules built once on the student's device, in eval
+mode with ``requires_grad_(False)``, run under ``torch.no_grad()``; their
+logits are taken to f32 before ``softmax(logits / T)`` and averaged in
+teacher order. One student forward, at full resolution, serves both terms.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Sequence
+
+import numpy as np
+import torch
+
+from ..configs.presets import TrainConfig, UNetConfig
+from ..utils.weights import build_unet
+from .loss import segmentation_loss
+
+
+@dataclasses.dataclass(frozen=True)
+class KDConfig:
+    kd_weight: float = 1.0
+    temperature: float = 2.0
+    # weight of the ground-truth (Dice+CE) term; 0 = pure distillation
+    gt_weight: float = 1.0
+
+
+def kd_loss(student_logits: torch.Tensor, teacher_probs_T: torch.Tensor,
+            temperature: float) -> torch.Tensor:
+    """KL(teacher_T || student_T), mean over voxels, scaled by T^2."""
+    t = temperature
+    logp_s = torch.log_softmax(student_logits.float() / t, dim=-1)
+    kl = (teacher_probs_T * (torch.log(teacher_probs_T.clamp_min(1e-9))
+                             - logp_s)).sum(-1)
+    return (t * t) * kl.mean()
+
+
+@torch.no_grad()
+def ensemble_teacher_probs(teachers: Sequence[torch.nn.Module],
+                           x: torch.Tensor, temperature: float) -> torch.Tensor:
+    """Mean temperature-softened probabilities over a teacher ensemble, in
+    teacher order."""
+    probs = None
+    for teacher in teachers:
+        out = teacher(x)
+        if isinstance(out, tuple):
+            out = out[0]
+        pt = torch.softmax(out.float() / temperature, dim=-1)
+        probs = pt if probs is None else probs + pt
+    return probs / len(teachers)
+
+
+def build_teachers(unet_cfg: UNetConfig,
+                   params: Sequence[Dict[str, np.ndarray]],
+                   device) -> list:
+    """One frozen ``UNet3D`` per flat export dict, on ``device``."""
+    return [build_unet(unet_cfg, p, device) for p in params]
+
+
+def make_kd_microbatch_loss(teachers: Sequence[torch.nn.Module],
+                            cfg: TrainConfig, kd: KDConfig,
+                            deep_supervision: bool = False) -> Callable:
+    """``(model, imgs, segs) -> (total, aux)`` for ``train_update``: the
+    segmentation loss (with the aux heads' terms under deep supervision) and
+    the KD term on the same full-resolution student logits; aux gains
+    ``kd_loss`` and ``loss`` is the total."""
+    if not teachers:
+        raise ValueError("distillation needs at least one teacher")
+
+    def loss(model, imgs, segs):
+        t_probs = ensemble_teacher_probs(teachers, imgs, kd.temperature)
+        out = model(imgs, deep_outputs=deep_supervision)
+        logits, aux_logits = out if isinstance(out, tuple) else (out, None)
+        gt_loss, aux = segmentation_loss(
+            logits, segs, dice_weight=cfg.dice_weight, ce_weight=cfg.ce_weight,
+            region_weight=cfg.region_weight, aux_logits=aux_logits,
+            aux_weight=cfg.deep_supervision_weight)
+        l_kd = kd_loss(logits, t_probs, kd.temperature)
+        total = kd.gt_weight * gt_loss + kd.kd_weight * l_kd
+        return total, dict(aux, kd_loss=l_kd, loss=total)
+
+    return loss

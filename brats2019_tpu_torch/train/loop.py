@@ -7,6 +7,13 @@ train on the low-resolution loss (:189-198). The host refreshes the case
 pool, logs, validates on whole canvases and checkpoints, on the reference's
 cadence and metric names; SIGTERM stops at the next step boundary with a
 resumable checkpoint.
+
+The training left-outs of the reference's loop (:62-76, :104-124, :127-271):
+distillation (``kd_teachers``, ``train/distill.py``), warm start
+(``init_from``: exported params or a foreign torch checkpoint, a resumable
+checkpoint winning), deep supervision (the full-resolution loss with the
+aux heads), the prep cache and ``--debug-checks`` (``TrainConfig``),
+``debug_nans`` and a ``torch.profiler`` trace of steps 10-20 (``profile``).
 """
 
 from __future__ import annotations
@@ -15,7 +22,7 @@ import dataclasses
 import os
 import signal
 import time
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -27,7 +34,9 @@ from ..infer.predictor import resolve_device
 from ..models.unet3d import UNet3D
 from ..utils.flops import mfu as _mfu, train_step_flops
 from ..utils.logging import MetricsLogger
-from ..utils.weights import init_params, state_dict_from_flat
+from ..utils.profile import start_trace, stop_trace
+from ..utils.weights import (flat_from_state_dict, import_params, init_params,
+                             state_dict_from_flat)
 from .checkpoint import CheckpointManager
 from .metrics import region_dice_np
 from .step import Optimizer, TrainStep, eval_labels, make_microbatch_loss
@@ -60,16 +69,43 @@ def stage_config(exp: ExperimentConfig, stage: str):
 
 def init_stage(unet_cfg: UNetConfig, train_cfg: TrainConfig,
                device: torch.device):
-    """Model (seeded random init, train mode) and its optimizer."""
-    if unet_cfg.deep_supervision:
-        raise NotImplementedError(
-            "the deep-supervision aux heads are not ported (no preset uses "
-            "them); see ROADMAP.md")
+    """Model (seeded random init, train mode; with the aux heads under deep
+    supervision) and its optimizer."""
     model = UNet3D(unet_cfg)
     model.load_state_dict(state_dict_from_flat(
         init_params(unet_cfg, train_cfg.seed)))
     model = model.to(device).train()
     return model, Optimizer(dict(model.named_parameters()), train_cfg)
+
+
+def _load_init_params(path: str, like: Dict[str, np.ndarray]
+                      ) -> Dict[str, np.ndarray]:
+    """Warm-start source by extension: exported flat params (npz /
+    safetensors) or a reference torch state dict (pt/pth, through
+    ``utils/torch_import.py``); shapes are validated against ``like`` (the
+    stage's flat params) either way."""
+    if path.endswith((".pt", ".pth")):
+        from ..utils.torch_import import import_torch_params, load_torch_state
+
+        loaded, notes = import_torch_params(load_torch_state(path), like)
+        for n in notes:
+            print(f"[init-from] note: {n}", flush=True)
+        return loaded
+    return import_params(path, like)
+
+
+def _validate_pool_sampling(pool: CasePool, cfg: TrainConfig) -> None:
+    """``--debug-checks`` start-up check: the sampler's bounds checks on
+    every pool slot's foreground table and one sampled patch (fg path
+    forced), so a mis-built pool fails before step 0 instead of clamping.
+    Runs once; adds nothing to a step."""
+    from ..data.sampling import checked_sample_batch
+
+    gen = torch.Generator().manual_seed(0)
+    for slot in range(pool.k):
+        checked_sample_batch(gen, pool.image[slot], pool.seg[slot],
+                             tuple(cfg.patch), batch=1,
+                             fg_table=pool.fg_host[slot], fg_prob=1.0)
 
 
 def _validate(model, val_canvases: List[Dict[str, object]],
@@ -96,24 +132,39 @@ def train_stage(
     stage: str = "fine",
     val_dirs: Sequence[str] = (),
     device="cuda",
+    profile: bool = False,
+    kd_teachers: Optional[Sequence[torch.nn.Module]] = None,
+    kd_config=None,
+    init_from: Optional[str] = None,
+    debug_nans: bool = False,
 ) -> StageResult:
     """Train one stage to ``exp.train.steps`` (resuming from the latest
     checkpoint of its workdir). Runs on the card unless the caller asks for
-    ``device="cpu"``; a CUDA request without a card raises."""
+    ``device="cpu"``; a CUDA request without a card raises.
+
+    ``kd_teachers``: frozen ``UNet3D`` teachers on ``device``: the stage
+    trains as their KD student (``kd_config``, default ``KDConfig()``).
+    ``init_from``: warm-start the params from ``params.{npz,safetensors}``
+    or a torch checkpoint ``.pt/.pth``, with a fresh optimizer (its EMA
+    seeded from the loaded weights) at step 0; a resumable checkpoint in
+    the workdir always wins. ``debug_nans``: stop with FloatingPointError at
+    the first step whose loss or gradient norm is not finite (a host read
+    of both each step; none without it). ``profile``: a torch.profiler
+    trace of steps 10-20 of this run in ``<workdir>/<stage>/profile``."""
     device = resolve_device(device)
     unet_cfg, cfg, downsample = stage_config(exp, stage)
     workdir = os.path.join(exp.workdir, stage)
     os.makedirs(workdir, exist_ok=True)
 
     model, opt = init_stage(unet_cfg, cfg, device)
-    lowres = unet_cfg.stem_downsample > 1
-    step_fn = TrainStep(model, cfg, make_microbatch_loss(
-        cfg, unet_cfg.stem_downsample, lowres=lowres), opt)
     ckpt = CheckpointManager(workdir, keep=cfg.keep_checkpoints)
     logger = MetricsLogger(workdir, name=f"{stage}")
     pool = CasePool(case_dirs, device, canvas=cfg.pool_shape,
                     cases=cfg.pool_cases_per_device, downsample=downsample,
-                    seed=cfg.seed)
+                    seed=cfg.seed, prep_cache_dir=cfg.prep_cache_dir)
+    if cfg.debug_checks:
+        _validate_pool_sampling(pool, cfg)
+        print(f"[{stage}] --debug-checks: pool sampling bounds OK", flush=True)
 
     start_step = 0
     restored = ckpt.restore()
@@ -127,6 +178,31 @@ def train_stage(
         start_step = restored["step"]
         pool.load_state(restored["cursor"])
         print(f"[{stage}] resumed from step {start_step}", flush=True)
+        if init_from:
+            print(f"[{stage}] note: --init-from {init_from} IGNORED — a "
+                  "resumable checkpoint exists and continuing it wins",
+                  flush=True)
+    elif init_from:
+        like = flat_from_state_dict(model.state_dict())
+        model.load_state_dict(state_dict_from_flat(
+            _load_init_params(init_from, like)))
+        # a fresh optimizer AFTER the swap: its EMA starts from the loaded
+        # weights, not from the discarded random init
+        opt = Optimizer(dict(model.named_parameters()), cfg)
+        print(f"[{stage}] warm-started params from {init_from} "
+              "(fresh optimizer state, step 0)", flush=True)
+
+    if kd_teachers:
+        from .distill import KDConfig, make_kd_microbatch_loss
+
+        loss_fn = make_kd_microbatch_loss(kd_teachers, cfg,
+                                          kd_config or KDConfig(),
+                                          unet_cfg.deep_supervision)
+    else:
+        loss_fn = make_microbatch_loss(
+            cfg, unet_cfg.stem_downsample, lowres=unet_cfg.stem_downsample > 1,
+            deep_supervision=unet_cfg.deep_supervision)
+    step_fn = TrainStep(model, cfg, loss_fn, opt)
 
     val_canvases = []
     for d in val_dirs:
@@ -150,9 +226,20 @@ def train_stage(
     except ValueError:  # not the main thread: no handler
         pass
     preempted = False
+    prof = None
     try:
         for step in range(start_step, cfg.steps):
+            if profile and step == start_step + 10:
+                prof = start_trace(device)
+            if prof is not None and step == start_step + 20:
+                stop_trace(prof, device, os.path.join(workdir, "profile"))
+                prof = None
             aux = step_fn(pool, step)
+            if debug_nans and not (bool(torch.isfinite(aux["loss"]))
+                                   and bool(torch.isfinite(aux["grad_norm"]))):
+                raise FloatingPointError(
+                    f"[{stage}] --debug-nans: step {step + 1} gave loss "
+                    f"{float(aux['loss'])}, grad_norm {float(aux['grad_norm'])}")
             steps_since_log += 1
             if cfg.pool_refresh_every and step % cfg.pool_refresh_every == 0:
                 pool.maybe_refresh()
@@ -193,6 +280,9 @@ def train_stage(
                 signal.signal(signal.SIGTERM, prev_handler)
             except ValueError:
                 pass
+        if prof is not None:
+            # a run shorter than start + 20 steps still writes its trace
+            stop_trace(prof, device, os.path.join(workdir, "profile"))
         pool.stop()
         logger.close()
 

@@ -140,16 +140,27 @@ class Optimizer:
 # ------------------------------------------------------------------- losses --
 
 def make_microbatch_loss(cfg: TrainConfig, stem: int = 1,
-                         lowres: bool = False) -> Callable:
-    """``(model, imgs, segs) -> (loss, aux)``: Dice + CE (+ region). With
-    ``lowres`` and stem > 1 the loss is scored on the pre-depth-to-space
-    head output (same value, cheaper; train/loss.py)."""
+                         lowres: bool = False,
+                         deep_supervision: bool = False) -> Callable:
+    """``(model, imgs, segs) -> (loss, aux)``: Dice + CE (+ region)
+    (``make_segmentation_microbatch_loss`` :184-226). With ``lowres`` and
+    stem > 1 the loss is scored on the pre-depth-to-space head output (same
+    value, cheaper; train/loss.py), unless ``deep_supervision``: the aux
+    heads' labels need the full-resolution form, which then scores the aux
+    logits too (weights ``deep_supervision_weight``^depth)."""
     kw = dict(dice_weight=cfg.dice_weight, ce_weight=cfg.ce_weight,
               region_weight=cfg.region_weight)
-    if lowres and stem > 1:
+    if lowres and stem > 1 and not deep_supervision:
         return lambda model, imgs, segs: segmentation_loss_lowres(
             model(imgs, subpixel=False), segs, stem, **kw)
-    return lambda model, imgs, segs: segmentation_loss(model(imgs), segs, **kw)
+
+    def loss(model, imgs, segs):
+        out = model(imgs, deep_outputs=deep_supervision)
+        logits, aux_logits = out if isinstance(out, tuple) else (out, None)
+        return segmentation_loss(logits, segs, aux_logits=aux_logits,
+                                 aux_weight=cfg.deep_supervision_weight, **kw)
+
+    return loss
 
 
 def train_update(model: torch.nn.Module, opt: Optimizer, loss_fn: Callable,

@@ -71,7 +71,13 @@ and prints no result lines). Phases:
    max|d|/max|ref| <= 1e-5, down, up and their backwards <= 1e-6, a repeat
    run bitwise equal, every launch on ``launches_f32`` and none on a bf16-only
    route, and device time beside the bound (f32 bytes, the f32 pipe) and the
-   library call on the same f32 inputs.
+   library call on the same f32 inputs. The f32 instance of
+   ``csrc/winograd3d.cu`` (F3b) at the same f32 conv shapes (their first
+   convs have Ci = 4: Ci % 16 != 0): within 1e-5 of max|ref| of the plain
+   Winograd and of the direct conv (f32 math, TF32 off), a repeat run
+   bitwise equal, every launch on ``conv3d_winograd.launches_f32``, device
+   time beside its bound (8/27 of the direct conv's products on the f32
+   pipe), the FFMA direct conv and cuDNN's f32 conv.
 3. The predict slice: CASES synthetic 240x240x155 cases and seeded random
    ``cascade`` weights saved as ``params.npz``, run through
    ``brats2019_tpu_torch.cli.predict`` on the card with the launch counters
@@ -157,13 +163,42 @@ and prints no result lines). Phases:
    /predict one case, GET its probs and whole-tumour uncertainty artifacts;
    (5) the ensemble's device ms/vol (CUDA events around the members'
    probability programs and the accumulation) for K = 1 and 2, e2e s/vol and
-   peak device memory.
+   peak device memory. Part (0) also predicts ``unit`` and ``smoke`` again
+   with ``set_backend("winograd")`` (F3b): every conv on the f32 Winograd
+   instance, none on the direct conv, labels equal to the direct backend's
+   but on ties.
+
+8. The training left-outs at the flagship fine width (``cascade``: 4 levels,
+   base 64, max 320, s2d r=2, 128^3 patches, batch 1), after phase 7 so that
+   phases 3-7 meet the card as before: (1) ``cli.train --stage fine
+   --distill-from T1 T2`` (T1 phase 4's workdir, T2 seeded random weights
+   exported through the weight bridge) for KD_STEPS steps with
+   ``--prep-cache --debug-checks --profile``, counters zeroed just before:
+   kd_loss finite and > 0 and loss = gt + kd within 1e-5 in the log, the
+   teachers bitwise unchanged, every launch on the wgmma conv with its
+   statistics epilogue / IN from partials / the CUDA C++ up and backwards,
+   the trace holding device kernels; one batch's KD loss on the kernel path
+   within KD_TOL of the plain path (the CPU, bf16, at STEP_REF_PATCH); the
+   KD step's ms (CUDA events, 10 after 3 warm-up) beside the plain fine
+   step's in the same process, patches/s, MFU, peak memory and a profile
+   (device kernel time, idle share); (2) one deep-supervision fine step at
+   ``remat_levels`` 0 and 2 on the same batch: losses bitwise equal, grads
+   within REMAT_GRAD_TOL (and whether bitwise), the recomputed levels'
+   forward kernels launched twice, peak memory and ms of each; (3)
+   ``--init-from`` an ``.npz``, a ``.safetensors`` and a ``.pt`` with
+   foreign key names: step-0 params equal the file's, the pool read from
+   the prep cache (no NIfTI decode) equal to the first run's; a second run
+   resumes and prints the IGNORED note; ``cli.import_torch`` of a foreign
+   ``reference_parity`` ``.pt`` (the importer refuses space-to-depth
+   presets), then ``cli.predict --profile`` of one phase-3 case from it on
+   the card; (4) ``cli.info`` reports the card.
 
 The line before the last holds the kernels' JSON record (forward kernels:
 launches on the predict slice, times per volume; backward kernels: launches
 on the training slice, times per fine train step; the Winograd conv:
 launches on the serving slice, times per volume; the f32 instances
-(``*_f32``): forward launches on phase 7's accuracy arms, times per
+(``*_f32``): forward launches on phase 7's accuracy arms (the f32 Winograd:
+on its Winograd-backend predicts), times per
 accuracy-config tile batch, backward launches on phase 7's ``smoke``
 training, times per smoke train step; ``ms``/``plain_ms``/
 ``library_ms``/``bound_ms`` are device times, ``wall_ms``/``plain_wall_ms``
@@ -1254,6 +1289,70 @@ def check_f32_kernels(calls, dev):
     return results
 
 
+# F3b: the f32 instance of csrc/winograd3d.cu against the plain Winograd (f32
+# math, TF32 off), max|d|/max|ref|
+F32_WINO_TOL = 1e-5
+F32_WINO_SOURCE = "brats2019_tpu_torch/csrc/winograd3d.cu (winograd3d_ndhwc_f32)"
+
+
+def check_f32_winograd(calls, dev, f32_results):
+    """The f32 Winograd instance at each unique conv shape of ``calls`` (the
+    accuracy config's tile batch, the ``smoke`` train step; their first
+    convs have Ci = 4, a Ci % 16 != 0 case): within F32_WINO_TOL of its plain
+    version and of the direct conv's, a repeat run bitwise equal, every launch
+    on ``launches_f32`` and none on the wgmma instance; device time beside its
+    bound (8/27 of the direct conv's products on the f32 pipe, 67 TFLOP/s),
+    the plain version, the FFMA direct conv on the same inputs (its phase-2
+    time, ``f32_results``) and cuDNN's f32 conv. Returns {shape: the tuple of
+    :func:`check_kernels`, the direct conv's ms last}."""
+    import torch
+
+    from brats2019_tpu_torch import ops
+    from brats2019_tpu_torch.ops import conv, winograd
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+    out = {}
+    for shape in dict.fromkeys(sh for n, sh in calls if n == "conv3d"):
+        n, d, h, w, ci, co = shape
+        x = torch.randn((n, d, h, w, ci), generator=g, device=dev)
+        wt = torch.randn((3, 3, 3, ci, co), generator=g, device=dev) / (27 * ci) ** 0.5
+        kern = lambda: winograd.conv3d_winograd_kernel(x, wt)
+        plain = lambda: winograd.conv3d_winograd_plain(x, wt)
+        wino = ops.conv3d_winograd
+        before = (wino.launches, wino.launches_f32, wino.launches_wgmma)
+        got, again, ref = kern(), kern(), plain()
+        direct = conv.conv3d_plain(x, wt)
+        torch.cuda.synchronize()
+        took = (wino.launches - before[0], wino.launches_f32 - before[1],
+                wino.launches_wgmma - before[2])
+        err, err_direct = rel(got, ref), rel(got, direct)
+        same = bool(torch.equal(got, again))
+        abs_err = (got - ref).abs().max().item()
+        ok = (err <= F32_WINO_TOL and err_direct <= F32_WINO_TOL and same
+              and took == (2, 2, 0) and got.dtype == torch.float32
+              and winograd.plan_winograd(*shape, dtype=torch.float32).instance
+              == "ffma_f32" and bool(torch.isfinite(got).all()))
+        reps = 10
+        ms, plain_ms = device_ms(kern, reps), device_ms(plain, reps)
+        wall, plain_wall = cuda_ms(kern, reps), cuda_ms(plain, reps)
+        bytes_ms, ops_ms = bound_terms("conv3d_winograd", shape, itemsize=4)
+        lib = library_ms("conv3d", x, reps, wt=wt)
+        direct_ms = f32_results[("conv3d", shape)][2]
+        check(ok, f"conv3d_winograd f32 {shape}: max|d|/max|ref| {err:.3e} against "
+                  f"its plain version, {err_direct:.3e} against the direct conv "
+                  f"(tol {F32_WINO_TOL:g}), max|d| {abs_err:.3e}, repeat run "
+                  f"bitwise equal: {same}, launches (all, f32, wgmma) {took}; "
+                  f"device kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, FFMA direct "
+                  f"conv {direct_ms:.4f} ms, cuDNN f32 {lib:.4f} ms; bound "
+                  f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, "
+                  f"operations {ops_ms:.4f})")
+        out[shape] = (err, abs_err, ms, plain_ms, wall, plain_wall, bytes_ms,
+                      ops_ms, lib, direct_ms)
+        del got, again, ref, direct, kern, plain
+    return out
+
+
 # ------------------------------------------------------------------ phase 7 --
 
 def accuracy_bounds(arms):
@@ -1336,10 +1435,11 @@ def check_f32_route(counts, bf16, kernels, what):
 
 
 def f32_presets_slice():
-    """Phase 7 part 0 (F3): ``unit`` and ``smoke`` train 3 steps (with an
-    eval) and predict on the card, every launch on an f32 route. Returns the
-    launch counts of the last training run (the f32 backward kernels'
-    record)."""
+    """Phase 7 part 0 (F3, F3b): ``unit`` and ``smoke`` train 3 steps (with
+    an eval) and predict on the card, every launch on an f32 route, then
+    predict again with the Winograd backend. Returns the launch counts of
+    the last training run (the f32 backward kernels' record) and the f32
+    Winograd launches of the two Winograd predicts."""
     import numpy as np
 
     from brats2019_tpu_torch.cli import predict as predict_cli
@@ -1350,6 +1450,7 @@ def f32_presets_slice():
     from brats2019_tpu_torch import ops
 
     train_counts = None
+    wino_launches = 0
     for preset, shape in F32_PRESETS:
         data = os.path.join(WORK, f"{preset}_cases")
         wd = os.path.join(WORK, f"{preset}_workdir")
@@ -1383,7 +1484,64 @@ def f32_presets_slice():
               f"{preset} (f32) predicts on the card: exit code {rc}, shape "
               f"{None if seg is None else seg.shape}")
         check_f32_route(counts, bf16, FORWARD, f"{preset} predict")
-    return train_counts
+        wino_launches += winograd_f32_predict(preset, wd, case, seg)
+    return train_counts, wino_launches
+
+
+def winograd_f32_predict(preset, wd, case, direct_seg):
+    """F3b on the card: ``preset`` (f32) predicts ``case`` once more through
+    the predict CLI with ``set_backend("winograd")``: every conv on the f32
+    Winograd instance (none on the direct conv, none on the wgmma instance),
+    the rest on f32 routes, and labels equal to the direct backend's but on
+    ties (top-2 gap of the direct backend's mean probabilities < CARD_TIE).
+    Returns the Winograd launches."""
+    import dataclasses
+
+    import numpy as np
+
+    from brats2019_tpu_torch import ops
+    from brats2019_tpu_torch.cli import predict as predict_cli
+    from brats2019_tpu_torch.cli.common import load_stage_params
+    from brats2019_tpu_torch.configs.presets import get_preset
+    from brats2019_tpu_torch.data.case import load_case
+    from brats2019_tpu_torch.infer.predictor import Predictor
+    from brats2019_tpu_torch.utils.nifti import read_nifti
+
+    out = os.path.join(WORK, f"{preset}_pred_winograd.nii.gz")
+    ops.set_backend("winograd")
+    try:
+        ops.reset_launch_counts()       # just before the path is driven
+        t0 = time.perf_counter()
+        rc = predict_cli.main([case, "--preset", preset, "--workdir", wd,
+                               "--device", "cuda", "--output", out])
+        wino = ops.conv3d_winograd
+        took = (wino.launches, wino.launches_f32, wino.launches_wgmma,
+                ops.conv3d.launches)
+        counts, bf16 = f32_counts()     # just after
+    finally:
+        ops.set_backend("direct")
+    check(rc == 0 and took[0] == took[1] > 0 and took[2:] == (0, 0),
+          f"{preset} (f32) predicts with the Winograd backend: exit code {rc} "
+          f"({time.perf_counter() - t0:.1f} s); Winograd launches (all, f32, "
+          f"wgmma) {took[:3]}, direct conv launches {took[3]}")
+    check_f32_route(counts, bf16, FORWARD[1:], f"{preset} predict (Winograd backend)")
+    seg = read_nifti(out, apply_scaling=False)[0] if rc == 0 else None
+    mism = (seg != direct_seg) if seg is not None else None
+    diff = ties = 0
+    if mism is not None and mism.any():
+        exp = get_preset(preset)
+        c = load_case(case)
+        probs, _ = Predictor(exp, load_stage_params(
+            dataclasses.replace(exp, workdir=wd), "fine"),
+            device="cuda").predict_probs_arrays(c.image)
+        top2 = np.sort(probs, axis=-1)[..., -2:]
+        diff = int(mism.sum())
+        ties = int((mism & ((top2[..., 1] - top2[..., 0]) < CARD_TIE)).sum())
+    check(seg is not None and seg.shape == direct_seg.shape and diff == ties,
+          f"{preset}: Winograd-backend labels equal the direct backend's but on "
+          f"ties: {diff} voxel(s) differ, {ties} of them ties (top-2 gap < "
+          f"{CARD_TIE:g})")
+    return took[0]
 
 
 def accuracy_on_card(dev, card):
@@ -1890,14 +2048,48 @@ def profile_steps(step, pool, stage, first_step, n, step_ms):
               flush=True)
 
 
+def random_pool(cfg, dev):
+    """A device pool of random cases at the stage's canvas (the timed train
+    steps' input, made in bulk on the card)."""
+    import types
+
+    import numpy as np
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    k = cfg.pool_cases_per_device
+    canvas = tuple(cfg.pool_shape)
+    rng = np.random.default_rng(3)
+    return types.SimpleNamespace(
+        image=torch.randn((k,) + canvas + (4,), generator=g, device=dev).bfloat16(),
+        seg=torch.randint(0, 4, (k,) + canvas, generator=g, device=dev,
+                          dtype=torch.uint8),
+        fg_host=np.stack([np.stack([rng.integers(0, c, 4096) for c in canvas],
+                                   -1).astype(np.int32) for _ in range(k)]))
+
+
+def timed_steps(step, pool, warm=3, reps=10):
+    """Mean ms of ``reps`` train steps after ``warm`` (CUDA events), and the
+    last step's aux."""
+    import torch
+
+    for i in range(warm):
+        step(pool, i)
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for i in range(warm, warm + reps):
+        aux = step(pool, i)
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]) / reps, aux
+
+
 def time_training(exp, dev, card, results, stage_calls):
     """Per stage: train step ms (CUDA events, 10 steps after 3 warm-up
     steps) on a device pool of random cases at the stage's canvas, patches/s,
     MFU, peak device memory, each kernel's ms per step against its plain
     version (phase-2 times at the step's shapes), then a profile."""
-    import types
-
-    import numpy as np
     import torch
 
     from brats2019_tpu_torch.train.loop import init_stage, stage_config
@@ -1909,17 +2101,7 @@ def time_training(exp, dev, card, results, stage_calls):
     for stage in ("coarse", "fine"):
         ucfg, cfg, _ = stage_config(exp, stage)
         model, opt = init_stage(ucfg, cfg, dev)
-        g = torch.Generator(device=dev).manual_seed(3)
-        k = cfg.pool_cases_per_device
-        canvas = tuple(cfg.pool_shape)
-        rng = np.random.default_rng(3)
-        pool = types.SimpleNamespace(
-            image=torch.randn((k,) + canvas + (4,), generator=g,
-                              device=dev).bfloat16(),
-            seg=torch.randint(0, 4, (k,) + canvas, generator=g, device=dev,
-                              dtype=torch.uint8),
-            fg_host=np.stack([np.stack([rng.integers(0, c, 4096) for c in canvas],
-                                       -1).astype(np.int32) for _ in range(k)]))
+        pool = random_pool(cfg, dev)
         step = TrainStep(model, cfg, make_microbatch_loss(
             cfg, ucfg.stem_downsample, lowres=True), opt)
         for i in range(3):
@@ -2262,6 +2444,474 @@ def serve_slice(work, case_dirs, direct_masks, expect, serial_e2e, depth, card):
     return counts
 
 
+# ------------------------------------------------------------------ phase 8 --
+
+KD_STEPS = 12   # the KD run through the CLI: logged at 6 and 12; --profile traces 10-11
+KD_TOL = 4e-3   # KD and total loss, kernel path vs the CPU plain path (bf16 both): 2^-8
+REMAT = 2       # remat_levels of the deep-supervision step
+REMAT_GRAD_TOL = 2e-2   # grads at remat 2 vs 0, max|d|/max|ref| per parameter
+
+
+def foreign_state_dict(flat):
+    """A torch state dict of ``flat``'s net under names that are not the
+    port's (``net.<i>.conv<j>.weight`` OIDHW, ``net.<i>.norm<j>.{weight,
+    bias}``, ``out.{weight,bias}``) in registration order: what a PyTorch
+    checkpoint of the same topology trained elsewhere holds."""
+    import numpy as np
+    import torch
+
+    oidhw = lambda a: torch.from_numpy(np.ascontiguousarray(a.transpose(4, 3, 0, 1, 2)))
+    sd = {}
+    blocks = sorted({k.split("/")[1] for k in flat if "/DoubleConv_" in k},
+                    key=lambda b: int(b.split("_")[1]))
+    for b in blocks:
+        i = int(b.split("_")[1])
+        for j in (0, 1):
+            p = f"params/{b}/ConvNormAct_{j}/"
+            sd[f"net.{i}.conv{j}.weight"] = oidhw(flat[p + "Conv_0/kernel"])
+            sd[f"net.{i}.norm{j}.weight"] = torch.from_numpy(flat[p + "in_scale"].copy())
+            sd[f"net.{i}.norm{j}.bias"] = torch.from_numpy(flat[p + "in_bias"].copy())
+    sd["out.weight"] = oidhw(flat["params/head/kernel"])
+    sd["out.bias"] = torch.from_numpy(flat["params/head/bias"].copy())
+    return sd
+
+
+class _Watch:
+    """What the train CLI builds inside, for the checks of phase 8: the
+    teachers (with their state at build time), each pool's first contents,
+    the NIfTI decodes of the pool's prep, and the params at a run's first
+    step. Installed on the port's module attributes for the phase, removed
+    after it."""
+
+    def __init__(self):
+        self.teachers, self.pools, self.first_params = [], [], []
+        self.decodes = 0
+        self._undo = []
+
+    def install(self):
+        from brats2019_tpu_torch.data import pipeline
+        from brats2019_tpu_torch.train import distill, loop
+        from brats2019_tpu_torch.utils.weights import flat_from_state_dict
+
+        watch = self
+        build, load = distill.build_teachers, pipeline.load_case
+
+        def build_teachers(*a, **k):
+            ts = build(*a, **k)
+            watch.teachers = [(t, {n: v.clone() for n, v in t.state_dict().items()})
+                              for t in ts]
+            return ts
+
+        def load_case(*a, **k):
+            watch.decodes += 1
+            return load(*a, **k)
+
+        class Pool(loop.CasePool):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                watch.pools.append((self.image.clone(), self.seg.clone(),
+                                    self.fg_host.copy()))
+
+        class Step(loop.TrainStep):
+            def __call__(self, pool, step):
+                if not getattr(self, "_seen", False):
+                    self._seen = True
+                    watch.first_params.append(flat_from_state_dict(
+                        self.model.state_dict()))
+                return super().__call__(pool, step)
+
+        for mod, name, value in ((distill, "build_teachers", build_teachers),
+                                 (pipeline, "load_case", load_case),
+                                 (loop, "CasePool", Pool), (loop, "TrainStep", Step)):
+            self._undo.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, value)
+
+    def remove(self):
+        for mod, name, value in reversed(self._undo):
+            setattr(mod, name, value)
+        self._undo.clear()
+
+
+def kd_cli_run(exp, cases_root, t1, t2, root, watch, stage_fwd, stage_calls):
+    """8.1 through the train CLI: ``--distill-from T1 T2`` at the flagship
+    fine width, with ``--prep-cache --debug-checks --profile``: the log's
+    kd_loss and total, the teachers bitwise unchanged, the student's routes
+    (counters zeroed just before), the trace, the cache entries."""
+    import torch
+
+    from brats2019_tpu_torch import ops
+    from brats2019_tpu_torch.cli import train as train_cli
+
+    sw = os.path.join(root, "student")
+    cache = os.path.join(root, "prep_cache")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc, out = run_cli(train_cli.main, [
+        "--data", cases_root, "--preset", "cascade", "--stage", "fine",
+        "--device", "cuda", "--eval-every", "0", "--prep-cache", cache,
+        "--workdir", sw, "--distill-from", t1, t2, "--steps", str(KD_STEPS),
+        "--log-every", "6", "--checkpoint-every", "0", "--profile",
+        "--debug-checks"])
+    counts = ops.launch_counts()
+    routes = {"conv3d.launches_wgmma": ops.conv3d.launches_wgmma,
+              "conv3d.launches_stats": ops.conv3d.launches_stats,
+              "instance_norm_act.launches_partials":
+                  ops.instance_norm_act.launches_partials,
+              "upsample2x.launches_concat": ops.upsample2x.launches_concat,
+              "instance_norm_act_bwd.launches_cuda":
+                  ops.instance_norm_act_bwd.launches_cuda,
+              "upsample2x_bwd.launches_cuda": ops.upsample2x_bwd.launches_cuda}
+    check(rc == 0, f"KD train CLI (--distill-from 2 teachers, {KD_STEPS} steps, "
+                   f"--prep-cache --debug-checks --profile): exit code {rc} "
+                   f"({time.perf_counter() - t0:.1f} s)")
+    t = exp.train
+    with open(os.path.join(sw, "fine", "fine_metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f if '"loss"' in line]
+    sums = []
+    for r in recs:
+        gt = (t.dice_weight * r["dice_loss"] + t.ce_weight * r["ce_loss"]
+              + t.region_weight * r.get("region_dice_loss", 0.0))
+        sums.append(abs(r["loss"] - (gt + r["kd_loss"])) / abs(r["loss"]))
+    check([r["step"] for r in recs] == [6, KD_STEPS]
+          and all(math.isfinite(r["kd_loss"]) and r["kd_loss"] > 0
+                  and r["grad_norm"] > 0 for r in recs) and max(sums) <= 1e-5,
+          f"KD log: steps {[r['step'] for r in recs]}, kd_loss "
+          f"{[round(r['kd_loss'], 6) for r in recs]}, loss "
+          f"{[round(r['loss'], 6) for r in recs]} = 1.0 gt + 1.0 kd within "
+          f"{max(sums):.2e} (tol 1e-5)")
+    same = [all(torch.equal(v, before[n]) for n, v in tm.state_dict().items())
+            for tm, before in watch.teachers]
+    check(len(same) == 2 and all(same),
+          f"the two teachers' params bitwise unchanged after the run: {same}")
+    # per KD step: the student's forward and backward, two teacher forwards
+    want = {k: KD_STEPS * (sum(1 for n, _ in stage_calls if n == k)
+                           + 2 * sum(1 for n, _ in stage_fwd if n == k))
+            for k in KERNELS if k != "conv3d_winograd"}
+    fwd_convs = KD_STEPS * 3 * sum(1 for n, _ in stage_fwd if n == "conv3d")
+    fwd_in = KD_STEPS * 3 * sum(1 for n, _ in stage_fwd if n == "instance_norm_act")
+    want_routes = {"conv3d.launches_wgmma": want["conv3d"],
+                   "conv3d.launches_stats": fwd_convs,
+                   "instance_norm_act.launches_partials": fwd_in,
+                   "upsample2x.launches_concat": want["upsample2x"],
+                   "instance_norm_act_bwd.launches_cuda": want["instance_norm_act_bwd"],
+                   "upsample2x_bwd.launches_cuda": want["upsample2x_bwd"]}
+    got = {k: counts[k] for k in want}
+    check(got == want and routes == want_routes,
+          f"KD run launches {got} (expected {want}); routes {routes} (expected "
+          f"{want_routes}): the wgmma conv with its statistics epilogue, IN from "
+          f"its partials, the CUDA C++ up and backwards, on every call")
+    check("--debug-checks: pool sampling bounds OK" in out,
+          "--debug-checks ran the sampler's bounds checks at start-up")
+    trace = os.path.join(sw, "fine", "profile", "trace.json")
+    with open(trace) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    check(len(kernels) > 0, f"--profile on train: {trace} holds {len(events)} "
+                            f"events, {len(kernels)} device kernels")
+    entries = sorted(os.listdir(cache))
+    check(len(entries) >= 1 and all(e.endswith(".npz") for e in entries),
+          f"--prep-cache wrote {len(entries)} entries: {entries}")
+    return counts
+
+
+def kd_against_plain(exp, tparams, dev):
+    """8.1: one batch's KD loss on the kernel path on the card against the
+    port's plain path (the CPU) on the same weights (bf16 both), at
+    STEP_REF_PATCH."""
+    import dataclasses
+
+    import torch
+
+    from brats2019_tpu_torch.train import distill
+    from brats2019_tpu_torch.utils.weights import build_unet, init_params
+
+    cfg = dataclasses.replace(exp.train, patch=STEP_REF_PATCH)
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn((1, *STEP_REF_PATCH, 4), generator=g)
+    y = torch.randint(0, 4, (1, *STEP_REF_PATCH), generator=g)
+    sparams = init_params(exp.unet, SEED + 2)
+    got = {}
+    for where in (dev, "cpu"):
+        student = build_unet(exp.unet, sparams, where)
+        teachers = distill.build_teachers(exp.unet, tparams, where)
+        loss_fn = distill.make_kd_microbatch_loss(teachers, cfg, distill.KDConfig())
+        with torch.no_grad():
+            loss, aux = loss_fn(student, x.to(where), y.to(where))
+        got[str(where)] = (float(loss), float(aux["kd_loss"]))
+    (l_dev, kd_dev), (l_cpu, kd_cpu) = got[str(dev)], got["cpu"]
+    rl, rk = abs(l_dev - l_cpu) / abs(l_cpu), abs(kd_dev - kd_cpu) / abs(kd_cpu)
+    check(rl <= KD_TOL and rk <= KD_TOL,
+          f"KD loss of one batch {STEP_REF_PATCH}, kernel path vs plain path "
+          f"(bf16): total {l_dev:.6f} vs {l_cpu:.6f} (rel {rl:.2e}), kd "
+          f"{kd_dev:.6f} vs {kd_cpu:.6f} (rel {rk:.2e}); tol {KD_TOL:g}")
+
+
+def time_kd(exp, tparams, dev, card):
+    """8.1: KD step ms against the plain fine step in this process (CUDA
+    events, 10 steps after 3 warm-up each, the same random pool), patches/s,
+    MFU (the teachers' forwards counted), peak memory, and a profile of the
+    KD step (device kernel time, idle share). Returns the numbers."""
+    import torch
+
+    from brats2019_tpu_torch.train import distill
+    from brats2019_tpu_torch.train.loop import init_stage, stage_config
+    from brats2019_tpu_torch.train.step import TrainStep, make_microbatch_loss
+    from brats2019_tpu_torch.utils.flops import mfu, train_step_flops, unet_forward_flops
+
+    ucfg, cfg, _ = stage_config(exp, "fine")
+    pool = random_pool(cfg, dev)
+    name = torch.cuda.get_device_name(0)
+    out = {}
+    for what in ("plain", "kd"):
+        model, opt = init_stage(ucfg, cfg, dev)
+        if what == "kd":
+            teachers = distill.build_teachers(ucfg, tparams, dev)
+            loss_fn = distill.make_kd_microbatch_loss(teachers, cfg, distill.KDConfig())
+            flops = (train_step_flops(ucfg, cfg) + len(teachers) * cfg.batch_per_device
+                     * unet_forward_flops(ucfg, tuple(cfg.patch)))
+        else:
+            loss_fn = make_microbatch_loss(cfg, ucfg.stem_downsample, lowres=True)
+            flops = train_step_flops(ucfg, cfg)
+        step = TrainStep(model, cfg, loss_fn, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms, aux = timed_steps(step, pool)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        m = mfu(flops, ms / 1e3, name)
+        out[what] = (ms, m, peak)
+        check(math.isfinite(float(aux["loss"])),
+              f"{what} fine step timed: loss {float(aux['loss']):.4f}")
+        print(f"  {what} fine train step {ms:.3f} ms (CUDA events, mean of 10 after "
+              f"3 warm-up), {cfg.batch_per_device * 1e3 / ms:.2f} patches/s, MFU "
+              f"{'n/a' if m is None else f'{100 * m:.2f}%'} ({flops / 1e12:.3f} "
+              f"TFLOP/step), peak device memory {peak:.3f} GiB above what was "
+              f"allocated before the steps (model, pool) on {card}", flush=True)
+        if what == "kd":
+            profile_steps(step, pool, "kd", 13, 3, ms)
+        del model, opt, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def remat_step(exp, dev, card):
+    """8.2: one fine step's loss and backward with deep supervision at
+    remat_levels 0 and REMAT on the same weights and batch: losses bitwise
+    equal, grads within REMAT_GRAD_TOL (and whether bitwise), the
+    recomputed levels' forward kernels launched twice, peak device memory
+    and ms of each."""
+    import dataclasses
+
+    import torch
+
+    from brats2019_tpu_torch import ops
+    from brats2019_tpu_torch.train.loop import init_stage, stage_config
+    from brats2019_tpu_torch.train.step import make_microbatch_loss
+
+    ucfg, cfg, _ = stage_config(exp, "fine")
+    ds = dataclasses.replace(ucfg, deep_supervision=True)
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn((1, *cfg.patch, 4), generator=g, device=dev)
+    y = torch.randint(0, 4, (1, *cfg.patch), generator=g, device=dev)
+    loss_fn = make_microbatch_loss(cfg, ucfg.stem_downsample, lowres=True,
+                                   deep_supervision=True)
+    runs = {}
+    for r in (0, REMAT):
+        model, _ = init_stage(dataclasses.replace(ds, remat_levels=r), cfg, dev)
+        for _ in range(2):                     # warm-up, then the measured run
+            model.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()   # the process's, the weights'
+            ops.reset_launch_counts()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            loss, _ = loss_fn(model, x, y)
+            loss.backward()
+            ev[1].record()
+            torch.cuda.synchronize()
+        runs[r] = (loss.detach().clone(), ops.launch_counts(), ops.conv3d.launches_stats,
+                   {n: p.grad.float().clone() for n, p in model.named_parameters()},
+                   (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+                   ev[0].elapsed_time(ev[1]))
+        del model
+        torch.cuda.empty_cache()
+    (l0, c0, s0, g0, m0, t0), (l2, c2, s2, g2, m2, t2) = runs[0], runs[REMAT]
+    rel = {n: ((g2[n] - g0[n]).abs().max() / g0[n].abs().max().clamp_min(1e-30)).item()
+           for n in g0}
+    bitwise = all(torch.equal(g2[n], g0[n]) for n in g0)
+    blocks = 2 * REMAT                       # the encoder's and decoder's blocks
+    twice = {k: c2[k] - c0[k] for k in ("conv3d", "instance_norm_act")}
+    check(torch.equal(l0, l2) and max(rel.values()) <= REMAT_GRAD_TOL
+          and twice == {"conv3d": 2 * blocks, "instance_norm_act": 2 * blocks}
+          and s2 - s0 == 2 * blocks
+          and all(c2[k] == c0[k] for k in BACKWARD),
+          f"deep supervision, remat_levels {REMAT} vs 0 (patch {cfg.patch}): loss "
+          f"{float(l2):.6f} vs {float(l0):.6f} bitwise equal {torch.equal(l0, l2)}; "
+          f"grads max|d|/max|ref| {max(rel.values()):.3e} (tol {REMAT_GRAD_TOL:g}), "
+          f"bitwise equal (cuDNN wgrad deterministic here): {bitwise}; forward "
+          f"kernels launched again {twice} (expected {2 * blocks} each, "
+          f"{s2 - s0} with the statistics epilogue), backward launches equal")
+    print(f"  deep-supervision fine step (loss + backward, patch {cfg.patch}): "
+          f"remat 0 {t0:.3f} ms, peak {m0:.3f} GiB; remat {REMAT} {t2:.3f} ms, "
+          f"peak {m2:.3f} GiB (peak device memory above what was allocated "
+          f"before the step) on {card}", flush=True)
+    return {0: (t0, m0), REMAT: (t2, m2)}
+
+
+def warm_start_runs(exp, cases_root, root, watch):
+    """8.3: ``--init-from`` an ``.npz``, a ``.safetensors`` and a foreign
+    ``.pt`` at the flagship fine width: step-0 params equal the file's,
+    each run's pool comes from the prep cache (no NIfTI decode) and equals
+    the KD run's first pool; then a second run in the .pt workdir resumes
+    and prints the "IGNORED" note."""
+    import numpy as np
+    import torch
+
+    from brats2019_tpu_torch.cli import train as train_cli
+    from brats2019_tpu_torch.utils.weights import init_params, save_params
+
+    src = init_params(exp.unet, SEED + 3)
+    paths = {ext: os.path.join(root, f"warm_src.{ext}") for ext in ("npz", "safetensors")}
+    for p in paths.values():
+        save_params(p, src)
+    paths["pt"] = os.path.join(root, "warm_src.pt")
+    torch.save(foreign_state_dict(src), paths["pt"])
+    first_pool = watch.pools[0]
+    base = ["--data", cases_root, "--preset", "cascade", "--stage", "fine",
+            "--device", "cuda", "--eval-every", "0", "--log-every", "1",
+            "--checkpoint-every", "1",
+            "--prep-cache", os.path.join(root, "prep_cache")]
+    for ext, path in paths.items():
+        wd = os.path.join(root, f"warm_{ext}")
+        watch.first_params.clear()
+        watch.decodes = 0
+        n_pools = len(watch.pools)
+        t0 = time.perf_counter()
+        rc, out = run_cli(train_cli.main, base + ["--workdir", wd, "--init-from",
+                                                  path, "--steps", "1"])
+        p0 = watch.first_params[0] if watch.first_params else {}
+        same = p0.keys() == src.keys() and all(np.array_equal(p0[k], src[k]) for k in src)
+        pool = watch.pools[n_pools] if len(watch.pools) > n_pools else None
+        pool_same = pool is not None and all(
+            (torch.equal(a, b) if isinstance(a, torch.Tensor) else np.array_equal(a, b))
+            for a, b in zip(pool, first_pool))
+        check(rc == 0 and "warm-started params from" in out and same,
+              f"--init-from {ext}: exit code {rc}, step-0 params equal the file's: "
+              f"{same} ({time.perf_counter() - t0:.1f} s)")
+        check(watch.decodes == 0 and pool_same,
+              f"--prep-cache on train ({ext} run): {watch.decodes} NIfTI decodes "
+              f"for the pool, its bytes equal the first run's: {pool_same}")
+    rc, out = run_cli(train_cli.main, base + ["--workdir", os.path.join(root, "warm_pt"),
+                                              "--init-from", paths["pt"], "--steps", "2"])
+    check(rc == 0 and "IGNORED" in out and "resumed from step 1" in out,
+          f"a second --init-from run in the same workdir resumes from step 1 and "
+          f"prints the IGNORED note: exit code {rc}")
+
+
+def import_and_predict(case_dir, root):
+    """8.3: ``cli.import_torch`` of a foreign ``.pt`` of the
+    ``reference_parity`` topology (the importer refuses the space-to-depth
+    presets) into a workdir, then ``cli.predict --profile`` of one phase-3
+    case from it on the card."""
+    import numpy as np
+    import torch
+
+    from brats2019_tpu_torch import ops
+    from brats2019_tpu_torch.cli import import_torch as import_cli
+    from brats2019_tpu_torch.cli import predict as predict_cli
+    from brats2019_tpu_torch.configs.presets import get_preset
+    from brats2019_tpu_torch.data.constants import VOLUME_SHAPE
+    from brats2019_tpu_torch.utils.nifti import read_nifti
+    from brats2019_tpu_torch.utils.weights import init_params, load_params
+
+    rp = get_preset("reference_parity")
+    src = init_params(rp.unet, SEED + 4)
+    pt = os.path.join(root, "reference_parity.pt")
+    torch.save(foreign_state_dict(src), pt)
+    wd = os.path.join(root, "imported")
+    rc = import_cli.main([pt, "--preset", "reference_parity", "--workdir", wd])
+    got = load_params(os.path.join(wd, "fine", "params.npz")) if rc == 0 else {}
+    same = got.keys() == src.keys() and all(np.array_equal(got[k], src[k]) for k in src)
+    check(rc == 0 and same, f"import_torch of a foreign reference_parity .pt: exit "
+                            f"code {rc}, params equal the source: {same}")
+    out = os.path.join(root, "imported_pred.nii.gz")
+    prof = os.path.join(root, "predict_profile")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = predict_cli.main([case_dir, "--preset", "reference_parity", "--workdir", wd,
+                           "--device", "cuda", "--output", out, "--profile", prof])
+    convs = ops.conv3d.launches
+    seg = read_nifti(out, apply_scaling=False)[0] if rc == 0 else None
+    check(rc == 0 and seg.shape == VOLUME_SHAPE and set(np.unique(seg)) <= {0, 1, 2, 4}
+          and convs > 0,
+          f"predict from the imported workdir on the card: exit code {rc}, shape "
+          f"{None if seg is None else seg.shape}, {convs} conv launches "
+          f"({time.perf_counter() - t0:.1f} s)")
+    with open(os.path.join(prof, "trace.json")) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    check(kernels > 0, f"--profile on predict: {len(events)} events, {kernels} "
+                       f"device kernels")
+
+
+def info_on_card():
+    """8.4: ``cli.info`` reports the card."""
+    import torch
+
+    from brats2019_tpu_torch.cli import info as info_cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = info_cli.main(["--preset", "cascade"])
+    doc = json.loads(buf.getvalue())
+    cuda = doc["torch"]["cuda"]
+    dev0 = (cuda.get("devices") or [{}])[0]
+    check(rc == 0 and cuda["available"] and cuda["device_count"] == torch.cuda.device_count()
+          and dev0.get("name") == torch.cuda.get_device_name(0)
+          and dev0.get("capability") == list(torch.cuda.get_device_capability(0)),
+          f"cli.info reports the card: {cuda}, nvcc {doc['kernels']['nvcc']}")
+
+
+def training_leftouts(exp, cases_root, case_dirs, dev, card, stage_fwd, stage_calls):
+    """Phase 8: the training left-outs at the flagship fine width (module
+    docstring). Teachers: phase 4's cascade workdir and a second from
+    seed + 1 exported through the weight bridge."""
+    import dataclasses
+
+    from brats2019_tpu_torch.cli.common import load_stage_params
+    from brats2019_tpu_torch.utils.weights import init_params, load_params, save_params
+
+    root = os.path.join(WORK, "leftouts")
+    t1 = os.path.join(WORK, "train_workdir")
+    t2 = os.path.join(root, "teacher2")
+    os.makedirs(os.path.join(t2, "fine"))
+    save_params(os.path.join(t2, "fine", "params.npz"), init_params(exp.unet, SEED + 1))
+    tparams = [load_stage_params(dataclasses.replace(exp, workdir=t1), "fine"),
+               load_params(os.path.join(t2, "fine", "params.npz"))]
+    watch = _Watch()
+    watch.install()
+    try:
+        kd_cli_run(exp, cases_root, t1, t2, root, watch, stage_fwd, stage_calls)
+        warm_start_runs(exp, cases_root, root, watch)
+    finally:
+        watch.remove()
+    kd_against_plain(exp, tparams, dev)
+    kd = time_kd(exp, tparams, dev, card)
+    mem = remat_step(exp, dev, card)
+    import_and_predict(case_dirs[0], root)
+    info_on_card()
+    (p_ms, _, p_peak), (k_ms, k_mfu, k_peak) = kd["plain"], kd["kd"]
+    print(f"  phase 8 summary on {card}: KD step (2 teachers) {k_ms:.3f} ms, "
+          f"{1e3 / k_ms:.2f} patches/s, MFU "
+          f"{'n/a' if k_mfu is None else f'{100 * k_mfu:.2f}%'}, peak {k_peak:.2f} GiB, "
+          f"against the plain fine step {p_ms:.3f} ms (peak {p_peak:.2f} GiB); "
+          f"deep-supervision step's own peak memory remat 0 {mem[0][1]:.3f} GiB, "
+          f"remat {REMAT} {mem[REMAT][1]:.3f} GiB ({mem[0][0]:.3f} vs "
+          f"{mem[REMAT][0]:.3f} ms)",
+          flush=True)
+
+
 def main() -> int:
     import argparse
 
@@ -2402,6 +3052,16 @@ def main() -> int:
                       f"{sum(r[8] for r in mine):.4f} ms, bound "
                       f"{sum(max(r[6], r[7]) for r in mine):.4f} ms on {card}",
                       flush=True)
+    # F3b: the f32 Winograd instance at the same f32 conv shapes
+    f32_wino = check_f32_winograd(f32_fwd + f32_train, dev, f32_results)
+    for what, group in (("accuracy-config tile batch (8, 32^3)", f32_fwd),
+                        ("smoke train step (1, 64^3)", f32_train)):
+        mine = [f32_wino[sh] for n, sh in group if n == "conv3d"]
+        print(f"  conv3d_winograd f32 per {what}: {len(mine)} calls, kernel "
+              f"{sum(r[2] for r in mine):.4f} ms, plain {sum(r[3] for r in mine):.4f} "
+              f"ms, FFMA direct conv {sum(r[9] for r in mine):.4f} ms, cuDNN f32 "
+              f"{sum(r[8] for r in mine):.4f} ms, bound "
+              f"{sum(max(r[6], r[7]) for r in mine):.4f} ms on {card}", flush=True)
     print(f"  phase 2 took {time.perf_counter() - t0:.1f} s; device memory "
           f"still allocated after it: "
           f"{torch.cuda.memory_allocated() / 2 ** 20:.1f} MiB", flush=True)
@@ -2488,10 +3148,18 @@ def main() -> int:
     print("== phase 7: the accuracy slice (f32 presets, the accuracy arms at "
           "f32, the flagship ensemble, evaluate, the ensemble daemon)", flush=True)
     t0 = time.perf_counter()
-    f32_train_counts, _ = f32_presets_slice()
+    (f32_train_counts, _), wino_f32_launches = f32_presets_slice()
     f32_fwd_counts = accuracy_on_card(dev, card)
     flagship_ensemble(exp, work, case_dirs, first, dev, card)
     print(f"  phase 7 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    print("== phase 8: the training left-outs at the flagship fine width "
+          "(distillation, deep supervision and remat, warm start and the "
+          "importer, prep cache, sanitizers, profile, info)", flush=True)
+    t0 = time.perf_counter()
+    training_leftouts(exp, os.path.join(WORK, "cases"), case_dirs, dev, card,
+                      unet_calls(exp.unet, 1, exp.train.patch), stage_calls["fine"])
+    print(f"  phase 8 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     record = []
     for k, (route, source, replaces) in KERNELS.items():
@@ -2554,6 +3222,24 @@ def main() -> int:
             "calls": len(mine),
             "unit": "accuracy-config tile batch" if fwd else "smoke train step",
         })
+    # F3b: the f32 Winograd instance, per accuracy-config tile batch; launches
+    # on phase 7's Winograd-backend predicts of unit and smoke
+    mine = [f32_wino[sh] for n, sh in f32_fwd if n == "conv3d"]
+    bytes_ms, ops_ms = (sum(r[i] for r in mine) for i in (6, 7))
+    record.append({
+        "name": "conv3d_winograd_f32", "route": "cuda", "source": F32_WINO_SOURCE,
+        "replaces": KERNELS["conv3d_winograd"][2], "launches": wino_f32_launches,
+        "max_abs_err": max(r[1] for r in f32_wino.values()),
+        "ms": sum(r[2] for r in mine), "plain_ms": sum(r[3] for r in mine),
+        "bound_ms": sum(max(r[6], r[7]) for r in mine),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": sum(r[8] for r in mine),
+        "wall_ms": sum(r[4] for r in mine), "plain_wall_ms": sum(r[5] for r in mine),
+        "bound_bytes_ms": bytes_ms, "bound_operations_ms": ops_ms,
+        "calls": len(mine), "unit": "accuracy-config tile batch",
+        "direct_ms": sum(r[9] for r in mine),
+        "direct_source": "brats2019_tpu_torch/csrc/conv3d.cu (conv3d_ndhwc_f32)",
+    })
     for r in record:
         unit = r.get("unit") or ("fine train step" if r["name"] in BACKWARD
                                  else "vol")

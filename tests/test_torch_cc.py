@@ -104,9 +104,38 @@ def _label_volume(seed):
 def test_filtered_labels_equal_reference(min_voxels):
     labels = _label_volume(0)
     want = ref_cc.filter_small_components_device(labels, min_voxels)
-    got = cc.filter_small_components_device(labels, min_voxels)
+    got = cc.filter_small_components_device(labels, min_voxels, device="cpu")
     assert got.dtype == labels.dtype
     np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def test_filter_defaults_to_the_card():
+    """The JAX function runs on the default device; the port's on the card
+    unless the caller asks for the CPU (here, without one, the request
+    fails instead of running on the CPU)."""
+    import inspect
+
+    assert inspect.signature(cc.filter_small_components_device).parameters[
+        "device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            cc.filter_small_components_device(_label_volume(0), 4)
+
+
+@pytest.mark.parametrize("min_voxels,et_min", [(16, 32), (4, 0), (0, 32), (200, 500)])
+def test_postprocess_labels_backends_agree(min_voxels, et_min):
+    """``postprocess_labels(backend=...)`` as the reference's: the device
+    backend (here on the CPU) gives the scipy backend's labels and the JAX
+    package's device backend's."""
+    from brats2019_tpu.infer.postprocess import postprocess_labels as ref_post
+    from brats2019_tpu_torch.infer.postprocess import postprocess_labels
+
+    labels = _label_volume(3)
+    kw = dict(min_component_voxels=min_voxels, et_min_voxels=et_min)
+    scipy_ = postprocess_labels(labels, **kw)
+    dev = postprocess_labels(labels, backend="device", device="cpu", **kw)
+    np.testing.assert_array_equal(dev, scipy_)
+    np.testing.assert_array_equal(dev, np.asarray(ref_post(labels, backend="device", **kw)))
 
 
 @pytest.mark.parametrize("min_voxels,et_min", [(16, 32), (4, 0), (0, 32), (8, 500)])

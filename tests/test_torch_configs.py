@@ -130,6 +130,9 @@ def test_port_runtime_imports_no_jax():
         "import brats2019_tpu_torch.data.pipeline, brats2019_tpu_torch.data.sampling\n"
         "import brats2019_tpu_torch.data.augment, brats2019_tpu_torch.utils.flops\n"
         "import brats2019_tpu_torch.utils.logging\n"
+        "import brats2019_tpu_torch.cli.import_torch, brats2019_tpu_torch.cli.info\n"
+        "import brats2019_tpu_torch.train.distill, brats2019_tpu_torch.utils.profile\n"
+        "import brats2019_tpu_torch.utils.torch_import\n"
         "import brats2019_tpu_torch.cli.serve, brats2019_tpu_torch.cli.http_api\n"
         "import brats2019_tpu_torch.infer.payload_cache, brats2019_tpu_torch.infer.tiling\n"
         "import brats2019_tpu_torch.ops.winograd\n"

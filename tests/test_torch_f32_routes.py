@@ -5,8 +5,7 @@ A configuration whose compute dtype is float32 (the presets ``unit`` and
 first conv on the card: every kernel wrapper took bf16 alone. The planners
 are device-independent functions of dtype and shape, so the CPU can hold
 them: given f32 each names its f32 instance or route (the Winograd backend
-its named error, which points at the direct backend), given float16 each
-raises. The kernels themselves are held on the card
+its FFMA instance, F3b), given float16 each raises. The kernels themselves are held on the card
 (``tests/test_torch_kernels_gpu.py``, ``chip_smoke.py`` phase 2)."""
 
 import pytest
@@ -115,15 +114,34 @@ def test_plan_resize_pitch_and_unknown_op():
         resize.plan_resize("upsample3x", 8, BF16)
 
 
+@pytest.mark.parametrize("preset", _f32_presets())
+def test_every_conv_of_an_f32_preset_plans_the_f32_winograd(preset):
+    """The F3b input (``--preset unit``, ``set_backend("winograd")``): every
+    conv of the preset's forward and dgrad (even extents at its tile) plans
+    the f32 Winograd instance."""
+    exp = PRESETS[preset]
+    for tile in (exp.train.patch, exp.infer.tile):
+        for op, shape in _unet_calls(exp.unet, tile):
+            if op == "conv":
+                n, d, h, w, ci, co = shape
+                for a, b in ((ci, co), (co, ci)):
+                    plan = winograd.plan_winograd(n, d, h, w, a, b, dtype=F32)
+                    assert plan.instance == "ffma_f32"
+
+
 @pytest.mark.parametrize("shape", [(1, 16, 16, 16, 16, 16), (1, 12, 14, 10, 4, 32)])
 def test_plan_winograd_by_dtype(shape):
+    """F3b: f32 plans the f32 FFMA instance (16-channel chunks, the bf16
+    general instance's 2 x 4 x 4 brick); float16 raises TypeError."""
     assert winograd.plan_winograd(*shape).instance in ("wgmma", "mma_sync")
-    with pytest.raises(winograd.WinogradF32Error, match="direct") as err:
-        winograd.plan_winograd(*shape, dtype=F32)
-    assert isinstance(err.value, TypeError)
-    with pytest.raises(TypeError) as err:
+    plan = winograd.plan_winograd(*shape, dtype=F32)
+    general = winograd.instance_plan("mma_sync", *shape)
+    assert plan.instance == "ffma_f32" and plan.chunk == 16
+    assert (plan.brick, plan.bricks, plan.grid) == (general.brick, general.bricks,
+                                                    general.grid)
+    assert plan.smem_bytes == (600 * 17 + 16 * 32 * 16) * 4
+    with pytest.raises(TypeError):
         winograd.plan_winograd(*shape, dtype=F16)
-    assert not isinstance(err.value, winograd.WinogradF32Error)
 
 
 def test_f32_launch_counters_start_at_zero():
@@ -132,5 +150,5 @@ def test_f32_launch_counters_start_at_zero():
     ops.reset_launch_counts()
     for fn in (ops.conv3d, ops.instance_norm_act, ops.instance_norm_act_bwd,
                ops.downsample2x, ops.downsample2x_bwd, ops.upsample2x,
-               ops.upsample2x_bwd):
+               ops.upsample2x_bwd, ops.conv3d_winograd):
         assert fn.launches_f32 == 0

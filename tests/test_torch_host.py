@@ -325,3 +325,19 @@ def test_uncertainty_dir_is_the_reference_but_for_the_decoder_meta():
     for node in (got, want):
         node.body = node.body[1:]                      # the docstrings
     assert ast.dump(got) == ast.dump(want)
+
+
+PREP_CACHE = ("_case_signature_hash", "_prep_cache_path")
+
+
+@pytest.mark.parametrize("name", PREP_CACHE)
+def test_prep_cache_keys_are_the_reference_copies(name):
+    """The training prep cache's file naming, statement for statement, so
+    one cache directory serves both packages (its reader and writer are
+    held to the JAX package's by behaviour in
+    tests/test_torch_train_extras.py: the image is a torch tensor here)."""
+    from brats2019_tpu.data import pipeline as ref_pipeline
+    from brats2019_tpu_torch.data import pipeline
+
+    assert pipeline.PREP_CACHE_VERSION == ref_pipeline.PREP_CACHE_VERSION
+    assert _fn_ast(pipeline, name) == _fn_ast(ref_pipeline, name)

@@ -589,11 +589,22 @@ def test_winograd_instances_match_plain(dev, shape, co, instance):
 
 
 def test_winograd_kernel_rejects_odd_dims_and_f32(dev):
+    """Odd D/H/W raise in both dtypes; f32 (F3b: once refused) now runs on
+    the f32 instance; float16 and mixed dtypes still raise TypeError."""
     w = torch.zeros((3, 3, 3, 8, 8), device=dev).bfloat16()
     with pytest.raises(ValueError, match="even"):
         ops.conv3d_winograd(torch.zeros((1, 4, 5, 4, 8), device=dev).bfloat16(), w)
-    with pytest.raises(winograd.WinogradF32Error, match="direct"):
-        ops.conv3d_winograd(torch.zeros((1, 4, 4, 4, 8), device=dev), w.float())
+    with pytest.raises(ValueError, match="even"):
+        ops.conv3d_winograd(torch.zeros((1, 4, 5, 4, 8), device=dev), w.float())
+    before = ops.conv3d_winograd.launches_f32
+    y = ops.conv3d_winograd(torch.ones((1, 4, 4, 4, 8), device=dev), w.float())
+    assert y.dtype == torch.float32 and not y.any()
+    assert ops.conv3d_winograd.launches_f32 == before + 1
+    with pytest.raises(TypeError):
+        ops.conv3d_winograd(torch.zeros((1, 4, 4, 4, 8), device=dev).half(),
+                            w.half())
+    with pytest.raises(TypeError):
+        ops.conv3d_winograd(torch.zeros((1, 4, 4, 4, 8), device=dev), w)
 
 
 def test_winograd_backend_under_autograd(dev, winograd_backend):
@@ -969,3 +980,150 @@ def test_f32_unit_forward_runs_on_the_f32_routes(dev):
     assert counts["instance_norm_act"] == ops.instance_norm_act.launches_f32 > 0
     assert ops.conv3d.launches_wgmma == 0
     assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-4
+
+
+# ------------------------------------------------- the f32 Winograd instance --
+# F3b: a float32 configuration with ``set_backend("winograd")`` runs the FFMA
+# instance of csrc/winograd3d.cu (f32 U and V, f32 products), held to the
+# plain Winograd (f32 math, TF32 off) within 1e-5 of max|ref| and bitwise
+# repeatable.
+
+@pytest.mark.parametrize("shape,co", [
+    ((8, 32, 32, 32, 4), 8),      # the accuracy config's first conv (TTA batch)
+    ((1, 32, 32, 32, 16), 32),    # smoke's second level
+    ((2, 12, 14, 10, 24), 40),    # Ci % 16 != 0, ragged bricks, Co tail
+    ((1, 16, 16, 16, 48), 24),    # three chunks
+    ((3, 2, 2, 2, 5), 3),         # one tile per sample, scalar channels
+    ((1, 8, 8, 8, 80), 136),      # several chunks and Co tiles, both ragged
+])
+def test_winograd_f32_instance_matches_plain(dev, shape, co):
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn(shape, generator=g, device=dev)
+    w = torch.randn((3, 3, 3, shape[-1], co), generator=g,
+                    device=dev) / (27 * shape[-1]) ** 0.5
+    assert winograd.plan_winograd(*shape, co, dtype=torch.float32).instance == "ffma_f32"
+    wino = ops.conv3d_winograd
+    before = (wino.launches, wino.launches_f32, wino.launches_wgmma)
+    got = ops.conv3d_winograd(x, w)
+    again = ops.conv3d_winograd(x, w)
+    ref = winograd.conv3d_winograd_plain(x, w)
+    torch.cuda.synchronize()
+    assert (wino.launches - before[0], wino.launches_f32 - before[1],
+            wino.launches_wgmma - before[2]) == (2, 2, 0)
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert torch.equal(got, again)
+    assert _rel(got, ref) <= 1e-5
+    assert _rel(got, conv.conv3d_plain(x, w)) <= 1e-5
+
+
+def test_winograd_f32_backend_runs_a_unit_forward(dev, winograd_backend):
+    """``set_backend("winograd")`` with an f32 configuration (the F3b input):
+    every conv of the forward on the f32 Winograd instance, none on the
+    direct conv, logits within 1e-4 of the CPU plain path."""
+    from brats2019_tpu_torch.configs.presets import get_preset
+    from brats2019_tpu_torch.utils.weights import build_unet, init_params
+
+    cfg = get_preset("unit").unet
+    params = init_params(cfg, 0)
+    x = torch.randn((1, 16, 16, 16, 4), generator=torch.Generator().manual_seed(4))
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        got = build_unet(cfg, params, dev)(x.to(dev)).cpu()
+        counts = ops.launch_counts()
+        f32 = ops.conv3d_winograd.launches_f32
+        ref = build_unet(cfg, params, "cpu")(x)
+    assert counts["conv3d"] == 0
+    assert counts["conv3d_winograd"] == f32 == 4 * cfg.levels - 2
+    assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-4
+
+
+# ------------------------------------------------ the training left-outs --
+# The KD step and a step under remat on the card against the plain path.
+
+def _unit_pair(kw, seed):
+    from brats2019_tpu_torch.configs.presets import UNetConfig
+    from brats2019_tpu_torch.utils.weights import init_params
+
+    cfg = UNetConfig(**kw)
+    return cfg, init_params(cfg, seed)
+
+
+def test_kd_step_on_the_card_matches_the_plain_path(dev):
+    """One KD update (two teachers, f32 routes) on the card against the CPU
+    plain path on the same weights and batch: loss and kd_loss within 1e-4
+    relative, the updated params within 1e-5 + 1e-4 relative; the teachers
+    bitwise unchanged."""
+    from brats2019_tpu_torch.configs.presets import TrainConfig
+    from brats2019_tpu_torch.train import distill, step as port_step
+    from brats2019_tpu_torch.utils.weights import build_unet
+
+    kw = dict(levels=2, base_features=8, max_features=16, compute_dtype="float32")
+    cfg, sp = _unit_pair(kw, 0)
+    tparams = [_unit_pair(kw, s)[1] for s in (1, 2)]
+    tcfg = TrainConfig(patch=(16, 16, 16), steps=4, warmup_steps=0)
+    g = torch.Generator().manual_seed(3)
+    batch = [(torch.randn((1, 16, 16, 16, 4), generator=g),
+              torch.randint(0, 4, (1, 16, 16, 16), generator=g))]
+    out = {}
+    for where in ("cpu", dev):
+        model = build_unet(cfg, sp, where).train().requires_grad_(True)
+        teachers = distill.build_teachers(cfg, tparams, where)
+        before = [{k: v.clone() for k, v in t.state_dict().items()} for t in teachers]
+        opt = port_step.Optimizer(dict(model.named_parameters()), tcfg)
+        loss_fn = distill.make_kd_microbatch_loss(teachers, tcfg, distill.KDConfig())
+        ops.reset_launch_counts()
+        aux = port_step.train_update(model, opt, loss_fn,
+                                     [(x.to(where), y.to(where)) for x, y in batch])
+        out[str(where)] = ({k: float(v) for k, v in aux.items()},
+                           {k: p.detach().cpu() for k, p in model.named_parameters()},
+                           ops.launch_counts())
+        for t, b in zip(teachers, before):
+            assert all(torch.equal(v, b[k]) for k, v in t.state_dict().items())
+    (a_cpu, p_cpu, _), (a_dev, p_dev, counts) = out["cpu"], out[str(dev)]
+    assert counts["conv3d"] == ops.conv3d.launches_f32 > 0
+    for k in ("loss", "kd_loss"):
+        assert abs(a_dev[k] - a_cpu[k]) <= 1e-4 * abs(a_cpu[k])
+    for k in p_cpu:
+        torch.testing.assert_close(p_dev[k], p_cpu[k], atol=1e-5, rtol=1e-4)
+
+
+def test_remat_step_on_the_card_recomputes_its_levels(dev):
+    """A bf16 sub-pixel net with deep supervision: one loss + backward at
+    remat_levels 0 and 2 on the same weights and batch gives the same loss
+    bitwise and gradients within bf16 rounding, and the recomputed levels'
+    forward kernels launch twice (the conv with its statistics epilogue, the
+    IN+act from its partials)."""
+    from brats2019_tpu_torch.configs.presets import TrainConfig, UNetConfig
+    from brats2019_tpu_torch.models.unet3d import UNet3D
+    from brats2019_tpu_torch.train import step as port_step
+    from brats2019_tpu_torch.utils.weights import init_params, state_dict_from_flat
+
+    kw = dict(levels=3, base_features=16, max_features=32, stem_downsample=2,
+              deep_supervision=True)
+    params = init_params(UNetConfig(**kw), 0)
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((1, 32, 32, 32, 4), generator=g).to(dev)
+    y = torch.randint(0, 4, (1, 32, 32, 32), generator=g).to(dev)
+    runs = {}
+    for remat in (0, 2):
+        model = UNet3D(UNetConfig(**kw, remat_levels=remat))
+        model.load_state_dict(state_dict_from_flat(params))
+        model = model.to(dev).train()
+        loss_fn = port_step.make_microbatch_loss(TrainConfig(), 2, lowres=True,
+                                                 deep_supervision=True)
+        ops.reset_launch_counts()
+        loss, _ = loss_fn(model, x, y)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[remat] = (loss.detach().clone(), ops.launch_counts(),
+                       ops.conv3d.launches_stats,
+                       {k: p.grad.float().clone() for k, p in model.named_parameters()})
+    (l0, c0, s0, g0), (l2, c2, s2, g2) = runs[0], runs[2]
+    assert torch.equal(l0, l2)
+    # levels 0 and 1: four blocks of two convs and two INs each run again
+    assert c2["conv3d"] - c0["conv3d"] == 8 and s2 - s0 == 8
+    assert c2["instance_norm_act"] - c0["instance_norm_act"] == 8
+    assert c2["instance_norm_act_bwd"] == c0["instance_norm_act_bwd"]
+    for k in g0:
+        err = ((g2[k] - g0[k]).abs().max() / g0[k].abs().max().clamp_min(1e-30)).item()
+        assert err <= 2e-2, k

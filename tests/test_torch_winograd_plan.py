@@ -165,10 +165,21 @@ def test_shared_memory_arithmetic():
 @pytest.mark.parametrize("fn", [winograd.conv3d_winograd_kernel,
                                 winograd.conv3d_winograd_kernel_mma_sync])
 def test_kernel_wrappers_refuse_cpu_tensors_and_f32(fn):
+    """f32 has a kernel since F3b: the mma.sync instance still refuses f32,
+    both wrappers refuse float16 and mixed dtypes, and a CPU tensor of
+    either kernel dtype is refused for its device."""
     x = torch.zeros((1, 4, 4, 4, 16))
     w = torch.zeros((3, 3, 3, 16, 16))
-    with pytest.raises(TypeError, match="bf16"):
-        fn(x, w)
+    if fn is winograd.conv3d_winograd_kernel_mma_sync:
+        with pytest.raises(TypeError, match="bfloat16"):
+            fn(x, w)
+    else:
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(x, w)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        fn(x.half(), w.half())
+    with pytest.raises(TypeError, match="dtype"):
+        fn(x, w.bfloat16())
     with pytest.raises(ValueError, match="CUDA"):
         fn(x.bfloat16(), w.bfloat16())
     with pytest.raises(ValueError, match="even"):
