@@ -271,121 +271,317 @@ extern "C" int conv3d_ndhwc_bf16(const void* x, const void* w, void* y, int N,
 //
 // What bounds it on the card: the FP32 pipe, 67 TFLOP/s dense on an H100 SXM;
 // a conv of the f32 configurations does 27 * Ci * 2 flops per output value
-// against 4 + 4 bytes, far above the f32 ridge (~20 flop/byte).
+// against 4 + 4 bytes, far above the f32 ridge (~20 flop/byte). Their
+// channel counts are small (Ci 3-48, Co 4-48), so what decides the time is
+// how many FFMA slots go to padding and how many shared-memory
+// loads feed each FFMA.
 //
-// Design, written for correctness first (the same implicit GEMM and masked
-// halo as the bf16 instance above, without tensor cores or cp.async):
-//   * a block computes a 64-voxel x 64-channel output tile with 256 threads,
-//     each thread a 4 x 4 register tile (4 voxels x 4 channels);
-//   * K advances one (tap, 16-channel chunk) at a time: the A chunk (64
-//     voxels x 16 channels, masked to zero outside the volume and past Ci)
-//     is stored transposed in shared memory so a thread reads its 4 voxels
-//     as one float4, the B chunk (16 x 64 of the DHWIO weight) as it lies;
-//   * the sum of each output runs over (tap, chunk, channel) in one fixed
+// Design (csrc/conv3d_wgmma.cu's box of voxels and halo patch, on FFMA):
+//   * A block owns a box of BD x 8 x 8 output voxels of one sample (BD 2, 4
+//     or 8, chosen by ops/conv.py plan_conv from the number of blocks) and a
+//     Co tile of CT channels sized to Co (4, 8, 12, ..., 64; wider Co walks
+//     several tiles), so no FFMA runs on a zero column where Co % 4 == 0 and
+//     Co <= 64.
+//   * Ci is consumed in slabs of SL channels (a multiple of 4, the whole Ci
+//     where it fits the plan's shared-memory budget; the last slab ends at Ci
+//     rounded up to 4). Per slab the
+//     (BD+2) x 10 x 10 halo patch goes to shared memory once, by zero-filling
+//     16-byte cp.async of 4-channel runs where Ci % 4 == 0 and Co % 4 == 0
+//     (masked scalar loads otherwise), and the block's Co tile of the weight,
+//     27 x SL x CT, beside it. All 27 taps then read the patch: no input
+//     voxel is fetched from memory twice by one block within a slab. SAME
+//     padding is the zero fill; Ci is padded to a multiple of 4 only.
+//   * A thread owns 4 consecutive w voxels x CPT channels (CPT 8 where
+//     CT % 8 == 0, else 4). For each (kd, kh) and 4 channels it reads the 6
+//     patch voxels that cover the 3 kw taps as float4s and, per channel and
+//     kw, CPT weights as warp-wide broadcast float4s: 6 + 6 * CPT / 4 loads
+//     per 48 * CPT FFMA (30 per 384 at CPT 8). The patch row pitch is padded
+//     to an odd number of 16-byte units, and the 8 lanes of a quarter-warp
+//     hold the box's 8 h-rows, so those float4 reads never conflict; the
+//     lanes of a warp share their Co group, so the weights broadcast.
+//   * Each output's sum runs over (slab, kd, kh, channel, kw) in one fixed
 //     order: repeat runs are bitwise equal.
+//   * Ragged boxes and Co tails are masked at the store.
+//
+// Probe builds (tools/torch_conv_check.py --f32 --probe), for timing only:
+// -DCONV3D_F32_FILLS_ONLY leaves out the products, -DCONV3D_F32_NO_STORE the
+// stores; -DCONV3D_F32_MAXNREG=n caps the registers.
 
 namespace {
 
-constexpr int F_BM = 64;        // output voxels per block
-constexpr int F_BN = 64;        // output channels per block
-constexpr int F_BK = 16;        // contraction chunk: 16 channels of one tap
-constexpr int F_THREADS = 256;  // 16 x 16 threads of 4 x 4 outputs
-constexpr int F_LD = F_BM + 4;  // shared row pitch (float4-aligned)
+constexpr int F_BH = 8, F_BW = 8;            // box extent along h and w
+constexpr int F_PH = F_BH + 2, F_PW = F_BW + 2;
+constexpr int F_MAX_THREADS = 512;
+constexpr int F_SMEM_LIMIT = 232448;         // dynamic shared memory a block may ask for
 
-__global__ void __launch_bounds__(F_THREADS)
+// Floats of one patch row (F_PW voxels of a slab of `slab` channels, slab %
+// 4 == 0), rounded up to an odd number of 16-byte units.
+__host__ __device__ constexpr int f32_row_pitch(int slab) {
+  return 4 * ((F_PW * slab / 4) | 1);
+}
+
+__host__ __device__ constexpr int f32_smem_bytes(int bd, int ct, int slab) {
+  return 4 * ((bd + 2) * F_PH * f32_row_pitch(slab) + 27 * slab * ct);
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int k) {
+  return k == 0 ? v.x : (k == 1 ? v.y : (k == 2 ? v.z : v.w));
+}
+
+// A probe build may cap the registers (-DCONV3D_F32_MAXNREG=n) to read what
+// occupancy buys.
+#ifdef CONV3D_F32_MAXNREG
+#define F32_BOUNDS __maxnreg__(CONV3D_F32_MAXNREG)
+#else
+#define F32_BOUNDS __launch_bounds__(F_MAX_THREADS)
+#endif
+
+template <int CPT>
+__global__ void F32_BOUNDS
     conv3d_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                      float* __restrict__ y, int N, int D, int H, int W,
-                      int Ci, int Co) {
-  __shared__ __align__(16) float As[F_BK][F_LD];   // [channel][voxel]
-  __shared__ __align__(16) float Bs[F_BK][F_LD];   // [channel][out channel]
+                      float* __restrict__ y, int D, int H, int W, int Ci,
+                      int Co, int BD, int CT, int SL, int nbd, int nbh, int nbw,
+                      int vec) {
+  extern __shared__ __align__(16) float fsm[];
+  const int RP = f32_row_pitch(SL);
+  const int plane = F_PH * RP;
+  float* patch = fsm;                          // [a][b][c][channel]
+  float* wsm = fsm + (BD + 2) * plane;         // [kd][kh][channel][kw][co]
 
   const int tid = threadIdx.x;
-  const int tm = tid & 15;          // voxels tm*4 .. tm*4+3 of the tile
-  const int tn = tid >> 4;          // channels tn*4 .. tn*4+3 of the tile
-  const long long M = (long long)N * D * H * W;
-  const long long m0 = (long long)blockIdx.x * F_BM;
-  const int n0 = blockIdx.y * F_BN;
-  const long long HW = (long long)H * W;
+  const int nvt = 16 * BD;                     // voxel threads per Co group
+  const int g = tid / nvt;                     // Co group: uniform in a warp
+  const int vt = tid - g * nvt;
+  const int th = vt & 7, tq = (vt >> 3) & 1, tdz = vt >> 4;
 
-  // A loader: voxel row a_row, channels a_col .. a_col+3 of each chunk
-  const int a_row = tid >> 2;
-  const int a_col = (tid & 3) * 4;
-  const long long am = m0 + a_row;
-  const bool a_in = am < M;
-  const long long amm = a_in ? am : 0;
-  const int a_w = (int)(amm % W);
-  const int a_h = (int)((amm / W) % H);
-  const int a_d = (int)((amm / HW) % D);
-  // B loader: weight row b_row of the chunk, out channels b_col .. b_col+3
-  const int b_row = tid >> 4;
-  const int b_col = (tid & 15) * 4;
+  int b = blockIdx.x;
+  const int bw_i = b % nbw;
+  b /= nbw;
+  const int bh_i = b % nbh;
+  b /= nbh;
+  const int bd_i = b % nbd;
+  const int n = b / nbd;
+  const int d0 = bd_i * BD, h0 = bh_i * F_BH, w0 = bw_i * F_BW;
+  const int co0 = blockIdx.y * CT;
+  const float* xn = x + (long long)n * D * H * W * Ci;
 
-  float acc[4][4];
+  float acc[4][CPT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int v = 0; v < 4; ++v)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < CPT; ++j) acc[v][j] = 0.f;
 
-  const int n_ci_chunks = (Ci + F_BK - 1) / F_BK;
-  for (int tap = 0; tap < 27; ++tap) {
-    const int kd = tap / 9, kh = (tap / 3) % 3, kw = tap % 3;
-    const int dd = a_d + kd - 1, hh = a_h + kh - 1, ww = a_w + kw - 1;
-    const bool ok = a_in && dd >= 0 && dd < D && hh >= 0 && hh < H &&
-                    ww >= 0 && ww < W;
-    const long long shift = (kd - 1) * HW + (long long)(kh - 1) * W + (kw - 1);
-    const float* xs = x + (amm + shift) * Ci;
-    for (int cc = 0; cc < n_ci_chunks; ++cc) {
-      const int ci0 = cc * F_BK;
+  const int nthreads = blockDim.x;
+  const int pvox = (BD + 2) * F_PH * F_PW;
+  const int ct4 = CT / 4;
+  const int cip = (Ci + 3) & ~3;
+  for (int c0 = 0; c0 < Ci; c0 += SL) {
+    const int sl = min(SL, cip - c0);    // this slab's channels (the last may be short)
+    const int q4 = sl / 4;
+    if (c0) __syncthreads();   // every thread is done with the last slab
+    // the halo patch: zero outside the volume and past Ci
+    for (int e = tid; e < pvox * q4; e += nthreads) {
+      const int v = e / q4, c4 = e - v * q4;
+      const int a = v / (F_PH * F_PW);
+      const int r = v - a * (F_PH * F_PW);
+      const int bb = r / F_PW, cc = r - bb * F_PW;
+      const int dd = d0 - 1 + a, hh = h0 - 1 + bb, ww = w0 - 1 + cc;
+      const bool in = dd >= 0 && dd < D && hh >= 0 && hh < H && ww >= 0 &&
+                      ww < W;
+      const int ci = c0 + 4 * c4;
+      float* dst = patch + a * plane + bb * RP + cc * SL + 4 * c4;
+      const float* src = xn + (((long long)dd * H + hh) * W + ww) * Ci + ci;
+      if (vec) {
+        const bool ok = in && ci < Ci;
+        cp_async16(dst, ok ? (const void*)src : (const void*)x, ok);
+      } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int ci = ci0 + a_col + j;
-        As[a_col + j][a_row] = (ok && ci < Ci) ? xs[ci] : 0.f;
+        for (int j = 0; j < 4; ++j)
+          dst[j] = (in && ci + j < Ci) ? src[j] : 0.f;
       }
-      const int k = ci0 + b_row;
-      const float* wsrc = w + ((long long)tap * Ci + k) * Co + n0 + b_col;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        Bs[b_row][b_col + j] =
-            (k < Ci && n0 + b_col + j < Co) ? wsrc[j] : 0.f;
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < F_BK; ++kk) {
-        const float4 a = *reinterpret_cast<const float4*>(&As[kk][tm * 4]);
-        const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tn * 4]);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
     }
+    // the weight slab of the Co tile, zero past Ci and Co
+    for (int e = tid; e < 27 * sl * ct4; e += nthreads) {
+      const int c4 = e % ct4;
+      const int r = e / ct4;
+      const int ci = r % sl, tap = r / sl;     // tap = (kd * 3 + kh) * 3 + kw
+      const int kw = tap % 3, khd = tap / 3;
+      float* dst = wsm + ((khd * SL + ci) * 3 + kw) * CT + 4 * c4;
+      const int cig = c0 + ci, co = co0 + 4 * c4;
+      const float* src = w + ((long long)tap * Ci + cig) * Co + co;
+      if (vec) {
+        const bool ok = cig < Ci && co < Co;
+        cp_async16(dst, ok ? (const void*)src : (const void*)w, ok);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          dst[j] = (cig < Ci && co + j < Co) ? src[j] : 0.f;
+      }
+    }
+    cp_async_commit();
+    cp_async_wait_0();
+    __syncthreads();
+
+#ifndef CONV3D_F32_FILLS_ONLY
+    const float* pbase = patch + tdz * plane + th * RP + 4 * tq * SL;
+    const float* wbase = wsm + g * CPT;
+#pragma unroll 1
+    for (int kdh = 0; kdh < 9; ++kdh) {
+      const int kd = kdh / 3, kh = kdh - 3 * kd;
+      const float* pr = pbase + kd * plane + kh * RP;
+      const float* wr = wbase + kdh * SL * 3 * CT;
+#pragma unroll 1
+      for (int c = 0; c < sl; c += 4) {
+        float4 p[6];
+#pragma unroll
+        for (int j = 0; j < 6; ++j)
+          p[j] = *reinterpret_cast<const float4*>(pr + j * SL + c);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+#pragma unroll
+          for (int kw = 0; kw < 3; ++kw) {
+            const float* wp = wr + ((c + k) * 3 + kw) * CT;
+            float wv[CPT];
+#pragma unroll
+            for (int j = 0; j < CPT; j += 4) {
+              const float4 t = *reinterpret_cast<const float4*>(wp + j);
+              wv[j] = t.x;
+              wv[j + 1] = t.y;
+              wv[j + 2] = t.z;
+              wv[j + 3] = t.w;
+            }
+#pragma unroll
+            for (int v = 0; v < 4; ++v) {
+              const float xv = lane_of(p[v + kw], k);
+#pragma unroll
+              for (int j = 0; j < CPT; ++j) acc[v][j] = fmaf(xv, wv[j], acc[v][j]);
+            }
+          }
+        }
+      }
+    }
+#endif
   }
 
+  const int d = d0 + tdz, h = h0 + th;
+  const int co = co0 + g * CPT;
+#ifdef CONV3D_F32_NO_STORE
+  if (acc[0][0] != 12345.f) return;   // keeps the products alive
+#endif
+  if (d >= D || h >= H || co >= Co) return;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long m = m0 + tm * 4 + i;
-    if (m >= M) continue;
+  for (int v = 0; v < 4; ++v) {
+    const int ww = w0 + 4 * tq + v;
+    if (ww >= W) continue;
+    float* dst = y + ((((long long)n * D + d) * H + h) * W + ww) * Co + co;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int co = n0 + tn * 4 + j;
-      if (co < Co) y[m * Co + co] = acc[i][j];
+    for (int j = 0; j < CPT; j += 4) {
+      if (vec) {
+        if (co + j < Co)
+          *reinterpret_cast<float4*>(dst + j) =
+              make_float4(acc[v][j], acc[v][j + 1], acc[v][j + 2], acc[v][j + 3]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (co + j + i < Co) dst[j + i] = acc[v][j + i];
+      }
     }
   }
 }
 
+// Dynamic shared memory up to the card's limit for both instances, once per
+// device: when the library loads (conv3d_f32_prepare, for the current device)
+// or, for another device, at its first launch.
+constexpr int F_MAX_DEVICES = 64;
+bool f32_ready[F_MAX_DEVICES] = {};
+
+cudaError_t f32_prepare_current() {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= F_MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (f32_ready[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(conv3d_f32_kernel<4>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             F_SMEM_LIMIT);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(conv3d_f32_kernel<8>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               F_SMEM_LIMIT);
+  if (err == cudaSuccess) f32_ready[dev] = true;
+  return err;
+}
+
+// -1 for a (box depth, Co tile, slab) that no instance takes
+int f32_check(int box_d, int co_tile, int slab) {
+  if (box_d != 2 && box_d != 4 && box_d != 8) return -1;
+  if (co_tile < 4 || co_tile > 64 || co_tile % 4 || slab < 4 || slab % 4)
+    return -1;
+  const int cpt = co_tile % 8 == 0 ? 8 : 4;
+  if (16 * box_d * (co_tile / cpt) > F_MAX_THREADS) return -1;
+  const int bytes = f32_smem_bytes(box_d, co_tile, slab);
+  return bytes <= F_SMEM_LIMIT ? bytes : -1;
+}
+
 }  // namespace
 
+// Dynamic shared memory of the f32 instance for a box of box_d x 8 x 8
+// voxels, a Co tile of co_tile channels and a Ci slab of slab channels; -1
+// if no instance takes them. ops/conv.py plan_conv computes the same.
+extern "C" int conv3d_f32_smem_bytes(int box_d, int co_tile, int slab) {
+  return f32_check(box_d, co_tile, slab);
+}
+
+// Blocks of the f32 instance that fit on an SM at once for this plan (the
+// occupancy API), or -1 for a plan no instance takes.
+extern "C" int conv3d_f32_blocks_per_sm(int box_d, int co_tile, int slab) {
+  const int smem = f32_check(box_d, co_tile, slab);
+  if (smem < 0 || f32_prepare_current() != cudaSuccess) return -1;
+  const int cpt = co_tile % 8 == 0 ? 8 : 4;
+  const int threads = 16 * box_d * (co_tile / cpt);
+  int n = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, cpt == 8 ? conv3d_f32_kernel<8> : conv3d_f32_kernel<4>, threads, smem);
+  return err == cudaSuccess ? n : -1;
+}
+
+// Sets both instances' shared-memory attribute on the current device; called
+// once when the library is loaded, so never first inside a stream capture.
+extern "C" int conv3d_f32_prepare() { return (int)f32_prepare_current(); }
+
 // x (N,D,H,W,Ci), w (3,3,3,Ci,Co), y (N,D,H,W,Co): contiguous f32 on the
-// current device. Launches on `stream`; returns cudaGetLastError().
+// current device. box_d, co_tile, slab: the plan (ops/conv.py plan_conv).
+// Launches on `stream`; returns cudaGetLastError() (cudaErrorInvalidValue for
+// a plan no instance takes).
 extern "C" int conv3d_ndhwc_f32(const void* x, const void* w, void* y, int N,
-                                int D, int H, int W, int Ci, int Co,
-                                void* stream) {
-  const long long M = (long long)N * D * H * W;
-  dim3 grid((unsigned)((M + F_BM - 1) / F_BM), (unsigned)((Co + F_BN - 1) / F_BN));
-  conv3d_f32_kernel<<<grid, F_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<float*>(y), N, D, H, W, Ci, Co);
+                                int D, int H, int W, int Ci, int Co, int box_d,
+                                int co_tile, int slab, void* stream) {
+  const int smem = f32_check(box_d, co_tile, slab);
+  if (smem < 0 || N < 1 || D < 1 || H < 1 || W < 1 || Ci < 1 || Co < 1)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = f32_prepare_current();
+  if (err != cudaSuccess) return (int)err;
+  const int nbd = (D + box_d - 1) / box_d, nbh = (H + F_BH - 1) / F_BH,
+            nbw = (W + F_BW - 1) / F_BW;
+  const long long boxes = (long long)N * nbd * nbh * nbw;
+  const int tiles = (Co + co_tile - 1) / co_tile;
+  if (boxes > 0x7FFFFFFFLL || tiles > 65535) return (int)cudaErrorInvalidValue;
+  const int cpt = co_tile % 8 == 0 ? 8 : 4;
+  const int threads = 16 * box_d * (co_tile / cpt);
+  const int vec = Ci % 4 == 0 && Co % 4 == 0 &&
+                  ((reinterpret_cast<uintptr_t>(x) |
+                    reinterpret_cast<uintptr_t>(w) |
+                    reinterpret_cast<uintptr_t>(y)) & 15) == 0;
+  dim3 grid((unsigned)boxes, (unsigned)tiles);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* xf = static_cast<const float*>(x);
+  const auto* wf = static_cast<const float*>(w);
+  auto* yf = static_cast<float*>(y);
+  if (cpt == 8)
+    conv3d_f32_kernel<8><<<grid, threads, smem, s>>>(
+        xf, wf, yf, D, H, W, Ci, Co, box_d, co_tile, slab, nbd, nbh, nbw, vec);
+  else
+    conv3d_f32_kernel<4><<<grid, threads, smem, s>>>(
+        xf, wf, yf, D, H, W, Ci, Co, box_d, co_tile, slab, nbd, nbh, nbw, vec);
   return (int)cudaGetLastError();
 }

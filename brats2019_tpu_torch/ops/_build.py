@@ -51,11 +51,14 @@ def find_nvcc() -> str:
 
 
 def load_library(name: str, sources, signatures: dict,
-                 extra_flags=()) -> ctypes.CDLL:
+                 extra_flags=(), prepare: str | None = None) -> ctypes.CDLL:
     """Build (if needed) and load ``lib<name>_<hash>.so`` from ``sources``
     (file names under csrc/). ``signatures`` maps each exported function
     to its ctypes ``argtypes``; every function returns an int error code.
     ``extra_flags`` go to nvcc after the common ones (a probe build's -D).
+    ``prepare`` names an exported function without arguments called once
+    after loading (e.g. to set a kernel's shared-memory attribute outside
+    any stream capture); a non-zero return raises.
     One lock per library: two libraries build side by side when two threads
     ask for them (:func:`build_all`)."""
     with _lock:
@@ -88,6 +91,8 @@ def load_library(name: str, sources, signatures: dict,
             f = getattr(lib, fn)
             f.argtypes = argtypes
             f.restype = ctypes.c_int
+        if prepare is not None:
+            check(getattr(lib, prepare)(), f"{name}: {prepare}")
         with _lock:
             _libs[name] = lib
         return lib

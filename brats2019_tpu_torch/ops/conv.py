@@ -13,7 +13,9 @@ conv3d_pallas and the flax/XLA conv of ``models/blocks.py:35-43``).
   ``csrc/conv3d.cu`` (mma.sync implicit GEMM, any Ci, Co). f32 (the
   configurations whose compute dtype is float32, as the JAX package computes
   them): the FFMA instance of ``csrc/conv3d.cu`` (f32 in, f32 accumulation,
-  f32 out; no tensor cores, no TF32). Any other dtype raises TypeError.
+  f32 out; no tensor cores, no TF32; a box of voxels whose halo patch and
+  weight slab sit in shared memory, a Co tile sized to Co,
+  :func:`f32_plan`). Any other dtype raises TypeError.
 
 It is an ``autograd.Function``. ``conv3d_pallas`` has no VJP in the JAX
 package (its gradient was XLA's), so the port builds one:
@@ -85,8 +87,11 @@ def get_backend() -> str:
 _SIG = {
     "conv3d_ndhwc_bf16": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
-    "conv3d_ndhwc_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+    "conv3d_ndhwc_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
     + [ctypes.c_void_p],
+    "conv3d_f32_smem_bytes": [ctypes.c_int] * 3,
+    "conv3d_f32_blocks_per_sm": [ctypes.c_int] * 3,
+    "conv3d_f32_prepare": [],
 }
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 _SIG_WGMMA = {
@@ -100,7 +105,8 @@ _SIG_WGMMA = {
 
 
 def _lib() -> ctypes.CDLL:
-    return _build.load_library("conv3d", ["conv3d.cu"], _SIG)
+    return _build.load_library("conv3d", ["conv3d.cu"], _SIG,
+                               prepare="conv3d_f32_prepare")
 
 
 def _lib_wgmma() -> ctypes.CDLL:
@@ -121,9 +127,9 @@ class ConvPlan:
     """How one conv call runs on the card: a pure function of its shape."""
 
     instance: str          # "wgmma" (conv3d_wgmma.cu), "mma_sync" or "ffma_f32" (conv3d.cu)
-    box: tuple             # (bd, bh, bw) voxels of an M tile; else (rows,)
-    bn: int                # output channels per block
-    chunk: int             # input channels per K chunk
+    box: tuple             # (bd, bh, bw) voxels of an M tile; mma_sync (rows,)
+    bn: int                # output channels per block (ffma_f32: the Co tile)
+    chunk: int             # input channels per K chunk (ffma_f32: a slab of Ci)
     stages: int            # weight slabs (wgmma) / (A, B) chunk pairs in the ring
     smem_bytes: int
     boxes: tuple           # M tiles per axis (nbd, nbh, nbw) per sample; mma_sync: (tiles,)
@@ -177,14 +183,7 @@ def plan_conv(n: int, d: int, h: int, w: int, ci: int, co: int,
     check_dtype(dtype, "conv3d")
     flops = 2.0 * 27 * ci * co * n * d * h * w
     if dtype == torch.float32:
-        # 64-voxel x 64-channel tiles, a (tap, 16-channel) chunk of A and B
-        # (f32) through shared memory per K step
-        tiles = -(-(n * d * h * w) // 64)
-        n_tiles = -(-co // 64)
-        filled = tiles * n_tiles * 27 * -(-ci // 16) * (64 + 64) * 16 * 4
-        return ConvPlan("ffma_f32", (64,), 64, 16, 1, 2 * 16 * 68 * 4,
-                        (tiles,), n_tiles, tiles * n_tiles, tiles * n_tiles,
-                        flops / filled)
+        return f32_plan(n, d, h, w, ci, co, sms)
     if ci % 16 or co % 8:
         tiles = -(-(n * d * h * w) // 128)
         n_tiles = -(-co // 64)
@@ -202,6 +201,78 @@ def plan_conv(n: int, d: int, h: int, w: int, ci: int, co: int,
         if best is None or cost < best[0]:
             best = (cost, plan)
     return best[1]
+
+
+# The f32 FFMA instance of csrc/conv3d.cu: a box of BD x 8 x 8 voxels, a Co
+# tile sized to Co, Ci in slabs of a multiple of 4 channels; a thread holds 4
+# w voxels x 8 channels (4 where the Co tile is not a multiple of 8).
+F32_BOX_HW = 8
+F32_BOX_DEPTHS = (8, 4, 2)
+F32_MAX_CO_TILE = 64
+F32_MAX_THREADS = 512
+F32_SMEM_PER_THREAD = 384   # the slab's budget: bytes of shared memory a thread
+
+
+def f32_co_tile(co: int) -> int:
+    """The f32 instance's Co tile: Co (rounded up to 4) where it is at most
+    64, else the tiles of at most 64 that cover Co with the least padding."""
+    per = -(-co // -(-co // F32_MAX_CO_TILE))
+    return -(-per // 4) * 4
+
+
+def f32_threads(bd: int, co_tile: int) -> int:
+    """Threads of a block: 16 per box depth (8 h-rows x 2 w-quads of 4
+    voxels) for each group of 8 (or 4) channels of the Co tile."""
+    return 16 * bd * co_tile // (8 if co_tile % 8 == 0 else 4)
+
+
+def f32_smem_bytes(bd: int, co_tile: int, slab: int) -> int:
+    """Dynamic shared memory of the f32 instance: the (bd+2) x 10 x 10 halo
+    patch of a slab (a row of 10 voxels padded to an odd number of 16-byte
+    units) and the 27 x slab x co_tile weight slab; the same arithmetic as
+    ``conv3d_f32_smem_bytes`` in csrc/conv3d.cu."""
+    row = 4 * ((F32_BOX_HW + 2) * slab // 4 | 1)
+    return 4 * ((bd + 2) * (F32_BOX_HW + 2) * row + 27 * slab * co_tile)
+
+
+def f32_plan(n: int, d: int, h: int, w: int, ci: int, co: int,
+             sms: int = SM_COUNT, bd: int | None = None) -> ConvPlan:
+    """The plan of the f32 instance at this shape: the deepest box that still
+    gives every SM a block (else the shallowest), the Co tile of
+    :func:`f32_co_tile` (halved while the grid has fewer blocks than SMs and
+    the halves stay multiples of 4 that divide it), and the widest slab of Ci
+    (a multiple of 4, in slabs of equal width) whose patch and weights fit
+    ``F32_SMEM_PER_THREAD`` bytes a thread (at least 128 threads' worth).
+    ``bd`` forces the box depth."""
+    ct = f32_co_tile(co)
+    cip = -(-ci // 4) * 4
+
+    def grid_of(depth, tile):
+        return (n * -(-d // depth) * -(-h // F32_BOX_HW) * -(-w // F32_BOX_HW)
+                * -(-co // tile))
+
+    if bd is None:
+        fit = [b for b in F32_BOX_DEPTHS if f32_threads(b, ct) <= F32_MAX_THREADS]
+        bd = next((b for b in fit if grid_of(b, ct) >= sms), fit[-1])
+        while grid_of(bd, ct) < sms and ct % 8 == 0:
+            ct //= 2
+    n_tiles = -(-co // ct)
+    if bd not in F32_BOX_DEPTHS or f32_threads(bd, ct) > F32_MAX_THREADS:
+        raise ValueError(f"no f32 instance for box depth {bd}, Co tile {ct}")
+    budget = min(SMEM_LIMIT, F32_SMEM_PER_THREAD * max(128, f32_threads(bd, ct)))
+    slab = cip
+    while slab > 4 and f32_smem_bytes(bd, ct, slab) > budget:
+        slab -= 4
+    n_slabs = -(-cip // slab)
+    slab = -(-cip // n_slabs // 4) * 4
+    grid = grid_of(bd, ct)
+    patch = (bd + 2) * (F32_BOX_HW + 2) ** 2 * slab
+    filled = grid * n_slabs * (patch + 27 * slab * ct) * 4
+    return ConvPlan("ffma_f32", (bd, F32_BOX_HW, F32_BOX_HW), ct, slab, 1,
+                    f32_smem_bytes(bd, ct, slab),
+                    (-(-d // bd), -(-h // F32_BOX_HW), -(-w // F32_BOX_HW)),
+                    n_tiles, grid, grid,
+                    2.0 * 27 * ci * co * n * d * h * w / filled)
 
 
 def wgmma_plan(n: int, d: int, h: int, w: int, ci: int, co: int,
@@ -395,18 +466,23 @@ def _launch_wgmma(x: torch.Tensor, w: torch.Tensor, plan: ConvPlan,
     return (y, part) if stats else y
 
 
-def conv3d_kernel_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Launch the f32 FFMA instance of csrc/conv3d.cu on CUDA f32 tensors."""
+def conv3d_kernel_f32(x: torch.Tensor, w: torch.Tensor,
+                      plan: ConvPlan | None = None) -> torch.Tensor:
+    """Launch the f32 FFMA instance of csrc/conv3d.cu on CUDA f32 tensors,
+    with the shape's own plan unless one is given."""
     _check_kernel_args(x, w, (torch.float32,))
     n, d, h, wd, ci = x.shape
     x = x.contiguous()
     w = w.contiguous()
     co = w.shape[4]
+    if plan is None:
+        plan = plan_conv(n, d, h, wd, ci, co, _sm_count(x.device), x.dtype)
     y = torch.empty((n, d, h, wd, co), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = _lib().conv3d_ndhwc_f32(
-            x.data_ptr(), w.data_ptr(), y.data_ptr(), n, d, h, wd, ci, co, stream
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), n, d, h, wd, ci, co,
+            plan.box[0], plan.bn, plan.chunk, stream
         )
     _build.check(rc, "conv3d (f32)")
     _build.count_launch(conv3d, "launches", "launches_f32")
@@ -421,7 +497,7 @@ def conv3d_kernel(x: torch.Tensor, w: torch.Tensor, stats: bool = False):
     plan = plan_conv(*x.shape, w.shape[4], _sm_count(x.device), x.dtype)
     if plan.instance == "wgmma":
         return _launch_wgmma(x, w, plan, stats)
-    y = (conv3d_kernel_f32(x, w) if plan.instance == "ffma_f32"
+    y = (conv3d_kernel_f32(x, w, plan) if plan.instance == "ffma_f32"
          else _launch_mma_sync(x, w))
     return (y, None) if stats else y
 

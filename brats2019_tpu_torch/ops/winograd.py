@@ -19,8 +19,9 @@ W and a DHWIO kernel ``w`` (3, 3, 3, Ci, Co), and returns (N, D, H, W, Co) in
   rounded to bf16 once; any Ci, Co). f32 (the configurations whose compute
   dtype is float32; the reference computes in the dtype it is given): the
   FFMA instance of ``csrc/winograd3d.cu`` (f32 U and V, f32 products on the
-  CUDA cores, f32 out; no tensor cores, no TF32). Any other dtype raises
-  TypeError.
+  CUDA cores, f32 out; no tensor cores, no TF32; a Co tile sized to Co, U and
+  V in shared memory, A^T once per point: :func:`f32_chunk`). Any other
+  dtype raises TypeError.
 
 The weight transform runs outside the kernel in the reference (an XLA
 einsum) and here (a torch einsum); its zero-padded result, in the input's
@@ -54,8 +55,10 @@ _G = ((1.0, 0.0, 0.0), (0.5, 0.5, 0.5), (0.5, -0.5, 0.5), (0.0, 0.0, 1.0))
 _SIG = {
     "winograd3d_ndhwc_bf16": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
     + [ctypes.c_void_p],
-    "winograd3d_ndhwc_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+    "winograd3d_ndhwc_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11
     + [ctypes.c_void_p],
+    "winograd3d_f32_smem_bytes": [ctypes.c_int] * 3,
+    "winograd3d_f32_prepare": [],
 }
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 _SIG_WGMMA = {
@@ -63,10 +66,10 @@ _SIG_WGMMA = {
     + [ctypes.c_void_p],
     "winograd3d_wgmma_smem_bytes": [],
 }
-# the kernel's channel chunk and Co block: U is zero-padded to multiples
-# (the f32 instance's chunk is 16 channels)
+# the bf16 kernels' channel chunk and Co block: U is zero-padded to
+# multiples (the f32 instance pads Ci to 4 and Co to its Co tile)
 _CI_PAD, _CO_PAD = 32, 64
-_CI_PAD_F32 = 16
+_CI_PAD_F32 = 4
 
 _u_cache: dict = {}
 _u_lock = threading.Lock()
@@ -74,7 +77,8 @@ _g_cache: dict = {}
 
 
 def _lib() -> ctypes.CDLL:
-    return _build.load_library("winograd3d", ["winograd3d.cu"], _SIG)
+    return _build.load_library("winograd3d", ["winograd3d.cu"], _SIG,
+                               prepare="winograd3d_f32_prepare")
 
 
 def _lib_wgmma() -> ctypes.CDLL:
@@ -106,6 +110,7 @@ class WinogradPlan:
     grid: int              # (brick, Co tile) pairs
     blocks: int            # thread blocks (wgmma: persistent, at most one per SM)
     fill: float            # share of the bricks' tile slots that hold a real tile
+    raw_channels: int = 0  # ffma_f32: channels its raw patch holds (Ci padded, or a chunk)
 
 
 def wgmma_smem_bytes() -> int:
@@ -123,7 +128,7 @@ def instance_plan(instance: str, n: int, d: int, h: int, w: int, ci: int,
                   co: int, sms: int = SM_COUNT) -> WinogradPlan:
     """The plan of the named instance at this shape (:func:`plan_winograd`
     chooses the instance)."""
-    chunk = _CI_PAD
+    chunk, bn = _CI_PAD, _CO_PAD
     if instance == "wgmma":
         if ci % 16 or co % 8:
             raise ValueError(f"no wgmma instance for Ci {ci}, Co {co}")
@@ -132,20 +137,70 @@ def instance_plan(instance: str, n: int, d: int, h: int, w: int, ci: int,
         # a 2 x 4 x 4 brick: its 6 x 10 x 10 raw patch and 16 points of V
         brick, smem = (2, 4, 4), (600 + 16 * 32) * (_CI_PAD + 8) * 2
     elif instance == "ffma_f32":
-        # the same brick in f32: the raw patch at a pitch of 17 channels and
-        # one d-point's 16 points of V, per 16-channel chunk
-        brick, smem = (2, 4, 4), (600 * (_CI_PAD_F32 + 1) + 16 * 32 * _CI_PAD_F32) * 4
-        chunk = _CI_PAD_F32
+        # the same brick in f32, a Co tile sized to Co, Ci in chunks of V
+        # and U (the raw patch holds all of Ci, or a chunk)
+        cip = -(-ci // _CI_PAD_F32) * _CI_PAD_F32
+        bn = f32_co_tile(co)
+        raw, chunk = f32_chunk(cip, bn)
+        brick, smem = (2, 4, 4), f32_smem_bytes(raw, bn, chunk)
     else:
         raise ValueError(f"unknown Winograd instance {instance!r}")
     tiles = (d // 2, h // 2, w // 2)
-    n_tiles = -(-co // _CO_PAD)
+    n_tiles = -(-co // bn)
     bricks = tuple(-(-t // b) for t, b in zip(tiles, brick))
     grid = n * math.prod(bricks) * n_tiles
     fill = math.prod(tiles) / (math.prod(bricks) * math.prod(brick))
     blocks = min(grid, sms) if instance == "wgmma" else grid
-    return WinogradPlan(instance, brick, _CO_PAD, chunk, smem, bricks,
-                        n_tiles, grid, blocks, fill)
+    return WinogradPlan(instance, brick, bn, chunk, smem, bricks,
+                        n_tiles, grid, blocks, fill,
+                        raw if instance == "ffma_f32" else 0)
+
+
+# The f32 FFMA instance of csrc/winograd3d.cu: Co tiles of at most 32
+# channels sized to Co; the raw patch of all of Ci, V and U of a chunk of Ci
+# and M of a d-point in shared memory.
+F32_MAX_CO_TILE = 32
+F32_SMEM_TARGET = 113_664   # two blocks an SM, where the raw patch allows
+
+
+def f32_co_tile(co: int) -> int:
+    """The f32 instance's Co tile: Co (rounded up to 4) where it is at most
+    32, else the tiles of at most 32 that cover Co with the least padding."""
+    per = -(-co // -(-co // F32_MAX_CO_TILE))
+    return -(-per // 4) * 4
+
+
+def f32_threads(co_tile: int) -> int:
+    """Threads of an f32 block (the kernel's ``fw_threads``)."""
+    return 128 if co_tile <= 8 else 16 * co_tile
+
+
+def f32_smem_bytes(raw: int, co_tile: int, chunk: int) -> int:
+    """Dynamic shared memory of the f32 instance: the 600-voxel raw patch of
+    ``raw`` channels (Ci padded, or a chunk) at a pitch of raw + 1 floats, V
+    (16 points x chunk x 32 tiles) and U (16 x chunk x co_tile) of a chunk, M
+    (16 x 32 x co_tile) of a d-point; the same arithmetic as
+    ``fw_smem_bytes`` in csrc/winograd3d.cu."""
+    return 4 * (600 * (raw + 1) + 16 * chunk * (32 + co_tile)
+                + 16 * 32 * co_tile)
+
+
+def f32_chunk(ci_pad: int, co_tile: int) -> tuple:
+    """(raw channels, chunk) of the f32 instance: the raw patch holds all of
+    Ci where it fits beside a chunk, else one chunk at a time (filled again
+    for each d-point); the chunk is the widest multiple of 4 (chunks of equal
+    width) that keeps the block at ``F32_SMEM_TARGET`` bytes (two blocks an
+    SM), or failing that at ``SMEM_LIMIT``."""
+    for resident in (True, False):
+        for limit in (F32_SMEM_TARGET, SMEM_LIMIT):
+            chunk = ci_pad
+            size = lambda c: f32_smem_bytes(ci_pad if resident else c, co_tile, c)
+            while chunk > 4 and size(chunk) > limit:
+                chunk -= 4
+            if size(chunk) <= limit:
+                chunk = -(-ci_pad // -(-ci_pad // chunk) // 4) * 4
+                return (ci_pad if resident else chunk), chunk
+    raise ValueError(f"no f32 Winograd instance for Ci {ci_pad}, Co tile {co_tile}")
 
 
 @functools.lru_cache(maxsize=4096)   # a process sees a few dozen shapes
@@ -304,9 +359,9 @@ def padded_u(w: torch.Tensor) -> torch.Tensor:
     """The kernel's weight operand: ``transform_weights(w)`` in w's dtype
     (bf16, or f32 for the f32 instance, which is never rounded),
     zero-padded to (64, Ci up to 32k, Co up to 64k) in bf16 and (64, Ci up
-    to 16k, Co up to 64k) in f32. Cached per weight tensor (weakly) and
-    version counter, under a lock, so the threads of a serving process share
-    one transform per kernel."""
+    to 4k, Co up to a multiple of :func:`f32_co_tile`) in f32. Cached per
+    weight tensor (weakly) and version counter, under a lock, so the threads
+    of a serving process share one transform per kernel."""
     version = None if w.is_inference() else w._version
     key = id(w)
     with _u_lock:
@@ -315,9 +370,11 @@ def padded_u(w: torch.Tensor) -> torch.Tensor:
                 and ent[2] == w.data_ptr()):
             return ent[3]
     ci, co = w.shape[3], w.shape[4]
-    pad = _CI_PAD_F32 if w.dtype == torch.float32 else _CI_PAD
+    f32 = w.dtype == torch.float32
+    pad = _CI_PAD_F32 if f32 else _CI_PAD
     cip = -(-ci // pad) * pad
-    cop = -(-co // _CO_PAD) * _CO_PAD
+    co_pad = f32_co_tile(co) if f32 else _CO_PAD
+    cop = -(-co // co_pad) * co_pad
     with torch.no_grad():
         u = torch.zeros((64, cip, cop), dtype=w.dtype, device=w.device)
         u[:, :ci, :co] = transform_weights(w.detach()).to(w.dtype)
@@ -361,7 +418,8 @@ def _launch(x: torch.Tensor, w: torch.Tensor, plan: WinogradPlan) -> torch.Tenso
         elif plan.instance == "ffma_f32":
             rc = _lib().winograd3d_ndhwc_f32(
                 x.data_ptr(), u.data_ptr(), y.data_ptr(), n, d, h, wd, ci, co,
-                u.shape[1], u.shape[2], stream,
+                u.shape[1], u.shape[2], plan.bn, plan.chunk, plan.raw_channels,
+                stream,
             )
         else:
             rc = _lib().winograd3d_ndhwc_bf16(

@@ -70,12 +70,14 @@ and prints no result lines). Phases:
    off): conv forward and dgrad, IN+act forward and backward, dgamma/dbeta
    max|d|/max|ref| <= 1e-5, down, up and their backwards <= 1e-6, a repeat
    run bitwise equal, every launch on ``launches_f32`` and none on a bf16-only
-   route, and device time beside the bound (f32 bytes, the f32 pipe) and the
-   library call on the same f32 inputs. The f32 instance of
-   ``csrc/winograd3d.cu`` (F3b) at the same f32 conv shapes (their first
-   convs have Ci = 4: Ci % 16 != 0): within 1e-5 of max|ref| of the plain
-   Winograd and of the direct conv (f32 math, TF32 off), a repeat run
-   bitwise equal, every launch on ``conv3d_winograd.launches_f32``, device
+   route (for the conv, the planner's shared-memory bytes equal to the
+   kernel's ``conv3d_f32_smem_bytes``), and device time beside the bound (f32
+   bytes, the f32 pipe) and the library call on the same f32 inputs. The f32
+   instance of ``csrc/winograd3d.cu`` (F3b) at the same f32 conv shapes
+   (their first convs have Ci = 4: Ci % 16 != 0): within 1e-5 of max|ref| of
+   the plain Winograd and of the direct conv (f32 math, TF32 off), a repeat
+   run bitwise equal, every launch on ``conv3d_winograd.launches_f32``, the
+   planner's shared-memory bytes equal to the kernel's, device
    time beside its bound (8/27 of the direct conv's products on the f32
    pipe), the FFMA direct conv and cuDNN's f32 conv.
 3. The predict slice: CASES synthetic 240x240x155 cases and seeded random
@@ -1257,6 +1259,13 @@ def check_f32_kernels(calls, dev):
             getattr(f, a) - b for (f, a), b in zip(side, before[2:])]
         route_ok = took == [2, 2] + [0] * len(side)
         extra = ""
+        if name == "conv3d":
+            # the planner's shared memory is the kernel's
+            plan = conv.plan_conv(*shape, conv._sm_count(dev), torch.float32)
+            have = conv._lib().conv3d_f32_smem_bytes(plan.box[0], plan.bn, plan.chunk)
+            route_ok = route_ok and have == plan.smem_bytes
+            extra = (f", plan box {plan.box} Co tile {plan.bn} slab {plan.chunk}, "
+                     f"shared memory kernel {have} planner {plan.smem_bytes}")
         if name == "instance_norm_act_bwd":
             sums_err = max(rel(got[1], ref[1]), rel(got[2], ref[2]))
             same = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -1329,10 +1338,13 @@ def check_f32_winograd(calls, dev, f32_results):
         err, err_direct = rel(got, ref), rel(got, direct)
         same = bool(torch.equal(got, again))
         abs_err = (got - ref).abs().max().item()
+        plan = winograd.plan_winograd(*shape, dtype=torch.float32)
+        have = winograd._lib().winograd3d_f32_smem_bytes(plan.raw_channels, plan.bn,
+                                                         plan.chunk)
         ok = (err <= F32_WINO_TOL and err_direct <= F32_WINO_TOL and same
               and took == (2, 2, 0) and got.dtype == torch.float32
-              and winograd.plan_winograd(*shape, dtype=torch.float32).instance
-              == "ffma_f32" and bool(torch.isfinite(got).all()))
+              and plan.instance == "ffma_f32" and have == plan.smem_bytes
+              and bool(torch.isfinite(got).all()))
         reps = 10
         ms, plain_ms = device_ms(kern, reps), device_ms(plain, reps)
         wall, plain_wall = cuda_ms(kern, reps), cuda_ms(plain, reps)
@@ -1342,7 +1354,9 @@ def check_f32_winograd(calls, dev, f32_results):
         check(ok, f"conv3d_winograd f32 {shape}: max|d|/max|ref| {err:.3e} against "
                   f"its plain version, {err_direct:.3e} against the direct conv "
                   f"(tol {F32_WINO_TOL:g}), max|d| {abs_err:.3e}, repeat run "
-                  f"bitwise equal: {same}, launches (all, f32, wgmma) {took}; "
+                  f"bitwise equal: {same}, launches (all, f32, wgmma) {took}; plan "
+                  f"Co tile {plan.bn} chunk {plan.chunk}, shared memory kernel {have} "
+                  f"planner {plan.smem_bytes}; "
                   f"device kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, FFMA direct "
                   f"conv {direct_ms:.4f} ms, cuDNN f32 {lib:.4f} ms; bound "
                   f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, "

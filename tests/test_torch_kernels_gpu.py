@@ -830,6 +830,13 @@ def _rel(got, ref):
     ((1, 16, 16, 16, 32), 32),
     ((1, 1, 3, 1, 3), 5),         # size-1 axes, scalar everything
     ((1, 8, 8, 8, 80), 136),      # several chunks and Co tiles, both ragged
+    ((8, 32, 32, 32, 24), 8),     # the accuracy tile batch's widest conv: 3 slabs
+    ((8, 16, 16, 16, 16), 16),    # its 16^3 level: box depth 2
+    ((1, 5, 6, 7, 4), 4),         # the 4-wide Co tile (4 channels a thread)
+    ((1, 12, 14, 10, 24), 64),    # the 64-wide Co tile
+    ((1, 16, 16, 16, 4), 12),     # dgrad Co' 12 (unit's 12 -> 4): a 12-wide tile
+    ((1, 32, 32, 32, 8), 24),     # dgrad Co' 24 (the accuracy config's 24 -> 8)
+    ((1, 32, 32, 32, 16), 48),    # dgrad Co' 48 (smoke's 48 -> 16)
 ])
 def test_f32_conv_instance_matches_plain(dev, shape, co):
     g = torch.Generator(device=dev).manual_seed(7)
@@ -994,7 +1001,13 @@ def test_f32_unit_forward_runs_on_the_f32_routes(dev):
     ((2, 12, 14, 10, 24), 40),    # Ci % 16 != 0, ragged bricks, Co tail
     ((1, 16, 16, 16, 48), 24),    # three chunks
     ((3, 2, 2, 2, 5), 3),         # one tile per sample, scalar channels
-    ((1, 8, 8, 8, 80), 136),      # several chunks and Co tiles, both ragged
+    ((1, 8, 8, 8, 80), 136),      # the raw patch a chunk at a time, 5 Co tiles
+    ((8, 32, 32, 32, 24), 8),     # the accuracy tile batch's widest conv: 2 chunks
+    ((8, 16, 16, 16, 16), 16),    # its 16^3 level
+    ((1, 16, 16, 16, 4), 4),      # the 4-wide Co tile (one task a thread)
+    ((1, 16, 16, 16, 4), 12),     # dgrad Co' 12 (unit's 12 -> 4)
+    ((1, 32, 32, 32, 8), 24),     # dgrad Co' 24 (the accuracy config's 24 -> 8)
+    ((1, 32, 32, 32, 16), 48),    # dgrad Co' 48 (smoke's 48 -> 16): 2 tiles of 24
 ])
 def test_winograd_f32_instance_matches_plain(dev, shape, co):
     g = torch.Generator(device=dev).manual_seed(12)

@@ -5,6 +5,8 @@
     timeout 600 python3 tools/torch_conv_check.py --time     # + times per shape
     timeout 600 python3 tools/torch_conv_check.py --probe    # + the fill probe
     timeout 600 python3 tools/torch_conv_check.py --winograd [--time] [--probe]
+    timeout 600 python3 tools/torch_conv_check.py --f32 [--winograd] [--time]
+        [--parent FILE] [--probe]
 
 Without ``--winograd`` it checks the direct conv; with it, the Winograd conv
 (see the end of this text).
@@ -34,12 +36,32 @@ conv kernel and cuDNN at every conv shape of the flagship predict path, and
 their sums per volume. With ``--probe``: the mma.sync instance built without
 its products (-DWINOGRAD_NO_PRODUCTS) and without its transforms
 (-DWINOGRAD_NO_TRANSFORMS).
+
+``--f32``: the f32 FFMA instance of ``csrc/conv3d.cu`` (with ``--winograd``,
+of ``csrc/winograd3d.cu``): ptxas's registers and spills for its kernels, then
+held against ``conv3d_plain`` (the Winograd also against
+``conv3d_winograd_plain``) within 1e-5 of max|ref| at small ragged shapes and
+at every f32 conv shape (the accuracy config's tile batch, ``smoke`` and
+``unit`` train steps, forward and dgrad), every box depth of the direct
+instance, a repeat run bitwise equal, launches on ``launches_f32``, and the
+planner's shared-memory bytes equal to the kernel's. ``--time``: device ms
+per shape and sums per tile batch and train step beside cuDNN's f32 conv
+(TF32 off) and the bound; ``--parent FILE`` (the parent's ``.cu``, e.g. from
+``git show HEAD:brats2019_tpu_torch/csrc/conv3d.cu``) also times the parent's
+f32 entry point on the same inputs in turns (parent, this, this, parent).
+``--probe``: probe builds timed beside the instance as built: the direct
+conv without its products (-DCONV3D_F32_FILLS_ONLY), without its stores
+(-DCONV3D_F32_NO_STORE) and with its registers capped
+(-DCONV3D_F32_MAXNREG), with the blocks that fit on an SM per shape; the
+Winograd without the making of V, the products or A^T
+(-DWINOGRAD_F32_PROBE).
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import ctypes
 import os
 import subprocess
 import sys
@@ -409,12 +431,310 @@ def main_winograd(args, dev, card) -> int:
     return 1 if failures else 0
 
 
+# ------------------------------------------------------------ the f32 instances --
+
+F32_TOL = 1e-5
+F32_SMALL = [
+    # (N, D, H, W, Ci), Co
+    ((1, 1, 3, 1, 3), 5),          # size-1 axes, scalar loads (Ci % 4 != 0)
+    ((2, 9, 7, 13, 12), 20),       # N = 2, ragged boxes, a Co tile of 20
+    ((1, 5, 6, 7, 4), 4),          # one ragged box, the narrowest tile
+    ((2, 6, 10, 4, 8), 3),         # Co < 4: a masked tail in one 4-wide tile
+    ((1, 4, 4, 4, 6), 12),         # Ci % 4 != 0 with a 12-wide tile
+    ((1, 12, 14, 10, 24), 64),     # one 64-wide tile
+    ((1, 16, 16, 16, 48), 12),     # Ci in slabs
+    ((1, 8, 8, 8, 80), 136),       # slabs, three Co tiles of 48 (a tail of 8)
+]
+F32_WINO_SMALL = [
+    # (N, D, H, W, Ci), Co; D, H, W even
+    ((3, 2, 2, 2, 5), 3),          # one tile a sample, scalar channels
+    ((2, 12, 14, 10, 24), 40),     # ragged bricks, two Co tiles of 20
+    ((1, 16, 16, 16, 48), 24),     # the whole raw patch, chunks of Ci
+    ((1, 8, 8, 8, 80), 136),       # the raw patch a chunk at a time, 5 Co tiles
+    ((1, 6, 10, 4, 12), 20),       # Ci 12, Co 20
+    ((2, 4, 6, 18, 8), 32),        # a 32-wide tile (512 threads)
+]
+
+
+def f32_calls():
+    """{what: [((N, D, H, W, Ci), Co), ...]} of the f32 configurations'
+    convs, one entry a call: the accuracy config's tile batch (forward), one
+    ``smoke`` and one ``unit`` train step (forward and dgrad)."""
+    from chip_smoke import accuracy_exp, train_calls
+
+    acc = accuracy_exp()
+    smoke, unit = get_preset("smoke"), get_preset("unit")
+    out = {"accuracy tile batch (8, 32^3)": unet_calls(acc.unet, 8, acc.infer.tile),
+           "smoke train step (1, 64^3)": train_calls(smoke.unet, 1, smoke.train.patch),
+           "unit train step (1, 16^3)": train_calls(unit.unet, 1, unit.train.patch)}
+    return {k: [(sh[:5], sh[5]) for name, sh in v if name == "conv3d"]
+            for k, v in out.items()}
+
+
+def make_f32(shape, co, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=dev)
+    w = torch.randn((3, 3, 3, shape[-1], co), generator=g, device=dev) / (27 * shape[-1]) ** 0.5
+    return x, w
+
+
+def f32_check(dev, winograd_too: bool) -> int:
+    """Every f32 instance (the direct conv at each box depth the planner
+    may choose; with ``winograd_too`` the Winograd) against its plain
+    version at small ragged shapes and every f32 conv shape: within 1e-5 of
+    max|ref|, a repeat run bitwise equal, launches on ``launches_f32``, the
+    planner's shared memory equal to the kernel's."""
+    lib = winograd._lib() if winograd_too else conv._lib()
+    shapes = (F32_WINO_SMALL if winograd_too else F32_SMALL) + list(
+        dict.fromkeys(c for v in f32_calls().values() for c in v))
+    failures = 0
+    for shape, co in shapes:
+        x, w = make_f32(shape, co, dev)
+        if winograd_too:
+            plan = winograd.plan_winograd(*shape, co, dtype=torch.float32)
+            have = lib.winograd3d_f32_smem_bytes(plan.raw_channels, plan.bn, plan.chunk)
+            ref = winograd.conv3d_winograd_plain(x, w)
+            direct = conv.conv3d_plain(x, w)
+            variants = [("", plan, lambda: winograd.conv3d_winograd_kernel(x, w))]
+            wrapper = winograd.conv3d_winograd
+        else:
+            plan = conv.plan_conv(*shape, co, dtype=torch.float32)
+            have = lib.conv3d_f32_smem_bytes(plan.box[0], plan.bn, plan.chunk)
+            ref = direct = conv.conv3d_plain(x, w)
+            variants = [("", plan, lambda: conv.conv3d_kernel(x, w))]
+            for bd in conv.F32_BOX_DEPTHS:
+                ct = conv.f32_co_tile(co)
+                if bd != plan.box[0] and conv.f32_threads(bd, ct) <= conv.F32_MAX_THREADS:
+                    p2 = conv.f32_plan(*shape, co, bd=bd)
+                    variants.append((" (forced box depth)", p2,
+                                     lambda p2=p2: conv.conv3d_kernel_f32(x, w, p2)))
+            wrapper = conv.conv3d
+        for label, plan, fn in variants:
+            if not winograd_too:
+                have = lib.conv3d_f32_smem_bytes(plan.box[0], plan.bn, plan.chunk)
+            before = (wrapper.launches, wrapper.launches_f32)
+            got, again = fn(), fn()
+            torch.cuda.synchronize()
+            took = (wrapper.launches - before[0], wrapper.launches_f32 - before[1])
+            err, err_direct = rel_err(got, ref), rel_err(got, direct)
+            same = bool(torch.equal(got, again))
+            ok = (err <= F32_TOL and err_direct <= F32_TOL and same
+                  and took == (2, 2) and have == plan.smem_bytes
+                  and bool(torch.isfinite(got).all()))
+            failures += not ok
+            print(f"  [{'PASS' if ok else 'FAIL'}] {shape}->{co}{label or ' (plan)'}: "
+                  f"max|d|/max|ref| {err:.3e}, against the direct conv "
+                  f"{err_direct:.3e} (tol {F32_TOL:g}), repeat bitwise {same}, "
+                  f"launches (all, f32) {took}; plan box "
+                  f"{getattr(plan, 'box', None) or plan.brick} Co tile "
+                  f"{plan.bn} chunk {plan.chunk} grid {plan.grid}, shared memory "
+                  f"kernel {have} planner {plan.smem_bytes}", flush=True)
+            if not ok and failures <= 3:
+                bad = (got - ref).abs() > F32_TOL * ref.abs().max()
+                idx = bad.nonzero()
+                if len(idx):
+                    print(f"    {int(bad.sum())} of {bad.numel()} off; first "
+                          f"{idx[0].tolist()}; d {sorted(set(idx[:, 1].tolist()))[:10]}, "
+                          f"h {sorted(set(idx[:, 2].tolist()))[:10]}, "
+                          f"w {sorted(set(idx[:, 3].tolist()))[:10]}, "
+                          f"co {sorted(set(idx[:, 4].tolist()))[:12]}", flush=True)
+    return failures
+
+
+def parent_f32(path: str, winograd_too: bool):
+    """The parent's f32 entry point, built from ``path`` (its ``.cu``), with
+    the parent's signature: (x, w or padded U, y, N, D, H, W, Ci, Co[, CiP,
+    CoP], stream)."""
+    if winograd_too:
+        sig = {"winograd3d_ndhwc_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+               + [ctypes.c_void_p]}
+        lib = _build.load_library("parent_winograd3d", [os.path.abspath(path)], sig)
+        return lib.winograd3d_ndhwc_f32
+    sig = {"conv3d_ndhwc_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+           + [ctypes.c_void_p]}
+    return _build.load_library("parent_conv3d", [os.path.abspath(path)],
+                               sig).conv3d_ndhwc_f32
+
+
+def f32_time(dev, card, winograd_too: bool, parent_path) -> None:
+    """Device ms (CUDA-graph replay) of the new f32 instance at every f32 conv
+    shape, with ``parent_path`` the parent's in turns (parent, this, this,
+    parent), beside cuDNN's f32 conv (TF32 off) and the bound; sums per
+    accuracy tile batch, smoke and unit train step."""
+    parent = parent_f32(parent_path, winograd_too) if parent_path else None
+    kind = "Winograd" if winograd_too else "direct"
+    print(f"== f32 {kind} conv on {card} (device ms, CUDA-graph replay)", flush=True)
+    timed = {}
+    for shape, co in dict.fromkeys(c for v in f32_calls().values() for c in v):
+        x, w = make_f32(shape, co, dev)
+        y = torch.empty(shape[:4] + (co,), device=dev)
+        stream = lambda: torch.cuda.current_stream().cuda_stream
+        if winograd_too:
+            mine = lambda: winograd.conv3d_winograd_kernel(x, w)
+            if parent is not None:
+                # the parent pads U to (64, Ci up to 16k, Co up to 64k)
+                cip, cop = -(-shape[-1] // 16) * 16, -(-co // 64) * 64
+                u_old = torch.zeros((64, cip, cop), device=dev)
+                u_old[:, :shape[-1], :co] = winograd.transform_weights(w)
+
+                def old():
+                    _build.check(parent(x.data_ptr(), u_old.data_ptr(), y.data_ptr(),
+                                        *shape, co, cip, cop, stream()), "parent")
+        else:
+            mine = lambda: conv.conv3d_kernel(x, w)
+            if parent is not None:
+                def old():
+                    _build.check(parent(x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                                        *shape, co, stream()), "parent")
+        row = {}
+        if parent is not None:
+            old()
+            torch.cuda.synchronize()
+            ref = (winograd.conv3d_winograd_plain if winograd_too else conv.conv3d_plain)(x, w)
+            parent_err = rel_err(y, ref)
+            t = [device_ms(f, 10) for f in (old, mine, mine, old)]
+            row["parent"], row["this"] = min(t[0], t[3]), min(t[1], t[2])
+        else:
+            parent_err = None
+            row["this"] = device_ms(mine, 10)
+        xc = x.permute(0, 4, 1, 2, 3)
+        wc = w.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
+        with torch.no_grad():
+            row["cudnn"] = device_ms(lambda: F.conv3d(xc, wc, padding=1), 10)
+        m = x.numel() // shape[-1]
+        macs = (8 if winograd_too else 27) * shape[-1] * co * m
+        nbytes = 4.0 * (x.numel() + 27 * shape[-1] * co + m * co)
+        row["bound"] = max(nbytes / 3.35e12, 2 * macs / 67e12) * 1e3
+        timed[(shape, co)] = row
+        plan = (winograd.plan_winograd(*shape, co, dtype=torch.float32) if winograd_too
+                else conv.plan_conv(*shape, co, dtype=torch.float32))
+        occ = "" if winograd_too else ", %d blocks an SM" % conv._lib(
+        ).conv3d_f32_blocks_per_sm(plan.box[0], plan.bn, plan.chunk)
+        print(f"  {shape}->{co}: " + ", ".join(f"{k} {v:.4f}" for k, v in row.items())
+              + f"; {2 * macs / row['this'] / 1e9:.1f} TFLOP/s of its products "
+              f"({100 * 2 * macs / row['this'] / 1e9 / 67:.1f}% of 67); plan "
+              f"Co tile {plan.bn} chunk {plan.chunk} grid {plan.grid}{occ}"
+              + (f"; parent's max|d|/max|ref| {parent_err:.3e}" if parent_err is not None else ""),
+              flush=True)
+    for what, calls in f32_calls().items():
+        tot = collections.Counter()
+        for c in calls:
+            for k, v in timed[c].items():
+                tot[k] += v
+        print(f"  sums per {what}, {len(calls)} calls: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in tot.items())
+              + (f"; this / parent {tot['this'] / tot['parent']:.3f}" if "parent" in tot else "")
+              + f"; this / cuDNN {tot['this'] / tot['cudnn']:.3f}; this / bound "
+              f"{tot['this'] / tot['bound']:.1f}", flush=True)
+
+
+def f32_variants(dev, card, winograd_too: bool) -> None:
+    """The f32 instance as built beside probe builds of the same source:
+    the direct conv without its products (fills and stores), without its
+    products and stores, without its stores, and with its registers capped;
+    the Winograd without the making of V, the products, A^T, or all three.
+    Device ms summed over the accuracy tile batch and the smoke train
+    step."""
+    if winograd_too:
+        source, fn = "winograd3d.cu", "winograd3d_ndhwc_f32"
+        sig = {k: winograd._SIG[k] for k in (fn, "winograd3d_f32_prepare")}
+        prepare = "winograd3d_f32_prepare"
+        variants = {"no V": ("-DWINOGRAD_F32_PROBE=1",),
+                    "no products": ("-DWINOGRAD_F32_PROBE=2",),
+                    "no A^T": ("-DWINOGRAD_F32_PROBE=4",),
+                    "fills and barriers only": ("-DWINOGRAD_F32_PROBE=7",)}
+    else:
+        source, fn = "conv3d.cu", "conv3d_ndhwc_f32"
+        sig = {k: conv._SIG[k] for k in (fn, "conv3d_f32_prepare")}
+        prepare = "conv3d_f32_prepare"
+        variants = {"fills and stores": ("-DCONV3D_F32_FILLS_ONLY",),
+                    "fills alone": ("-DCONV3D_F32_FILLS_ONLY", "-DCONV3D_F32_NO_STORE"),
+                    "fills and products": ("-DCONV3D_F32_NO_STORE",)}
+        variants.update({f"at most {r} registers": (f"-DCONV3D_F32_MAXNREG={r}",)
+                         for r in (64, 80, 96)})
+    libs = {}
+
+    def loader(i, name, flags):
+        def load():
+            try:
+                libs[name] = _build.load_library(
+                    f"{source[:-3]}_variant_{i}", [source], sig, extra_flags=flags,
+                    prepare=prepare)
+            except RuntimeError as e:      # a probe that does not build is skipped
+                print(f"  {name}: did not build: {str(e)[-600:]}", flush=True)
+        return load
+
+    _build.build_all([loader(i, k, v) for i, (k, v) in enumerate(variants.items())])
+    print(f"== f32 {'Winograd' if winograd_too else 'direct'} probe builds on "
+          f"{card} (device ms summed per unit)", flush=True)
+    calls = f32_calls()
+    for what in ("accuracy tile batch (8, 32^3)", "smoke train step (1, 64^3)"):
+        tot = collections.Counter()
+        for shape, co in calls[what]:
+            x, w = make_f32(shape, co, dev)
+            y = torch.empty(shape[:4] + (co,), device=dev)
+            stream = lambda: torch.cuda.current_stream().cuda_stream
+            if winograd_too:
+                plan = winograd.plan_winograd(*shape, co, dtype=torch.float32)
+                u = winograd.padded_u(w)
+                args = lambda: (x.data_ptr(), u.data_ptr(), y.data_ptr(), *shape, co,
+                                u.shape[1], u.shape[2], plan.bn, plan.chunk,
+                                plan.raw_channels, stream())
+                tot["as built"] += device_ms(lambda: winograd.conv3d_winograd_kernel(x, w), 10)
+            else:
+                plan = conv.plan_conv(*shape, co, dtype=torch.float32)
+                args = lambda: (x.data_ptr(), w.data_ptr(), y.data_ptr(), *shape, co,
+                                plan.box[0], plan.bn, plan.chunk, stream())
+                tot["as built"] += device_ms(lambda: conv.conv3d_kernel(x, w), 10)
+            for name, lib in libs.items():
+                f = getattr(lib, fn)
+                tot[name] += device_ms(lambda f=f: _build.check(f(*args()), name), 10)
+        print(f"  per {what}: " + ", ".join(f"{k} {v:.4f}" for k, v in tot.items()),
+              flush=True)
+    for name, log in _build.build_logs.items():
+        if "_variant_" in name:
+            regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+            print(f"  ptxas {name}: " + "; ".join(regs[:2]), flush=True)
+
+
+def ptxas_report(log: str, marker: str) -> str:
+    """ptxas's lines for the kernels whose mangled name holds ``marker``."""
+    lines = log.splitlines()
+    out = []
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and marker in line:
+            out.extend(lines[i:i + 4])
+    return "\n".join(out) or "(cached: no ptxas report)"
+
+
+def main_f32(args, dev, card) -> int:
+    t0 = time.perf_counter()
+    lib = winograd._lib if args.winograd else conv._lib
+    _build.build_all([lib])
+    name = "winograd3d" if args.winograd else "conv3d"
+    print(f"built {name}.cu in {time.perf_counter() - t0:.1f} s", flush=True)
+    marker = "winograd_f32_kernel" if args.winograd else "conv3d_f32_kernel"
+    print(f"ptxas, {marker}:\n" + ptxas_report(_build.build_logs.get(name, ""), marker),
+          flush=True)
+    failures = f32_check(dev, args.winograd)
+    if args.probe:
+        f32_variants(dev, card, args.winograd)
+    if args.time:
+        f32_time(dev, card, args.winograd, args.parent)
+    print(f"{failures} failure(s)", flush=True)
+    return 1 if failures else 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--time", action="store_true")
     ap.add_argument("--probe", action="store_true")
     ap.add_argument("--winograd", action="store_true",
                     help="check the Winograd conv kernels instead of the direct")
+    ap.add_argument("--f32", action="store_true",
+                    help="check the f32 instances (with --winograd, the Winograd's)")
+    ap.add_argument("--parent", help="with --f32 --time: the parent's conv3d.cu "
+                    "(or winograd3d.cu with --winograd) to time beside, in turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("error: needs a CUDA card", file=sys.stderr)
@@ -429,6 +749,8 @@ def main() -> int:
                           text=True).stdout.strip().splitlines()[-2:]
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; {'; '.join(nvcc)}; card: {card}", flush=True)
+    if args.f32:
+        return main_f32(args, dev, card)
     if args.winograd:
         return main_winograd(args, dev, card)
     t0 = time.perf_counter()
