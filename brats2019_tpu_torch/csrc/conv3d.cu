@@ -1,6 +1,7 @@
 // SAME stride-1 3x3x3 conv3d for NDHWC volumes, no bias, in two instances:
 // bf16 in, f32 accumulation, bf16 out (conv3d_ndhwc_bf16, tensor cores), and
-// f32 in, f32 FFMA accumulation, f32 out (conv3d_ndhwc_f32, at the end of
+// f32 in, f32 FFMA accumulation, f32 out (conv3d_ndhwc_f32, and its form with
+// an InstanceNorm-statistics epilogue conv3d_stats_ndhwc_f32, at the end of
 // this file). Built by brats2019_tpu_torch/ops/_build.py with
 // nvcc -gencode arch=compute_90a,code=sm_90a; called through ctypes from
 // brats2019_tpu_torch/ops/conv.py (conv3d).
@@ -303,6 +304,25 @@ extern "C" int conv3d_ndhwc_bf16(const void* x, const void* w, void* y, int N,
 //     order: repeat runs are bitwise equal.
 //   * Ragged boxes and Co tails are masked at the store.
 //
+// The STATS instance (conv3d_stats_ndhwc_f32) also writes, for every (sample,
+// box, output channel), the InstanceNorm statistics of the values it stores,
+// so that the norm after the conv need not read y a first time (replaces the
+// statistics pass of brats2019_tpu/ops/pallas_norm.py _fwd_pallas, :176, for
+// the f32 configurations; the merge and the apply pass are ops/triton_norm.py,
+// as for the bf16 STATS epilogue of csrc/conv3d_wgmma.cu). Its epilogue, after
+// the stores, which stay as they are (y is bitwise the plain instance's):
+//   * takes each value as stored (f32) and only the box's voxels inside the
+//     volume; the count of a box is its extent inside the volume;
+//   * two passes, the box's sum and then the centred sum of squares around
+//     the box's mean (never E[x^2] - mean^2);
+//   * one fixed order: a thread folds its 4 w voxels in turn, the 32 lanes of
+//     a warp (one Co group) by an xor butterfly (16, 8, 4, 2, 1), then the
+//     BD / 2 warps of the Co group in turn through shared memory, which reuses
+//     the patch behind a barrier. No atomics: repeats are bitwise equal;
+//   * writes (count, mean, M2) in f32 to partials[3][n][box][co], boxes
+//     numbered (bd * nbh + bh) * nbw + bw, the Co tile's own channels (the Co
+//     tail masked).
+//
 // Probe builds (tools/torch_conv_check.py --f32 --probe), for timing only:
 // -DCONV3D_F32_FILLS_ONLY leaves out the products, -DCONV3D_F32_NO_STORE the
 // stores; -DCONV3D_F32_MAXNREG=n caps the registers.
@@ -336,12 +356,81 @@ __device__ __forceinline__ float lane_of(const float4& v, int k) {
 #define F32_BOUNDS __launch_bounds__(F_MAX_THREADS)
 #endif
 
+// The STATS epilogue of one block (see the head of this part): (count, mean,
+// M2) of each of the Co tile's channels over the box's voxels inside the
+// volume. `ok[v]`: this thread's voxel v lies inside the volume. Every thread
+// of the block calls it (it holds barriers); `scratch` is the patch's space.
 template <int CPT>
+__device__ __forceinline__ void f32_box_stats(
+    const float (&acc)[4][CPT], const bool (&ok)[4], float* scratch,
+    float* __restrict__ part, int N, int D, int H, int W, int Co, int BD, int CT,
+    int n, int box, int nboxes, int d0, int h0, int w0, int co0, int g, int vt,
+    int tid) {
+  const int lane = tid & 31;
+  const int nwg = BD / 2;         // warps of a Co group (16 * BD threads)
+  const int wig = vt >> 5;        // this warp's place in its group
+  float* red = scratch;           // [nwg][CT]
+  float* box_mean = scratch + nwg * CT;
+  const float cnt = (float)(min(BD, D - d0) * min(F_BH, H - h0) *
+                            min(F_BW, W - w0));
+  float s[CPT];
+  auto reduce = [&]() {           // s of the warp's 32 lanes, to red
+#pragma unroll
+    for (int off = 16; off; off >>= 1)
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) s[j] += __shfl_xor_sync(0xffffffffu, s[j], off);
+    if (lane == 0)
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) red[wig * CT + g * CPT + j] = s[j];
+  };
+  __syncthreads();                // every thread is done with the patch
+  // pass 1: the box's sum of each channel
+#pragma unroll
+  for (int j = 0; j < CPT; ++j) {
+    float t = 0.f;
+#pragma unroll
+    for (int v = 0; v < 4; ++v) t += ok[v] ? acc[v][j] : 0.f;
+    s[j] = t;
+  }
+  reduce();
+  __syncthreads();
+  if (tid < CT) {
+    float t = red[tid];
+    for (int k = 1; k < nwg; ++k) t += red[k * CT + tid];
+    box_mean[tid] = t / cnt;
+  }
+  __syncthreads();
+  // pass 2: the centred sum of squares around the box's mean
+#pragma unroll
+  for (int j = 0; j < CPT; ++j) {
+    const float mu = box_mean[g * CPT + j];
+    float t = 0.f;
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const float dv = acc[v][j] - mu;
+      t = ok[v] ? fmaf(dv, dv, t) : t;
+    }
+    s[j] = t;
+  }
+  reduce();
+  __syncthreads();
+  if (tid < CT && co0 + tid < Co) {
+    float m2 = red[tid];
+    for (int k = 1; k < nwg; ++k) m2 += red[k * CT + tid];
+    const long long stride = (long long)N * nboxes * Co;
+    const long long slot = ((long long)n * nboxes + box) * Co + co0 + tid;
+    part[slot] = cnt;
+    part[stride + slot] = box_mean[tid];
+    part[2 * stride + slot] = m2;
+  }
+}
+
+template <int CPT, bool STATS>
 __global__ void F32_BOUNDS
     conv3d_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                      float* __restrict__ y, int D, int H, int W, int Ci,
-                      int Co, int BD, int CT, int SL, int nbd, int nbh, int nbw,
-                      int vec) {
+                      float* __restrict__ y, float* __restrict__ part, int N,
+                      int D, int H, int W, int Ci, int Co, int BD, int CT,
+                      int SL, int nbd, int nbh, int nbw, int vec) {
   extern __shared__ __align__(16) float fsm[];
   const int RP = f32_row_pitch(SL);
   const int plane = F_PH * RP;
@@ -466,30 +555,38 @@ __global__ void F32_BOUNDS
   const int d = d0 + tdz, h = h0 + th;
   const int co = co0 + g * CPT;
 #ifdef CONV3D_F32_NO_STORE
-  if (acc[0][0] != 12345.f) return;   // keeps the products alive
+  if (!STATS && acc[0][0] != 12345.f) return;   // keeps the products alive
 #endif
-  if (d >= D || h >= H || co >= Co) return;
+  bool ok[4];
 #pragma unroll
-  for (int v = 0; v < 4; ++v) {
-    const int ww = w0 + 4 * tq + v;
-    if (ww >= W) continue;
-    float* dst = y + ((((long long)n * D + d) * H + h) * W + ww) * Co + co;
+  for (int v = 0; v < 4; ++v) ok[v] = d < D && h < H && w0 + 4 * tq + v < W;
+  if (co < Co) {
 #pragma unroll
-    for (int j = 0; j < CPT; j += 4) {
-      if (vec) {
-        if (co + j < Co)
-          *reinterpret_cast<float4*>(dst + j) =
-              make_float4(acc[v][j], acc[v][j + 1], acc[v][j + 2], acc[v][j + 3]);
-      } else {
+    for (int v = 0; v < 4; ++v) {
+      if (!ok[v]) continue;
+      const int ww = w0 + 4 * tq + v;
+      float* dst = y + ((((long long)n * D + d) * H + h) * W + ww) * Co + co;
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (co + j + i < Co) dst[j + i] = acc[v][j + i];
+      for (int j = 0; j < CPT; j += 4) {
+        if (vec) {
+          if (co + j < Co)
+            *reinterpret_cast<float4*>(dst + j) =
+                make_float4(acc[v][j], acc[v][j + 1], acc[v][j + 2], acc[v][j + 3]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (co + j + i < Co) dst[j + i] = acc[v][j + i];
+        }
       }
     }
   }
+  if constexpr (STATS)
+    f32_box_stats<CPT>(acc, ok, fsm, part, N, D, H, W, Co, BD, CT, n,
+                       (bd_i * nbh + bh_i) * nbw + bw_i, nbd * nbh * nbw, d0, h0,
+                       w0, co0, g, vt, tid);
 }
 
-// Dynamic shared memory up to the card's limit for both instances, once per
+// Dynamic shared memory up to the card's limit for every f32 instance, once per
 // device: when the library loads (conv3d_f32_prepare, for the current device)
 // or, for another device, at its first launch.
 constexpr int F_MAX_DEVICES = 64;
@@ -501,18 +598,21 @@ cudaError_t f32_prepare_current() {
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= F_MAX_DEVICES) return cudaErrorInvalidDevice;
   if (f32_ready[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(conv3d_f32_kernel<4>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             F_SMEM_LIMIT);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(conv3d_f32_kernel<8>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const void* kernels[] = {
+      (const void*)conv3d_f32_kernel<4, false>, (const void*)conv3d_f32_kernel<8, false>,
+      (const void*)conv3d_f32_kernel<4, true>, (const void*)conv3d_f32_kernel<8, true>};
+  for (const void* k : kernels) {
+    err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                F_SMEM_LIMIT);
-  if (err == cudaSuccess) f32_ready[dev] = true;
-  return err;
+    if (err != cudaSuccess) return err;
+  }
+  f32_ready[dev] = true;
+  return cudaSuccess;
 }
 
-// -1 for a (box depth, Co tile, slab) that no instance takes
+// -1 for a (box depth, Co tile, slab) that no instance takes. Both instances
+// take these bytes: the STATS epilogue's scratch, (box_d / 2 + 1) x co_tile
+// floats, reuses the patch, which is always larger.
 int f32_check(int box_d, int co_tile, int slab) {
   if (box_d != 2 && box_d != 4 && box_d != 8) return -1;
   if (co_tile < 4 || co_tile > 64 || co_tile % 4 || slab < 4 || slab % 4)
@@ -541,21 +641,20 @@ extern "C" int conv3d_f32_blocks_per_sm(int box_d, int co_tile, int slab) {
   const int threads = 16 * box_d * (co_tile / cpt);
   int n = 0;
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, cpt == 8 ? conv3d_f32_kernel<8> : conv3d_f32_kernel<4>, threads, smem);
+      &n, cpt == 8 ? conv3d_f32_kernel<8, false> : conv3d_f32_kernel<4, false>,
+      threads, smem);
   return err == cudaSuccess ? n : -1;
 }
 
-// Sets both instances' shared-memory attribute on the current device; called
+// Sets every f32 instance's shared-memory attribute on the current device; called
 // once when the library is loaded, so never first inside a stream capture.
 extern "C" int conv3d_f32_prepare() { return (int)f32_prepare_current(); }
 
-// x (N,D,H,W,Ci), w (3,3,3,Ci,Co), y (N,D,H,W,Co): contiguous f32 on the
-// current device. box_d, co_tile, slab: the plan (ops/conv.py plan_conv).
-// Launches on `stream`; returns cudaGetLastError() (cudaErrorInvalidValue for
-// a plan no instance takes).
-extern "C" int conv3d_ndhwc_f32(const void* x, const void* w, void* y, int N,
-                                int D, int H, int W, int Ci, int Co, int box_d,
-                                int co_tile, int slab, void* stream) {
+namespace {
+
+int f32_run(const void* x, const void* w, void* y, float* part, int N, int D,
+            int H, int W, int Ci, int Co, int box_d, int co_tile, int slab,
+            void* stream) {
   const int smem = f32_check(box_d, co_tile, slab);
   if (smem < 0 || N < 1 || D < 1 || H < 1 || W < 1 || Ci < 1 || Co < 1)
     return (int)cudaErrorInvalidValue;
@@ -577,11 +676,37 @@ extern "C" int conv3d_ndhwc_f32(const void* x, const void* w, void* y, int N,
   const auto* xf = static_cast<const float*>(x);
   const auto* wf = static_cast<const float*>(w);
   auto* yf = static_cast<float*>(y);
-  if (cpt == 8)
-    conv3d_f32_kernel<8><<<grid, threads, smem, s>>>(
-        xf, wf, yf, D, H, W, Ci, Co, box_d, co_tile, slab, nbd, nbh, nbw, vec);
-  else
-    conv3d_f32_kernel<4><<<grid, threads, smem, s>>>(
-        xf, wf, yf, D, H, W, Ci, Co, box_d, co_tile, slab, nbd, nbh, nbw, vec);
+  auto* kernel = part ? (cpt == 8 ? conv3d_f32_kernel<8, true> : conv3d_f32_kernel<4, true>)
+                      : (cpt == 8 ? conv3d_f32_kernel<8, false> : conv3d_f32_kernel<4, false>);
+  kernel<<<grid, threads, smem, s>>>(xf, wf, yf, part, N, D, H, W, Ci, Co, box_d,
+                                     co_tile, slab, nbd, nbh, nbw, vec);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x (N,D,H,W,Ci), w (3,3,3,Ci,Co), y (N,D,H,W,Co): contiguous f32 on the
+// current device. box_d, co_tile, slab: the plan (ops/conv.py plan_conv).
+// Launches on `stream`; returns cudaGetLastError() (cudaErrorInvalidValue for
+// a plan no instance takes).
+extern "C" int conv3d_ndhwc_f32(const void* x, const void* w, void* y, int N,
+                                int D, int H, int W, int Ci, int Co, int box_d,
+                                int co_tile, int slab, void* stream) {
+  return f32_run(x, w, y, nullptr, N, D, H, W, Ci, Co, box_d, co_tile, slab,
+                 stream);
+}
+
+// The same, and the STATS epilogue: `part` is f32 (3, N, boxes, Co), boxes =
+// ceil(D / box_d) * ceil(H / 8) * ceil(W / 8) of one sample, box index
+// (bd * nbh + bh) * nbw + bw; part[0] the count of the box's voxels inside the
+// volume, part[1] their mean, part[2] their centred sum of squares, of the f32
+// values written to y. Every slot is written; y is bitwise the plain
+// instance's.
+extern "C" int conv3d_stats_ndhwc_f32(const void* x, const void* w, void* y,
+                                      void* part, int N, int D, int H, int W,
+                                      int Ci, int Co, int box_d, int co_tile,
+                                      int slab, void* stream) {
+  if (!part) return (int)cudaErrorInvalidValue;
+  return f32_run(x, w, y, static_cast<float*>(part), N, D, H, W, Ci, Co, box_d,
+                 co_tile, slab, stream);
 }

@@ -1,7 +1,7 @@
-// Exact 2x trilinear upsample of NDHWC bf16 volumes on Hopper, and its
-// transpose: half-pixel taps (0.25, 0.75) with replicate-clamped edges, f32
-// math, bf16 out (round to nearest even). Built by
-// brats2019_tpu_torch/ops/_build.py with nvcc -gencode
+// Exact 2x trilinear upsample of NDHWC volumes on Hopper, in bf16 and f32, and
+// its transpose in bf16: half-pixel taps (0.25, 0.75) with replicate-clamped
+// edges, f32 math, out in the input's type (bf16: round to nearest even).
+// Built by brats2019_tpu_torch/ops/_build.py with nvcc -gencode
 // arch=compute_90a,code=sm_90a; called through ctypes from
 // brats2019_tpu_torch/ops/resize.py (upsample2x_kernel, upsample2x_concat,
 // upsample2x_bwd_kernel). The forward comes first, the backward after it.
@@ -14,29 +14,35 @@
 // once and fans out to 8 outputs, so the write of y is 8/9 of the traffic;
 // a handful of flops per output. What held the Triton gather kernel
 // (ops/triton_resize.py _up2x_kernel) at a quarter of that bound was the
-// instruction stream: per output element 8 scalar 2-byte gathers and a
-// runtime division by C. The design:
+// instruction stream: per output element 8 scalar gathers and a runtime
+// division by C. The design:
 //
 //   * A block owns a TD x TH x TW = 4 x 4 x 8 tile of input voxels of one
-//     sample and one chunk of up to 64 channels (8 pieces of 16 bytes). It
-//     brings the tile and its 1-voxel halo (6 x 6 x 10 voxels, 46,080 bytes)
-//     into shared memory with 16-byte cp.async at CLAMPED addresses: a halo
-//     voxel past a face is a copy of the face voxel, which is the replicate
-//     clamp itself (TMA's out-of-bounds fill is zeros, so it does not fit).
+//     sample and one chunk of 8 pieces of 16 bytes (64 bf16 or 32 f32
+//     channels). It brings the tile and its 1-voxel halo (6 x 6 x 10 voxels,
+//     46,080 bytes) into shared memory with 16-byte cp.async at CLAMPED
+//     addresses: a halo voxel past a face is a copy of the face voxel, which
+//     is the replicate clamp itself (TMA's out-of-bounds fill is zeros, so it
+//     does not fit).
 //   * Thread (h, w, piece) walks the tile's d column: for each halo d-row it
 //     interpolates along w (3 taps), then h (3 rows) from shared memory into
-//     the 2 x 2 (h, w) output phases of that row, 8 channels each; two rows
+//     the 2 x 2 (h, w) output phases of that row, one piece each; two rows
 //     at a time stay in registers, and each new row completes the odd d-phase
 //     of the voxel before it and the even d-phase of its own, so every
 //     (w, h)-interpolated row is computed once per tile, not three times.
-//   * Each output is 8 channels written by one 16-byte store; a warp's store
+//   * Each output piece is written by one 16-byte store; a warp's store
 //     covers 4 voxels x 128 contiguous bytes.
 //   * The output has a channel pitch and offset, so the kernel writes
 //     straight into the up half [..., :C] of the decoder's (up, skip) concat
 //     buffer: the concat does not copy the upsampled tensor a second time.
+//   * The two element types share the code (upsample2x_kernel<T>): the math
+//     is f32 in one tap order in both; only the pieces' unpacking and packing
+//     differ (8 bf16 channels rounded at the store, or 4 f32 channels stored
+//     as computed).
 //   * Any D, H, W >= 1 (at extent 1 every tap lands on the one voxel), any C
-//     that is a multiple of 8 (a chunk of fewer than 8 pieces leaves threads
-//     idle); other C go to the Triton kernel, chosen by shape in resize.py.
+//     that fills whole pieces (bf16 C % 8 == 0, f32 C % 4 == 0; a chunk of
+//     fewer than 8 pieces leaves threads idle); other C go to the Triton
+//     kernel, chosen by shape in resize.py.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,7 +53,7 @@ namespace {
 constexpr int TD = 4, TH = 4, TW = 8;                   // input voxels of a tile
 constexpr int HD = TD + 2, HH = TH + 2, HW = TW + 2;    // with the halo
 constexpr int PIECES = 8;                               // 16-byte pieces of a chunk
-constexpr int CHUNK = PIECES * 8;                       // channels of a chunk
+constexpr int CHUNK = PIECES * 8;                       // bf16 channels of a chunk
 constexpr int THREADS = TH * TW * PIECES;               // one (h, w, piece) each
 constexpr int HALO = HD * HH * HW * PIECES;             // 16-byte slots
 static_assert(HALO * 16 <= 48 * 1024, "static shared memory");
@@ -77,20 +83,53 @@ __device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
+// A 16-byte piece of channels: 8 bf16 or 4 f32, unpacked to and packed from
+// f32.
+template <typename T>
+struct Piece;
+
+template <>
+struct Piece<__nv_bfloat16> {
+  static constexpr int N = 8;
+  static __device__ __forceinline__ void unpack(const uint4& u, float (&f)[N]) {
+    unpack8(u, f);
+  }
+  static __device__ __forceinline__ uint4 pack(const float (&f)[N]) {
+    return pack8(f);
+  }
+};
+
+template <>
+struct Piece<float> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ void unpack(const uint4& u, float (&f)[N]) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+  static __device__ __forceinline__ uint4 pack(const float (&f)[N]) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  }
+};
+
 // One halo d-row r of this thread's column, interpolated along w then h:
-// o[b][e] is the (2h + b, 2w + e) output phase, 8 channels. The h taps are
-// folded in as they come, so one tap's w phases are live at a time.
+// o[b][e] is the (2h + b, 2w + e) output phase, one piece of channels. The h
+// taps are folded in as they come, so one tap's w phases are live at a time.
+template <typename T>
 __device__ __forceinline__ void row_hw(const uint4* tile, int r, int lh, int lw,
-                                       int p, float (&o)[2][2][8]) {
+                                       int p, float (&o)[2][2][Piece<T>::N]) {
+  constexpr int E = Piece<T>::N;
 #pragma unroll
   for (int hn = 0; hn < 3; ++hn) {
     const uint4* s = tile + (((r * HH + lh + hn) * HW + lw) * PIECES + p);
-    float a[8], b[8], c[8];
-    unpack8(s[0], a);
-    unpack8(s[PIECES], b);
-    unpack8(s[2 * PIECES], c);
+    float a[E], b[E], c[E];
+    Piece<T>::unpack(s[0], a);
+    Piece<T>::unpack(s[PIECES], b);
+    Piece<T>::unpack(s[2 * PIECES], c);
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
+    for (int k = 0; k < E; ++k) {
       const float we = 0.25f * a[k] + 0.75f * b[k];
       const float wo = 0.75f * b[k] + 0.25f * c[k];
       if (hn == 0) {
@@ -109,19 +148,20 @@ __device__ __forceinline__ void row_hw(const uint4* tile, int r, int lh, int lw,
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-    upsample2x_kernel(const __nv_bfloat16* __restrict__ x,
-                      __nv_bfloat16* __restrict__ y, int D, int H, int W, int C,
-                      int pitch, int offset, int nth, int ntw) {
+    upsample2x_kernel(const T* __restrict__ x, T* __restrict__ y, int D, int H,
+                      int W, int C, int pitch, int offset, int nth, int ntw) {
+  constexpr int E = Piece<T>::N;      // channels of a piece
   __shared__ __align__(16) uint4 tile[HALO];
   int t = blockIdx.x;
   const int d0 = (t / (nth * ntw)) * TD;
   t %= nth * ntw;
   const int h0 = (t / ntw) * TH, w0 = (t % ntw) * TW;
-  const int c0 = blockIdx.y * CHUNK;
+  const int c0 = blockIdx.y * PIECES * E;
   const int n = blockIdx.z;
-  const int np = min(PIECES, (C - c0) >> 3);  // pieces of this chunk
-  const __nv_bfloat16* xn = x + (long long)n * D * H * W * C + c0;
+  const int np = min(PIECES, (C - c0) / E);  // pieces of this chunk
+  const T* xn = x + (long long)n * D * H * W * C + c0;
 
   // the halo tile, at clamped addresses: the replicate edge
   const uint32_t sbase = (uint32_t)__cvta_generic_to_shared(tile);
@@ -134,7 +174,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     const int dd = min(max(d0 - 1 + a, 0), D - 1);
     const int hh = min(max(h0 - 1 + b, 0), H - 1);
     const int ww = min(max(w0 - 1 + c, 0), W - 1);
-    cp_async16(sbase + i * 16, xn + ((long long)(dd * H + hh) * W + ww) * C + p * 8);
+    cp_async16(sbase + i * 16, xn + ((long long)(dd * H + hh) * W + ww) * C + p * E);
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
@@ -146,26 +186,27 @@ __global__ void __launch_bounds__(THREADS, 2)
   if (p >= np || h >= H || w >= W) return;
   const int dn = min(TD, D - d0);  // tile voxels along d inside the volume
   const long long Ho = 2LL * H, Wo = 2LL * W;
-  // output voxel (n, od, 2h + b, 2w + e), channels offset + c0 + 8p
-  __nv_bfloat16* yb = y + (((long long)n * 2 * D * Ho + 2LL * h) * Wo + 2LL * w) * pitch +
-                      offset + c0 + p * 8;
-  auto emit = [&](int od, const float (&lo)[2][2][8], const float (&hi)[2][2][8],
+  // output voxel (n, od, 2h + b, 2w + e), channels offset + c0 + E p
+  T* yb = y + (((long long)n * 2 * D * Ho + 2LL * h) * Wo + 2LL * w) * pitch +
+          offset + c0 + p * E;
+  auto emit = [&](int od, const float (&lo)[2][2][E], const float (&hi)[2][2][E],
                   float wlo, float whi) {
 #pragma unroll
     for (int b = 0; b < 2; ++b)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        float o[8];
+        float o[E];
 #pragma unroll
-        for (int k = 0; k < 8; ++k) o[k] = wlo * lo[b][e][k] + whi * hi[b][e][k];
-        *reinterpret_cast<uint4*>(yb + ((od * Ho + b) * Wo + e) * pitch) = pack8(o);
+        for (int k = 0; k < E; ++k) o[k] = wlo * lo[b][e][k] + whi * hi[b][e][k];
+        *reinterpret_cast<uint4*>(yb + ((od * Ho + b) * Wo + e) * pitch) =
+            Piece<T>::pack(o);
       }
   };
 
-  float prev[2][2][8], cur[2][2][8];
-  row_hw(tile, 0, lh, lw, p, prev);
+  float prev[2][2][E], cur[2][2][E];
+  row_hw<T>(tile, 0, lh, lw, p, prev);
   for (int r = 1; r <= dn + 1; ++r) {
-    row_hw(tile, r, lh, lw, p, cur);
+    row_hw<T>(tile, r, lh, lw, p, cur);
     // halo row r is input d0 - 1 + r: it completes the odd phase of voxel
     // d0 + r - 2 and the even phase of voxel d0 + r - 1
     if (r >= 2) emit(2 * (d0 + r - 2) + 1, prev, cur, 0.75f, 0.25f);
@@ -175,7 +216,7 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
       for (int e = 0; e < 2; ++e)
 #pragma unroll
-        for (int k = 0; k < 8; ++k) prev[b][e][k] = cur[b][e][k];
+        for (int k = 0; k < E; ++k) prev[b][e][k] = cur[b][e][k];
   }
 }
 
@@ -333,6 +374,30 @@ __global__ void __launch_bounds__(BTHREADS, 2)
 
 }  // namespace
 
+namespace {
+
+template <typename T>
+int up_run(const void* x, void* y, int N, int D, int H, int W, int C, int pitch,
+           int offset, void* stream) {
+  constexpr int E = Piece<T>::N;
+  if (N < 1 || D < 1 || H < 1 || W < 1 || C < E || C % E || pitch % E ||
+      offset % E || offset < 0 || offset + C > pitch || N > 65535 ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) % 16)
+    return (int)cudaErrorInvalidValue;
+  const int ntd = (D + TD - 1) / TD, nth = (H + TH - 1) / TH,
+            ntw = (W + TW - 1) / TW;
+  const long long tiles = (long long)ntd * nth * ntw;
+  const int chunks = (C + PIECES * E - 1) / (PIECES * E);
+  if (tiles > 0x7FFFFFFFLL || chunks > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)tiles, (unsigned)chunks, (unsigned)N);
+  upsample2x_kernel<T><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<T*>(y), D, H, W, C, pitch, offset,
+      nth, ntw);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 // x (N, D, H, W, C) contiguous bf16; y: (N, 2D, 2H, 2W, pitch) bf16, of which
 // channels [offset, offset + C) are written (pitch = C, offset 0 for a plain
 // output; the up half of a concat buffer otherwise). C, pitch and offset
@@ -342,20 +407,15 @@ __global__ void __launch_bounds__(BTHREADS, 2)
 extern "C" int upsample2x_ndhwc_bf16(const void* x, void* y, int N, int D,
                                      int H, int W, int C, int pitch, int offset,
                                      void* stream) {
-  if (N < 1 || D < 1 || H < 1 || W < 1 || C < 8 || C % 8 || pitch % 8 ||
-      offset % 8 || offset < 0 || offset + C > pitch || N > 65535 ||
-      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) % 16)
-    return (int)cudaErrorInvalidValue;
-  const int ntd = (D + TD - 1) / TD, nth = (H + TH - 1) / TH,
-            ntw = (W + TW - 1) / TW;
-  const long long tiles = (long long)ntd * nth * ntw;
-  const int chunks = (C + CHUNK - 1) / CHUNK;
-  if (tiles > 0x7FFFFFFFLL || chunks > 65535) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)tiles, (unsigned)chunks, (unsigned)N);
-  upsample2x_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y), D,
-      H, W, C, pitch, offset, nth, ntw);
-  return (int)cudaGetLastError();
+  return up_run<__nv_bfloat16>(x, y, N, D, H, W, C, pitch, offset, stream);
+}
+
+// The same in f32: x, y f32; C, pitch and offset multiples of 4. The values
+// are stored as computed (f32, no rounding step).
+extern "C" int upsample2x_ndhwc_f32(const void* x, void* y, int N, int D,
+                                    int H, int W, int C, int pitch, int offset,
+                                    void* stream) {
+  return up_run<float>(x, y, N, D, H, W, C, pitch, offset, stream);
 }
 
 // g: (N, 2D, 2H, 2W) voxels of C channels at a channel pitch of `pitch`

@@ -32,18 +32,19 @@ package (its gradient was XLA's), so the port builds one:
   TF32 off and deterministic algorithms; on the CPU in f32.
 
 ``conv3d(x, w, stats=True)`` returns ``(y, partials)``: on the bf16 wgmma
-instance ``partials`` is the f32 (3, N, boxes, Co) InstanceNorm statistics
-of y, (count, mean, centred M2) per box of the plan and output channel,
-written by the kernel's STATS epilogue (``ops/norm.py`` merges them, so the
-norm after the conv reads y once); on a CPU tensor (of any dtype) whose
-shape the bf16 planner gives the wgmma instance, :func:`conv_stats_plain` of
-the plain output, box by box as the kernel folds it; on every other route
-(``csrc/conv3d.cu`` in either dtype, the Winograd backend) None, and the
-norm takes its own statistics. The partials are not differentiable.
+instance and on the f32 FFMA instance ``partials`` is the f32 (3, N, boxes,
+Co) InstanceNorm statistics of y, (count, mean, centred M2) per box of the
+plan and output channel, written by the kernel's STATS epilogue
+(``ops/norm.py`` merges them, so the norm after the conv reads y once); on a
+CPU tensor whose shape the planner gives one of those two instances in its
+dtype, :func:`conv_stats_plain` of the plain output, box by box as the
+kernel folds it; on every other route (the bf16 ``csrc/conv3d.cu`` mma.sync
+instance, the Winograd backend) None, and the norm takes its own
+statistics. The partials are not differentiable.
 
 ``conv3d.launches`` counts kernel launches of every instance,
 ``conv3d.launches_wgmma`` those of the wgmma instance,
-``conv3d.launches_stats`` those of them with the STATS epilogue,
+``conv3d.launches_stats`` those with a STATS epilogue (either instance),
 ``conv3d.launches_f32`` those of the f32 FFMA instance.
 :func:`conv3d_boxed_plain` is plain torch organised as the wgmma kernel is
 (boxes, zero-filled halo patches, channel chunks, tap-shifted views, masked
@@ -88,6 +89,8 @@ _SIG = {
     "conv3d_ndhwc_bf16": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
     "conv3d_ndhwc_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
+    + [ctypes.c_void_p],
+    "conv3d_stats_ndhwc_f32": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
     + [ctypes.c_void_p],
     "conv3d_f32_smem_bytes": [ctypes.c_int] * 3,
     "conv3d_f32_blocks_per_sm": [ctypes.c_int] * 3,
@@ -350,15 +353,20 @@ def conv3d_boxed_plain(x: torch.Tensor, w: torch.Tensor,
     return y.to(x.dtype)
 
 
+STATS_INSTANCES = ("wgmma", "ffma_f32")   # the instances with a STATS epilogue
+
+
 def conv_stats_plain(y: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
     """The STATS epilogue in plain torch: for each sample, box of ``plan``
     (``plan.box``, ``plan.boxes``, boxes numbered (bd * nbh + bh) * nbw + bw
-    as the kernel walks them) and channel, the count of the box's voxels
-    inside the volume, their mean and their centred sum of squares, in f32,
-    of ``y`` as stored (the conv output in the compute dtype). Returns
-    (3, N, boxes, C)."""
-    if plan.instance != "wgmma":
-        raise ValueError("conv_stats_plain follows the wgmma instance's plan")
+    as the kernel walks them; the wgmma or the f32 FFMA instance's plan) and
+    channel, the count of the box's voxels inside the volume, their mean and
+    their centred sum of squares, in f32, of ``y`` as stored (the conv
+    output in the compute dtype). Returns (3, N, boxes, C)."""
+    if plan.instance not in STATS_INSTANCES:
+        raise ValueError(f"conv_stats_plain follows the plan of an instance "
+                         f"with a STATS epilogue {STATS_INSTANCES}, not "
+                         f"{plan.instance!r}")
     n, d, h, w, c = y.shape
     bd, bh, bw = plan.box
     nbd, nbh, nbw = plan.boxes
@@ -467,9 +475,10 @@ def _launch_wgmma(x: torch.Tensor, w: torch.Tensor, plan: ConvPlan,
 
 
 def conv3d_kernel_f32(x: torch.Tensor, w: torch.Tensor,
-                      plan: ConvPlan | None = None) -> torch.Tensor:
+                      plan: ConvPlan | None = None, stats: bool = False):
     """Launch the f32 FFMA instance of csrc/conv3d.cu on CUDA f32 tensors,
-    with the shape's own plan unless one is given."""
+    with the shape's own plan unless one is given: y, or with ``stats`` the
+    STATS instance's (y, partials)."""
     _check_kernel_args(x, w, (torch.float32,))
     n, d, h, wd, ci = x.shape
     x = x.contiguous()
@@ -478,27 +487,35 @@ def conv3d_kernel_f32(x: torch.Tensor, w: torch.Tensor,
     if plan is None:
         plan = plan_conv(n, d, h, wd, ci, co, _sm_count(x.device), x.dtype)
     y = torch.empty((n, d, h, wd, co), dtype=x.dtype, device=x.device)
+    part = None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _lib().conv3d_ndhwc_f32(
-            x.data_ptr(), w.data_ptr(), y.data_ptr(), n, d, h, wd, ci, co,
-            plan.box[0], plan.bn, plan.chunk, stream
-        )
+        args = (n, d, h, wd, ci, co, plan.box[0], plan.bn, plan.chunk, stream)
+        if stats:
+            part = torch.empty((3, n, math.prod(plan.boxes), co),
+                               dtype=torch.float32, device=x.device)
+            rc = _lib().conv3d_stats_ndhwc_f32(
+                x.data_ptr(), w.data_ptr(), y.data_ptr(), part.data_ptr(), *args)
+        else:
+            rc = _lib().conv3d_ndhwc_f32(x.data_ptr(), w.data_ptr(),
+                                         y.data_ptr(), *args)
     _build.check(rc, "conv3d (f32)")
-    _build.count_launch(conv3d, "launches", "launches_f32")
-    return y
+    _build.count_launch(conv3d, "launches", "launches_f32",
+                        *(("launches_stats",) if stats else ()))
+    return (y, part) if stats else y
 
 
 def conv3d_kernel(x: torch.Tensor, w: torch.Tensor, stats: bool = False):
     """Launch the instance :func:`plan_conv` names for this dtype and
-    shape: y, or with ``stats`` (y, partials), partials None off the wgmma
-    instance."""
+    shape: y, or with ``stats`` (y, partials), partials None on the bf16
+    mma.sync instance."""
     _check_kernel_args(x, w, KERNEL_DTYPES)
     plan = plan_conv(*x.shape, w.shape[4], _sm_count(x.device), x.dtype)
     if plan.instance == "wgmma":
         return _launch_wgmma(x, w, plan, stats)
-    y = (conv3d_kernel_f32(x, w, plan) if plan.instance == "ffma_f32"
-         else _launch_mma_sync(x, w))
+    if plan.instance == "ffma_f32":
+        return conv3d_kernel_f32(x, w, plan, stats)
+    y = _launch_mma_sync(x, w)
     return (y, None) if stats else y
 
 
@@ -512,12 +529,12 @@ def _conv3d_fwd(x: torch.Tensor, w: torch.Tensor, stats: bool = False):
         y = conv3d_plain(x, w)
         if not stats:
             return y
-        # by the bf16 plan in any dtype: the CPU tests hold the merged
-        # partials against the JAX package in f32 (an f32 conv on the card
-        # takes the FFMA instance, which gives none)
-        plan = plan_conv(*x.shape, w.shape[4])
-        return y, (conv_stats_plain(y, plan) if plan.instance == "wgmma"
-                   else None)
+        # by the plan of x's dtype: the boxes the card's instance folds
+        if x.dtype not in KERNEL_DTYPES:
+            return y, None
+        plan = plan_conv(*x.shape, w.shape[4], dtype=x.dtype)
+        return y, (conv_stats_plain(y, plan)
+                   if plan.instance in STATS_INSTANCES else None)
     return conv3d_kernel(x, w, stats)
 
 

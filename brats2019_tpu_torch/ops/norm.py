@@ -19,9 +19,11 @@ NDHWC; statistics per (n, c) over the spatial axes, in f32, biased variance,
 
 ``partials``: the f32 (3, N, P, C) per-box (count, mean, centred M2) of x
 that the conv before the norm computed in its epilogue (``ops/conv.py``
-``conv3d(..., stats=True)``). Given them, the forward skips its statistics
+``conv3d(..., stats=True)``: the bf16 wgmma instance's or, in f32, the FFMA
+instance's). Given them, the forward skips its statistics
 pass: it merges them (:func:`merge_partials_plain` on the CPU, the Triton
-merge on CUDA) and applies, reading x once.
+merge on CUDA, folded into the apply's launch in f32) and applies, reading
+x once.
 
 :func:`instance_norm_act` is an ``autograd.Function``: the forward saves x,
 gamma, beta and the f32 (N, C) mean/rstd; the backward returns dx in

@@ -14,14 +14,16 @@ All are ``autograd.Function``s whose backward is the exact VJP
 :func:`upsample2x_bwd`: the stride-2 4-tap correlation with the
 replicate-clamp edge folds, ``pallas_resize.py:128-234``). Forward and
 backward run their plain version on a CPU tensor and a kernel on a CUDA bf16
-or f32 tensor (or raise), by :func:`plan_resize`: in bf16 the 2x up forward
-and backward are ``csrc/resize2x.cu`` where C is a multiple of 8 (the Triton
-``_up2x_kernel`` and ``_up2x_bwd_kernel`` for other C, or a gradient whose
-channel pitch is not a multiple of 8), in f32 the Triton kernels, and the 2x
-down and its backward are the Triton kernels of ``ops/triton_resize.py`` in
-both (their loads and stores take the tensor's dtype; arithmetic is f32).
-The up backward reads the concat gradient's up half in place, at the
-concat's channel pitch. ``.launches`` counts kernel launches;
+or f32 tensor (or raise), by :func:`plan_resize`: the 2x up forward is
+``csrc/resize2x.cu`` where C and the output's channel pitch fill whole
+16-byte pieces (bf16: multiples of 8; f32: of 4), its backward
+``csrc/resize2x.cu`` in bf16 where C and the gradient's channel pitch are
+multiples of 8; the Triton ``_up2x_kernel`` and ``_up2x_bwd_kernel`` take
+the rest (the up backward in f32 always), and the 2x down and its backward
+are the Triton kernels of ``ops/triton_resize.py`` in both dtypes (their
+loads and stores take the tensor's dtype; arithmetic is f32). The up
+backward reads the concat gradient's up half in place, at the concat's
+channel pitch. ``.launches`` counts kernel launches;
 ``upsample2x.launches_cuda`` and ``upsample2x_bwd.launches_cuda`` those of
 them on resize2x.cu, ``upsample2x.launches_concat`` those that wrote into a
 concat buffer, ``.launches_f32`` of each those on f32 tensors.
@@ -49,6 +51,8 @@ from .conv import check_dtype, f32_counter
 
 _SIG = {
     "upsample2x_ndhwc_bf16": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
+    + [ctypes.c_void_p],
+    "upsample2x_ndhwc_f32": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
     + [ctypes.c_void_p],
     "upsample2x_bwd_ndhwc_bf16": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
@@ -162,15 +166,18 @@ RESIZE_OPS = ("downsample2x", "downsample2x_bwd", "upsample2x", "upsample2x_bwd"
 def plan_resize(op: str, c: int, dtype: torch.dtype,
                 pitch: Optional[int] = None) -> str:
     """The kernel that runs ``op`` (one of :data:`RESIZE_OPS`) on a CUDA
-    tensor of C channels in ``dtype`` (``pitch``: the up backward's gradient
-    channel pitch, None where it is not C channels of an NDHWC buffer):
-    ``"resize2x.cu"`` or ``"triton"``. bf16 and f32; any other dtype raises
-    TypeError."""
+    tensor of C channels in ``dtype`` (``pitch``: the channel pitch of the up
+    forward's output or of the up backward's gradient, None where it is C):
+    ``"resize2x.cu"`` or ``"triton"``. resize2x.cu takes the up forward
+    where C and the pitch are multiples of a 16-byte piece's channels (8 in
+    bf16, 4 in f32) and the up backward in bf16 at multiples of 8. bf16 and
+    f32; any other dtype raises TypeError."""
     if op not in RESIZE_OPS:
         raise ValueError(f"unknown resize op {op!r}; one of {RESIZE_OPS}")
     check_dtype(dtype, op)
-    if (dtype == torch.float32 or op.startswith("down") or c % 8
-            or (pitch is not None and pitch % 8)):
+    piece = 4 if dtype == torch.float32 else 8
+    if (op.startswith("down") or (op == "upsample2x_bwd" and dtype == torch.float32)
+            or c % piece or (pitch is not None and pitch % piece)):
         return "triton"
     return "resize2x.cu"
 
@@ -198,7 +205,8 @@ def downsample2x_kernel(x: torch.Tensor) -> torch.Tensor:
 
 def upsample2x_kernel_triton(x: torch.Tensor) -> torch.Tensor:
     """The Triton ``_up2x_kernel`` (any C): what :func:`upsample2x_kernel`
-    launches in f32 and, in bf16, where C is not a multiple of 8."""
+    launches where C does not fill whole 16-byte pieces (bf16 C % 8, f32
+    C % 4)."""
     _check5d(x, "upsample2x")
     from . import triton_resize
 
@@ -212,36 +220,38 @@ def upsample2x_kernel_triton(x: torch.Tensor) -> torch.Tensor:
 
 
 def _launch_up_cuda(x: torch.Tensor, out: torch.Tensor, offset: int) -> None:
-    """csrc/resize2x.cu: up(x) into channels [offset, offset + C) of the
-    contiguous (N, 2D, 2H, 2W, pitch) ``out``."""
+    """csrc/resize2x.cu in x's dtype: up(x) into channels [offset, offset +
+    C) of the contiguous (N, 2D, 2H, 2W, pitch) ``out``."""
+    x = x.contiguous()
     n, d, h, w, c = x.shape
+    fn = (_lib().upsample2x_ndhwc_f32 if x.dtype == torch.float32
+          else _lib().upsample2x_ndhwc_bf16)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _lib().upsample2x_ndhwc_bf16(x.data_ptr(), out.data_ptr(), n, d, h,
-                                          w, c, out.shape[-1], offset, stream)
+        rc = fn(x.data_ptr(), out.data_ptr(), n, d, h, w, c, out.shape[-1],
+                offset, stream)
     _build.check(rc, "upsample2x (resize2x.cu)")
 
 
 def upsample2x_kernel(x: torch.Tensor) -> torch.Tensor:
     """The 2x up on a CUDA tensor, by :func:`plan_resize`: csrc/resize2x.cu
-    (bf16, C % 8 == 0) or the Triton kernel."""
+    (bf16 C % 8 == 0, f32 C % 4 == 0) or the Triton kernel."""
     _check5d(x, "upsample2x")
     n, d, h, w, c = x.shape
     if plan_resize("upsample2x", c, x.dtype) == "triton":
         return upsample2x_kernel_triton(x)
-    x = x.contiguous()
     y = torch.empty((n, 2 * d, 2 * h, 2 * w, c), dtype=x.dtype, device=x.device)
     _launch_up_cuda(x, y, 0)
-    _build.count_launch(upsample2x, "launches", "launches_cuda")
+    _build.count_launch(upsample2x, "launches", "launches_cuda", *f32_counter(x))
     return y
 
 
 def upsample2x_concat_kernel(x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
     """``cat([up(x), skip], -1)`` on CUDA tensors: csrc/resize2x.cu writes
     up(x) into the concat buffer's first C channels where :func:`plan_resize`
-    gives it x and the buffer's channels are multiples of 8; else (f32, or C
-    not a multiple of 8) the Triton up is made apart and copied into the
-    buffer. skip is copied into the rest."""
+    gives it x at the buffer's channel pitch; else (C or the pitch off the
+    16-byte pieces) the Triton up is made apart and copied into the buffer.
+    skip is copied into the rest."""
     _check5d(x, "upsample2x_concat")
     _check5d(skip, "upsample2x_concat")
     n, d, h, w, cu = x.shape
@@ -250,13 +260,12 @@ def upsample2x_concat_kernel(x: torch.Tensor, skip: torch.Tensor) -> torch.Tenso
                          f"{skip.device} for x {tuple(x.shape)} on {x.device}")
     buf = torch.empty((n, 2 * d, 2 * h, 2 * w, cu + skip.shape[-1]),
                       dtype=x.dtype, device=x.device)
-    if (plan_resize("upsample2x", cu, x.dtype) == "triton"
-            or buf.shape[-1] % 8):
+    if plan_resize("upsample2x", cu, x.dtype, buf.shape[-1]) == "triton":
         buf[..., :cu] = upsample2x_kernel(x)
     else:
-        _launch_up_cuda(x.contiguous(), buf, 0)
+        _launch_up_cuda(x, buf, 0)
         _build.count_launch(upsample2x, "launches", "launches_cuda",
-                            "launches_concat")
+                            "launches_concat", *f32_counter(x))
     buf[..., cu:] = skip
     return buf
 

@@ -42,6 +42,12 @@ statistics pass: two launches and two passes, x read once and y written once.
    formula; bitwise repeatable).
 5. ``_in_apply_kernel`` as above.
 
+In f32 (``csrc/conv3d.cu``'s STATS epilogue gives the partials: 32 to 512
+boxes a sample at the f32 configurations' shapes) the two are one launch,
+``_in_merge_apply_kernel``: each program merges its sample's partials in
+the same fixed order before it applies (a launch less per IN; the partials
+are read again by every program, from L2).
+
 Statistics are f32 with biased variance, eps inside the rsqrt, as in the
 reference. :func:`launch` returns the per-(n, c) f32 mean and rstd: the
 backward's residuals, as ``_in_act_fwd`` (:324-326) keeps them.
@@ -81,6 +87,8 @@ statistics and sums are f32 in both.
 import torch
 import triton
 import triton.language as tl
+
+from . import _build
 
 ACT_CODES = {"none": 0, "relu": 1, "leaky_relu": 2}
 
@@ -146,12 +154,12 @@ def _in_finalize_kernel(part_ptr, mean_ptr, rstd_ptr, NP, P, C, eps,
 
 
 @triton.jit
-def _in_merge_kernel(part_ptr, mean_ptr, rstd_ptr, P, C, NPC, eps,
-                     BLOCK_P: tl.constexpr, BLOCK_C: tl.constexpr):
-    n = tl.program_id(0)
-    cb = tl.program_id(1)
-    offs_c = cb * BLOCK_C + tl.arange(0, BLOCK_C)
-    cmask = offs_c < C
+def _merge_stats(part_ptr, n, offs_c, cmask, P, C, NPC, eps,
+                 BLOCK_P: tl.constexpr, BLOCK_C: tl.constexpr):
+    """Sample n's per-box (count, mean, M2) merged over its P boxes, walked
+    in chunks of BLOCK_P in a fixed order, twice: sum of counts and of count
+    * mean, then, around the merged mean, the sum of M2 + count * (mean_i -
+    mean)^2. Returns the (BLOCK_C,) mean and rstd."""
     base = n.to(tl.int64) * P * C
     acc_n = tl.zeros([BLOCK_P, BLOCK_C], dtype=tl.float32)
     acc_s = tl.zeros([BLOCK_P, BLOCK_C], dtype=tl.float32)
@@ -176,9 +184,39 @@ def _in_merge_kernel(part_ptr, mean_ptr, rstd_ptr, P, C, NPC, eps,
         dev = mu - mean[None, :]
         acc_m2 += m2 + cnt * dev * dev
     var = tl.sum(acc_m2, axis=0) / total
-    rstd = 1.0 / tl.sqrt(var + eps)
+    return mean, 1.0 / tl.sqrt(var + eps)
+
+
+@triton.jit
+def _in_merge_kernel(part_ptr, mean_ptr, rstd_ptr, P, C, NPC, eps,
+                     BLOCK_P: tl.constexpr, BLOCK_C: tl.constexpr):
+    n = tl.program_id(0)
+    cb = tl.program_id(1)
+    offs_c = cb * BLOCK_C + tl.arange(0, BLOCK_C)
+    cmask = offs_c < C
+    mean, rstd = _merge_stats(part_ptr, n, offs_c, cmask, P, C, NPC, eps,
+                              BLOCK_P, BLOCK_C)
     tl.store(mean_ptr + n * C + offs_c, mean, mask=cmask)
     tl.store(rstd_ptr + n * C + offs_c, rstd, mask=cmask)
+
+
+@triton.jit
+def _apply_block(x_ptr, y_ptr, mean, rstd, g, b, n, sb, offs_c, cmask, S, C,
+                 ACT: tl.constexpr, BLOCK_S: tl.constexpr):
+    """One (BLOCK_S, BLOCK_C) block of sample n: y = act((x - mean) * rstd
+    * g + b)."""
+    offs_s = sb * BLOCK_S + tl.arange(0, BLOCK_S)
+    mask = (offs_s < S)[:, None] & cmask[None, :]
+    off = (n.to(tl.int64) * S * C + offs_s.to(tl.int64)[:, None] * C
+           + offs_c[None, :])
+    x = tl.load(x_ptr + off, mask=mask, other=0.0).to(tl.float32)
+    y = (x - mean[None, :]) * rstd[None, :]
+    y = y * g[None, :] + b[None, :]
+    if ACT == 1:
+        y = tl.maximum(y, 0.0)
+    elif ACT == 2:
+        y = tl.where(y >= 0, y, y * 0.01)
+    tl.store(y_ptr + off, y.to(y_ptr.dtype.element_ty), mask=mask)
 
 
 @triton.jit
@@ -188,24 +226,40 @@ def _in_apply_kernel(x_ptr, y_ptr, mean_ptr, rstd_ptr, g_ptr, b_ptr, S, C,
     sb = tl.program_id(0)
     n = tl.program_id(1)
     cb = tl.program_id(2)
-    offs_s = sb * BLOCK_S + tl.arange(0, BLOCK_S)
     offs_c = cb * BLOCK_C + tl.arange(0, BLOCK_C)
     cmask = offs_c < C
-    mask = (offs_s < S)[:, None] & cmask[None, :]
-    off = (n.to(tl.int64) * S * C + offs_s.to(tl.int64)[:, None] * C
-           + offs_c[None, :])
-    x = tl.load(x_ptr + off, mask=mask, other=0.0).to(tl.float32)
     mean = tl.load(mean_ptr + n * C + offs_c, mask=cmask, other=0.0)
     rstd = tl.load(rstd_ptr + n * C + offs_c, mask=cmask, other=0.0)
     g = tl.load(g_ptr + offs_c, mask=cmask, other=0.0)
     b = tl.load(b_ptr + offs_c, mask=cmask, other=0.0)
-    y = (x - mean[None, :]) * rstd[None, :]
-    y = y * g[None, :] + b[None, :]
-    if ACT == 1:
-        y = tl.maximum(y, 0.0)
-    elif ACT == 2:
-        y = tl.where(y >= 0, y, y * 0.01)
-    tl.store(y_ptr + off, y.to(y_ptr.dtype.element_ty), mask=mask)
+    _apply_block(x_ptr, y_ptr, mean, rstd, g, b, n, sb, offs_c, cmask, S, C,
+                 ACT, BLOCK_S)
+
+
+@triton.jit
+def _in_merge_apply_kernel(x_ptr, y_ptr, part_ptr, mean_ptr, rstd_ptr, g_ptr,
+                           b_ptr, S, C, P, NPC, eps, ACT: tl.constexpr,
+                           BLOCK_S: tl.constexpr, BLOCK_C: tl.constexpr,
+                           BLOCK_P: tl.constexpr, ITERS: tl.constexpr):
+    """The merge folded into the apply's prologue: every program merges its
+    sample's partials in the same fixed order (so all agree bitwise), the
+    programs of the first S block write mean and rstd, then each applies
+    ITERS consecutive S blocks."""
+    sp = tl.program_id(0)
+    n = tl.program_id(1)
+    cb = tl.program_id(2)
+    offs_c = cb * BLOCK_C + tl.arange(0, BLOCK_C)
+    cmask = offs_c < C
+    mean, rstd = _merge_stats(part_ptr, n, offs_c, cmask, P, C, NPC, eps,
+                              BLOCK_P, BLOCK_C)
+    if sp == 0:
+        tl.store(mean_ptr + n * C + offs_c, mean, mask=cmask)
+        tl.store(rstd_ptr + n * C + offs_c, rstd, mask=cmask)
+    g = tl.load(g_ptr + offs_c, mask=cmask, other=0.0)
+    b = tl.load(b_ptr + offs_c, mask=cmask, other=0.0)
+    for it in tl.static_range(ITERS):
+        _apply_block(x_ptr, y_ptr, mean, rstd, g, b, n, sp * ITERS + it, offs_c,
+                     cmask, S, C, ACT, BLOCK_S)
 
 
 def _pow2(v: int) -> int:
@@ -271,10 +325,37 @@ def merge(part, eps: float):
     return mean, rstd
 
 
-def launch_from_partials(x, y, part, gamma, beta, eps: float, activation: str):
-    """The forward from the conv's partials (:func:`merge`, then
-    :func:`apply`); x, y as in :func:`launch`. Writes y; returns the f32
+def merge_apply(x, y, part, gamma, beta, eps: float, activation: str):
+    """:func:`merge` folded into :func:`apply`: one launch. Each program
+    merges its sample's P partials (chunks of at most 2048 / BLOCK_C boxes)
+    before it applies; where P is large it applies several S blocks
+    (ITERS, a power of two), so the partials are read fewer times, while
+    the grid keeps at least two programs an SM. Writes y; returns the f32
     (N, C) mean and rstd."""
+    n, s, c = x.shape
+    p = part.shape[2]
+    block_c, block_s = _blocks(c)
+    block_p = min(_pow2(p), max(16, 2048 // block_c))
+    s_blocks, c_blocks = triton.cdiv(s, block_s), triton.cdiv(c, block_c)
+    iters, sms = 1, _build.sm_count(x.device)
+    while iters * block_s < 8 * p and 2 * sms * iters <= s_blocks * n * c_blocks:
+        iters *= 2
+    mean = torch.empty((n, c), dtype=torch.float32, device=x.device)
+    rstd = torch.empty((n, c), dtype=torch.float32, device=x.device)
+    _in_merge_apply_kernel[(triton.cdiv(s_blocks, iters), n, c_blocks)](
+        x, y, part, mean, rstd, gamma, beta, s, c, p, n * p * c, eps,
+        ACT=ACT_CODES[activation], BLOCK_S=block_s, BLOCK_C=block_c,
+        BLOCK_P=block_p, ITERS=iters, num_warps=4,
+    )
+    return mean, rstd
+
+
+def launch_from_partials(x, y, part, gamma, beta, eps: float, activation: str):
+    """The forward from the conv's partials; x, y as in :func:`launch`: in
+    f32 :func:`merge_apply` (one launch), in bf16 :func:`merge`, then
+    :func:`apply`. Writes y; returns the f32 (N, C) mean and rstd."""
+    if x.dtype == torch.float32:
+        return merge_apply(x, y, part, gamma, beta, eps, activation)
     mean, rstd = merge(part, eps)
     apply(x, y, mean, rstd, gamma, beta, activation)
     return mean, rstd

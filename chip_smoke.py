@@ -79,7 +79,19 @@ and prints no result lines). Phases:
    run bitwise equal, every launch on ``conv3d_winograd.launches_f32``, the
    planner's shared-memory bytes equal to the kernel's, device
    time beside its bound (8/27 of the direct conv's products on the f32
-   pipe), the FFMA direct conv and cuDNN's f32 conv.
+   pipe), the FFMA direct conv and cuDNN's f32 conv. The fused f32 routes:
+   at every f32 conv shape that an IN follows, the f32 conv's STATS
+   epilogue (``conv3d_stats_ndhwc_f32``): y bitwise the plain instance's,
+   its partials bitwise repeatable, the merged mean and rstd within 1e-5 of
+   y's plain statistics, IN+act from the partials within 1e-5 of the plain
+   version and bitwise repeatable, and at the accuracy config's tile batch
+   the row's three terms (epilogue, merge, apply) beside the three-launch
+   form (``prev_ms``); at every f32 up, the f32 instance of
+   ``csrc/resize2x.cu`` written into the decoder's concat buffer in one
+   launch: up half within 1e-6 of the plain up (and whether bitwise), skip
+   half bitwise, timed against the Triton up made apart and copied into the
+   buffer (prev). Then the launch floor: 100 launches of the f32 2x down and
+   up at their smallest shape replayed from one CUDA graph, in us a launch.
 3. The predict slice: CASES synthetic 240x240x155 cases and seeded random
    ``cascade`` weights saved as ``params.npz``, run through
    ``brats2019_tpu_torch.cli.predict`` on the card with the launch counters
@@ -151,8 +163,10 @@ and prints no result lines). Phases:
    the committed fixtures (``tests/fixtures/accuracy``) and the hard cases of
    seeds 10, 11, 13 at (64, 64, 48) from the port's generator: every bound of
    ``tests/test_accuracy_benchmark.py:108-183`` (restated in
-   :func:`accuracy_bounds`), only f32 routes launched, labels equal to the CPU
-   plain path's but on ties (the count printed); (2) the flagship ensemble,
+   :func:`accuracy_bounds`), only f32 routes launched (every IN+act from its
+   conv's partials, every up into its concat on ``resize2x.cu``, as in part
+   (0) on the direct backend), labels equal to the CPU plain path's but on
+   ties (the count printed); (2) the flagship ensemble,
    ``cli.predict --preset cascade --ensemble W2 --save-probs
    --save-uncertainty`` on the phase-3 cases with a second seeded random
    member: labels in {0,1,2,4}, probabilities summing to 1 within f16
@@ -850,6 +864,13 @@ def check_norm_partials(shapes, dev, timed=()):
     return out
 
 
+def up_concats(calls):
+    """(up input shape, skip channels) of each upsample of ``calls``: the
+    skip's channels are the next conv's input less the up's."""
+    return [(shape, calls[i + 1][1][4] - shape[4])
+            for i, (name, shape) in enumerate(calls) if name == "upsample2x"]
+
+
 def check_up_concat(calls, dev):
     """The decoder's up + skip concat at each upsample of ``calls``: up(x)
     written by resize2x.cu into the concat buffer, against the plain up (1
@@ -861,10 +882,7 @@ def check_up_concat(calls, dev):
 
     g = torch.Generator(device=dev).manual_seed(6)
     out = {}
-    for i, (name, shape) in enumerate(calls):
-        cs = calls[i + 1][1][4] - shape[4] if name == "upsample2x" else 0
-        if name != "upsample2x" or (shape, cs) in out:
-            continue
+    for shape, cs in dict.fromkeys(up_concats(calls)):
         n, d, h, w, c = shape
         x = torch.randn(shape, generator=g, device=dev).bfloat16()
         skip = torch.randn((n, 2 * d, 2 * h, 2 * w, cs), generator=g,
@@ -1166,12 +1184,21 @@ F32_TOL = {"conv3d": 1e-5, "instance_norm_act": 1e-5,
 F32_RESIZE_TOL = 1e-6
 F32_SOURCE = {
     "conv3d": ("cuda", "brats2019_tpu_torch/csrc/conv3d.cu (conv3d_ndhwc_f32)"),
+    # statistics from the f32 conv's epilogue, then the Triton merge and apply
     "instance_norm_act": ("triton", "brats2019_tpu_torch/ops/triton_norm.py"),
     "instance_norm_act_bwd": ("triton", "brats2019_tpu_torch/ops/triton_norm.py"),
     "downsample2x": ("triton", "brats2019_tpu_torch/ops/triton_resize.py"),
-    "upsample2x": ("triton", "brats2019_tpu_torch/ops/triton_resize.py"),
+    "upsample2x": ("cuda", "brats2019_tpu_torch/csrc/resize2x.cu (upsample2x_ndhwc_f32)"),
     "downsample2x_bwd": ("triton", "brats2019_tpu_torch/ops/triton_resize.py"),
     "upsample2x_bwd": ("triton", "brats2019_tpu_torch/ops/triton_resize.py"),
+}
+
+
+F32_EPILOGUE_SOURCE = "brats2019_tpu_torch/csrc/conv3d.cu (conv3d_stats_ndhwc_f32)"
+# the tree's earlier route of an f32 row, timed beside it in the same run
+F32_PREV_SOURCE = {
+    "instance_norm_act": "brats2019_tpu_torch/ops/triton_norm.py (three launches)",
+    "upsample2x": "brats2019_tpu_torch/ops/triton_resize.py",
 }
 
 
@@ -1195,10 +1222,11 @@ def check_f32_kernels(calls, dev):
     """The f32 route of every kernel seam at each unique (kernel, shape) of
     ``calls``: within its tolerance of the plain version (f32 math, TF32
     off), a repeat run bitwise equal, the route the counters show (every
-    launch on ``launches_f32``; no wgmma conv, no CUDA C++ IN backward or 2x
-    up), device time beside the plain version, the bound (f32 bytes, the f32
-    pipe) and the library call on the same f32 inputs. Returns {(name,
-    shape): the tuple of :func:`check_kernels`}."""
+    launch on ``launches_f32``; no wgmma conv, no CUDA C++ IN backward or up
+    backward; the up on resize2x.cu where its plan says so), device time
+    beside the plain version, the bound (f32 bytes, the f32 pipe) and the
+    library call on the same f32 inputs (the up also beside the Triton up,
+    its prev). Returns {(name, shape): the tuple of :func:`check_kernels`}."""
     import torch
 
     from brats2019_tpu_torch import ops
@@ -1252,12 +1280,15 @@ def check_f32_kernels(calls, dev):
         wrapper = getattr(ops, name)
         side = ((conv.conv3d, "launches_wgmma"),) if name == "conv3d" else (
             ((wrapper, "launches_cuda"),) if hasattr(wrapper, "launches_cuda") else ())
+        # the f32 up takes resize2x.cu where C fills whole 16-byte pieces
+        on_cuda = name == "upsample2x" and resize.plan_resize(
+            name, shape[4], torch.float32) == "resize2x.cu"
         before = [wrapper.launches, wrapper.launches_f32] + [getattr(f, a) for f, a in side]
         got, again, ref = kern(), kern(), plain()
         torch.cuda.synchronize()
         took = [wrapper.launches - before[0], wrapper.launches_f32 - before[1]] + [
             getattr(f, a) - b for (f, a), b in zip(side, before[2:])]
-        route_ok = took == [2, 2] + [0] * len(side)
+        route_ok = took == [2, 2] + [2 * on_cuda] * len(side)
         extra = ""
         if name == "conv3d":
             # the planner's shared memory is the kernel's
@@ -1286,16 +1317,166 @@ def check_f32_kernels(calls, dev):
         bytes_ms, ops_ms = bound_terms(name, shape, itemsize=4)
         lib = library_ms(name, lib_x if lib_x is not None else x, reps, gy=gy,
                          wt=wt, gam=gam, bet=bet)
+        prev = (device_ms(lambda: resize.upsample2x_kernel_triton(x), reps)
+                if on_cuda else None)
         check(ok, f"{name} f32 {shape}: max|d|/max|ref| {err:.3e} (tol {tol:g})"
                   f"{extra}, max|d| {abs_err:.3e}, repeat run bitwise equal: "
-                  f"{same}, launches (all, f32, bf16-only routes) {took}; device "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library call "
+                  f"{same}, launches (all, f32, side route) {took}; device "
+                  f"kernel {ms:.4f} ms"
+                  + (f" (Triton up, prev, {prev:.4f} ms)" if on_cuda else "")
+                  + f", plain {plain_ms:.4f} ms, library call "
                   f"{lib:.4f} ms; bound {max(bytes_ms, ops_ms):.4f} ms (bytes "
                   f"{bytes_ms:.4f}, operations {ops_ms:.4f})")
         results[(name, shape)] = (err, abs_err, ms, plain_ms, wall, plain_wall,
-                                  bytes_ms, ops_ms, lib, None)
+                                  bytes_ms, ops_ms, lib, prev)
         del got, again, ref, kern, plain
     return results
+
+
+def check_f32_norm_partials(shapes, dev, timed=()):
+    """Row 2f's route at every f32 conv shape in ``shapes`` (an IN follows
+    each): the f32 STATS conv's y bitwise equal to the plain instance's, its
+    partials bitwise repeatable, the merged mean and rstd within 1e-5 of y's
+    plain statistics, IN+act from the partials within F32_TOL of the plain
+    version and bitwise repeatable; for the shapes in ``timed`` also the
+    row's three terms (the epilogue: STATS conv less conv, in turns; the
+    merge; the apply) beside the three-launch form on the same y (prev).
+    Returns {conv shape: dict}."""
+    import torch
+
+    from brats2019_tpu_torch.ops import conv, norm, triton_norm
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+    tol = F32_TOL["instance_norm_act"]
+    out = {}
+    for shape in dict.fromkeys(shapes):
+        n, d, h, w, ci, co = shape
+        x = torch.randn((n, d, h, w, ci), generator=g, device=dev)
+        wt = torch.randn((3, 3, 3, ci, co), generator=g, device=dev) / (27 * ci) ** 0.5
+        gam = torch.rand(co, generator=g, device=dev) + 0.5
+        bet = torch.randn(co, generator=g, device=dev) * 0.2
+        before = (conv.conv3d.launches_stats, conv.conv3d.launches_f32)
+        y0 = conv.conv3d_kernel(x, wt)
+        y, part = conv.conv3d_kernel(x, wt, stats=True)
+        _, part2 = conv.conv3d_kernel(x, wt, stats=True)
+        took = (conv.conv3d.launches_stats - before[0],
+                conv.conv3d.launches_f32 - before[1])
+        _, rmean, rrstd = norm._plain_stats(y, None, None, 1e-5, "none")
+        with_part = lambda: norm.instance_norm_act_kernel(y, gam, bet,
+                                                          partials=part)
+        (got, mean, rstd), again = with_part(), with_part()[0]
+        ref = norm.instance_norm_act_plain(y, gam, bet)
+        torch.cuda.synchronize()
+        same = (bool(torch.equal(y, y0)), bool(torch.equal(part, part2)),
+                bool(torch.equal(got, again)))
+        stats_err = max(rel(mean, rmean), rel(rstd, rrstd))
+        err = rel(got, ref)
+        rec = {"err": err, "abs_err": (got - ref).abs().max().item()}
+        ok = all(same) and stats_err <= 1e-5 and err <= tol and took == (2, 3)
+        what = ""
+        if shape in timed:
+            n_, d_, h_, w_, c_ = y.shape
+            y3 = y.view(n_, d_ * h_ * w_, c_)
+            o3 = torch.empty_like(y3)
+            reps = 10
+            plain_conv = lambda: conv.conv3d_kernel(x, wt)
+            stats_conv = lambda: conv.conv3d_kernel(x, wt, stats=True)
+            t = [device_ms(f, reps) for f in (plain_conv, stats_conv,
+                                              stats_conv, plain_conv)]
+            rec["conv_ms"], rec["stats_conv_ms"] = min(t[0], t[3]), min(t[1], t[2])
+            rec["epilogue_ms"] = rec["stats_conv_ms"] - rec["conv_ms"]
+            # the route's one launch (merge folded into the apply) in turns
+            # with the merge and the apply as two launches
+            fused = lambda: triton_norm.merge_apply(y3, o3, part, gam, bet,
+                                                    1e-5, "relu")
+            two = lambda: triton_norm.apply(y3, o3, *triton_norm.merge(part, 1e-5),
+                                            gam, bet, "relu")
+            t = [device_ms(f, reps) for f in (two, fused, fused, two)]
+            rec["two_launch_ms"], rec["merge_apply_ms"] = min(t[0], t[3]), min(t[1], t[2])
+            rec["ms"] = rec["merge_apply_ms"] + rec["epilogue_ms"]
+            rec["prev_ms"] = device_ms(
+                lambda: norm.instance_norm_act_kernel(y, gam, bet), reps)
+            rec["wall_ms"] = cuda_ms(with_part, reps)
+            what = (f"; device: merge-apply {rec['merge_apply_ms']:.4f} (merge, "
+                    f"then apply: {rec['two_launch_ms']:.4f}) + epilogue "
+                    f"{rec['epilogue_ms']:.4f} (conv with it "
+                    f"{rec['stats_conv_ms']:.4f}, without {rec['conv_ms']:.4f}) = "
+                    f"{rec['ms']:.4f} ms against the three launches (prev) "
+                    f"{rec['prev_ms']:.4f} ms")
+        check(ok, f"f32 IN+act from the f32 conv's partials, conv {shape}: STATS "
+                  f"y bitwise the plain instance's {same[0]}, partials bitwise "
+                  f"repeatable {same[1]}, launches (STATS, f32) {took}; merged "
+                  f"mean/rstd vs y's plain statistics {stats_err:.1e} (tol 1e-5); "
+                  f"IN+act max|d|/max|ref| {err:.3e} (tol {tol:g}), repeat "
+                  f"bitwise {same[2]}" + what)
+        out[shape] = rec
+        del x, y, y0, part, part2, got, again, ref
+    return out
+
+
+def check_f32_up_concat(calls, dev):
+    """Row 6f's route at each upsample of ``calls``: the f32 up written by
+    resize2x.cu (``upsample2x_ndhwc_f32``) into the concat buffer in one
+    launch, within F32_RESIZE_TOL of the plain up (and whether bitwise), the
+    skip half bitwise; device ms against what the tree did before, the
+    Triton up made apart and copied into the buffer (prev). Returns {(up
+    shape, skip channels): (ms, prev_ms)}."""
+    import torch
+
+    from brats2019_tpu_torch.ops import resize
+
+    g = torch.Generator(device=dev).manual_seed(18)
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+    out = {}
+    for shape, cs in dict.fromkeys(up_concats(calls)):
+        n, d, h, w, c = shape
+        x = torch.randn(shape, generator=g, device=dev)
+        skip = torch.randn((n, 2 * d, 2 * h, 2 * w, cs), generator=g, device=dev)
+
+        def prev():
+            buf = torch.empty((n, 2 * d, 2 * h, 2 * w, c + cs), device=dev)
+            buf[..., :c] = resize.upsample2x_kernel_triton(x)
+            buf[..., c:] = skip
+            return buf
+
+        before = (resize.upsample2x.launches_concat, resize.upsample2x.launches_f32)
+        got = resize.upsample2x_concat_kernel(x, skip)
+        into = (resize.upsample2x.launches_concat - before[0],
+                resize.upsample2x.launches_f32 - before[1])
+        ref = resize.upsample2x_plain(x)
+        torch.cuda.synchronize()
+        err = rel(got[..., :c], ref)
+        bitwise = bool(torch.equal(got[..., :c], ref))
+        same = bool(torch.equal(got[..., c:], skip))
+        ms = device_ms(lambda: resize.upsample2x_concat_kernel(x, skip), 10)
+        prev_ms = device_ms(prev, 10)
+        check(err <= F32_RESIZE_TOL and same and into == (1, 1),
+              f"f32 up + skip concat {shape} + {cs}: up half max|d|/max|ref| "
+              f"{err:.3e} (tol {F32_RESIZE_TOL:g}; bitwise the plain up: "
+              f"{bitwise}), skip half bitwise {same}, launches (into the "
+              f"buffer, f32) {into}; device {ms:.4f} ms against the Triton up "
+              f"+ copy into the buffer (prev) {prev_ms:.4f} ms")
+        out[(shape, cs)] = (ms, prev_ms)
+        del x, skip, got, ref
+    return out
+
+
+def launch_floor(dev, card):
+    """The launch floor: 100 launches of the f32 2x down (Triton) and the f32
+    2x up (resize2x.cu) at their smallest shape, (1, 2, 2, 2, 4), replayed
+    from one CUDA graph. Returns (down, up) in us a launch."""
+    import torch
+
+    from brats2019_tpu_torch.ops import resize
+
+    x = torch.randn((1, 2, 2, 2, 4), device=dev)
+    down = device_ms(lambda: resize.downsample2x_kernel(x), 100) * 1e3
+    up = device_ms(lambda: resize.upsample2x_kernel(x), 100) * 1e3
+    print(f"  launch floor, 100 launches at (1, 2, 2, 2, 4) in one CUDA graph: "
+          f"f32 2x down (Triton) {down:.2f} us a launch, f32 2x up (resize2x.cu) "
+          f"{up:.2f} us a launch on {card}", flush=True)
+    return down, up
 
 
 # F3b: the f32 instance of csrc/winograd3d.cu against the plain Winograd (f32
@@ -1424,28 +1605,38 @@ F32_PRESETS = (("unit", (40, 40, 32)), ("smoke", (96, 96, 80)))
 # f32 labels may differ from the CPU's (f32 sums in another order)
 CARD_TIE = 1e-4
 # the routes that only bf16 takes: every launch of an f32 slice leaves them at 0
-BF16_ROUTES = (("conv3d", "launches_wgmma"), ("instance_norm_act", "launches_partials"),
-               ("upsample2x", "launches_cuda"), ("upsample2x", "launches_concat"),
-               ("instance_norm_act_bwd", "launches_cuda"),
+BF16_ROUTES = (("conv3d", "launches_wgmma"), ("instance_norm_act_bwd", "launches_cuda"),
                ("upsample2x_bwd", "launches_cuda"))
+# the fused f32 routes: the f32 conv's STATS epilogue and IN+act from
+# its partials, the f32 up on resize2x.cu into its concat buffer
+F32_FUSED = (("conv3d", "launches_stats"), ("instance_norm_act", "launches_partials"),
+             ("upsample2x", "launches_cuda"), ("upsample2x", "launches_concat"))
 
 
 def f32_counts():
-    """{kernel: (launches, launches_f32)} of the seams with an f32 route, and
-    the bf16-only route counters."""
+    """{kernel: (launches, launches_f32)} of the seams with an f32 route, the
+    bf16-only route counters and the fused f32 route counters."""
     from brats2019_tpu_torch import ops
 
     counts = {k: (getattr(ops, k).launches, getattr(ops, k).launches_f32)
               for k in F32_SOURCE}
-    bf16 = {f"{k}.{a}": getattr(getattr(ops, k), a) for k, a in BF16_ROUTES}
-    return counts, bf16
+    routes = lambda pairs: {f"{k}.{a}": getattr(getattr(ops, k), a) for k, a in pairs}
+    return counts, routes(BF16_ROUTES), routes(F32_FUSED)
 
 
-def check_f32_route(counts, bf16, kernels, what):
+def check_f32_route(counts, bf16, fused, kernels, what, direct=True):
+    """Every launch of ``kernels`` on its f32 route, none on a bf16-only one;
+    every IN+act after a direct f32 conv from its STATS partials (none on the
+    Winograd backend, which has no epilogue: ``direct`` False), every up into
+    its concat buffer on resize2x.cu."""
+    ins, ups = counts["instance_norm_act"][0], counts["upsample2x"][0]
+    want = {"conv3d.launches_stats": ins if direct else 0,
+            "instance_norm_act.launches_partials": ins if direct else 0,
+            "upsample2x.launches_cuda": ups, "upsample2x.launches_concat": ups}
     check(all(counts[k][0] == counts[k][1] > 0 for k in kernels)
-          and not any(bf16.values()),
+          and not any(bf16.values()) and fused == want,
           f"{what}: launches (all, f32) {({k: counts[k] for k in kernels})}; "
-          f"bf16-only routes {bf16}")
+          f"bf16-only routes {bf16}; fused routes {fused} (expected {want})")
 
 
 def f32_presets_slice():
@@ -1492,12 +1683,12 @@ def f32_presets_slice():
         ops.reset_launch_counts()
         rc = predict_cli.main([case, "--preset", preset, "--workdir", wd,
                                "--device", "cuda", "--output", out])
-        counts, bf16 = f32_counts()
+        counts = f32_counts()
         seg = read_nifti(out, apply_scaling=False)[0] if rc == 0 else None
         check(rc == 0 and seg.shape == shape and set(np.unique(seg)) <= {0, 1, 2, 4},
               f"{preset} (f32) predicts on the card: exit code {rc}, shape "
               f"{None if seg is None else seg.shape}")
-        check_f32_route(counts, bf16, FORWARD, f"{preset} predict")
+        check_f32_route(*counts, FORWARD, f"{preset} predict")
         wino_launches += winograd_f32_predict(preset, wd, case, seg)
     return train_counts, wino_launches
 
@@ -1531,14 +1722,15 @@ def winograd_f32_predict(preset, wd, case, direct_seg):
         wino = ops.conv3d_winograd
         took = (wino.launches, wino.launches_f32, wino.launches_wgmma,
                 ops.conv3d.launches)
-        counts, bf16 = f32_counts()     # just after
+        counts = f32_counts()           # just after
     finally:
         ops.set_backend("direct")
     check(rc == 0 and took[0] == took[1] > 0 and took[2:] == (0, 0),
           f"{preset} (f32) predicts with the Winograd backend: exit code {rc} "
           f"({time.perf_counter() - t0:.1f} s); Winograd launches (all, f32, "
           f"wgmma) {took[:3]}, direct conv launches {took[3]}")
-    check_f32_route(counts, bf16, FORWARD[1:], f"{preset} predict (Winograd backend)")
+    check_f32_route(*counts, FORWARD[1:], f"{preset} predict (Winograd backend)",
+                    direct=False)
     seg = read_nifti(out, apply_scaling=False)[0] if rc == 0 else None
     mism = (seg != direct_seg) if seg is not None else None
     diff = ties = 0
@@ -1598,8 +1790,8 @@ def accuracy_on_card(dev, card):
     on_card, _ = arms_on(dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts, bf16 = f32_counts()         # just after
-    check_f32_route(counts, bf16, FORWARD, "accuracy arms on the card")
+    counts, bf16, fused = f32_counts()  # just after
+    check_f32_route(counts, bf16, fused, FORWARD, "accuracy arms on the card")
     print(f"  accuracy arms (7 Predictor passes and 2 ensemble passes over the "
           f"hard cases, f32) on the card in {wall:.2f} s on {card}", flush=True)
     for ok, what in accuracy_bounds(on_card):
@@ -3066,6 +3258,32 @@ def main() -> int:
                       f"{sum(r[8] for r in mine):.4f} ms, bound "
                       f"{sum(max(r[6], r[7]) for r in mine):.4f} ms on {card}",
                       flush=True)
+    # the fused f32 routes: IN statistics from the f32 conv's
+    # epilogue at every f32 (conv, IN) pair, the f32 up into its concat
+    unit_train = train_calls(unit.unet, 1, unit.train.patch)
+    f32_pairs = conv_norm_shapes(f32_fwd)
+    f32_partials = check_f32_norm_partials(
+        f32_pairs + conv_norm_shapes(f32_train) + conv_norm_shapes(unit_train),
+        dev, timed=set(f32_pairs))
+    f32_terms = {k: sum(f32_partials[sh][k] for sh in f32_pairs)
+                 for k in ("merge_apply_ms", "two_launch_ms", "epilogue_ms", "ms",
+                           "prev_ms", "wall_ms", "conv_ms")}
+    print(f"  instance_norm_act f32 per accuracy-config tile batch, from the f32 "
+          f"conv's partials: {len(f32_pairs)} calls, merge-apply "
+          f"{f32_terms['merge_apply_ms']:.4f} (merge, then apply: "
+          f"{f32_terms['two_launch_ms']:.4f}) + conv epilogue "
+          f"{f32_terms['epilogue_ms']:.4f} = {f32_terms['ms']:.4f} ms "
+          f"(the epilogue {100 * f32_terms['epilogue_ms'] / f32_terms['conv_ms']:.1f}% "
+          f"of the f32 conv's {f32_terms['conv_ms']:.4f}), three launches (prev) "
+          f"{f32_terms['prev_ms']:.4f} ms on {card}", flush=True)
+    f32_concat = check_f32_up_concat(f32_fwd + f32_train + unit_train, dev)
+    f32_ups = up_concats(f32_fwd)
+    print(f"  upsample2x f32 per accuracy-config tile batch: {len(f32_ups)} "
+          f"calls, up + skip concat on resize2x.cu "
+          f"{sum(f32_concat[k][0] for k in f32_ups):.4f} ms against the Triton up "
+          f"+ copy into the buffer (prev) {sum(f32_concat[k][1] for k in f32_ups):.4f} "
+          f"ms on {card}", flush=True)
+    floor_us = launch_floor(dev, card)
     # F3b: the f32 Winograd instance at the same f32 conv shapes
     f32_wino = check_f32_winograd(f32_fwd + f32_train, dev, f32_results)
     for what, group in (("accuracy-config tile batch (8, 32^3)", f32_fwd),
@@ -3162,7 +3380,7 @@ def main() -> int:
     print("== phase 7: the accuracy slice (f32 presets, the accuracy arms at "
           "f32, the flagship ensemble, evaluate, the ensemble daemon)", flush=True)
     t0 = time.perf_counter()
-    (f32_train_counts, _), wino_f32_launches = f32_presets_slice()
+    (f32_train_counts, _, _), wino_f32_launches = f32_presets_slice()
     f32_fwd_counts = accuracy_on_card(dev, card)
     flagship_ensemble(exp, work, case_dirs, first, dev, card)
     print(f"  phase 7 took {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3236,6 +3454,28 @@ def main() -> int:
             "calls": len(mine),
             "unit": "accuracy-config tile batch" if fwd else "smoke train step",
         })
+        if k in F32_PREV_SOURCE:
+            record[-1]["prev_source"] = F32_PREV_SOURCE[k]
+        if k == "instance_norm_act":
+            # the f32 path's route: merge + apply + the f32 conv's epilogue
+            record[-1].update(
+                ms=f32_terms["ms"], wall_ms=f32_terms["wall_ms"],
+                max_abs_err=max(r["abs_err"] for r in f32_partials.values()),
+                prev_ms=f32_terms["prev_ms"],
+                merge_apply_ms=f32_terms["merge_apply_ms"],
+                two_launch_ms=f32_terms["two_launch_ms"],
+                epilogue_ms=f32_terms["epilogue_ms"],
+                epilogue_source=F32_EPILOGUE_SOURCE)
+        if k == "upsample2x":
+            # the kernel alone, the Triton up as prev; and as the decoder runs
+            # it, into the concat buffer, against the Triton up + copy
+            record[-1].update(
+                prev_ms=sum(r[9] for r in mine),
+                concat_ms=sum(f32_concat[u][0] for u in f32_ups),
+                concat_prev_ms=sum(f32_concat[u][1] for u in f32_ups),
+                launch_floor_us=floor_us[1])
+        if k == "downsample2x":
+            record[-1]["launch_floor_us"] = floor_us[0]
     # F3b: the f32 Winograd instance, per accuracy-config tile batch; launches
     # on phase 7's Winograd-backend predicts of unit and smoke
     mine = [f32_wino[sh] for n, sh in f32_fwd if n == "conv3d"]

@@ -5,7 +5,8 @@ A configuration whose compute dtype is float32 (the presets ``unit`` and
 first conv on the card: every kernel wrapper took bf16 alone. The planners
 are device-independent functions of dtype and shape, so the CPU can hold
 them: given f32 each names its f32 instance or route (the Winograd backend
-its FFMA instance, F3b), given float16 each raises. The kernels themselves are held on the card
+its FFMA instance, F3b; the 2x up resize2x.cu where C and the concat's pitch
+are multiples of 4), given float16 each raises. The kernels themselves are held on the card
 (``tests/test_torch_kernels_gpu.py``, ``chip_smoke.py`` phase 2)."""
 
 import math
@@ -63,7 +64,8 @@ def test_every_kernel_call_of_an_f32_preset_has_an_f32_route(preset):
     exp = PRESETS[preset]
     dt = exp.unet.dtype
     assert dt == F32
-    for op, shape in _unet_calls(exp.unet, exp.train.patch):
+    calls = _unet_calls(exp.unet, exp.train.patch)
+    for i, (op, shape) in enumerate(calls):
         n, d, h, w = shape[:4]
         if op == "conv":
             ci, co = shape[4:]
@@ -72,6 +74,11 @@ def test_every_kernel_call_of_an_f32_preset_has_an_f32_route(preset):
             assert conv.plan_conv(n, d, h, w, co, ci, dtype=dt).instance == "ffma_f32"
         elif op == "norm":
             assert norm.plan_in_bwd(n, d * h * w, shape[4], dtype=dt).route == "triton"
+        elif op == "upsample2x":
+            # written into the concat buffer whose channels the next conv reads
+            pitch = calls[i + 1][1][4]
+            assert resize.plan_resize(op, shape[4], dt, pitch) == "resize2x.cu"
+            assert resize.plan_resize(op + "_bwd", shape[4], dt, pitch) == "triton"
         else:
             for name in (op, op + "_bwd"):
                 assert resize.plan_resize(name, shape[4], dt) == "triton"
@@ -118,7 +125,14 @@ def test_plan_in_bwd_by_dtype(n, s, c):
 @pytest.mark.parametrize("op", resize.RESIZE_OPS)
 @pytest.mark.parametrize("c", [3, 8, 64])
 def test_plan_resize_by_dtype(op, c):
-    assert resize.plan_resize(op, c, F32) == "triton"
+    """resize2x.cu takes the up forward at C % 4 == 0 in f32 and C % 8 == 0
+    in bf16 (16-byte pieces), and the up backward in bf16 only; the rest is
+    Triton."""
+    f32 = op == "upsample2x" and c % 4 == 0
+    assert resize.plan_resize(op, c, F32) == ("resize2x.cu" if f32 else "triton")
+    if f32:      # into a concat buffer: the pitch must be a multiple of 4 too
+        assert resize.plan_resize(op, c, F32, c + 4) == "resize2x.cu"
+        assert resize.plan_resize(op, c, F32, c + 2) == "triton"
     cuda = op.startswith("up") and c % 8 == 0
     assert resize.plan_resize(op, c, BF16) == ("resize2x.cu" if cuda else "triton")
     with pytest.raises(TypeError):

@@ -2,8 +2,8 @@
 CPU against the JAX package and against the port's unfused ops.
 
 * IN+act statistics from the conv's epilogue: the plain partials
-  (``ops.conv.conv_stats_plain``, box by box with the wgmma plan's geometry)
-  merged (``ops.norm.merge_partials_plain``) equal ``_plain_stats``; IN+act
+  (``ops.conv.conv_stats_plain``, box by box with the wgmma or the f32 FFMA
+  plan's geometry) merged (``ops.norm.merge_partials_plain``) equal ``_plain_stats``; IN+act
   from partials equals IN+act without them; ``ConvNormAct`` and ``UNet3D``
   on that route equal the JAX modules; gradients equal the unfused route's.
 * ``upsample2x_concat``: the plain version is ``cat`` bitwise and equals the
@@ -79,16 +79,25 @@ def test_norm_from_partials_equals_norm_without(activation):
 
 
 def test_conv_stats_route_by_backend_and_shape():
+    """Partials where the planner gives the conv an instance with a STATS
+    epilogue in its dtype (bf16: the wgmma instance; f32: the FFMA instance,
+    any Ci), none on the bf16 mma.sync instance (Ci % 16) or the Winograd
+    backend."""
     x16 = torch.from_numpy(_rand((1, 4, 6, 8, 16), 6))
     w = torch.from_numpy(_rand((3, 3, 3, 16, 8), 7, 0.1))
-    y, part = ops.conv3d(x16, w, stats=True)
-    assert torch.equal(y, ops.conv3d(x16, w))
-    plan = conv.plan_conv(1, 4, 6, 8, 16, 8)
-    assert plan.instance == "wgmma"
-    assert part.shape == (3, 1, int(np.prod(plan.boxes)), 8)
-    assert torch.equal(part, conv.conv_stats_plain(y, plan))
+    for dt, instance in ((torch.bfloat16, "wgmma"), (torch.float32, "ffma_f32")):
+        x, wt = x16.to(dt), w.to(dt)
+        y, part = ops.conv3d(x, wt, stats=True)
+        assert torch.equal(y, ops.conv3d(x, wt))
+        plan = conv.plan_conv(1, 4, 6, 8, 16, 8, dtype=dt)
+        assert plan.instance == instance
+        assert part.shape == (3, 1, int(np.prod(plan.boxes)), 8)
+        assert torch.equal(part, conv.conv_stats_plain(y, plan))
+    _, part = ops.conv3d(x16[..., :12].bfloat16(), w[:, :, :, :12].bfloat16(),
+                         stats=True)
+    assert part is None                            # bf16 Ci % 16: mma.sync
     _, part = ops.conv3d(x16[..., :12], w[:, :, :, :12], stats=True)
-    assert part is None                            # Ci % 16: csrc/conv3d.cu
+    assert part is not None                        # f32: the FFMA instance
     conv.set_backend("winograd")
     try:
         _, part = ops.conv3d(x16, w, stats=True)
@@ -117,17 +126,22 @@ def _port_block(ci, co, p):
 
 
 @pytest.mark.parametrize("shape,co,fused", [
-    ((2, 9, 7, 13, 16), 24, True),     # the wgmma route: partials
-    ((1, 6, 5, 7, 12), 16, False),     # Ci % 16: the norm's own statistics
+    ((2, 9, 7, 13, 16), 24, True),     # the f32 plan's partials
+    ((1, 6, 4, 8, 12), 16, False),     # the Winograd backend: the norm's own statistics
+    ((1, 6, 5, 7, 12), 16, True),      # Ci % 16: the f32 plan takes any Ci
 ])
 def test_conv_norm_act_matches_jax(shape, co, fused):
     jm, p = _jax_block_params(shape[-1], co, 8)
     x = _rand(shape, 9)
     want = np.asarray(jm.apply(p, jnp.asarray(x)))
     block = _port_block(shape[-1], co, p)
-    with torch.no_grad():
-        _, part = block.Conv_0(torch.from_numpy(x), stats=True)
-        got = block(torch.from_numpy(x)).numpy()
+    conv.set_backend("direct" if fused else "winograd")
+    try:
+        with torch.no_grad():
+            _, part = block.Conv_0(torch.from_numpy(x), stats=True)
+            got = block(torch.from_numpy(x)).numpy()
+    finally:
+        conv.set_backend("direct")
     assert (part is not None) == fused
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
 

@@ -815,7 +815,10 @@ def test_up_bwd_other_channels_or_pitch_go_to_triton_by_plan(dev, x_shape, pitch
 # ------------------------------------------------------------ the f32 routes --
 # A configuration whose compute dtype is float32 (the presets unit and smoke,
 # the accuracy benchmark's config) runs every kernel seam in f32: the conv on
-# the FFMA instance of csrc/conv3d.cu, IN+act and the resizes on the Triton
+# the FFMA instance of csrc/conv3d.cu (with its STATS epilogue where an IN
+# follows), IN+act on the Triton kernels (merge and apply from the partials,
+# or the three-launch form), the 2x up on resize2x.cu where C % 4 == 0
+# (into the decoder's concat buffer) and the other resizes on the Triton
 # kernels. Each is held to its plain version (f32 math, TF32 off).
 
 def _rel(got, ref):
@@ -929,7 +932,8 @@ def test_f32_norm_forward_and_backward_match_plain(dev, activation, shape):
 def test_f32_resizes_match_plain(dev, op, shape):
     """shape: the forward's input. Within 1e-6 of the plain version (f32
     sums of a few taps in another order), repeat runs bitwise equal, on the
-    Triton route by plan, counted as f32 launches."""
+    route of the plan (the up forward on resize2x.cu where C % 4 == 0, the
+    rest on Triton), counted as f32 launches."""
     g = torch.Generator(device=dev).manual_seed(9)
     n, d, h, w, c = shape
     if op == "downsample2x_bwd":
@@ -944,7 +948,9 @@ def test_f32_resizes_match_plain(dev, op, shape):
         t = torch.randn(shape, generator=g, device=dev)
         kern = lambda: getattr(resize, f"{op}_kernel")(t)
         plain = lambda: getattr(resize, f"{op}_plain")(t)
-    assert resize.plan_resize(op, c, torch.float32) == "triton"
+    cuda = op == "upsample2x" and c % 4 == 0
+    assert resize.plan_resize(op, c, torch.float32) == ("resize2x.cu" if cuda
+                                                         else "triton")
     wrapper = getattr(ops, op)
     before = (wrapper.launches, wrapper.launches_f32,
               getattr(wrapper, "launches_cuda", 0))
@@ -953,19 +959,155 @@ def test_f32_resizes_match_plain(dev, op, shape):
     assert got.dtype == torch.float32 and got.shape == ref.shape
     assert _rel(got, ref) <= 1e-6 and torch.equal(got, again)
     assert (wrapper.launches - before[0], wrapper.launches_f32 - before[1],
-            getattr(wrapper, "launches_cuda", 0) - before[2]) == (2, 2, 0)
+            getattr(wrapper, "launches_cuda", 0) - before[2]) == (2, 2, 2 * cuda)
 
 
 def test_f32_up_concat_copies_the_triton_up_into_the_buffer(dev):
+    """C % 4 != 0: no whole 16-byte pieces, so the Triton up is made apart
+    and copied into the buffer."""
     g = torch.Generator(device=dev).manual_seed(10)
-    x = torch.randn((1, 4, 5, 6, 16), generator=g, device=dev)
+    x = torch.randn((1, 4, 5, 6, 6), generator=g, device=dev)
     skip = torch.randn((1, 8, 10, 12, 8), generator=g, device=dev)
     before = (ops.upsample2x.launches_f32, ops.upsample2x.launches_concat)
     got = ops.upsample2x_concat(x, skip)
-    assert _rel(got[..., :16], resize.upsample2x_plain(x)) <= 1e-6
-    assert torch.equal(got[..., 16:], skip)
+    assert _rel(got[..., :6], resize.upsample2x_plain(x)) <= 1e-6
+    assert torch.equal(got[..., 6:], skip)
     assert (ops.upsample2x.launches_f32 - before[0],
             ops.upsample2x.launches_concat - before[1]) == (1, 0)
+
+
+# the f32 up on resize2x.cu (upsample2x_ndhwc_f32): 4 channels a piece
+
+@pytest.mark.parametrize("shape,pitch,offset", [
+    ((1, 1, 1, 1, 4), 4, 0),       # extent 1, one piece
+    ((2, 5, 7, 9, 12), 20, 8),     # odd extents, a partial chunk, at an offset
+    ((1, 3, 4, 2, 40), 48, 4),     # two chunks (32 + 8 channels)
+    ((8, 16, 16, 16, 16), 24, 0),  # the accuracy tile batch's up, into its concat
+    ((1, 8, 8, 8, 8), 12, 0),      # unit's up, pitch 12
+    ((1, 8, 8, 8, 32), 48, 16),    # smoke's deepest up, shifted
+])
+def test_f32_up_into_a_buffer_at_pitch_and_offset(dev, shape, pitch, offset):
+    """Within 1e-6 of the plain up, written only into channels [offset,
+    offset + C) of the (N, 2D, 2H, 2W, pitch) buffer, repeat bitwise."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn(shape, generator=g, device=dev)
+    n, d, h, w, c = shape
+    buf = torch.full((n, 2 * d, 2 * h, 2 * w, pitch), 7.0, device=dev)
+    resize._launch_up_cuda(x, buf, offset)
+    again = buf.clone()
+    resize._launch_up_cuda(x, again, offset)
+    ref = resize.upsample2x_plain(x)
+    torch.cuda.synchronize()
+    assert _rel(buf[..., offset:offset + c], ref) <= 1e-6
+    assert torch.equal(buf, again)
+    rest = torch.cat([buf[..., :offset], buf[..., offset + c:]], -1)
+    assert bool((rest == 7.0).all())
+
+
+@pytest.mark.parametrize("shape,cs", [((8, 16, 16, 16, 16), 8), ((1, 8, 8, 8, 8), 4),
+                                      ((2, 3, 5, 1, 4), 4)])
+def test_f32_up_concat_writes_into_the_buffer(dev, shape, cs):
+    """The f32 configurations' ups: one resize2x.cu launch into the concat
+    buffer, the up half within 1e-6 of the plain up, the skip half bitwise;
+    gradients split back."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    x = torch.randn(shape, generator=g, device=dev)
+    n, d, h, w, c = shape
+    skip = torch.randn((n, 2 * d, 2 * h, 2 * w, cs), generator=g, device=dev)
+    before = (ops.upsample2x.launches_f32, ops.upsample2x.launches_cuda,
+              ops.upsample2x.launches_concat)
+    got = ops.upsample2x_concat(x, skip)
+    torch.cuda.synchronize()
+    assert (ops.upsample2x.launches_f32 - before[0], ops.upsample2x.launches_cuda
+            - before[1], ops.upsample2x.launches_concat - before[2]) == (1, 1, 1)
+    assert _rel(got[..., :c], resize.upsample2x_plain(x)) <= 1e-6
+    assert torch.equal(got[..., c:], skip)
+    xr, sr = x.clone().requires_grad_(), skip.clone().requires_grad_()
+    gy = torch.randn(got.shape, generator=g, device=dev)
+    ops.upsample2x_concat(xr, sr).backward(gy)
+    assert torch.equal(sr.grad, gy[..., c:])
+    assert _rel(xr.grad, resize.upsample2x_bwd_plain(gy[..., :c])) <= 1e-6
+
+
+# the f32 conv's STATS epilogue (conv3d_stats_ndhwc_f32)
+
+@pytest.mark.parametrize("bd", conv.F32_BOX_DEPTHS)
+@pytest.mark.parametrize("shape,co", [
+    ((2, 9, 7, 13, 12), 16),       # ragged boxes on every face, N = 2
+    ((1, 5, 17, 3, 4), 8),         # extents below one box and above two
+    ((3, 6, 9, 10, 3), 4),         # scalar loads (Ci % 4), 4 channels a thread
+    ((1, 17, 8, 16, 16), 24),      # a 24-wide tile, d ragged at every depth
+    ((1, 8, 8, 8, 8), 6),          # Co % 4 != 0: a masked Co tail
+])
+def test_f32_stats_conv_y_bitwise_and_partials_match_plain(dev, shape, co, bd):
+    g = torch.Generator(device=dev).manual_seed(14)
+    x = torch.randn(shape, generator=g, device=dev)
+    w = torch.randn((3, 3, 3, shape[-1], co), generator=g,
+                    device=dev) / (27 * shape[-1]) ** 0.5
+    plan = conv.f32_plan(*shape, co, bd=bd)
+    before = (ops.conv3d.launches_stats, ops.conv3d.launches_f32)
+    y0 = conv.conv3d_kernel_f32(x, w, plan)
+    y, part = conv.conv3d_kernel_f32(x, w, plan, stats=True)
+    _, part2 = conv.conv3d_kernel_f32(x, w, plan, stats=True)
+    torch.cuda.synchronize()
+    assert (ops.conv3d.launches_stats - before[0],
+            ops.conv3d.launches_f32 - before[1]) == (2, 3)
+    assert torch.equal(y, y0) and torch.equal(part, part2)
+    ref = conv.conv_stats_plain(y, plan)
+    assert part.shape == ref.shape and torch.equal(part[0], ref[0])
+    for i in (1, 2):
+        assert _rel(part[i], ref[i]) <= 1e-5
+    mean, rstd = norm.merge_partials_plain(part)
+    _, rmean, rrstd = norm._plain_stats(y, None, None, 1e-5, "none")
+    assert _rel(mean, rmean) <= 1e-5 and _rel(rstd, rrstd) <= 1e-5
+
+
+@pytest.mark.parametrize("activation", ["relu", "leaky_relu", "none"])
+@pytest.mark.parametrize("shape,co", [((8, 32, 32, 32, 4), 8), ((2, 9, 7, 13, 12), 20)])
+def test_f32_norm_from_partials_matches_plain(dev, activation, shape, co):
+    """ConvNormAct's f32 route on the card: the STATS conv (the plan's), then
+    IN+act from its partials (merge and apply) within 1e-5 of the plain
+    IN+act, repeat bitwise."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    x = torch.randn(shape, generator=g, device=dev)
+    w = torch.randn((3, 3, 3, shape[-1], co), generator=g,
+                    device=dev) / (27 * shape[-1]) ** 0.5
+    y, part = ops.conv3d(x, w, stats=True)
+    assert part is not None
+    gam, bet = _norm_affine(dev, co)
+    before = (ops.instance_norm_act.launches_partials,
+              ops.instance_norm_act.launches_f32)
+    got = ops.instance_norm_act(y, gam, bet, activation=activation, partials=part)
+    again = ops.instance_norm_act(y, gam, bet, activation=activation, partials=part)
+    ref = norm.instance_norm_act_plain(y, gam, bet, activation=activation)
+    torch.cuda.synchronize()
+    assert (ops.instance_norm_act.launches_partials - before[0],
+            ops.instance_norm_act.launches_f32 - before[1]) == (2, 2)
+    assert _rel(got, ref) <= 1e-5 and torch.equal(got, again)
+
+
+@pytest.mark.parametrize("shape,co", [((8, 32, 32, 32, 8), 8), ((1, 64, 64, 64, 8), 8),
+                                      ((2, 9, 7, 13, 12), 20), ((1, 16, 16, 16, 32), 32)])
+def test_f32_merge_apply_equals_merge_then_apply(dev, shape, co):
+    """The f32 route's one launch (the merge folded into the apply; at
+    (1, 64^3) 512 boxes, so each program applies several blocks) against
+    the merge and the apply as two launches: y, mean and rstd within 1e-6."""
+    from brats2019_tpu_torch.ops import triton_norm
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    x = torch.randn(shape, generator=g, device=dev)
+    w = torch.randn((3, 3, 3, shape[-1], co), generator=g,
+                    device=dev) / (27 * shape[-1]) ** 0.5
+    y, part = ops.conv3d(x, w, stats=True)
+    gam, bet = _norm_affine(dev, co)
+    y3 = y.view(shape[0], -1, co)
+    one, two = torch.empty_like(y3), torch.empty_like(y3)
+    m1, r1 = triton_norm.merge_apply(y3, one, part, gam, bet, 1e-5, "relu")
+    m2, r2 = triton_norm.merge(part, 1e-5)
+    triton_norm.apply(y3, two, m2, r2, gam, bet, "relu")
+    torch.cuda.synchronize()
+    assert _rel(m1, m2) <= 1e-6 and _rel(r1, r2) <= 1e-6
+    assert _rel(one, two) <= 1e-6
 
 
 def test_f32_unit_forward_runs_on_the_f32_routes(dev):
@@ -986,6 +1128,10 @@ def test_f32_unit_forward_runs_on_the_f32_routes(dev):
     assert counts["conv3d"] == ops.conv3d.launches_f32 > 0
     assert counts["instance_norm_act"] == ops.instance_norm_act.launches_f32 > 0
     assert ops.conv3d.launches_wgmma == 0
+    # every IN from its conv's partials, every up into its concat
+    assert (counts["instance_norm_act"] == ops.instance_norm_act.launches_partials
+            == ops.conv3d.launches_stats)
+    assert counts["upsample2x"] == ops.upsample2x.launches_concat > 0
     assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-4
 
 

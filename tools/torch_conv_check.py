@@ -46,7 +46,8 @@ at every f32 conv shape (the accuracy config's tile batch, ``smoke`` and
 instance, a repeat run bitwise equal, launches on ``launches_f32``, and the
 planner's shared-memory bytes equal to the kernel's. ``--time``: device ms
 per shape and sums per tile batch and train step beside cuDNN's f32 conv
-(TF32 off) and the bound; ``--parent FILE`` (the parent's ``.cu``, e.g. from
+(TF32 off) and the bound; ``--parent FILE`` (the parent's ``.cu``, whose
+f32 entry point takes the plan's box depth, Co tile and slab, e.g. from
 ``git show HEAD:brats2019_tpu_torch/csrc/conv3d.cu``) also times the parent's
 f32 entry point on the same inputs in turns (parent, this, this, parent).
 ``--probe``: probe builds timed beside the instance as built: the direct
@@ -543,17 +544,19 @@ def f32_check(dev, winograd_too: bool) -> int:
 
 def parent_f32(path: str, winograd_too: bool):
     """The parent's f32 entry point, built from ``path`` (its ``.cu``), with
-    the parent's signature: (x, w or padded U, y, N, D, H, W, Ci, Co[, CiP,
-    CoP], stream)."""
+    the signature and plan the tree's has: (x, w, y, N, D, H, W, Ci, Co,
+    box_d, co_tile, slab, stream), or for the Winograd (x, padded U, y, N,
+    D, H, W, Ci, Co, CiP, CoP, co_tile, chunk, raw_channels, stream). Its
+    shared-memory attribute is set when it loads."""
     if winograd_too:
-        sig = {"winograd3d_ndhwc_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
-               + [ctypes.c_void_p]}
-        lib = _build.load_library("parent_winograd3d", [os.path.abspath(path)], sig)
-        return lib.winograd3d_ndhwc_f32
-    sig = {"conv3d_ndhwc_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-           + [ctypes.c_void_p]}
-    return _build.load_library("parent_conv3d", [os.path.abspath(path)],
-                               sig).conv3d_ndhwc_f32
+        name, fn, prep, sigs = ("parent_winograd3d", "winograd3d_ndhwc_f32",
+                                "winograd3d_f32_prepare", winograd._SIG)
+    else:
+        name, fn, prep, sigs = ("parent_conv3d", "conv3d_ndhwc_f32",
+                                "conv3d_f32_prepare", conv._SIG)
+    sig = {k: sigs[k] for k in (fn, prep)}
+    return getattr(_build.load_library(name, [os.path.abspath(path)], sig,
+                                       prepare=prep), fn)
 
 
 def f32_time(dev, card, winograd_too: bool, parent_path) -> None:
@@ -572,20 +575,23 @@ def f32_time(dev, card, winograd_too: bool, parent_path) -> None:
         if winograd_too:
             mine = lambda: winograd.conv3d_winograd_kernel(x, w)
             if parent is not None:
-                # the parent pads U to (64, Ci up to 16k, Co up to 64k)
-                cip, cop = -(-shape[-1] // 16) * 16, -(-co // 64) * 64
-                u_old = torch.zeros((64, cip, cop), device=dev)
-                u_old[:, :shape[-1], :co] = winograd.transform_weights(w)
+                plan = winograd.plan_winograd(*shape, co, dtype=torch.float32)
+                u = winograd.padded_u(w)
 
                 def old():
-                    _build.check(parent(x.data_ptr(), u_old.data_ptr(), y.data_ptr(),
-                                        *shape, co, cip, cop, stream()), "parent")
+                    _build.check(parent(x.data_ptr(), u.data_ptr(), y.data_ptr(),
+                                        *shape, co, u.shape[1], u.shape[2], plan.bn,
+                                        plan.chunk, plan.raw_channels, stream()),
+                                 "parent")
         else:
             mine = lambda: conv.conv3d_kernel(x, w)
             if parent is not None:
+                plan = conv.plan_conv(*shape, co, dtype=torch.float32)
+
                 def old():
                     _build.check(parent(x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                                        *shape, co, stream()), "parent")
+                                        *shape, co, plan.box[0], plan.bn, plan.chunk,
+                                        stream()), "parent")
         row = {}
         if parent is not None:
             old()

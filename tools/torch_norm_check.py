@@ -4,6 +4,7 @@
     timeout 300 python3 tools/torch_norm_check.py                  # correctness
     timeout 600 python3 tools/torch_norm_check.py --time           # + ms per shape
     timeout 600 python3 tools/torch_norm_check.py --time --parent OLD.py
+    timeout 600 python3 tools/torch_norm_check.py --f32 [--time] [--parent OLD.py]
 
 Holds ``ops.norm.instance_norm_act_kernel`` (``ops/triton_norm.py``) against
 ``instance_norm_act_plain`` at small and ragged shapes, batch 1 and 8, every
@@ -26,6 +27,21 @@ partials within 2 bf16 ulp of the plain version and bitwise repeatable.
 ``--time`` then gives, per pair, the three terms of the partials path (the
 epilogue: the STATS conv less the conv, in turns; the merge; the apply) beside
 the three-launch forward on the same y (and the parent's, with ``--parent``).
+
+``--f32``: the f32 partials path instead (the f32 conv's STATS epilogue,
+``csrc/conv3d.cu`` ``conv3d_stats_ndhwc_f32``, then the same merge and
+apply): at small ragged shapes at every box depth and at every f32 (conv, IN)
+pair (the accuracy config's tile batch, one ``smoke`` and one ``unit`` train
+step), y bitwise equal to the plain instance's, partials within 1e-5 of
+``conv_stats_plain`` and bitwise repeatable, merged mean and rstd within 1e-5
+of y's plain statistics, IN+act from the partials within 1e-5 of the plain
+version and bitwise repeatable; ptxas's registers and spills of the four f32
+instances. ``--time``: per pair the epilogue (STATS conv less conv, in turns),
+the merge and the apply, the route's one launch (the merge folded into the
+apply) in turns with the two launches, and the route against the
+three-launch form on the same y (with ``--parent FILE``, an earlier
+``triton_norm.py``, its three-launch ``launch``), in turns (prev, this,
+this, prev); sums per tile batch and train step.
 """
 
 from __future__ import annotations
@@ -220,10 +236,150 @@ def time_shapes(dev, card, parent) -> None:
           + ", ".join(f"{k} {v:.3f}" for k, v in tot.items()), flush=True)
 
 
+# ------------------------------------------------------------ the f32 route --
+
+F32_SMALL = [
+    # (N, D, H, W, Ci), Co: every box depth takes them (at most 512 threads)
+    ((2, 9, 7, 13, 12), 16), ((1, 5, 17, 3, 4), 8), ((3, 6, 9, 10, 3), 4),
+    ((1, 17, 8, 16, 16), 24), ((1, 8, 8, 8, 8), 6),
+]
+
+
+def f32_pairs():
+    """{what: [((N, D, H, W, Ci), Co), ...]}: each f32 conv that an IN follows,
+    one entry a call, in the accuracy config's tile batch and one ``smoke``
+    and one ``unit`` train step."""
+    from chip_smoke import accuracy_exp
+
+    acc = accuracy_exp()
+    smoke, unit = get_preset("smoke"), get_preset("unit")
+    runs = {"accuracy tile batch (8, 32^3)": unet_calls(acc.unet, 8, acc.infer.tile),
+            "smoke train step (1, 64^3)": unet_calls(smoke.unet, 1, smoke.train.patch),
+            "unit train step (1, 16^3)": unet_calls(unit.unet, 1, unit.train.patch)}
+    return {k: [(sh[:5], sh[5]) for (name, sh), nxt in zip(v, v[1:])
+                if name == "conv3d" and nxt[0] == "instance_norm_act"]
+            for k, v in runs.items()}
+
+
+def f32_inputs(shape, co, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=dev)
+    w = torch.randn((3, 3, 3, shape[-1], co), generator=g, device=dev) / (27 * shape[-1]) ** 0.5
+    gam = torch.rand(co, generator=g, device=dev) + 0.5
+    bet = torch.randn(co, generator=g, device=dev) * 0.2
+    return x, w, gam, bet
+
+
+def f32_check_partials(shape, co, bd, dev) -> bool:
+    """The checks of the f32 partials path at one conv shape (``--f32``)."""
+    from brats2019_tpu_torch.ops import triton_norm
+
+    x, w, gam, bet = f32_inputs(shape, co, dev)
+    plan = conv.f32_plan(*shape, co, bd=bd) if bd else conv.plan_conv(
+        *shape, co, dtype=torch.float32)
+    y0 = conv.conv3d_kernel_f32(x, w, plan)
+    y, part = conv.conv3d_kernel_f32(x, w, plan, stats=True)
+    _, part2 = conv.conv3d_kernel_f32(x, w, plan, stats=True)
+    ref_part = conv.conv_stats_plain(y, plan)
+    got, mean, rstd = norm.instance_norm_act_kernel(y, gam, bet, partials=part)
+    again = norm.instance_norm_act_kernel(y, gam, bet, partials=part)[0]
+    mean2, rstd2 = triton_norm.merge(part, 1e-5)     # the two-launch form's
+    ref, rmean, rrstd = norm._plain_stats(y, gam, bet, 1e-5, "relu")
+    torch.cuda.synchronize()
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+    part_err = max(rel(part[i], ref_part[i]) for i in (1, 2))
+    stats = max(rel(mean, rmean), rel(rstd, rrstd), rel(mean2, rmean),
+                rel(rstd2, rrstd))
+    err = rel(got, ref)
+    same = (torch.equal(y, y0), torch.equal(part, part2), torch.equal(got, again),
+            torch.equal(part[0], ref_part[0]))
+    ok = all(same) and part_err <= 1e-5 and stats <= 1e-5 and err <= 1e-5
+    print(f"  [{'PASS' if ok else 'FAIL'}] f32 STATS conv {shape} -> {co}, box "
+          f"{plan.box[0]}x8x8 Co tile {plan.bn} slab {plan.chunk}: y bitwise the "
+          f"plain instance's {same[0]}; counts exact {same[3]}, partials vs "
+          f"conv_stats_plain {part_err:.1e}, repeat bitwise {same[1]}; merged "
+          f"mean/rstd vs y's plain statistics {stats:.1e} (tol 1e-5); IN+act from "
+          f"partials {err:.1e} (tol 1e-5), repeat bitwise {same[2]}", flush=True)
+    return ok
+
+
+def f32_time(dev, card, parent) -> None:
+    from brats2019_tpu_torch.ops import triton_norm
+
+    print(f"== f32 IN+act from the f32 conv's partials on {card} (device ms, "
+          "CUDA-graph replay)", flush=True)
+    timed = {}
+    for shape, co in dict.fromkeys(c for v in f32_pairs().values() for c in v):
+        x, w, gam, bet = f32_inputs(shape, co, dev)
+        y, part = conv.conv3d_kernel(x, w, stats=True)
+        n, d, h, wd, c = y.shape
+        y3 = y.view(n, d * h * wd, c)
+        out = torch.empty_like(y3)
+        mean, rstd = triton_norm.merge(part, 1e-5)
+        plain_conv = lambda: conv.conv3d_kernel(x, w)
+        stats_conv = lambda: conv.conv3d_kernel(x, w, stats=True)
+        new = lambda: triton_norm.launch_from_partials(y3, out, part, gam, bet,
+                                                       1e-5, "relu")
+        two = lambda: triton_norm.apply(y3, out, *triton_norm.merge(part, 1e-5),
+                                        gam, bet, "relu")
+        t = [device_ms(f, 10) for f in (plain_conv, stats_conv, stats_conv,
+                                        plain_conv)]
+        row = {"conv": min(t[0], t[3]), "conv+STATS": min(t[1], t[2])}
+        row["epilogue"] = row["conv+STATS"] - row["conv"]
+        row["merge"] = device_ms(lambda: triton_norm.merge(part, 1e-5), 10)
+        row["apply"] = device_ms(lambda: triton_norm.apply(
+            y3, out, mean, rstd, gam, bet, "relu"), 10)
+        t = [device_ms(f, 10) for f in (two, new, new, two)]
+        row["merge, apply (two launches)"] = min(t[0], t[3])
+        row["merge-apply (route)"] = min(t[1], t[2])
+        old = (lambda: parent.launch(y3, out, gam, bet, 1e-5, "relu")) if parent else (
+            lambda: triton_norm.launch(y3, out, gam, bet, 1e-5, "relu"))
+        t = [device_ms(f, 10) for f in (old, new, new, old)]
+        row["three launches (prev" + (", parent)" if parent else ")")] = min(t[0], t[3])
+        row["IN from partials"] = min(t[1], t[2]) + row["epilogue"]
+        row["bound"] = 8.0 * y.numel() / 3.35e12 * 1e3
+        timed[(shape, co)] = row
+        print(f"  {shape} -> {co}: " + ", ".join(f"{k} {v:.4f}" for k, v in row.items()),
+              flush=True)
+    for what, pairs in f32_pairs().items():
+        tot = collections.Counter()
+        for c in pairs:
+            for k, v in timed[c].items():
+                tot[k] += v
+        print(f"  sums per {what}, {len(pairs)} pairs: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in tot.items())
+              + f"; epilogue / conv {tot['epilogue'] / tot['conv']:.3f}", flush=True)
+
+
+def main_f32(args, dev, card, parent) -> int:
+    from brats2019_tpu_torch.ops import _build
+
+    conv._lib()
+    log = _build.build_logs.get("conv3d", "")
+    lines = log.splitlines()
+    report = [" ".join(ln.strip() for ln in lines[i:i + 4])
+              for i, ln in enumerate(lines)
+              if "Compiling entry function" in ln and "conv3d_f32_kernel" in ln]
+    print("  ptxas, conv3d_f32_kernel instances:\n    "
+          + ("\n    ".join(report) or "(cached: no ptxas report)"), flush=True)
+    failures = 0
+    for shape, co in F32_SMALL:
+        for bd in conv.F32_BOX_DEPTHS:
+            failures += not f32_check_partials(shape, co, bd, dev)
+    for shape, co in dict.fromkeys(c for v in f32_pairs().values() for c in v):
+        failures += not f32_check_partials(shape, co, None, dev)
+    if args.time:
+        f32_time(dev, card, parent)
+    print(f"{failures} failure(s)", flush=True)
+    return 1 if failures else 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--time", action="store_true")
     ap.add_argument("--parent", help="an earlier triton_norm.py to time beside")
+    ap.add_argument("--f32", action="store_true",
+                    help="check (and time) the f32 partials path instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("error: needs a CUDA card", file=sys.stderr)
@@ -241,6 +397,8 @@ def main() -> int:
         spec = importlib.util.spec_from_file_location("parent_triton_norm", args.parent)
         parent = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(parent)
+    if args.f32:
+        return main_f32(args, dev, card, parent)
     failures = check_small(dev)
     conv._lib_wgmma()
     from brats2019_tpu_torch.ops import _build

@@ -4,6 +4,7 @@
     timeout 300 python3 tools/torch_resize_check.py            # correctness
     timeout 600 python3 tools/torch_resize_check.py --time     # + ms per shape
     timeout 600 python3 tools/torch_resize_check.py --probe    # the Triton kernel
+    timeout 600 python3 tools/torch_resize_check.py --f32 [--time] [--parent OLD.py]
 
 Holds ``csrc/resize2x.cu`` (``ops.resize.upsample2x_kernel``) and its concat
 form (``upsample2x_concat_kernel``) against ``upsample2x_plain`` at edge
@@ -17,12 +18,25 @@ bound, ``F.interpolate``, and the concat op against the Triton up followed by
 C a compile-time constant (no runtime division), with one load per output
 instead of eight gathers, and with neither, at the same shapes: what holds it
 back.
+
+``--f32``: the f32 instance (``upsample2x_ndhwc_f32``, 4 channels a 16-byte
+piece) instead: at edge shapes (extent 1, odd extents, a partial chunk, two
+chunks, C % 4 != 0 going to Triton by plan) the up within 1e-6 of the plain
+up, into a buffer at a channel pitch and offset with the other channels
+untouched, the concat's skip half bitwise, a repeat run bitwise, launches on
+resize2x.cu and into the concat; ``--time``: at every f32 up (the accuracy
+config's tile batch, one ``smoke`` and one ``unit`` train step) resize2x.cu
+against the Triton up (prev) and the up + concat against the Triton up
+copied into the buffer (prev), each in turns (prev, this, this, prev), the
+bound and ``F.interpolate``; ``--parent FILE`` (an earlier
+``triton_resize.py``) times its ``launch_up`` as the prev instead.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import importlib.util
 import os
 import subprocess
 import sys
@@ -191,10 +205,126 @@ def run_probe(dev, card) -> None:
           flush=True)
 
 
+# ------------------------------------------------------------ the f32 up --
+
+F32_SMALL = [
+    # (N, D, H, W, C), skip channels
+    ((1, 1, 1, 1, 4), 4), ((2, 5, 7, 9, 12), 8), ((1, 3, 4, 2, 40), 8),
+    ((1, 9, 3, 17, 36), 12), ((2, 1, 5, 1, 8), 4), ((1, 7, 6, 5, 6), 2),
+    ((8, 16, 16, 16, 16), 8),
+]
+
+
+def f32_ups():
+    """{what: [((N, D, H, W, C), skip channels), ...]}: each f32 up, one
+    entry a call, of the accuracy config's tile batch and one ``smoke`` and
+    one ``unit`` train step."""
+    from chip_smoke import accuracy_exp, up_concats
+
+    acc = accuracy_exp()
+    smoke, unit = get_preset("smoke"), get_preset("unit")
+    return {"accuracy tile batch (8, 32^3)": up_concats(unet_calls(acc.unet, 8, acc.infer.tile)),
+            "smoke train step (1, 64^3)": up_concats(unet_calls(smoke.unet, 1, smoke.train.patch)),
+            "unit train step (1, 16^3)": up_concats(unet_calls(unit.unet, 1, unit.train.patch))}
+
+
+def f32_check(dev) -> int:
+    failures = 0
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+    shapes = F32_SMALL + list(dict.fromkeys(
+        c for v in f32_ups().values() for c in v))
+    for shape, cs in shapes:
+        g = torch.Generator(device=dev).manual_seed(1)
+        x = torch.randn(shape, generator=g, device=dev)
+        n, d, h, w, c = shape
+        skip = torch.randn((n, 2 * d, 2 * h, 2 * w, cs), generator=g, device=dev)
+        cuda = resize.plan_resize("upsample2x", c, torch.float32, c + cs) == "resize2x.cu"
+        before = (resize.upsample2x.launches_cuda, resize.upsample2x.launches_concat,
+                  resize.upsample2x.launches_f32)
+        got = resize.upsample2x_kernel(x)
+        again = resize.upsample2x_kernel(x)
+        cat = resize.upsample2x_concat_kernel(x, skip)
+        ref = resize.upsample2x_plain(x)
+        torch.cuda.synchronize()
+        took = tuple(a - b for a, b in zip(
+            (resize.upsample2x.launches_cuda, resize.upsample2x.launches_concat,
+             resize.upsample2x.launches_f32), before))
+        err, cat_err = rel(got, ref), rel(cat[..., :c], ref)
+        pitched = True
+        if cuda:     # at a pitch and an offset, the other channels untouched
+            buf = torch.full((n, 2 * d, 2 * h, 2 * w, c + cs + 4), 7.0, device=dev)
+            resize._launch_up_cuda(x, buf, 4)
+            torch.cuda.synchronize()
+            rest = torch.cat([buf[..., :4], buf[..., 4 + c:]], -1)
+            pitched = rel(buf[..., 4:4 + c], ref) <= 1e-6 and bool((rest == 7.0).all())
+        ok = (err <= 1e-6 and cat_err <= 1e-6 and pitched and torch.equal(got, again)
+              and torch.equal(cat[..., c:], skip)
+              and took == ((3, 1, 3) if cuda else (0, 0, 3)))
+        failures += not ok
+        print(f"  [{'PASS' if ok else 'FAIL'}] f32 {shape} + skip {cs}: up "
+              f"max|d|/max|ref| {err:.1e} (bitwise the plain up: "
+              f"{bool(torch.equal(got, ref))}), into the concat {cat_err:.1e} "
+              f"(tol 1e-6), at pitch {c + cs + 4} offset 4 {pitched}, skip half "
+              f"bitwise, repeat bitwise; launches (resize2x.cu, into the concat, "
+              f"f32) {took}", flush=True)
+    return failures
+
+
+def f32_time(dev, card, parent) -> None:
+    print(f"== f32 2x up on {card} (device ms, CUDA-graph replay, in turns)",
+          flush=True)
+    timed = {}
+    for shape, cs in dict.fromkeys(c for v in f32_ups().values() for c in v):
+        g = torch.Generator(device=dev).manual_seed(2)
+        x = torch.randn(shape, generator=g, device=dev)
+        n, d, h, w, c = shape
+        skip = torch.randn((n, 2 * d, 2 * h, 2 * w, cs), generator=g, device=dev)
+        if parent is not None:
+            def old_up():
+                y = torch.empty((n, 2 * d, 2 * h, 2 * w, c), device=dev)
+                parent.launch_up(x, y)
+                return y
+        else:
+            old_up = lambda: resize.upsample2x_kernel_triton(x)
+
+        def old_cat():
+            buf = torch.empty((n, 2 * d, 2 * h, 2 * w, c + cs), device=dev)
+            buf[..., :c] = old_up()
+            buf[..., c:] = skip
+            return buf
+
+        mine = lambda: resize.upsample2x_kernel(x)
+        mine_cat = lambda: resize.upsample2x_concat_kernel(x, skip)
+        t = [device_ms(f, 10) for f in (old_up, mine, mine, old_up)]
+        row = {"triton (prev)": min(t[0], t[3]), "resize2x.cu": min(t[1], t[2])}
+        t = [device_ms(f, 10) for f in (old_cat, mine_cat, mine_cat, old_cat)]
+        row["triton up + copy (prev)"] = min(t[0], t[3])
+        row["up into the concat"] = min(t[1], t[2])
+        row["bound"] = max(bound_terms("upsample2x", shape, itemsize=4))
+        row["F.interpolate"] = library_ms("upsample2x", x, 10)
+        timed[(shape, cs)] = row
+        print(f"  {shape} + skip {cs}: " + ", ".join(f"{k} {v:.4f}" for k, v in row.items()),
+              flush=True)
+    for what, ups in f32_ups().items():
+        tot = collections.Counter()
+        for u in ups:
+            for k, v in timed[u].items():
+                tot[k] += v
+        print(f"  sums per {what}, {len(ups)} ups: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in tot.items())
+              + f"; up prev / this {tot['triton (prev)'] / tot['resize2x.cu']:.2f}x, "
+              f"concat prev / this {tot['triton up + copy (prev)'] / tot['up into the concat']:.2f}x",
+              flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--time", action="store_true")
     ap.add_argument("--probe", action="store_true")
+    ap.add_argument("--f32", action="store_true",
+                    help="check (and time) the f32 instance instead")
+    ap.add_argument("--parent", help="with --f32 --time: an earlier "
+                    "triton_resize.py whose launch_up is timed as the prev")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("error: needs a CUDA card", file=sys.stderr)
@@ -211,6 +341,18 @@ def main() -> int:
     print("  ptxas, resize2x: " + " | ".join(
         ln.strip() for ln in _build.build_logs.get("resize2x", "(cached)").splitlines()
         if ln.strip() and "Compiling entry" not in ln), flush=True)
+    if args.f32:
+        parent = None
+        if args.parent:
+            spec = importlib.util.spec_from_file_location("parent_triton_resize",
+                                                          args.parent)
+            parent = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(parent)
+        failures = f32_check(dev)
+        if args.time:
+            f32_time(dev, card, parent)
+        print(f"{failures} failure(s)", flush=True)
+        return 1 if failures else 0
     failures = check_small(dev)
     if args.probe:
         run_probe(dev, card)
