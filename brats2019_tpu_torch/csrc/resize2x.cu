@@ -1,10 +1,12 @@
 // Exact 2x trilinear upsample of NDHWC volumes on Hopper, in bf16 and f32, and
 // its transpose in bf16: half-pixel taps (0.25, 0.75) with replicate-clamped
-// edges, f32 math, out in the input's type (bf16: round to nearest even).
-// Built by brats2019_tpu_torch/ops/_build.py with nvcc -gencode
+// edges, f32 math, out in the input's type (bf16: round to nearest even);
+// and the 2x down (2^3 average) in f32. Built by
+// brats2019_tpu_torch/ops/_build.py with nvcc -gencode
 // arch=compute_90a,code=sm_90a; called through ctypes from
 // brats2019_tpu_torch/ops/resize.py (upsample2x_kernel, upsample2x_concat,
-// upsample2x_bwd_kernel). The forward comes first, the backward after it.
+// downsample2x_kernel, upsample2x_bwd_kernel). The up comes first, then the
+// down, then the up's backward.
 //
 // Replaces: brats2019_tpu/ops/pallas_resize.py upsample2x_pallas (:103,
 // kernel _up_fwd_kernel :82). Per axis, out[2i] = 0.25 x[i-1] + 0.75 x[i] and
@@ -220,6 +222,75 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
+// ---------------------------------------------------------------- down --
+//
+// Replaces: brats2019_tpu/ops/pallas_resize.py downsample2x_pallas (:268,
+// kernel _down_fwd_kernel :254): the 2^3 average, y[n, i, j, k] = 1/8 of the
+// sum of x[n, 2i + a, 2j + b, 2k + e] over a, b, e in {0, 1}; an odd extent's
+// last plane is dropped (the output extent is D / 2, rounded down).
+//
+// What bounds it on the card: device-memory bytes (x read once, y an eighth
+// of that written; one add per input value). What held the Triton kernel
+// (ops/triton_resize.py _down2x_kernel) at f32 with few channels was its
+// grid: one program of 1024 lanes per output (n, d, h) row, of which a row of
+// Wo C = 128 values (the accuracy config's C = 8) used an eighth, and the
+// runtime C in its address math, which kept its loads to scalar 4 bytes. The
+// design:
+//
+//   * One thread per 16-byte output piece (4 f32 channels) over a flat
+//     (n, do, ho, wo, piece) index, so no lane idles but in the last block.
+//   * Its 8 input pieces are loaded before any add (16-byte loads through
+//     the non-coherent path, so the two w voxels of a window, 2 x 16 C bytes
+//     apart, share L1 lines with the warp's neighbours: at C = 8 a warp's
+//     loads of one (a, b) row cover 1 KB contiguous).
+//   * The sum in one fixed order (a, then b, then e, from 0), times 0.125;
+//     one 16-byte store. Bitwise repeatable.
+//   * Templated over the piece type like the up; only the f32 instance is
+//     exported (the bf16 down stays on Triton, which a full row fills).
+
+constexpr int DOWN_THREADS = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(DOWN_THREADS)
+    downsample2x_kernel(const uint4* __restrict__ x, uint4* __restrict__ y,
+                        int D, int H, int W, int P, int Do, int Ho, int Wo,
+                        int total) {
+  constexpr int E = Piece<T>::N;
+  const int i = blockIdx.x * DOWN_THREADS + threadIdx.x;
+  if (i >= total) return;
+  int v = i / P;
+  const int p = i - v * P;
+  const int wo = v % Wo;
+  v /= Wo;
+  const int ho = v % Ho;
+  v /= Ho;
+  const int od = v % Do, n = v / Do;
+  const long long sw = P, sh = (long long)W * P, sd = (long long)H * W * P;
+  const uint4* src = x + ((long long)n * D + 2 * od) * sd + 2LL * ho * sh +
+                     2LL * wo * sw + p;
+  uint4 in[8];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        in[4 * a + 2 * b + e] = __ldg(src + a * sd + b * sh + e * sw);
+  float acc[E];
+#pragma unroll
+  for (int k = 0; k < E; ++k) acc[k] = 0.f;
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+    float f[E];
+    Piece<T>::unpack(in[m], f);
+#pragma unroll
+    for (int k = 0; k < E; ++k) acc[k] += f[k];
+  }
+#pragma unroll
+  for (int k = 0; k < E; ++k) acc[k] *= 0.125f;
+  y[i] = Piece<T>::pack(acc);
+}
+
 // ------------------------------------------------------------- backward --
 //
 // Replaces: brats2019_tpu/ops/pallas_resize.py _upsample2x_bwd_impl (:213,
@@ -416,6 +487,27 @@ extern "C" int upsample2x_ndhwc_f32(const void* x, void* y, int N, int D,
                                     int H, int W, int C, int pitch, int offset,
                                     void* stream) {
   return up_run<float>(x, y, N, D, H, W, C, pitch, offset, stream);
+}
+
+// x (N, D, H, W, C) contiguous f32, D, H, W >= 2, C % 4 == 0; y (N, D / 2,
+// H / 2, W / 2, C) contiguous f32 (extents rounded down); both pointers
+// 16-byte aligned. Launches on `stream`; returns cudaGetLastError()
+// (cudaErrorInvalidValue for arguments it does not take).
+extern "C" int downsample2x_ndhwc_f32(const void* x, void* y, int N, int D,
+                                      int H, int W, int C, void* stream) {
+  constexpr int E = Piece<float>::N;
+  if (N < 1 || D < 2 || H < 2 || W < 2 || C < E || C % E ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) % 16)
+    return (int)cudaErrorInvalidValue;
+  const int P = C / E, Do = D / 2, Ho = H / 2, Wo = W / 2;
+  const long long total = (long long)N * Do * Ho * Wo * P;
+  if (total > 0x7FFFFFFFLL - DOWN_THREADS) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((total + DOWN_THREADS - 1) / DOWN_THREADS);
+  downsample2x_kernel<float><<<blocks, DOWN_THREADS, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(x), static_cast<uint4*>(y), D, H, W, P, Do, Ho,
+      Wo, (int)total);
+  return (int)cudaGetLastError();
 }
 
 // g: (N, 2D, 2H, 2W) voxels of C channels at a channel pitch of `pitch`

@@ -35,6 +35,7 @@ def reset_launch_counts() -> None:
     conv3d.launches_stats = 0   # of those, with the InstanceNorm-statistics epilogue
     instance_norm_act.launches_partials = 0   # IN+act from the conv's partials
     upsample2x.launches_cuda = 0     # the 2x up on resize2x.cu
+    downsample2x.launches_cuda = 0   # the 2x down on resize2x.cu (f32)
     upsample2x.launches_concat = 0   # of those, into the decoder's concat buffer
     conv3d_winograd.launches_wgmma = 0   # likewise, on winograd3d_wgmma.cu
     instance_norm_act_bwd.launches_cuda = 0   # the IN+act backward on in_act_bwd.cu

@@ -11,11 +11,11 @@ NDHWC; statistics per (n, c) over the spatial axes, in f32, biased variance,
 * CUDA tensor, bf16 or f32 (the compute dtype of the path), or an error;
   there is no fallback. Forward: the Triton kernels of
   ``ops/triton_norm.py`` (their loads and stores take the tensor's dtype;
-  statistics are f32 in both). Backward: in bf16, ``csrc/in_act_bwd.cu``
-  (one persistent launch, the launch plan of :func:`plan_in_bwd`) where C %
-  8 == 0, the Triton kernels for other C; in f32 the Triton kernels (by
-  plan); :func:`instance_norm_act_bwd_blocked_plain` is the plain version
-  organised as that kernel is.
+  statistics are f32 in both). Backward: ``csrc/in_act_bwd.cu`` (one
+  persistent launch, the launch plan of :func:`plan_in_bwd`) where C fills
+  whole 16-byte vectors (bf16 C % 8 == 0, f32 C % 4 == 0), the Triton
+  kernels for other C; :func:`instance_norm_act_bwd_blocked_plain` is the
+  plain version organised as that kernel is.
 
 ``partials``: the f32 (3, N, P, C) per-box (count, mean, centred M2) of x
 that the conv before the norm computed in its epilogue (``ops/conv.py``
@@ -36,8 +36,8 @@ Activations: relu, leaky_relu (slope 0.01), none.
 ``instance_norm_act.launches`` and ``instance_norm_act_bwd.launches`` count
 kernel launches (one per call); ``instance_norm_act.launches_partials`` those
 of them that took the conv's partials, ``instance_norm_act_bwd.launches_cuda``
-those on ``csrc/in_act_bwd.cu``, ``.launches_f32`` of each those on f32
-tensors.
+those on ``csrc/in_act_bwd.cu`` (bf16 and f32), ``.launches_f32`` of each
+those on f32 tensors.
 """
 
 from __future__ import annotations
@@ -56,10 +56,14 @@ ACTIVATIONS = ("relu", "leaky_relu", "none")
 ACT_CODES = {"none": 0, "relu": 1, "leaky_relu": 2}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_GRID_SIG = [_P] * 11 + [_I, ctypes.c_longlong] + [_I] * 6 + [_P]
+_COLUMN_SIG = [_P] * 9 + [_I] * 6 + [_P]
 _SIG = {
-    "in_act_bwd_ndhwc_bf16": [_P] * 11 + [_I, ctypes.c_longlong] + [_I] * 6
-    + [_P],
-    "in_act_bwd_column_ndhwc_bf16": [_P] * 9 + [_I] * 6 + [_P],
+    "in_act_bwd_ndhwc_bf16": _GRID_SIG,
+    "in_act_bwd_ndhwc_f32": _GRID_SIG,
+    "in_act_bwd_column_ndhwc_bf16": _COLUMN_SIG,
+    "in_act_bwd_column_ndhwc_f32": _COLUMN_SIG,
+    "in_act_bwd_cluster_ndhwc_f32": [_P] * 9 + [_I] * 8 + [_P],
 }
 SMEM_LIMIT = 232_448      # dynamic shared memory a block may ask for (H100)
 BWD_MAX_THREADS = 512
@@ -67,6 +71,16 @@ BWD_MAX_C = 1024   # the per-sample sums (2C f32) reuse the reduction rows
 # N S up to this: the one-block-per-column form (csrc/in_act_bwd.cu takes
 # up to 4096; at 4096 its fewer blocks read slower than the grid form's)
 BWD_COLUMN_VOXELS = 2048
+# the f32 plans (PERF.md section 6, row 3f): the column form up to
+# BWD_COLUMN_VOXELS voxels, as in bf16; for one sample the cluster form (16
+# vector columns a cluster: 8 blocks over groups of two 16-byte vectors, or
+# 16 over one) where a block's share of x and g is at most F32_CLUSTER_SMEM
+# bytes; the grid form where x has at least F32_GRID_VALUES values; the
+# Triton kernels between (at (1, 32^3, 16) the cluster form's 32 SMs and
+# the grid form's barriers both lost to the three launches)
+CLUSTER_MAX = 16
+F32_CLUSTER_SMEM = 65_536
+F32_GRID_VALUES = 1 << 20
 
 
 def _lib() -> ctypes.CDLL:
@@ -165,52 +179,110 @@ MERGE_LANES = 32   # csrc/in_act_bwd.cu sums a column of partials with one warp
 
 class InBwdPlan(NamedTuple):
     """Launch plan of ``csrc/in_act_bwd.cu``. The grid form: ``bps`` blocks
-    per sample of ``threads`` threads (a multiple of C/8, so each thread
-    keeps its 8 channels), each holding up to ``keep`` 16-byte vectors of x
-    and of g in ``smem`` bytes of shared memory. The ``column`` form (N S <=
-    BWD_COLUMN_VOXELS): one block of ``threads`` per 8-channel column over
-    all samples, which is one block range per sample (``bps`` 1)."""
+    per sample of ``threads`` threads (a multiple of C/E, E the channels of a
+    16-byte vector: 8 bf16, 4 f32; so each thread keeps its E channels),
+    each holding up to ``keep`` 16-byte vectors of x and of g in ``smem``
+    bytes of shared memory. The ``column`` form: one block of ``threads``
+    per E-channel column over all samples, which is one block range per
+    sample (``bps`` 1). The ``cluster`` form (f32, one sample): a cluster of
+    ``bps`` blocks per group of ``width`` vectors, each block holding
+    ``keep`` vectors (its S / bps voxels of the group)."""
     threads: int
     bps: int
     keep: int
     smem: int
     column: bool = False
     route: str = "in_act_bwd.cu"    # or "triton": the three Triton kernels
+    cluster: bool = False
+    width: int = 0
 
 
 TRITON_BWD = InBwdPlan(0, 0, 0, 0, route="triton")
+
+
+def vector_channels(dtype: torch.dtype) -> int:
+    """Channels of a 16-byte vector of ``dtype`` (bf16 8, f32 4)."""
+    return 4 if dtype == torch.float32 else 8
+
+
+def column_plan(n: int, s: int, c: int, dtype: torch.dtype) -> InBwdPlan:
+    """The column form's plan: a block per E-channel column, a thread per
+    voxel up to 512, every voxel of x and g held."""
+    e = vector_channels(dtype)
+    threads = min(BWD_MAX_THREADS, -(-n * s // 32) * 32)
+    return InBwdPlan(threads, 1, s * (c // e),
+                     32 * n * s + 8 * e * (threads // 32) + 8 * e * n,
+                     column=True)
+
+
+def grid_plan(n: int, s: int, c: int, sms: int, dtype: torch.dtype) -> InBwdPlan:
+    """The grid form's plan: up to 512 threads (a multiple of C/E), the
+    samples' voxels cut into ``bps`` ranges each, at most ``sms // n`` and
+    no more than give each thread one vector of x; each block holds as many
+    whole voxels of its range as shared memory takes."""
+    cv = c // vector_channels(dtype)
+    threads = (BWD_MAX_THREADS // cv) * cv
+    bps = max(1, min(sms // n, -(-s * cv // threads)))
+    fixed = 4 * vector_channels(dtype) * threads     # the block reduction's rows
+    # whole voxels: a thread's vectors past the held ones keep its channels
+    keep = min(-(-s // bps), (SMEM_LIMIT - fixed) // (32 * cv)) * cv
+    return InBwdPlan(threads, bps, keep, 32 * keep + fixed)
+
+
+def cluster_plan(s: int, c: int, k: int, width: int) -> InBwdPlan:
+    """The f32 cluster form's plan for one sample: a cluster of ``k`` blocks
+    over the S voxels per group of ``width`` 16-byte vectors (a power of two
+    that divides C/4), each block holding its ceil(S/k) voxels of the group
+    with a thread per vector up to 512 (a multiple of 32)."""
+    keep = -(-s // k) * width
+    threads = min(BWD_MAX_THREADS, max(2 * width, -(-keep // 32) * 32))
+    return InBwdPlan(threads, k, keep, 32 * keep + 16 * threads + 32 * width,
+                     cluster=True, width=width)
+
+
+def f32_cluster_choice(s: int, c: int):
+    """(k, width) of the f32 cluster form for one sample of S voxels and C
+    channels, or None: groups of two 16-byte vectors (whole 32-byte sectors
+    a voxel) where C/4 is even, else one; 16 vector columns a cluster
+    (k = 16 / width); None where a block's share of x and g exceeds
+    F32_CLUSTER_SMEM."""
+    width = 2 if (c // 4) % 2 == 0 else 1
+    k = min(CLUSTER_MAX // width, s)
+    if 32 * -(-s // k) * width > F32_CLUSTER_SMEM:
+        return None
+    return k, width
 
 
 @functools.lru_cache(maxsize=None)
 def plan_in_bwd(n: int, s: int, c: int, sms: int = 132,
                 dtype: torch.dtype = torch.bfloat16) -> InBwdPlan:
     """The plan for x of N samples, S voxels and C channels in ``dtype`` on
-    a card of ``sms`` SMs. f32: the Triton kernels (:data:`TRITON_BWD`).
-    bf16: ``csrc/in_act_bwd.cu``, one block per SM at most (the grid barrier
-    needs them all resident), the samples' voxels cut into equal
-    block-contiguous ranges, no more blocks than give each thread one vector
-    of x. Raises TypeError for another dtype and ValueError for what the
-    kernel does not take (a bf16 C % 8 != 0 goes to the Triton kernels
-    before this is asked)."""
+    a card of ``sms`` SMs: ``csrc/in_act_bwd.cu``. Where N S is at most
+    BWD_COLUMN_VOXELS the column form; in f32 for one
+    sample the cluster form where :func:`f32_cluster_choice` finds one, and
+    :data:`TRITON_BWD` below F32_GRID_VALUES values; else the grid form, one
+    block per SM at most (the grid barrier needs them all resident), the
+    samples' voxels cut into equal block-contiguous ranges, no more blocks
+    than give each thread one vector of x. Raises TypeError for another
+    dtype and ValueError for what the kernel does not take (a C that does not
+    fill whole 16-byte vectors goes to the Triton kernels before this is
+    asked)."""
     check_dtype(dtype, "instance_norm_act_bwd")
-    if dtype == torch.float32:
-        return TRITON_BWD
-    c8 = c // 8
-    if c % 8 or not 0 < c8 <= BWD_MAX_C // 8 or n < 1 or s < 1:
-        raise ValueError(f"in_act_bwd.cu: no plan for N={n} S={s} C={c}")
+    e = vector_channels(dtype)
+    f32 = dtype == torch.float32
+    if c % e or not 0 < c // e <= BWD_MAX_C // e or n < 1 or s < 1:
+        raise ValueError(f"in_act_bwd.cu: no plan for N={n} S={s} C={c} {dtype}")
     if n * s <= BWD_COLUMN_VOXELS:
-        threads = min(BWD_MAX_THREADS, -(-n * s // 32) * 32)
-        return InBwdPlan(threads, 1, s * c8,
-                         32 * n * s + 2 * threads + 64 * n, column=True)
+        return column_plan(n, s, c, dtype)
+    choice = f32_cluster_choice(s, c) if f32 and n == 1 else None
+    if choice is not None:
+        return cluster_plan(s, c, *choice)
+    if f32 and n * s * c < F32_GRID_VALUES:
+        return TRITON_BWD
     if n > sms:
         raise ValueError(f"in_act_bwd.cu: N={n} samples need more blocks than "
                          f"the {sms} SMs hold at once")
-    threads = (BWD_MAX_THREADS // c8) * c8
-    bps = max(1, min(sms // n, -(-s * c8 // threads)))
-    fixed = 32 * threads                   # the block reduction's rows
-    # whole voxels: a thread's vectors past the held ones keep its channels
-    keep = min(-(-s // bps), (SMEM_LIMIT - fixed) // (32 * c8)) * c8
-    return InBwdPlan(threads, bps, keep, 32 * keep + fixed)
+    return grid_plan(n, s, c, sms, dtype)
 
 
 def _tree(vals: torch.Tensor) -> torch.Tensor:
@@ -225,15 +297,20 @@ def instance_norm_act_bwd_blocked_plain(x, g, gamma, beta, mean, rstd,
                                         activation: str = "relu",
                                         sms: int = 132):
     """:func:`instance_norm_act_bwd_plain` organised as ``csrc/in_act_bwd.cu``
-    is, in f32: per block range of :func:`plan_in_bwd` (one per sample in
-    its column form), the partial sums of ga
-    and ga * xhat over its voxel range; per (n, c) the partials merged in
-    the kernel's order (lane q of a warp sums r = q, q + 32, ... in turn,
-    then a butterfly over the 32 lanes); dgamma, dbeta summed over n in
-    order. (dx in x.dtype, dgamma f32 (C,), dbeta f32 (C,))."""
+    is, in f32: per block range of :func:`plan_in_bwd` for x.dtype (one
+    range per sample in its column form; the grid form's where the plan
+    keeps an f32 shape on Triton), the partial
+    sums of ga and ga * xhat over its voxel range; per (n, c) the partials
+    merged in the kernel's order (lane q of a warp sums r = q, q + 32, ... in
+    turn, then a butterfly over the 32 lanes; the grid form's merge and the
+    cluster form's, block q on lane q, add in that one order); dgamma, dbeta
+    summed over n in order. (dx in x.dtype, dgamma f32 (C,), dbeta f32
+    (C,))."""
     n, c = x.shape[0], x.shape[-1]
     s = x.numel() // (n * c)
-    plan = plan_in_bwd(n, s, c, sms)
+    plan = plan_in_bwd(n, s, c, sms, x.dtype)
+    if plan.route != "in_act_bwd.cu":   # an f32 shape the plan keeps on Triton
+        plan = grid_plan(n, s, c, sms, x.dtype)
     x3, g3 = x.reshape(n, s, c).float(), g.reshape(n, s, c).float()
     mu, rs = mean.reshape(n, 1, c).float(), rstd.reshape(n, 1, c).float()
     gam, bet = gamma.float(), beta.float()
@@ -346,48 +423,75 @@ def instance_norm_act_bwd_kernel_triton(x, g, gamma, beta, mean, rstd,
     return dx3.view(x.shape), dgamma, dbeta
 
 
+def launch_in_act_bwd(plan: InBwdPlan, x3, g3, mean, rstd, gamma, beta,
+                      activation: str = "relu", bar=None):
+    """``csrc/in_act_bwd.cu`` by ``plan`` on CUDA (N, S, C) x3, g3 (bf16 or
+    f32, contiguous, 16-byte aligned) and f32 mean, rstd (N, C), gamma, beta
+    (C): (dx3, dgamma, dbeta); counts nothing. ``bar``: the grid form's
+    barrier counters; None (the port's calls) makes them anew, zeroed on
+    this stream for this launch alone, so no two launches (other streams,
+    graph replays) ever share a counter. A launch leaves them at 0
+    arrivals, so a caller that orders its launches on one stream may pass one
+    pair to all (``chip_smoke.py`` times the zeroing that way). The column
+    and cluster forms have no counters."""
+    n, s, c = x3.shape
+    f32 = x3.dtype == torch.float32
+    grid = not (plan.column or plan.cluster)
+    dx3 = torch.empty_like(x3)
+    # the blocks' partials, then the per-sample sums (the grid form's)
+    part = (torch.empty(2 * n * (plan.bps + 1) * c, dtype=torch.float32,
+                        device=x3.device) if grid else None)
+    dgamma = torch.empty(c, dtype=torch.float32, device=x3.device)
+    dbeta = torch.empty(c, dtype=torch.float32, device=x3.device)
+    ptr = lambda t: t.data_ptr()
+    lib = _lib()
+    with torch.cuda.device(x3.device):
+        stream = torch.cuda.current_stream(x3.device).cuda_stream
+        if bar is None and grid:
+            # a fill kernel: a memset node took ~1 us longer a call (PERF.md)
+            bar = torch.zeros(2, dtype=torch.int32, device=x3.device)
+        if plan.cluster:
+            rc = lib.in_act_bwd_cluster_ndhwc_f32(
+                *map(ptr, (x3, g3, dx3, mean, rstd, gamma, beta, dgamma, dbeta)),
+                s, c, ACT_CODES[activation], plan.bps, plan.width, plan.threads,
+                plan.keep, plan.smem, stream)
+        elif plan.column:
+            fn = (lib.in_act_bwd_column_ndhwc_f32 if f32
+                  else lib.in_act_bwd_column_ndhwc_bf16)
+            rc = fn(*map(ptr, (x3, g3, dx3, mean, rstd, gamma, beta, dgamma,
+                               dbeta)),
+                    n, s, c, ACT_CODES[activation], plan.threads, plan.smem,
+                    stream)
+        else:
+            fn = lib.in_act_bwd_ndhwc_f32 if f32 else lib.in_act_bwd_ndhwc_bf16
+            rc = fn(*map(ptr, (x3, g3, dx3, mean, rstd, gamma, beta, part,
+                               dgamma, dbeta, bar)),
+                    n, s, c, ACT_CODES[activation], plan.bps, plan.threads,
+                    plan.keep, plan.smem, stream)
+    _build.check(rc, "instance_norm_act_bwd (in_act_bwd.cu)")
+    return dx3, dgamma, dbeta
+
+
 def instance_norm_act_bwd_kernel(x, g, gamma, beta, mean, rstd,
                                  activation: str = "relu"):
-    """The backward on CUDA NDHWC x and g, by :func:`plan_in_bwd`: in bf16
-    ``csrc/in_act_bwd.cu`` (one launch) where C % 8 == 0; the Triton kernels
-    in f32 and for other C. (dx, dgamma, dbeta)."""
+    """The backward on CUDA NDHWC x and g, by :func:`plan_in_bwd`:
+    ``csrc/in_act_bwd.cu`` (one launch) where C fills whole 16-byte vectors
+    (bf16 C % 8 == 0, f32 C % 4 == 0); the Triton kernels for other C.
+    (dx, dgamma, dbeta)."""
     c = x.shape[-1]
     check_dtype(x.dtype, "instance_norm_act_bwd")
     n, s = x.shape[0], x.numel() // max(1, x.shape[0] * c)
-    plan = (TRITON_BWD if c % 8 else
+    plan = (TRITON_BWD if c % vector_channels(x.dtype) else
             plan_in_bwd(n, s, c, _build.sm_count(x.device), x.dtype))
     if plan.route == "triton":
         return instance_norm_act_bwd_kernel_triton(x, g, gamma, beta, mean,
                                                    rstd, activation)
-    x3, g3, mean, rstd, gamma, beta = _bwd_inputs(x, g, gamma, beta, mean,
-                                                  rstd, activation)
-    dx3 = torch.empty_like(x3)
-    # the blocks' partials, then the per-sample sums (the grid form's)
-    part = (None if plan.column else
-            torch.empty(2 * n * (plan.bps + 1) * c, dtype=torch.float32,
-                        device=x.device))
-    dgamma = torch.empty(c, dtype=torch.float32, device=x.device)
-    dbeta = torch.empty(c, dtype=torch.float32, device=x.device)
-    # the grid barrier's (arrivals, generation): zeroed on this stream for
-    # this launch alone, so no two launches (other streams, graph replays)
-    # ever share a counter
-    bar = None if plan.column else torch.zeros(2, dtype=torch.int32,
-                                               device=x.device)
-    ptr = lambda t: t.data_ptr()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        if plan.column:
-            rc = _lib().in_act_bwd_column_ndhwc_bf16(
-                *map(ptr, (x3, g3, dx3, mean, rstd, gamma, beta, dgamma, dbeta)),
-                n, s, c, ACT_CODES[activation], plan.threads, plan.smem, stream)
-        else:
-            rc = _lib().in_act_bwd_ndhwc_bf16(
-                *map(ptr, (x3, g3, dx3, mean, rstd, gamma, beta, part, dgamma,
-                           dbeta, bar)),
-                n, s, c, ACT_CODES[activation], plan.bps, plan.threads,
-                plan.keep, plan.smem, stream)
-    _build.check(rc, "instance_norm_act_bwd (in_act_bwd.cu)")
-    _build.count_launch(instance_norm_act_bwd, "launches", "launches_cuda")
+    x3, g3, *consts = _bwd_inputs(x, g, gamma, beta, mean, rstd, activation)
+    if (x3.data_ptr() | g3.data_ptr()) % 16:
+        x3, g3 = x3.clone(), g3.clone()
+    dx3, dgamma, dbeta = launch_in_act_bwd(plan, x3, g3, *consts, activation)
+    _build.count_launch(instance_norm_act_bwd, "launches", "launches_cuda",
+                        *f32_counter(x))
     return dx3.view(x.shape), dgamma, dbeta
 
 

@@ -18,15 +18,16 @@ or f32 tensor (or raise), by :func:`plan_resize`: the 2x up forward is
 ``csrc/resize2x.cu`` where C and the output's channel pitch fill whole
 16-byte pieces (bf16: multiples of 8; f32: of 4), its backward
 ``csrc/resize2x.cu`` in bf16 where C and the gradient's channel pitch are
-multiples of 8; the Triton ``_up2x_kernel`` and ``_up2x_bwd_kernel`` take
-the rest (the up backward in f32 always), and the 2x down and its backward
-are the Triton kernels of ``ops/triton_resize.py`` in both dtypes (their
-loads and stores take the tensor's dtype; arithmetic is f32). The up
-backward reads the concat gradient's up half in place, at the concat's
-channel pitch. ``.launches`` counts kernel launches;
-``upsample2x.launches_cuda`` and ``upsample2x_bwd.launches_cuda`` those of
-them on resize2x.cu, ``upsample2x.launches_concat`` those that wrote into a
-concat buffer, ``.launches_f32`` of each those on f32 tensors.
+multiples of 8, the 2x down ``csrc/resize2x.cu`` in f32 where C is a
+multiple of 4; the Triton kernels of ``ops/triton_resize.py`` take the rest
+(the up backward in f32, the bf16 down and the down backward in both dtypes,
+other C; their loads and stores take the tensor's dtype; arithmetic is f32).
+The up backward reads the concat gradient's up half in place, at the
+concat's channel pitch. ``.launches`` counts kernel launches;
+``upsample2x.launches_cuda``, ``downsample2x.launches_cuda`` and
+``upsample2x_bwd.launches_cuda`` those of them on resize2x.cu,
+``upsample2x.launches_concat`` those that wrote into a concat buffer,
+``.launches_f32`` of each those on f32 tensors.
 
 * :func:`resize_trilinear` — arbitrary target shape, plain torch on every
   device, as the JAX package runs it outside any Pallas kernel. It is
@@ -55,6 +56,8 @@ _SIG = {
     "upsample2x_ndhwc_f32": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
     + [ctypes.c_void_p],
     "upsample2x_bwd_ndhwc_bf16": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+    + [ctypes.c_void_p],
+    "downsample2x_ndhwc_f32": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
 }
 
@@ -170,14 +173,17 @@ def plan_resize(op: str, c: int, dtype: torch.dtype,
     forward's output or of the up backward's gradient, None where it is C):
     ``"resize2x.cu"`` or ``"triton"``. resize2x.cu takes the up forward
     where C and the pitch are multiples of a 16-byte piece's channels (8 in
-    bf16, 4 in f32) and the up backward in bf16 at multiples of 8. bf16 and
-    f32; any other dtype raises TypeError."""
+    bf16, 4 in f32), the up backward in bf16 at multiples of 8 and the down
+    forward in f32 at multiples of 4. bf16 and f32; any other dtype raises
+    TypeError."""
     if op not in RESIZE_OPS:
         raise ValueError(f"unknown resize op {op!r}; one of {RESIZE_OPS}")
     check_dtype(dtype, op)
-    piece = 4 if dtype == torch.float32 else 8
-    if (op.startswith("down") or (op == "upsample2x_bwd" and dtype == torch.float32)
-            or c % piece or (pitch is not None and pitch % piece)):
+    f32 = dtype == torch.float32
+    piece = 4 if f32 else 8
+    cuda = {"upsample2x": True, "upsample2x_bwd": not f32, "downsample2x": f32,
+            "downsample2x_bwd": False}[op]
+    if not cuda or c % piece or (pitch is not None and pitch % piece):
         return "triton"
     return "resize2x.cu"
 
@@ -188,18 +194,44 @@ def _check5d(x: torch.Tensor, what: str) -> None:
     check_dtype(x.dtype, what)
 
 
-def downsample2x_kernel(x: torch.Tensor) -> torch.Tensor:
-    _check5d(x, "downsample2x")
-    from . import triton_resize
-
+def _down_out(x: torch.Tensor, what: str):
+    _check5d(x, what)
     n, d, h, w, c = x.shape
     if min(d, h, w) < 2:
-        raise ValueError(f"downsample2x: spatial dims < 2 in {tuple(x.shape)}")
-    x = x.contiguous()
-    y = torch.empty((n, d // 2, h // 2, w // 2, c), dtype=x.dtype, device=x.device)
+        raise ValueError(f"{what}: spatial dims < 2 in {tuple(x.shape)}")
+    return torch.empty((n, d // 2, h // 2, w // 2, c), dtype=x.dtype,
+                       device=x.device)
+
+
+def downsample2x_kernel_triton(x: torch.Tensor) -> torch.Tensor:
+    """The Triton ``_down2x_kernel`` (any C): what :func:`downsample2x_kernel`
+    launches in bf16 and where an f32 C is not a multiple of 4."""
+    from . import triton_resize
+
+    y = _down_out(x, "downsample2x")
     with torch.cuda.device(x.device):
-        triton_resize.launch_down(x, y)
+        triton_resize.launch_down(x.contiguous(), y)
     _build.count_launch(downsample2x, "launches", *f32_counter(x))
+    return y
+
+
+def downsample2x_kernel(x: torch.Tensor) -> torch.Tensor:
+    """The 2x down on a CUDA tensor, by :func:`plan_resize`: csrc/resize2x.cu
+    in f32 where C % 4 == 0 (a copy first where x is not contiguous or not
+    16-byte aligned), else the Triton kernel."""
+    y = _down_out(x, "downsample2x")
+    n, d, h, w, c = x.shape
+    if plan_resize("downsample2x", c, x.dtype) == "triton":
+        return downsample2x_kernel_triton(x)
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _lib().downsample2x_ndhwc_f32(x.data_ptr(), y.data_ptr(), n, d, h,
+                                           w, c, stream)
+    _build.check(rc, "downsample2x (resize2x.cu)")
+    _build.count_launch(downsample2x, "launches", "launches_cuda", "launches_f32")
     return y
 
 
@@ -429,6 +461,7 @@ def upsample2x_concat(x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
 
 
 downsample2x.launches = 0
+downsample2x.launches_cuda = 0
 upsample2x.launches = 0
 upsample2x.launches_cuda = 0
 upsample2x.launches_concat = 0

@@ -4,8 +4,9 @@ backward.
 Imported only by ``ops/resize.py`` when it launches on a CUDA tensor (this
 module imports triton at the top; nothing else imports it). The 2x up runs
 on ``csrc/resize2x.cu`` where C fills whole 16-byte pieces (bf16 C % 8, f32
-C % 4 == 0) and its backward there in bf16 where C is a multiple of 8; the
-Triton up kernels here take the rest (the f32 up backward, other channel
+C % 4 == 0), its backward there in bf16 where C is a multiple of 8, and the
+f32 2x down there where C % 4 == 0; the Triton kernels here take the rest
+(the bf16 down, both down backwards, the f32 up backward, other channel
 counts, a gradient whose channel pitch is not a multiple of 8), and
 ``chip_smoke.py`` times them as the CUDA kernels' ``prev_ms``.
 

@@ -265,7 +265,7 @@ KERNELS = {
     # statistics from the conv's epilogue (csrc/conv3d_wgmma.cu, STATS), then
     # the Triton merge and apply; the three-launch forward is timed as prev_ms
     "instance_norm_act": ("triton", "brats2019_tpu_torch/ops/triton_norm.py",
-                          "brats2019_tpu/ops/pallas_norm.py:340"),
+                          "brats2019_tpu/ops/pallas_norm.py:176"),
     "downsample2x": ("triton", "brats2019_tpu_torch/ops/triton_resize.py",
                      "brats2019_tpu/ops/pallas_resize.py:268"),
     # the Triton _up2x_kernel stays for C % 8 != 0, timed as prev_ms
@@ -1186,8 +1186,12 @@ F32_SOURCE = {
     "conv3d": ("cuda", "brats2019_tpu_torch/csrc/conv3d.cu (conv3d_ndhwc_f32)"),
     # statistics from the f32 conv's epilogue, then the Triton merge and apply
     "instance_norm_act": ("triton", "brats2019_tpu_torch/ops/triton_norm.py"),
-    "instance_norm_act_bwd": ("triton", "brats2019_tpu_torch/ops/triton_norm.py"),
-    "downsample2x": ("triton", "brats2019_tpu_torch/ops/triton_resize.py"),
+    # the grid, cluster and column forms by plan; the Triton kernels where
+    # the plan keeps them (smoke's (1, 32^3, 16))
+    "instance_norm_act_bwd": ("cuda", "brats2019_tpu_torch/csrc/in_act_bwd.cu "
+                              "(in_act_bwd_ndhwc_f32, in_act_bwd_cluster_ndhwc_f32, "
+                              "in_act_bwd_column_ndhwc_f32)"),
+    "downsample2x": ("cuda", "brats2019_tpu_torch/csrc/resize2x.cu (downsample2x_ndhwc_f32)"),
     "upsample2x": ("cuda", "brats2019_tpu_torch/csrc/resize2x.cu (upsample2x_ndhwc_f32)"),
     "downsample2x_bwd": ("triton", "brats2019_tpu_torch/ops/triton_resize.py"),
     "upsample2x_bwd": ("triton", "brats2019_tpu_torch/ops/triton_resize.py"),
@@ -1198,6 +1202,8 @@ F32_EPILOGUE_SOURCE = "brats2019_tpu_torch/csrc/conv3d.cu (conv3d_stats_ndhwc_f3
 # the tree's earlier route of an f32 row, timed beside it in the same run
 F32_PREV_SOURCE = {
     "instance_norm_act": "brats2019_tpu_torch/ops/triton_norm.py (three launches)",
+    "instance_norm_act_bwd": "brats2019_tpu_torch/ops/triton_norm.py (three launches)",
+    "downsample2x": "brats2019_tpu_torch/ops/triton_resize.py",
     "upsample2x": "brats2019_tpu_torch/ops/triton_resize.py",
 }
 
@@ -1222,11 +1228,12 @@ def check_f32_kernels(calls, dev):
     """The f32 route of every kernel seam at each unique (kernel, shape) of
     ``calls``: within its tolerance of the plain version (f32 math, TF32
     off), a repeat run bitwise equal, the route the counters show (every
-    launch on ``launches_f32``; no wgmma conv, no CUDA C++ IN backward or up
-    backward; the up on resize2x.cu where its plan says so), device time
-    beside the plain version, the bound (f32 bytes, the f32 pipe) and the
-    library call on the same f32 inputs (the up also beside the Triton up,
-    its prev). Returns {(name, shape): the tuple of :func:`check_kernels`}."""
+    launch on ``launches_f32``; no wgmma conv, no CUDA C++ up backward; the
+    up, the down and the IN backward on their CUDA kernels where their plans
+    say so), device time beside the plain version, the bound (f32 bytes, the
+    f32 pipe) and the library call on the same f32 inputs (the kernels with a
+    CUDA route also beside their Triton form, the prev). Returns {(name,
+    shape): the tuple of :func:`check_kernels`}."""
     import torch
 
     from brats2019_tpu_torch import ops
@@ -1280,9 +1287,19 @@ def check_f32_kernels(calls, dev):
         wrapper = getattr(ops, name)
         side = ((conv.conv3d, "launches_wgmma"),) if name == "conv3d" else (
             ((wrapper, "launches_cuda"),) if hasattr(wrapper, "launches_cuda") else ())
-        # the f32 up takes resize2x.cu where C fills whole 16-byte pieces
-        on_cuda = name == "upsample2x" and resize.plan_resize(
-            name, shape[4], torch.float32) == "resize2x.cu"
+        # the f32 up and down take resize2x.cu where C fills whole 16-byte
+        # pieces, the IN backward in_act_bwd.cu where C fills whole vectors
+        if name in ("upsample2x", "downsample2x"):
+            on_cuda = resize.plan_resize(name, shape[4], torch.float32) == "resize2x.cu"
+            prev_fn = getattr(resize, f"{name}_kernel_triton")
+            prev_call = lambda: prev_fn(x)
+        elif name == "instance_norm_act_bwd":
+            on_cuda = shape[4] % 4 == 0 and norm.plan_in_bwd(
+                shape[0], math.prod(shape[1:4]), shape[4], conv._sm_count(dev),
+                torch.float32).route == "in_act_bwd.cu"
+            prev_call = lambda: norm.instance_norm_act_bwd_kernel_triton(*args)
+        else:
+            on_cuda = False
         before = [wrapper.launches, wrapper.launches_f32] + [getattr(f, a) for f, a in side]
         got, again, ref = kern(), kern(), plain()
         torch.cuda.synchronize()
@@ -1317,13 +1334,15 @@ def check_f32_kernels(calls, dev):
         bytes_ms, ops_ms = bound_terms(name, shape, itemsize=4)
         lib = library_ms(name, lib_x if lib_x is not None else x, reps, gy=gy,
                          wt=wt, gam=gam, bet=bet)
-        prev = (device_ms(lambda: resize.upsample2x_kernel_triton(x), reps)
-                if on_cuda else None)
+        # the Triton form in the same run; where the plan keeps it, it is the
+        # kernel itself
+        prev = (device_ms(prev_call, reps) if on_cuda else
+                ms if name in ("downsample2x", "instance_norm_act_bwd") else None)
         check(ok, f"{name} f32 {shape}: max|d|/max|ref| {err:.3e} (tol {tol:g})"
                   f"{extra}, max|d| {abs_err:.3e}, repeat run bitwise equal: "
                   f"{same}, launches (all, f32, side route) {took}; device "
                   f"kernel {ms:.4f} ms"
-                  + (f" (Triton up, prev, {prev:.4f} ms)" if on_cuda else "")
+                  + (f" (its Triton form, prev, {prev:.4f} ms)" if on_cuda else "")
                   + f", plain {plain_ms:.4f} ms, library call "
                   f"{lib:.4f} ms; bound {max(bytes_ms, ops_ms):.4f} ms (bytes "
                   f"{bytes_ms:.4f}, operations {ops_ms:.4f})")
@@ -1463,20 +1482,133 @@ def check_f32_up_concat(calls, dev):
 
 
 def launch_floor(dev, card):
-    """The launch floor: 100 launches of the f32 2x down (Triton) and the f32
-    2x up (resize2x.cu) at their smallest shape, (1, 2, 2, 2, 4), replayed
-    from one CUDA graph. Returns (down, up) in us a launch."""
+    """The launch floor: 100 launches of the f32 2x down (the Triton kernel
+    and resize2x.cu) and the f32 2x up (resize2x.cu) at their smallest
+    shape, (1, 2, 2, 2, 4), replayed from one CUDA graph. Returns (Triton
+    down, resize2x.cu up, resize2x.cu down) in us a launch."""
     import torch
 
     from brats2019_tpu_torch.ops import resize
 
     x = torch.randn((1, 2, 2, 2, 4), device=dev)
-    down = device_ms(lambda: resize.downsample2x_kernel(x), 100) * 1e3
+    down = device_ms(lambda: resize.downsample2x_kernel_triton(x), 100) * 1e3
     up = device_ms(lambda: resize.upsample2x_kernel(x), 100) * 1e3
+    cuda_down = device_ms(lambda: resize.downsample2x_kernel(x), 100) * 1e3
     print(f"  launch floor, 100 launches at (1, 2, 2, 2, 4) in one CUDA graph: "
           f"f32 2x down (Triton) {down:.2f} us a launch, f32 2x up (resize2x.cu) "
-          f"{up:.2f} us a launch on {card}", flush=True)
-    return down, up
+          f"{up:.2f} us, f32 2x down (resize2x.cu) {cuda_down:.2f} us on {card}",
+          flush=True)
+    return down, up, cuda_down
+
+
+def in_bwd_probe_lib(k):
+    """``csrc/in_act_bwd.cu`` built with ``-DIN_ACT_BWD_PROBE=k``: the kernel
+    stops after step k (0 the launch and one grid barrier alone, 1 phase 1's
+    loads and folds, 2 the block reduction, 3 the first barrier, 4 the
+    merge)."""
+    from brats2019_tpu_torch.ops import _build, norm
+
+    return _build.load_library(f"in_act_bwd_probe{k}", ["in_act_bwd.cu"],
+                               norm._SIG, extra_flags=(f"-DIN_ACT_BWD_PROBE={k}",))
+
+
+def in_bwd_probe(k, x, g, gam, bet, mean, rstd, plan=None, bar=None):
+    """Probe build k of the grid or the cluster form on ``plan`` (default
+    the real plan of x's dtype; dx is not written), the grid form on the
+    barrier pair ``bar`` (default a fresh zeroed pair)."""
+    import torch
+
+    from brats2019_tpu_torch.ops import _build, norm
+
+    n, d, h, w, c = x.shape
+    if plan is None:
+        plan = norm.plan_in_bwd(n, d * h * w, c, _build.sm_count(x.device), x.dtype)
+    out = torch.empty(c, dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    lib = in_bwd_probe_lib(k)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [t.data_ptr() for t in (x, g, dx, mean, rstd, gam, bet)]
+    if plan.cluster:
+        rc = lib.in_act_bwd_cluster_ndhwc_f32(
+            *ptrs, out.data_ptr(), out.data_ptr(), d * h * w, c, 1, plan.bps,
+            plan.width, plan.threads, plan.keep, plan.smem, stream)
+    else:
+        part = torch.empty(2 * n * (plan.bps + 1) * c, dtype=torch.float32,
+                           device=x.device)
+        if bar is None:
+            bar = torch.zeros(2, dtype=torch.int32, device=x.device)
+        fn = (lib.in_act_bwd_ndhwc_f32 if x.dtype == torch.float32
+              else lib.in_act_bwd_ndhwc_bf16)
+        rc = fn(*ptrs, part.data_ptr(), out.data_ptr(), out.data_ptr(),
+                bar.data_ptr(), n, d * h * w, c, 1, plan.bps, plan.threads,
+                plan.keep, plan.smem, stream)
+    _build.check(rc, f"in_act_bwd probe {k}")
+
+
+IN_BWD_TERMS = ("memset", "launch", "phase 1", "block reduction", "barrier 1",
+                "merge", "dx")
+
+
+def in_bwd_terms(plan, args, reps=20):
+    """One call of ``csrc/in_act_bwd.cu`` on ``plan`` (grid or cluster form)
+    by step, device ms: the call as the port makes it (the grid form's
+    barrier counters zeroed by a memset node), the kernel on one reused
+    counter pair (which a launch leaves at 0 arrivals; no memset), and the
+    probe builds on that pair, read as differences: memset = call - kernel,
+    barrier 1 = probe 3 - probe 2 (the grid barrier, or the cluster's),
+    launch = probe 0 - barrier 1, phase 1 = probe 1 - launch, block
+    reduction = probe 2 - probe 1, merge = probe 4 - probe 3 (with the
+    second barrier), dx = kernel - probe 4. ``args``: (x, g, gamma, beta,
+    mean, rstd) of NDHWC x."""
+    import torch
+
+    from brats2019_tpu_torch.ops import norm
+
+    x, gy, gam, bet, mean, rstd = args
+    n, c = x.shape[0], x.shape[-1]
+    bar = torch.zeros(2, dtype=torch.int32, device=x.device)
+    x3, g3 = x.view(n, -1, c), gy.view(n, -1, c)
+    call = device_ms(lambda: norm.launch_in_act_bwd(plan, x3, g3, mean, rstd,
+                                                    gam, bet, "relu"), reps)
+    kern = device_ms(lambda: norm.launch_in_act_bwd(
+        plan, x3, g3, mean, rstd, gam, bet, "relu", bar), reps)
+    p = [device_ms(lambda k=k: in_bwd_probe(k, *args, plan=plan, bar=bar), reps)
+         for k in range(5)]
+    barrier = p[3] - p[2]
+    launch = p[0] - barrier
+    terms = (call - kern, launch, p[1] - launch, p[2] - p[1], barrier,
+             p[4] - p[3], kern - p[4])
+    return dict(zip(("call", "kernel") + IN_BWD_TERMS, (call, kern) + terms))
+
+
+def f32_bwd_breakdown(shapes, dev, card, what):
+    """Row 3f by step (:func:`in_bwd_terms`), summed over ``shapes`` (the IN
+    backwards of ``what``, one a call; the column form's calls, which have
+    no barrier, are left out). Returns {term: ms} with the call's and the
+    kernel's ms."""
+    import torch
+
+    from brats2019_tpu_torch.ops import _build, norm
+
+    g = torch.Generator(device=dev).manual_seed(19)
+    tot = dict.fromkeys(("call", "kernel") + IN_BWD_TERMS, 0.0)
+    for shape in shapes:
+        n, d, h, w, c = shape
+        plan = norm.plan_in_bwd(n, d * h * w, c, _build.sm_count(dev), torch.float32)
+        if plan.column or plan.route != "in_act_bwd.cu":
+            continue
+        x = torch.randn(shape, generator=g, device=dev) * 3 + 1
+        gy = torch.randn(shape, generator=g, device=dev)
+        gam = torch.rand(c, generator=g, device=dev) + 0.5
+        bet = torch.randn(c, generator=g, device=dev) * 0.2
+        _, mean, rstd = norm._plain_stats(x, gam, bet, 1e-5, "relu")
+        for k, v in in_bwd_terms(plan, (x, gy, gam, bet, mean, rstd)).items():
+            tot[k] += v
+    print(f"  instance_norm_act_bwd f32 per {what}, by step (probe builds, "
+          f"device ms): call {tot['call']:.4f} = "
+          + " + ".join(f"{k} {tot[k]:.4f}" for k in IN_BWD_TERMS)
+          + f" on {card}", flush=True)
+    return tot
 
 
 # F3b: the f32 instance of csrc/winograd3d.cu against the plain Winograd (f32
@@ -1605,12 +1737,14 @@ F32_PRESETS = (("unit", (40, 40, 32)), ("smoke", (96, 96, 80)))
 # f32 labels may differ from the CPU's (f32 sums in another order)
 CARD_TIE = 1e-4
 # the routes that only bf16 takes: every launch of an f32 slice leaves them at 0
-BF16_ROUTES = (("conv3d", "launches_wgmma"), ("instance_norm_act_bwd", "launches_cuda"),
-               ("upsample2x_bwd", "launches_cuda"))
-# the fused f32 routes: the f32 conv's STATS epilogue and IN+act from
-# its partials, the f32 up on resize2x.cu into its concat buffer
+BF16_ROUTES = (("conv3d", "launches_wgmma"), ("upsample2x_bwd", "launches_cuda"))
+# the fused f32 routes and the f32 CUDA kernels: the f32 conv's STATS
+# epilogue and IN+act from its partials, the f32 up on resize2x.cu into its
+# concat buffer, the f32 down on resize2x.cu, the f32 IN backward on
+# in_act_bwd.cu
 F32_FUSED = (("conv3d", "launches_stats"), ("instance_norm_act", "launches_partials"),
-             ("upsample2x", "launches_cuda"), ("upsample2x", "launches_concat"))
+             ("upsample2x", "launches_cuda"), ("upsample2x", "launches_concat"),
+             ("downsample2x", "launches_cuda"), ("instance_norm_act_bwd", "launches_cuda"))
 
 
 def f32_counts():
@@ -1624,19 +1758,42 @@ def f32_counts():
     return counts, routes(BF16_ROUTES), routes(F32_FUSED)
 
 
-def check_f32_route(counts, bf16, fused, kernels, what, direct=True):
+def check_f32_route(counts, bf16, fused, kernels, what, direct=True, bwd_cuda=(1, 1)):
     """Every launch of ``kernels`` on its f32 route, none on a bf16-only one;
     every IN+act after a direct f32 conv from its STATS partials (none on the
     Winograd backend, which has no epilogue: ``direct`` False), every up into
-    its concat buffer on resize2x.cu."""
+    its concat buffer on resize2x.cu, every down on resize2x.cu (each f32
+    configuration has C % 4 == 0 at every down), and the IN backwards on
+    in_act_bwd.cu where the plan puts them: ``bwd_cuda`` (those of a step's
+    IN backwards, all of them) (:func:`f32_bwd_cuda_share`)."""
     ins, ups = counts["instance_norm_act"][0], counts["upsample2x"][0]
+    bwds = counts["instance_norm_act_bwd"][0]
     want = {"conv3d.launches_stats": ins if direct else 0,
             "instance_norm_act.launches_partials": ins if direct else 0,
-            "upsample2x.launches_cuda": ups, "upsample2x.launches_concat": ups}
+            "upsample2x.launches_cuda": ups, "upsample2x.launches_concat": ups,
+            "downsample2x.launches_cuda": counts["downsample2x"][0],
+            "instance_norm_act_bwd.launches_cuda": bwds * bwd_cuda[0] // bwd_cuda[1]}
     check(all(counts[k][0] == counts[k][1] > 0 for k in kernels)
           and not any(bf16.values()) and fused == want,
           f"{what}: launches (all, f32) {({k: counts[k] for k in kernels})}; "
           f"bf16-only routes {bf16}; fused routes {fused} (expected {want})")
+
+
+def f32_bwd_cuda_share(preset):
+    """(IN backwards a ``preset`` train step plans on in_act_bwd.cu, all of
+    its IN backwards)."""
+    import torch
+
+    from brats2019_tpu_torch.configs.presets import get_preset
+    from brats2019_tpu_torch.ops import _build, norm
+
+    exp = get_preset(preset)
+    sms = _build.sm_count(torch.device("cuda", 0))
+    bwd = [sh for n, sh in train_calls(exp.unet, 1, exp.train.patch)
+           if n == "instance_norm_act_bwd"]
+    cuda = sum(norm.plan_in_bwd(sh[0], math.prod(sh[1:4]), sh[4], sms,
+                                torch.float32).route == "in_act_bwd.cu" for sh in bwd)
+    return cuda, len(bwd)
 
 
 def f32_presets_slice():
@@ -1677,7 +1834,8 @@ def f32_presets_slice():
               f"{preset} (f32) trains on the card: exit code {rc}, losses "
               f"{[round(r['loss'], 4) for r in steps]}, {len(evals)} eval "
               f"({time.perf_counter() - t0:.1f} s)")
-        check_f32_route(*train_counts, list(F32_SOURCE), f"{preset} training")
+        check_f32_route(*train_counts, list(F32_SOURCE), f"{preset} training",
+                        bwd_cuda=f32_bwd_cuda_share(preset))
         case = discover_cases(data)[0]
         out = os.path.join(WORK, f"{preset}_pred.nii.gz")
         ops.reset_launch_counts()
@@ -3156,10 +3314,11 @@ def main() -> int:
     t0 = time.perf_counter()
     # one nvcc each, side by side
     _build.build_all([conv._lib_wgmma, conv._lib, winograd._lib_wgmma,
-                      winograd._lib, resize._lib, norm._lib])
+                      winograd._lib, resize._lib, norm._lib]
+                     + [lambda k=k: in_bwd_probe_lib(k) for k in range(5)])
     print(f"  built conv3d_wgmma.cu, conv3d.cu, winograd3d_wgmma.cu, "
-          f"winograd3d.cu, resize2x.cu and in_act_bwd.cu with nvcc in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"winograd3d.cu, resize2x.cu and in_act_bwd.cu (and its five probe "
+          f"builds) with nvcc in {time.perf_counter() - t0:.1f} s", flush=True)
     for lib in ("conv3d_wgmma", "conv3d", "winograd3d_wgmma", "winograd3d",
                 "resize2x", "in_act_bwd"):
         # registers, spills and warnings; not the per-function banners
@@ -3284,6 +3443,9 @@ def main() -> int:
           f"+ copy into the buffer (prev) {sum(f32_concat[k][1] for k in f32_ups):.4f} "
           f"ms on {card}", flush=True)
     floor_us = launch_floor(dev, card)
+    bwd_terms = f32_bwd_breakdown(
+        [sh for n_, sh in f32_train if n_ == "instance_norm_act_bwd"], dev, card,
+        "smoke train step (1, 64^3)")
     # F3b: the f32 Winograd instance at the same f32 conv shapes
     f32_wino = check_f32_winograd(f32_fwd + f32_train, dev, f32_results)
     for what, group in (("accuracy-config tile batch (8, 32^3)", f32_fwd),
@@ -3456,6 +3618,9 @@ def main() -> int:
         })
         if k in F32_PREV_SOURCE:
             record[-1]["prev_source"] = F32_PREV_SOURCE[k]
+            if k != "instance_norm_act":
+                # the Triton form on the same inputs, in the same run
+                record[-1]["prev_ms"] = sum(r[9] for r in mine)
         if k == "instance_norm_act":
             # the f32 path's route: merge + apply + the f32 conv's epilogue
             record[-1].update(
@@ -3467,15 +3632,17 @@ def main() -> int:
                 epilogue_ms=f32_terms["epilogue_ms"],
                 epilogue_source=F32_EPILOGUE_SOURCE)
         if k == "upsample2x":
-            # the kernel alone, the Triton up as prev; and as the decoder runs
-            # it, into the concat buffer, against the Triton up + copy
+            # as the decoder runs it, into the concat buffer, against the
+            # Triton up + copy
             record[-1].update(
-                prev_ms=sum(r[9] for r in mine),
                 concat_ms=sum(f32_concat[u][0] for u in f32_ups),
                 concat_prev_ms=sum(f32_concat[u][1] for u in f32_ups),
                 launch_floor_us=floor_us[1])
         if k == "downsample2x":
-            record[-1]["launch_floor_us"] = floor_us[0]
+            record[-1].update(launch_floor_us=floor_us[2],
+                              prev_launch_floor_us=floor_us[0])
+        if k == "instance_norm_act_bwd":
+            record[-1]["breakdown_ms"] = bwd_terms
     # F3b: the f32 Winograd instance, per accuracy-config tile batch; launches
     # on phase 7's Winograd-backend predicts of unit and smoke
     mine = [f32_wino[sh] for n, sh in f32_fwd if n == "conv3d"]

@@ -6,7 +6,8 @@ first conv on the card: every kernel wrapper took bf16 alone. The planners
 are device-independent functions of dtype and shape, so the CPU can hold
 them: given f32 each names its f32 instance or route (the Winograd backend
 its FFMA instance, F3b; the 2x up resize2x.cu where C and the concat's pitch
-are multiples of 4), given float16 each raises. The kernels themselves are held on the card
+are multiples of 4, the 2x down resize2x.cu and the IN+act backward
+in_act_bwd.cu where C is a multiple of 4), given float16 each raises. The kernels themselves are held on the card
 (``tests/test_torch_kernels_gpu.py``, ``chip_smoke.py`` phase 2)."""
 
 import math
@@ -73,15 +74,20 @@ def test_every_kernel_call_of_an_f32_preset_has_an_f32_route(preset):
             # the dgrad: the same conv with Ci and Co swapped
             assert conv.plan_conv(n, d, h, w, co, ci, dtype=dt).instance == "ffma_f32"
         elif op == "norm":
-            assert norm.plan_in_bwd(n, d * h * w, shape[4], dtype=dt).route == "triton"
+            # every IN of an f32 preset has whole 16-byte vectors (C % 4 ==
+            # 0): in_act_bwd.cu, but at smoke's (1, 32^3, 16), which the
+            # plan keeps on the Triton kernels (no form beat them there)
+            assert shape[4] % 4 == 0
+            want = "triton" if shape == (1, 32, 32, 32, 16) else "in_act_bwd.cu"
+            assert norm.plan_in_bwd(n, d * h * w, shape[4], dtype=dt).route == want
         elif op == "upsample2x":
             # written into the concat buffer whose channels the next conv reads
             pitch = calls[i + 1][1][4]
             assert resize.plan_resize(op, shape[4], dt, pitch) == "resize2x.cu"
             assert resize.plan_resize(op + "_bwd", shape[4], dt, pitch) == "triton"
         else:
-            for name in (op, op + "_bwd"):
-                assert resize.plan_resize(name, shape[4], dt) == "triton"
+            assert resize.plan_resize(op, shape[4], dt) == "resize2x.cu"
+            assert resize.plan_resize(op + "_bwd", shape[4], dt) == "triton"
 
 
 @pytest.mark.parametrize("shape", [(1, 16, 16, 16, 4, 8), (1, 64, 64, 64, 64, 64),
@@ -112,7 +118,10 @@ def test_plan_conv_by_dtype(shape):
 @pytest.mark.parametrize("n,s,c", [(1, 16 ** 3, 8), (2, 315, 12), (1, 64 ** 3, 64),
                                    (1, 1, 320)])
 def test_plan_in_bwd_by_dtype(n, s, c):
-    assert norm.plan_in_bwd(n, s, c, dtype=F32).route == "triton"
+    """in_act_bwd.cu in both dtypes where C fills whole 16-byte vectors (f32
+    C % 4, bf16 C % 8) at these shapes; the Triton kernels take the rest
+    before the plan is asked."""
+    assert norm.plan_in_bwd(n, s, c, dtype=F32).route == "in_act_bwd.cu"
     if c % 8 == 0:
         assert norm.plan_in_bwd(n, s, c, dtype=BF16).route == "in_act_bwd.cu"
     else:
@@ -126,9 +135,9 @@ def test_plan_in_bwd_by_dtype(n, s, c):
 @pytest.mark.parametrize("c", [3, 8, 64])
 def test_plan_resize_by_dtype(op, c):
     """resize2x.cu takes the up forward at C % 4 == 0 in f32 and C % 8 == 0
-    in bf16 (16-byte pieces), and the up backward in bf16 only; the rest is
-    Triton."""
-    f32 = op == "upsample2x" and c % 4 == 0
+    in bf16 (16-byte pieces), the down forward in f32 only (C % 4 == 0), and
+    the up backward in bf16 only; the rest is Triton."""
+    f32 = op in ("upsample2x", "downsample2x") and c % 4 == 0
     assert resize.plan_resize(op, c, F32) == ("resize2x.cu" if f32 else "triton")
     if f32:      # into a concat buffer: the pitch must be a multiple of 4 too
         assert resize.plan_resize(op, c, F32, c + 4) == "resize2x.cu"

@@ -920,9 +920,15 @@ def test_f32_norm_forward_and_backward_match_plain(dev, activation, shape):
     for a, b in zip(got, want):
         assert _rel(a, b) <= 1e-5
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # the backward on in_act_bwd.cu where its f32 plan says so (C % 4 == 0
+    # and not a shape the plan keeps on Triton)
+    n, c = shape[0], shape[-1]
+    cuda = c % 4 == 0 and norm.plan_in_bwd(
+        n, x.numel() // (n * c), c, torch.cuda.get_device_properties(dev).multi_processor_count,
+        torch.float32).route == "in_act_bwd.cu"
     assert (ops.instance_norm_act.launches_f32 - f0[0],
             ops.instance_norm_act_bwd.launches_f32 - f0[1],
-            ops.instance_norm_act_bwd.launches_cuda - f0[2]) == (2, 2, 0)
+            ops.instance_norm_act_bwd.launches_cuda - f0[2]) == (2, 2, 2 * cuda)
 
 
 @pytest.mark.parametrize("op", ["downsample2x", "upsample2x", "downsample2x_bwd",
@@ -932,8 +938,8 @@ def test_f32_norm_forward_and_backward_match_plain(dev, activation, shape):
 def test_f32_resizes_match_plain(dev, op, shape):
     """shape: the forward's input. Within 1e-6 of the plain version (f32
     sums of a few taps in another order), repeat runs bitwise equal, on the
-    route of the plan (the up forward on resize2x.cu where C % 4 == 0, the
-    rest on Triton), counted as f32 launches."""
+    route of the plan (the up and the down forward on resize2x.cu where C %
+    4 == 0, the rest on Triton), counted as f32 launches."""
     g = torch.Generator(device=dev).manual_seed(9)
     n, d, h, w, c = shape
     if op == "downsample2x_bwd":
@@ -948,7 +954,7 @@ def test_f32_resizes_match_plain(dev, op, shape):
         t = torch.randn(shape, generator=g, device=dev)
         kern = lambda: getattr(resize, f"{op}_kernel")(t)
         plain = lambda: getattr(resize, f"{op}_plain")(t)
-    cuda = op == "upsample2x" and c % 4 == 0
+    cuda = op in ("upsample2x", "downsample2x") and c % 4 == 0
     assert resize.plan_resize(op, c, torch.float32) == ("resize2x.cu" if cuda
                                                          else "triton")
     wrapper = getattr(ops, op)
@@ -1027,6 +1033,155 @@ def test_f32_up_concat_writes_into_the_buffer(dev, shape, cs):
     ops.upsample2x_concat(xr, sr).backward(gy)
     assert torch.equal(sr.grad, gy[..., c:])
     assert _rel(xr.grad, resize.upsample2x_bwd_plain(gy[..., :c])) <= 1e-6
+
+
+# the f32 2x down on resize2x.cu (downsample2x_ndhwc_f32): 4 channels a piece
+
+@pytest.mark.parametrize("shape", [
+    (8, 32, 32, 32, 8),       # the accuracy tile batch's down
+    (1, 64, 64, 64, 8),       # smoke's first down
+    (1, 32, 32, 32, 16),      # smoke's second down
+    (1, 16, 16, 16, 4),       # unit's down, one piece a voxel
+    (2, 9, 7, 13, 12),        # N = 2, odd extents (last planes dropped), 3 pieces
+    (1, 2, 2, 2, 4),          # one output voxel
+])
+def test_f32_down_on_resize2x_matches_plain(dev, shape):
+    g = torch.Generator(device=dev).manual_seed(14)
+    x = torch.randn(shape, generator=g, device=dev)
+    before = (ops.downsample2x.launches_cuda, ops.downsample2x.launches_f32)
+    got = resize.downsample2x_kernel(x)
+    again = resize.downsample2x_kernel(x)
+    ref = resize.downsample2x_plain(x)
+    triton = resize.downsample2x_kernel_triton(x)
+    torch.cuda.synchronize()
+    assert (ops.downsample2x.launches_cuda - before[0],
+            ops.downsample2x.launches_f32 - before[1]) == (2, 3)
+    assert got.shape == ref.shape and torch.equal(got, again)
+    assert _rel(got, ref) <= 1e-6 and _rel(triton, ref) <= 1e-6
+
+
+@pytest.mark.parametrize("layout", ["transposed", "misaligned"])
+def test_f32_down_copies_other_layouts_for_resize2x(dev, layout):
+    shape = (1, 6, 8, 10, 8)
+    g = torch.Generator(device=dev).manual_seed(15)
+    x = torch.randn(shape, generator=g, device=dev)
+    if layout == "transposed":
+        v = x.transpose(1, 2).contiguous().transpose(1, 2)
+    else:
+        buf = torch.empty(x.numel() + 1, device=dev)
+        v = buf[1:].view(shape)
+        v.copy_(x)
+        assert v.data_ptr() % 16
+    before = ops.downsample2x.launches_cuda
+    got = resize.downsample2x_kernel(v)
+    torch.cuda.synchronize()
+    assert ops.downsample2x.launches_cuda - before == 1
+    assert torch.equal(got, resize.downsample2x_kernel(x))
+
+
+# the f32 IN+act backward on in_act_bwd.cu (grid, column and cluster forms)
+
+def _f32_bwd_args(dev, shape, activation="relu", seed=16):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=dev) * 3 + 1
+    gy = torch.randn(shape, generator=g, device=dev)
+    gam = torch.rand(shape[-1], generator=g, device=dev) + 0.5
+    bet = torch.randn(shape[-1], generator=g, device=dev) * 0.2
+    _, mean, rstd = norm._plain_stats(x, gam, bet, 1e-5, activation)
+    return x, gy, gam, bet, mean, rstd
+
+
+def _f32_forms(n, s, c, sms):
+    forms = {"grid": norm.grid_plan(n, s, c, sms, torch.float32)}
+    if n * s <= 4096:
+        forms["column"] = norm.column_plan(n, s, c, torch.float32)
+    if n == 1:
+        for k, width in ((2, 1), (8, 1), (16, 1), (8, 2), (4, 4)):
+            p = norm.cluster_plan(s, c, k, width)
+            if (c // 4) % width == 0 and k <= s and p.smem <= norm.SMEM_LIMIT:
+                forms[f"cluster {k}x{width}"] = p
+    return forms
+
+
+@pytest.mark.parametrize("activation", ["relu", "leaky_relu", "none"])
+@pytest.mark.parametrize("shape", [
+    (1, 64, 64, 64, 8),       # smoke's top level: the grid form, all held
+    (1, 32, 32, 32, 16),      # smoke: Triton by plan (every form checked below)
+    (1, 16, 16, 16, 32),      # smoke's deepest level: the cluster form
+    (1, 16, 16, 16, 4),       # unit: C = 4, one vector a voxel
+    (1, 8, 8, 8, 8),          # unit's deepest level: the column form
+    (2, 9, 7, 13, 12),        # N = 2, odd extents, C = 12 (column form)
+    (2, 16, 16, 16, 12),      # N = 2 above the column form (Triton by plan)
+    (1, 9, 7, 11, 12),        # odd extents, three vectors a voxel
+    (8, 32, 32, 32, 8),       # N = 8: the grid form, 16 blocks a sample
+])
+def test_f32_norm_bwd_every_form_matches_plain(dev, activation, shape):
+    """The planned route within 1e-5 of the plain and the blocked plain
+    version (dx, dgamma, dbeta), repeat bitwise, counted; every form the f32
+    kernel takes at the shape (grid, column, clusters of 2-16 blocks over
+    groups of 1-4 vectors) within 1e-5 of the plain version and bitwise
+    repeatable."""
+    args = _f32_bwd_args(dev, shape, activation)
+    n, c = shape[0], shape[-1]
+    s = args[0].numel() // (n * c)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = norm.plan_in_bwd(n, s, c, sms, torch.float32)
+    before = (ops.instance_norm_act_bwd.launches_cuda, ops.instance_norm_act_bwd.launches_f32)
+    got = ops.instance_norm_act_bwd(*args, activation)
+    again = ops.instance_norm_act_bwd(*args, activation)
+    ref = norm.instance_norm_act_bwd_plain(*args, activation)
+    blocked = norm.instance_norm_act_bwd_blocked_plain(*args, activation, sms=sms)
+    torch.cuda.synchronize()
+    cuda = plan.route == "in_act_bwd.cu"
+    assert (ops.instance_norm_act_bwd.launches_cuda - before[0],
+            ops.instance_norm_act_bwd.launches_f32 - before[1]) == (2 * cuda, 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for want in (ref, blocked):
+        for a, b in zip(got, want):
+            assert _rel(a, b) <= 1e-5
+    x3, g3 = args[0].view(n, s, c), args[1].view(n, s, c)
+    for label, p in _f32_forms(n, s, c, sms).items():
+        one = norm.launch_in_act_bwd(p, x3, g3, *args[4:], *args[2:4], activation)
+        two = norm.launch_in_act_bwd(p, x3, g3, *args[4:], *args[2:4], activation)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(one, two)), label
+        for a, b in zip(one, ref):
+            assert _rel(a.view(b.shape), b) <= 1e-5, label
+
+
+def test_f32_norm_bwd_cluster_and_grid_forms_replay_from_a_cuda_graph(dev):
+    """The cluster launch and the grid form's cooperative launch (counters
+    zeroed by a memset node) under graph capture: replays equal the eager
+    call."""
+    for shape in ((1, 16, 16, 16, 32), (1, 64, 64, 64, 8)):
+        args = _f32_bwd_args(dev, shape)
+        want = ops.instance_norm_act_bwd(*args)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            ops.instance_norm_act_bwd(*args)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = [ops.instance_norm_act_bwd(*args) for _ in range(3)]
+        for _ in range(2):
+            graph.replay()
+        torch.cuda.synchronize()
+        for got in outs:
+            assert all(torch.equal(u, v) for u, v in zip(got, want))
+
+
+def test_f32_norm_bwd_other_channels_go_to_triton(dev):
+    """C % 4 != 0 fills no 16-byte vector: the Triton kernels, by plan."""
+    args = _f32_bwd_args(dev, (1, 6, 7, 5, 6))
+    before = (ops.instance_norm_act_bwd.launches, ops.instance_norm_act_bwd.launches_cuda)
+    got = ops.instance_norm_act_bwd(*args)
+    ref = norm.instance_norm_act_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert (ops.instance_norm_act_bwd.launches - before[0],
+            ops.instance_norm_act_bwd.launches_cuda - before[1]) == (1, 0)
+    for a, b in zip(got, ref):
+        assert _rel(a, b) <= 1e-5
 
 
 # the f32 conv's STATS epilogue (conv3d_stats_ndhwc_f32)

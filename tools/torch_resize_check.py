@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Standalone check of the PyTorch port's 2x trilinear up on a CUDA card.
+"""Standalone check of the PyTorch port's 2x resizes on a CUDA card: the 2x
+trilinear up (bf16 and f32) and the f32 2x down.
 
     timeout 300 python3 tools/torch_resize_check.py            # correctness
     timeout 600 python3 tools/torch_resize_check.py --time     # + ms per shape
@@ -29,7 +30,14 @@ config's tile batch, one ``smoke`` and one ``unit`` train step) resize2x.cu
 against the Triton up (prev) and the up + concat against the Triton up
 copied into the buffer (prev), each in turns (prev, this, this, prev), the
 bound and ``F.interpolate``; ``--parent FILE`` (an earlier
-``triton_resize.py``) times its ``launch_up`` as the prev instead.
+``triton_resize.py``) times its ``launch_up`` as the prev instead. The f32
+2x down on resize2x.cu (``downsample2x_ndhwc_f32``) likewise: at edge shapes
+(odd extents, C = 4 and 12, N = 2, a transposed and a misaligned input,
+C % 4 != 0 going to Triton by plan) within 1e-6 of the plain down, a repeat
+run bitwise, launches on resize2x.cu; ``--time``: at every f32 down of the
+same three (the accuracy tile batch, a ``smoke`` and a ``unit`` step)
+against the Triton down (prev; ``--parent``: its ``launch_down``), in turns,
+the bound and ``F.avg_pool3d``.
 """
 
 from __future__ import annotations
@@ -270,6 +278,90 @@ def f32_check(dev) -> int:
     return failures
 
 
+F32_DOWN_EDGE = [(1, 2, 2, 2, 4), (2, 5, 7, 9, 12), (1, 3, 8, 17, 8), (8, 32, 32, 32, 8),
+                 (1, 64, 64, 64, 8), (1, 16, 16, 16, 4), (2, 9, 4, 6, 40), (1, 6, 6, 6, 6)]
+
+
+def f32_downs():
+    """{what: [(N, D, H, W, C), ...]}: each f32 down, one entry a call, of the
+    accuracy config's tile batch and one ``smoke`` and one ``unit`` step."""
+    from chip_smoke import accuracy_exp
+
+    acc = accuracy_exp()
+    smoke, unit = get_preset("smoke"), get_preset("unit")
+    runs = {"accuracy tile batch (8, 32^3)": unet_calls(acc.unet, 8, acc.infer.tile),
+            "smoke train step (1, 64^3)": unet_calls(smoke.unet, 1, smoke.train.patch),
+            "unit train step (1, 16^3)": unet_calls(unit.unet, 1, unit.train.patch)}
+    return {k: [sh for name, sh in v if name == "downsample2x"] for k, v in runs.items()}
+
+
+def f32_down_check(dev) -> int:
+    failures = 0
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+    shapes = F32_DOWN_EDGE + [sh for v in f32_downs().values() for sh in v]
+    for shape in dict.fromkeys(shapes):
+        g = torch.Generator(device=dev).manual_seed(3)
+        x = torch.randn(shape, generator=g, device=dev)
+        cuda = resize.plan_resize("downsample2x", shape[4], torch.float32) == "resize2x.cu"
+        before = (resize.downsample2x.launches_cuda, resize.downsample2x.launches_f32)
+        got = resize.downsample2x_kernel(x)
+        again = resize.downsample2x_kernel(x)
+        # a transposed view and a misaligned one: copied for the kernel
+        xt = x.transpose(1, 2).contiguous().transpose(1, 2)
+        buf = torch.empty(x.numel() + 1, device=dev)
+        xm = buf[1:].view(shape)
+        xm.copy_(x)
+        odd = [resize.downsample2x_kernel(v) for v in (xt, xm)]
+        ref = resize.downsample2x_plain(x)
+        torch.cuda.synchronize()
+        took = (resize.downsample2x.launches_cuda - before[0],
+                resize.downsample2x.launches_f32 - before[1])
+        err = rel(got, ref)
+        same = torch.equal(got, again) and all(torch.equal(got, v) for v in odd)
+        ok = (err <= 1e-6 and same and got.shape == ref.shape
+              and took == ((4, 4) if cuda else (0, 4)))
+        failures += not ok
+        print(f"  [{'PASS' if ok else 'FAIL'}] f32 down {shape}: max|d|/max|ref| "
+              f"{err:.1e} (tol 1e-6; bitwise the plain down: "
+              f"{bool(torch.equal(got, ref))}), repeat, transposed and "
+              f"misaligned inputs bitwise {same}; launches (resize2x.cu, f32) "
+              f"{took}", flush=True)
+    return failures
+
+
+def f32_down_time(dev, card, parent) -> None:
+    print(f"== f32 2x down on {card} (device ms, CUDA-graph replay, in turns)",
+          flush=True)
+    timed = {}
+    for shape in dict.fromkeys(sh for v in f32_downs().values() for sh in v):
+        g = torch.Generator(device=dev).manual_seed(4)
+        x = torch.randn(shape, generator=g, device=dev)
+        n, d, h, w, c = shape
+        if parent is not None:
+            def old():
+                y = torch.empty((n, d // 2, h // 2, w // 2, c), device=dev)
+                parent.launch_down(x, y)
+                return y
+        else:
+            old = lambda: resize.downsample2x_kernel_triton(x)
+        mine = lambda: resize.downsample2x_kernel(x)
+        t = [device_ms(f, 20) for f in (old, mine, mine, old)]
+        row = {"triton (prev)": min(t[0], t[3]), "resize2x.cu": min(t[1], t[2]),
+               "bound": max(bound_terms("downsample2x", shape, itemsize=4)),
+               "F.avg_pool3d": library_ms("downsample2x", x, 20)}
+        timed[shape] = row
+        print(f"  {shape}: " + ", ".join(f"{k} {v:.4f}" for k, v in row.items()),
+              flush=True)
+    for what, downs in f32_downs().items():
+        tot = collections.Counter()
+        for sh in downs:
+            tot.update(timed[sh])
+        print(f"  sums per {what}, {len(downs)} downs: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in tot.items())
+              + f"; prev / this {tot['triton (prev)'] / tot['resize2x.cu']:.2f}x",
+              flush=True)
+
+
 def f32_time(dev, card, parent) -> None:
     print(f"== f32 2x up on {card} (device ms, CUDA-graph replay, in turns)",
           flush=True)
@@ -324,7 +416,8 @@ def main() -> int:
     ap.add_argument("--f32", action="store_true",
                     help="check (and time) the f32 instance instead")
     ap.add_argument("--parent", help="with --f32 --time: an earlier "
-                    "triton_resize.py whose launch_up is timed as the prev")
+                    "triton_resize.py whose launch_up and launch_down are "
+                    "timed as the prevs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("error: needs a CUDA card", file=sys.stderr)
@@ -348,9 +441,10 @@ def main() -> int:
                                                           args.parent)
             parent = importlib.util.module_from_spec(spec)
             spec.loader.exec_module(parent)
-        failures = f32_check(dev)
+        failures = f32_check(dev) + f32_down_check(dev)
         if args.time:
             f32_time(dev, card, parent)
+            f32_down_time(dev, card, parent)
         print(f"{failures} failure(s)", flush=True)
         return 1 if failures else 0
     failures = check_small(dev)
