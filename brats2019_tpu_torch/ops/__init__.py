@@ -40,6 +40,7 @@ def reset_launch_counts() -> None:
     conv3d_winograd.launches_wgmma = 0   # likewise, on winograd3d_wgmma.cu
     instance_norm_act_bwd.launches_cuda = 0   # the IN+act backward on in_act_bwd.cu
     upsample2x_bwd.launches_cuda = 0     # the 2x up backward on resize2x.cu
+    downsample2x_bwd.launches_cuda = 0   # the 2x down backward on resize2x.cu (f32)
     for fn in KERNEL_WRAPPERS.values():
         fn.launches_f32 = 0              # those on the f32 routes
 

@@ -14,20 +14,20 @@ All are ``autograd.Function``s whose backward is the exact VJP
 :func:`upsample2x_bwd`: the stride-2 4-tap correlation with the
 replicate-clamp edge folds, ``pallas_resize.py:128-234``). Forward and
 backward run their plain version on a CPU tensor and a kernel on a CUDA bf16
-or f32 tensor (or raise), by :func:`plan_resize`: the 2x up forward is
-``csrc/resize2x.cu`` where C and the output's channel pitch fill whole
-16-byte pieces (bf16: multiples of 8; f32: of 4), its backward
-``csrc/resize2x.cu`` in bf16 where C and the gradient's channel pitch are
-multiples of 8, the 2x down ``csrc/resize2x.cu`` in f32 where C is a
-multiple of 4; the Triton kernels of ``ops/triton_resize.py`` take the rest
-(the up backward in f32, the bf16 down and the down backward in both dtypes,
-other C; their loads and stores take the tensor's dtype; arithmetic is f32).
-The up backward reads the concat gradient's up half in place, at the
-concat's channel pitch. ``.launches`` counts kernel launches;
-``upsample2x.launches_cuda``, ``downsample2x.launches_cuda`` and
-``upsample2x_bwd.launches_cuda`` those of them on resize2x.cu,
-``upsample2x.launches_concat`` those that wrote into a concat buffer,
-``.launches_f32`` of each those on f32 tensors.
+or f32 tensor (or raise), by :func:`plan_resize`: ``csrc/resize2x.cu`` takes
+the 2x up and its backward where C and the channel pitch (of the up's output,
+or of the backward's gradient) fill whole 16-byte pieces (bf16: multiples of
+8; f32: of 4), and the 2x down and its backward in f32 where C is a multiple
+of 4; the Triton kernels of ``ops/triton_resize.py`` take the rest (the bf16
+down and its backward, other C or pitches; their loads and stores take the
+tensor's dtype; arithmetic is f32). The up backward reads the concat
+gradient's up half in place, at the concat's channel pitch, in the instance
+(16-byte pieces of a block's channel chunk: 8 or 4) and the d run that
+:func:`plan_up_bwd` picks. ``.launches`` counts kernel launches;
+``upsample2x.launches_cuda``, ``downsample2x.launches_cuda``,
+``upsample2x_bwd.launches_cuda`` and ``downsample2x_bwd.launches_cuda`` those
+of them on resize2x.cu, ``upsample2x.launches_concat`` those that wrote into a
+concat buffer, ``.launches_f32`` of each those on f32 tensors.
 
 * :func:`resize_trilinear` — arbitrary target shape, plain torch on every
   device, as the JAX package runs it outside any Pallas kernel. It is
@@ -42,7 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -55,9 +55,14 @@ _SIG = {
     + [ctypes.c_void_p],
     "upsample2x_ndhwc_f32": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
     + [ctypes.c_void_p],
-    "upsample2x_bwd_ndhwc_bf16": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+    "upsample2x_bwd_ndhwc_bf16": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
     + [ctypes.c_void_p],
+    "upsample2x_bwd_ndhwc_f32": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
+    + [ctypes.c_void_p],
+    "upsample2x_bwd_smem_bytes": [ctypes.c_int],
     "downsample2x_ndhwc_f32": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+    + [ctypes.c_void_p],
+    "downsample2x_bwd_ndhwc_f32": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
 }
 
@@ -171,21 +176,85 @@ def plan_resize(op: str, c: int, dtype: torch.dtype,
     """The kernel that runs ``op`` (one of :data:`RESIZE_OPS`) on a CUDA
     tensor of C channels in ``dtype`` (``pitch``: the channel pitch of the up
     forward's output or of the up backward's gradient, None where it is C):
-    ``"resize2x.cu"`` or ``"triton"``. resize2x.cu takes the up forward
-    where C and the pitch are multiples of a 16-byte piece's channels (8 in
-    bf16, 4 in f32), the up backward in bf16 at multiples of 8 and the down
-    forward in f32 at multiples of 4. bf16 and f32; any other dtype raises
-    TypeError."""
+    ``"resize2x.cu"`` or ``"triton"``. resize2x.cu takes the up and its
+    backward where C and the pitch are multiples of a 16-byte piece's
+    channels (8 in bf16, 4 in f32), the down and its backward in f32 at
+    multiples of 4. bf16 and f32; any other dtype raises TypeError."""
     if op not in RESIZE_OPS:
         raise ValueError(f"unknown resize op {op!r}; one of {RESIZE_OPS}")
     check_dtype(dtype, op)
     f32 = dtype == torch.float32
     piece = 4 if f32 else 8
-    cuda = {"upsample2x": True, "upsample2x_bwd": not f32, "downsample2x": f32,
-            "downsample2x_bwd": False}[op]
+    cuda = f32 or op.startswith("upsample2x")
     if not cuda or c % piece or (pitch is not None and pitch % piece):
         return "triton"
     return "resize2x.cu"
+
+
+# csrc/resize2x.cu's up backward: dx voxels of a block in h, the fine rows of
+# its ring, its instances (16-byte pieces of a channel chunk)
+UP_BWD_TILE_H, UP_BWD_RING = 4, 4
+UP_BWD_PIECES = (8, 4)
+
+
+class UpBwdPlan(NamedTuple):
+    pieces: int     # the instance: 16-byte pieces of a block's channel chunk
+    tile: tuple     # (h, w) dx voxels of a block: (4, 64 / pieces)
+    td: int         # dx voxels of a block's run along d
+    chunks: int     # channel chunks
+    blocks: int
+    smem: int       # dynamic shared memory of a block, bytes
+
+
+def up_bwd_smem(pieces: int) -> int:
+    """The ring of ``csrc/resize2x.cu`` ``UpBwdTile<pieces>``: 4 fine rows of
+    (2 * 4 + 2) x (2 * 64 / pieces + 2) voxels x pieces 16-byte slots."""
+    return (UP_BWD_RING * (2 * UP_BWD_TILE_H + 2) * (2 * (64 // pieces) + 2)
+            * pieces * 16)
+
+
+def _up_bwd_td(n: int, d: int, nth: int, ntw: int, chunks: int, sms: int) -> int:
+    """The d run (8, 4, 2, 1) whose busiest SM walks the fewest fine rows:
+    waves of two blocks an SM times the 2 td + 2 fine rows of a block (the
+    longer run on a tie)."""
+    best = None
+    for run in (8, 4, 2, 1):
+        blocks = -(-d // run) * nth * ntw * chunks * n
+        cost = -(-blocks // (2 * sms)) * (2 * run + 2)
+        if best is None or cost < best[0]:
+            best = (cost, run)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=4096)   # a process sees a few dozen shapes
+def plan_up_bwd(n: int, d: int, h: int, w: int, c: int, dtype: torch.dtype,
+                sms: int = 132, pieces: Optional[int] = None) -> UpBwdPlan:
+    """The launch of resize2x.cu's up backward for dx (N, D, H, W, C) on a
+    card of ``sms`` SMs: its instance and its d run, which the kernel takes as
+    arguments. bf16 has one instance, 8 pieces (64 channels) a chunk. f32 (4 channels a piece) takes the instance whose block keeps the
+    most of its 256 threads busy, counting the pieces of its last chunk and
+    the w voxels of its last tile (the wider instance on a tie): C = 16 is 4
+    pieces, a tile of 4 x 16 dx voxels. ``pieces`` forces an f32 instance."""
+    check_dtype(dtype, "upsample2x_bwd")
+    per = 4 if dtype == torch.float32 else 8
+    if c % per or c < per:
+        raise ValueError(f"upsample2x_bwd: C = {c} is not whole 16-byte pieces")
+    p = c // per
+    if pieces is None:
+        if per == 8:
+            pieces = 8
+        else:
+            busy = lambda pc: (p / (-(-p // pc) * pc)
+                               * w / (-(-w // (64 // pc)) * (64 // pc)))
+            pieces = max(UP_BWD_PIECES, key=lambda pc: (busy(pc), pc))
+    elif pieces not in UP_BWD_PIECES or (per == 8 and pieces != 8):
+        raise ValueError(f"upsample2x_bwd: no {pieces}-piece instance in {dtype}")
+    btw = 64 // pieces
+    nth, ntw = -(-h // UP_BWD_TILE_H), -(-w // btw)
+    chunks = -(-p // pieces)
+    td = _up_bwd_td(n, d, nth, ntw, chunks, sms)
+    return UpBwdPlan(pieces, (UP_BWD_TILE_H, btw), td, chunks,
+                     -(-d // td) * nth * ntw * chunks * n, up_bwd_smem(pieces))
 
 
 def _check5d(x: torch.Tensor, what: str) -> None:
@@ -302,25 +371,51 @@ def upsample2x_concat_kernel(x: torch.Tensor, skip: torch.Tensor) -> torch.Tenso
     return buf
 
 
-def downsample2x_bwd_kernel(g: torch.Tensor, x_shape) -> torch.Tensor:
+def _down_bwd_out(g: torch.Tensor, x_shape) -> torch.Tensor:
     _check5d(g, "downsample2x_bwd")
-    from . import triton_resize
-
     n, d, h, w, c = x_shape
     if tuple(g.shape) != (n, d // 2, h // 2, w // 2, c):
         raise ValueError(f"downsample2x_bwd: g {tuple(g.shape)} for x {tuple(x_shape)}")
-    g = g.contiguous()
-    dx = torch.empty(tuple(x_shape), dtype=g.dtype, device=g.device)
+    return torch.empty(tuple(x_shape), dtype=g.dtype, device=g.device)
+
+
+def downsample2x_bwd_kernel_triton(g: torch.Tensor, x_shape) -> torch.Tensor:
+    """The Triton ``_down2x_bwd_kernel`` (any C): what
+    :func:`downsample2x_bwd_kernel` launches in bf16 and where an f32 C is
+    not a multiple of 4."""
+    from . import triton_resize
+
+    dx = _down_bwd_out(g, x_shape)
     with torch.cuda.device(g.device):
-        triton_resize.launch_down_bwd(g, dx)
+        triton_resize.launch_down_bwd(g.contiguous(), dx)
     _build.count_launch(downsample2x_bwd, "launches", *f32_counter(g))
+    return dx
+
+
+def downsample2x_bwd_kernel(g: torch.Tensor, x_shape) -> torch.Tensor:
+    """The VJP of the 2x down on a CUDA g, by :func:`plan_resize`:
+    csrc/resize2x.cu in f32 where C % 4 == 0 (a copy first where g is not
+    contiguous or not 16-byte aligned), else the Triton kernel."""
+    n, d, h, w, c = x_shape
+    if plan_resize("downsample2x_bwd", c, g.dtype) == "triton":
+        return downsample2x_bwd_kernel_triton(g, x_shape)
+    dx = _down_bwd_out(g, x_shape)
+    g = g.contiguous()
+    if g.data_ptr() % 16:
+        g = g.clone()
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        rc = _lib().downsample2x_bwd_ndhwc_f32(g.data_ptr(), dx.data_ptr(), n, d,
+                                               h, w, c, stream)
+    _build.check(rc, "downsample2x_bwd (resize2x.cu)")
+    _build.count_launch(downsample2x_bwd, "launches", "launches_cuda", "launches_f32")
     return dx
 
 
 def upsample2x_bwd_kernel_triton(g: torch.Tensor) -> torch.Tensor:
     """The Triton ``_up2x_bwd_kernel`` (any C) on a contiguous copy of g:
-    what :func:`upsample2x_bwd_kernel` launches in f32 and, in bf16, where C
-    is not a multiple of 8 or g's channel pitch is not one."""
+    what :func:`upsample2x_bwd_kernel` launches where C or g's channel pitch
+    is not whole 16-byte pieces (bf16: multiples of 8; f32: of 4)."""
     _check5d(g, "upsample2x_bwd")
     from . import triton_resize
 
@@ -349,12 +444,32 @@ def channel_pitch(t: torch.Tensor):
     return pitch
 
 
+def _launch_up_bwd_cuda(g: torch.Tensor, dx: torch.Tensor, pitch: int,
+                        plan: UpBwdPlan) -> None:
+    """csrc/resize2x.cu in g's dtype: dx (N, D, H, W, C) from g, C channels
+    at a channel pitch of ``pitch`` from g's first, in ``plan``'s instance
+    (bf16 has only the 8-piece one) and d run."""
+    n, d, h, w, c = dx.shape
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        if g.dtype == torch.float32:
+            rc = _lib().upsample2x_bwd_ndhwc_f32(g.data_ptr(), dx.data_ptr(), n, d,
+                                                 h, w, c, pitch, plan.pieces,
+                                                 plan.td, stream)
+        else:
+            rc = _lib().upsample2x_bwd_ndhwc_bf16(g.data_ptr(), dx.data_ptr(), n,
+                                                  d, h, w, c, pitch, plan.td,
+                                                  stream)
+    _build.check(rc, "upsample2x_bwd (resize2x.cu)")
+
+
 def upsample2x_bwd_kernel(g: torch.Tensor) -> torch.Tensor:
     """The VJP of the 2x up on a CUDA g (N, 2D, 2H, 2W, C), by
-    :func:`plan_resize`: in bf16 csrc/resize2x.cu where C is a multiple of 8,
-    read in place at g's channel pitch (a copy at pitch C first where g is
-    not C channels of an NDHWC buffer, or not 16-byte aligned); the Triton
-    kernel in f32 and where C or the pitch is not a multiple of 8."""
+    :func:`plan_resize`: csrc/resize2x.cu where C fills whole 16-byte pieces
+    (bf16 C % 8 == 0, f32 C % 4 == 0), read in place at g's channel pitch (a
+    copy at pitch C first where g is not C channels of an NDHWC buffer, or
+    not 16-byte aligned), in the instance :func:`plan_up_bwd` picks; the
+    Triton kernel where C or the pitch is off the pieces."""
     _check5d(g, "upsample2x_bwd")
     n, d2, h2, w2, c = g.shape
     if d2 % 2 or h2 % 2 or w2 % 2:
@@ -367,13 +482,10 @@ def upsample2x_bwd_kernel(g: torch.Tensor) -> torch.Tensor:
         pitch = c
     dx = torch.empty((n, d2 // 2, h2 // 2, w2 // 2, c), dtype=g.dtype,
                      device=g.device)
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream(g.device).cuda_stream
-        rc = _lib().upsample2x_bwd_ndhwc_bf16(g.data_ptr(), dx.data_ptr(), n,
-                                              d2 // 2, h2 // 2, w2 // 2, c,
-                                              pitch, stream)
-    _build.check(rc, "upsample2x_bwd (resize2x.cu)")
-    _build.count_launch(upsample2x_bwd, "launches", "launches_cuda")
+    plan = plan_up_bwd(n, d2 // 2, h2 // 2, w2 // 2, c, g.dtype,
+                       _build.sm_count(g.device))
+    _launch_up_bwd_cuda(g, dx, pitch, plan)
+    _build.count_launch(upsample2x_bwd, "launches", "launches_cuda", *f32_counter(g))
     return dx
 
 
@@ -466,6 +578,7 @@ upsample2x.launches = 0
 upsample2x.launches_cuda = 0
 upsample2x.launches_concat = 0
 downsample2x_bwd.launches = 0
+downsample2x_bwd.launches_cuda = 0
 upsample2x_bwd.launches = 0
 upsample2x_bwd.launches_cuda = 0
 downsample2x.launches_f32 = 0

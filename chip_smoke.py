@@ -63,16 +63,21 @@ and prints no result lines). Phases:
    ``F.avg_pool3d``, ``F.interpolate``; for a backward kernel that call's
    autograd backward, read as forward+backward minus forward).
    The f32 routes (the configurations whose compute dtype is float32): the
-   FFMA instance of ``csrc/conv3d.cu`` and the Triton IN+act, down, up and
-   their backwards in f32, at the accuracy config's forward at its TTA tile
-   batch (8, 32^3), the ``smoke`` train step (1, 64^3) and the ``unit`` train
-   step (C = 4: C % 8 != 0), each against its plain version (f32 math, TF32
-   off): conv forward and dgrad, IN+act forward and backward, dgamma/dbeta
-   max|d|/max|ref| <= 1e-5, down, up and their backwards <= 1e-6, a repeat
-   run bitwise equal, every launch on ``launches_f32`` and none on a bf16-only
+   FFMA instance of ``csrc/conv3d.cu``, the IN+act forward and backward, and
+   the f32 instances of ``csrc/resize2x.cu`` (down, up and both backwards;
+   the up backward read in place from a concat gradient at its real pitch),
+   at the accuracy config's forward at its TTA tile batch (8, 32^3), the
+   ``smoke`` train step (1, 64^3) and the ``unit`` train step (C = 4: C % 8
+   != 0), each against its plain version (f32 math, TF32 off): conv forward
+   and dgrad, IN+act forward and backward, dgamma/dbeta max|d|/max|ref| <=
+   1e-5, down, up and the up backward <= 1e-6 (the up backward also bitwise
+   its result on a contiguous copy), the down backward bitwise, a repeat run
+   bitwise equal, every launch on ``launches_f32`` and none on a bf16-only
    route (for the conv, the planner's shared-memory bytes equal to the
-   kernel's ``conv3d_f32_smem_bytes``), and device time beside the bound (f32
-   bytes, the f32 pipe) and the library call on the same f32 inputs. The f32
+   kernel's ``conv3d_f32_smem_bytes``), and device time beside the Triton
+   form (prev), the bound (f32 bytes, the f32 pipe) and the library call on
+   the same f32 inputs; the two resize backwards also at edge shapes (an
+   odd extent, a size-1 axis, C 12, a misaligned g). The f32
    instance of ``csrc/winograd3d.cu`` (F3b) at the same f32 conv shapes
    (their first convs have Ci = 4: Ci % 16 != 0): within 1e-5 of max|ref| of
    the plain Winograd and of the direct conv (f32 math, TF32 off), a repeat
@@ -90,8 +95,9 @@ and prints no result lines). Phases:
    ``csrc/resize2x.cu`` written into the decoder's concat buffer in one
    launch: up half within 1e-6 of the plain up (and whether bitwise), skip
    half bitwise, timed against the Triton up made apart and copied into the
-   buffer (prev). Then the launch floor: 100 launches of the f32 2x down and
-   up at their smallest shape replayed from one CUDA graph, in us a launch.
+   buffer (prev). Then the launch floor: 100 launches of each f32 resize and
+   its backward (resize2x.cu, and the Triton form where it has one) at a
+   tiny shape replayed from one CUDA graph, in us a launch.
 3. The predict slice: CASES synthetic 240x240x155 cases and seeded random
    ``cascade`` weights saved as ``params.npz``, run through
    ``brats2019_tpu_torch.cli.predict`` on the card with the launch counters
@@ -158,7 +164,8 @@ and prints no result lines). Phases:
 7. The accuracy slice, after phase 6 so that phases 4-6 meet the card as
    before: (0) the f32 presets ``unit`` and ``smoke`` train 3 steps with an
    eval and predict through the CLIs on the card, every launch on an f32
-   route; (1) the five arms of the accuracy benchmark (single view, TTA, the
+   route (every up and down backward of the training on ``resize2x.cu``);
+   (1) the five arms of the accuracy benchmark (single view, TTA, the
    2-member ensemble, EMA weights, the empty-ET case) at f32 on the card on
    the committed fixtures (``tests/fixtures/accuracy``) and the hard cases of
    seeds 10, 11, 13 at (64, 64, 48) from the port's generator: every bound of
@@ -1193,8 +1200,11 @@ F32_SOURCE = {
                               "in_act_bwd_column_ndhwc_f32)"),
     "downsample2x": ("cuda", "brats2019_tpu_torch/csrc/resize2x.cu (downsample2x_ndhwc_f32)"),
     "upsample2x": ("cuda", "brats2019_tpu_torch/csrc/resize2x.cu (upsample2x_ndhwc_f32)"),
-    "downsample2x_bwd": ("triton", "brats2019_tpu_torch/ops/triton_resize.py"),
-    "upsample2x_bwd": ("triton", "brats2019_tpu_torch/ops/triton_resize.py"),
+    "downsample2x_bwd": ("cuda", "brats2019_tpu_torch/csrc/resize2x.cu "
+                         "(downsample2x_bwd_ndhwc_f32)"),
+    # read in place from the concat gradient, in the instance plan_up_bwd picks
+    "upsample2x_bwd": ("cuda", "brats2019_tpu_torch/csrc/resize2x.cu "
+                       "(upsample2x_bwd_ndhwc_f32)"),
 }
 
 
@@ -1205,7 +1215,21 @@ F32_PREV_SOURCE = {
     "instance_norm_act_bwd": "brats2019_tpu_torch/ops/triton_norm.py (three launches)",
     "downsample2x": "brats2019_tpu_torch/ops/triton_resize.py",
     "upsample2x": "brats2019_tpu_torch/ops/triton_resize.py",
+    "downsample2x_bwd": "brats2019_tpu_torch/ops/triton_resize.py",
+    "upsample2x_bwd": "brats2019_tpu_torch/ops/triton_resize.py (after a copy of "
+                      "the concat gradient's up half)",
 }
+# edge shapes of the two f32 resize backwards (forward input shapes; the up
+# backward's concat gradient pitch, and whether g starts one f32 past a
+# 16-byte boundary): an odd extent, a size-1 axis, C 12 (three pieces of
+# the 4-piece instance), a misaligned g (copied for the kernel)
+F32_BWD_EDGE_CALLS = [("upsample2x_bwd", (1, 5, 3, 9, 16), 24, False),
+                      ("upsample2x_bwd", (1, 1, 7, 1, 32), 48, False),
+                      ("upsample2x_bwd", (1, 4, 4, 4, 12), 20, False),
+                      ("upsample2x_bwd", (1, 3, 4, 5, 16), 24, True),
+                      ("downsample2x_bwd", (2, 9, 7, 13, 12), None, False),
+                      ("downsample2x_bwd", (1, 2, 3, 2, 4), None, False),
+                      ("downsample2x_bwd", (1, 6, 6, 6, 12), None, True)]
 
 
 def accuracy_exp(tta=True):
@@ -1224,15 +1248,18 @@ def accuracy_exp(tta=True):
             tta_precision="float32"))
 
 
-def check_f32_kernels(calls, dev):
+def check_f32_kernels(calls, dev, up_pitch=None):
     """The f32 route of every kernel seam at each unique (kernel, shape) of
     ``calls``: within its tolerance of the plain version (f32 math, TF32
-    off), a repeat run bitwise equal, the route the counters show (every
-    launch on ``launches_f32``; no wgmma conv, no CUDA C++ up backward; the
-    up, the down and the IN backward on their CUDA kernels where their plans
-    say so), device time beside the plain version, the bound (f32 bytes, the
-    f32 pipe) and the library call on the same f32 inputs (the kernels with a
-    CUDA route also beside their Triton form, the prev). Returns {(name,
+    off; the down backward bitwise), a repeat run bitwise equal, the route
+    the counters show (every launch on ``launches_f32``; no wgmma conv; the
+    up, the down, their backwards and the IN backward on their CUDA kernels
+    where their plans say so), device time beside the plain version, the
+    bound (f32 bytes, the f32 pipe) and the library call on the same f32
+    inputs (the kernels with a CUDA route also beside their Triton form, the
+    prev). An up backward reads the up half of a concat gradient of
+    ``up_pitch[shape]`` channels (twice its C where absent) in place, and is
+    also held bitwise to its result on a contiguous copy. Returns {(name,
     shape): the tuple of :func:`check_kernels`}."""
     import torch
 
@@ -1242,6 +1269,8 @@ def check_f32_kernels(calls, dev):
     g = torch.Generator(device=dev).manual_seed(11)
     rel = lambda a, b: ((a.float() - b.float()).abs().max()
                         / b.float().abs().max().clamp_min(1e-30)).item()
+    up_pitch = up_pitch or {}
+    sms = conv._sm_count(dev)
     results = {}
     for name, shape in dict.fromkeys(calls):
         gy = wt = gam = bet = None
@@ -1272,8 +1301,9 @@ def check_f32_kernels(calls, dev):
             plain = lambda: resize.downsample2x_bwd_plain(gy, shape)
         elif name == "upsample2x_bwd":
             # the up half of a concat gradient, as the decoder's backward gives it
+            pitch = up_pitch.get(shape, 2 * shape[4])
             cat = torch.randn((shape[0],) + tuple(2 * v for v in shape[1:4])
-                              + (2 * shape[4],), generator=g, device=dev)
+                              + (pitch,), generator=g, device=dev)
             gy = cat[..., :shape[4]]
             kern = lambda: resize.upsample2x_bwd_kernel(gy)
             plain = lambda: resize.upsample2x_bwd_plain(gy)
@@ -1287,12 +1317,21 @@ def check_f32_kernels(calls, dev):
         wrapper = getattr(ops, name)
         side = ((conv.conv3d, "launches_wgmma"),) if name == "conv3d" else (
             ((wrapper, "launches_cuda"),) if hasattr(wrapper, "launches_cuda") else ())
-        # the f32 up and down take resize2x.cu where C fills whole 16-byte
-        # pieces, the IN backward in_act_bwd.cu where C fills whole vectors
+        # the f32 resizes take resize2x.cu where C (and the up backward's
+        # pitch) fill whole 16-byte pieces, the IN backward in_act_bwd.cu
+        # where C fills whole vectors and the plan says so
         if name in ("upsample2x", "downsample2x"):
             on_cuda = resize.plan_resize(name, shape[4], torch.float32) == "resize2x.cu"
             prev_fn = getattr(resize, f"{name}_kernel_triton")
             prev_call = lambda: prev_fn(x)
+        elif name == "upsample2x_bwd":
+            on_cuda = resize.plan_resize(name, shape[4], torch.float32,
+                                         resize.channel_pitch(gy)) == "resize2x.cu"
+            # the tree's route before: a copy of the up half, then Triton
+            prev_call = lambda: resize.upsample2x_bwd_kernel_triton(gy)
+        elif name == "downsample2x_bwd":
+            on_cuda = resize.plan_resize(name, shape[4], torch.float32) == "resize2x.cu"
+            prev_call = lambda: resize.downsample2x_bwd_kernel_triton(gy, shape)
         elif name == "instance_norm_act_bwd":
             on_cuda = shape[4] % 4 == 0 and norm.plan_in_bwd(
                 shape[0], math.prod(shape[1:4]), shape[4], conv._sm_count(dev),
@@ -1307,6 +1346,24 @@ def check_f32_kernels(calls, dev):
             getattr(f, a) - b for (f, a), b in zip(side, before[2:])]
         route_ok = took == [2, 2] + [2 * on_cuda] * len(side)
         extra = ""
+        if name == "upsample2x_bwd":
+            # in place at the concat's pitch, bitwise its result on a copy
+            contig = resize.upsample2x_bwd_kernel(gy.contiguous())
+            torch.cuda.synchronize()
+            route_ok = route_ok and bool(torch.equal(got, contig))
+            # the planner's shared memory is the kernel's
+            plan = resize.plan_up_bwd(*shape, torch.float32, sms)
+            have = resize._lib().upsample2x_bwd_smem_bytes(plan.pieces)
+            route_ok = route_ok and have == plan.smem
+            extra = (f", from a concat gradient of {cat.shape[-1]} "
+                     f"channels in place, bitwise its contiguous copy's: "
+                     f"{bool(torch.equal(got, contig))}, plan {plan.pieces} pieces "
+                     f"tile {plan.tile} td {plan.td} ({plan.blocks} blocks, "
+                     f"{plan.smem} B shared; kernel {have})")
+            del contig
+        if name == "downsample2x_bwd":
+            extra = f", bitwise the plain version: {bool(torch.equal(got, ref))}"
+            route_ok = route_ok and bool(torch.equal(got, ref))
         if name == "conv3d":
             # the planner's shared memory is the kernel's
             plan = conv.plan_conv(*shape, conv._sm_count(dev), torch.float32)
@@ -1337,7 +1394,8 @@ def check_f32_kernels(calls, dev):
         # the Triton form in the same run; where the plan keeps it, it is the
         # kernel itself
         prev = (device_ms(prev_call, reps) if on_cuda else
-                ms if name in ("downsample2x", "instance_norm_act_bwd") else None)
+                ms if name in ("downsample2x", "instance_norm_act_bwd", "downsample2x_bwd",
+                               "upsample2x_bwd") else None)
         check(ok, f"{name} f32 {shape}: max|d|/max|ref| {err:.3e} (tol {tol:g})"
                   f"{extra}, max|d| {abs_err:.3e}, repeat run bitwise equal: "
                   f"{same}, launches (all, f32, side route) {took}; device "
@@ -1481,24 +1539,85 @@ def check_f32_up_concat(calls, dev):
     return out
 
 
+def check_f32_bwd_edges(dev):
+    """The two f32 resize backwards on resize2x.cu at F32_BWD_EDGE_CALLS:
+    the up backward within F32_RESIZE_TOL of the plain version, read in
+    place at its pitch (a misaligned g copied first) and bitwise its result
+    on a contiguous copy; the down backward bitwise the plain version; both
+    bitwise repeatable, every launch on resize2x.cu and f32."""
+    import torch
+
+    from brats2019_tpu_torch import ops
+    from brats2019_tpu_torch.ops import resize
+
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+    gen = torch.Generator(device=dev).manual_seed(19)
+    for name, shape, pitch, shifted in F32_BWD_EDGE_CALLS:
+        n, d, h, w, c = shape
+        if name == "upsample2x_bwd":
+            # misaligned: channels 1 .. C of the concat gradient (pitch % 4 == 0)
+            buf = torch.randn((n, 2 * d, 2 * h, 2 * w, pitch), generator=gen, device=dev)
+            gy = buf[..., int(shifted):int(shifted) + c]
+            kern = lambda: resize.upsample2x_bwd_kernel(gy)
+            plain = lambda: resize.upsample2x_bwd_plain(gy)
+        else:
+            gs = (n, d // 2, h // 2, w // 2, c)
+            buf = torch.randn(math.prod(gs) + shifted, generator=gen, device=dev)
+            gy = buf[int(shifted):].view(gs)
+            kern = lambda: resize.downsample2x_bwd_kernel(gy, shape)
+            plain = lambda: resize.downsample2x_bwd_plain(gy, shape)
+        wrapper = getattr(ops, name)
+        before = (wrapper.launches_cuda, wrapper.launches_f32)
+        got, again = kern(), kern()
+        took = (wrapper.launches_cuda - before[0], wrapper.launches_f32 - before[1])
+        contig = (resize.upsample2x_bwd_kernel(gy.contiguous()) if name == "upsample2x_bwd"
+                  else resize.downsample2x_bwd_kernel(gy.contiguous(), shape))
+        ref = plain()
+        torch.cuda.synchronize()
+        err = rel(got, ref)
+        same = bool(torch.equal(got, again) and torch.equal(got, contig))
+        exact = bool(torch.equal(got, ref))
+        ok = (same and took == (2, 2) and got.shape == ref.shape
+              and (exact if name == "downsample2x_bwd" else err <= F32_RESIZE_TOL))
+        check(ok, f"{name} f32 edge {shape}"
+                  + (f" from pitch {pitch}" if pitch else "")
+                  + (", g misaligned" if shifted else "")
+                  + f": max|d|/max|ref| {err:.3e} (tol "
+                  + ("bitwise" if name == "downsample2x_bwd" else f"{F32_RESIZE_TOL:g}")
+                  + f"; bitwise the plain version: {exact}), repeat run and "
+                  f"contiguous copy bitwise equal: {same}, launches (resize2x.cu, "
+                  f"f32) {took}")
+        del buf, gy, got, again, contig, ref
+
+
 def launch_floor(dev, card):
-    """The launch floor: 100 launches of the f32 2x down (the Triton kernel
-    and resize2x.cu) and the f32 2x up (resize2x.cu) at their smallest
-    shape, (1, 2, 2, 2, 4), replayed from one CUDA graph. Returns (Triton
-    down, resize2x.cu up, resize2x.cu down) in us a launch."""
+    """The launch floor: 100 launches of each f32 resize at a tiny shape
+    replayed from one CUDA graph: the 2x down of (1, 2, 2, 2, 4) (the
+    Triton kernel and resize2x.cu), the 2x up of it (resize2x.cu), and the
+    backwards with (1, 2, 2, 2, 4) on their fine side (the Triton kernels
+    and resize2x.cu). Returns {what: us a launch}."""
     import torch
 
     from brats2019_tpu_torch.ops import resize
 
     x = torch.randn((1, 2, 2, 2, 4), device=dev)
-    down = device_ms(lambda: resize.downsample2x_kernel_triton(x), 100) * 1e3
-    up = device_ms(lambda: resize.upsample2x_kernel(x), 100) * 1e3
-    cuda_down = device_ms(lambda: resize.downsample2x_kernel(x), 100) * 1e3
-    print(f"  launch floor, 100 launches at (1, 2, 2, 2, 4) in one CUDA graph: "
-          f"f32 2x down (Triton) {down:.2f} us a launch, f32 2x up (resize2x.cu) "
-          f"{up:.2f} us, f32 2x down (resize2x.cu) {cuda_down:.2f} us on {card}",
+    small = torch.randn((1, 1, 1, 1, 4), device=dev)
+    shape = tuple(x.shape)
+    calls = {
+        "down (Triton)": lambda: resize.downsample2x_kernel_triton(x),
+        "up (resize2x.cu)": lambda: resize.upsample2x_kernel(x),
+        "down (resize2x.cu)": lambda: resize.downsample2x_kernel(x),
+        "up backward (Triton)": lambda: resize.upsample2x_bwd_kernel_triton(x),
+        "up backward (resize2x.cu)": lambda: resize.upsample2x_bwd_kernel(x),
+        "down backward (Triton)": lambda: resize.downsample2x_bwd_kernel_triton(small, shape),
+        "down backward (resize2x.cu)": lambda: resize.downsample2x_bwd_kernel(small, shape),
+    }
+    out = {k: device_ms(fn, 100) * 1e3 for k, fn in calls.items()}
+    print("  launch floor, 100 launches of each f32 resize at (1, 2, 2, 2, 4) "
+          "(the fine side) in one CUDA graph, us a launch: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in out.items()) + f" on {card}",
           flush=True)
-    return down, up, cuda_down
+    return out
 
 
 def in_bwd_probe_lib(k):
@@ -1737,14 +1856,15 @@ F32_PRESETS = (("unit", (40, 40, 32)), ("smoke", (96, 96, 80)))
 # f32 labels may differ from the CPU's (f32 sums in another order)
 CARD_TIE = 1e-4
 # the routes that only bf16 takes: every launch of an f32 slice leaves them at 0
-BF16_ROUTES = (("conv3d", "launches_wgmma"), ("upsample2x_bwd", "launches_cuda"))
+BF16_ROUTES = (("conv3d", "launches_wgmma"),)
 # the fused f32 routes and the f32 CUDA kernels: the f32 conv's STATS
 # epilogue and IN+act from its partials, the f32 up on resize2x.cu into its
 # concat buffer, the f32 down on resize2x.cu, the f32 IN backward on
-# in_act_bwd.cu
+# in_act_bwd.cu, the f32 up and down backwards on resize2x.cu
 F32_FUSED = (("conv3d", "launches_stats"), ("instance_norm_act", "launches_partials"),
              ("upsample2x", "launches_cuda"), ("upsample2x", "launches_concat"),
-             ("downsample2x", "launches_cuda"), ("instance_norm_act_bwd", "launches_cuda"))
+             ("downsample2x", "launches_cuda"), ("instance_norm_act_bwd", "launches_cuda"),
+             ("upsample2x_bwd", "launches_cuda"), ("downsample2x_bwd", "launches_cuda"))
 
 
 def f32_counts():
@@ -1759,20 +1879,24 @@ def f32_counts():
 
 
 def check_f32_route(counts, bf16, fused, kernels, what, direct=True, bwd_cuda=(1, 1)):
-    """Every launch of ``kernels`` on its f32 route, none on a bf16-only one;
-    every IN+act after a direct f32 conv from its STATS partials (none on the
-    Winograd backend, which has no epilogue: ``direct`` False), every up into
-    its concat buffer on resize2x.cu, every down on resize2x.cu (each f32
-    configuration has C % 4 == 0 at every down), and the IN backwards on
-    in_act_bwd.cu where the plan puts them: ``bwd_cuda`` (those of a step's
-    IN backwards, all of them) (:func:`f32_bwd_cuda_share`)."""
+    """Every launch of ``kernels`` on its f32 route, none on a bf16-only one
+    (the wgmma conv); every IN+act after a direct f32 conv from its STATS
+    partials (none on the Winograd backend, which has no epilogue:
+    ``direct`` False), every up into its concat buffer on resize2x.cu, every
+    down, up backward and down backward on resize2x.cu (each f32
+    configuration has C % 4 == 0 at every resize, and its concats a pitch %
+    4 == 0), and the IN backwards on in_act_bwd.cu where the plan puts them:
+    ``bwd_cuda`` (those of a step's IN backwards, all of them)
+    (:func:`f32_bwd_cuda_share`)."""
     ins, ups = counts["instance_norm_act"][0], counts["upsample2x"][0]
     bwds = counts["instance_norm_act_bwd"][0]
     want = {"conv3d.launches_stats": ins if direct else 0,
             "instance_norm_act.launches_partials": ins if direct else 0,
             "upsample2x.launches_cuda": ups, "upsample2x.launches_concat": ups,
             "downsample2x.launches_cuda": counts["downsample2x"][0],
-            "instance_norm_act_bwd.launches_cuda": bwds * bwd_cuda[0] // bwd_cuda[1]}
+            "instance_norm_act_bwd.launches_cuda": bwds * bwd_cuda[0] // bwd_cuda[1],
+            "upsample2x_bwd.launches_cuda": counts["upsample2x_bwd"][0],
+            "downsample2x_bwd.launches_cuda": counts["downsample2x_bwd"][0]}
     check(all(counts[k][0] == counts[k][1] > 0 for k in kernels)
           and not any(bf16.values()) and fused == want,
           f"{what}: launches (all, f32) {({k: counts[k] for k in kernels})}; "
@@ -3404,22 +3528,29 @@ def main() -> int:
     acc_exp, smoke, unit = accuracy_exp(), get_preset("smoke"), get_preset("unit")
     f32_fwd = unet_calls(acc_exp.unet, 8, acc_exp.infer.tile)
     f32_train = train_calls(smoke.unet, 1, smoke.train.patch)
-    f32_results = check_f32_kernels(
-        f32_fwd + f32_train + train_calls(unit.unet, 1, unit.train.patch), dev)
+    unit_train = train_calls(unit.unet, 1, unit.train.patch)
+    # each up backward reads the up half of its concat gradient at the
+    # concat's pitch (smoke: C 16 of 24, C 32 of 48; unit: C 8 of 12)
+    up_pitch = {sh: sh[4] + cs for cfg in (smoke, unit)
+                for sh, cs in up_concats(unet_calls(cfg.unet, 1, cfg.train.patch))}
+    f32_results = check_f32_kernels(f32_fwd + f32_train + unit_train, dev, up_pitch)
+    check_f32_bwd_edges(dev)
     for what, group in (("accuracy-config tile batch (8, 32^3)", f32_fwd),
-                        ("smoke train step (1, 64^3)", f32_train)):
+                        ("smoke train step (1, 64^3)", f32_train),
+                        ("unit train step (1, 16^3)", unit_train)):
         for k in F32_SOURCE:
             mine = [f32_results[c] for c in group if c[0] == k]
             if mine:
+                prev = ("" if any(r[9] is None for r in mine) else
+                        f", its Triton form (prev) {sum(r[9] for r in mine):.4f} ms")
                 print(f"  {k} f32 per {what}: {len(mine)} calls, kernel "
-                      f"{sum(r[2] for r in mine):.4f} ms, plain "
+                      f"{sum(r[2] for r in mine):.4f} ms{prev}, plain "
                       f"{sum(r[3] for r in mine):.4f} ms, library call "
                       f"{sum(r[8] for r in mine):.4f} ms, bound "
                       f"{sum(max(r[6], r[7]) for r in mine):.4f} ms on {card}",
                       flush=True)
     # the fused f32 routes: IN statistics from the f32 conv's
     # epilogue at every f32 (conv, IN) pair, the f32 up into its concat
-    unit_train = train_calls(unit.unet, 1, unit.train.patch)
     f32_pairs = conv_norm_shapes(f32_fwd)
     f32_partials = check_f32_norm_partials(
         f32_pairs + conv_norm_shapes(f32_train) + conv_norm_shapes(unit_train),
@@ -3637,10 +3768,14 @@ def main() -> int:
             record[-1].update(
                 concat_ms=sum(f32_concat[u][0] for u in f32_ups),
                 concat_prev_ms=sum(f32_concat[u][1] for u in f32_ups),
-                launch_floor_us=floor_us[1])
+                launch_floor_us=floor_us["up (resize2x.cu)"])
         if k == "downsample2x":
-            record[-1].update(launch_floor_us=floor_us[2],
-                              prev_launch_floor_us=floor_us[0])
+            record[-1].update(launch_floor_us=floor_us["down (resize2x.cu)"],
+                              prev_launch_floor_us=floor_us["down (Triton)"])
+        if k in ("upsample2x_bwd", "downsample2x_bwd"):
+            what = "up backward" if k == "upsample2x_bwd" else "down backward"
+            record[-1].update(launch_floor_us=floor_us[f"{what} (resize2x.cu)"],
+                              prev_launch_floor_us=floor_us[f"{what} (Triton)"])
         if k == "instance_norm_act_bwd":
             record[-1]["breakdown_ms"] = bwd_terms
     # F3b: the f32 Winograd instance, per accuracy-config tile batch; launches

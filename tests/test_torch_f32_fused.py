@@ -253,12 +253,13 @@ def _f32_up_concats():
 
 def test_every_f32_up_of_the_configurations_plans_resize2x():
     """unit: C 8 into pitch 12; smoke: 32 into 48 and 16 into 24; the
-    accuracy config: 16 into 24. Each writes its concat on resize2x.cu."""
+    accuracy config: 16 into 24. Each writes its concat on resize2x.cu, and
+    its backward reads the concat gradient there in place."""
     ups = _f32_up_concats()
     assert {(8, 12), (32, 48), (16, 24)} <= set(ups)
     for c, pitch in ups:
         assert resize.plan_resize("upsample2x", c, F32, pitch) == "resize2x.cu"
-        assert resize.plan_resize("upsample2x_bwd", c, F32, pitch) == "triton"
+        assert resize.plan_resize("upsample2x_bwd", c, F32, pitch) == "resize2x.cu"
 
 
 @pytest.mark.parametrize("c,pitch,route", [

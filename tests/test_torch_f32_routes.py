@@ -81,13 +81,14 @@ def test_every_kernel_call_of_an_f32_preset_has_an_f32_route(preset):
             want = "triton" if shape == (1, 32, 32, 32, 16) else "in_act_bwd.cu"
             assert norm.plan_in_bwd(n, d * h * w, shape[4], dtype=dt).route == want
         elif op == "upsample2x":
-            # written into the concat buffer whose channels the next conv reads
+            # written into the concat buffer whose channels the next conv
+            # reads; its backward reads the concat gradient's up half there
             pitch = calls[i + 1][1][4]
             assert resize.plan_resize(op, shape[4], dt, pitch) == "resize2x.cu"
-            assert resize.plan_resize(op + "_bwd", shape[4], dt, pitch) == "triton"
+            assert resize.plan_resize(op + "_bwd", shape[4], dt, pitch) == "resize2x.cu"
         else:
             assert resize.plan_resize(op, shape[4], dt) == "resize2x.cu"
-            assert resize.plan_resize(op + "_bwd", shape[4], dt) == "triton"
+            assert resize.plan_resize(op + "_bwd", shape[4], dt) == "resize2x.cu"
 
 
 @pytest.mark.parametrize("shape", [(1, 16, 16, 16, 4, 8), (1, 64, 64, 64, 64, 64),
@@ -134,10 +135,10 @@ def test_plan_in_bwd_by_dtype(n, s, c):
 @pytest.mark.parametrize("op", resize.RESIZE_OPS)
 @pytest.mark.parametrize("c", [3, 8, 64])
 def test_plan_resize_by_dtype(op, c):
-    """resize2x.cu takes the up forward at C % 4 == 0 in f32 and C % 8 == 0
-    in bf16 (16-byte pieces), the down forward in f32 only (C % 4 == 0), and
-    the up backward in bf16 only; the rest is Triton."""
-    f32 = op in ("upsample2x", "downsample2x") and c % 4 == 0
+    """resize2x.cu takes every f32 resize, forward and backward, at C % 4 ==
+    0, and the up and its backward in bf16 at C % 8 == 0 (16-byte pieces);
+    the rest is Triton (the bf16 down and its backward at any C)."""
+    f32 = c % 4 == 0
     assert resize.plan_resize(op, c, F32) == ("resize2x.cu" if f32 else "triton")
     if f32:      # into a concat buffer: the pitch must be a multiple of 4 too
         assert resize.plan_resize(op, c, F32, c + 4) == "resize2x.cu"

@@ -817,9 +817,9 @@ def test_up_bwd_other_channels_or_pitch_go_to_triton_by_plan(dev, x_shape, pitch
 # the accuracy benchmark's config) runs every kernel seam in f32: the conv on
 # the FFMA instance of csrc/conv3d.cu (with its STATS epilogue where an IN
 # follows), IN+act on the Triton kernels (merge and apply from the partials,
-# or the three-launch form), the 2x up on resize2x.cu where C % 4 == 0
-# (into the decoder's concat buffer) and the other resizes on the Triton
-# kernels. Each is held to its plain version (f32 math, TF32 off).
+# or the three-launch form), the 2x up (into the decoder's concat buffer),
+# the 2x down and their backwards on resize2x.cu where C % 4 == 0, the Triton
+# kernels for other C. Each is held to its plain version (f32 math, TF32 off).
 
 def _rel(got, ref):
     return ((got.float() - ref.float()).abs().max()
@@ -938,8 +938,8 @@ def test_f32_norm_forward_and_backward_match_plain(dev, activation, shape):
 def test_f32_resizes_match_plain(dev, op, shape):
     """shape: the forward's input. Within 1e-6 of the plain version (f32
     sums of a few taps in another order), repeat runs bitwise equal, on the
-    route of the plan (the up and the down forward on resize2x.cu where C %
-    4 == 0, the rest on Triton), counted as f32 launches."""
+    route of the plan (every resize on resize2x.cu where C % 4 == 0, Triton
+    for the rest), counted as f32 launches."""
     g = torch.Generator(device=dev).manual_seed(9)
     n, d, h, w, c = shape
     if op == "downsample2x_bwd":
@@ -954,7 +954,7 @@ def test_f32_resizes_match_plain(dev, op, shape):
         t = torch.randn(shape, generator=g, device=dev)
         kern = lambda: getattr(resize, f"{op}_kernel")(t)
         plain = lambda: getattr(resize, f"{op}_plain")(t)
-    cuda = op in ("upsample2x", "downsample2x") and c % 4 == 0
+    cuda = c % 4 == 0
     assert resize.plan_resize(op, c, torch.float32) == ("resize2x.cu" if cuda
                                                          else "triton")
     wrapper = getattr(ops, op)
@@ -1077,6 +1077,164 @@ def test_f32_down_copies_other_layouts_for_resize2x(dev, layout):
     torch.cuda.synchronize()
     assert ops.downsample2x.launches_cuda - before == 1
     assert torch.equal(got, resize.downsample2x_kernel(x))
+
+
+# the f32 2x up backward on resize2x.cu (upsample2x_bwd_ndhwc_f32): 4 channels
+# a piece, the instance (8 or 4 pieces a chunk) by plan_up_bwd, read in
+# place from the concat gradient at its channel pitch
+
+def _f32_cat(dev, x_shape, pitch, seed):
+    n, d, h, w, _ = x_shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((n, 2 * d, 2 * h, 2 * w, pitch), generator=g, device=dev)
+
+
+@pytest.mark.parametrize("pieces", resize.UP_BWD_PIECES)
+@pytest.mark.parametrize("x_shape,pitch", [
+    ((1, 32, 32, 32, 16), 24),    # smoke's top up, at the concat's pitch
+    ((1, 16, 16, 16, 32), 48),    # smoke's second up
+    ((1, 8, 8, 8, 8), 12),        # unit's up
+    ((1, 5, 3, 9, 12), 20),       # odd extents, 3 pieces
+    ((1, 1, 7, 1, 4), 4),         # size-1 axes, one piece
+    ((2, 3, 6, 40, 40), 44),      # N = 2, two chunks at 8 pieces, ragged w tiles
+])
+def test_f32_up_bwd_every_instance_matches_plain(dev, x_shape, pitch, pieces):
+    """Each instance within 1e-6 of the plain version, repeat bitwise, in
+    place bitwise equal to a contiguous copy of the up half."""
+    n, d, h, w, c = x_shape
+    g = _f32_cat(dev, x_shape, pitch, 17)[..., :c]
+    plan = resize.plan_up_bwd(n, d, h, w, c, torch.float32, pieces=pieces)
+    lib = resize._lib()
+    assert lib.upsample2x_bwd_smem_bytes(pieces) == plan.smem
+
+    def run(t, p):
+        dx = torch.empty(x_shape, device=dev)
+        resize._launch_up_bwd_cuda(t, dx, p, plan)
+        return dx
+
+    got, again, contig = run(g, pitch), run(g, pitch), run(g.contiguous(), c)
+    ref = resize.upsample2x_bwd_plain(g)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) <= 1e-6
+    assert torch.equal(got, again) and torch.equal(got, contig)
+
+
+@pytest.mark.parametrize("x_shape,pitch", [((1, 32, 32, 32, 16), 24),
+                                           ((1, 16, 16, 16, 32), 48),
+                                           ((1, 8, 8, 8, 8), 12)])
+def test_f32_up_bwd_planned_in_place(dev, x_shape, pitch):
+    """smoke's and unit's up backwards through the wrapper: in place at the
+    concat's pitch, on resize2x.cu in the planned instance, counted as f32
+    and CUDA launches; through the decoder's concat op the same gradient."""
+    n, d, h, w, c = x_shape
+    cat = _f32_cat(dev, x_shape, pitch, 18)
+    view = cat[..., :c]
+    before = (ops.upsample2x_bwd.launches_f32, ops.upsample2x_bwd.launches_cuda)
+    got = ops.upsample2x_bwd(view)
+    want = ops.upsample2x_bwd(view.contiguous())
+    torch.cuda.synchronize()
+    assert (ops.upsample2x_bwd.launches_f32 - before[0],
+            ops.upsample2x_bwd.launches_cuda - before[1]) == (2, 2)
+    assert torch.equal(got, want)
+    assert _rel(got, resize.upsample2x_bwd_plain(view)) <= 1e-6
+    x = torch.randn(x_shape, device=dev).requires_grad_()
+    skip = torch.randn((n, 2 * d, 2 * h, 2 * w, pitch - c), device=dev)
+    skip.requires_grad_()
+    ops.upsample2x_concat(x, skip).backward(cat)
+    assert torch.equal(x.grad, got) and torch.equal(skip.grad, cat[..., c:])
+
+
+def test_f32_up_bwd_misaligned_g_is_copied(dev):
+    x_shape = (1, 3, 4, 5, 16)
+    buf = _f32_cat(dev, x_shape, 24, 19)
+    g = buf[..., 1:17]
+    assert g.data_ptr() % 16 and resize.channel_pitch(g) == 24
+    before = ops.upsample2x_bwd.launches_cuda
+    got = ops.upsample2x_bwd(g)
+    torch.cuda.synchronize()
+    assert ops.upsample2x_bwd.launches_cuda - before == 1
+    assert torch.equal(got, ops.upsample2x_bwd(g.contiguous()))
+    assert _rel(got, resize.upsample2x_bwd_plain(g)) <= 1e-6
+
+
+@pytest.mark.parametrize("c,pitch", [(6, 6), (12, 14), (3, 8)])
+def test_f32_up_bwd_off_the_pieces_goes_to_triton(dev, c, pitch):
+    """C or the pitch not a multiple of 4: the Triton kernel by plan (C 12
+    fills three whole f32 pieces; at pitch 14 it does not)."""
+    x_shape = (1, 4, 4, 4, c)
+    g = _f32_cat(dev, x_shape, pitch, 20)[..., :c]
+    assert resize.plan_resize("upsample2x_bwd", c, torch.float32,
+                              resize.channel_pitch(g)) == "triton"
+    before = (ops.upsample2x_bwd.launches_f32, ops.upsample2x_bwd.launches_cuda)
+    got = ops.upsample2x_bwd(g)
+    torch.cuda.synchronize()
+    assert (ops.upsample2x_bwd.launches_f32 - before[0],
+            ops.upsample2x_bwd.launches_cuda - before[1]) == (1, 0)
+    assert _rel(got, resize.upsample2x_bwd_plain(g)) <= 1e-6
+
+
+@pytest.mark.parametrize("op", ["upsample2x_bwd", "downsample2x_bwd"])
+def test_resize_backwards_refuse_other_dtypes_on_the_card(dev, op):
+    g = torch.randn((1, 4, 4, 4, 8), device=dev).half()
+    with pytest.raises(TypeError):
+        if op == "upsample2x_bwd":
+            ops.upsample2x_bwd(g)
+        else:
+            ops.downsample2x_bwd(g, (1, 8, 8, 8, 8))
+
+
+# the f32 2x down backward on resize2x.cu (downsample2x_bwd_ndhwc_f32)
+
+@pytest.mark.parametrize("x_shape", [
+    (1, 64, 64, 64, 8),       # smoke's first down
+    (1, 32, 32, 32, 16),      # smoke's second down
+    (1, 16, 16, 16, 4),       # unit's down
+    (8, 32, 32, 32, 8),       # the accuracy tile batch's
+    (2, 9, 7, 13, 12),        # odd extents: the last planes get 0
+    (1, 2, 3, 2, 4),          # a size-1 g axis, an odd one
+])
+def test_f32_down_bwd_bitwise_the_plain_version(dev, x_shape):
+    n, d, h, w, c = x_shape
+    gen = torch.Generator(device=dev).manual_seed(21)
+    g = torch.randn((n, d // 2, h // 2, w // 2, c), generator=gen, device=dev)
+    before = (ops.downsample2x_bwd.launches_f32, ops.downsample2x_bwd.launches_cuda)
+    got = resize.downsample2x_bwd_kernel(g, x_shape)
+    again = resize.downsample2x_bwd_kernel(g, x_shape)
+    triton = resize.downsample2x_bwd_kernel_triton(g, x_shape)
+    torch.cuda.synchronize()
+    assert (ops.downsample2x_bwd.launches_f32 - before[0],
+            ops.downsample2x_bwd.launches_cuda - before[1]) == (3, 2)
+    ref = resize.downsample2x_bwd_plain(g, x_shape)
+    assert torch.equal(got, ref) and torch.equal(got, again)
+    assert torch.equal(triton, ref)
+
+
+@pytest.mark.parametrize("layout", ["transposed", "misaligned"])
+def test_f32_down_bwd_copies_other_layouts(dev, layout):
+    x_shape = (1, 6, 8, 10, 8)
+    g = torch.randn((1, 3, 4, 5, 8), device=dev)
+    if layout == "transposed":
+        v = g.transpose(1, 2).contiguous().transpose(1, 2)
+    else:
+        buf = torch.empty(g.numel() + 1, device=dev)
+        v = buf[1:].view(g.shape)
+        v.copy_(g)
+        assert v.data_ptr() % 16
+    before = ops.downsample2x_bwd.launches_cuda
+    got = resize.downsample2x_bwd_kernel(v, x_shape)
+    torch.cuda.synchronize()
+    assert ops.downsample2x_bwd.launches_cuda - before == 1
+    assert torch.equal(got, resize.downsample2x_bwd_plain(g, x_shape))
+
+
+def test_f32_down_bwd_other_channels_go_to_triton(dev):
+    g = torch.randn((1, 2, 2, 2, 6), device=dev)
+    before = (ops.downsample2x_bwd.launches_f32, ops.downsample2x_bwd.launches_cuda)
+    got = ops.downsample2x_bwd(g, (1, 4, 5, 4, 6))
+    torch.cuda.synchronize()
+    assert (ops.downsample2x_bwd.launches_f32 - before[0],
+            ops.downsample2x_bwd.launches_cuda - before[1]) == (1, 0)
+    assert torch.equal(got, resize.downsample2x_bwd_plain(g, (1, 4, 5, 4, 6)))
 
 
 # the f32 IN+act backward on in_act_bwd.cu (grid, column and cluster forms)
