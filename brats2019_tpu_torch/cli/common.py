@@ -1,6 +1,8 @@
 """Shared CLI plumbing (reference: ``brats2019_tpu/cli/common.py``): preset
-overrides, the trained params of a stage, the serving weights, the members of
-a checkpoint ensemble, and the shard assignment of scale-out runs."""
+overrides, the trained params of a stage (exported, best, latest, the weight
+EMA, the average of the retained steps), the serving weights, the members of
+a checkpoint ensemble, the shard assignment of scale-out runs, and the
+``--multichip`` mesh and operator notes."""
 
 from __future__ import annotations
 
@@ -58,19 +60,24 @@ def _latest_checkpoint_mtime(workdir: str) -> float:
     return newest
 
 
-def load_stage_params(exp: ExperimentConfig, stage: str) -> Dict[str, np.ndarray]:
+def load_stage_params(exp: ExperimentConfig, stage: str,
+                      from_checkpoint_only: bool = False,
+                      ) -> Dict[str, np.ndarray]:
     """Trained params of ``stage`` ("fine" or "coarse") as a flat export
     dict, by the reference's priority (:335-393): the newer of the exported
     ``<workdir>/<stage>/params.{safetensors,npz}`` while it is at least as
     new as the newest checkpoint; else ``checkpoints/best/``; else the
-    latest step checkpoint. FileNotFoundError when the workdir has none of
-    them."""
+    latest step checkpoint. With ``from_checkpoint_only`` the exported
+    files are skipped, so a re-export (``cli/export.py``) reads the current
+    checkpoint, never a previous export. FileNotFoundError when the workdir
+    has none of them."""
     from ..train.checkpoint import CheckpointManager, flat_numpy
 
     workdir = os.path.join(exp.workdir, stage)
     exported = os.path.join(workdir, "params.npz")
-    found = [p for p in (os.path.join(workdir, "params.safetensors"), exported)
-             if os.path.exists(p)]
+    found = [] if from_checkpoint_only else [
+        p for p in (os.path.join(workdir, "params.safetensors"), exported)
+        if os.path.exists(p)]
     if found:
         newest = max(found, key=os.path.getmtime)
         if _latest_checkpoint_mtime(workdir) > os.path.getmtime(newest):
@@ -92,6 +99,68 @@ def load_stage_params(exp: ExperimentConfig, stage: str) -> Dict[str, np.ndarray
             f"No params for stage '{stage}': neither {exported} nor a "
             f"checkpoint under {workdir}")
     return flat_numpy(restored["params"])
+
+
+def _stage_checkpoints(exp: ExperimentConfig, stage: str):
+    """The CheckpointManager of a stage's step checkpoints
+    (FileNotFoundError when the stage has no checkpoint directory; none is
+    created)."""
+    from ..train.checkpoint import CheckpointManager
+
+    workdir = os.path.join(exp.workdir, stage)
+    if not os.path.isdir(os.path.join(workdir, "checkpoints")):
+        raise FileNotFoundError(f"No checkpoint for stage '{stage}' under "
+                                f"{workdir}")
+    return CheckpointManager(workdir), workdir
+
+
+def ema_stage_params(exp: ExperimentConfig, stage: str) -> Dict[str, np.ndarray]:
+    """The weight EMA of a stage's latest step checkpoint as a flat export
+    dict (:129-168): the tracker rides in the optimizer state
+    (``opt_state["ema"]``, train/step.py). FileNotFoundError when there is no
+    checkpoint or the run was trained without ``--ema-decay``."""
+    ckpt, workdir = _stage_checkpoints(exp, stage)
+    if ckpt.latest_step() is None:
+        raise FileNotFoundError(f"No checkpoint for stage '{stage}' under "
+                                f"{workdir}")
+    ema = ckpt.restore()["opt_state"].get("ema")
+    if ema is None:
+        raise FileNotFoundError(
+            f"No EMA state in stage '{stage}' checkpoints under {workdir} "
+            "(train with --ema-decay to record one)")
+    return {"params/" + k.replace(".", "/"): v.detach().cpu().numpy()
+            for k, v in ema.items()}
+
+
+def average_stage_params(exp: ExperimentConfig, stage: str,
+                         last_k: int) -> Dict[str, np.ndarray]:
+    """Uniform weight average of the last ``last_k`` retained step
+    checkpoints of a stage (:171-238; SWA-style: one averaged model, one
+    forward at serving time). Every tensor is summed in f32 in step order,
+    scaled by 1/len and cast back to its stored dtype. FileNotFoundError
+    when no step checkpoint exists; fewer than ``last_k`` retained (the
+    ``keep`` window) are averaged with a note."""
+    ckpt, workdir = _stage_checkpoints(exp, stage)
+    steps = ckpt.all_steps()
+    if not steps:
+        raise FileNotFoundError(f"No step checkpoints to average for stage "
+                                f"'{stage}' under {workdir}")
+    steps = steps[-last_k:]
+    if len(steps) < last_k:
+        print(f"[average] {stage}: only {len(steps)} retained checkpoint(s) "
+              f"(requested {last_k}) — averaging those", file=sys.stderr,
+              flush=True)
+    acc, like = None, None
+    for s in steps:
+        p = ckpt.restore_params_at(s)
+        like = like or p
+        p32 = {k: np.asarray(v, np.float32) for k, v in p.items()}
+        acc = p32 if acc is None else {k: acc[k] + p32[k] for k in acc}
+    inv = 1.0 / len(steps)
+    mean = {k: np.asarray(a * inv, like[k].dtype) for k, a in acc.items()}
+    print(f"[average] {stage}: averaged steps {steps}", file=sys.stderr,
+          flush=True)
+    return mean
 
 
 def load_ensemble_members(exp: ExperimentConfig, workdirs, primary):
@@ -170,3 +239,39 @@ def load_serving_params(exp: ExperimentConfig):
                 exp, infer=dataclasses.replace(exp.infer, cascade=False)
             )
     return exp, params_fine, params_coarse
+
+
+def mesh_from_device_arg(spec: str):
+    """The mesh of a ``--multichip`` run from ``--device``: ``cuda`` every
+    local card, ``cpu`` one CPU shard, or a comma-separated list of shard
+    devices (``cpu,cpu`` two CPU shards, ``cuda:0,cuda:0`` two shards on
+    card 0)."""
+    from ..parallel.mesh import make_mesh
+
+    if spec == "cuda":
+        return make_mesh()
+    return make_mesh([d.strip() for d in spec.split(",") if d.strip()])
+
+
+def multichip_mode_notes(mode: str, exp: ExperimentConfig,
+                         serving_depth=None) -> None:
+    """Operator notes of the three ``--multichip`` CLIs (predict, serve,
+    evaluate), in one place (:396-423): the single-stage modes bypass a
+    cascade preset's coarse stage, postprocessing runs on the host, and the
+    single-device serving knobs do not apply."""
+    if mode != "cascade" and exp.infer.cascade and exp.coarse_unet is not None:
+        print("note: --multichip spatial/sweep run a single-stage "
+              "whole-canvas decomposition; the preset's coarse/fine "
+              "cascade is bypassed (use --multichip cascade for "
+              "the cascade predictor's masks)", file=sys.stderr)
+    if exp.infer.postproc == "device":
+        print("note: --multichip postprocesses on the host (the device "
+              "connected components live in the single-device label "
+              "program)", file=sys.stderr)
+    if serving_depth and serving_depth > 1:
+        print("note: --serving-depth has no effect with --multichip (cases "
+              "run one at a time over the whole mesh)", file=sys.stderr)
+    if exp.infer.prep_cache_dir:
+        print("note: --prep-cache has no effect with --multichip (the "
+              "payload cache serves the single-device transfer encoding)",
+              file=sys.stderr)

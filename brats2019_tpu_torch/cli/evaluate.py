@@ -5,7 +5,7 @@ Usage:
     python -m brats2019_tpu_torch.cli.evaluate <root> [--preset cascade]
         [--workdir DIR] [--device cuda] [--use-existing] [--out metrics.json]
         [--hd95] [--sens-spec] [--folds K --fold I] [--shard I/N]
-        [--ensemble WORKDIR ...]
+        [--ensemble WORKDIR ...] [--multichip spatial|sweep|cascade]
 
 Predicts every case under <root> that has ground-truth labels (``*_seg``)
 and reports per-case and mean Dice for the BraTS regions WT/TC/ET (and with
@@ -16,9 +16,11 @@ JSON of ``--out`` is the reference's: ``{"mean", "per_case", "n_cases"}``.
 of predicting. ``--ensemble`` evaluates the checkpoint ensemble of the primary
 ``--workdir`` model and each listed workdir's model (mean probabilities).
 ``--device cuda`` (the default) on a host without a card is an error;
-``--device cpu`` runs the plain torch ops.
-
-Not ported: ``--multichip`` (ROADMAP queue 1 item 5).
+``--device cpu`` runs the plain torch ops. ``--multichip MODE`` predicts
+each case over a mesh of shards (``infer/multichip.py``; the mesh is
+``--device``: ``cuda`` every local card, or a comma-separated list of shard
+devices), with ``--ensemble`` in ``cascade`` mode only; it cannot be combined
+with ``--use-existing``.
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ from .common import (
     filter_shard,
     load_ensemble_members,
     load_stage_params,
+    mesh_from_device_arg,
+    multichip_mode_notes,
     resolve_experiment,
 )
 
@@ -69,6 +73,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="evaluate the checkpoint ensemble of the primary "
                         "--workdir model and each listed workdir's model "
                         "(mean probabilities, as predict --ensemble)")
+    p.add_argument("--multichip", default=None,
+                   choices=("spatial", "sweep", "cascade"),
+                   help="predict each case over a mesh of shards "
+                        "(infer/multichip.py); the mesh is --device")
     p.add_argument("--shard", default=None, metavar="I/N",
                    help="process only the cases whose stable name-hash lands "
                         "in shard I of N (the assignment of serve --shard)")
@@ -130,14 +138,34 @@ def _predictor(args, exp):
         except FileNotFoundError:
             exp = dataclasses.replace(
                 exp, infer=dataclasses.replace(exp.infer, cascade=False))
+    members = None
     if args.ensemble:
-        from ..infer.ensemble import EnsemblePredictor
-
         try:
             members = load_ensemble_members(exp, args.ensemble,
                                             (params_fine, params_coarse))
         except FileNotFoundError as e:
             raise _Refused(str(e))
+    if args.multichip:
+        from ..infer.multichip import MultichipPredictor
+
+        multichip_mode_notes(args.multichip, exp)
+        try:
+            pred = MultichipPredictor(exp, params_fine, mode=args.multichip,
+                                      env=mesh_from_device_arg(args.device),
+                                      params_coarse=params_coarse,
+                                      members=members)
+        except (ValueError, RuntimeError) as e:
+            raise _Refused(str(e))
+        print(f"[evaluate] multichip mode={args.multichip} over "
+              f"{pred.env.n_data} shards"
+              + (f", ensemble of {pred.num_members} members" if members
+                 else ""), flush=True)
+        return pred
+    if "," in args.device:
+        raise _Refused("a list of devices is a --multichip mesh")
+    if members is not None:
+        from ..infer.ensemble import EnsemblePredictor
+
         pred = EnsemblePredictor(exp, members, device=args.device)
         print(f"[evaluate] ensemble of {pred.num_members} members", flush=True)
         return pred
@@ -172,6 +200,13 @@ def main(argv=None) -> int:
         if args.ensemble and args.use_existing:
             raise _Refused("--ensemble re-predicts; it cannot be combined "
                            "with --use-existing")
+        if args.multichip and args.use_existing:
+            raise _Refused("--multichip re-predicts; it cannot be combined "
+                           "with --use-existing")
+        if args.multichip and args.ensemble and args.multichip != "cascade":
+            raise _Refused("--ensemble composes only with --multichip cascade "
+                           "(spatial/sweep are single-stage whole-canvas "
+                           "programs)")
         predictor = None if args.use_existing else _predictor(args, exp)
     except _Refused as e:
         print(f"error: {e}", file=sys.stderr)

@@ -7,7 +7,7 @@ Usage:
         [--no-tta] [--no-cascade] [--postproc host|device]
         [--prep-cache DIR] [--serving-depth N] [--shard I/N] [--seed N]
         [--save-probs] [--save-uncertainty] [--ensemble WORKDIR ...]
-        [--profile DIR]
+        [--multichip spatial|sweep|cascade] [--profile DIR]
 
 Loads each stage's params from ``<workdir>/{fine,coarse}/`` (an exported
 ``params.{npz,safetensors}`` in the JAX package's format, or the port's own
@@ -32,8 +32,17 @@ workdir's model, then takes the argmax (``infer/ensemble.py``).
 ``--profile DIR`` writes a torch.profiler trace of the predict calls to
 ``DIR/trace.json``.
 
-Not ported (ROADMAP queue 1): ``--multichip`` (item 5), ``--transfer-dtype``
-and ``--batch-volumes 2`` (item 6).
+``--multichip MODE`` runs each case over a mesh of shards
+(``infer/multichip.py``): ``cascade`` the flagship program distributed (the
+cascade predictor's masks), ``spatial`` one whole-volume forward with the X
+axis split over the shards, ``sweep`` the single-stage tile x flip sweep
+striped over them. The mesh is ``--device``: ``cuda`` every local card, or a
+comma-separated list of shard devices (``cuda:0,cuda:0``: two shards on one
+card; ``cpu,cpu``). ``--save-probs``/``--save-uncertainty`` are refused with
+it, and ``--ensemble`` with any mode but ``cascade``.
+
+Not ported (ROADMAP queue 1 item 6b): ``--transfer-dtype`` and
+``--batch-volumes 2``.
 """
 
 from __future__ import annotations
@@ -51,6 +60,8 @@ from .common import (
     filter_shard,
     load_ensemble_members,
     load_serving_params,
+    mesh_from_device_arg,
+    multichip_mode_notes,
     resolve_experiment,
 )
 
@@ -69,7 +80,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="no coarse stage: sweep the whole canvas")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (hand-written kernels) or cpu "
-                        "(plain torch ops)")
+                        "(plain torch ops); with --multichip, cuda (every "
+                        "local card) or a comma-separated list of shard "
+                        "devices")
     p.add_argument("--postproc", default=None, choices=("host", "device"),
                    help="where the connected-component filter runs")
     p.add_argument("--min-component-voxels", type=int, default=None,
@@ -100,6 +113,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="checkpoint ensemble: average the class "
                         "probabilities of the primary --workdir model and "
                         "each listed workdir's model, then argmax")
+    p.add_argument("--multichip", default=None,
+                   choices=("spatial", "sweep", "cascade"),
+                   help="run inference over a mesh of shards: 'cascade' = "
+                        "the flagship program distributed (coarse stage "
+                        "replicated, fine ROI tile x flip items striped, "
+                        "low-res TTA reduce, one ROI psum): the cascade "
+                        "predictor's masks; 'spatial' = one whole-volume "
+                        "forward, X axis sharded with halo exchange; "
+                        "'sweep' = tile x flip items striped (single-stage)")
     p.add_argument("--shard", default=None, metavar="I/N",
                    help="process only the cases whose stable name-hash lands "
                         "in shard I of N (the assignment of serve --shard)")
@@ -152,6 +174,42 @@ def _ensemble_predictor(args, exp, primary):
     return pred
 
 
+def _predict_multichip(args, exp, params_fine, params_coarse, cases) -> int:
+    """--multichip {cascade,spatial,sweep}: whole-volume inference over the
+    mesh of ``--device`` (``infer/multichip.py``)."""
+    from ..infer.multichip import MultichipPredictor
+
+    multichip_mode_notes(args.multichip, exp, serving_depth=args.serving_depth)
+    members = None
+    try:
+        if args.ensemble:
+            members = load_ensemble_members(exp, args.ensemble,
+                                            (params_fine, params_coarse))
+        mp = MultichipPredictor(exp, params_fine, mode=args.multichip,
+                                env=mesh_from_device_arg(args.device),
+                                params_coarse=params_coarse, members=members)
+    except (FileNotFoundError, ValueError, RuntimeError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    print(f"[predict] multichip mode={args.multichip} over {mp.env.n_data} "
+          f"shards" + (f", ensemble of {mp.num_members} members"
+                       if members else ""), flush=True)
+    prof = start_trace(mp.device) if args.profile else None
+    t0 = time.time()
+    try:
+        for d in cases:
+            out = mp.predict_dir(d, args.output if len(cases) == 1 else None)
+            print(f"[predict] {d} -> {out}", flush=True)
+    finally:
+        if prof is not None:
+            path = stop_trace(prof, mp.device, args.profile)
+            print(f"[predict] profiler trace written to {path}", flush=True)
+    dt = time.time() - t0
+    print(f"[predict] {len(cases)} case(s) in {dt:.2f}s "
+          f"({len(cases) / dt:.3f} volumes/sec, multichip)", flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     exp = resolve_experiment(args)
@@ -183,6 +241,26 @@ def main(argv=None) -> int:
         return 2
     if args.output and len(cases) > 1:
         print("error: --output only valid for a single case", file=sys.stderr)
+        return 2
+    if args.multichip:
+        if args.save_probs or args.save_uncertainty:
+            print("error: --save-probs/--save-uncertainty are not available "
+                  "with --multichip (the probs pass is a single-device "
+                  "program)", file=sys.stderr)
+            return 2
+        if args.ensemble and args.multichip != "cascade":
+            print("error: --ensemble composes only with --multichip cascade "
+                  "(spatial/sweep are single-stage whole-canvas programs)",
+                  file=sys.stderr)
+            return 2
+        try:
+            exp, params_fine, params_coarse = load_serving_params(exp)
+        except FileNotFoundError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        return _predict_multichip(args, exp, params_fine, params_coarse, cases)
+    if "," in args.device:
+        print("error: a list of devices is a --multichip mesh", file=sys.stderr)
         return 2
     try:
         exp, params_fine, params_coarse = load_serving_params(exp)

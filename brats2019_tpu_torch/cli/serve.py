@@ -39,9 +39,16 @@ pass shared by both, best effort: a failed artifact pass is logged and the
 case stays served), before the case's completion is published, so ``GET
 /artifact`` finds them as soon as ``/result`` does.
 
-Not ported (ROADMAP queue 1 items 5 and 6 list them): ``--multichip`` (item
-5), ``--transfer-dtype int8`` and the transfer-bound hint, ``--rss-limit-mb``
-(with its exit-4 recycle) and ``--batch-volumes`` (item 6).
+``--multichip MODE`` serves each case over a mesh of shards
+(``infer/multichip.py``; the mesh is ``--device``: ``cuda`` every local card,
+or a comma-separated list of shard devices such as ``cuda:0,cuda:0``):
+``cascade`` the cascade predictor's masks, ``spatial``/``sweep`` the
+single-stage decompositions; ``--ensemble`` composes with ``cascade`` only,
+and ``--save-probs``/``--save-uncertainty`` are refused with it.
+
+Not ported (ROADMAP queue 1 item 6b lists them): ``--transfer-dtype int8``
+and the transfer-bound hint, ``--rss-limit-mb`` (with its exit-4 recycle)
+and ``--batch-volumes``.
 """
 
 from __future__ import annotations
@@ -64,6 +71,8 @@ from .common import (
     load_ensemble_members,
     load_serving_params,
     load_stage_params,
+    mesh_from_device_arg,
+    multichip_mode_notes,
     parse_shard,
     resolve_experiment,
     shard_of,
@@ -124,7 +133,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="no coarse stage: sweep the whole canvas")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (hand-written kernels) or cpu "
-                        "(plain torch ops)")
+                        "(plain torch ops); with --multichip, cuda (every "
+                        "local card) or a comma-separated list of shard "
+                        "devices")
+    p.add_argument("--multichip", default=None,
+                   choices=("spatial", "sweep", "cascade"),
+                   help="serve each case over a mesh of shards: 'cascade' "
+                        "gives the cascade predictor's masks, "
+                        "'spatial'/'sweep' are the single-stage "
+                        "decompositions; --ensemble composes with cascade, "
+                        "--save-probs/--save-uncertainty do not compose")
     p.add_argument("--postproc", default="device", choices=("host", "device"),
                    help="where the connected-component filter runs. serve "
                         "defaults to the device: the host then only pastes, "
@@ -303,13 +321,32 @@ class Server:
 
     def __init__(self, exp, output_dir=None, log_dir=None, retries=1,
                  retry_backoff=1.0, device="cuda", ensemble_workdirs=None,
-                 save_probs=False, save_uncertainty=False):
+                 save_probs=False, save_uncertainty=False, multichip=None):
         exp, params_fine, params_coarse = load_serving_params(exp)
         self.exp = exp
         self.save_probs = save_probs
         self.save_uncertainty = save_uncertainty
         self.ensemble_workdirs = list(ensemble_workdirs or [])
-        if self.ensemble_workdirs:
+        self.multichip = multichip
+        if multichip:
+            # every case over the mesh: a predict_dirs / reload / warmup
+            # drop-in; main() refused the probability artifacts and
+            # ensembles outside cascade mode before this point
+            from ..infer.multichip import MultichipPredictor
+
+            members = None
+            if self.ensemble_workdirs:
+                members = load_ensemble_members(
+                    exp, self.ensemble_workdirs, (params_fine, params_coarse))
+            self.predictor = MultichipPredictor(
+                exp, params_fine, mode=multichip,
+                env=mesh_from_device_arg(device),
+                params_coarse=params_coarse, members=members)
+            print(f"serve: multichip mode={multichip} over "
+                  f"{self.predictor.env.n_data} shards"
+                  + (f", ensemble of {self.predictor.num_members} members"
+                     if members else ""), flush=True)
+        elif self.ensemble_workdirs:
             from ..infer.ensemble import EnsemblePredictor
 
             members = load_ensemble_members(
@@ -357,7 +394,8 @@ class Server:
         self._prefill_q: "queue.Queue[str]" = queue.Queue()
         self._prefill_queued: set = set()
         self._prefill_thread: Optional[threading.Thread] = None
-        self._can_prefill = bool(self.exp.infer.prep_cache_dir)
+        # the mesh predictor's prep does not use the payload cache
+        self._can_prefill = bool(self.exp.infer.prep_cache_dir) and not multichip
 
     def _queue_prefill(self, case_dirs) -> None:
         """Enqueue not-yet-seen cases for background payload prefill and
@@ -730,12 +768,33 @@ def main(argv=None) -> int:
         infer = dataclasses.replace(infer, prep_cache_dir=args.prep_cache)
     exp = dataclasses.replace(exp, infer=infer)
 
+    if args.multichip:
+        # the probs pass behind the artifacts is a single-device program:
+        # refuse instead of serving something other than the flags promise
+        for flag, name in ((args.save_probs, "--save-probs"),
+                           (args.save_uncertainty, "--save-uncertainty")):
+            if flag:
+                print(f"error: --multichip does not compose with {name}",
+                      file=sys.stderr)
+                return 2
+        if args.ensemble and args.multichip != "cascade":
+            print("error: --ensemble composes only with --multichip "
+                  "cascade (spatial/sweep are single-stage whole-canvas "
+                  "programs)", file=sys.stderr)
+            return 2
+        multichip_mode_notes(args.multichip, exp,
+                             serving_depth=args.serving_depth)
+    elif "," in args.device:
+        print("error: a list of devices is a --multichip mesh", file=sys.stderr)
+        return 2
+
     try:
         server = Server(
             exp, output_dir=args.output_dir, log_dir=args.watch_root,
             retries=args.retries, retry_backoff=args.retry_backoff,
             device=args.device, ensemble_workdirs=args.ensemble,
             save_probs=args.save_probs, save_uncertainty=args.save_uncertainty,
+            multichip=args.multichip,
         )
     except (FileNotFoundError, ValueError, NotImplementedError,
             RuntimeError) as e:

@@ -9,8 +9,11 @@ Usage:
         [--init-from PATH] [--prep-cache DIR] [--debug-nans] [--debug-checks]
         [--profile]
 
-Trains the preset's stages on one device (coarse first when cascaded) and
-leaves ``<workdir>/<stage>/checkpoints/`` that ``cli.predict`` serves.
+Trains the preset's stages (coarse first when cascaded) and leaves
+``<workdir>/<stage>/checkpoints/`` that ``cli.predict`` serves. On ``--device
+cuda`` the run is data-parallel over every local card, as the reference's
+over its mesh (``parallel/mesh.py``, ``train/step.py``); on one card that is
+the one-device run.
 ``--distill-from`` trains the fine stage as the KD student of those
 workdirs' fine params (``train/distill.py``); ``--init-from`` warm-starts
 one stage from exported params or a reference torch checkpoint.
@@ -179,9 +182,16 @@ def main(argv=None) -> int:
                              temperature=args.kd_temperature)
         print(f"[train] distilling from {len(kd_teachers)} teacher(s)",
               flush=True)
+    env = None
+    if device.type == "cuda":
+        from ..parallel.mesh import make_mesh
+
+        env = make_mesh()
+        if env.n_data > 1:
+            print(f"[train] data-parallel over {env.n_data} cards", flush=True)
     for stage in stages:
         res = train_stage(exp, train_dirs, stage=stage, val_dirs=val_dirs,
-                          device=device, profile=args.profile,
+                          device=device, env=env, profile=args.profile,
                           kd_teachers=kd_teachers if stage == "fine" else None,
                           kd_config=kd_config, init_from=args.init_from,
                           debug_nans=args.debug_nans)

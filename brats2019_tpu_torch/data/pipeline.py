@@ -16,6 +16,12 @@ Layout (one device):
 
 The case cursor (epoch, index) is part of the training checkpoint.
 
+Data parallelism (:246-292): each shard of a mesh has its own pool on its
+device, filled from its own cursor over the one shuffled order, striding by
+the number of shards from its global index (``stride``, ``offset``), so the
+shards hold disjoint cases and the process layout does not change which case
+a shard sees. One shard: stride 1, offset 0, the one-device pool.
+
 The prep cache (``prep_cache_dir``, :105-183): an uncompressed npz per
 (case, canvas, downsample, input-file signature) holding the prepared
 canvas, so a pool that revisits a case skips the NIfTI decode, z-score and
@@ -232,7 +238,8 @@ class CaseCursor:
 class CasePool:
     """Device-resident pool of ``cases`` prepared cases with a background
     host refresh, read through the prep cache when ``prep_cache_dir`` is
-    set."""
+    set; ``stride``/``offset``: a data-parallel shard's interleaved share of
+    the traversal."""
 
     def __init__(
         self,
@@ -244,6 +251,8 @@ class CasePool:
         seed: int = 0,
         prefetch: int = 2,
         prep_cache_dir: Optional[str] = None,
+        stride: int = 1,
+        offset: int = 0,
     ):
         if not case_dirs:
             raise ValueError("CasePool needs at least one case")
@@ -253,7 +262,8 @@ class CasePool:
         self.downsample = downsample
         self.prep_cache_dir = prep_cache_dir
         self.k = cases
-        self.cursor = CaseCursor(len(self.case_dirs), seed=seed)
+        self.cursor = CaseCursor(len(self.case_dirs), seed=seed,
+                                 stride=stride, offset=offset)
         self._queue: "queue.Queue[Dict[str, object]]" = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None

@@ -21,10 +21,13 @@ probabilities, and this serves that ensemble.
   uint8 label canvas or the f32 mean crosses to the host, once.
 * Postprocessing runs on the host (:283-300): the device connected
   components live in the label program, which the ensemble bypasses.
-* One card: members run one after another on the predictor's device, as the
-  reference's sequential path (:236-241). Its member-parallel path over
-  several devices (:201-220) waits for multi-GPU support (ROADMAP queue 1
-  item 5).
+* Member-parallel over several cards (:201-220): member i runs on device
+  i mod n of ``devices`` (default: every local card for a ``cuda`` predictor,
+  else the predictor's device), the input copied once to each device, and
+  ``_reduce_results`` gathers the members' ROI results to the first device
+  and adds them there in member order, so the f32 sum is the one-device
+  sum bitwise. On one device the members run one after another, as the
+  reference's sequential path (:236-241).
 """
 
 from __future__ import annotations
@@ -65,6 +68,7 @@ class EnsemblePredictor:
         exp: ExperimentConfig,
         members: Sequence[Tuple],
         device: Union[str, torch.device] = "cuda",
+        devices: Optional[Sequence] = None,
     ):
         if not members:
             raise ValueError("EnsemblePredictor needs at least one member")
@@ -72,16 +76,34 @@ class EnsemblePredictor:
         self._p = Predictor(exp, pf0, pc0, device=device)
         self.exp = exp
         self.device = self._p.device
+        if devices is None:
+            devices = ([torch.device("cuda", i)
+                        for i in range(torch.cuda.device_count())]
+                       if self.device.type == "cuda" and self.device.index is None
+                       else [self.device])
+        self._devices = [torch.device(d) for d in devices]
         self._programs = [self._p.program] + [
-            self._member_program(pf, pc) for pf, pc in members[1:]]
+            self._member_program(pf, pc, self._member_device(i))
+            for i, (pf, pc) in enumerate(members[1:], start=1)]
 
-    def _member_program(self, params_fine, params_coarse):
-        """A member's nets and predict program, built once on the device."""
+    def _member_device(self, i: int) -> torch.device:
+        """Member i's device (i mod n of ``devices``)."""
+        return self._devices[i % len(self._devices)]
+
+    def _member_program(self, params_fine, params_coarse, device):
+        """A member's nets and predict program, built once on its device (a
+        member without coarse params reuses the primary's coarse net, on
+        its device)."""
         exp, p = self.exp, self._p
-        fine = build_unet(exp.unet, params_fine, self.device)
+        fine = build_unet(exp.unet, params_fine, device)
         coarse = p.coarse
-        if coarse is not None and params_coarse is not None:
-            coarse = build_unet(exp.coarse_unet, params_coarse, self.device)
+        if coarse is not None:
+            if params_coarse is not None:
+                coarse = build_unet(exp.coarse_unet, params_coarse, device)
+            elif next(coarse.parameters()).device != torch.device(device):
+                coarse = build_unet(exp.coarse_unet, {
+                    "params/" + k.replace(".", "/"): v.detach().cpu().numpy()
+                    for k, v in coarse.state_dict().items()}, device)
         return make_predict_fn(fine, exp.infer, p.canvas,
                                num_classes=exp.unet.num_classes, coarse=coarse)
 
@@ -98,21 +120,41 @@ class EnsemblePredictor:
         pf0, pc0 = members[0]
         self._p.reload_params(pf0, pc0)
         self._programs = [self._p.program] + [
-            self._member_program(pf, pc) for pf, pc in members[1:]]
+            self._member_program(pf, pc, self._member_device(i))
+            for i, (pf, pc) in enumerate(members[1:], start=1)]
 
     # ---------------------------------------------------------- on the device --
 
     def accumulate(self, canvas_img: torch.Tensor):
         """(sum, coverage count) of the members' ROI probabilities on f32
         device canvases, added in member order, not yet divided."""
+        with torch.inference_mode():
+            return self._reduce_results(self._accum_probs_parallel(canvas_img),
+                                        canvas_img.device)
+
+    def _accum_probs_parallel(self, canvas_img: torch.Tensor) -> list:
+        """Every member's (probs_roi, start), member i on its device (the
+        input copied there once a device); on CUDA the members' launches
+        queue on their own cards, so they run side by side."""
+        x_on = {canvas_img.device: canvas_img}
+        results = []
+        for i, program in enumerate(self._programs):
+            dev = canvas_img.device if i == 0 else self._member_device(i)
+            if dev not in x_on:
+                x_on[dev] = canvas_img.to(dev)
+            results.append(program.probs(x_on[dev]))
+        return results
+
+    def _reduce_results(self, results, dev):
+        """The members' results gathered to ``dev`` and added there in member
+        order (the same f32 sum whichever device made each)."""
         shape = self._p.canvas
-        dev = canvas_img.device
         with torch.inference_mode():
             acc = torch.zeros(shape + (self.exp.unet.num_classes,),
                               dtype=torch.float32, device=dev)
             cnt = torch.zeros(shape, dtype=torch.float32, device=dev)
-            for program in self._programs:
-                probs_r, start = program.probs(canvas_img)
+            for probs_r, start in results:
+                probs_r, start = probs_r.to(dev), start.to(dev)
                 if tuple(probs_r.shape[:3]) == shape:
                     acc += probs_r
                     cnt += 1.0
@@ -181,12 +223,12 @@ class EnsemblePredictor:
         return background_fill(probs)
 
     def predict_probs_arrays(
-        self, image: np.ndarray
+        self, image: np.ndarray, meta: Optional[dict] = None
     ) -> Tuple[np.ndarray, PredictionStats]:
         """Ensemble-mean class probabilities (X, Y, Z, C) f32; voxels no
         member wrote get exact background one-hot."""
         t0 = time.time()
-        canvas, shape, bbox = self._p.prepare(image)
+        canvas, shape, bbox = self._p.prepare(image, meta)
         t1 = time.time()
         probs = self._mean_probs(canvas, shape, bbox)
         t2 = time.time()
@@ -199,19 +241,19 @@ class EnsemblePredictor:
         return self._finish_labels(labels_c, shape, bbox), t2 - t1, time.time() - t2
 
     def predict_arrays(
-        self, image: np.ndarray
+        self, image: np.ndarray, meta: Optional[dict] = None
     ) -> Tuple[np.ndarray, PredictionStats]:
         """argmax of the ensemble-mean probabilities -> internal labels
         (X, Y, Z) uint8, host postprocessed."""
         t0 = time.time()
-        canvas, shape, bbox = self._p.prepare(image)
+        canvas, shape, bbox = self._p.prepare(image, meta)
         t1 = time.time()
         labels, dev_s, post_s = self._labels_from_prepped(canvas, shape, bbox)
         return labels, PredictionStats(t1 - t0, dev_s, post_s)
 
     def predict_case(self, case) -> Tuple[np.ndarray, PredictionStats]:
         """``predict_arrays`` on a loaded case (``evaluate --ensemble``)."""
-        return self.predict_arrays(case.image)
+        return self.predict_arrays(case.image, meta=case.meta)
 
     def _prep_dir(self, case_dir: str):
         """The primary's cached case-directory prep, ready on this stream:

@@ -1,6 +1,9 @@
 """Whole-case prediction (reference: ``brats2019_tpu/infer/predictor.py``).
 
-Host: NIfTI decode, brain bbox, bucketed crop + bf16 cast (:432-475). One
+Host: NIfTI decode (the native threaded decoder when it is available,
+``data/case.py``), brain bbox (the decoder's fused bbox from ``Case.meta``
+where the reference takes it, :440-452, else the strided scan), bucketed crop
++ bf16 cast (:432-475). One
 host->device copy of the crop, embedded into the zero canvas on the device.
 Device: the program ``models/cascade.py`` ``make_predict_fn`` chose (the
 split cascade, the staged sweep or the monolithic program) returns the ROI
@@ -11,7 +14,11 @@ NIfTI write with the input header.
 
 ``predict_arrays`` / ``predict_dir`` run one case. ``predict_arrays_many`` /
 ``predict_dirs`` are the serving path (:344, :700): host prep, the device
-program and host postprocessing overlap across the cases of a batch.
+program and host postprocessing overlap across the cases of a batch, and
+with several cards (``devices``; default every local card for ``cuda``) the
+cases are striped round-robin over them, case i on card i mod n, each card
+running the whole program on its cases (its own copy of the nets, built at
+its first case, and its own copy stream).
 ``InferenceConfig.serving_depth`` threads prepare cases (decode or payload
 cache, encode, and on a card the copy from pinned memory on a copy stream,
 with an event the compute stream waits on); ONE thread, the caller's,
@@ -26,15 +33,14 @@ the ROI at its start into an f32 canvas, un-crop, and give voxels no tile
 wrote exact background; ``save_probs_npz`` writes the ``<case>_probs.npz``
 artifact.
 
-Not ported (ROADMAP queue 1 items 5 and 6 list them): striping over several
-devices (item 5), the int8 transfer encoding and its transfer-bound hint,
-volume pairing (``batch_volumes=2``), and the native threaded NIfTI decoder
-with its fused bbox (``meta``) (item 6).
+Not ported (ROADMAP queue 1 item 6b lists them): the int8 transfer encoding
+and its transfer-bound hint, and volume pairing (``batch_volumes=2``).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import os
 import threading
@@ -139,18 +145,19 @@ class Predictor:
         params_fine,
         params_coarse=None,
         device: Union[str, torch.device] = "cuda",
+        devices=None,
     ):
         self.exp = exp
         self.device = resolve_device(device)
         if exp.infer.transfer_dtype != "bfloat16":
             raise NotImplementedError(
                 "only the bf16 transfer encoding is ported; int8 is a "
-                "left-out of ROADMAP queue 1 item 6 (serving)"
+                "left-out of ROADMAP queue 1 item 6b (serving)"
             )
         if exp.infer.batch_volumes != 1:
             raise NotImplementedError(
                 "volume pairing (batch_volumes=2) is not ported; ROADMAP "
-                "queue 1 item 6 lists it"
+                "queue 1 item 6b lists it"
             )
         self.canvas = tuple(exp.infer.canvas or exp.train.pool_shape)
         self.fine = build_unet(exp.unet, params_fine, self.device)
@@ -167,6 +174,39 @@ class Predictor:
         self._memo_lock = threading.Lock()
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
+        # the striping lanes of the multi-case paths: lane 0 is this
+        # device's program, lane j > 0 a copy on devices[j], built at its
+        # first case (_lane)
+        if devices is None:
+            devices = ([torch.device("cuda", i)
+                        for i in range(torch.cuda.device_count())]
+                       if self.device.type == "cuda" and self.device.index is None
+                       else [self.device])
+        self.devices = [torch.device(d) for d in devices] or [self.device]
+        self._lanes: dict = {}
+        self._lane_lock = threading.Lock()
+
+    def _lane(self, j: int):
+        """(device, program, copy stream) of striping lane ``j``."""
+        if j == 0:
+            return self.device, self.program, self._copy_stream
+        with self._lane_lock:
+            if j not in self._lanes:
+                dev = self.devices[j]
+                copy = lambda m, cfg: None if m is None else build_unet(
+                    cfg, {"params/" + k.replace(".", "/"): v.detach().cpu().numpy()
+                          for k, v in m.state_dict().items()}, dev)
+                program = make_predict_fn(
+                    copy(self.fine, self.exp.unet), self.exp.infer, self.canvas,
+                    num_classes=self.exp.unet.num_classes,
+                    coarse=copy(self.coarse, self.exp.coarse_unet))
+                stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+                self._lanes[j] = (dev, program, stream)
+            return self._lanes[j]
+
+    def _lane_of(self, i: int) -> int:
+        """The lane of the i-th case of a batch: round-robin over devices."""
+        return i % len(self.devices)
 
     # ---------------------------------------------------------------- weights --
 
@@ -213,35 +253,50 @@ class Predictor:
                 continue
             flat = load_params(params) if isinstance(params, str) else params
             model.load_state_dict(state_dict_from_flat(flat), strict=True)
+        with self._lane_lock:
+            self._lanes.clear()     # the other cards' copies: rebuilt from these
 
     # ------------------------------------------------------------- host side --
 
     def _encode_host(
-        self, image: np.ndarray
+        self, image: np.ndarray, meta: Optional[dict] = None
     ) -> Tuple[torch.Tensor, Optional[Tuple[int, int, int]], BBox]:
         """Brain bbox -> (bucketed) crop + bf16 cast: the bytes that cross
         to the device. ``dst is None`` means ``small`` is the whole canvas.
         Deterministic for a fixed (input, canvas, bucket), which is what
-        makes the payload cacheable."""
-        bbox = brain_bbox_fast_np(image)
+        makes the payload cacheable. ``meta`` (the native decoder's, from
+        ``Case.meta``) gives the brain bbox the decoder fused into its decode
+        (:440-452); without it the strided exact scan finds it."""
+        if meta is not None:
+            bbox = BBox(tuple(int(v) for v in meta["bbox_lo"]),
+                        tuple(int(v) for v in meta["bbox_hi"]),
+                        image.shape[:3])
+        else:
+            bbox = brain_bbox_fast_np(image)
         bucket = self.exp.infer.transfer_bucket
         if bucket:
             small, dst = crop_cast_bucket_np(image, bbox, self.canvas, bucket)
             return small, dst, bbox
         return crop_cast_fit_np(image, bbox, self.canvas), None, bbox
 
-    def _memo_encode(self, image: np.ndarray):
+    def _memo_encode(self, image: np.ndarray, meta: Optional[dict] = None):
         """``_encode_host`` through the bounded in-memory payload memo, keyed
         by array identity (:487): a volume submitted again skips the bbox
         scan and the crop/cast; the transfer still happens per dispatch.
         Entries hold a weak reference to the keyed array, so a stream of
         distinct volumes pins nothing: a dead entry is swept on the next
         call, and the liveness check makes a recycled ``id()`` read as a
-        miss. Submitted arrays must not be mutated in place afterwards."""
+        miss. Submitted arrays must not be mutated in place afterwards. The
+        bbox source is part of the key (:509-516): the same array submitted
+        with and without the decoder's meta never shares an entry."""
+        encode = (lambda: self._encode_host(image)) if meta is None else (
+            lambda: self._encode_host(image, meta))
         cap = self.exp.infer.payload_memo_volumes
         if cap <= 0:
-            return self._encode_host(image)
-        key = id(image)
+            return encode()
+        key = id(image) if meta is None else (
+            id(image), tuple(int(v) for v in meta["bbox_lo"]),
+            tuple(int(v) for v in meta["bbox_hi"]))
         with self._memo_lock:
             for k in [k for k, e in self._payload_memo.items() if e[0]() is None]:
                 del self._payload_memo[k]
@@ -249,7 +304,7 @@ class Predictor:
             if ent is not None and ent[0]() is image:
                 self._payload_memo.move_to_end(key)
                 return ent[1]
-        payload = self._encode_host(image)
+        payload = encode()
         try:
             ref = weakref.ref(image)
         except TypeError:
@@ -262,28 +317,30 @@ class Predictor:
         return payload
 
     def _payload_to_device(self, small: torch.Tensor,
-                           dst: Optional[Tuple[int, int, int]]):
-        """Copy the payload to the device and embed it into the zero canvas
-        (:477). On a card the copy leaves pinned memory on the copy stream
-        and the embed follows it there; the returned event marks the canvas
-        ready, and the thread that launches the device program waits on it
-        (``_await_canvas``). Returns (canvas, event or None)."""
-        if self.device.type != "cuda":
-            return self._embed(small, dst), None
-        with torch.cuda.stream(self._copy_stream):
+                           dst: Optional[Tuple[int, int, int]], lane: int = 0):
+        """Copy the payload to the lane's device and embed it into the zero
+        canvas (:477). On a card the copy leaves pinned memory on the copy
+        stream and the embed follows it there; the returned event marks the
+        canvas ready, and the thread that launches the device program waits
+        on it (``_await_canvas``). Returns (canvas, event or None)."""
+        dev, _, stream = self._lane(lane)
+        if dev.type != "cuda":
+            return self._embed(small, dst, dev), None
+        with torch.cuda.device(dev), torch.cuda.stream(stream):
             canvas = self._embed(
-                small.pin_memory().to(self.device, non_blocking=True), dst)
+                small.pin_memory().to(dev, non_blocking=True), dst, dev)
             event = torch.cuda.Event()
             event.record()
         return canvas, event
 
     def _embed(self, small: torch.Tensor,
-               dst: Optional[Tuple[int, int, int]]) -> torch.Tensor:
-        small = small.to(self.device)
+               dst: Optional[Tuple[int, int, int]], dev=None) -> torch.Tensor:
+        dev = self.device if dev is None else dev
+        small = small.to(dev)
         if dst is None:
             return small
         canvas = torch.zeros(self.canvas + tuple(small.shape[3:]),
-                             dtype=small.dtype, device=self.device)
+                             dtype=small.dtype, device=dev)
         x, y, z = dst
         sx, sy, sz = small.shape[:3]
         canvas[x:x + sx, y:y + sy, z:z + sz] = small
@@ -292,21 +349,23 @@ class Predictor:
     def _await_canvas(self, canvas: torch.Tensor, event) -> torch.Tensor:
         """Make the current stream wait for a canvas made on the copy stream."""
         if event is not None:
-            stream = torch.cuda.current_stream(self.device)
+            stream = torch.cuda.current_stream(canvas.device)
             stream.wait_event(event)
             canvas.record_stream(stream)
         return canvas
 
-    def _prep_to(self, image: np.ndarray):
-        """Host encode (memoized) + transfer: ((canvas, event), cropped
-        shape, bbox). Runs in a prep thread on the serving path."""
-        small, dst, bbox = self._memo_encode(image)
-        return self._payload_to_device(small, dst), bbox.shape, bbox
+    def _prep_to(self, image: np.ndarray, meta: Optional[dict] = None,
+                 lane: int = 0):
+        """Host encode (memoized) + transfer to the lane's device: ((canvas,
+        event), cropped shape, bbox). Runs in a prep thread on the serving
+        path."""
+        small, dst, bbox = self._memo_encode(image, meta)
+        return self._payload_to_device(small, dst, lane), bbox.shape, bbox
 
-    def prepare(self, image: np.ndarray):
+    def prepare(self, image: np.ndarray, meta: Optional[dict] = None):
         """Host encode + copy to the device, ready on the current stream:
         (canvas on the device, cropped shape, bbox)."""
-        (canvas, event), shape, bbox = self._prep_to(image)
+        (canvas, event), shape, bbox = self._prep_to(image, meta)
         return self._await_canvas(canvas, event), shape, bbox
 
     def _cache_path(self, case_dir: str) -> Optional[str]:
@@ -318,7 +377,7 @@ class Predictor:
             self.exp.infer.transfer_dtype,
         )
 
-    def _prep_dir_to(self, case_dir: str):
+    def _prep_dir_to(self, case_dir: str, lane: int = 0):
         """Case-directory prep through the on-disk payload cache (:551): a
         hit loads the stored payload and reads only the t1 header (for the
         output's affine); a miss decodes, encodes and stores. The stored
@@ -331,13 +390,13 @@ class Predictor:
                 small, dst, bbox = payload
                 name = os.path.basename(os.path.normpath(case_dir))
                 header = read_header(modality_paths(case_dir)[0])
-                return (name, header, self._payload_to_device(small, dst),
+                return (name, header, self._payload_to_device(small, dst, lane),
                         bbox.shape, bbox)
         case = load_case(case_dir)
-        small, dst, bbox = self._encode_host(case.image)
+        small, dst, bbox = self._encode_host(case.image, case.meta)
         if path is not None:
             store_payload(path, small, dst, bbox)
-        return (case.name, case.header, self._payload_to_device(small, dst),
+        return (case.name, case.header, self._payload_to_device(small, dst, lane),
                 bbox.shape, bbox)
 
     def prefill_payload_cache(self, case_dir: str) -> bool:
@@ -350,7 +409,7 @@ class Predictor:
         if path is None or os.path.exists(path):
             return False
         case = load_case(case_dir)
-        small, dst, bbox = self._encode_host(case.image)
+        small, dst, bbox = self._encode_host(case.image, case.meta)
         store_payload(path, small, dst, bbox)
         return True
 
@@ -402,18 +461,25 @@ class Predictor:
         with torch.inference_mode():
             return self.program.probs(canvas_img)
 
-    def _dispatch(self, prepped):
-        """Wait for a prepared canvas, launch the device program on it and
-        start the readback. Called from one thread only."""
-        canvas = self._await_canvas(*prepped)
-        return _start_host_copy(*self.predict_device(canvas))
+    def _dispatch(self, prepped, lane: int = 0):
+        """Wait for a prepared canvas, launch the lane's device program on it
+        and start the readback. Called from one thread only."""
+        if lane == 0:
+            canvas = self._await_canvas(*prepped)
+            return _start_host_copy(*self.predict_device(canvas))
+        dev, program, _ = self._lane(lane)
+        with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+            canvas = self._await_canvas(*prepped)
+            with torch.inference_mode():
+                return _start_host_copy(*program(canvas))
 
     def predict_arrays(
-        self, image: np.ndarray
+        self, image: np.ndarray, meta: Optional[dict] = None
     ) -> Tuple[np.ndarray, PredictionStats]:
-        """image: raw (X, Y, Z, 4) float32 -> internal labels (X, Y, Z) uint8."""
+        """image: raw (X, Y, Z, 4) float32 -> internal labels (X, Y, Z) uint8;
+        ``meta``: the native decoder's (its fused bbox), when it read it."""
         t0 = time.time()
-        prepped, cropped_shape, bbox = self._prep_to(image)
+        prepped, cropped_shape, bbox = self._prep_to(image, meta)
         t1 = time.time()
         fetched = self._dispatch(prepped)
         if fetched[1] is not None:
@@ -429,29 +495,32 @@ class Predictor:
         depth = max(1, self.exp.infer.serving_depth)
         with ThreadPoolExecutor(depth) as prep_pool, \
                 ThreadPoolExecutor(depth) as post_pool:
-            preps = [prep_pool.submit(self._prep_to, img) for img in images]
+            preps = [prep_pool.submit(self._prep_to, img, None, self._lane_of(i))
+                     for i, img in enumerate(images)]
             posts = []
-            for fut in preps:
+            for i, fut in enumerate(preps):
                 prepped, shape, bbox = fut.result()
                 posts.append(post_pool.submit(
-                    self._finish, self._dispatch(prepped), shape, bbox))
+                    self._finish, self._dispatch(prepped, self._lane_of(i)),
+                    shape, bbox))
             return [p.result() for p in posts]
 
     def predict_case(self, case) -> Tuple[np.ndarray, PredictionStats]:
-        """``predict_arrays`` on a loaded case (``evaluate`` calls this)."""
-        return self.predict_arrays(case.image)
+        """``predict_arrays`` on a loaded case, with its decoder meta
+        (``evaluate`` calls this; :698)."""
+        return self.predict_arrays(case.image, meta=case.meta)
 
     # -------------------------------------------------------- probabilities --
 
     def predict_probs_arrays(
-        self, image: np.ndarray
+        self, image: np.ndarray, meta: Optional[dict] = None
     ) -> Tuple[np.ndarray, PredictionStats]:
         """Mean class probabilities for the whole volume (X, Y, Z, C) f32
         (:628): the same TTA-averaged canvas the labels are argmaxed from.
         Voxels outside the predicted ROI or the brain bbox get exact
         background one-hot."""
         t0 = time.time()
-        canvas, shape, bbox = self.prepare(image)
+        canvas, shape, bbox = self.prepare(image, meta)
         t1 = time.time()
         probs, dev_s, post_s = self._probs_from_prepped(canvas, shape, bbox)
         return probs, PredictionStats(t1 - t0, dev_s, post_s)
@@ -512,13 +581,15 @@ class Predictor:
         depth = max(1, self.exp.infer.serving_depth)
         with ThreadPoolExecutor(depth) as prep_pool, \
                 ThreadPoolExecutor(depth) as post_pool:
-            preps = [prep_pool.submit(self._prep_dir_to, d) for d in case_dirs]
+            preps = [prep_pool.submit(self._prep_dir_to, d, self._lane_of(i))
+                     for i, d in enumerate(case_dirs)]
             posts = []
-            for fut, d, out in zip(preps, case_dirs, output_paths):
+            for i, (fut, d, out) in enumerate(zip(preps, case_dirs, output_paths)):
                 name, header, prepped, shape, bbox = fut.result()
                 posts.append(post_pool.submit(
                     self._finish_and_write, name, header,
-                    self._dispatch(prepped), shape, bbox, d, out))
+                    self._dispatch(prepped, self._lane_of(i)), shape, bbox, d,
+                    out))
             return [p.result() for p in posts]
 
     def predict_dir(

@@ -46,14 +46,13 @@ def predict_uncertainty_dir(
     """Run ``predictor.predict_probs_arrays`` (works for Predictor and
     EnsemblePredictor alike) on a case directory and write the three
     QU-BraTS maps as ``<case>_unc_{whole,core,enhance}.nii.gz`` with the
-    input header/affine. Returns the written paths. (The reference also
-    hands the native decoder's ``meta`` on; the port reads NIfTI in NumPy
-    and has none.)"""
+    input header/affine. Returns the written paths. The native decoder's
+    ``meta`` rides along, so the brain bbox is the one it fused."""
     from ..data.case import load_case
     from ..utils.nifti import write_nifti
 
     case = load_case(case_dir, load_seg=False)
-    probs, _ = predictor.predict_probs_arrays(case.image)
+    probs, _ = predictor.predict_probs_arrays(case.image, meta=case.meta)
     maps = region_uncertainty_maps(probs)
     outs = []
     for name, u in maps.items():

@@ -2,7 +2,7 @@
 hand-written Hopper kernel on a CUDA tensor, and counts its launches."""
 
 from .conv import conv3d, get_backend, set_backend
-from .norm import instance_norm_act, instance_norm_act_bwd
+from .norm import instance_norm_act, instance_norm_act_bwd, instance_norm_partials
 from .resize import (
     downsample2x,
     downsample2x_bwd,
@@ -34,6 +34,7 @@ def reset_launch_counts() -> None:
     conv3d.launches_wgmma = 0   # the share of conv3d.launches on conv3d_wgmma.cu
     conv3d.launches_stats = 0   # of those, with the InstanceNorm-statistics epilogue
     instance_norm_act.launches_partials = 0   # IN+act from the conv's partials
+    instance_norm_act.launches_shard_stats = 0   # a shard's statistics pass alone
     upsample2x.launches_cuda = 0     # the 2x up on resize2x.cu
     downsample2x.launches_cuda = 0   # the 2x down on resize2x.cu (f32)
     upsample2x.launches_concat = 0   # of those, into the decoder's concat buffer
@@ -58,6 +59,7 @@ __all__ = [
     "get_backend",
     "instance_norm_act",
     "instance_norm_act_bwd",
+    "instance_norm_partials",
     "launch_counts",
     "reset_launch_counts",
     "resize_trilinear",

@@ -510,19 +510,59 @@ def instance_norm_act_bwd(x, g, gamma, beta, mean, rstd, activation="relu"):
                                         activation)
 
 
+def instance_norm_partials_plain(x: torch.Tensor) -> torch.Tensor:
+    """f32 (3, N, 1, C) (count, mean, centred M2) of x over its spatial
+    axes: one partial a sample, in the partials format."""
+    red = tuple(range(1, x.dim() - 1))
+    xf = x.float()
+    n, c = x.shape[0], x.shape[-1]
+    mean = xf.mean(red)
+    m2 = (xf - mean.reshape((n,) + (1,) * (x.dim() - 2) + (c,))).square().sum(red)
+    cnt = torch.full_like(mean, float(xf[0, ..., 0].numel()))
+    return torch.stack([cnt, mean, m2])[:, :, None, :]
+
+
+def instance_norm_partials(x: torch.Tensor) -> torch.Tensor:
+    """The InstanceNorm partials of x (NDHWC), f32 (3, N, P, C): on a CUDA
+    tensor the statistics pass of the Triton forward alone
+    (``triton_norm.stats``, counted on
+    ``instance_norm_act.launches_shard_stats``), on the CPU its plain
+    version. Partials
+    of several shards of one volume, concatenated along P, merge into the
+    whole volume's statistics (``instance_norm_act(..., partials=)``)."""
+    _device_check(x, "instance_norm_partials")
+    if x.device.type == "cpu":
+        return instance_norm_partials_plain(x)
+    _check_kernel_input(x, "none")
+    from . import triton_norm
+
+    n, d, h, w, c = x.shape
+    with torch.cuda.device(x.device):
+        part = triton_norm.stats(x.contiguous().view(n, d * h * w, c))
+    _build.count_launch(instance_norm_act, "launches_shard_stats")
+    return part
+
+
+def instance_norm_act_fwd(x, scale, bias, eps, activation, partials):
+    """(y, f32 (N, C) mean, rstd): the forward on the route of x's device
+    (the kernels on CUDA, the plain version on the CPU), from ``partials``
+    when given."""
+    if x.device.type == "cuda":
+        return instance_norm_act_kernel(x, scale, bias, eps=eps,
+                                        activation=activation,
+                                        partials=partials)
+    if partials is None:
+        return _plain_stats(x, scale, bias, eps, activation)
+    _check_partials(partials, x)
+    mean, rstd = merge_partials_plain(partials, eps)
+    return _plain_apply(x, mean, rstd, scale, bias, activation), mean, rstd
+
+
 class _InstanceNormAct(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, bias, eps, activation, partials):
-        if x.device.type == "cuda":
-            y, mean, rstd = instance_norm_act_kernel(
-                x, scale, bias, eps=eps, activation=activation,
-                partials=partials)
-        elif partials is None:
-            y, mean, rstd = _plain_stats(x, scale, bias, eps, activation)
-        else:
-            _check_partials(partials, x)
-            mean, rstd = merge_partials_plain(partials, eps)
-            y = _plain_apply(x, mean, rstd, scale, bias, activation)
+        y, mean, rstd = instance_norm_act_fwd(x, scale, bias, eps, activation,
+                                              partials)
         gamma, beta = _affine(x, scale, bias)
         ctx.save_for_backward(x, gamma, beta, mean, rstd)
         ctx.activation = activation
@@ -557,6 +597,7 @@ def instance_norm_act(
 
 instance_norm_act.launches = 0
 instance_norm_act.launches_partials = 0
+instance_norm_act.launches_shard_stats = 0
 instance_norm_act_bwd.launches = 0
 instance_norm_act_bwd.launches_cuda = 0
 instance_norm_act.launches_f32 = 0

@@ -306,6 +306,25 @@ def launch(x, y, gamma, beta, eps: float, activation: str):
     return mean, rstd
 
 
+def stats(x):
+    """The statistics pass of :func:`launch` alone: x contiguous (N, S, C)
+    -> f32 (3, N, P, C) per-chunk (count, mean, centred M2), the partials
+    format of the conv's STATS epilogue, so a shard's partials can be merged
+    with other shards' (``parallel/spatial_unet.py``: InstanceNorm statistics
+    over a whole volume split across shards)."""
+    n, s, c = x.shape
+    block_c, block_s = _blocks(c)
+    p_max = 128
+    chunk = triton.cdiv(triton.cdiv(s, p_max), block_s) * block_s
+    p = triton.cdiv(s, chunk)
+    part = torch.empty((3, n * p, c), dtype=torch.float32, device=x.device)
+    _in_stats_kernel[(n * p, triton.cdiv(c, block_c))](
+        x, part, s, c, n * p, p, chunk,
+        BLOCK_S=block_s, BLOCK_C=block_c, num_warps=4,
+    )
+    return part.view(3, n, p, c)
+
+
 # 256 boxes x 16 channels a step, 8 warps: the merge is latency-bound (its
 # partials sit in L2), so each step keeps many loads in flight
 MERGE_BLOCK_P, MERGE_BLOCK_C = 256, 16

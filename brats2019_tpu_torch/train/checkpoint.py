@@ -119,6 +119,21 @@ class CheckpointManager:
         return torch.load(os.path.join(self.dir, str(step), STATE),
                           map_location="cpu", weights_only=True)
 
+    def restore_at(self, step: int) -> dict:
+        """The state dict of retained step ``step`` (FileNotFoundError when
+        it is not retained)."""
+        p = os.path.join(self.dir, str(step), STATE)
+        if not os.path.exists(p):
+            raise FileNotFoundError(f"no checkpoint of step {step} under "
+                                    f"{self.dir} (retained: {self.all_steps()})")
+        return torch.load(p, map_location="cpu", weights_only=True)
+
+    def restore_params_at(self, step: int) -> Dict[str, np.ndarray]:
+        """The params of retained step ``step`` as a flat export dict, in
+        their stored dtype (checkpoint averaging reads every retained step
+        through this)."""
+        return flat_numpy(self.restore_at(step)["params"])
+
     def restore_best_params(self) -> Optional[Dict[str, np.ndarray]]:
         p = os.path.join(self.best_dir, STATE)
         if not os.path.exists(p):

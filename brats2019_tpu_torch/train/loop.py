@@ -1,4 +1,5 @@
-"""Training loop for one device (reference: ``brats2019_tpu/train/loop.py``).
+"""Training loop, on one device or data-parallel over a mesh (reference:
+``brats2019_tpu/train/loop.py``).
 
 One :func:`train_stage` call trains one U-Net stage; the cascade is two
 calls, coarse first (on the half-resolution view of each case, canvas
@@ -14,6 +15,16 @@ distillation (``kd_teachers``, ``train/distill.py``), warm start
 checkpoint winning), deep supervision (the full-resolution loss with the
 aux heads), the prep cache and ``--debug-checks`` (``TrainConfig``),
 ``debug_nans`` and a ``torch.profiler`` trace of steps 10-20 (``profile``).
+
+Data parallelism (``env``, a ``parallel/mesh.py`` mesh of more than one
+shard; :133-148, :333, :346, :412): a pool per local shard, the
+data-parallel step of ``train/step.py``, validation striped over the shards
+(canvas i on global shard i mod n, the labels all-gathered so every process
+scores every canvas, as ``make_batched_eval_step``), throughput counted as
+``batch_per_device * n_data`` patches a step. The first process alone writes
+logs and checkpoints (each shard's cursor in ``cursor["shards"]``); a stop
+signal on any process stops all of them at the same step. One shard is the
+one-device loop.
 """
 
 from __future__ import annotations
@@ -108,16 +119,88 @@ def _validate_pool_sampling(pool: CasePool, cfg: TrainConfig) -> None:
                              fg_table=pool.fg_host[slot], fg_prob=1.0)
 
 
-def _validate(model, val_canvases: List[Dict[str, object]],
-              device: torch.device) -> Dict[str, float]:
+def _val_labels(step_fn, env, val_canvases, device) -> List[np.ndarray]:
+    """Each validation canvas's labels: on ``device`` by the model, or with
+    a data-parallel ``env`` canvas i on global shard i mod n_data by that
+    shard's replica, the labels gathered on every process."""
+    if env is None:
+        return [eval_labels(step_fn.model, c["image"], device)
+                for c in val_canvases]
+    from ..parallel.mesh import all_gather_objects
+
+    mine = {}
+    for j, dev in enumerate(env.devices):
+        g = env.shard_index(j)
+        for i in range(g, len(val_canvases), env.n_data):
+            mine[i] = eval_labels(step_fn.replica(dev),
+                                  val_canvases[i]["image"], dev)
+    labels = {}
+    for part in all_gather_objects(env, mine):
+        labels.update(part)
+    return [labels[i] for i in range(len(val_canvases))]
+
+
+def _validate(labels: List[np.ndarray],
+              val_canvases: List[Dict[str, object]]) -> Dict[str, float]:
     dices = {"WT": [], "TC": [], "ET": []}
-    for c in val_canvases:
-        d = region_dice_np(eval_labels(model, c["image"], device), c["seg"])
+    for lab, c in zip(labels, val_canvases):
+        d = region_dice_np(lab, c["seg"])
         for k in dices:
             dices[k].append(d[k])
     out = {f"dice_{k}": float(np.mean(v)) for k, v in dices.items()}
     out["dice_mean"] = float(np.mean([out[f"dice_{k}"] for k in dices]))
     return out
+
+
+class _Pools:
+    """The local shards' pools of a data-parallel run, with the one pool's
+    interface the loop uses (refresh, start/stop, cursor state)."""
+
+    def __init__(self, env, case_dirs, canvas, cases, downsample, seed,
+                 prep_cache_dir):
+        self.env = env
+        self.pools = [CasePool(case_dirs, dev, canvas=canvas, cases=cases,
+                               downsample=downsample, seed=seed,
+                               prep_cache_dir=prep_cache_dir,
+                               stride=env.n_data, offset=env.shard_index(j))
+                      for j, dev in enumerate(env.devices)]
+
+    def start(self) -> None:
+        for p in self.pools:
+            p.start()
+
+    def stop(self) -> None:
+        for p in self.pools:
+            p.stop()
+
+    def maybe_refresh(self) -> None:
+        for p in self.pools:
+            p.maybe_refresh()
+
+    def state(self) -> Dict[str, object]:
+        """Every global shard's cursor, in shard order (collective)."""
+        from ..parallel.mesh import all_gather_objects
+
+        states = [s for part in all_gather_objects(
+            self.env, [p.state() for p in self.pools]) for s in part]
+        return {"shards": states}
+
+    def load_state(self, s) -> None:
+        shards = s.get("shards") if isinstance(s, dict) else None
+        for j, p in enumerate(self.pools):
+            g = self.env.shard_index(j)
+            if shards is not None and g < len(shards):
+                p.load_state(shards[g])
+            elif shards is None and g == 0:
+                p.load_state(s)
+
+
+class _NullLogger:
+    def log(self, *args, **kwargs) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 def _sync(device: torch.device) -> None:
@@ -137,6 +220,7 @@ def train_stage(
     kd_config=None,
     init_from: Optional[str] = None,
     debug_nans: bool = False,
+    env=None,
 ) -> StageResult:
     """Train one stage to ``exp.train.steps`` (resuming from the latest
     checkpoint of its workdir). Runs on the card unless the caller asks for
@@ -150,20 +234,36 @@ def train_stage(
     the workdir always wins. ``debug_nans``: stop with FloatingPointError at
     the first step whose loss or gradient norm is not finite (a host read
     of both each step; none without it). ``profile``: a torch.profiler
-    trace of steps 10-20 of this run in ``<workdir>/<stage>/profile``."""
-    device = resolve_device(device)
+    trace of steps 10-20 of this run in ``<workdir>/<stage>/profile``.
+    ``env``: a ``parallel/mesh.py`` mesh; more than one shard trains
+    data-parallel on its devices (module docstring), ``device`` unused."""
+    from ..parallel import mesh as meshlib
+
+    dp = env is not None and env.n_data > 1
+    device = env.first if env is not None else resolve_device(device)
+    lead = env is None or env.rank == 0
     unet_cfg, cfg, downsample = stage_config(exp, stage)
     workdir = os.path.join(exp.workdir, stage)
     os.makedirs(workdir, exist_ok=True)
 
     model, opt = init_stage(unet_cfg, cfg, device)
     ckpt = CheckpointManager(workdir, keep=cfg.keep_checkpoints)
-    logger = MetricsLogger(workdir, name=f"{stage}")
-    pool = CasePool(case_dirs, device, canvas=cfg.pool_shape,
-                    cases=cfg.pool_cases_per_device, downsample=downsample,
-                    seed=cfg.seed, prep_cache_dir=cfg.prep_cache_dir)
+    logger = MetricsLogger(workdir, name=f"{stage}") if lead else _NullLogger()
+    if dp:
+        if kd_teachers and len(env.local_devices()) > 1:
+            raise NotImplementedError(
+                "distillation over shards on several devices needs teacher "
+                "replicas; ROADMAP queue 1 lists it")
+        pool = _Pools(env, case_dirs, cfg.pool_shape,
+                      cfg.pool_cases_per_device, downsample, cfg.seed,
+                      cfg.prep_cache_dir)
+    else:
+        pool = CasePool(case_dirs, device, canvas=cfg.pool_shape,
+                        cases=cfg.pool_cases_per_device, downsample=downsample,
+                        seed=cfg.seed, prep_cache_dir=cfg.prep_cache_dir)
     if cfg.debug_checks:
-        _validate_pool_sampling(pool, cfg)
+        for p in (pool.pools if dp else [pool]):
+            _validate_pool_sampling(p, cfg)
         print(f"[{stage}] --debug-checks: pool sampling bounds OK", flush=True)
 
     start_step = 0
@@ -202,7 +302,7 @@ def train_stage(
         loss_fn = make_microbatch_loss(
             cfg, unet_cfg.stem_downsample, lowres=unet_cfg.stem_downsample > 1,
             deep_supervision=unet_cfg.deep_supervision)
-    step_fn = TrainStep(model, cfg, loss_fn, opt)
+    step_fn = TrainStep(model, cfg, loss_fn, opt, env=env)
 
     val_canvases = []
     for d in val_dirs:
@@ -213,6 +313,10 @@ def train_stage(
     if cfg.pool_refresh_every:
         pool.start()
     step_flops = train_step_flops(unet_cfg, cfg)
+    n_data = env.n_data if env is not None else 1
+    if env is not None:
+        # the flops one device runs a step: its shards' share
+        step_flops *= env.n_local / len(env.local_devices())
     device_name = (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu")
     t_last = time.time()
@@ -225,6 +329,19 @@ def train_stage(
             signal.SIGTERM, lambda s, f: preempt.__setitem__("sig", s))
     except ValueError:  # not the main thread: no handler
         pass
+
+    def stop_requested() -> bool:
+        if env is None or not env.multiprocess:
+            return preempt["sig"] is not None
+        # every process stops at the same step, whichever got the signal
+        flag = torch.tensor([0.0 if preempt["sig"] is None else 1.0],
+                            device=device)
+        return bool(meshlib.all_reduce_(env, flag).item() > 0)
+
+    def save(step_no: int) -> None:
+        state = pool.state()        # collective on a data-parallel run
+        if lead:
+            ckpt.save(step_no, model, opt.state_dict(), state)
     preempted = False
     prof = None
     try:
@@ -234,7 +351,7 @@ def train_stage(
             if prof is not None and step == start_step + 20:
                 stop_trace(prof, device, os.path.join(workdir, "profile"))
                 prof = None
-            aux = step_fn(pool, step)
+            aux = step_fn(pool.pools if dp else pool, step)
             if debug_nans and not (bool(torch.isfinite(aux["loss"]))
                                    and bool(torch.isfinite(aux["grad_norm"]))):
                 raise FloatingPointError(
@@ -251,7 +368,8 @@ def train_stage(
                 dt = time.time() - t_last
                 sps = steps_since_log / max(dt, 1e-9)
                 last_metrics["steps_per_sec"] = sps
-                last_metrics["patches_per_sec"] = sps * cfg.batch_per_device
+                last_metrics["patches_per_sec"] = (sps * cfg.batch_per_device
+                                                   * n_data)
                 m = _mfu(step_flops, 1.0 / max(sps, 1e-9), device_name)
                 if m is not None:
                     last_metrics["mfu"] = m
@@ -260,16 +378,18 @@ def train_stage(
                 steps_since_log = 0
 
             if cfg.eval_every and (step + 1) % cfg.eval_every == 0 and val_canvases:
-                vm = _validate(model, val_canvases, device)
+                vm = _validate(_val_labels(step_fn, env if dp else None,
+                                           val_canvases, device), val_canvases)
                 logger.log(step + 1, vm, prefix="val_")
-                ckpt.maybe_save_best(step + 1, model, vm["dice_mean"])
+                if lead:
+                    ckpt.maybe_save_best(step + 1, model, vm["dice_mean"])
             saved_now = bool(cfg.checkpoint_every) and (
                 (step + 1) % cfg.checkpoint_every == 0 or step == cfg.steps - 1)
             if saved_now:
-                ckpt.save(step + 1, model, opt.state_dict(), pool.state())
-            if preempt["sig"] is not None:
+                save(step + 1)
+            if stop_requested():
                 if not saved_now:
-                    ckpt.save(step + 1, model, opt.state_dict(), pool.state())
+                    save(step + 1)
                 preempted = True
                 print(f"[{stage}] SIGTERM at step {step + 1}: checkpoint saved, "
                       "stopping gracefully (resume continues here)", flush=True)
@@ -291,6 +411,8 @@ def train_stage(
     if not preempted and start_step < cfg.steps and (
         cfg.checkpoint_every == 0 or cfg.steps < cfg.checkpoint_every
     ):
-        ckpt.save(cfg.steps, model, opt.state_dict(), pool.state())
+        save(cfg.steps)
+    if env is not None:
+        meshlib.barrier(env)    # every checkpoint written before any resume
     return StageResult(model=model, final_metrics=last_metrics,
                        workdir=workdir, preempted=preempted)

@@ -1,4 +1,5 @@
-"""The training step on one device (reference: ``brats2019_tpu/train/step.py``).
+"""The training step, on one device or data-parallel over a mesh (reference:
+``brats2019_tpu/train/step.py``).
 
 Written to optax's semantics rather than ``torch.optim``'s defaults, so a
 run follows the JAX package's ``make_optimizer`` (:112-136) step for step:
@@ -16,14 +17,32 @@ run follows the JAX package's ``make_optimizer`` (:112-136) step for step:
 Gradients accumulate over k microbatches and are divided by k. The logged
 ``grad_norm`` is the global norm of the unclipped grads (:286).
 
-RNG contract (:147-181): the random numbers of microbatch i of step s come
-from a ``torch.Generator`` seeded by (seed, s * k + i) alone, so resume needs
-no saved generator state. The draws run on the host; the pool slicing and
-augmentation run on the pool's device.
+RNG contract (:147-181), kept here (:func:`step_generator`): the random
+numbers of microbatch i of step s on global shard j come from a
+``torch.Generator`` seeded by (seed, s * k + i, j) alone, and shard 0's by
+(seed, s * k + i), so one shard draws exactly what the one-device step
+always drew, resume needs no saved generator state, and the process layout
+(``parallel/mesh.py``: j is global) is invisible to sampling. The draws run on
+the host; the pool slicing and augmentation run on the pool's device.
+
+Data parallelism (:230-300, ``make_train_step`` over a mesh): each shard
+samples its own batch from its own pool, runs its k microbatches' forward and
+backward on its device (shards on one device share the model; another
+device has a replica whose parameters are copied from the model before each
+step), and flattens its accumulated grads, divided by k, into one f32 bucket.
+The buckets and the aux are averaged once a step, after accumulation, as the
+reference's ``pmean`` (:282-283): one ``mesh.psum`` (the local buckets added
+in shard order, then one all-reduce across processes) divided by the number
+of shards. DDP is not used: it all-reduces every microbatch unless told
+``no_sync``, and it needs a process per device, where a mesh may hold several
+shards on one card. The optimizer (and its EMA) stays one replicated copy,
+updated on the first shard's device from the averaged grads; every process
+computes the same update.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
@@ -168,6 +187,17 @@ def train_update(model: torch.nn.Module, opt: Optimizer, loss_fn: Callable,
                  ) -> Dict[str, torch.Tensor]:
     """Grads of each microbatch summed, divided by k, one optimizer
     update. Returns the mean aux (device tensors) plus ``grad_norm``."""
+    bucket, aux_names, aux = shard_grads(model, loss_fn, microbatches,
+                                         list(opt.params))
+    return apply_update(opt, bucket, aux_names, aux)
+
+
+def shard_grads(model: torch.nn.Module, loss_fn: Callable,
+                microbatches: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                names: Sequence[str]):
+    """The grads of ``microbatches`` summed and divided by k, as one flat
+    f32 bucket in ``names`` order, and their mean aux stacked in the loss's
+    order: (bucket, aux names, aux). The summed grads stay on the model."""
     k = len(microbatches)
     model.zero_grad(set_to_none=True)
     aux_sum: Dict[str, torch.Tensor] = {}
@@ -175,29 +205,48 @@ def train_update(model: torch.nn.Module, opt: Optimizer, loss_fn: Callable,
         loss, aux = loss_fn(model, imgs, segs)
         loss.backward()
         for name, v in aux.items():
-            v = v.detach()
+            v = v.detach().float()
             aux_sum[name] = v if name not in aux_sum else aux_sum[name] + v
-    grads = {}
-    for name, p in opt.params.items():
-        g = p.grad if p.grad is not None else torch.zeros_like(p)
-        grads[name] = g / k if k > 1 else g
-    aux = {name: v / k for name, v in aux_sum.items()} if k > 1 else aux_sum
-    aux["grad_norm"] = opt.step(grads)
-    return aux
+    params = dict(model.named_parameters())
+    bucket = torch.cat([
+        (params[n].grad if params[n].grad is not None
+         else torch.zeros_like(params[n])).float().reshape(-1) for n in names])
+    aux_names = list(aux_sum)
+    aux = torch.stack([aux_sum[a] for a in aux_names])
+    if k > 1:
+        bucket, aux = bucket / k, aux / k
+    return bucket, aux_names, aux
+
+
+def apply_update(opt: Optimizer, bucket: torch.Tensor,
+                 aux_names: Sequence[str], aux: torch.Tensor
+                 ) -> Dict[str, torch.Tensor]:
+    """One optimizer update from a flat grad bucket (``shard_grads``'s
+    order); returns the aux by name plus ``grad_norm``."""
+    grads, off = {}, 0
+    for n, p in opt.params.items():
+        grads[n] = bucket[off:off + p.numel()].view(p.shape)
+        off += p.numel()
+    out = dict(zip(aux_names, aux.unbind(0)))
+    out["grad_norm"] = opt.step(grads)
+    return out
 
 
 # ----------------------------------------------------------------- sampling --
 
-def step_generator(seed: int, micro: int) -> torch.Generator:
-    """The host generator of one microbatch, from (seed, micro) alone."""
-    state = np.random.SeedSequence([seed, micro]).generate_state(1, np.uint64)
+def step_generator(seed: int, micro: int, shard: int = 0) -> torch.Generator:
+    """The host generator of one microbatch, from (seed, micro, shard)
+    alone; shard 0's from (seed, micro), the one-device stream."""
+    entropy = [seed, micro] if shard == 0 else [seed, micro, shard]
+    state = np.random.SeedSequence(entropy).generate_state(1, np.uint64)
     return torch.Generator().manual_seed(int(state[0]))
 
 
-def sample_microbatch(pool, cfg: TrainConfig, micro: int
+def sample_microbatch(pool, cfg: TrainConfig, micro: int, shard: int = 0
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, *patch, 4) images and (B, *patch) int64 labels from the pool."""
-    gen = step_generator(cfg.seed, micro)
+    """(B, *patch, 4) images and (B, *patch) int64 labels from the pool of
+    global shard ``shard``."""
+    gen = step_generator(cfg.seed, micro, shard)
     imgs, segs = [], []
     for _ in range(cfg.batch_per_device):
         ci = int(torch.randint(0, pool.image.shape[0], (), generator=gen))
@@ -214,18 +263,61 @@ def sample_microbatch(pool, cfg: TrainConfig, micro: int
 
 class TrainStep:
     """``step(pool, i) -> aux``: sample k microbatches by the RNG contract,
-    accumulate their grads, update the model in place."""
+    accumulate their grads, update the model in place. With a mesh of more
+    than one shard (``env``), ``pool`` is the list of the local shards'
+    pools and the step is data-parallel (module docstring)."""
 
     def __init__(self, model: torch.nn.Module, cfg: TrainConfig,
-                 loss_fn: Callable, opt: Optional[Optimizer] = None):
+                 loss_fn: Callable, opt: Optional[Optimizer] = None,
+                 env=None):
         self.model, self.cfg, self.loss_fn = model, cfg, loss_fn
         self.opt = opt or Optimizer(dict(model.named_parameters()), cfg)
+        self.env = env if env is not None and env.n_data > 1 else None
+        self._replicas: Dict[torch.device, torch.nn.Module] = {}
+        if self.env is not None:
+            home = next(model.parameters()).device
+            for dev in self.env.local_devices():
+                if dev != home:
+                    self._replicas[dev] = copy.deepcopy(model).to(dev)
+
+    def replica(self, dev: torch.device) -> torch.nn.Module:
+        """The model on ``dev`` (the model itself on its own device)."""
+        return self._replicas.get(dev, self.model)
+
+    @torch.no_grad()
+    def _sync_replicas(self) -> None:
+        for rep in self._replicas.values():
+            for p_r, p in zip(rep.parameters(), self.model.parameters()):
+                p_r.copy_(p)
 
     def __call__(self, pool, step: int) -> Dict[str, torch.Tensor]:
         k = max(self.cfg.grad_accum_steps, 1)
-        batches = [sample_microbatch(pool, self.cfg, step * k + i)
-                   for i in range(k)]
-        return train_update(self.model, self.opt, self.loss_fn, batches)
+        if self.env is None:
+            batches = [sample_microbatch(pool, self.cfg, step * k + i)
+                       for i in range(k)]
+            return train_update(self.model, self.opt, self.loss_fn, batches)
+        return self._dp_step(pool, step, k)
+
+    def _dp_step(self, pools, step: int, k: int) -> Dict[str, torch.Tensor]:
+        """The shards' buckets and aux averaged, then ``apply_update``."""
+        from ..parallel.mesh import psum
+
+        env = self.env
+        if len(pools) != env.n_local:
+            raise ValueError(f"{len(pools)} pools for {env.n_local} local shards")
+        self._sync_replicas()
+        names = list(self.opt.params)
+        buckets, auxes, aux_names = [], [], None
+        for j, dev in enumerate(env.devices):
+            g = env.shard_index(j)
+            batches = [sample_microbatch(pools[j], self.cfg, step * k + i, g)
+                       for i in range(k)]
+            bucket, aux_names, aux = shard_grads(self.replica(dev),
+                                                 self.loss_fn, batches, names)
+            buckets.append(bucket)
+            auxes.append(aux)
+        return apply_update(self.opt, psum(env, buckets) / env.n_data,
+                            aux_names, psum(env, auxes) / env.n_data)
 
 
 @torch.inference_mode()

@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout (``--phases 2`` stops after the kernel checks
-and prints no result lines). Phases:
+Run from the root of a checkout (``--phases 2`` stops after the kernel checks,
+``--phases 9`` runs phase 1, phase 3's set-up and predict run, and phase 9;
+neither prints result lines). Phases:
 
 1. Setup: torch/CUDA versions, the card's name and power limit, TF32 off for
    the plain references, and the kernels built from the checkout's sources.
@@ -215,6 +216,44 @@ and prints no result lines). Phases:
    ``reference_parity`` ``.pt`` (the importer refuses space-to-depth
    presets), then ``cli.predict --profile`` of one phase-3 case from it on
    the card; (4) ``cli.info`` reports the card.
+
+9. Queue 1 items 6a, 7a and 5, after phase 8 so that phases 3-8 meet the
+   card as before: (1) the native NIfTI decoder
+   (``utils/nifti_fast.py``): built and loaded (it fails, rather than
+   falling back, when it is not), its volumes, labels and header bitwise the
+   NumPy reader's and its fused bbox the scan's on the phase-3 cases; phase
+   3's one-by-one e2e and the phase-5 burst (Winograd, fresh payload cache,
+   device postprocessing) with and without it, in turns, in this call;
+   (2) ``unit`` trained on the card with ``--ema-decay``, ``cli.export
+   --ema`` and ``--average 2``: the exported tensors equal the tracker's and
+   the mean of the last two retained steps, and ``cli.predict`` loads each;
+   (3) the three ``--multichip`` modes of ``infer/multichip.py`` on the
+   flagship ``cascade`` preset at full width over meshes of 2 and 4 shards of
+   the card: each shard's IN statistics pass merged over the shards within
+   2 bf16 ulp of the whole volume's plain IN+act at the fine net's top
+   level; ``cascade`` labels (postprocessing off) equal the single-device
+   predictor's except on ties (top-2 gap <= TIE_GAP) and, postprocessed,
+   phase 3's masks; ``sweep`` labels equal the single-stage predictor's
+   except on ties; ``spatial`` logits within SPATIAL_TOL of the one-shard
+   spatial route and of the unsharded model's whole-canvas forward, and at
+   f32 compute within SPATIAL_F32_TOL of the unsharded f32 forward; the
+   launch counters of each mode equal to every
+   conv, IN (with, in ``spatial``, each shard's statistics pass), up (into
+   its concat, on ``resize2x.cu``) and down of every shard, every conv on
+   the wgmma instance; device ms/vol of each mode; one ``serve --multichip
+   cascade --device cuda:0,cuda:0`` burst on the Winograd backend; (4)
+   ``make_spatial_train_grad`` on the fine net at full width over 2 shards
+   of the card: in f32 its grads against the unsharded model's on the same
+   volume (relative L2 within SPATIAL_GRAD_TOL), in f32 and bf16 every conv,
+   IN backward, up and down backward of every shard counted on its kernel;
+   the fine stage at full width data-parallel over 2 shards of the card: the
+   averaged grads in f32 compute against the mean of each shard's one-shard
+   grads (DP_SHARD_TOL) and against the one-shard step on the concatenated
+   batch (DP_GRAD_TOL), finite bf16 losses, step ms; (5) ``parallel/
+   multiprocess.py``: ``launch_workers`` with one worker over NCCL, then two
+   workers sharing the card over gloo against one process of two shards
+   (losses within MP_LOSS_RTOL, the cascade mask equal), no worker importing
+   jax or the JAX package.
 
 The line before the last holds the kernels' JSON record (forward kernels:
 launches on the predict slice, times per volume; backward kernels: launches
@@ -3400,6 +3439,794 @@ def training_leftouts(exp, cases_root, case_dirs, dev, card, stage_fwd, stage_ca
           flush=True)
 
 
+
+# ------------------------------------------------------------------ phase 9 --
+
+MESH_SIZES = (2, 4)   # shards of one card: ["cuda:0"] * n
+# a label that differs from the single-device program's must sit on a tie:
+# the single-device probabilities' top-2 gap there at most this (the TTA
+# probabilities are stored in bf16: 2^-7 is one bf16 step just below 1.0,
+# and the mesh's per-shard batches may round a logit differently)
+TIE_GAP = 2 ** -6
+# bf16 spatial logits vs the one-shard spatial route and vs the unsharded
+# model's forward (whose IN statistics come from the conv's epilogue):
+# phase 2's conv bound. Both read 7.2-8.7e-3, the same to the last digit in
+# every run (deterministic kernels, seeded data): bf16 rounding along 14
+# layers, which the shards' other conv plans and statistics merge order
+# change (PERF.md section 6)
+SPATIAL_TOL = 1e-2
+# the same at f32 compute: the spatial forward's bound in the CPU tests
+SPATIAL_F32_TOL = 1e-4
+# postprocessed mesh masks vs phase 3's: the reference's own bar for its
+# mesh cascade against its single-device predictor
+# (tests/test_multichip_cli.py: agreement > 0.999)
+MESH_MASK_AGREE = 0.999
+# f32 grads of the fine net at full width (random init) cancel so far that
+# two f32 runs of the same grads lie ~1e-3 apart in relative L2, while in
+# f64 the batch of 2 and the mean of two batches of 1 agree exactly (the
+# loss is a mean over samples). ``tools/torch_dp_check.py --f64`` measured
+# each f32 run's distance from the f64 grads on the card; the sum of two
+# runs' distances bounds their distance from each other. The sums it read on
+# an H100 (PERF.md section 6): the fine step 5.31e-3 at 64^3 and 3.19e-3 at
+# 128^3; the whole-volume grads, unsharded and over 2 shards, 5.09e-3 at
+# 64^3. Each tolerance is the larger sum of its kind, rounded up.
+# The data-parallel step's averaged grads vs the one-shard step on the
+# concatenated batch (128^3 patches):
+DP_GRAD_TOL = 6e-3
+# vs the mean of the one-shard grads of each shard's own batch: the same
+# kernels at the same shapes, so only the averaging's own rounding
+DP_SHARD_TOL = 1e-6
+# make_spatial_train_grad over 2 shards vs the unsharded model, f32, one
+# SPATIAL_TRAIN_EDGE^3 volume:
+SPATIAL_TRAIN_EDGE = 64
+SPATIAL_GRAD_TOL = 6e-3
+MP_LOSS_RTOL = 1e-5   # multi-process losses vs one process of two shards
+
+
+@contextlib.contextmanager
+def native_decoder(on: bool):
+    """The native NIfTI decoder on (as it is) or off (``available()`` False:
+    ``load_case(backend="auto")`` takes the NumPy reader)."""
+    from brats2019_tpu_torch.utils import nifti_fast
+
+    real = nifti_fast.available
+    if not on:
+        nifti_fast.available = lambda: False
+    try:
+        yield
+    finally:
+        nifti_fast.available = real
+
+
+def burst(argv, case_dirs, timed=None):
+    """One daemon (``argv``, with ``--warmup --http PORT`` added): every case
+    POSTed at once once it is warm, the launch counters zeroed just before
+    and read just after. ``timed``: (class, method name) whose calls are
+    spanned with CUDA events. Returns (rc, e2e s/vol, device idle share,
+    counts, answers)."""
+    import torch
+
+    from brats2019_tpu_torch import ops
+
+    port = _free_port()
+    base = f"http://127.0.0.1:{port}"
+    spans = []
+    cls, meth = timed
+    real = getattr(cls, meth)
+
+    def spanned(self, *a, **k):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        result = real(self, *a, **k)
+        ev[1].record()
+        spans.append(ev)
+        return result
+
+    def post_case(d, answers):
+        req = urllib.request.Request(
+            base + "/predict?format=json&timeout=300",
+            data=json.dumps({"case_dir": d}).encode(),
+            headers={"Content-Type": "application/json"}, method="POST")
+        with urllib.request.urlopen(req, timeout=330) as r:
+            answers[d] = json.loads(r.read())
+
+    def client(daemon_done):
+        deadline = time.time() + 600
+        health = {}
+        while time.time() < deadline and not daemon_done.is_set():
+            try:
+                health = _get_json(base + "/healthz", timeout=5)
+            except OSError:
+                health = {}
+            if health.get("warm"):
+                break
+            time.sleep(0.2)
+        if not health.get("warm"):
+            raise RuntimeError(f"the daemon never became warm: {health}")
+        spans.clear()
+        ops.reset_launch_counts()
+        answers = {}
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=post_case, args=(d, answers))
+                   for d in case_dirs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(400)
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        counts["conv3d_winograd.launches_wgmma"] = ops.conv3d_winograd.launches_wgmma
+        return {"answers": answers, "wall": wall, "counts": counts}
+
+    setattr(cls, meth, spanned)
+    try:
+        rc, got = run_daemon([*argv, "--warmup", "--http", str(port)], client)
+    finally:
+        setattr(cls, meth, real)
+    torch.cuda.synchronize()
+    n = len(case_dirs)
+    span_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+    return rc, got["wall"] / n, 1.0 - span_s / got["wall"], got["counts"], got["answers"]
+
+
+def decoder_slice(exp, work, case_dirs, card):
+    """9.1: the native decoder is built and bitwise the NumPy reader on the
+    phase-3 cases; one-by-one e2e and the phase-5 burst with and without it,
+    in turns, in this call."""
+    from brats2019_tpu_torch.data.case import load_case
+    from brats2019_tpu_torch.data.preprocess import brain_bbox_np
+    from brats2019_tpu_torch.infer import predictor as pmod
+    from brats2019_tpu_torch.utils import nifti_fast
+
+    ok = nifti_fast.available()
+    check(ok, f"native NIfTI decoder built and loaded "
+              f"({nifti_fast.library_path().name if ok else nifti_fast.build_error})")
+    if not ok:
+        return None
+    for d in case_dirs:
+        t0 = time.perf_counter()
+        a = load_case(d, load_seg=True, backend="native")
+        t1 = time.perf_counter()
+        b = load_case(d, load_seg=True, backend="python")
+        t2 = time.perf_counter()
+        bb = brain_bbox_np(b.image)
+        same = (a.image.tobytes() == b.image.tobytes()
+                and a.seg.tobytes() == b.seg.tobytes()
+                and a.header.raw == b.header.raw)
+        box = (tuple(int(v) for v in a.meta["bbox_lo"]),
+               tuple(int(v) for v in a.meta["bbox_hi"]))
+        check(same and box == (bb.lo, bb.hi),
+              f"{os.path.basename(d)}: native decode bitwise the NumPy "
+              f"reader's ({same}), meta bbox {box} = scan {(bb.lo, bb.hi)}; "
+              f"decode {t1 - t0:.3f} s native, {t2 - t1:.3f} s NumPy")
+    pred = pmod.Predictor(exp, os.path.join(work, "fine", "params.npz"),
+                          os.path.join(work, "coarse", "params.npz"),
+                          device="cuda")
+    tmp_out = os.path.join(work, "timed_pred9.nii.gz")
+    pred.predict_dir(case_dirs[0], tmp_out)
+    e2e = {True: [], False: []}
+    for on in (True, False, True, False):
+        with native_decoder(on):
+            for d in case_dirs:
+                t0 = time.perf_counter()
+                pred.predict_dir(d, tmp_out)
+                e2e[on].append(time.perf_counter() - t0)
+    med = lambda v: sorted(v)[len(v) // 2]
+    root = os.path.join(WORK, "decoder_burst")
+    bursts = {}
+    from brats2019_tpu_torch import ops
+
+    for on in (True, False):
+        watch = os.path.join(root, f"watch_{on}")
+        os.makedirs(watch)
+        ops.set_backend("winograd")
+        try:
+            with native_decoder(on):
+                rc, s_vol, idle, _, answers = burst(
+                    [watch, "--preset", PRESET, "--workdir", work, "--device",
+                     DEVICE, "--poll", "0.05", "--output-dir",
+                     os.path.join(root, f"out_{on}"), "--prep-cache",
+                     os.path.join(root, f"cache_{on}"), "--postproc", "device"],
+                    case_dirs, (pmod.Predictor, "predict_device"))
+        finally:
+            ops.set_backend("direct")
+        check(rc == 0 and len(answers) == len(case_dirs)
+              and all(a.get("error") is None for a in answers.values()),
+              f"phase-5 burst with the decoder {'on' if on else 'off'}: "
+              f"exit code {rc}, {len(answers)} answers")
+        bursts[on] = (s_vol, idle)
+    print(f"  e2e s/vol one by one (phase 3's path), native decoder: median "
+          f"{med(e2e[True]):.3f} (all {[round(v, 3) for v in e2e[True]]}); "
+          f"NumPy reader: median {med(e2e[False]):.3f} (all "
+          f"{[round(v, 3) for v in e2e[False]]}), in turns, on {card}",
+          flush=True)
+    print(f"  phase-5 burst of {len(case_dirs)} (Winograd backend, fresh "
+          f"payload cache, device postprocessing): native decoder "
+          f"{bursts[True][0]:.3f} s/vol, device idle {100 * bursts[True][1]:.1f}%; "
+          f"NumPy reader {bursts[False][0]:.3f} s/vol, device idle "
+          f"{100 * bursts[False][1]:.1f}% on {card}", flush=True)
+    return {"e2e": {k: med(v) for k, v in e2e.items()}, "burst": bursts}
+
+
+def export_slice(cases_root, card):
+    """9.2: ``unit`` trained on the card with --ema-decay, exported with
+    --ema and --average 2, each export loaded by predict."""
+    import numpy as np
+
+    from brats2019_tpu_torch.cli import export as export_cli
+    from brats2019_tpu_torch.cli import predict as predict_cli
+    from brats2019_tpu_torch.cli import train as train_cli
+    from brats2019_tpu_torch.train.checkpoint import CheckpointManager
+    from brats2019_tpu_torch.utils.weights import load_params
+
+    work = os.path.join(WORK, "export")
+    t0 = time.perf_counter()
+    rc, _ = run_cli(train_cli.main, [
+        "--preset", "unit", "--data", cases_root, "--workdir", work,
+        "--device", "cuda", "--steps", "4", "--checkpoint-every", "1",
+        "--ema-decay", "0.6"])
+    check(rc == 0, f"unit trained on the card with --ema-decay (exit code {rc}, "
+                   f"{time.perf_counter() - t0:.1f} s)")
+    ckpt = CheckpointManager(os.path.join(work, "fine"))
+    latest = ckpt.restore()
+    pred_out = os.path.join(work, "pred.nii.gz")
+    case = os.path.join(cases_root, sorted(os.listdir(cases_root))[0])
+    for how in (["--ema"], ["--average", "2"]):
+        rc, _ = run_cli(export_cli.main, ["--preset", "unit", "--workdir", work,
+                                          *how])
+        got = load_params(os.path.join(work, "fine", "params.npz"))
+        if how == ["--ema"]:
+            want = {"params/" + k.replace(".", "/"): v.numpy()
+                    for k, v in latest["opt_state"]["ema"].items()}
+        else:
+            a, b = (ckpt.restore_params_at(s) for s in ckpt.all_steps()[-2:])
+            want = {k: np.asarray((a[k].astype(np.float32)
+                                   + b[k].astype(np.float32)) * 0.5, a[k].dtype)
+                    for k in a}
+        same = got.keys() == want.keys() and all(
+            np.array_equal(got[k], want[k]) for k in want)
+        prc, out = run_cli(predict_cli.main, [case, "--preset", "unit",
+                                              "--workdir", work, "--device",
+                                              "cuda", "--output", pred_out])
+        check(rc == 0 and same and prc == 0 and os.path.exists(pred_out),
+              f"export {' '.join(how)}: exit code {rc}, the exported tensors "
+              f"equal the {'tracker' if how == ['--ema'] else 'mean of steps ' + str(ckpt.all_steps()[-2:])}"
+              f" ({same}); predict loads it (exit code {prc})")
+        os.remove(pred_out)
+
+
+def _route_counts():
+    from brats2019_tpu_torch import ops
+
+    return {
+        "conv3d": ops.conv3d.launches,
+        "conv3d on conv3d_wgmma.cu": ops.conv3d.launches_wgmma,
+        "instance_norm_act": ops.instance_norm_act.launches,
+        "shard statistics passes": ops.instance_norm_act.launches_shard_stats,
+        "downsample2x": ops.downsample2x.launches,
+        "upsample2x": ops.upsample2x.launches,
+        "upsample2x on resize2x.cu": ops.upsample2x.launches_cuda,
+        "upsample2x into the concat": ops.upsample2x.launches_concat,
+        "conv3d_winograd": ops.conv3d_winograd.launches,
+    }
+
+
+def _expected_routes(cfg_counts, spatial=False):
+    """The route counters a run of ``cfg_counts`` (list of (unet_calls list,
+    forwards)) must show."""
+    want = {"conv3d": 0, "instance_norm_act": 0, "downsample2x": 0,
+            "upsample2x": 0}
+    for calls, times in cfg_counts:
+        for k in want:
+            want[k] += times * sum(1 for n, _ in calls if n == k)
+    return {
+        "conv3d": want["conv3d"],
+        "conv3d on conv3d_wgmma.cu": want["conv3d"],
+        "instance_norm_act": want["instance_norm_act"],
+        "shard statistics passes": want["instance_norm_act"] if spatial else 0,
+        "downsample2x": want["downsample2x"],
+        "upsample2x": want["upsample2x"],
+        "upsample2x on resize2x.cu": want["upsample2x"],
+        "upsample2x into the concat": want["upsample2x"],
+        "conv3d_winograd": 0,
+    }
+
+
+def _tie_check(what, got, ref, probs):
+    """Labels equal except where the reference probabilities' top-2 gap is
+    within TIE_GAP."""
+    import numpy as np
+
+    diff = got != ref
+    n = int(diff.sum())
+    gap = 0.0
+    if n:
+        s = np.sort(probs[diff], axis=-1)
+        gap = float((s[:, -1] - s[:, -2]).max())
+    check(n == 0 or gap <= TIE_GAP,
+          f"{what}: {n} of {got.size} voxels differ from the single-device "
+          f"program's labels, largest top-2 gap there {gap:.2e} (ties: <= "
+          f"{TIE_GAP:.2e})")
+    return n
+
+
+def check_shard_statistics(exp, dev):
+    """The spatial mode's IN route against its plain version: each shard's
+    statistics pass (``ops.instance_norm_partials``) of the flagship fine
+    net's top-level activation split on X into 2 and 4 shards, all partials
+    merged by the IN kernel on each shard: each shard's IN+act within 2 bf16
+    ulp of its slice of the whole volume's plain IN+act."""
+    import torch
+
+    from brats2019_tpu_torch import ops
+    from brats2019_tpu_torch.ops import norm
+
+    r = exp.unet.stem_downsample
+    shape = (1,) + tuple(c // r for c in exp.infer.canvas) + (exp.unet.feats(0),)
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(shape, generator=g, device=dev).bfloat16()
+    gam = torch.rand(shape[-1], generator=g, device=dev) + 0.5
+    bet = torch.randn(shape[-1], generator=g, device=dev) * 0.1
+    ref = norm.instance_norm_act_plain(x, gam, bet, activation="relu")
+    for n in MESH_SIZES:
+        slices = [s.contiguous() for s in x.tensor_split(n, dim=1)]
+        every = torch.cat([ops.instance_norm_partials(s) for s in slices], 2)
+        got = torch.cat([ops.instance_norm_act(s, gam, bet, activation="relu",
+                                               partials=every) for s in slices], 1)
+        u = bf16_ulps(got, ref)
+        check(u <= 2, f"IN+act of {n} shards of {shape} from their merged "
+                      f"statistics passes vs the whole volume's plain IN+act: "
+                      f"{u:.2f} bf16 ulp (tol 2)")
+
+
+def mesh_modes(exp, work, case_dirs, first, dev, card):
+    """9.3: the three --multichip modes on the flagship cascade preset at
+    full width, on meshes of 2 and 4 shards of the card."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from brats2019_tpu_torch import ops
+    from brats2019_tpu_torch.data.case import load_case
+    from brats2019_tpu_torch.data.constants import disk_to_internal
+    from brats2019_tpu_torch.data.preprocess import (brain_bbox_fast_np,
+                                                     crop_cast_fit_np, zscore)
+    from brats2019_tpu_torch.infer.multichip import MultichipPredictor
+    from brats2019_tpu_torch.infer.predictor import Predictor
+    from brats2019_tpu_torch.infer.tiling import tile_origins
+    from brats2019_tpu_torch.parallel.mesh import make_mesh
+    from brats2019_tpu_torch.parallel.spatial_unet import make_spatial_unet
+    from brats2019_tpu_torch.utils.weights import build_unet
+
+    pf = os.path.join(work, "fine", "params.npz")
+    pc = os.path.join(work, "coarse", "params.npz")
+    raw = dataclasses.replace(exp, infer=dataclasses.replace(
+        exp.infer, min_component_voxels=0, et_min_voxels=0, postproc="host"))
+    single_stage = dataclasses.replace(raw, infer=dataclasses.replace(
+        raw.infer, cascade=False))
+    images = [load_case(d).image for d in case_dirs]
+    casc_ref = Predictor(raw, pf, pc, device=dev)
+    sweep_ref = Predictor(single_stage, pf, device=dev)
+    refs = {"cascade": [(casc_ref.predict_arrays(im)[0],
+                         casc_ref.predict_probs_arrays(im)[0]) for im in images],
+            "sweep": [(sweep_ref.predict_arrays(images[0])[0],
+                       sweep_ref.predict_probs_arrays(images[0])[0])]}
+    del casc_ref, sweep_ref
+    canvas = tuple(exp.infer.canvas)
+    net32 = build_unet(dataclasses.replace(exp.unet, compute_dtype="float32"),
+                       pf, dev)
+    fine_calls = unet_calls(exp.unet, 1, exp.infer.tile)
+    coarse_calls = unet_calls(exp.coarse_unet, 1, exp.infer.coarse_shape)
+    med = lambda v: sorted(v)[len(v) // 2]
+    ms = {}
+    for n in MESH_SIZES:
+        env = make_mesh(["cuda:0"] * n)
+        # cascade: the coarse net once (one card), one fine forward a shard
+        mp = MultichipPredictor(exp, pf, mode="cascade", env=env, params_coarse=pc)
+        mp_raw = MultichipPredictor(raw, pf, mode="cascade", env=env,
+                                    params_coarse=pc)
+        mp_raw.warmup()
+        ops.reset_launch_counts()
+        got = [mp_raw.predict_arrays(im) for im in images]
+        routes = _route_counts()
+        want = _expected_routes([(coarse_calls, len(images)),
+                                 (fine_calls, n * len(images))])
+        check(routes == want, f"cascade mode, {n} shards: routes {routes} "
+                              f"(expected {want})")
+        for i, (g, (ref, probs)) in enumerate(zip(got, refs["cascade"])):
+            _tie_check(f"cascade mode, {n} shards, case {i}", g, ref, probs)
+        for i, (im, seg) in enumerate(zip(images, first)):
+            post = mp.predict_arrays(im)
+            agree = float((post == disk_to_internal(seg)).mean())
+            check(agree > MESH_MASK_AGREE,
+                  f"cascade mode, {n} shards, case {i}, postprocessed: "
+                  f"agreement with phase 3's mask {agree:.7f} "
+                  f"({int((post != disk_to_internal(seg)).sum())} voxels; "
+                  f"bound {MESH_MASK_AGREE})")
+        # sweep: every (tile, flip) item a forward at batch 1
+        mp_sweep = MultichipPredictor(single_stage, pf, mode="sweep", env=env)
+        mp_sweep.warmup()
+        ops.reset_launch_counts()
+        g = mp_sweep.predict_arrays(images[0])
+        items = len(tile_origins(canvas, exp.infer.tile, exp.infer.overlap)) * 8
+        routes = _route_counts()
+        want = _expected_routes([(fine_calls, -(-items // n) * n)])
+        check(routes == want, f"sweep mode, {n} shards: routes {routes} "
+                              f"(expected {want})")
+        _tie_check(f"sweep mode, {n} shards, case 0", g, *refs["sweep"][0])
+        # spatial: the whole canvas, split on X; logits vs the unsharded forward
+        mp_sp = MultichipPredictor(raw, pf, mode="spatial", env=env)
+        im = images[0]
+        x = zscore(crop_cast_fit_np(im, brain_bbox_fast_np(im), canvas)
+                   .to(dev).float())
+        mp_sp._fwd(x)
+        ops.reset_launch_counts()
+        logits = mp_sp._fwd(x)
+        routes = _route_counts()
+        want = _expected_routes([(unet_calls(exp.unet, 1, canvas), n)], spatial=True)
+        check(routes == want, f"spatial mode, {n} shards: routes {routes} "
+                              f"(expected {want})")
+        net = mp_sp.fine.on(dev)
+        with torch.inference_mode():
+            whole = net(x[None])[0]
+        # the unsharded volume through the spatial route itself (one shard:
+        # IN statistics from the statistics pass, not the conv's epilogue)
+        one = make_spatial_unet(make_mesh([dev]), net)(x)
+        for ref, what in ((one, "the one-shard spatial route"),
+                          (whole, "the unsharded model's forward (IN "
+                                  "statistics from the conv's epilogue)")):
+            rel = ((logits - ref).abs().max() / ref.abs().max()).item()
+            agree = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+            check(bool(torch.isfinite(logits).all()) and rel <= SPATIAL_TOL,
+                  f"spatial mode, {n} shards: logits {tuple(logits.shape)} vs "
+                  f"{what}, max|d|/max|ref| {rel:.3e} (tol {SPATIAL_TOL}), "
+                  f"argmax agreement {agree:.6f}")
+        # the same decomposition at f32 compute, where bf16 rounding no
+        # longer hides a seam: vs the unsharded f32 forward
+        with torch.inference_mode():
+            whole = net32(x[None])[0]
+        logits = make_spatial_unet(env, net32)(x)
+        rel = ((logits - whole).abs().max() / whole.abs().max()).item()
+        check(bool(torch.isfinite(logits).all()) and rel <= SPATIAL_F32_TOL,
+              f"spatial mode at f32 compute, {n} shards: logits vs the "
+              f"unsharded f32 forward, max|d|/max|ref| {rel:.3e} (tol "
+              f"{SPATIAL_F32_TOL})")
+        del whole, one, logits
+        # device ms/vol of each mode's program on a prepared canvas
+        c_img = crop_cast_fit_np(im, brain_bbox_fast_np(im), canvas).to(dev)
+        for name, m in (("cascade", mp_raw), ("sweep", mp_sweep), ("spatial", mp_sp)):
+            v = []
+            for _ in range(3):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                m._run(c_img)
+                ev[1].record()
+                torch.cuda.synchronize()
+                v.append(ev[0].elapsed_time(ev[1]))
+            ms[(name, n)] = med(v)
+        del mp, mp_raw, mp_sweep, mp_sp
+        torch.cuda.empty_cache()
+    print("  device ms/vol by mode (median of 3, CUDA events around the mesh "
+          "program): " + ", ".join(f"{k[0]} x{k[1]} {v:.3f}" for k, v in ms.items())
+          + f" on {card}", flush=True)
+    return ms
+
+
+def multichip_serve_burst(work, case_dirs, first, card):
+    """9.3: one ``serve --multichip cascade`` burst over 2 shards of the
+    card, Winograd conv backend."""
+    from brats2019_tpu_torch import ops
+    from brats2019_tpu_torch.infer.multichip import MultichipPredictor
+
+    root = os.path.join(WORK, "mc_serve")
+    watch, out = os.path.join(root, "watch"), os.path.join(root, "out")
+    os.makedirs(watch)
+    ops.set_backend("winograd")
+    try:
+        rc, s_vol, idle, counts, answers = burst(
+            [watch, "--preset", PRESET, "--workdir", work, "--device",
+             "cuda:0,cuda:0", "--multichip", "cascade", "--poll", "0.05",
+             "--output-dir", out], case_dirs, (MultichipPredictor, "_run"))
+    finally:
+        ops.set_backend("direct")
+    check(rc == 0 and len(answers) == len(case_dirs)
+          and all(a.get("error") is None for a in answers.values()),
+          f"serve --multichip cascade over 2 shards: exit code {rc}, "
+          f"{len(answers)} answers")
+    check(counts["conv3d_winograd"] > 0 and counts["conv3d"] == 0
+          and counts["conv3d_winograd.launches_wgmma"] == counts["conv3d_winograd"],
+          f"serve --multichip cascade burst on the Winograd backend: "
+          f"{counts['conv3d_winograd']} Winograd launches "
+          f"({counts['conv3d_winograd.launches_wgmma']} on winograd3d_wgmma.cu), "
+          f"{counts['conv3d']} direct")
+    for d, ref in zip(case_dirs, first):
+        seg = served_labels(out, [d])[0]
+        agree = float((seg == ref).mean())
+        check(agree >= MASK_AGREE,
+              f"{os.path.basename(d)} served by the mesh daemon: agreement "
+              f"with phase 3's direct-conv mask {agree:.6f} (bound {MASK_AGREE})")
+    print(f"  serve --multichip cascade (2 shards, Winograd): burst of "
+          f"{len(case_dirs)} {s_vol:.3f} s/vol, device idle {100 * idle:.1f}% "
+          f"on {card}", flush=True)
+
+
+def dp_slice(exp, dev, card):
+    """9.4: the fine stage at full width, data-parallel over 2 shards of the
+    card: the averaged grads of one step (f32 compute) against the mean of
+    the one-shard grads of each shard's batch (DP_SHARD_TOL) and against the
+    one-shard step on the concatenated batch (DP_GRAD_TOL), then a few bf16
+    steps and their ms."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from brats2019_tpu_torch.parallel.mesh import make_mesh
+    from brats2019_tpu_torch.train.loop import init_stage, stage_config
+    from brats2019_tpu_torch.train.step import (TrainStep, make_microbatch_loss,
+                                                sample_microbatch, shard_grads)
+
+    ucfg, cfg, _ = stage_config(exp, "fine")
+    env = make_mesh([dev] * 2)
+    loss_fn = make_microbatch_loss(cfg, ucfg.stem_downsample, lowres=True)
+    pools = [random_pool(cfg, dev) for _ in range(2)]
+    # the grads, in f32
+    model, opt = init_stage(dataclasses.replace(ucfg, compute_dtype="float32"),
+                            cfg, dev)
+    ref_model = copy.deepcopy(model)
+    names = list(opt.params)
+    step = TrainStep(model, cfg, loss_fn, opt, env=env)
+    seen = []
+    real = step.opt.step
+    step.opt.step = lambda g: seen.append(
+        torch.cat([g[k].reshape(-1) for k in names]).clone()) or real(g)
+    aux = step(pools, 0)
+    batches = [sample_microbatch(pools[j], cfg, 0, j) for j in range(2)]
+    # each shard's batch through the one-shard path: their mean is what the
+    # averaged step must apply
+    per = [shard_grads(ref_model, loss_fn, [b], names)[0] for b in batches]
+    mean = (per[0] + per[1]) / 2
+    d_mean = float((seen[0] - mean).norm() / mean.norm())
+    check(d_mean <= DP_SHARD_TOL,
+          f"data-parallel step over 2 shards of the card (f32 compute): "
+          f"averaged grads vs the mean of the one-shard grads of each shard's "
+          f"batch, relative L2 {d_mean:.3e} (tol {DP_SHARD_TOL})")
+    imgs, segs = zip(*batches)
+    ref_model.zero_grad(set_to_none=True)
+    loss, _ = loss_fn(ref_model, torch.cat(imgs), torch.cat(segs))
+    loss.backward()
+    params = dict(ref_model.named_parameters())
+    cat = torch.cat([params[k].grad.reshape(-1) for k in names])
+    rel = float((seen[0] - cat).norm() / cat.norm())
+    off, errs = 0, {}
+    for k in names:
+        n = params[k].numel()
+        d, r = seen[0][off:off + n], cat[off:off + n]
+        errs[k] = float((d - r).abs().max() / r.abs().max().clamp_min(1e-30))
+        off += n
+    worst = max(errs, key=errs.get)
+    loss_rel = abs(float(aux["loss"]) - loss.item()) / abs(loss.item())
+    check(rel <= DP_GRAD_TOL and loss_rel <= 1e-5,
+          f"data-parallel step over 2 shards of the card (f32 compute): "
+          f"averaged grads vs the one-shard step on the concatenated batch, "
+          f"relative L2 {rel:.3e} over all {len(params)} parameters "
+          f"(tol {DP_GRAD_TOL}); per parameter worst {worst} max|d|/max|ref| "
+          f"{errs[worst]:.3e}; loss {float(aux['loss']):.6f} vs {loss.item():.6f}")
+    del model, opt, step, ref_model, seen
+    torch.cuda.empty_cache()
+    # a few steps at the stage's own bf16, and their time
+    model, opt = init_stage(ucfg, cfg, dev)
+    step = TrainStep(model, cfg, loss_fn, opt, env=env)
+    losses = [float(step(pools, i)["loss"]) for i in range(3)]
+    ms, aux = timed_steps(step, pools, warm=1, reps=5)
+    losses.append(float(aux["loss"]))
+    check(all(math.isfinite(v) for v in losses),
+          f"data-parallel fine steps: losses {[round(v, 4) for v in losses]}")
+    print(f"  data-parallel fine step, 2 shards of the card (batch 1 a shard, "
+          f"patch {cfg.patch}): {ms:.3f} ms (CUDA events, mean of 5), "
+          f"{2 * 1e3 / ms:.2f} patches/s on {card}", flush=True)
+    del model, opt, step, pools
+    torch.cuda.empty_cache()
+    return ms
+
+
+def spatial_train_slice(exp, dev, card):
+    """9.4: ``make_spatial_train_grad`` on the fine net at full width, one
+    SPATIAL_TRAIN_EDGE^3 volume split on X over 2 shards of the card. In f32:
+    its loss and grads against the unsharded model's on the same volume
+    (relative L2 within SPATIAL_GRAD_TOL), and in f32 and bf16: every conv,
+    IN backward, up backward and down backward of every shard counted on the
+    kernel its plan names (the IN backward on ``in_act_bwd.cu`` wherever the
+    plan puts it there, in bf16 everywhere), finite grads."""
+    import dataclasses
+
+    import torch
+
+    from brats2019_tpu_torch import ops
+    from brats2019_tpu_torch.ops import _build, norm
+    from brats2019_tpu_torch.parallel.mesh import make_mesh
+    from brats2019_tpu_torch.parallel.spatial_unet import make_spatial_train_grad
+    from brats2019_tpu_torch.train.loop import init_stage, stage_config
+
+    ucfg, cfg, _ = stage_config(exp, "fine")
+    n, v = 2, SPATIAL_TRAIN_EDGE
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn((v, v, v, 4), generator=g, device=dev)
+    y = torch.randint(0, 4, (v, v, v), generator=g, device=dev)
+    calls = train_calls(ucfg, 1, (v // n, v, v))
+    count = lambda name: sum(1 for c, _ in calls if c == name)
+    in_shapes = [sh for c, sh in calls if c == "instance_norm_act_bwd"]
+    sms = _build.sm_count(dev)
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        model, _ = init_stage(dataclasses.replace(ucfg, compute_dtype=dt), cfg, dev)
+        fn = make_spatial_train_grad(make_mesh([dev] * n), model)
+        ops.reset_launch_counts()
+        loss, grads = fn(x, y)
+        torch.cuda.synchronize()
+        routes = {
+            "conv3d": ops.conv3d.launches,
+            "instance_norm_act_bwd": ops.instance_norm_act_bwd.launches,
+            "instance_norm_act_bwd on in_act_bwd.cu":
+                ops.instance_norm_act_bwd.launches_cuda,
+            "upsample2x_bwd": ops.upsample2x_bwd.launches,
+            "upsample2x_bwd on resize2x.cu": ops.upsample2x_bwd.launches_cuda,
+            "downsample2x_bwd": ops.downsample2x_bwd.launches,
+            "downsample2x_bwd on resize2x.cu": ops.downsample2x_bwd.launches_cuda}
+        planned = sum(norm.plan_in_bwd(1, math.prod(sh[1:4]), sh[4], sms,
+                                       dtype).route == "in_act_bwd.cu"
+                      for sh in in_shapes)
+        f32 = dtype == torch.float32
+        want = {
+            "conv3d": n * count("conv3d"),
+            "instance_norm_act_bwd": n * len(in_shapes),
+            "instance_norm_act_bwd on in_act_bwd.cu": n * planned,
+            "upsample2x_bwd": n * count("upsample2x_bwd"),
+            "upsample2x_bwd on resize2x.cu": n * count("upsample2x_bwd"),
+            "downsample2x_bwd": n * count("downsample2x_bwd"),
+            # the bf16 down backward is the Triton kernel (row 5)
+            "downsample2x_bwd on resize2x.cu": n * count("downsample2x_bwd") if f32 else 0}
+        finite = all(bool(torch.isfinite(t).all()) for t in grads.values())
+        check(routes == want and finite and (f32 or planned == len(in_shapes)),
+              f"spatial training grads, {n} shards of the card, {dt}: launches "
+              f"{routes} (expected {want}; {planned} of {len(in_shapes)} IN "
+              f"backwards a shard planned on in_act_bwd.cu), grads finite {finite}")
+        # the unsharded model's grads of the same loss on the whole volume
+        spatial = {k: t.clone() for k, t in grads.items()}
+        model.zero_grad(set_to_none=True)
+        logp = torch.log_softmax(model(x[None]).float(), dim=-1)
+        whole_loss = -logp.gather(-1, y[None].long().unsqueeze(-1)).mean()
+        whole_loss.backward()
+        whole = {k: p.grad for k, p in model.named_parameters()}
+        rel = math.sqrt(sum(float((spatial[k] - whole[k]).float().square().sum())
+                            for k in whole)
+                        / sum(float(whole[k].float().square().sum()) for k in whole))
+        loss_rel = abs(float(loss) - whole_loss.item()) / abs(whole_loss.item())
+        if f32:
+            check(rel <= SPATIAL_GRAD_TOL and loss_rel <= 1e-5,
+                  f"spatial training grads, {n} shards of the card, f32: vs the "
+                  f"unsharded model's on the same {v}^3 volume, relative L2 "
+                  f"{rel:.3e} over all {len(whole)} parameters (tol "
+                  f"{SPATIAL_GRAD_TOL}); loss {float(loss):.6f} vs "
+                  f"{whole_loss.item():.6f}")
+        else:
+            print(f"  spatial training grads, bf16: vs the unsharded model's, "
+                  f"relative L2 {rel:.3e}; loss {float(loss):.6f} vs "
+                  f"{whole_loss.item():.6f} on {card}", flush=True)
+        del model, fn, grads, spatial, whole
+        torch.cuda.empty_cache()
+
+
+def multiprocess_slice(card):
+    """9.5: the launcher: one process over NCCL; two processes sharing the
+    card over gloo against one process of two shards."""
+    import torch
+
+    from brats2019_tpu_torch.data import synthetic
+    from brats2019_tpu_torch.parallel.mesh import make_mesh
+    from brats2019_tpu_torch.parallel.multiprocess import (decode_mask,
+                                                           flagship_workload,
+                                                           launch_workers)
+
+    root = os.path.join(WORK, "mp")
+    data = os.path.join(root, "data")
+    synthetic.write_dataset(data, 2, shape=(64, 40, 36), seed0=SEED)
+    t0 = time.perf_counter()
+    one = flagship_workload(data, os.path.join(root, "one"),
+                            env=make_mesh(["cuda:0"] * 2))
+    t1 = time.perf_counter()
+    nccl = launch_workers(data, os.path.join(root, "nccl"), num_processes=1,
+                          shards_per_process=1, device="cuda", backend="nccl",
+                          timeout=600)[0]
+    t2 = time.perf_counter()
+    check(nccl["backend"] == "nccl" and nccl["bringup_sum"] == 1.0
+          and nccl["forbidden_modules"] == []
+          and math.isfinite(nccl["loss_first"]) and math.isfinite(nccl["loss_resumed"]),
+          f"one worker over NCCL: bring-up all-reduce {nccl['bringup_sum']}, "
+          f"losses {nccl['loss_first']:.5f} / {nccl['loss_resumed']:.5f}, "
+          f"forbidden modules {nccl['forbidden_modules']} ({t2 - t1:.1f} s)")
+    two = launch_workers(data, os.path.join(root, "two"), num_processes=2,
+                         shards_per_process=1, device="cuda", backend="gloo",
+                         cuda_visible=["0", "0"], timeout=600)
+    t3 = time.perf_counter()
+    for r in two:
+        close = all(abs(r[k] - one[k]) <= MP_LOSS_RTOL * abs(one[k])
+                    for k in ("loss_first", "loss_resumed"))
+        same = bool((decode_mask(r) == decode_mask(one)).all())
+        check(r["backend"] == "gloo" and r["bringup_sum"] == 3.0 and close
+              and same and r["forbidden_modules"] == [],
+              f"two workers on the card over gloo: losses {r['loss_first']:.6f} "
+              f"/ {r['loss_resumed']:.6f} vs one process of two shards "
+              f"{one['loss_first']:.6f} / {one['loss_resumed']:.6f} (rtol "
+              f"{MP_LOSS_RTOL}); cascade mask equal {same}")
+    print(f"  multi-process: one process x 2 shards {t1 - t0:.1f} s, 1 NCCL "
+          f"worker {t2 - t1:.1f} s, 2 gloo workers {t3 - t2:.1f} s (with "
+          f"start-up) on {card}", flush=True)
+    torch.cuda.empty_cache()
+
+
+def phase9(exp, work, case_dirs, first, dev, card):
+    """Phase 9: the native decoder, the params export, the mesh modes, data
+    parallelism and the multi-process launcher (module docstring)."""
+    import torch
+
+    t0 = time.perf_counter()
+    decoder = decoder_slice(exp, work, case_dirs, card)
+    print(f"  9.1 (decoder) took {time.perf_counter() - t0:.1f} s", flush=True)
+    t1 = time.perf_counter()
+    export_slice(os.path.join(WORK, "cases"), card)
+    print(f"  9.2 (export) took {time.perf_counter() - t1:.1f} s", flush=True)
+    t1 = time.perf_counter()
+    check_shard_statistics(exp, dev)
+    mesh_modes(exp, work, case_dirs, first, dev, card)
+    multichip_serve_burst(work, case_dirs, first, card)
+    torch.cuda.empty_cache()
+    print(f"  9.3 (mesh modes) took {time.perf_counter() - t1:.1f} s", flush=True)
+    t1 = time.perf_counter()
+    spatial_train_slice(exp, dev, card)
+    dp_slice(exp, dev, card)
+    print(f"  9.4 (spatial grads, data parallel) took "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    t1 = time.perf_counter()
+    multiprocess_slice(card)
+    print(f"  9.5 (multi-process) took {time.perf_counter() - t1:.1f} s", flush=True)
+    print(f"  phase 9 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return decoder
+
+
+
+def phase9_only(exp, dev, card) -> int:
+    """``--phases 9``: phase 3's weights, cases and predict CLI run (the
+    masks phase 9 compares with), then phase 9; no result lines."""
+    from brats2019_tpu_torch.cli import predict as predict_cli
+    from brats2019_tpu_torch.data import synthetic
+    from brats2019_tpu_torch.data.constants import VOLUME_SHAPE
+    from brats2019_tpu_torch.utils.weights import init_params, save_params_npz
+
+    shutil.rmtree(WORK, ignore_errors=True)
+    work = os.path.join(WORK, "workdir")
+    for stage, cfg, seed in (("fine", exp.unet, SEED),
+                             ("coarse", exp.coarse_unet, SEED + 1)):
+        os.makedirs(os.path.join(work, stage))
+        save_params_npz(os.path.join(work, stage, "params.npz"),
+                        init_params(cfg, seed))
+    case_dirs = synthetic.write_dataset(os.path.join(WORK, "cases"), CASES,
+                                        shape=VOLUME_SHAPE, seed0=SEED)
+    rc = predict_cli.main([os.path.join(WORK, "cases"), "--preset", "cascade",
+                           "--workdir", work, "--device", "cuda"])
+    check(rc == 0, f"predict CLI exit code {rc}")
+    print("== phase 9 alone", flush=True)
+    phase9(exp, work, case_dirs, read_labels(case_dirs), dev, card)
+    shutil.rmtree(WORK, ignore_errors=True)
+    print(f"== stopped after phase 9 as asked; {len(FAILURES)} failure(s)",
+          flush=True)
+    for f in FAILURES:
+        print(f"FAILED: {f}", file=sys.stderr)
+    return 1 if FAILURES else 0
+
+
 def main() -> int:
     import argparse
 
@@ -3407,9 +4234,11 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch port "
                                  "on one CUDA card; no argument runs it whole.")
-    ap.add_argument("--phases", type=int, choices=(2, 5), default=5,
-                    help="2: stop after the kernel checks of phase 2 (no "
-                         "result lines are printed); 5 (default): everything")
+    ap.add_argument("--phases", type=int, choices=(2, 5, 9), default=5,
+                    help="2: stop after the kernel checks of phase 2; 9: "
+                         "phase 1, phase 3's cases, weights and predict CLI "
+                         "run, then phase 9 (neither prints result lines); "
+                         "5 (default): everything")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("error: torch.cuda.is_available() is False; this smoke test "
@@ -3463,6 +4292,8 @@ def main() -> int:
     }
     eval_calls = (unet_calls(exp.coarse_unet, 1, coarse_canvas)
                   + unet_calls(exp.unet, 1, exp.train.pool_shape))
+    if args.phases == 9:
+        return phase9_only(exp, dev, card)
     print("== phase 2: kernels vs plain torch at the flagship shapes", flush=True)
     t0 = time.perf_counter()
     wino_calls = [("conv3d_winograd", shape) for n, shape in calls if n == "conv3d"]
@@ -3685,6 +4516,10 @@ def main() -> int:
     training_leftouts(exp, os.path.join(WORK, "cases"), case_dirs, dev, card,
                       unet_calls(exp.unet, 1, exp.train.patch), stage_calls["fine"])
     print(f"  phase 8 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    print("== phase 9: the native decoder, the params export, the mesh modes, "
+          "data parallelism and the multi-process launcher", flush=True)
+    phase9(exp, work, case_dirs, first, dev, card)
 
     record = []
     for k, (route, source, replaces) in KERNELS.items():

@@ -137,6 +137,12 @@ def test_port_runtime_imports_no_jax():
         "import brats2019_tpu_torch.infer.payload_cache, brats2019_tpu_torch.infer.tiling\n"
         "import brats2019_tpu_torch.ops.winograd\n"
         "import brats2019_tpu_torch.ops.connected_components\n"
+        "import brats2019_tpu_torch.cli.export, brats2019_tpu_torch.cli.evaluate\n"
+        "import brats2019_tpu_torch.utils.nifti_fast, brats2019_tpu_torch.infer.ensemble\n"
+        "import brats2019_tpu_torch.parallel.mesh, brats2019_tpu_torch.parallel.spatial\n"
+        "import brats2019_tpu_torch.parallel.spatial_unet\n"
+        "import brats2019_tpu_torch.parallel.multiprocess\n"
+        "import brats2019_tpu_torch.infer.multichip\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'ml_dtypes', 'safetensors',"

@@ -314,14 +314,14 @@ def test_uncertainty_maps_are_the_reference_copies():
 
 def test_uncertainty_dir_is_the_reference_but_for_the_decoder_meta():
     """``predict_uncertainty_dir`` is the original statement for statement,
-    but for the ``meta=case.meta`` the reference hands its native decoder's
-    bbox on with (the port reads NIfTI in NumPy; its docstring is its own)."""
+    the ``meta=case.meta`` that hands the native decoder's bbox on included
+    (the port has the decoder too); only its docstring is its own."""
     got = ast.parse(inspect.getsource(uncertainty.predict_uncertainty_dir)).body[0]
     want = ast.parse(inspect.getsource(ref_uncertainty.predict_uncertainty_dir)).body[0]
-    calls = [n for n in ast.walk(want) if isinstance(n, ast.Call)
-             and getattr(n.func, "attr", None) == "predict_probs_arrays"]
-    assert len(calls) == 1 and [k.arg for k in calls[0].keywords] == ["meta"]
-    calls[0].keywords = []
+    for node in (got, want):
+        calls = [n for n in ast.walk(node) if isinstance(n, ast.Call)
+                 and getattr(n.func, "attr", None) == "predict_probs_arrays"]
+        assert len(calls) == 1 and [k.arg for k in calls[0].keywords] == ["meta"]
     for node in (got, want):
         node.body = node.body[1:]                      # the docstrings
     assert ast.dump(got) == ast.dump(want)
@@ -341,3 +341,40 @@ def test_prep_cache_keys_are_the_reference_copies(name):
 
     assert pipeline.PREP_CACHE_VERSION == ref_pipeline.PREP_CACHE_VERSION
     assert _fn_ast(pipeline, name) == _fn_ast(ref_pipeline, name)
+
+
+def test_native_decoder_source_is_the_reference_copy():
+    """``brats2019_tpu_torch/csrc/fastnifti.cpp`` is the root
+    ``csrc/fastnifti.cpp`` line for line from its first ``#include`` on (only
+    the leading comment, which says how the port builds it, is its own)."""
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    got = (root / "brats2019_tpu_torch/csrc/fastnifti.cpp").read_text()
+    want = (root / "csrc/fastnifti.cpp").read_text()
+    mark = "#include <cmath>"
+    assert got.count(mark) == 1 and want.count(mark) == 1
+    assert got[got.index(mark):] == want[want.index(mark):]
+    # the build flags are the reference Makefile's
+    from brats2019_tpu_torch.utils import nifti_fast
+
+    make = (root / "csrc/Makefile").read_text()
+    assert " ".join(nifti_fast.CXX_FLAGS) in make
+    assert " ".join(nifti_fast.LD_FLAGS) in make
+
+
+def test_native_decoder_binding_is_the_reference_copy():
+    """The ctypes structure and ``load_volumes_fast`` are the reference's
+    statement for statement (docstrings aside); the ABI version is its."""
+    import ctypes
+
+    from brats2019_tpu.utils import nifti_fast as ref_fast
+    from brats2019_tpu_torch.utils import nifti_fast
+
+    assert nifti_fast._FNInfo._fields_ == ref_fast._FNInfo._fields_
+    assert (_fn_ast(nifti_fast, "load_volumes_fast", True)
+            == _fn_ast(ref_fast, "load_volumes_fast", True))
+    assert ctypes.sizeof(nifti_fast._FNInfo) == ctypes.sizeof(ref_fast._FNInfo)
+    assert nifti_fast.ABI_VERSION == 2
+    src = inspect.getsource(ref_fast._ensure_lib)
+    assert "_ABI_VERSION = 2" in src

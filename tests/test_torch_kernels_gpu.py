@@ -1599,3 +1599,30 @@ def test_remat_step_on_the_card_recomputes_its_levels(dev):
     for k in g0:
         err = ((g2[k] - g0[k]).abs().max() / g0[k].abs().max().clamp_min(1e-30)).item()
         assert err <= 2e-2, k
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,parts", [((1, 24, 20, 12, 64), 2),
+                                         ((1, 17, 9, 10, 12), 3)])
+def test_shard_statistics_merge_to_the_volume_statistics(dev, dtype, shape, parts):
+    """``ops.instance_norm_partials`` (the Triton statistics pass alone) of
+    the D-slices of a volume, concatenated, merge into the whole volume's
+    statistics: IN+act of each slice from them equals the slice of the
+    whole volume's plain IN+act (2 bf16 ulp; f32 1e-5), counted on
+    ``launches_shard_stats``."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    gam = torch.rand(shape[-1], generator=g, device=dev) + 0.5
+    bet = torch.randn(shape[-1], generator=g, device=dev) * 0.1
+    slices = x.tensor_split(parts, dim=1)
+    before = ops.instance_norm_act.launches_shard_stats
+    every = torch.cat([ops.instance_norm_partials(s.contiguous()) for s in slices], 2)
+    assert ops.instance_norm_act.launches_shard_stats - before == parts
+    ref = norm.instance_norm_act_plain(x, gam, bet, activation="relu")
+    got = torch.cat([ops.instance_norm_act(s.contiguous(), gam, bet,
+                                           activation="relu", partials=every)
+                     for s in slices], 1)
+    if dtype == torch.bfloat16:
+        assert _ulps(got, ref) <= 2
+    else:
+        assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()

@@ -309,13 +309,14 @@ def test_strip_supervisor_flags_and_parser():
     assert args.poll == 0.5 and args.retries == 1 and not args.warmup
     # a flag that is not ported is absent, not accepted and ignored
     for flag in (["--transfer-dtype", "int8"], ["--rss-limit-mb", "9"],
-                 ["--multichip", "cascade"], ["--batch-volumes", "2"]):
+                 ["--batch-volumes", "2"]):
         with pytest.raises(SystemExit):
             parser.parse_args(["w", *flag])
-    # the ensemble and artifact flags are ported
+    # the ensemble, artifact and mesh flags are ported
     args2 = parser.parse_args(["w", "--ensemble", "x", "y", "--save-probs",
-                               "--save-uncertainty"])
+                               "--save-uncertainty", "--multichip", "cascade"])
     assert args2.ensemble == ["x", "y"] and args2.save_probs and args2.save_uncertainty
+    assert args2.multichip == "cascade" and args.multichip is None
     # every ported flag has the reference's default
     ref = jax_serve.build_parser().parse_args(["w"])
     for k, v in vars(args).items():
