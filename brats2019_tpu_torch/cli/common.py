@@ -254,7 +254,7 @@ def mesh_from_device_arg(spec: str):
 
 
 def multichip_mode_notes(mode: str, exp: ExperimentConfig,
-                         serving_depth=None) -> None:
+                         batch_volumes=None, serving_depth=None) -> None:
     """Operator notes of the three ``--multichip`` CLIs (predict, serve,
     evaluate), in one place (:396-423): the single-stage modes bypass a
     cascade preset's coarse stage, postprocessing runs on the host, and the
@@ -268,9 +268,11 @@ def multichip_mode_notes(mode: str, exp: ExperimentConfig,
         print("note: --multichip postprocesses on the host (the device "
               "connected components live in the single-device label "
               "program)", file=sys.stderr)
-    if serving_depth and serving_depth > 1:
-        print("note: --serving-depth has no effect with --multichip (cases "
-              "run one at a time over the whole mesh)", file=sys.stderr)
+    for flag, name in ((batch_volumes, "--batch-volumes"),
+                       (serving_depth, "--serving-depth")):
+        if flag and flag > 1:
+            print(f"note: {name} has no effect with --multichip (cases run "
+                  "one at a time over the whole mesh)", file=sys.stderr)
     if exp.infer.prep_cache_dir:
         print("note: --prep-cache has no effect with --multichip (the "
               "payload cache serves the single-device transfer encoding)",

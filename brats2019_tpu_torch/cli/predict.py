@@ -5,6 +5,7 @@ Usage:
     python -m brats2019_tpu_torch.cli.predict <case_dir_or_root>
         [--preset cascade] [--workdir DIR] [--output PATH] [--device cuda]
         [--no-tta] [--no-cascade] [--postproc host|device]
+        [--transfer-dtype bfloat16|int8] [--batch-volumes 1|2]
         [--prep-cache DIR] [--serving-depth N] [--shard I/N] [--seed N]
         [--save-probs] [--save-uncertainty] [--ensemble WORKDIR ...]
         [--multichip spatial|sweep|cascade] [--profile DIR]
@@ -21,7 +22,10 @@ Every preset predicts: ``models/cascade.py`` ``make_predict_fn`` picks the
 split cascade, the staged multi-tile sweep or the monolithic program.
 ``--no-tta`` (one forward per tile) and ``--no-cascade`` (no coarse stage,
 the whole canvas swept) change the preset's inference config as the
-reference's flags do.
+reference's flags do. ``--transfer-dtype int8`` ships the brain crop
+quantized per modality to int8 (half the host->device bytes; lossy),
+``--batch-volumes 2`` pairs consecutive cases of a root into one fine forward
+at batch 16 (the split cascade only; ``infer/predictor.py``).
 
 ``--save-probs`` also writes ``<case>_probs.npz`` (float16 (X, Y, Z, 4) mean
 class probabilities, BraTS disk class order [0, 1, 2, 4]) and
@@ -40,9 +44,6 @@ striped over them. The mesh is ``--device``: ``cuda`` every local card, or a
 comma-separated list of shard devices (``cuda:0,cuda:0``: two shards on one
 card; ``cpu,cpu``). ``--save-probs``/``--save-uncertainty`` are refused with
 it, and ``--ensemble`` with any mode but ``cascade``.
-
-Not ported (ROADMAP queue 1 item 6b): ``--transfer-dtype`` and
-``--batch-volumes 2``.
 """
 
 from __future__ import annotations
@@ -83,6 +84,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "(plain torch ops); with --multichip, cuda (every "
                         "local card) or a comma-separated list of shard "
                         "devices")
+    p.add_argument("--transfer-dtype", default=None,
+                   choices=("bfloat16", "int8"),
+                   help="host->device encoding: int8 halves the link bytes "
+                        "(lossy: the masks may differ from the bf16 path's)")
     p.add_argument("--postproc", default=None, choices=("host", "device"),
                    help="where the connected-component filter runs")
     p.add_argument("--min-component-voxels", type=int, default=None,
@@ -98,6 +103,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serving-depth", type=int, default=None,
                    help="volumes concurrently in host prep / postprocess on "
                         "a root of cases")
+    p.add_argument("--batch-volumes", type=int, default=None, choices=(1, 2),
+                   help="2 = pair two volumes' fine TTA stages into one "
+                        "device program at batch 16 (the split cascade only; "
+                        "an odd tail runs alone)")
     p.add_argument("--save-probs", action="store_true",
                    help="also write <case>_probs.npz: the TTA (and ensemble) "
                         "mean class probabilities, float16 (X,Y,Z,4), BraTS "
@@ -169,6 +178,11 @@ def _ensemble_predictor(args, exp, primary):
               "postprocesses on the host (the device connected components "
               "live in the label program, which the ensemble's probability "
               "path bypasses)", file=sys.stderr)
+    for flag, name in ((args.batch_volumes, "--batch-volumes"),
+                       (args.serving_depth, "--serving-depth")):
+        if flag and flag > 1:
+            print(f"note: {name} has no effect with --ensemble",
+                  file=sys.stderr)
     pred = EnsemblePredictor(exp, members, device=args.device)
     print(f"[predict] ensemble of {pred.num_members} members", flush=True)
     return pred
@@ -179,7 +193,8 @@ def _predict_multichip(args, exp, params_fine, params_coarse, cases) -> int:
     mesh of ``--device`` (``infer/multichip.py``)."""
     from ..infer.multichip import MultichipPredictor
 
-    multichip_mode_notes(args.multichip, exp, serving_depth=args.serving_depth)
+    multichip_mode_notes(args.multichip, exp, batch_volumes=args.batch_volumes,
+                         serving_depth=args.serving_depth)
     members = None
     try:
         if args.ensemble:
@@ -218,12 +233,16 @@ def main(argv=None) -> int:
         infer = dataclasses.replace(infer, tta_flips=False)
     if args.no_cascade:
         infer = dataclasses.replace(infer, cascade=False)
+    if args.transfer_dtype:
+        infer = dataclasses.replace(infer, transfer_dtype=args.transfer_dtype)
     if args.postproc:
         infer = dataclasses.replace(infer, postproc=args.postproc)
     if args.serving_depth:
         infer = dataclasses.replace(infer, serving_depth=args.serving_depth)
     if args.prep_cache:
         infer = dataclasses.replace(infer, prep_cache_dir=args.prep_cache)
+    if args.batch_volumes:
+        infer = dataclasses.replace(infer, batch_volumes=args.batch_volumes)
     exp = dataclasses.replace(exp, infer=infer)
 
     cases = discover_cases(args.case_dir)

@@ -4,7 +4,9 @@
 Usage:
     python -m brats2019_tpu_torch.cli.serve <watch_root> [--preset cascade]
         [--workdir DIR] [--output-dir DIR] [--poll 0.5] [--once]
-        [--device cuda|cpu] [--http PORT] [--warmup] [--supervise] ...
+        [--device cuda|cpu] [--http PORT] [--warmup] [--supervise]
+        [--rss-limit-mb N] [--transfer-dtype bfloat16|int8]
+        [--batch-volumes 1|2] ...
 
 Watches ``watch_root`` for BraTS case directories appearing (all four
 modality files present and size-stable across one poll interval), runs the
@@ -24,7 +26,16 @@ a connection or timeout error) is retried here and after a restart. A CUDA
 error other than out-of-memory leaves the process's context unusable, so no
 retry in this process can succeed: the daemon logs the case as transient and
 exits with code 5; under ``--supervise`` the supervisor restarts it and the
-completion log replays what was served.
+completion log replays what was served. ``--rss-limit-mb N`` makes the daemon
+exit with code 4 once its resident memory reaches N MB, checked between
+batches of a burst and after two empty scans (never mid-case); the
+supervisor restarts it at once (paced by 10 s when it lived under 30 s) and
+the completion log makes the recycle lossless.
+
+``--transfer-dtype int8`` ships each case's brain crop quantized per modality
+to int8 (half the host->device bytes; lossy), ``--batch-volumes 2`` pairs
+consecutive cases of a batch into one fine forward at batch 16 (the split
+cascade only; ``infer/predictor.py``).
 
 ``--no-tta`` and ``--no-cascade`` turn the 8-flip TTA and the coarse stage
 off, as in the reference; every preset is served (``models/cascade.py``
@@ -45,10 +56,6 @@ or a comma-separated list of shard devices such as ``cuda:0,cuda:0``):
 ``cascade`` the cascade predictor's masks, ``spatial``/``sweep`` the
 single-stage decompositions; ``--ensemble`` composes with ``cascade`` only,
 and ``--save-probs``/``--save-uncertainty`` are refused with it.
-
-Not ported (ROADMAP queue 1 item 6b lists them): ``--transfer-dtype int8``
-and the transfer-bound hint, ``--rss-limit-mb`` (with its exit-4 recycle)
-and ``--batch-volumes``.
 """
 
 from __future__ import annotations
@@ -136,6 +143,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "(plain torch ops); with --multichip, cuda (every "
                         "local card) or a comma-separated list of shard "
                         "devices")
+    p.add_argument("--transfer-dtype", default=None,
+                   choices=("bfloat16", "int8"),
+                   help="host->device encoding: int8 halves the link bytes "
+                        "(lossy: the masks may differ from the bf16 path's)")
+    p.add_argument("--rss-limit-mb", type=int, default=0,
+                   help="voluntary recycle watermark: exit with code 4 "
+                        "(between batches, never mid-case) once resident "
+                        "memory reaches this, so a supervisor restarts the "
+                        "daemon (lossless through the completion-log "
+                        "replay); 0 = off")
+    p.add_argument("--batch-volumes", type=int, default=None, choices=(1, 2),
+                   help="2 = pair two volumes' fine TTA stages into one "
+                        "device program at batch 16 (the split cascade only; "
+                        "an odd tail runs alone)")
     p.add_argument("--multichip", default=None,
                    choices=("spatial", "sweep", "cascade"),
                    help="serve each case over a mesh of shards: 'cascade' "
@@ -202,7 +223,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run the daemon as a supervised child process and "
                         "restart it on crashes (capped by "
                         "--max-crash-restarts), a lost CUDA context (exit 5) "
-                        "included. The supervisor itself never touches the "
+                        "included, and at once on an --rss-limit-mb recycle "
+                        "(exit 4). The supervisor itself never touches the "
                         "device. Deliberate exits pass through (0 drained, 2 "
                         "config error); a forwarded SIGTERM/SIGINT always "
                         "exits 0 (clean stop)")
@@ -234,6 +256,10 @@ def supervise_loop(cmd, max_crash_restarts=3, crash_backoff=1.0,
     """Restart policy around one serving daemon (serve --supervise).
 
     - exit 0 / 2 / 3 (drained / config error / deliberate): pass through.
+    - exit 4 (``Server.EXIT_RECYCLE``, the --rss-limit-mb watermark): restart
+      at once and reset the crash count; a child that recycled within 30 s
+      of its start paces the next start by 10 s (a watermark at or below
+      the daemon's baseline would otherwise hot-loop).
     - anything else (a crash, or exit 5 after a lost CUDA context): restart
       with doubling backoff, give up after ``max_crash_restarts``
       consecutive crashes. The completion log makes a restart lossless.
@@ -263,6 +289,7 @@ def supervise_loop(cmd, max_crash_restarts=3, crash_backoff=1.0,
         while True:
             if child["stop"]:
                 return 0  # the stop fell between two children: clean stop
+            t_start = time.monotonic()
             child["proc"] = subprocess.Popen(cmd)
             if child["stop"]:
                 # a stop that landed between the check above and Popen went
@@ -272,8 +299,21 @@ def supervise_loop(cmd, max_crash_restarts=3, crash_backoff=1.0,
                 except OSError:
                     pass
             rc = child["proc"].wait()
+            uptime = time.monotonic() - t_start
             if child["stop"]:
                 return rc if rc == 2 else 0
+            if rc == Server.EXIT_RECYCLE:
+                crashes = 0
+                if uptime < 30.0:
+                    print(f"supervise: daemon recycled after only "
+                          f"{uptime:.1f}s; --rss-limit-mb is likely at or "
+                          "below its baseline RSS; pacing restarts (10s)",
+                          file=sys.stderr, flush=True)
+                    _sleep(10.0)
+                else:
+                    print("supervise: daemon recycled (exit 4); restarting",
+                          flush=True)
+                continue
             if rc in (0, 2, 3):
                 return rc
             crashes += 1
@@ -292,6 +332,19 @@ def supervise_loop(cmd, max_crash_restarts=3, crash_backoff=1.0,
             signal.signal(s, h)
 
 
+def _self_rss_mb() -> float:
+    """This process's resident set in MB (Linux /proc; 0.0 where absent,
+    and the RSS limit then never triggers)."""
+    try:
+        with open(f"/proc/{os.getpid()}/status") as f:
+            for line in f:
+                if line.startswith("VmRSS"):
+                    return int(line.split()[1]) / 1024.0
+    except (OSError, ValueError, IndexError):
+        pass
+    return 0.0
+
+
 def _case_ready(case_dir: str, sizes: dict) -> bool:
     """All 4 modalities exist and their sizes did not change since the last
     scan (an uploader mid-copy never has a stable size across a poll)."""
@@ -305,6 +358,11 @@ def _case_ready(case_dir: str, sizes: dict) -> bool:
 
 
 class Server:
+    # exit code of a voluntary --rss-limit-mb recycle (SIGTERM preemption is
+    # 3, a lost CUDA context 5): the supervisor restarts the daemon at once
+    EXIT_RECYCLE = 4
+    # --rss-limit-mb; 0 = off
+    rss_limit_mb = 0
     # payload prefill off until __init__ proves the predictor supports it
     # (keeps minimally constructed instances off the self.exp path)
     _can_prefill = False
@@ -709,30 +767,60 @@ class Server:
             return EXIT_DEVICE_LOST if self._lost() else 0
         print(f"serve: watching {watch_root} (poll {poll}s)", flush=True)
         self._last_hb = 0.0
+        idle_scans = 0
         while not self._stop:
             if self._reload:
                 self._reload = False
                 self.reload_weights()
             self._heartbeat(poll)
             ready = self.scan(watch_root, sizes)
+            idle_scans = 0 if ready else idle_scans + 1
             if ready:
                 # cases beyond the first chunk wait while the device serves
                 # it: prefill their payload cache in the background
                 self._queue_prefill(ready[8:])
                 # bounded chunks keep the heartbeat fresh under a burst
+                recycle = False
                 for i0 in range(0, len(ready), 8):
                     self.process_batch(ready[i0: i0 + 8])
                     self._heartbeat(poll)
                     if self._stop or self.device_lost:
                         break
+                    # between chunks only: the chunk was served first, so a
+                    # limit already crossed at start-up still makes progress
+                    if self._over_rss_limit():
+                        recycle = True
+                        break
                 if self._lost():
                     return EXIT_DEVICE_LOST
+                if recycle:
+                    return self.EXIT_RECYCLE
                 self._finish_warmup_rest()
             else:
                 self._finish_warmup_rest()
+                # idle recycle only after two empty scans: a just-dropped
+                # case needs a second sighting to become ready, and pending
+                # work is served before a voluntary exit
+                if idle_scans >= 2 and self._over_rss_limit():
+                    return self.EXIT_RECYCLE
                 time.sleep(poll)
         print("serve: drained, exiting", flush=True)
         return 0
+
+    def _over_rss_limit(self) -> bool:
+        """The --rss-limit-mb watermark (reference :872-893): True, with a
+        note, once this process's resident memory reaches the limit; never
+        with the limit off (0)."""
+        limit = self.rss_limit_mb
+        if not limit:
+            return False
+        rss = _self_rss_mb()
+        if rss < limit:
+            return False
+        print(f"serve: RSS {rss:.0f} MB >= --rss-limit-mb {limit}; exiting "
+              "for a supervisor restart (the completion log replays, exit "
+              f"code {self.EXIT_RECYCLE})", flush=True)
+        return True
 
     def _heartbeat(self, poll: float) -> None:
         now = time.time()
@@ -762,10 +850,14 @@ def main(argv=None) -> int:
         infer = dataclasses.replace(infer, tta_flips=False)
     if args.no_cascade:
         infer = dataclasses.replace(infer, cascade=False)
+    if args.transfer_dtype:
+        infer = dataclasses.replace(infer, transfer_dtype=args.transfer_dtype)
     if args.serving_depth:
         infer = dataclasses.replace(infer, serving_depth=args.serving_depth)
     if args.prep_cache:
         infer = dataclasses.replace(infer, prep_cache_dir=args.prep_cache)
+    if args.batch_volumes:
+        infer = dataclasses.replace(infer, batch_volumes=args.batch_volumes)
     exp = dataclasses.replace(exp, infer=infer)
 
     if args.multichip:
@@ -783,6 +875,7 @@ def main(argv=None) -> int:
                   "programs)", file=sys.stderr)
             return 2
         multichip_mode_notes(args.multichip, exp,
+                             batch_volumes=args.batch_volumes,
                              serving_depth=args.serving_depth)
     elif "," in args.device:
         print("error: a list of devices is a --multichip mesh", file=sys.stderr)
@@ -796,10 +889,10 @@ def main(argv=None) -> int:
             save_probs=args.save_probs, save_uncertainty=args.save_uncertainty,
             multichip=args.multichip,
         )
-    except (FileNotFoundError, ValueError, NotImplementedError,
-            RuntimeError) as e:
+    except (FileNotFoundError, ValueError, RuntimeError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    server.rss_limit_mb = args.rss_limit_mb
     if args.warmup:
         server.warm = False  # /healthz says warm:false from the first reply
     if args.shard:

@@ -6,6 +6,7 @@
   original module imports jax: ``zscore_np`` (:31), ``BBox``,
   ``brain_bbox_np``, ``brain_bbox_fast_np``, ``center_fit_axis``,
   ``crop_np`` (:254), ``crop_cast_fit_np``, ``crop_cast_bucket_np``,
+  ``quantize_int8_per_modality`` (:237, the int8 transfer encoding, NumPy),
   ``uncrop_from_canvas_np``. tests/test_torch_cascade.py and
   tests/test_torch_host.py pin each copy to its original. The crop/cast pair returns a CPU torch tensor: the bf16 cast
   goes through torch instead of ``ml_dtypes`` (both round to nearest even,
@@ -221,6 +222,22 @@ def crop_cast_bucket_np(
     small = torch.zeros(tuple(shape) + image.shape[3:], dtype=dtype)
     region = tuple(slice(0, n) for n in copy_len)
     return _cast_into(small, region, image, tuple(src_sl)), (dst[0], dst[1], dst[2])
+
+
+def quantize_int8_per_modality(small: np.ndarray) -> np.ndarray:
+    """Lossy int8 transfer encoding: scale each modality to [-127, 127] by
+    its max magnitude and round. Halves the host->device bytes vs bf16.
+
+    No scale factor needs to travel with the data: the device-side
+    per-modality masked z-score is invariant to any positive per-modality
+    scale, so dequantization is just a cast. Zeros (background) stay exactly
+    zero. Error = intensity quantization at ~0.8% of each modality's max,
+    not bitwise the bf16 path; opt-in via
+    ``InferenceConfig.transfer_dtype="int8"``."""
+    m = np.abs(small.reshape(-1, small.shape[-1]).astype(np.float32)).max(axis=0)
+    m[m == 0] = 1.0
+    scale = (127.0 / m).astype(np.float32)
+    return np.rint(small.astype(np.float32) * scale).astype(np.int8)
 
 
 def uncrop_from_canvas_np(

@@ -3,16 +3,18 @@
 
 Caches the post-bbox *transfer payload*, the exact bytes
 ``Predictor._encode_host`` ships to the device (the bucketed brain crop in
-bf16, its canvas offset, and the brain bbox), keyed by the case's input-file
-signature and every prep parameter that determines the encoding. A hit skips
-gzip inflate, the brain-bbox scan and crop/cast; the payload is bitwise what
-the uncached path ships, so the masks are identical.
+bf16 or int8, its canvas offset, and the brain bbox), keyed by the case's
+input-file signature and every prep parameter that determines the encoding
+(the transfer dtype among them, so bf16 and int8 entries never collide). A
+hit skips gzip inflate, the brain-bbox scan and crop/cast/quantize; the
+payload is bitwise what the uncached path ships, so the masks are identical.
 
 File names, the signature hash and the npz fields (bf16 stored as its uint16
-bit pattern) are the reference's, so a cache directory written by one package
-reads in the other. Entries are written atomically (tmp + rename: serve shards
-may share a cache dir), corrupt entries are discarded and rebuilt, and
-superseded entries of the same case and parameters are pruned.
+bit pattern, int8 as it is) are the reference's, so a cache directory written
+by one package reads in the other. Entries are written atomically (tmp +
+rename: serve shards may share a cache dir), corrupt entries are discarded
+and rebuilt, and superseded entries of the same case and parameters are
+pruned.
 """
 
 from __future__ import annotations
@@ -67,9 +69,12 @@ def load_payload(path: str) -> Optional[Payload]:
     try:
         with np.load(path) as z:
             small = z["small"]
-            if small.dtype != np.uint16:
+            if small.dtype == np.uint16:      # bf16 stored as its bit pattern
+                small = torch.from_numpy(small.view(np.int16)).view(torch.bfloat16)
+            elif small.dtype == np.int8:      # the int8 transfer encoding
+                small = torch.from_numpy(small)
+            else:
                 raise ValueError(f"unexpected payload dtype {small.dtype}")
-            small = torch.from_numpy(small.view(np.int16)).view(torch.bfloat16)
             dst = tuple(int(v) for v in z["dst"]) if z["has_dst"] else None
             bbox = BBox(
                 tuple(int(v) for v in z["bbox_lo"]),
@@ -89,7 +94,9 @@ def store_payload(path: str, small: torch.Tensor,
     entries of the same case and parameters. A write failure degrades to
     uncached operation: serving must not die because a cache volume filled."""
     cache_dir = os.path.dirname(path)
-    bits = small.contiguous().view(torch.int16).numpy().view(np.uint16)
+    small = small.contiguous()
+    bits = (small.view(torch.int16).numpy().view(np.uint16)
+            if small.dtype == torch.bfloat16 else small.numpy())
     # pid and thread id: prep threads of one process may miss the same case
     # at once, and a shared tmp name would interleave their writes
     tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"

@@ -3,8 +3,10 @@
 Host: NIfTI decode (the native threaded decoder when it is available,
 ``data/case.py``), brain bbox (the decoder's fused bbox from ``Case.meta``
 where the reference takes it, :440-452, else the strided scan), bucketed crop
-+ bf16 cast (:432-475). One
-host->device copy of the crop, embedded into the zero canvas on the device.
++ bf16 cast (:432-475), or with ``transfer_dtype="int8"`` an f32 crop
+quantized per modality to int8 (half the bytes; lossy, opt-in). One
+host->device copy of the crop, cast to bf16 on the device and embedded into
+the zero canvas there, so the device program sees one input dtype.
 Device: the program ``models/cascade.py`` ``make_predict_fn`` chose (the
 split cascade, the staged sweep or the monolithic program) returns the ROI
 labels and their start; without a cascade the ROI is the whole canvas and
@@ -25,6 +27,13 @@ with an event the compute stream waits on); ONE thread, the caller's,
 launches every device program, in order; ``serving_depth`` threads fetch
 (from pinned memory the device->host copy was started into), paste, un-crop,
 postprocess and write. The labels equal the one-by-one path's bitwise.
+With ``batch_volumes=2`` and the split cascade (:75-106, :408-417),
+consecutive cases are paired: both run ``stage_roi``, then one fine forward
+at batch 16 (``SplitCascade.stage_finish_pair``); a pair shares a lane (case
+i on lane (i // 2) mod n) and an odd tail runs the single-volume
+``stage_finish``. Both entry points print :func:`transfer_bound_hint`'s
+advisory once per predictor when the host-to-device copy of the payloads,
+timed alone, takes most of the pipeline's cadence.
 
 The probability path (:628-695): ``predict_probs_arrays``, ``probs_for_dir``
 (through the payload cache) and ``predict_probs_dir`` run the program's
@@ -32,9 +41,6 @@ The probability path (:628-695): ``predict_probs_arrays``, ``probs_for_dir``
 the ROI at its start into an f32 canvas, un-crop, and give voxels no tile
 wrote exact background; ``save_probs_npz`` writes the ``<case>_probs.npz``
 artifact.
-
-Not ported (ROADMAP queue 1 item 6b lists them): the int8 transfer encoding
-and its transfer-bound hint, and volume pairing (``batch_volumes=2``).
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ import collections
 import contextlib
 import dataclasses
 import os
+import sys
 import threading
 import time
 import weakref
@@ -60,6 +67,7 @@ from ..data.preprocess import (
     brain_bbox_fast_np,
     crop_cast_bucket_np,
     crop_cast_fit_np,
+    quantize_int8_per_modality,
     uncrop_from_canvas_np,
 )
 from ..models.cascade import make_predict_fn
@@ -124,6 +132,64 @@ def _start_host_copy(*tensors):
     return host, event
 
 
+class _PairDispatcher:
+    """Volume pairing (reference :75-106). ``dispatch`` runs a volume's
+    ``stage_roi`` on its lane and holds its flip stack until a second volume
+    of the same lane arrives; then one ``stage_finish_pair`` (the fine
+    forward at batch 16) serves both, and each gets its readback through its
+    ``emit``. ``flush`` sends each lane's odd tail through the single-volume
+    ``stage_finish``. Called from the one dispatch thread."""
+
+    def __init__(self, predictor: "Predictor"):
+        self.p = predictor
+        self.pending: dict = {}  # lane -> [(emit, tiles, start), ...]
+
+    def dispatch(self, prepped, lane: int, emit) -> None:
+        program, ctx = self.p._program_on(lane)
+        with ctx, torch.inference_mode():
+            tiles, start = program.stage_roi(self.p._await_canvas(*prepped))
+            buf = self.pending.setdefault(lane, [])
+            buf.append((emit, tiles, start))
+            if len(buf) == 2:
+                (e0, t0, s0), (e1, t1, s1) = buf
+                buf.clear()
+                la, sa, lb, sb = program.stage_finish_pair(t0, t1, s0, s1)
+                e0(_start_host_copy(la, sa))
+                e1(_start_host_copy(lb, sb))
+
+    def flush(self) -> None:
+        for lane, buf in self.pending.items():
+            program, ctx = self.p._program_on(lane)
+            with ctx, torch.inference_mode():
+                for emit, tiles, start in buf:
+                    emit(_start_host_copy(*program.stage_finish(tiles, start)))
+            buf.clear()
+
+
+def transfer_bound_hint(
+    copy_s, wall_s: float, n_volumes: int, transfer_dtype: str,
+) -> Optional[str]:
+    """Serving telemetry (the reference's policy, :109-131): when the
+    host-to-device copies (``copy_s``, seconds a volume, the copy alone:
+    decode and encode are not in it) take most of the pipeline cadence,
+    recommend the int8 transfer encoding rather than switch to it: int8 is
+    lossy, so changing the wire encoding of medical masks is the operator's
+    call. A pure function, so the policy is testable."""
+    if transfer_dtype == "int8" or n_volumes < 4 or len(copy_s) < 4:
+        return None
+    med = sorted(copy_s)[len(copy_s) // 2]
+    cadence = wall_s / max(n_volumes, 1)
+    if cadence <= 0 or med < 0.5 * cadence:
+        return None
+    return (
+        f"note: the host->device copy dominates serving (median "
+        f"{med * 1e3:.0f} ms/volume ≈ {100 * med / cadence:.0f}% of the "
+        f"{cadence * 1e3:.0f} ms pipeline cadence); --transfer-dtype int8 "
+        f"halves its bytes (lossy: the masks may differ from the bf16 path's; "
+        f"and its host quantizer costs more than the bf16 cast)"
+    )
+
+
 @dataclasses.dataclass
 class PredictionStats:
     load_s: float
@@ -148,17 +214,12 @@ class Predictor:
         devices=None,
     ):
         self.exp = exp
+        if exp.infer.transfer_dtype not in ("bfloat16", "int8"):
+            raise ValueError(
+                f"transfer_dtype must be 'bfloat16' or 'int8', got "
+                f"{exp.infer.transfer_dtype!r}"
+            )
         self.device = resolve_device(device)
-        if exp.infer.transfer_dtype != "bfloat16":
-            raise NotImplementedError(
-                "only the bf16 transfer encoding is ported; int8 is a "
-                "left-out of ROADMAP queue 1 item 6b (serving)"
-            )
-        if exp.infer.batch_volumes != 1:
-            raise NotImplementedError(
-                "volume pairing (batch_volumes=2) is not ported; ROADMAP "
-                "queue 1 item 6b lists it"
-            )
         self.canvas = tuple(exp.infer.canvas or exp.train.pool_shape)
         self.fine = build_unet(exp.unet, params_fine, self.device)
         self.coarse = None
@@ -172,6 +233,10 @@ class Predictor:
         # bounded in-memory payload memo (InferenceConfig.payload_memo_volumes)
         self._payload_memo: collections.OrderedDict = collections.OrderedDict()
         self._memo_lock = threading.Lock()
+        # serving telemetry: each volume's host-to-device copy alone, for
+        # the transfer-bound advisory (printed once per predictor)
+        self._copy_times: list = []
+        self._transfer_hinted = False
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
         # the striping lanes of the multi-case paths: lane 0 is this
@@ -204,9 +269,24 @@ class Predictor:
                 self._lanes[j] = (dev, program, stream)
             return self._lanes[j]
 
-    def _lane_of(self, i: int) -> int:
-        """The lane of the i-th case of a batch: round-robin over devices."""
-        return i % len(self.devices)
+    def _lane_of(self, i: int, pair=None) -> int:
+        """The lane of the i-th case of a batch: round-robin over devices,
+        by pairs when pairing (a pair shares a lane; reference :365)."""
+        return (i // 2 if pair is not None else i) % len(self.devices)
+
+    def _program_on(self, lane: int):
+        """(program, device context) of striping lane ``lane``."""
+        dev, program, _ = self._lane(lane)
+        ctx = (torch.cuda.device(dev) if dev.type == "cuda"
+               else contextlib.nullcontext())
+        return program, ctx
+
+    @property
+    def _pairs(self) -> bool:
+        """Pairing applies: it is configured and the program is the split
+        cascade (the one with a paired stage)."""
+        return (self.exp.infer.batch_volumes >= 2
+                and hasattr(self.program, "stage_finish_pair"))
 
     # ---------------------------------------------------------------- weights --
 
@@ -217,8 +297,9 @@ class Predictor:
         CUDA kernels, Triton's compiles, cuDNN/cuBLAS handles and the
         allocator's first blocks. ``stage="primary"`` warms the label
         program, the one program the first queued case needs; ``"rest"`` the
-        other arm, the probability program when ``probs`` (the daemon emits
-        probability or uncertainty artifacts; volume pairing is not ported);
+        other arms: with pairing the paired stage and the odd tail's
+        ``stage_finish`` (:250-259), and the probability program when
+        ``probs`` (the daemon emits probability or uncertainty artifacts);
         ``"all"`` both. Returns wall seconds."""
         if stage not in ("all", "primary", "rest"):
             raise ValueError(f"warmup stage {stage!r}")
@@ -228,8 +309,15 @@ class Predictor:
         outs = []
         if stage in ("all", "primary"):
             outs.append(self.predict_device(x))
-        if stage in ("all", "rest") and probs:
-            outs.append(self.probs_device(x))
+        if stage in ("all", "rest"):
+            if self._pairs:
+                with torch.inference_mode():
+                    tiles, start = self.program.stage_roi(x)
+                    outs.append(self.program.stage_finish_pair(
+                        tiles, tiles, start, start))
+                    outs.append(self.program.stage_finish(tiles, start))
+            if probs:
+                outs.append(self.probs_device(x))
         for out in outs:
             _, event = _start_host_copy(*out)
             if event is not None:
@@ -261,12 +349,15 @@ class Predictor:
     def _encode_host(
         self, image: np.ndarray, meta: Optional[dict] = None
     ) -> Tuple[torch.Tensor, Optional[Tuple[int, int, int]], BBox]:
-        """Brain bbox -> (bucketed) crop + bf16 cast: the bytes that cross
-        to the device. ``dst is None`` means ``small`` is the whole canvas.
-        Deterministic for a fixed (input, canvas, bucket), which is what
-        makes the payload cacheable. ``meta`` (the native decoder's, from
-        ``Case.meta``) gives the brain bbox the decoder fused into its decode
-        (:440-452); without it the strided exact scan finds it."""
+        """Brain bbox -> (bucketed) crop + bf16 cast, or an f32 crop
+        quantized to int8 per modality (``transfer_dtype="int8"``): the
+        bytes that cross to the device. ``dst is None`` means ``small`` is
+        the whole canvas in bf16; the int8 whole canvas has ``dst`` (0, 0, 0),
+        as the reference's (:468-474). Deterministic for a fixed (input,
+        canvas, bucket, transfer dtype), which is what makes the payload
+        cacheable. ``meta`` (the native decoder's, from ``Case.meta``) gives
+        the brain bbox the decoder fused into its decode (:440-452); without
+        it the strided exact scan finds it."""
         if meta is not None:
             bbox = BBox(tuple(int(v) for v in meta["bbox_lo"]),
                         tuple(int(v) for v in meta["bbox_hi"]),
@@ -274,10 +365,19 @@ class Predictor:
         else:
             bbox = brain_bbox_fast_np(image)
         bucket = self.exp.infer.transfer_bucket
+        int8 = self.exp.infer.transfer_dtype == "int8"
+        # int8 quantizes from f32, so the bucketed and whole-canvas payloads
+        # are bitwise equal (same nonzero set, same per-modality scale)
+        dtype = torch.float32 if int8 else torch.bfloat16
         if bucket:
-            small, dst = crop_cast_bucket_np(image, bbox, self.canvas, bucket)
-            return small, dst, bbox
-        return crop_cast_fit_np(image, bbox, self.canvas), None, bbox
+            small, dst = crop_cast_bucket_np(image, bbox, self.canvas, bucket,
+                                             dtype=dtype)
+        else:
+            small = crop_cast_fit_np(image, bbox, self.canvas, dtype=dtype)
+            dst = (0, 0, 0) if int8 else None
+        if int8:
+            small = torch.from_numpy(quantize_int8_per_modality(small.numpy()))
+        return small, dst, bbox
 
     def _memo_encode(self, image: np.ndarray, meta: Optional[dict] = None):
         """``_encode_host`` through the bounded in-memory payload memo, keyed
@@ -322,21 +422,35 @@ class Predictor:
         canvas (:477). On a card the copy leaves pinned memory on the copy
         stream and the embed follows it there; the returned event marks the
         canvas ready, and the thread that launches the device program waits
-        on it (``_await_canvas``). Returns (canvas, event or None)."""
+        on it (``_await_canvas``). Returns (canvas, event or None).
+        The copy alone is timed for the transfer advisory: on a card by
+        CUDA events around it, on the CPU (no link) by the host clock around
+        the embed."""
         dev, _, stream = self._lane(lane)
         if dev.type != "cuda":
-            return self._embed(small, dst, dev), None
+            t0 = time.perf_counter()
+            canvas = self._embed(small, dst, dev)
+            self._note_copy(time.perf_counter() - t0)
+            return canvas, None
         with torch.cuda.device(dev), torch.cuda.stream(stream):
-            canvas = self._embed(
-                small.pin_memory().to(dev, non_blocking=True), dst, dev)
+            pinned = small.pin_memory()
+            timed = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            timed[0].record()
+            moved = pinned.to(dev, non_blocking=True)
+            timed[1].record()
+            canvas = self._embed(moved, dst, dev)
             event = torch.cuda.Event()
             event.record()
+        self._note_copy(timed)
         return canvas, event
 
     def _embed(self, small: torch.Tensor,
                dst: Optional[Tuple[int, int, int]], dev=None) -> torch.Tensor:
+        """The payload on ``dev`` cast to bf16 (the int8 encoding
+        dequantizes by cast alone: the program's per-modality z-score is
+        scale-invariant; :196-213), placed at ``dst`` in a zero canvas."""
         dev = self.device if dev is None else dev
-        small = small.to(dev)
+        small = small.to(dev).to(torch.bfloat16)
         if dst is None:
             return small
         canvas = torch.zeros(self.canvas + tuple(small.shape[3:]),
@@ -360,7 +474,36 @@ class Predictor:
         event), cropped shape, bbox). Runs in a prep thread on the serving
         path."""
         small, dst, bbox = self._memo_encode(image, meta)
-        return self._payload_to_device(small, dst, lane), bbox.shape, bbox
+        moved = self._payload_to_device(small, dst, lane)
+        return moved, bbox.shape, bbox
+
+    def _note_copy(self, timing) -> None:
+        """Record one volume's host-to-device copy: seconds, or a started
+        pair of CUDA events read when the advisory needs them (prep threads
+        append; the list keeps the last 64)."""
+        self._copy_times.append(timing)
+        del self._copy_times[:-64]
+
+    def _copy_seconds(self, n: int) -> list:
+        """The last ``n`` copies' seconds (waits for their events)."""
+        out = []
+        for t in self._copy_times[-n:]:
+            if isinstance(t, list):
+                t[1].synchronize()
+                t = t[0].elapsed_time(t[1]) / 1e3
+            out.append(t)
+        return out
+
+    def _maybe_transfer_hint(self, n: int, wall_s: float) -> None:
+        """Print the transfer-bound advisory at most once per predictor
+        (reference :397-406)."""
+        if self._transfer_hinted:
+            return
+        hint = transfer_bound_hint(self._copy_seconds(n), wall_s, n,
+                                   self.exp.infer.transfer_dtype)
+        if hint:
+            self._transfer_hinted = True
+            print(hint, file=sys.stderr)
 
     def prepare(self, image: np.ndarray, meta: Optional[dict] = None):
         """Host encode + copy to the device, ready on the current stream:
@@ -384,20 +527,19 @@ class Predictor:
         payload is bitwise what the uncached path ships. Returns
         ``(case_name, header, (canvas, event), cropped_shape, bbox)``."""
         path = self._cache_path(case_dir)
-        if path is not None:
-            payload = load_payload(path)
-            if payload is not None:
-                small, dst, bbox = payload
-                name = os.path.basename(os.path.normpath(case_dir))
-                header = read_header(modality_paths(case_dir)[0])
-                return (name, header, self._payload_to_device(small, dst, lane),
-                        bbox.shape, bbox)
-        case = load_case(case_dir)
-        small, dst, bbox = self._encode_host(case.image, case.meta)
-        if path is not None:
-            store_payload(path, small, dst, bbox)
-        return (case.name, case.header, self._payload_to_device(small, dst, lane),
-                bbox.shape, bbox)
+        payload = load_payload(path) if path is not None else None
+        if payload is not None:
+            small, dst, bbox = payload
+            name = os.path.basename(os.path.normpath(case_dir))
+            header = read_header(modality_paths(case_dir)[0])
+        else:
+            case = load_case(case_dir)
+            name, header = case.name, case.header
+            small, dst, bbox = self._encode_host(case.image, case.meta)
+            if path is not None:
+                store_payload(path, small, dst, bbox)
+        moved = self._payload_to_device(small, dst, lane)
+        return name, header, moved, bbox.shape, bbox
 
     def prefill_payload_cache(self, case_dir: str) -> bool:
         """Decode + encode one case into the on-disk payload cache without
@@ -440,7 +582,7 @@ class Predictor:
             et_min_voxels=self.exp.infer.et_min_voxels,
         )
 
-    def _finish_and_write(self, name, header, fetched, shape, bbox, case_dir,
+    def _finish_and_write(self, fetched, name, header, shape, bbox, case_dir,
                           out) -> str:
         labels = self._finish(fetched, shape, bbox)
         if out is None:
@@ -450,10 +592,12 @@ class Predictor:
 
     # ------------------------------------------------------------ entry points --
 
-    def predict_device(self, canvas_img: torch.Tensor):
-        """The device program on an embedded canvas: (labels_roi, start)."""
-        with torch.inference_mode():
-            return self.program(canvas_img)
+    def predict_device(self, canvas_img: torch.Tensor, lane: int = 0):
+        """Lane ``lane``'s device program on an embedded canvas:
+        (labels_roi, start)."""
+        program, ctx = self._program_on(lane)
+        with ctx, torch.inference_mode():
+            return program(canvas_img)
 
     def probs_device(self, canvas_img: torch.Tensor):
         """The probability program on an embedded canvas: (probs_roi f32,
@@ -464,14 +608,18 @@ class Predictor:
     def _dispatch(self, prepped, lane: int = 0):
         """Wait for a prepared canvas, launch the lane's device program on it
         and start the readback. Called from one thread only."""
-        if lane == 0:
+        _, ctx = self._program_on(lane)
+        with ctx:
             canvas = self._await_canvas(*prepped)
-            return _start_host_copy(*self.predict_device(canvas))
-        dev, program, _ = self._lane(lane)
-        with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
-            canvas = self._await_canvas(*prepped)
-            with torch.inference_mode():
-                return _start_host_copy(*program(canvas))
+            return _start_host_copy(*self.predict_device(canvas, lane))
+
+    def _launch(self, pair, prepped, lane: int, emit) -> None:
+        """Dispatch one prepared case: alone (``emit`` gets its readback at
+        once) or through the pair dispatcher."""
+        if pair is None:
+            emit(self._dispatch(prepped, lane))
+        else:
+            pair.dispatch(prepped, lane, emit)
 
     def predict_arrays(
         self, image: np.ndarray, meta: Optional[dict] = None
@@ -490,20 +638,30 @@ class Predictor:
 
     def predict_arrays_many(self, images) -> list:
         """Pipelined batch prediction (:344): prep threads encode and
-        transfer, this thread launches the device programs in order, post
-        threads fetch and postprocess. Returns the label volumes in order."""
+        transfer, this thread launches the device programs in order (paired
+        when ``batch_volumes`` is 2), post threads fetch and postprocess.
+        Returns the label volumes in order."""
         depth = max(1, self.exp.infer.serving_depth)
+        pair = _PairDispatcher(self) if self._pairs else None
+        t_wall = time.time()
         with ThreadPoolExecutor(depth) as prep_pool, \
                 ThreadPoolExecutor(depth) as post_pool:
-            preps = [prep_pool.submit(self._prep_to, img, None, self._lane_of(i))
+            preps = [prep_pool.submit(self._prep_to, img, None,
+                                      self._lane_of(i, pair))
                      for i, img in enumerate(images)]
-            posts = []
+            posts: dict = {}
             for i, fut in enumerate(preps):
                 prepped, shape, bbox = fut.result()
-                posts.append(post_pool.submit(
-                    self._finish, self._dispatch(prepped, self._lane_of(i)),
-                    shape, bbox))
-            return [p.result() for p in posts]
+
+                def emit(fetched, i=i, job=(shape, bbox)):
+                    posts[i] = post_pool.submit(self._finish, fetched, *job)
+
+                self._launch(pair, prepped, self._lane_of(i, pair), emit)
+            if pair is not None:
+                pair.flush()
+            results = [posts[i].result() for i in range(len(images))]
+        self._maybe_transfer_hint(len(images), time.time() - t_wall)
+        return results
 
     def predict_case(self, case) -> Tuple[np.ndarray, PredictionStats]:
         """``predict_arrays`` on a loaded case, with its decoder meta
@@ -579,18 +737,28 @@ class Predictor:
         if output_paths is None:
             output_paths = [None] * len(case_dirs)
         depth = max(1, self.exp.infer.serving_depth)
+        pair = _PairDispatcher(self) if self._pairs else None
+        t_wall = time.time()
         with ThreadPoolExecutor(depth) as prep_pool, \
                 ThreadPoolExecutor(depth) as post_pool:
-            preps = [prep_pool.submit(self._prep_dir_to, d, self._lane_of(i))
+            preps = [prep_pool.submit(self._prep_dir_to, d, self._lane_of(i, pair))
                      for i, d in enumerate(case_dirs)]
-            posts = []
+            posts: dict = {}
             for i, (fut, d, out) in enumerate(zip(preps, case_dirs, output_paths)):
                 name, header, prepped, shape, bbox = fut.result()
-                posts.append(post_pool.submit(
-                    self._finish_and_write, name, header,
-                    self._dispatch(prepped, self._lane_of(i)), shape, bbox, d,
-                    out))
-            return [p.result() for p in posts]
+
+                def emit(fetched, i=i, job=(name, header, shape, bbox, d, out)):
+                    posts[i] = post_pool.submit(self._finish_and_write,
+                                                fetched, *job)
+
+                self._launch(pair, prepped, self._lane_of(i, pair), emit)
+            if pair is not None:
+                pair.flush()
+            results = [posts[i].result() for i in range(len(case_dirs))]
+        # serve and the multi-case predict CLI come through this path, so the
+        # advisory fires here too
+        self._maybe_transfer_hint(len(case_dirs), time.time() - t_wall)
+        return results
 
     def predict_dir(
         self, case_dir: str, output_path: Optional[str] = None
@@ -604,6 +772,6 @@ class Predictor:
         if fetched[1] is not None:
             fetched[1].synchronize()
         t2 = time.time()
-        out = self._finish_and_write(name, header, fetched, shape, bbox,
+        out = self._finish_and_write(fetched, name, header, shape, bbox,
                                      case_dir, output_path)
         return out, PredictionStats(t1 - t0, t2 - t1, time.time() - t2)

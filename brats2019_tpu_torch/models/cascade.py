@@ -10,7 +10,10 @@ The flagship predict program runs as two stages:
   pre-depth-to-space head -> low-res TTA reduce (groupwise softmax in f32,
   stored in the TTA dtype, unflips including the r-block axes, f32 mean in
   FLIPS order, argmax) -> depth-to-space of the labels. With stem 1 the
-  full-resolution reduce is used instead.
+  full-resolution reduce is used instead;
+* :meth:`SplitCascade.stage_finish_pair` (:373): two volumes' flip stacks
+  through one fine forward at batch 16, each half reduced as above (volume
+  pairing, ``infer/predictor.py``).
 
 ``stage_roi`` never waits for the card: the ROI start stays a device tensor
 and the region is gathered with it (:func:`crop_region`); the constants it
@@ -167,26 +170,49 @@ class SplitCascade:
         )
         return tta_stack(region, self.cfg.tta_precision), start
 
-    def stage_finish(
-        self, tiles: torch.Tensor, start: torch.Tensor
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Fine forward at batch 8 + TTA reduce -> ROI labels (uint8)."""
+    def _fine_logits(self, tiles: torch.Tensor) -> torch.Tensor:
+        """The fine forward: up to the pre-depth-to-space head with stem > 1
+        (for the low-res reduce), at full resolution with stem 1."""
+        return self.fine(tiles, subpixel=False) if self.stem > 1 else self.fine(tiles)
+
+    def _reduce(self, logits: torch.Tensor) -> torch.Tensor:
+        """One volume's flip batch of logits -> ROI labels (uint8): the
+        low-res TTA reduce (:355-360) or the full-resolution one (:346-353),
+        then device postprocessing when configured."""
         if self.stem > 1:
-            logits = self.fine(tiles, subpixel=False)
             probs = lowres_mean_probs(
                 logits, self.stem, self.num_classes, self.store_dt
             )
             blk = torch.argmax(probs, dim=-1).to(torch.uint8)
             labels = labels_from_blocks(blk, self.stem)
         else:
-            probs8 = torch.softmax(self.fine(tiles).float(), dim=-1)
+            probs8 = torch.softmax(logits.float(), dim=-1)
             probs = tta_reduce(probs8.to(self.store_dt))
             labels = torch.argmax(probs, dim=-1).to(torch.uint8)
         if self.cfg.postproc == "device":
             labels = postprocess_device(
                 labels, self.cfg.min_component_voxels, self.cfg.et_min_voxels
             )
-        return labels, start
+        return labels
+
+    def stage_finish(
+        self, tiles: torch.Tensor, start: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Fine forward at batch 8 + TTA reduce -> ROI labels (uint8)."""
+        return self._reduce(self._fine_logits(tiles)), start
+
+    def stage_finish_pair(
+        self, tiles_a: torch.Tensor, tiles_b: torch.Tensor,
+        start_a: torch.Tensor, start_b: torch.Tensor,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Two volumes' flip stacks through one fine forward at batch 16,
+        each half reduced as :meth:`stage_finish` reduces it (:373-389):
+        ``(labels_a, start_a, labels_b, start_b)``. The serving path's
+        volume pairing (``InferenceConfig.batch_volumes`` 2)."""
+        n = tiles_a.shape[0]
+        logits = self._fine_logits(torch.cat([tiles_a, tiles_b]))
+        return (self._reduce(logits[:n]), start_a,
+                self._reduce(logits[n:]), start_b)
 
     def stage_finish_probs(
         self, tiles: torch.Tensor, start: torch.Tensor
@@ -194,12 +220,12 @@ class SplitCascade:
         """The probability sibling of :meth:`stage_finish` (:390-402): the
         same mean probabilities the labels are argmaxed from, at full
         resolution, f32, not postprocessed."""
+        logits = self._fine_logits(tiles)
         if self.stem > 1:
-            logits = self.fine(tiles, subpixel=False)
             probs = probs_from_blocks(lowres_mean_probs(
                 logits, self.stem, self.num_classes, self.store_dt), self.stem)
         else:
-            probs8 = torch.softmax(self.fine(tiles).float(), dim=-1)
+            probs8 = torch.softmax(logits.float(), dim=-1)
             probs = tta_reduce(probs8.to(self.store_dt))
         return probs.float(), start
 

@@ -12,17 +12,25 @@ Teachers are ``UNet3D`` modules built once on the student's device, in eval
 mode with ``requires_grad_(False)``, run under ``torch.no_grad()``; their
 logits are taken to f32 before ``softmax(logits / T)`` and averaged in
 teacher order. One student forward, at full resolution, serves both terms.
+
+On a mesh whose shards sit on several distinct devices, each device gets its
+own frozen replica of every teacher (:func:`teacher_replicas`, as the
+reference replicates the teacher params on the mesh, ``train/loop.py``
+:172-178), and each shard's loss runs the replicas on its own device: the
+loss looks them up by the device of its input.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Mapping, Sequence
 
 import numpy as np
 import torch
 
 from ..configs.presets import TrainConfig, UNetConfig
+from ..parallel.mesh import _as_device
 from ..utils.weights import build_unet
 from .loss import segmentation_loss
 
@@ -67,18 +75,36 @@ def build_teachers(unet_cfg: UNetConfig,
     return [build_unet(unet_cfg, p, device) for p in params]
 
 
-def make_kd_microbatch_loss(teachers: Sequence[torch.nn.Module],
-                            cfg: TrainConfig, kd: KDConfig,
-                            deep_supervision: bool = False) -> Callable:
+def teacher_replicas(teachers: Sequence[torch.nn.Module],
+                     devices) -> Dict[torch.device, list]:
+    """``{device: [teachers]}`` over ``devices`` (a mesh's
+    ``local_devices()``, or the one training device): a teacher already on a
+    device serves there as it is, elsewhere a frozen copy (eval mode, no
+    grad) is made on the device. The originals are not touched."""
+    out = {}
+    for dev in map(_as_device, devices):
+        out[dev] = [t if next(t.parameters()).device == dev else
+                    copy.deepcopy(t).to(dev).eval().requires_grad_(False)
+                    for t in teachers]
+    return out
+
+
+def make_kd_microbatch_loss(
+        replicas: Mapping[torch.device, Sequence[torch.nn.Module]],
+        cfg: TrainConfig, kd: KDConfig,
+        deep_supervision: bool = False) -> Callable:
     """``(model, imgs, segs) -> (total, aux)`` for ``train_update``: the
     segmentation loss (with the aux heads' terms under deep supervision) and
     the KD term on the same full-resolution student logits; aux gains
-    ``kd_loss`` and ``loss`` is the total."""
-    if not teachers:
+    ``kd_loss`` and ``loss`` is the total. ``replicas``:
+    :func:`teacher_replicas`' map, from which each call takes the teachers
+    on the device of ``imgs``."""
+    if not replicas or not all(replicas.values()):
         raise ValueError("distillation needs at least one teacher")
 
     def loss(model, imgs, segs):
-        t_probs = ensemble_teacher_probs(teachers, imgs, kd.temperature)
+        t_probs = ensemble_teacher_probs(replicas[imgs.device], imgs,
+                                         kd.temperature)
         out = model(imgs, deep_outputs=deep_supervision)
         logits, aux_logits = out if isinstance(out, tuple) else (out, None)
         gt_loss, aux = segmentation_loss(

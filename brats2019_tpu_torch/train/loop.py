@@ -227,7 +227,9 @@ def train_stage(
     ``device="cpu"``; a CUDA request without a card raises.
 
     ``kd_teachers``: frozen ``UNet3D`` teachers on ``device``: the stage
-    trains as their KD student (``kd_config``, default ``KDConfig()``).
+    trains as their KD student (``kd_config``, default ``KDConfig()``); over
+    a mesh, each distinct local device gets its own frozen replicas
+    (``distill.teacher_replicas``).
     ``init_from``: warm-start the params from ``params.{npz,safetensors}``
     or a torch checkpoint ``.pt/.pth``, with a fresh optimizer (its EMA
     seeded from the loaded weights) at step 0; a resumable checkpoint in
@@ -250,10 +252,6 @@ def train_stage(
     ckpt = CheckpointManager(workdir, keep=cfg.keep_checkpoints)
     logger = MetricsLogger(workdir, name=f"{stage}") if lead else _NullLogger()
     if dp:
-        if kd_teachers and len(env.local_devices()) > 1:
-            raise NotImplementedError(
-                "distillation over shards on several devices needs teacher "
-                "replicas; ROADMAP queue 1 lists it")
         pool = _Pools(env, case_dirs, cfg.pool_shape,
                       cfg.pool_cases_per_device, downsample, cfg.seed,
                       cfg.prep_cache_dir)
@@ -293,9 +291,12 @@ def train_stage(
               "(fresh optimizer state, step 0)", flush=True)
 
     if kd_teachers:
-        from .distill import KDConfig, make_kd_microbatch_loss
+        from .distill import KDConfig, make_kd_microbatch_loss, teacher_replicas
 
-        loss_fn = make_kd_microbatch_loss(kd_teachers, cfg,
+        # over shards: each local device's shards run its own replicas
+        teachers = teacher_replicas(
+            kd_teachers, env.local_devices() if dp else [device])
+        loss_fn = make_kd_microbatch_loss(teachers, cfg,
                                           kd_config or KDConfig(),
                                           unet_cfg.deep_supervision)
     else:

@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout (``--phases 2`` stops after the kernel checks,
-``--phases 9`` runs phase 1, phase 3's set-up and predict run, and phase 9;
-neither prints result lines). Phases:
+``--phases 9`` or ``--phases 10`` runs phase 1, phase 3's set-up and predict
+run, and phase 9 or phase 10 alone; none of these prints result lines).
+Phases:
 
 1. Setup: torch/CUDA versions, the card's name and power limit, TF32 off for
    the plain references, and the kernels built from the checkout's sources.
@@ -254,6 +255,36 @@ neither prints result lines). Phases:
    workers sharing the card over gloo against one process of two shards
    (losses within MP_LOSS_RTOL, the cascade mask equal), no worker importing
    jax or the JAX package.
+
+10. Queue 1 items 6b and 5b, after phase 9 so that phases 3-9 meet the card
+   as before: (1) volume pairing (``batch_volumes=2``) on the flagship
+   ``cascade`` at full width on the phase-3 cases (one pair and an odd
+   tail): labels with postprocessing off equal the single-volume
+   predictor's except on ties (top-2 gap <= TIE_GAP), postprocessed masks
+   agree with phase 3's at >= MESH_MASK_AGREE; the launch counters of one
+   pair (two ``stage_roi``, one fine forward at batch 16): every conv on the
+   wgmma instance with the STATS epilogue, every IN from its partials, every
+   up into its concat; rows 1, 2 and 6 against their plain versions at the
+   batch-16 top-level shapes (the concat buffer 16 x 64^3 x 192 holds 805 M
+   elements: the index-width check); device ms/vol of one pair against two
+   single volumes, in turns; (2) the int8 transfer encoding: masks against
+   phase 3's bf16 masks (> INT8_AGREE, the JAX package's bar), the payload's
+   host-to-device bytes of both encodings (int8 half of bf16) and the copy's
+   device time, an int8 payload-cache hit (no decode) equal to the miss,
+   one-by-one e2e and the host encode in turns; ``serve`` bursts of
+   BURST_CASES cases (the phase-3 cases under new names; one chunk, 4 pairs
+   with pairing) on the Winograd backend with ``--batch-volumes 1``,
+   ``--batch-volumes 2`` and ``--transfer-dtype int8``, BURST_TURNS rounds
+   in turns: each arm's s/vol and device idle share (CUDA events around
+   every stage of the split cascade), median and spread; (3) ``serve --supervise
+   --rss-limit-mb RSS_LIMIT_MB`` as a process on the card with a burst of
+   the phase-3 cases: each answered once in the completion log, at least one
+   exit-4 recycle, SIGTERM stops the supervisor with exit code 0; (4) a KD
+   step of ``unit`` (f32, 2 teachers) over the mesh ``cuda:0, cpu`` (one
+   card gives one distinct CUDA device): each shard's teacher replicas on its
+   device, losses and grads within DP_GRAD_TOL of the step over ``cpu,
+   cpu``, the card shard's IN, up and down backwards counted on their
+   kernels; then ``train_stage`` with the teachers over that mesh, 2 steps.
 
 The line before the last holds the kernels' JSON record (forward kernels:
 launches on the predict slice, times per volume; backward kernels: launches
@@ -2825,11 +2856,11 @@ def serve_slice(work, case_dirs, direct_masks, expect, serial_e2e, depth, card):
     spans = []
     real_predict_device = pmod.Predictor.predict_device
 
-    def timed_predict_device(self, canvas):
+    def timed_predict_device(self, canvas, *a):
         ev = (torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True))
         ev[0].record()
-        result = real_predict_device(self, canvas)
+        result = real_predict_device(self, canvas, *a)
         ev[1].record()
         spans.append(ev)
         return result
@@ -3161,7 +3192,8 @@ def kd_against_plain(exp, tparams, dev):
     for where in (dev, "cpu"):
         student = build_unet(exp.unet, sparams, where)
         teachers = distill.build_teachers(exp.unet, tparams, where)
-        loss_fn = distill.make_kd_microbatch_loss(teachers, cfg, distill.KDConfig())
+        loss_fn = distill.make_kd_microbatch_loss(
+            distill.teacher_replicas(teachers, [where]), cfg, distill.KDConfig())
         with torch.no_grad():
             loss, aux = loss_fn(student, x.to(where), y.to(where))
         got[str(where)] = (float(loss), float(aux["kd_loss"]))
@@ -3193,7 +3225,8 @@ def time_kd(exp, tparams, dev, card):
         model, opt = init_stage(ucfg, cfg, dev)
         if what == "kd":
             teachers = distill.build_teachers(ucfg, tparams, dev)
-            loss_fn = distill.make_kd_microbatch_loss(teachers, cfg, distill.KDConfig())
+            loss_fn = distill.make_kd_microbatch_loss(
+                distill.teacher_replicas(teachers, [dev]), cfg, distill.KDConfig())
             flops = (train_step_flops(ucfg, cfg) + len(teachers) * cfg.batch_per_device
                      * unet_forward_flops(ucfg, tuple(cfg.patch)))
         else:
@@ -3498,30 +3531,47 @@ def native_decoder(on: bool):
         nifti_fast.available = real
 
 
-def burst(argv, case_dirs, timed=None):
-    """One daemon (``argv``, with ``--warmup --http PORT`` added): every case
-    POSTed at once once it is warm, the launch counters zeroed just before
-    and read just after. ``timed``: (class, method name) whose calls are
-    spanned with CUDA events. Returns (rc, e2e s/vol, device idle share,
-    counts, answers)."""
+def _spans(pairs):
+    """Patch each (class, method name) of ``pairs`` to record a pair of
+    CUDA events around its calls; returns (the list the event pairs go to,
+    a function that undoes the patches)."""
+    import torch
+
+    events, undo = [], []
+    for cls, meth in pairs:
+        real = getattr(cls, meth)
+
+        def spanned(self, *a, _real=real, **k):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = _real(self, *a, **k)
+            ev[1].record()
+            events.append(ev)
+            return out
+
+        setattr(cls, meth, spanned)
+        undo.append((cls, meth, real))
+    return events, lambda: [setattr(c, m, r) for c, m, r in undo]
+
+
+def burst(argv, case_dirs, timed, one_scan=False):
+    """One daemon (``argv``: the watch root, then flags; ``--warmup --http
+    PORT`` added): every case POSTed at once once it is warm, the launch
+    counters zeroed just before and read just after. With ``one_scan`` the
+    burst waits for the deferred warmup arms too, and the client links every
+    case into the watch root itself (the link a co-located POST makes) while
+    it holds the daemon's scans off, so that one scan sees the whole burst
+    and it is served as one batch. ``timed``: the (class, method name) pairs
+    whose calls are spanned with CUDA events. Returns (rc, e2e s/vol, device
+    idle share, counts, answers)."""
     import torch
 
     from brats2019_tpu_torch import ops
+    from brats2019_tpu_torch.cli import serve as serve_cli
 
     port = _free_port()
     base = f"http://127.0.0.1:{port}"
-    spans = []
-    cls, meth = timed
-    real = getattr(cls, meth)
-
-    def spanned(self, *a, **k):
-        ev = (torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True))
-        ev[0].record()
-        result = real(self, *a, **k)
-        ev[1].record()
-        spans.append(ev)
-        return result
 
     def post_case(d, answers):
         req = urllib.request.Request(
@@ -3544,10 +3594,16 @@ def burst(argv, case_dirs, timed=None):
             time.sleep(0.2)
         if not health.get("warm"):
             raise RuntimeError(f"the daemon never became warm: {health}")
+        if one_scan and not rest_done.wait(120):
+            raise RuntimeError("the daemon's deferred warmup never ran")
         spans.clear()
         ops.reset_launch_counts()
         answers = {}
         t0 = time.perf_counter()
+        if one_scan:
+            with scan_lock:
+                for d in case_dirs:
+                    os.symlink(d, os.path.join(argv[0], os.path.basename(d)))
         threads = [threading.Thread(target=post_case, args=(d, answers))
                    for d in case_dirs]
         for t in threads:
@@ -3559,11 +3615,28 @@ def burst(argv, case_dirs, timed=None):
         counts["conv3d_winograd.launches_wgmma"] = ops.conv3d_winograd.launches_wgmma
         return {"answers": answers, "wall": wall, "counts": counts}
 
-    setattr(cls, meth, spanned)
+    rest_done, scan_lock = threading.Event(), threading.Lock()
+    real_rest, real_scan = serve_cli.Server._finish_warmup_rest, serve_cli.Server.scan
+
+    def rest(self):
+        real_rest(self)
+        rest_done.set()
+
+    def scan(self, *a):
+        with scan_lock:
+            return real_scan(self, *a)
+
+    patched = {"_finish_warmup_rest": rest, "scan": scan} if one_scan else {}
+    real = {k: getattr(serve_cli.Server, k) for k in patched}
+    spans, undo = _spans(timed)
+    for k, f in patched.items():
+        setattr(serve_cli.Server, k, f)
     try:
         rc, got = run_daemon([*argv, "--warmup", "--http", str(port)], client)
     finally:
-        setattr(cls, meth, real)
+        for k, f in real.items():
+            setattr(serve_cli.Server, k, f)
+        undo()
     torch.cuda.synchronize()
     n = len(case_dirs)
     span_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
@@ -3628,7 +3701,7 @@ def decoder_slice(exp, work, case_dirs, card):
                      DEVICE, "--poll", "0.05", "--output-dir",
                      os.path.join(root, f"out_{on}"), "--prep-cache",
                      os.path.join(root, f"cache_{on}"), "--postproc", "device"],
-                    case_dirs, (pmod.Predictor, "predict_device"))
+                    case_dirs, [(pmod.Predictor, "predict_device")])
         finally:
             ops.set_backend("direct")
         check(rc == 0 and len(answers) == len(case_dirs)
@@ -3928,7 +4001,7 @@ def multichip_serve_burst(work, case_dirs, first, card):
         rc, s_vol, idle, counts, answers = burst(
             [watch, "--preset", PRESET, "--workdir", work, "--device",
              "cuda:0,cuda:0", "--multichip", "cascade", "--poll", "0.05",
-             "--output-dir", out], case_dirs, (MultichipPredictor, "_run"))
+             "--output-dir", out], case_dirs, [(MultichipPredictor, "_run")])
     finally:
         ops.set_backend("direct")
     check(rc == 0 and len(answers) == len(case_dirs)
@@ -4197,9 +4270,534 @@ def phase9(exp, work, case_dirs, first, dev, card):
 
 
 
-def phase9_only(exp, dev, card) -> int:
-    """``--phases 9``: phase 3's weights, cases and predict CLI run (the
-    masks phase 9 compares with), then phase 9; no result lines."""
+# ----------------------------------------------------------------- phase 10 --
+
+PAIR_TURNS = 2   # (singles, pair, pair, singles) rounds timed in 10.1
+BURST_CASES = 8   # a burst of 10.1-10.2: one serve chunk, 4 pairs
+BURST_TURNS = 3   # rounds of the three burst arms, in turns
+RSS_LIMIT_MB = 100   # below any CUDA daemon's resident set after start-up
+# the int8 transfer's masks against the bf16 path's: the JAX package's own
+# bar (tests/test_inference.py:227)
+INT8_AGREE = 0.98
+
+
+def check_b16_top(exp, dev):
+    """10.1: rows 1, 2 and 6 at the fine net's top level at batch 16, the
+    pair program's largest tensors (the concat buffer 16 x 64^3 x 192,
+    805,306,368 elements): each conv on the wgmma instance with the STATS epilogue
+    against the plain conv (max|d|/max|ref| <= 1e-2), its IN+act from the
+    partials against the plain IN+act (2 bf16 ulp), the up into the concat
+    against the plain up (1 bf16 ulp) with the skip half bitwise."""
+    import torch
+
+    from brats2019_tpu_torch.ops import conv, norm, resize
+
+    calls = unet_calls(exp.unet, 16, exp.infer.roi_shape)
+    top = tuple(v // exp.unet.stem_downsample for v in exp.infer.roi_shape)
+    g = torch.Generator(device=dev).manual_seed(16)
+    rel = lambda a, b: ((a.float() - b.float()).abs().max()
+                        / b.float().abs().max()).item()
+    for shape in dict.fromkeys(sh for sh in conv_norm_shapes(calls)
+                               if sh[1:4] == top):
+        n, d, h, w, ci, co = shape
+        x = torch.randn((n, d, h, w, ci), generator=g, device=dev).bfloat16()
+        wt = (torch.randn((3, 3, 3, ci, co), generator=g, device=dev)
+              / (27 * ci) ** 0.5).bfloat16()
+        gam = torch.rand(co, generator=g, device=dev) + 0.5
+        bet = torch.randn(co, generator=g, device=dev) * 0.2
+        plan = conv.plan_conv(*shape)
+        before = (conv.conv3d.launches_wgmma, conv.conv3d.launches_stats)
+        y, part = conv.conv3d_kernel(x, wt, stats=True)
+        took = (conv.conv3d.launches_wgmma - before[0],
+                conv.conv3d.launches_stats - before[1])
+        err = rel(y, conv.conv3d_plain(x, wt))
+        u = bf16_ulps(norm.instance_norm_act_kernel(y, gam, bet, partials=part)[0],
+                      norm.instance_norm_act_plain(y, gam, bet))
+        check(plan.instance == "wgmma" and took == (1, 1) and err <= 1e-2
+              and u <= 2,
+              f"batch 16, top level: conv {shape} ({x.numel()} input "
+              f"elements) on {plan.instance} with the STATS epilogue {took}, "
+              f"max|d|/max|ref| {err:.3e} (tol 1e-2); IN+act from its partials "
+              f"{u:.2f} bf16 ulp (tol 2)")
+        del x, y, part
+        torch.cuda.empty_cache()
+    for shape, cs in dict.fromkeys(sc for sc in up_concats(calls)
+                                   if tuple(2 * v for v in sc[0][1:4]) == top):
+        n, d, h, w, c = shape
+        x = torch.randn(shape, generator=g, device=dev).bfloat16()
+        skip = torch.randn((n, 2 * d, 2 * h, 2 * w, cs), generator=g,
+                           device=dev).bfloat16()
+        before = resize.upsample2x.launches_concat
+        got = resize.upsample2x_concat_kernel(x, skip)
+        into = resize.upsample2x.launches_concat - before
+        u = bf16_ulps(got[..., :c], resize.upsample2x_plain(x))
+        same = bool(torch.equal(got[..., c:], skip))
+        check(u <= 1 and same and into == 1,
+              f"batch 16, top level: up {shape} into the concat "
+              f"{tuple(got.shape)} ({got.numel()} elements): {u:.2f} bf16 ulp "
+              f"(tol 1), skip half bitwise {same}, {into} launch into the buffer")
+        del x, skip, got
+        torch.cuda.empty_cache()
+
+
+def pairing_slice(exp, work, case_dirs, first, dev, card):
+    """10.1: volume pairing (``batch_volumes=2``) on the flagship cascade at
+    full width (module docstring)."""
+    import dataclasses
+
+    import torch
+
+    from brats2019_tpu_torch import ops
+    from brats2019_tpu_torch.data.case import load_case
+    from brats2019_tpu_torch.data.constants import disk_to_internal
+    from brats2019_tpu_torch.infer.predictor import Predictor
+
+    pf = os.path.join(work, "fine", "params.npz")
+    pc = os.path.join(work, "coarse", "params.npz")
+    with_infer = lambda e, **kw: dataclasses.replace(
+        e, infer=dataclasses.replace(e.infer, **kw))
+    raw = with_infer(exp, min_component_voxels=0, et_min_voxels=0, postproc="host")
+    images = [load_case(d).image for d in case_dirs]
+    single = Predictor(raw, pf, pc, device=dev)
+    paired = Predictor(with_infer(raw, batch_volumes=2), pf, pc, device=dev)
+    paired.warmup()
+    for i, (got, im) in enumerate(zip(paired.predict_arrays_many(images), images)):
+        _tie_check(f"paired labels (postprocessing off), case {i} of "
+                   f"{len(images)} (one pair and an odd tail)", got,
+                   single.predict_arrays(im)[0], single.predict_probs_arrays(im)[0])
+    post = Predictor(with_infer(exp, batch_volumes=2), pf, pc, device=dev)
+    for i, (got, seg) in enumerate(zip(post.predict_arrays_many(images), first)):
+        agree = float((got == disk_to_internal(seg)).mean())
+        check(agree >= MESH_MASK_AGREE,
+              f"paired and postprocessed, case {i}: agreement with phase 3's "
+              f"mask {agree:.7f} (bound {MESH_MASK_AGREE})")
+    # the pair program's routes: two stage_roi, one fine forward at batch 16
+    ops.reset_launch_counts()
+    paired.predict_arrays_many(images[:2])
+    coarse = unet_calls(exp.coarse_unet, 1, exp.infer.coarse_shape)
+    fine16 = unet_calls(exp.unet, 16, exp.infer.roi_shape)
+    want = {k: 2 * sum(1 for n, _ in coarse if n == k)
+            + sum(1 for n, _ in fine16 if n == k) for k in FORWARD}
+    routes = {"conv3d on conv3d_wgmma.cu": ops.conv3d.launches_wgmma,
+              "conv3d with the statistics epilogue": ops.conv3d.launches_stats,
+              "instance_norm_act from partials": ops.instance_norm_act.launches_partials,
+              "upsample2x on resize2x.cu": ops.upsample2x.launches_cuda,
+              "upsample2x into the concat": ops.upsample2x.launches_concat}
+    want_routes = {"conv3d on conv3d_wgmma.cu": want["conv3d"],
+                   "conv3d with the statistics epilogue": want["conv3d"],
+                   "instance_norm_act from partials": want["instance_norm_act"],
+                   "upsample2x on resize2x.cu": want["upsample2x"],
+                   "upsample2x into the concat": want["upsample2x"]}
+    got = {k: getattr(ops, k).launches for k in FORWARD}
+    check(got == want and routes == want_routes,
+          f"one pair (two stage_roi, one fine forward at batch 16): launches "
+          f"{got} (expected {want}); routes {routes} (expected {want_routes})")
+    check_b16_top(exp, dev)
+    # device ms/vol: one pair against two single volumes, in turns; the
+    # fine stage (one stage_finish_pair, or two stage_finish) also alone
+    prog = single.program
+    canv = [single.prepare(im)[0] for im in images[:2]]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+
+    def run(paired_run):
+        ev[0].record()
+        (ta, sa), (tb, sb) = (prog.stage_roi(c) for c in canv)
+        ev[1].record()
+        if paired_run:
+            prog.stage_finish_pair(ta, tb, sa, sb)
+        else:
+            prog.stage_finish(ta, sa)
+            prog.stage_finish(tb, sb)
+        ev[2].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[2]) / 2, ev[1].elapsed_time(ev[2]) / 2
+
+    ms = {"singles": [], "pair": [], "singles fine": [], "pair fine": []}
+    with torch.inference_mode():
+        run(True)
+        for _ in range(PAIR_TURNS):
+            for name in ("singles", "pair", "pair", "singles"):
+                whole, fine = run(name == "pair")
+                ms[name].append(whole)
+                ms[name + " fine"].append(fine)
+    med = lambda v: sorted(v)[len(v) // 2]
+    print("  device ms/vol, in turns (CUDA events, 2 volumes a run): " + "; ".join(
+        f"{k} {med(v):.3f} (all {[round(x, 3) for x in v]})"
+        for k, v in ms.items()) + f" on {card}", flush=True)
+    del single, paired, post, canv
+    torch.cuda.empty_cache()
+    return {k: med(v) for k, v in ms.items()}
+
+
+def burst_cases(case_dirs, n):
+    """``n`` case directories under new names (hard links to the phase-3
+    cases' modality files, taken round robin), so a burst holds ``n``
+    distinct cases."""
+    from brats2019_tpu_torch.data.case import modality_paths
+
+    out = []
+    for k in range(n):
+        src = case_dirs[k % len(case_dirs)]
+        base, name = os.path.basename(src), f"BraTS19_BURST_{k:03d}_1"
+        dst = os.path.join(WORK, "burst_cases", name)
+        os.makedirs(dst)
+        for p in modality_paths(src):
+            q = os.path.join(dst, os.path.basename(p).replace(base, name, 1))
+            try:
+                os.link(p, q)
+            except OSError:
+                shutil.copyfile(p, q)
+        out.append(dst)
+    return out
+
+
+def leftout_bursts(exp, work, case_dirs, first, card):
+    """10.1 and 10.2: ``serve`` bursts of BURST_CASES cases (one serve chunk:
+    BURST_CASES // 2 pairs with ``--batch-volumes 2``) on the Winograd
+    backend (device postprocessing, a fresh payload cache each): ``--batch-
+    volumes 1`` (bf16), ``--batch-volumes 2``, ``--transfer-dtype int8``,
+    BURST_TURNS rounds in turns; each arm's s/vol and device idle share
+    (CUDA events around every stage of the split cascade), median and
+    spread, and the volumes each burst ran in a pair (from its Winograd
+    launches)."""
+    from brats2019_tpu_torch import ops
+    from brats2019_tpu_torch.models.cascade import SplitCascade
+
+    cases = burst_cases(case_dirs, BURST_CASES)
+    refs = [first[k % len(first)] for k in range(len(cases))]
+    convs = lambda cfg, shape: sum(1 for k, _ in unet_calls(cfg, 8, shape)
+                                   if k == "conv3d")
+    fine = convs(exp.unet, exp.infer.roi_shape)
+    single = fine + convs(exp.coarse_unet, exp.infer.coarse_shape)
+    root = os.path.join(WORK, "leftout_bursts")
+    arms = (("bf16", []), ("pair", ["--batch-volumes", "2"]),
+            ("int8", ["--transfer-dtype", "int8"]))
+    runs = {name: [] for name, _ in arms}
+    for turn in range(BURST_TURNS):
+        for name, flags in (arms if turn % 2 == 0 else arms[::-1]):
+            tag = f"{name}_{turn}"
+            watch, served = (os.path.join(root, f"{d}_{tag}") for d in ("watch", "out"))
+            os.makedirs(watch)
+            ops.set_backend("winograd")
+            try:
+                rc, s_vol, idle, counts, answers = burst(
+                    [watch, "--preset", PRESET, "--workdir", work, "--device",
+                     DEVICE, "--poll", "0.05", "--output-dir", served,
+                     "--prep-cache", os.path.join(root, f"cache_{tag}"),
+                     "--postproc", "device", *flags], cases,
+                    [(SplitCascade, m) for m in ("stage_roi", "stage_finish",
+                                                 "stage_finish_pair")],
+                    one_scan=True)
+            finally:
+                ops.set_backend("direct")
+            sizes, batches = [r["batch_size"] for r in serve_log(served)], []
+            while sum(batches) < len(sizes):   # one record a case, by batch
+                batches.append(sizes[sum(batches)])
+            agree = [float((a == b).mean())
+                     for a, b in zip(served_labels(served, cases), refs)]
+            wino = counts["conv3d_winograd"]
+            paired = 2 * (len(cases) * single - wino) // fine
+            check(rc == 0 and len(answers) == len(cases) and batches == [len(cases)]
+                  and all(a.get("error") is None for a in answers.values())
+                  and wino > 0 and counts["conv3d"] == 0
+                  and counts["conv3d_winograd.launches_wgmma"] == wino
+                  and min(agree) >= (INT8_AGREE if name == "int8" else MASK_AGREE),
+                  f"serve burst {turn + 1} of {BURST_TURNS}, "
+                  f"{' '.join(flags) or '(bf16, one volume a program)'}: exit "
+                  f"code {rc}, {len(answers)} answers, batches "
+                  f"{batches}; {wino} Winograd launches "
+                  f"({counts['conv3d_winograd.launches_wgmma']} on "
+                  f"winograd3d_wgmma.cu), {counts['conv3d']} direct, {paired} of "
+                  f"{len(cases)} volumes in a pair; agreement with phase 3's "
+                  f"masks >= {min(agree):.6f}; {s_vol:.3f} s/vol, device idle "
+                  f"{100 * idle:.1f}%")
+            runs[name].append((s_vol, idle, paired))
+    med = lambda v: sorted(v)[len(v) // 2]
+    out = {}
+    for name, got in runs.items():
+        sv, idle, paired = ([g[i] for g in got] for i in range(3))
+        out[name] = (med(sv), med(idle))
+        print(f"  serve bursts of {len(cases)}, {name}, {len(got)} in turns "
+              f"(Winograd, device postprocessing, fresh cache): s/vol median "
+              f"{med(sv):.3f}, spread {min(sv):.3f}-{max(sv):.3f} (all "
+              f"{[round(v, 3) for v in sv]}); device idle median "
+              f"{100 * med(idle):.1f}%, spread {100 * min(idle):.1f}-"
+              f"{100 * max(idle):.1f}%; volumes in a pair {paired} on {card}",
+              flush=True)
+    return out
+
+
+def int8_slice(exp, work, case_dirs, first, card):
+    """10.2: the int8 transfer on the phase-3 cases: masks against phase
+    3's bf16 masks, the payload's host-to-device bytes of both encodings, a
+    payload-cache hit against a miss, one-by-one e2e in turns."""
+    import dataclasses
+
+    import numpy as np
+
+    from brats2019_tpu_torch.data.case import load_case
+    from brats2019_tpu_torch.infer import predictor as pmod
+    from brats2019_tpu_torch.utils.nifti import read_nifti
+
+    pf = os.path.join(work, "fine", "params.npz")
+    pc = os.path.join(work, "coarse", "params.npz")
+    root = os.path.join(WORK, "int8")
+    cache = os.path.join(root, "cache")
+    make = lambda **kw: pmod.Predictor(dataclasses.replace(
+        exp, infer=dataclasses.replace(exp.infer, **kw)), pf, pc, device=DEVICE)
+    preds = {"bfloat16": make(), "int8": make(transfer_dtype="int8")}
+    cached8 = make(transfer_dtype="int8", prep_cache_dir=cache)
+    sent = {"bfloat16": [], "int8": []}
+    real = pmod.Predictor._payload_to_device
+
+    def counted(self, small, dst, lane=0):
+        sent[self.exp.infer.transfer_dtype].append(small.numel() * small.element_size())
+        return real(self, small, dst, lane)
+
+    outs = {k: [os.path.join(root, f"{k}_{i}.nii.gz") for i in range(len(case_dirs))]
+            for k in ("bfloat16", "int8", "miss", "hit")}
+    os.makedirs(root, exist_ok=True)
+    pmod.Predictor._payload_to_device = counted
+    try:
+        preds["bfloat16"].predict_dirs(case_dirs, outs["bfloat16"])
+        preds["int8"].predict_dirs(case_dirs, outs["int8"])
+    finally:
+        pmod.Predictor._payload_to_device = real
+    # the copy alone, as the transfer advisory reads it (CUDA events)
+    copy_ms = {k: [1e3 * t for t in p._copy_seconds(len(case_dirs))]
+               for k, p in preds.items()}
+    check(sum(sent["int8"]) * 2 == sum(sent["bfloat16"]) > 0,
+          f"host-to-device payload bytes over {len(case_dirs)} cases: bf16 "
+          f"{sent['bfloat16']}, int8 {sent['int8']} (int8 half of bf16); the "
+          f"copy's device ms a case: bf16 "
+          f"{[round(v, 3) for v in copy_ms['bfloat16']]}, int8 "
+          f"{[round(v, 3) for v in copy_ms['int8']]} on {card}")
+    read = lambda p: read_nifti(p, apply_scaling=False)[0]
+    for i, (p8, p16, ref) in enumerate(zip(outs["int8"], outs["bfloat16"], first)):
+        a8, a16 = float((read(p8) == ref).mean()), float((read(p16) == ref).mean())
+        check(a8 > INT8_AGREE and a16 >= MASK_AGREE,
+              f"case {i}: int8 transfer's mask against phase 3's bf16 mask "
+              f"{a8:.6f} (bound > {INT8_AGREE}); this bf16 predictor's "
+              f"{a16:.6f}")
+    cached8.predict_dirs(case_dirs, outs["miss"])        # stores the entries
+    real_load = pmod.load_case
+
+    def no_decode(*a, **k):
+        raise AssertionError("decoded on a payload-cache hit")
+
+    pmod.load_case = no_decode
+    try:
+        cached8.predict_dirs(case_dirs, outs["hit"])
+    finally:
+        pmod.load_case = real_load
+    same = [bool(np.array_equal(read(a), read(b)))
+            for a, b in zip(outs["hit"], outs["miss"])]
+    check(all(same) and len(os.listdir(cache)) == len(case_dirs),
+          f"int8 payload-cache hits (no decode) give the misses' masks {same}; "
+          f"{len(os.listdir(cache))} int8 entries")
+    del cached8
+    # the host side of each encoding: the crop (and cast or quantize) alone
+    images = [load_case(d) for d in case_dirs]
+    enc = {dt: [] for dt in preds}
+    for dt in ("bfloat16", "int8", "int8", "bfloat16"):
+        for c in images:
+            t0 = time.perf_counter()
+            preds[dt]._encode_host(c.image, c.meta)
+            enc[dt].append(time.perf_counter() - t0)
+    del images
+    e2e = {"bfloat16": [], "int8": []}
+    tmp = os.path.join(root, "timed.nii.gz")
+    for dt in ("bfloat16", "int8", "int8", "bfloat16"):
+        for d in case_dirs:
+            t0 = time.perf_counter()
+            preds[dt].predict_dir(d, tmp)
+            e2e[dt].append(time.perf_counter() - t0)
+    med = lambda v: sorted(v)[len(v) // 2]
+    print(f"  e2e s/vol one by one, in turns: bf16 {med(e2e['bfloat16']):.3f} "
+          f"(all {[round(v, 3) for v in e2e['bfloat16']]}); int8 "
+          f"{med(e2e['int8']):.3f} (all {[round(v, 3) for v in e2e['int8']]}); "
+          f"host encode s/vol (bbox, crop and cast or quantize), in turns: bf16 "
+          f"{med(enc['bfloat16']):.3f}, int8 {med(enc['int8']):.3f} on {card}",
+          flush=True)
+    return {k: med(v) for k, v in e2e.items()}
+
+
+def recycle_slice(work, case_dirs, card):
+    """10.3: ``serve --supervise --rss-limit-mb RSS_LIMIT_MB`` as a process on
+    the card, a burst of the phase-3 cases dropped into its watch root: every
+    case answered once in the completion log, at least one exit-4 recycle,
+    then SIGTERM stops the supervisor with exit code 0."""
+    root = os.path.join(WORK, "recycle")
+    watch, served = os.path.join(root, "watch"), os.path.join(root, "out")
+    os.makedirs(watch)
+    log_path = os.path.join(root, "supervisor.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "brats2019_tpu_torch.cli.serve", watch,
+             "--preset", PRESET, "--workdir", work, "--device", DEVICE,
+             "--output-dir", served, "--poll", "0.1", "--supervise",
+             "--rss-limit-mb", str(RSS_LIMIT_MB)],
+            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            for d in case_dirs:
+                shutil.copytree(d, os.path.join(watch, os.path.basename(d)),
+                                ignore=shutil.ignore_patterns("*_pred.nii.gz"))
+            deadline = time.time() + 240
+            recs, text = [], ""
+            while time.time() < deadline and proc.poll() is None:
+                time.sleep(0.5)
+                with open(log_path) as f:
+                    text = f.read()
+                recs = (serve_log(served) if os.path.exists(
+                    os.path.join(served, "serve_log.jsonl")) else [])
+                if len(recs) >= len(case_dirs) and "supervise: daemon recycled" in text:
+                    break
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(log_path) as f:
+        text = f.read()
+    recs = serve_log(served)
+    names = sorted(r["case"] for r in recs if r.get("error") is None)
+    recycles = text.count("exiting for a supervisor restart")
+    check(rc == 0 and names == sorted(os.path.basename(d) for d in case_dirs)
+          and len(recs) == len(case_dirs) and recycles >= 1
+          and "supervise: daemon recycled" in text,
+          f"serve --supervise --rss-limit-mb {RSS_LIMIT_MB}: supervisor exit code "
+          f"{rc} after SIGTERM; completion log {len(recs)} records for "
+          f"{len(case_dirs)} cases, each once: {names}; {recycles} exit-4 "
+          f"recycle(s) ({time.perf_counter() - t0:.1f} s)")
+    if rc != 0 or recycles < 1:
+        print(text[-4000:], flush=True)
+
+
+def kd_mixed_mesh(card):
+    """10.4: a KD step of ``unit`` (f32) with 2 teachers over the mesh
+    ``cuda:0, cpu``: each shard's teachers on its device, losses and grads
+    within DP_GRAD_TOL of the same step over ``cpu, cpu``, the card shard's
+    IN, up and down backwards counted on their kernels; then ``train_stage``
+    with the teachers over that mesh for 2 steps."""
+    import dataclasses
+    import types
+
+    import numpy as np
+    import torch
+
+    from brats2019_tpu_torch import ops
+    from brats2019_tpu_torch.configs.presets import get_preset
+    from brats2019_tpu_torch.data.case import discover_cases
+    from brats2019_tpu_torch.parallel.mesh import make_mesh
+    from brats2019_tpu_torch.train.distill import (KDConfig, build_teachers,
+                                                   make_kd_microbatch_loss,
+                                                   teacher_replicas)
+    from brats2019_tpu_torch.train.loop import init_stage, stage_config, train_stage
+    from brats2019_tpu_torch.train.step import TrainStep
+    from brats2019_tpu_torch.utils.weights import init_params
+
+    exp = get_preset("unit")
+    ucfg, cfg, _ = stage_config(exp, "fine")
+    tparams = [init_params(ucfg, s) for s in (7, 8)]
+    rng = np.random.default_rng(10)
+    patch = tuple(cfg.patch)
+    data = [(rng.normal(size=(1,) + patch + (4,)).astype(np.float32),
+             rng.integers(0, 4, size=(1,) + patch).astype(np.uint8))
+            for _ in range(2)]
+    runs = {}
+    for name, devs in (("mixed", ["cuda:0", "cpu"]), ("cpu", ["cpu", "cpu"])):
+        env = make_mesh(devs)
+        model, opt = init_stage(ucfg, cfg, env.first)
+        teachers = build_teachers(ucfg, tparams, env.first)
+        reps = teacher_replicas(teachers, env.local_devices())
+        placed = all(next(t.parameters()).device == dev
+                     for dev, ts in reps.items() for t in ts)
+        step = TrainStep(model, cfg, make_kd_microbatch_loss(reps, cfg, KDConfig()),
+                         opt, env=env)
+        pools = [types.SimpleNamespace(
+            image=torch.from_numpy(img).to(dev), seg=torch.from_numpy(seg).to(dev),
+            fg_host=np.zeros((1, 16, 3), np.int32))
+            for dev, (img, seg) in zip(env.devices, data)]
+        seen = []
+        real = step.opt.step
+        names = list(step.opt.params)
+        step.opt.step = lambda g: seen.append(torch.cat(
+            [g[k].reshape(-1) for k in names]).cpu()) or real(g)
+        ops.reset_launch_counts()
+        aux = step(pools, 0)
+        counts = {k: (getattr(ops, k).launches, getattr(ops, k).launches_cuda)
+                  for k in BACKWARD}
+        runs[name] = (seen[0], {k: float(v) for k, v in aux.items()}, counts,
+                      placed, [str(d) for d in reps])
+    (g_mix, aux_mix, counts, placed, devs), (g_cpu, aux_cpu, _, _, _) = (
+        runs["mixed"], runs["cpu"])
+    d_grad = float((g_mix - g_cpu).norm() / g_cpu.norm())
+    d_loss = max(abs(aux_mix[k] - aux_cpu[k]) / abs(aux_cpu[k])
+                 for k in ("loss", "kd_loss"))
+    check(placed and devs == ["cuda:0", "cpu"],
+          f"KD over cuda:0, cpu: teacher replicas on {devs}, each shard's on its "
+          f"device: {placed}")
+    check(d_grad <= DP_GRAD_TOL and d_loss <= DP_GRAD_TOL,
+          f"KD step over cuda:0, cpu (unit, f32, 2 teachers) against cpu, cpu: "
+          f"grads relative L2 {d_grad:.3e}, loss/kd_loss {d_loss:.3e} (tol "
+          f"{DP_GRAD_TOL}); loss {aux_mix['loss']:.6f} vs {aux_cpu['loss']:.6f}")
+    calls = train_calls(ucfg, cfg.batch_per_device, patch)
+    k = max(cfg.grad_accum_steps, 1)
+    n_of = lambda name: k * sum(1 for c, _ in calls if c == name)
+    cuda_in, all_in = f32_bwd_cuda_share("unit")
+    want = {"instance_norm_act_bwd": (n_of("instance_norm_act_bwd"), k * cuda_in),
+            "upsample2x_bwd": (n_of("upsample2x_bwd"),) * 2,
+            "downsample2x_bwd": (n_of("downsample2x_bwd"),) * 2}
+    check(counts == want and k * all_in == want["instance_norm_act_bwd"][0],
+          f"the card shard's backwards (launches, on in_act_bwd.cu / "
+          f"resize2x.cu): {counts} (expected {want})")
+    # the loop's path: train_stage builds the replicas itself
+    t0 = time.perf_counter()
+    mixed = make_mesh(["cuda:0", "cpu"])
+    e = dataclasses.replace(exp, workdir=os.path.join(WORK, "kd_mixed"),
+                            train=dataclasses.replace(exp.train, steps=2,
+                                                      pool_refresh_every=0))
+    train_stage(e, discover_cases(os.path.join(WORK, "cases")), stage="fine",
+                kd_teachers=build_teachers(ucfg, tparams, mixed.first), env=mixed)
+    with open(os.path.join(e.workdir, "fine", "fine_metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f if '"kd_loss"' in line]
+    check(len(recs) == 2 and all(math.isfinite(r["loss"]) and r["kd_loss"] > 0
+                                 for r in recs),
+          f"train_stage with 2 teachers over cuda:0, cpu: {len(recs)} KD steps "
+          f"logged, losses {[round(r['loss'], 5) for r in recs]} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
+def phase10(exp, work, case_dirs, first, dev, card):
+    """Phase 10: volume pairing, the int8 transfer, the RSS recycle and KD
+    over two distinct local devices (module docstring)."""
+    import torch
+
+    t0 = time.perf_counter()
+    pairing_slice(exp, work, case_dirs, first, dev, card)
+    print(f"  10.1 (pairing) took {time.perf_counter() - t0:.1f} s", flush=True)
+    t1 = time.perf_counter()
+    int8_slice(exp, work, case_dirs, first, card)
+    leftout_bursts(exp, work, case_dirs, first, card)
+    torch.cuda.empty_cache()
+    print(f"  10.2 (int8; the bursts of 10.1 and 10.2) took "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    t1 = time.perf_counter()
+    recycle_slice(work, case_dirs, card)
+    print(f"  10.3 (RSS recycle) took {time.perf_counter() - t1:.1f} s", flush=True)
+    t1 = time.perf_counter()
+    kd_mixed_mesh(card)
+    print(f"  10.4 (KD over cuda:0, cpu) took {time.perf_counter() - t1:.1f} s",
+          flush=True)
+    print(f"  phase 10 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def phase_alone(phase, exp, dev, card) -> int:
+    """``--phases 9`` / ``--phases 10``: phase 3's weights, cases and
+    predict CLI run (the masks the phase compares with), then that phase
+    alone; no result lines."""
     from brats2019_tpu_torch.cli import predict as predict_cli
     from brats2019_tpu_torch.data import synthetic
     from brats2019_tpu_torch.data.constants import VOLUME_SHAPE
@@ -4217,10 +4815,11 @@ def phase9_only(exp, dev, card) -> int:
     rc = predict_cli.main([os.path.join(WORK, "cases"), "--preset", "cascade",
                            "--workdir", work, "--device", "cuda"])
     check(rc == 0, f"predict CLI exit code {rc}")
-    print("== phase 9 alone", flush=True)
-    phase9(exp, work, case_dirs, read_labels(case_dirs), dev, card)
+    print(f"== phase {phase} alone", flush=True)
+    (phase9 if phase == 9 else phase10)(exp, work, case_dirs,
+                                        read_labels(case_dirs), dev, card)
     shutil.rmtree(WORK, ignore_errors=True)
-    print(f"== stopped after phase 9 as asked; {len(FAILURES)} failure(s)",
+    print(f"== stopped after phase {phase} as asked; {len(FAILURES)} failure(s)",
           flush=True)
     for f in FAILURES:
         print(f"FAILED: {f}", file=sys.stderr)
@@ -4234,11 +4833,11 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch port "
                                  "on one CUDA card; no argument runs it whole.")
-    ap.add_argument("--phases", type=int, choices=(2, 5, 9), default=5,
-                    help="2: stop after the kernel checks of phase 2; 9: "
-                         "phase 1, phase 3's cases, weights and predict CLI "
-                         "run, then phase 9 (neither prints result lines); "
-                         "5 (default): everything")
+    ap.add_argument("--phases", type=int, choices=(2, 5, 9, 10), default=5,
+                    help="2: stop after the kernel checks of phase 2; 9 or "
+                         "10: phase 1, phase 3's cases, weights and predict "
+                         "CLI run, then phase 9 or phase 10 alone (none of "
+                         "these prints result lines); 5 (default): everything")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("error: torch.cuda.is_available() is False; this smoke test "
@@ -4292,8 +4891,8 @@ def main() -> int:
     }
     eval_calls = (unet_calls(exp.coarse_unet, 1, coarse_canvas)
                   + unet_calls(exp.unet, 1, exp.train.pool_shape))
-    if args.phases == 9:
-        return phase9_only(exp, dev, card)
+    if args.phases in (9, 10):
+        return phase_alone(args.phases, exp, dev, card)
     print("== phase 2: kernels vs plain torch at the flagship shapes", flush=True)
     t0 = time.perf_counter()
     wino_calls = [("conv3d_winograd", shape) for n, shape in calls if n == "conv3d"]
@@ -4520,6 +5119,10 @@ def main() -> int:
     print("== phase 9: the native decoder, the params export, the mesh modes, "
           "data parallelism and the multi-process launcher", flush=True)
     phase9(exp, work, case_dirs, first, dev, card)
+
+    print("== phase 10: volume pairing, the int8 transfer, the RSS recycle, "
+          "KD over cuda:0 and the CPU", flush=True)
+    phase10(exp, work, case_dirs, first, dev, card)
 
     record = []
     for k, (route, source, replaces) in KERNELS.items():

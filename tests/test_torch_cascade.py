@@ -286,21 +286,49 @@ def test_lowres_reduce_equals_fullres_reduce():
     np.testing.assert_array_equal(lab_lr.numpy(), lab_full.numpy())
 
 
-def test_unported_paths_raise():
-    """What is still not ported raises and names its ROADMAP item: volume
-    pairing (batch_volumes=2) and the int8 transfer encoding. Both are
-    refused before any weights are read."""
+@pytest.mark.parametrize("fine,postproc", [("fixture", "host"),
+                                          ("stem2", "host"),
+                                          ("stem2", "device")])
+def test_stage_finish_pair_is_two_stage_finishes(nets, fine, postproc):
+    """Two volumes' flip stacks through one batch-16 fine forward, each half
+    reduced (the full-resolution reduce with stem 1, the low-res one with
+    stem 2; device postprocessing when configured): the labels of two
+    ``stage_finish`` calls and of JAX's ``fine_pair`` on the same stacks,
+    except on ties of the mean probabilities (top-2 gap < 1e-5); the starts
+    pass through."""
     import dataclasses
 
-    from brats2019_tpu_torch.configs.presets import get_preset
-    from brats2019_tpu_torch.infer.predictor import Predictor
-
-    exp = get_preset("unit")
-    for bad in (dict(batch_volumes=2), dict(transfer_dtype="int8")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Predictor(dataclasses.replace(
-                exp, infer=dataclasses.replace(exp.infer, **bad)),
-                params_fine=None, device="cpu")
+    jcfg, jp, tm = nets[fine]
+    ccfg, cp, cm = nets["fixture"]
+    jfine, jcoarse = JaxUNet3D(jcfg), JaxUNet3D(ccfg)
+    tile = (32, 32, 32)
+    kw = dict(postproc=postproc, min_component_voxels=16, et_min_voxels=32)
+    fn = jcascade.make_predict_fn(
+        lambda p, x: jfine.apply(p, x),
+        dataclasses.replace(_infer_cfg(JaxInferenceConfig, tile), **kw),
+        CANVAS, coarse_apply=lambda p, x: jcoarse.apply(p, x),
+        fine_lowres_apply=lambda p, x: jfine.apply(p, x, subpixel=False),
+        stem=jcfg.stem_downsample,
+    )
+    split = tcascade.make_predict_fn(
+        tm, dataclasses.replace(_infer_cfg(InferenceConfig, tile), **kw),
+        CANVAS, coarse=cm)
+    with torch.no_grad():
+        (ta, sa), (tb, sb) = (split.stage_roi(torch.from_numpy(_image(s)))
+                              for s in (10, 13))
+        la, sa2, lb, sb2 = split.stage_finish_pair(ta, tb, sa, sb)
+        singles = [split.stage_finish(t, st)[0] for t, st in ((ta, sa), (tb, sb))]
+        probs = [split.stage_finish_probs(t, st)[0] for t, st in ((ta, sa), (tb, sb))]
+    assert sa2 is sa and sb2 is sb
+    ja, _, jb, _ = fn.fine_pair(jp, *(jnp.asarray(t.numpy()) for t in (ta, tb, sa, sb)))
+    for got, single, want, pr in zip((la, lb), singles, (ja, jb), probs):
+        assert got.dtype == torch.uint8 and got.shape == tile
+        top2 = torch.sort(pr, -1).values[..., -2:].numpy()
+        tie = (top2[..., 1] - top2[..., 0]) < 1e-5
+        for other in (single.numpy(), np.asarray(want)):
+            diff = got.numpy() != other
+            assert not (diff & ~tie).any(), int((diff & ~tie).sum())
+            assert diff.mean() < 1e-3
 
 
 def test_every_configuration_gets_a_program():

@@ -4,7 +4,11 @@ small sizes: the KD loss and the teacher ensemble's probabilities within
 1e-6, and three KD train steps with two teachers against JAX's
 ``make_kd_train_step`` on a one-device CPU mesh, on the same batches (a
 pool of one case of the patch's size: every draw is the whole case) —
-loss, ``kd_loss``, grad norm and params within 1e-5 abs + 1e-4 rel."""
+loss, ``kd_loss``, grad norm and params within 1e-5 abs + 1e-4 rel; the
+same three steps over two shards (``TrainStep`` over a ``cpu, cpu`` mesh,
+the teachers through ``teacher_replicas``) against JAX's step on a
+two-device CPU mesh, one case a shard, within the same tolerance; and the
+replica map over two distinct devices (``cpu`` and ``meta``)."""
 
 import dataclasses
 
@@ -21,6 +25,7 @@ from brats2019_tpu.parallel.mesh import make_mesh
 from brats2019_tpu.train import distill as jax_distill
 from brats2019_tpu.train.checkpoint import export_params as jax_export_params
 from brats2019_tpu_torch.configs import presets
+from brats2019_tpu_torch.parallel import mesh as port_mesh
 from brats2019_tpu_torch.train import distill, step as port_step
 from brats2019_tpu_torch.utils.weights import build_unet, load_params_npz
 
@@ -141,7 +146,8 @@ def test_kd_train_steps_match_jax(teachers, jax_kd_run):
                                   [f for _, _, f in teachers], "cpu")
     before = [{k: v.clone() for k, v in n.state_dict().items()} for n in nets]
     opt = port_step.Optimizer(dict(model.named_parameters()), cfg)
-    loss_fn = distill.make_kd_microbatch_loss(nets, cfg, distill.KDConfig(**KD))
+    loss_fn = distill.make_kd_microbatch_loss(
+        distill.teacher_replicas(nets, ["cpu"]), cfg, distill.KDConfig(**KD))
     batch = [(torch.from_numpy(img), torch.from_numpy(seg).long())]
     for s in range(STEPS):
         aux = port_step.train_update(model, opt, loss_fn, batch)
@@ -166,7 +172,8 @@ def test_kd_loss_shares_grad_accumulation(teachers):
     cfg = presets.TrainConfig(**dict(CFG_KW, grad_accum_steps=2))
     flat = {k: v for k, v in teachers[0][2].items()}
     nets = distill.build_teachers(presets.UNetConfig(**T_KW), [flat], "cpu")
-    loss_fn = distill.make_kd_microbatch_loss(nets, cfg, distill.KDConfig())
+    loss_fn = distill.make_kd_microbatch_loss({torch.device("cpu"): nets}, cfg,
+                                              distill.KDConfig())
     rng = np.random.default_rng(9)
     micro = [(torch.from_numpy(rng.normal(size=(1,) + PATCH + (4,)).astype(np.float32)),
               torch.from_numpy(rng.integers(0, 4, size=(1,) + PATCH)).long())
@@ -189,7 +196,10 @@ def test_kd_loss_shares_grad_accumulation(teachers):
 
 def test_kd_needs_a_teacher():
     with pytest.raises(ValueError, match="teacher"):
-        distill.make_kd_microbatch_loss([], presets.TrainConfig(), distill.KDConfig())
+        distill.make_kd_microbatch_loss({}, presets.TrainConfig(), distill.KDConfig())
+    with pytest.raises(ValueError, match="teacher"):
+        distill.make_kd_microbatch_loss({torch.device("cpu"): []},
+                                        presets.TrainConfig(), distill.KDConfig())
 
 
 def test_kd_config_matches_reference():
@@ -197,3 +207,103 @@ def test_kd_config_matches_reference():
         f.name for f in dataclasses.fields(jax_distill.KDConfig)]
     assert distill.KDConfig() == distill.KDConfig(**dataclasses.asdict(
         jax_distill.KDConfig()))
+
+
+@pytest.fixture(scope="module")
+def jax_kd_run_2(tmp_path_factory, teachers):
+    """JAX's KD step for STEPS steps on a two-device CPU mesh, one case (of
+    the patch's size) a shard: the initial student export, the two cases,
+    per-step aux and params."""
+    tmp = tmp_path_factory.mktemp("student2")
+    sm, sp, s_flat = _bridge(tmp, S_KW, 1, "student")
+    cfg = JaxTrainConfig(**CFG_KW)
+    env = make_mesh(jax.devices()[:2])
+    step = jax_distill.make_kd_train_step(
+        lambda p, v: sm.apply(p, v),
+        [lambda p, v, m=jm: m.apply(p, v) for jm, _, _ in teachers],
+        [p for _, p, _ in teachers], cfg, jax_distill.KDConfig(**KD), env)
+    rng = np.random.default_rng(6)
+    img = rng.normal(size=(2,) + PATCH + (4,)).astype(np.float32)
+    seg = rng.integers(0, 4, size=(2,) + PATCH).astype(np.uint8)
+    fg = np.zeros((2, 16, 3), np.int32)
+    p, o = sp, step.tx.init(sp)
+    auxs, params = [], []
+    for s in range(STEPS):
+        p, o, aux = step.fn(p, o, jnp.asarray(img), jnp.asarray(seg),
+                            jnp.asarray(fg), jnp.int32(s))
+        auxs.append({k: float(v) for k, v in jax.device_get(aux).items()})
+        params.append(_flat(p))
+    return s_flat, img, seg, auxs, params
+
+
+def test_kd_train_steps_over_two_shards_match_jax(teachers, jax_kd_run_2):
+    """Data-parallel KD: each shard's loss runs its device's teachers; the
+    averaged step equals JAX's two-device KD step."""
+    import types
+
+    s_flat, img, seg, auxs, params = jax_kd_run_2
+    cfg = presets.TrainConfig(**CFG_KW)
+    env = port_mesh.make_mesh(["cpu"] * 2)
+    model = build_unet(presets.UNetConfig(**S_KW), s_flat, "cpu").train()
+    model.requires_grad_(True)
+    nets = distill.build_teachers(presets.UNetConfig(**T_KW),
+                                  [f for _, _, f in teachers], "cpu")
+    replicas = distill.teacher_replicas(nets, env.local_devices())
+    assert list(replicas) == [torch.device("cpu")]
+    assert all(a is b for a, b in zip(replicas[torch.device("cpu")], nets))
+    step = port_step.TrainStep(
+        model, cfg, distill.make_kd_microbatch_loss(replicas, cfg,
+                                                    distill.KDConfig(**KD)),
+        env=env)
+    pools = [types.SimpleNamespace(
+        image=torch.from_numpy(img[j:j + 1]), seg=torch.from_numpy(seg[j:j + 1]),
+        fg_host=np.zeros((1, 16, 3), np.int32)) for j in range(2)]
+    for s in range(STEPS):
+        aux = step(pools, s)
+        for k in ("loss", "kd_loss", "dice_loss", "ce_loss", "grad_norm"):
+            np.testing.assert_allclose(float(aux[k]), auxs[s][k], **TOL, err_msg=k)
+        for name, p in model.named_parameters():
+            key = "params/" + name.replace(".", "/")
+            np.testing.assert_allclose(p.detach().numpy(), params[s][key], **TOL,
+                                       err_msg=key)
+
+
+def test_teacher_replicas_one_frozen_copy_per_device(teachers):
+    """Two distinct devices: the teachers already on the CPU serve there as
+    they are; the other device gets one frozen copy of each; the originals
+    keep their values and device."""
+    nets = distill.build_teachers(presets.UNetConfig(**T_KW),
+                                  [f for _, _, f in teachers], "cpu")
+    before = [{k: v.clone() for k, v in n.state_dict().items()} for n in nets]
+    cpu, meta = torch.device("cpu"), torch.device("meta")
+    env = port_mesh.MeshEnv(devices=(cpu, meta, cpu))
+    reps = distill.teacher_replicas(nets, env.local_devices())
+    assert list(reps) == [cpu, meta]
+    assert all(a is b for a, b in zip(reps[cpu], nets))
+    assert len(reps[meta]) == len(nets)
+    for copy_, orig in zip(reps[meta], nets):
+        assert copy_ is not orig and not copy_.training
+        assert all(p.device == meta and not p.requires_grad
+                   for p in copy_.parameters())
+        assert ([k for k, _ in copy_.named_parameters()]
+                == [k for k, _ in orig.named_parameters()])
+    for n, b in zip(nets, before):
+        assert all(v.device == cpu and torch.equal(v, b[k])
+                   for k, v in n.state_dict().items())
+    # the loss takes the replicas on its input's device: on the CPU the
+    # mesh's map gives the one-device map's loss bitwise; a device without
+    # replicas is an error
+    cfg = presets.TrainConfig(**CFG_KW)
+    kd = distill.KDConfig(**KD)
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(1,) + PATCH + (4,)).astype(np.float32))
+    y = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 4, size=(1,) + PATCH)).long()
+    student = build_unet(presets.UNetConfig(**T_KW), teachers[0][2], "cpu")
+    one = distill.teacher_replicas(nets, [cpu])
+    assert all(a is b for a, b in zip(one[cpu], nets))
+    a = distill.make_kd_microbatch_loss(one, cfg, kd)(student, x, y)[0]
+    b = distill.make_kd_microbatch_loss(reps, cfg, kd)(student, x, y)[0]
+    assert torch.equal(a, b)
+    with pytest.raises(KeyError):
+        distill.make_kd_microbatch_loss({meta: reps[meta]}, cfg, kd)(student, x, y)

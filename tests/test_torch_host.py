@@ -1,7 +1,8 @@
 """PyTorch port: the NumPy host copies (constants, NIfTI I/O, case loading,
 synthetic cases of both generators, label postprocessing, the training path's
-preprocessing, k-fold split, metrics logger, the evaluation metrics and the
-uncertainty maps) pinned to their originals in the JAX package."""
+preprocessing, k-fold split, metrics logger, the evaluation metrics, the
+uncertainty maps and the int8 transfer quantizer) pinned to their originals
+in the JAX package."""
 
 import ast
 import inspect
@@ -378,3 +379,22 @@ def test_native_decoder_binding_is_the_reference_copy():
     assert nifti_fast.ABI_VERSION == 2
     src = inspect.getsource(ref_fast._ensure_lib)
     assert "_ABI_VERSION = 2" in src
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.int16])
+def test_int8_quantizer_is_the_reference_copy(dtype):
+    """``quantize_int8_per_modality``: the reference's body, and its output
+    bitwise on crops with background, an all-zero modality and negative
+    intensities."""
+    assert (_fn_ast(preprocess, "quantize_int8_per_modality", True)
+            == _fn_ast(ref_preprocess, "quantize_int8_per_modality", True))
+    rng = np.random.default_rng(11)
+    img = (rng.normal(50.0, 30.0, size=(14, 12, 10, 4)) * 7).astype(dtype)
+    img[:4] = 0
+    img[..., 3] = 0
+    got = preprocess.quantize_int8_per_modality(img)
+    want = ref_preprocess.quantize_int8_per_modality(img)
+    assert got.dtype == want.dtype == np.int8
+    np.testing.assert_array_equal(got, want)
+    assert (got[:4] == 0).all() and (got[..., 3] == 0).all()
+    assert np.abs(got).max() == 127

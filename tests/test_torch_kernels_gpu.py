@@ -1542,7 +1542,8 @@ def test_kd_step_on_the_card_matches_the_plain_path(dev):
         teachers = distill.build_teachers(cfg, tparams, where)
         before = [{k: v.clone() for k, v in t.state_dict().items()} for t in teachers]
         opt = port_step.Optimizer(dict(model.named_parameters()), tcfg)
-        loss_fn = distill.make_kd_microbatch_loss(teachers, tcfg, distill.KDConfig())
+        loss_fn = distill.make_kd_microbatch_loss(
+            distill.teacher_replicas(teachers, [where]), tcfg, distill.KDConfig())
         ops.reset_launch_counts()
         aux = port_step.train_update(model, opt, loss_fn,
                                      [(x.to(where), y.to(where)) for x, y in batch])

@@ -221,11 +221,15 @@ def _read_pred(d):
                       apply_scaling=False)[0]
 
 
-def test_predict_cli_multichip(cli_setup):
+def test_predict_cli_multichip(cli_setup, capsys):
     w0, _, data, dirs = cli_setup
     rc = predict_cli.main([data, "--preset", PRESET, "--workdir", w0,
-                           "--device", "cpu,cpu", "--multichip", "cascade"])
+                           "--device", "cpu,cpu", "--multichip", "cascade",
+                           "--batch-volumes", "2", "--serving-depth", "2"])
     assert rc == 0
+    err = capsys.readouterr().err      # the single-device knobs are noted
+    for flag in ("--batch-volumes", "--serving-depth"):
+        assert f"{flag} has no effect with --multichip" in err
     from brats2019_tpu_torch.data.case import load_case
     from brats2019_tpu_torch.data.constants import internal_to_disk
 

@@ -5,6 +5,7 @@ written by the JAX package's export_params."""
 import dataclasses
 import os
 import shutil
+import time
 
 import jax
 import jax.numpy as jnp
@@ -152,6 +153,38 @@ def test_port_cli_no_tta_no_cascade_match_jax_predictor(tmp_path, workdir,
     assert isinstance(program, want_cls)
 
 
+def test_port_cli_int8_and_pairing_match_jax_predictor(tmp_path, workdir,
+                                                       monkeypatch, capsys):
+    """``--transfer-dtype int8 --batch-volumes 2`` on a root of three cases
+    (one pair and an odd tail): the labels equal the JAX predictor's on the
+    same config except on ties; with --ensemble the pairing flag is noted as
+    having no effect."""
+    monkeypatch.setitem(presets.PRESETS, "tiny_cascade", _exp(presets))
+    root = tmp_path / "cases"
+    dirs = synthetic.write_dataset(str(root), 3, shape=SHAPE, seed0=30, hard=True)
+    flags = ["--transfer-dtype", "int8", "--batch-volumes", "2"]
+    rc = port_cli.main([str(root), "--preset", "tiny_cascade", "--workdir",
+                        workdir, "--device", "cpu", *flags])
+    assert rc == 0 and "3 case(s)" in capsys.readouterr().out
+    pf, pc = _jax_params(workdir)
+    ref = JaxPredictor(_exp(jax_presets, transfer_dtype="int8", batch_volumes=2),
+                       pf, pc)
+    outs = ref.predict_dirs(dirs, [str(tmp_path / f"ref{i}.nii.gz")
+                                   for i in range(3)])
+    for d, want_path in zip(dirs, outs):
+        name = os.path.basename(d)
+        got = read_nifti(os.path.join(d, f"{name}_pred.nii.gz"),
+                         apply_scaling=False)[0]
+        want = read_nifti(want_path, apply_scaling=False)[0]
+        assert got.shape == SHAPE and set(np.unique(got)) <= {0, 1, 2, 4}
+        assert (got != want).mean() < 1e-4, int((got != want).sum())
+    rc = port_cli.main([dirs[0], "--preset", "tiny_cascade", "--workdir",
+                        workdir, "--device", "cpu", "--ensemble", workdir,
+                        "--output", str(tmp_path / "ens.nii.gz"), *flags])
+    assert rc == 0
+    assert "--batch-volumes has no effect with --ensemble" in capsys.readouterr().err
+
+
 def test_port_cli_errors(tmp_path, workdir, monkeypatch, capsys):
     monkeypatch.setitem(presets.PRESETS, "tiny_cascade", _exp(presets))
     assert port_cli.main([str(tmp_path / "none"), "--preset", "tiny_cascade",
@@ -186,14 +219,99 @@ def test_full_canvas_transfer_matches_bucketed(workdir):
                                   b.predict_arrays(image)[0])
 
 
-def test_int8_transfer_not_ported(workdir):
-    exp = dataclasses.replace(
-        _exp(presets),
-        infer=dataclasses.replace(_exp(presets).infer, transfer_dtype="int8"),
-    )
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Predictor(exp, _npz(workdir, "fine"), _npz(workdir, "coarse"),
-                  device="cpu")
+def test_int8_transfer_matches_the_jax_int8_path(workdir):
+    """transfer_dtype="int8": the payload is the JAX package's bitwise
+    (int8, half the bf16 payload's bytes), the masks equal the JAX int8
+    predictor's except on ties and the bf16 path's on > 98% of voxels
+    (tests/test_inference.py:227), the whole-canvas int8 transfer equals the
+    bucketed one, and an unknown transfer dtype is refused."""
+    import torch
+
+    pf, pc = _jax_params(workdir)
+    ref8 = JaxPredictor(_exp(jax_presets, transfer_dtype="int8"), pf, pc)
+    port8 = _port(workdir, transfer_dtype="int8")
+    port16 = _port(workdir)
+    whole8 = _port(workdir, transfer_dtype="int8", transfer_bucket=0)
+    for seed in (10, 11):
+        image = synthetic.make_hard_case_arrays(seed=seed, shape=SHAPE)[0]
+        small, dst, bbox = port8._encode_host(image)
+        small_j, dst_j, bbox_j = ref8._encode_host(image)
+        assert small.dtype == torch.int8 and small_j.dtype == np.int8
+        np.testing.assert_array_equal(small.numpy(), small_j)
+        assert dst == tuple(int(v) for v in dst_j)
+        assert (bbox.lo, bbox.hi) == (bbox_j.lo, bbox_j.hi)
+        assert 2 * small.nbytes == port16._encode_host(image)[0].nbytes
+        assert whole8._encode_host(image)[1] == (0, 0, 0)
+        want, _ = ref8.predict_arrays(image)
+        got, _ = port8.predict_arrays(image)
+        assert got.shape == SHAPE and (got > 0).sum() > 100
+        assert (got != want).mean() < 1e-4, int((got != want).sum())
+        assert (got == port16.predict_arrays(image)[0]).mean() > 0.98
+        np.testing.assert_array_equal(whole8.predict_arrays(image)[0], got)
+    with pytest.raises(ValueError, match="transfer_dtype"):
+        _port(workdir, transfer_dtype="Int8")
+
+
+def test_int8_payload_cache_round_trip(tmp_path, workdir, monkeypatch):
+    """An int8 entry is stored as int8, reads back bitwise in both packages,
+    sits beside the bf16 entry of the same case (the key holds the dtype),
+    and a hit gives the masks of a miss."""
+    import torch
+
+    from brats2019_tpu.infer import payload_cache as ref_cache
+    from brats2019_tpu_torch.infer import payload_cache, predictor as pmod
+
+    cache = str(tmp_path / "cache")
+    port8 = _port(workdir, prep_cache_dir=cache, transfer_dtype="int8")
+    d = synthetic.write_dataset(str(tmp_path / "cases"), 1, shape=(48, 40, 36),
+                                hard=True)[0]
+    miss = port8.predict_dir(d, str(tmp_path / "miss.nii.gz"))[0]
+    _port(workdir, prep_cache_dir=cache).prefill_payload_cache(d)
+    path = payload_cache.payload_cache_path(
+        cache, d, port8.canvas, port8.exp.infer.transfer_bucket, "int8")
+    assert sorted(os.listdir(cache)) == sorted(
+        [os.path.basename(path), os.path.basename(payload_cache.payload_cache_path(
+            cache, d, port8.canvas, port8.exp.infer.transfer_bucket, "bfloat16"))])
+    with np.load(path) as z:
+        assert z["small"].dtype == np.int8
+    small_t, dst_t, bbox_t = payload_cache.load_payload(path)
+    small_j, dst_j, bbox_j = ref_cache.load_payload(path)
+    assert small_t.dtype == torch.int8
+    np.testing.assert_array_equal(small_t.numpy(), small_j)
+    assert dst_t == tuple(int(v) for v in dst_j)
+    assert (bbox_t.lo, bbox_t.hi) == (bbox_j.lo, bbox_j.hi)
+    other = str(tmp_path / "from_jax.npz")
+    ref_cache.store_payload(other, small_j, dst_j, bbox_j)
+    assert torch.equal(payload_cache.load_payload(other)[0], small_t)
+    monkeypatch.setattr(pmod, "load_case",
+                        lambda *a, **k: pytest.fail("decoded on a cache hit"))
+    hit = port8.predict_dir(d, str(tmp_path / "hit.nii.gz"))[0]
+    np.testing.assert_array_equal(read_nifti(hit, apply_scaling=False)[0],
+                                  read_nifti(miss, apply_scaling=False)[0])
+
+
+def test_transfer_bound_hint_policy(capsys):
+    """The reference's four cases (tests/test_inference.py:427), and the
+    port's policy equal to the reference's on a grid of inputs: the same
+    verdict and the same median, share and cadence in the message (the port
+    hands it the copy times alone and words the message so)."""
+    from brats2019_tpu.infer.predictor import transfer_bound_hint as ref_hint
+    from brats2019_tpu_torch.infer.predictor import transfer_bound_hint
+
+    hint = transfer_bound_hint([0.1] * 8, 8 * 0.12, 8, "bfloat16")
+    assert hint is not None and "int8" in hint
+    assert transfer_bound_hint([0.1] * 8, 8 * 0.12, 8, "int8") is None
+    assert transfer_bound_hint([0.01] * 8, 8 * 0.12, 8, "bfloat16") is None
+    assert transfer_bound_hint([0.1] * 2, 2 * 0.12, 2, "bfloat16") is None
+    for prep in ([0.05] * 6, [0.2, 0.01, 0.3, 0.02, 0.25], [0.06] * 3):
+        for wall in (0.0, 0.3, 0.6, 2.0):
+            for dt in ("bfloat16", "int8"):
+                a = transfer_bound_hint(prep, wall, len(prep), dt)
+                b = ref_hint(prep, wall, len(prep), dt)
+                assert (a is None) == (b is None)
+                if a is not None:
+                    numbers = lambda m: m.split("(")[1].split(")")[0]
+                    assert numbers(a) == numbers(b)
 
 
 # ------------------------------------------------ the pipelined serving path --
@@ -352,6 +470,53 @@ def test_reload_params_and_warmup(workdir):
         port.reload_params({"params/nope": np.zeros(1)}, _npz(workdir, "coarse"))
 
 
-def test_pairing_not_ported(workdir):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port(workdir, batch_volumes=2)
+def test_predictor_prints_the_transfer_hint_once(tmp_path, workdir, monkeypatch,
+                                                 capsys):
+    """Both pipelined entry points hand the policy the batch's copy times,
+    the batch wall and size, and the transfer dtype; the advisory prints at
+    most once per predictor."""
+    from brats2019_tpu_torch.infer import predictor as pmod
+
+    images = [synthetic.make_hard_case_arrays(seed=s, shape=SHAPE)[0]
+              for s in (10, 11)]
+    seen = []
+
+    def policy(prep_s, wall_s, n, dtype):
+        seen.append((len(prep_s), n, dtype, wall_s > 0))
+        return "note: --transfer-dtype int8 (test)"
+
+    monkeypatch.setattr(pmod, "transfer_bound_hint", policy)
+    port = _port(workdir, transfer_dtype="int8")
+    port.predict_arrays_many(images)
+    port.predict_arrays_many(images)
+    assert seen == [(2, 2, "int8", True)]
+    assert capsys.readouterr().err.count("--transfer-dtype int8 (test)") == 1
+    assert len(port._copy_times) == 4
+    seen.clear()
+    other = _port(workdir)
+    dirs = synthetic.write_dataset(str(tmp_path), 3, shape=(48, 40, 36))
+    other.predict_dirs(dirs, [None] * 3)
+    assert seen == [(3, 3, "bfloat16", True)]
+
+
+def test_transfer_hint_times_the_copy_alone(tmp_path, workdir, monkeypatch):
+    """The advisory reads the host-to-device copy alone: a decode that
+    takes most of the cadence (here a 0.3 s sleep in it) is not in the
+    times the policy gets, so it gives no int8 advice for it."""
+    from brats2019_tpu_torch.infer import predictor as pmod
+
+    real, policy = pmod.load_case, pmod.transfer_bound_hint
+    monkeypatch.setattr(pmod, "load_case",
+                        lambda *a, **k: time.sleep(0.3) or real(*a, **k))
+    got = []
+    monkeypatch.setattr(pmod, "transfer_bound_hint",
+                        lambda copy_s, wall_s, n, dtype: got.append(
+                            (list(copy_s), wall_s, n)) or None)
+    port = _port(workdir)
+    dirs = synthetic.write_dataset(str(tmp_path), 4, shape=(48, 40, 36))
+    port.predict_dirs(dirs, [None] * 4)
+    (copy_s, wall_s, n), = got
+    depth = port.exp.infer.serving_depth
+    assert n == 4 and len(copy_s) == 4 and wall_s >= 4 * 0.3 / depth
+    assert max(copy_s) < 0.3
+    assert policy(copy_s, wall_s, n, "bfloat16") is None

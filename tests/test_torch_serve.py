@@ -278,6 +278,11 @@ def _counter_cmd(tmp_path, codes):
     ([2], 3, 2, 1, []),                           # config error passes through
     ([3], 3, 3, 1, []),
     ([0], 0, 0, 1, []),
+    # exit 4, an --rss-limit-mb recycle: restarted at once (paced by 10 s
+    # when the child lived under 30 s), however small the crash budget
+    ([4, 4, 0], 0, 0, 3, [10.0, 10.0]),
+    # a recycle resets the crash count: crash, recycle, crash, crash, give up
+    ([9, 4, 9, 9, 9], 2, 9, 5, [1.0, 10.0, 1.0, 2.0]),
 ])
 def test_supervise_restarts_crashed_child_up_to_the_cap(
         tmp_path, codes, cap, want_rc, want_runs, want_sleeps):
@@ -298,8 +303,11 @@ def test_supervise_stop_during_crash_backoff_is_clean_stop(tmp_path):
 
 
 def test_strip_supervisor_flags_and_parser():
-    argv = ["watch", "--supervise", "--max-crash-restarts", "5", "--warmup"]
-    assert cli_serve._strip_supervisor_flags(argv) == ["watch", "--warmup"]
+    argv = ["watch", "--supervise", "--rss-limit-mb", "900",
+            "--max-crash-restarts", "5", "--warmup"]
+    # the child keeps --rss-limit-mb: it is the child that recycles
+    assert cli_serve._strip_supervisor_flags(argv) == [
+        "watch", "--rss-limit-mb", "900", "--warmup"]
     assert cli_serve._strip_supervisor_flags(["w", "--max-crash-restarts=5"]) == ["w"]
     parser = cli_serve.build_parser()
     with pytest.raises(SystemExit):
@@ -307,9 +315,12 @@ def test_strip_supervisor_flags_and_parser():
     args = parser.parse_args(["w"])
     assert args.postproc == "device" and args.device == "cuda"
     assert args.poll == 0.5 and args.retries == 1 and not args.warmup
-    # a flag that is not ported is absent, not accepted and ignored
-    for flag in (["--transfer-dtype", "int8"], ["--rss-limit-mb", "9"],
-                 ["--batch-volumes", "2"]):
+    # the serving left-outs parse as in the reference, with its choices
+    args3 = parser.parse_args(["w", "--transfer-dtype", "int8", "--rss-limit-mb",
+                               "9", "--batch-volumes", "2"])
+    assert (args3.transfer_dtype, args3.rss_limit_mb, args3.batch_volumes) == (
+        "int8", 9, 2)
+    for flag in (["--transfer-dtype", "Int8"], ["--batch-volumes", "3"]):
         with pytest.raises(SystemExit):
             parser.parse_args(["w", *flag])
     # the ensemble, artifact and mesh flags are ported
@@ -606,3 +617,94 @@ def test_ensemble_daemon_artifacts_match_jax_daemon(tmp_path, workdir, preset,
     np.testing.assert_allclose(probs, probs_j, atol=2e-3)      # f16 on disk
     assert (seg != seg_j).mean() < 1e-4
     assert np.abs(unc - unc_j).max() <= 1 and unc.max() <= 100
+
+
+# ------------------------------------------------------- the RSS recycle --
+
+def _server(workdir, out, rss_limit_mb):
+    import dataclasses
+
+    exp = dataclasses.replace(presets.PRESETS[PRESET], workdir=workdir)
+    server = cli_serve.Server(exp, output_dir=str(out), device="cpu")
+    server.rss_limit_mb = rss_limit_mb
+    return server
+
+
+def test_rss_limit_recycles_between_batches(tmp_path, workdir, preset, monkeypatch):
+    """--rss-limit-mb: above the watermark from the start, the daemon still
+    serves the batch it found, then exits with EXIT_RECYCLE (4); a
+    restarted daemon replays the log; idle, it recycles after two empty
+    scans; with the limit off the loop keeps running."""
+    watch = tmp_path / "incoming"
+    synthetic.write_dataset(str(watch), 1, shape=SHAPE)
+    name = os.listdir(watch)[0]
+    monkeypatch.setattr(cli_serve, "_self_rss_mb", lambda: 500.0)
+    out = tmp_path / "served"
+    server = _server(workdir, out, 123)
+    box = {}
+    t = threading.Thread(target=lambda: box.update(
+        rc=server.run(str(watch), 0.05, False)), daemon=True)
+    t.start()
+    t.join(120)
+    assert not t.is_alive()
+    assert box["rc"] == cli_serve.Server.EXIT_RECYCLE == 4
+    assert server.done == {name} and [r["case"] for r in _log(out)] == [name]
+    # the restarted daemon replays the log, finds nothing new, and recycles
+    # idle after two empty scans
+    again = _server(workdir, out, 123)
+    assert again.done == {name}
+    assert again.run(str(watch), 0.05, False) == 4
+    assert len(_log(out)) == 1
+    # limit off (the default 0): the same conditions keep the loop running
+    off = _server(workdir, tmp_path / "off", 0)
+    t3 = threading.Thread(target=lambda: box.update(
+        rc3=off.run(str(watch), 0.05, False)), daemon=True)
+    t3.start()
+    _wait_for(lambda: (tmp_path / "off" / f"{name}_pred.nii.gz").exists(),
+              what="the case served with the limit off")
+    time.sleep(0.3)
+    assert t3.is_alive()
+    off.request_stop()
+    t3.join(30)
+    assert not t3.is_alive() and box["rc3"] == 0
+
+
+def test_self_rss_is_the_reference_copy():
+    """The RSS reader is the reference's but for its docstring, and reads
+    this process."""
+    def body(fn):
+        node = ast.parse(inspect.getsource(fn)).body[0]
+        node.body = node.body[1:]
+        return ast.dump(node)
+
+    assert body(cli_serve._self_rss_mb) == body(jax_serve._self_rss_mb)
+    assert cli_serve._self_rss_mb() > 1.0
+
+
+def test_port_daemon_int8_and_pairing_match_jax_daemon(tmp_path, workdir, preset,
+                                                       keep_signal_handlers):
+    """--transfer-dtype int8 --batch-volumes 2 on both daemons, same weights,
+    three cases (one pair and an odd tail): the port's labels equal the JAX
+    daemon's except on numerical ties."""
+    src = synthetic.write_dataset(str(tmp_path / "src"), 3, shape=SHAPE,
+                                  seed0=26, hard=True)
+    outs = {}
+    for key, mod, extra in (("port", cli_serve, ["--device", "cpu"]),
+                            ("jax", jax_serve, [])):
+        watch, out = tmp_path / f"watch_{key}", tmp_path / f"out_{key}"
+        watch.mkdir()
+        for d in src:
+            shutil.copytree(d, watch / os.path.basename(d))
+        rc = mod.main([str(watch), "--preset", PRESET, "--workdir", workdir,
+                       "--output-dir", str(out), "--once", "--poll", "0.05",
+                       "--postproc", "host", "--transfer-dtype", "int8",
+                       "--batch-volumes", "2", *extra])
+        assert rc == 0
+        recs = {r["case"]: r for r in _log(out)}
+        assert len(recs) == 3 and all(r.get("error") is None for r in recs.values())
+        outs[key] = {c: read_nifti(r["output"], apply_scaling=False)[0]
+                     for c, r in recs.items()}
+    for case, got in outs["port"].items():
+        want = outs["jax"][case]
+        assert got.shape == SHAPE and set(np.unique(got)) <= {0, 1, 2, 4}
+        assert (got != want).mean() < 1e-4, int((got != want).sum())
