@@ -3,7 +3,8 @@
 Usage:
     python -m brats2019_tpu_torch.cli.export --preset cascade [--workdir DIR]
         [--stage fine|coarse|all] [--format npz|safetensors]
-        [--average K | --ema]
+        [--average K | --ema] [--stablehlo [--stablehlo-check]]
+        [--device cuda|cpu]
 
 Writes the inference-only parameters of each stage's checkpoints to
 ``<workdir>/<stage>/params.{npz,safetensors}``: the flat format
@@ -17,9 +18,15 @@ latest step's, read from the checkpoints only (never a previous export).
 written by the port's own writer (the card's host has no ``safetensors``
 package).
 
-Not ported (ROADMAP queue 1 item 7b): ``--stablehlo`` and
-``--stablehlo-check`` are refused; the program export becomes
-``torch.export`` once the kernels are registered through ``torch.library``.
+``--stablehlo`` (the reference's flag name) also writes the predict program
+as ``torch.export`` programs (``.pt2``, weight-agnostic: the weights are
+inputs) and their ``manifest.json`` into ``<workdir>/torch_export/``, so a
+JAX export into the same workdir is never overwritten
+(``infer/export_hlo.py``); the weights are the serving ones
+(``load_serving_params``), the device ``--device`` (the card unless the
+caller asks for the CPU), the conv backend the process has set.
+``--stablehlo-check`` also loads them and asserts exact label equality with
+the eager program on a synthetic canvas.
 """
 
 from __future__ import annotations
@@ -54,20 +61,24 @@ def build_parser() -> argparse.ArgumentParser:
                         "--ema-decay` run (in the latest step checkpoint's "
                         "optimizer state) instead of the best/latest params")
     p.add_argument("--stablehlo", action="store_true",
-                   help="not ported: refused (ROADMAP queue 1 item 7b)")
+                   help="ALSO export the predict program as torch.export "
+                        "programs (.pt2, + manifest.json) under "
+                        "<workdir>/torch_export/: weight-agnostic, every "
+                        "kernel a brats_torch:: operator node "
+                        "(infer/export_hlo.py)")
     p.add_argument("--stablehlo-check", action="store_true",
-                   help="not ported: refused (ROADMAP queue 1 item 7b)")
+                   help="after --stablehlo, load the programs and assert "
+                        "exact label equality with the eager program on a "
+                        "synthetic canvas")
+    p.add_argument("--device", default="cuda",
+                   help="the device the --stablehlo programs are exported "
+                        "for (default: the card; cpu runs the plain torch "
+                        "path)")
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.stablehlo or args.stablehlo_check:
-        print("error: --stablehlo/--stablehlo-check are not ported: the "
-              "program export (torch.export of the predict program, with the "
-              "hand-written kernels registered through torch.library) is "
-              "ROADMAP queue 1 item 7b", file=sys.stderr)
-        return 2
     exp = resolve_experiment(args)
     stages = []
     if args.stage in ("all", "fine"):
@@ -105,6 +116,23 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(out), exist_ok=True)
         save_params(out, params)
         print(f"[export] {stage} -> {out}", flush=True)
+    if args.stablehlo and rc == 0:
+        from ..infer.export_hlo import export_predict_program
+        from ..infer.predictor import Predictor
+        from .common import load_serving_params
+
+        try:
+            exp, pf, pc = load_serving_params(exp)
+        except FileNotFoundError as e:
+            print(f"warning: --stablehlo skipped: {e}", file=sys.stderr)
+            return 1
+        written = export_predict_program(
+            Predictor(exp, pf, pc, device=args.device),
+            os.path.join(exp.workdir, "torch_export"),
+            check=args.stablehlo_check,
+        )
+        for w in written:
+            print(f"[export] torch.export -> {w}", flush=True)
     return rc
 
 

@@ -7,7 +7,8 @@ Usage:
 Prints one JSON document: torch and CUDA (the cards' names, count and
 compute capability, where the JAX one reports JAX devices), the kernels'
 build directory and whether ``nvcc`` is found, the resolved preset's key
-shapes and FLOPs, and which weights predict / serve would load per stage.
+shapes and FLOPs, which weights predict / serve would load per stage, and
+the manifest of a program export (``stablehlo_manifest``).
 The first thing to run when a deployment misbehaves.
 """
 
@@ -77,9 +78,10 @@ def gather(preset: str = "cascade") -> dict:
 
 
 def _artifact_status(exp) -> dict:
-    """Which weights predict / serve would load per stage, and whether an
+    """Which weights predict / serve would load per stage, whether an
     export is staler than the newest checkpoint (the trap
-    ``load_stage_params`` warns about)."""
+    ``load_stage_params`` warns about), and the program export's manifest
+    (``export --stablehlo``) when there is one."""
     from .common import _latest_checkpoint_mtime
 
     out: dict = {}
@@ -97,6 +99,10 @@ def _artifact_status(exp) -> dict:
             entry["export_stale"] = ckpt_mtime > os.path.getmtime(newest)
         if entry.get("has_checkpoint") or exported:
             out[stage] = entry
+    # the program export of ``export --stablehlo`` (reference key)
+    man = os.path.join(exp.workdir, "torch_export", "manifest.json")
+    if os.path.exists(man):
+        out["stablehlo_manifest"] = man
     return out
 
 

@@ -5,9 +5,10 @@ flax variables (``Conv_0.kernel`` DHWIO, ``in_scale``, ``in_bias``), so the
 weight bridge (``utils/weights.py``) is a rename. The compute dtype casts
 the conv input and kernel, as flax's ``nn.Conv(dtype=...)`` does. When the
 f32 kernel takes a gradient, the cast runs inside the autograd graph on
-every forward; otherwise (eval, ``torch.inference_mode``) a cached copy in
-the compute dtype is used, re-cast whenever the kernel has changed (an
-optimizer step, a load, a move to another device).
+every forward, as it does in a traced program (``torch.export``, where the
+kernel is an input); otherwise (eval, ``torch.inference_mode``) a cached
+copy in the compute dtype is used, re-cast whenever the kernel has changed
+(an optimizer step, a load, a move to another device).
 """
 
 from __future__ import annotations
@@ -59,7 +60,10 @@ class Conv3x3(nn.Module):
     def forward(self, x: torch.Tensor, stats: bool = False):
         """y, or with ``stats`` (y, the InstanceNorm partials of y or None):
         ``ops.conv3d``."""
-        if torch.is_grad_enabled() and self.kernel.requires_grad:
+        if torch.compiler.is_compiling() or (
+                torch.is_grad_enabled() and self.kernel.requires_grad):
+            # traced (an export: the kernel is a program input) or taking a
+            # gradient: the cast is part of the program
             w = self.kernel.to(self.compute_dtype)
         else:
             w = self.cached_kernel()

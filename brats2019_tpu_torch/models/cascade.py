@@ -82,13 +82,24 @@ def coarse_locate(
     return crop_region(image, start, roi), start
 
 
-@functools.lru_cache(maxsize=64)
 def _grid_scale(canvas, coarse_shape, device) -> torch.Tensor:
     """Canvas / coarse-grid ratio per axis, f32, built once per device (the
-    host-to-device copy that builds it waits for the card)."""
+    host-to-device copy that builds it waits for the card); a traced program
+    (``torch.export``) gets its own constant and leaves the cache alone."""
+    if torch.compiler.is_compiling():
+        return _grid_scale_tensor(canvas, coarse_shape, device)
+    return _grid_scale_cached(canvas, coarse_shape, device)
+
+
+def _grid_scale_tensor(canvas, coarse_shape, device) -> torch.Tensor:
+    return torch.tensor([c / s for c, s in zip(canvas, coarse_shape)],
+                        dtype=torch.float32, device=device)
+
+
+@functools.lru_cache(maxsize=64)
+def _grid_scale_cached(canvas, coarse_shape, device) -> torch.Tensor:
     with torch.inference_mode(False):
-        return torch.tensor([c / s for c, s in zip(canvas, coarse_shape)],
-                            dtype=torch.float32, device=device)
+        return _grid_scale_tensor(canvas, coarse_shape, device)
 
 
 def crop_region(image: torch.Tensor, start: torch.Tensor,
@@ -277,7 +288,10 @@ class _Program:
 
     def _const(self, name: str, array: np.ndarray, device) -> torch.Tensor:
         """``array`` on ``device``, copied there once (the copy waits for the
-        card); not an inference tensor."""
+        card); not an inference tensor. A traced program (``torch.export``)
+        gets its own constant and leaves the cache alone."""
+        if torch.compiler.is_compiling():
+            return torch.from_numpy(np.ascontiguousarray(array)).to(device)
         key = (name, str(device))
         if key not in self._consts:
             with torch.inference_mode(False):

@@ -1,5 +1,9 @@
 """Kernel seams. Each op runs its plain torch version on a CPU tensor and its
-hand-written Hopper kernel on a CUDA tensor, and counts its launches."""
+hand-written Hopper kernel on a CUDA tensor, and counts its launches. The
+forward kernels of the predict path are ``torch.library`` operators in the
+namespace ``brats_torch`` (``ops/library.py``), defined when this package is
+imported: a consumer of an exported program needs this import and nothing
+else of the port."""
 
 from .conv import conv3d, get_backend, set_backend
 from .norm import instance_norm_act, instance_norm_act_bwd, instance_norm_partials

@@ -22,9 +22,12 @@ they are reached:
   ``check_every`` iterations whether the last one still changed anything. A
   converged labelling is a fixed point, so the extra iterations change
   nothing, the cap falls on a multiple of ``check_every``, and the flag handed
-  to phase 2 is the reference's.
-* the sizes use ``searchsorted`` + ``bincount`` over the matched voxels
-  instead of the reference's chunked compare-sum (a TPU economy).
+  to phase 2 is the reference's. Under ``torch.export`` both phases become
+  ``torch._higher_order_ops.while_loop``s with the same chunks, so an
+  exported program gives the same ids.
+* the sizes use ``searchsorted`` and a ``scatter_add`` count per root (a
+  static shape: no host read) instead of the reference's chunked
+  compare-sum (a TPU economy).
 """
 
 from __future__ import annotations
@@ -41,12 +44,35 @@ def _maxpool3(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool3d(x[None, None], 3, stride=1, padding=1)[0, 0]
 
 
+def _pool_passes(labels: torch.Tensor, fg: torch.Tensor, zero: torch.Tensor,
+                 n: int):
+    """``n`` phase-1 iterations: (labels, whether the last one changed
+    anything, as a device bool)."""
+    prev = labels
+    for _ in range(n):
+        prev = labels
+        labels = torch.where(fg, _maxpool3(prev), zero)
+    return labels, (labels != prev).any()
+
+
+def _jump_round(labels: torch.Tensor, fg: torch.Tensor,
+                zero: torch.Tensor) -> torch.Tensor:
+    """One phase-2 round: pool, then id <- max(id, id[id])."""
+    pooled = torch.where(fg, _maxpool3(labels), zero)
+    flat = pooled.reshape(-1)
+    idx = (flat.long() - 1).clamp_min(0)
+    jumped = torch.where(flat > 0, flat[idx], zero)
+    return torch.maximum(flat, jumped).reshape(pooled.shape)
+
+
 def label_components(fg: torch.Tensor, max_pool_iters: int = 192,
                      max_jump_rounds: int = 64,
                      check_every: int = 8) -> torch.Tensor:
     """Label the connected components (26-connectivity) of a boolean mask
     (D, H, W). Returns int32 ids, 0 = background, one id per component: the
-    largest linear index in it + 1."""
+    largest linear index in it + 1. Traced (``torch.export``), both phases
+    are ``while_loop``s whose conditions stay on the device
+    (:func:`_label_traced`); the ids are the same."""
     if fg.numel() + 1 >= 2 ** 24:
         raise ValueError(
             f"label_components: {fg.numel()} voxels do not fit exact f32 ids")
@@ -55,27 +81,64 @@ def label_components(fg: torch.Tensor, max_pool_iters: int = 192,
                          device=fg.device).reshape(fg.shape)
     zero = torch.zeros((), dtype=torch.float32, device=fg.device)
     labels = torch.where(fg, seeds, zero)
+    if torch.compiler.is_compiling():
+        return _label_traced(labels, fg, zero, max_pool_iters,
+                             max_jump_rounds, check_every)
 
     changed = True
     it = 0
     while changed and it < max_pool_iters:
         n = min(check_every, max_pool_iters - it)
-        for _ in range(n):
-            prev = labels
-            labels = torch.where(fg, _maxpool3(prev), zero)
+        labels, flag = _pool_passes(labels, fg, zero, n)
         it += n
-        changed = bool((labels != prev).any())
+        changed = bool(flag)
 
     rounds = 0
     while changed and rounds < max_jump_rounds:
-        pooled = torch.where(fg, _maxpool3(labels), zero)
-        flat = pooled.reshape(-1)
-        idx = (flat.long() - 1).clamp_min(0)
-        jumped = torch.where(flat > 0, flat[idx], zero)
-        new = torch.maximum(flat, jumped).reshape(pooled.shape)
+        new = _jump_round(labels, fg, zero)
         changed = bool((new != labels).any())
         labels = new
         rounds += 1
+    return labels.to(torch.int32)
+
+
+def _label_traced(labels, fg, zero, max_pool_iters: int, max_jump_rounds: int,
+                  check_every: int) -> torch.Tensor:
+    """The two phases of :func:`label_components` as ``while_loop``s, the
+    form ``torch.export`` records: phase 1 runs whole chunks of
+    ``check_every`` iterations while the last one changed something, then the
+    cap's remainder when it did; phase 2 as eagerly. A converged labelling is
+    a fixed point, so running the remainder's iterations unconditionally and
+    keeping them only where ``changed`` held gives the eager ids bitwise."""
+    from torch._higher_order_ops import while_loop
+
+    dev = labels.device
+    chunks, rest = divmod(max_pool_iters, check_every)
+
+    def pool_cond(lab, changed, it):
+        return changed & (it < chunks)
+
+    def pool_body(lab, changed, it):
+        lab, changed = _pool_passes(lab, fg, zero, check_every)
+        return lab, changed, it + 1
+
+    start = (labels, torch.ones((), dtype=torch.bool, device=dev),
+             torch.zeros((), dtype=torch.int64, device=dev))
+    labels, changed, _ = while_loop(pool_cond, pool_body, start)
+    if rest:
+        new, flag = _pool_passes(labels, fg, zero, rest)
+        labels = torch.where(changed, new, labels)
+        changed = changed & flag
+
+    def jump_cond(lab, changed, rounds):
+        return changed & (rounds < max_jump_rounds)
+
+    def jump_body(lab, changed, rounds):
+        new = _jump_round(lab, fg, zero)
+        return new, (new != lab).any(), rounds + 1
+
+    labels, _, _ = while_loop(jump_cond, jump_body, (
+        labels, changed, torch.zeros((), dtype=torch.int64, device=dev)))
     return labels.to(torch.int32)
 
 
@@ -93,7 +156,9 @@ def component_sizes(labels: torch.Tensor,
     pos = torch.searchsorted(asc, flat).clamp_max(asc.numel() - 1)
     fg = flat > 0
     matched = fg & (asc[pos] == flat)
-    counts = torch.bincount(pos[matched], minlength=asc.numel())
+    # a count per root, of static shape: no host read, and traceable
+    counts = torch.zeros(asc.numel(), dtype=torch.int64,
+                         device=flat.device).scatter_add(0, pos, matched.long())
     big = torch.full_like(flat, BIG)
     sizes = torch.where(matched, counts[pos], big)
     sizes = torch.where(fg, sizes, torch.zeros_like(flat))

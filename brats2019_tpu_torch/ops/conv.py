@@ -55,6 +55,14 @@ Two backends sit behind the seam (the pattern of the reference's
 default) and ``"winograd"`` (``ops/winograd.py``, ``csrc/winograd3d_wgmma.cu`` and
 ``csrc/winograd3d.cu``; even D, H, W only, launches counted in ``conv3d_winograd.launches``). The backward
 is shared: dgrad goes through whichever backend is set, wgrad is plain torch.
+
+The forward routes are ``torch.library`` operators (``ops/library.py``):
+``brats_torch::conv3d`` (y), ``brats_torch::conv3d_stats`` (y, partials),
+called only where the instance has the STATS epilogue (an operator cannot
+return None), and ``brats_torch::conv3d_winograd``. The seam picks the
+operator from the backend, dtype and shape; the dispatcher picks the plain
+version or the kernel from the device, so an exported program
+(``infer/export_hlo.py``) records the backend set when it was traced.
 """
 
 from __future__ import annotations
@@ -67,7 +75,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from . import _build, winograd
+from . import _build, library, winograd
 
 _BACKENDS = ("direct", "winograd")
 _backend = "direct"
@@ -519,23 +527,62 @@ def conv3d_kernel(x: torch.Tensor, w: torch.Tensor, stats: bool = False):
     return (y, None) if stats else y
 
 
+def _stats_route(x: torch.Tensor, co: int) -> bool:
+    """Whether the direct conv's instance for x's dtype and shape has a STATS
+    epilogue (the instance :func:`plan_conv` names does not depend on the SM
+    count)."""
+    return (x.dim() == 5 and x.dtype in KERNEL_DTYPES
+            and plan_conv(*x.shape, co, dtype=x.dtype).instance in STATS_INSTANCES)
+
+
+def _conv3d_stats_cpu(x: torch.Tensor, w: torch.Tensor):
+    # by the plan of x's dtype: the boxes the card's instance folds
+    y = conv3d_plain(x, w)
+    return y, conv_stats_plain(y, plan_conv(*x.shape, w.shape[4], dtype=x.dtype))
+
+
+def _conv3d_stats_cuda(x: torch.Tensor, w: torch.Tensor):
+    y, part = conv3d_kernel(x, w, stats=True)
+    if part is None:
+        raise ValueError(f"conv3d_stats: the instance for {tuple(x.shape)} -> "
+                         f"{w.shape[4]} {x.dtype} has no STATS epilogue")
+    return y, part
+
+
+def _conv3d_fake(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return x.new_empty(tuple(x.shape[:4]) + (w.shape[4],))
+
+
+def _conv3d_stats_fake(x: torch.Tensor, w: torch.Tensor):
+    sms = _sm_count(x.device) if x.device.type == "cuda" else SM_COUNT
+    plan = plan_conv(*x.shape, w.shape[4], sms, x.dtype)
+    part = x.new_empty((3, x.shape[0], math.prod(plan.boxes), w.shape[4]),
+                       dtype=torch.float32)
+    return _conv3d_fake(x, w), part
+
+
+# brats_torch::conv3d (y) and brats_torch::conv3d_stats (y, partials), the
+# latter only where the instance has the STATS epilogue (an operator cannot
+# return None)
+conv3d_op = library.define_op(
+    "conv3d", "(Tensor x, Tensor w) -> Tensor",
+    conv3d_plain, conv3d_kernel, _conv3d_fake)
+conv3d_stats_op = library.define_op(
+    "conv3d_stats", "(Tensor x, Tensor w) -> (Tensor, Tensor)",
+    _conv3d_stats_cpu, _conv3d_stats_cuda, _conv3d_stats_fake)
+
+
 def _conv3d_fwd(x: torch.Tensor, w: torch.Tensor, stats: bool = False):
     """y, or with ``stats`` (y, partials or None) by the route the module
-    docstring gives."""
+    docstring gives, through the backend's operator."""
     if _backend == "winograd":
-        y = winograd.conv3d_winograd(x, w)
+        y = winograd.conv3d_winograd_op(x, w)
         return (y, None) if stats else y
-    if x.device.type == "cpu":
-        y = conv3d_plain(x, w)
-        if not stats:
-            return y
-        # by the plan of x's dtype: the boxes the card's instance folds
-        if x.dtype not in KERNEL_DTYPES:
-            return y, None
-        plan = plan_conv(*x.shape, w.shape[4], dtype=x.dtype)
-        return y, (conv_stats_plain(y, plan)
-                   if plan.instance in STATS_INSTANCES else None)
-    return conv3d_kernel(x, w, stats)
+    if not stats:
+        return conv3d_op(x, w)
+    if not _stats_route(x, w.shape[4]):
+        return conv3d_op(x, w), None
+    return conv3d_stats_op(x, w)
 
 
 def dgrad_weight(w: torch.Tensor) -> torch.Tensor:

@@ -33,6 +33,11 @@ as ``pallas_norm._act_grad`` (:118-123).
 
 Activations: relu, leaky_relu (slope 0.01), none.
 
+The forward is the ``torch.library`` operator ``brats_torch::instance_norm_act``
+(``ops/library.py``: the plain version on the CPU, the kernels on CUDA, a
+fake form for tracing); the backward is called from the
+``autograd.Function`` as before.
+
 ``instance_norm_act.launches`` and ``instance_norm_act_bwd.launches`` count
 kernel launches (one per call); ``instance_norm_act.launches_partials`` those
 of them that took the conv's partials, ``instance_norm_act_bwd.launches_cuda``
@@ -49,7 +54,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, library
 from .conv import check_dtype, f32_counter
 
 ACTIVATIONS = ("relu", "leaky_relu", "none")
@@ -543,14 +548,7 @@ def instance_norm_partials(x: torch.Tensor) -> torch.Tensor:
     return part
 
 
-def instance_norm_act_fwd(x, scale, bias, eps, activation, partials):
-    """(y, f32 (N, C) mean, rstd): the forward on the route of x's device
-    (the kernels on CUDA, the plain version on the CPU), from ``partials``
-    when given."""
-    if x.device.type == "cuda":
-        return instance_norm_act_kernel(x, scale, bias, eps=eps,
-                                        activation=activation,
-                                        partials=partials)
+def _in_act_cpu(x, scale, bias, eps, activation, partials):
     if partials is None:
         return _plain_stats(x, scale, bias, eps, activation)
     _check_partials(partials, x)
@@ -558,13 +556,43 @@ def instance_norm_act_fwd(x, scale, bias, eps, activation, partials):
     return _plain_apply(x, mean, rstd, scale, bias, activation), mean, rstd
 
 
+def _in_act_cuda(x, scale, bias, eps, activation, partials):
+    return instance_norm_act_kernel(x, scale, bias, eps=eps,
+                                    activation=activation, partials=partials)
+
+
+def _in_act_fake(x, scale, bias, eps, activation, partials):
+    n, c = x.shape[0], x.shape[-1]
+    return (torch.empty_like(x, memory_format=torch.contiguous_format),
+            x.new_empty((n, c), dtype=torch.float32),
+            x.new_empty((n, c), dtype=torch.float32))
+
+
+# brats_torch::instance_norm_act: (y, f32 (N, C) mean, rstd), from the conv's
+# partials when given
+instance_norm_act_op = library.define_op(
+    "instance_norm_act",
+    "(Tensor x, Tensor? scale, Tensor? bias, float eps, str activation, "
+    "Tensor? partials) -> (Tensor, Tensor, Tensor)",
+    _in_act_cpu, _in_act_cuda, _in_act_fake)
+
+
+def instance_norm_act_fwd(x, scale, bias, eps, activation, partials):
+    """(y, f32 (N, C) mean, rstd): the forward on the route of x's device
+    (the kernels on CUDA, the plain version on the CPU), from ``partials``
+    when given; ``brats_torch::instance_norm_act``."""
+    return instance_norm_act_op(x, scale, bias, float(eps), activation,
+                                partials)
+
+
 class _InstanceNormAct(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, bias, eps, activation, partials):
         y, mean, rstd = instance_norm_act_fwd(x, scale, bias, eps, activation,
                                               partials)
-        gamma, beta = _affine(x, scale, bias)
-        ctx.save_for_backward(x, gamma, beta, mean, rstd)
+        if any(ctx.needs_input_grad[:3]):   # else no backward will run
+            gamma, beta = _affine(x, scale, bias)
+            ctx.save_for_backward(x, gamma, beta, mean, rstd)
         ctx.activation = activation
         return y
 

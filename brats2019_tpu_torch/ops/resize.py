@@ -29,6 +29,10 @@ gradient's up half in place, at the concat's channel pitch, in the instance
 of them on resize2x.cu, ``upsample2x.launches_concat`` those that wrote into a
 concat buffer, ``.launches_f32`` of each those on f32 tensors.
 
+The three forwards are ``torch.library`` operators (``ops/library.py``:
+``brats_torch::downsample2x``, ``upsample2x``, ``upsample2x_concat``), which
+the ``autograd.Function``s call; the backwards are called as before.
+
 * :func:`resize_trilinear` — arbitrary target shape, plain torch on every
   device, as the JAX package runs it outside any Pallas kernel. It is
   ``jax.image.resize(method="trilinear")``, which ANTIALIASES when it
@@ -47,7 +51,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, library
 from .conv import check_dtype, f32_counter
 
 _SIG = {
@@ -510,13 +514,43 @@ def upsample2x_bwd(g: torch.Tensor) -> torch.Tensor:
     return upsample2x_bwd_kernel(g)
 
 
+def _down_fake(x: torch.Tensor) -> torch.Tensor:
+    n, d, h, w, c = x.shape
+    return x.new_empty((n, d // 2, h // 2, w // 2, c))
+
+
+def _up_fake(x: torch.Tensor) -> torch.Tensor:
+    n, d, h, w, c = x.shape
+    return x.new_empty((n, 2 * d, 2 * h, 2 * w, c))
+
+
+def _up_concat_cpu(x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+    return torch.cat([upsample2x_plain(x), skip], -1)
+
+
+def _up_concat_fake(x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+    n, d, h, w, c = x.shape
+    return x.new_empty((n, 2 * d, 2 * h, 2 * w, c + skip.shape[-1]))
+
+
+# the forwards as brats_torch:: operators: the plain version on the CPU, the
+# kernel on CUDA. The concat form allocates and returns its buffer.
+downsample2x_op = library.define_op(
+    "downsample2x", "(Tensor x) -> Tensor",
+    downsample2x_plain, downsample2x_kernel, _down_fake)
+upsample2x_op = library.define_op(
+    "upsample2x", "(Tensor x) -> Tensor",
+    upsample2x_plain, upsample2x_kernel, _up_fake)
+upsample2x_concat_op = library.define_op(
+    "upsample2x_concat", "(Tensor x, Tensor skip) -> Tensor",
+    _up_concat_cpu, upsample2x_concat_kernel, _up_concat_fake)
+
+
 class _Down2x(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
         ctx.x_shape = tuple(x.shape)
-        if x.device.type == "cpu":
-            return downsample2x_plain(x)
-        return downsample2x_kernel(x)
+        return downsample2x_op(x)
 
     @staticmethod
     def backward(ctx, g):
@@ -527,9 +561,7 @@ class _Up2xConcat(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, skip):
         ctx.cu = x.shape[-1]
-        if x.device.type == "cpu":
-            return torch.cat([upsample2x_plain(x), skip], -1)
-        return upsample2x_concat_kernel(x, skip)
+        return upsample2x_concat_op(x, skip)
 
     @staticmethod
     def backward(ctx, g):
@@ -541,9 +573,7 @@ class _Up2xConcat(torch.autograd.Function):
 class _Up2x(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
-        if x.device.type == "cpu":
-            return upsample2x_plain(x)
-        return upsample2x_kernel(x)
+        return upsample2x_op(x)
 
     @staticmethod
     def backward(ctx, g):
@@ -608,12 +638,20 @@ def linear_weight_matrix(n_in: int, n_out: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
+def _weight_matrix_cached(n_in: int, n_out: int, device) -> torch.Tensor:
+    with torch.inference_mode(False):
+        return torch.from_numpy(linear_weight_matrix(n_in, n_out)).to(device)
+
+
 def _weight_matrix(n_in: int, n_out: int, device) -> torch.Tensor:
     """:func:`linear_weight_matrix` on ``device``, built once per device (the
     host-to-device copy that builds it waits for the card). Not an inference
-    tensor, so autograd may save it whichever mode first asked for it."""
-    with torch.inference_mode(False):
+    tensor, so autograd may save it whichever mode first asked for it. A
+    traced program (``torch.export``) gets its own constant and leaves the
+    cache alone, so no traced tensor reaches an eager call."""
+    if torch.compiler.is_compiling():
         return torch.from_numpy(linear_weight_matrix(n_in, n_out)).to(device)
+    return _weight_matrix_cached(n_in, n_out, device)
 
 
 def resize_trilinear(x: torch.Tensor, spatial: Sequence[int]) -> torch.Tensor:

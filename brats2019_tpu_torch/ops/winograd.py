@@ -47,7 +47,7 @@ import weakref
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, library
 
 # F(2,3) matrices (Lavin & Gray 2016), exact in binary floating point
 _G = ((1.0, 0.0, 0.0), (0.5, 0.5, 0.5), (0.5, -0.5, 0.5), (0.0, 0.0, 1.0))
@@ -451,15 +451,24 @@ def conv3d_winograd_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _launch(x, w, plan)
 
 
+def _winograd_fake(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return x.new_empty(tuple(x.shape[:4]) + (w.shape[4],))
+
+
+# brats_torch::conv3d_winograd: the plain version on the CPU, the kernel on CUDA
+conv3d_winograd_op = library.define_op(
+    "conv3d_winograd", "(Tensor x, Tensor w) -> Tensor",
+    conv3d_winograd_plain, conv3d_winograd_kernel, _winograd_fake)
+
+
 def conv3d_winograd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The plain version on a CPU tensor, the kernel on a CUDA tensor.
-    Forward only, as the reference (which has no VJP); under autograd use
-    ``ops.conv.conv3d`` with ``set_backend("winograd")``."""
-    if x.device.type == "cpu":
-        return conv3d_winograd_plain(x, w)
-    if x.device.type != "cuda":
+    """The plain version on a CPU tensor, the kernel on a CUDA tensor
+    (``brats_torch::conv3d_winograd``). Forward only, as the reference (which
+    has no VJP); under autograd use ``ops.conv.conv3d`` with
+    ``set_backend("winograd")``."""
+    if x.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"conv3d_winograd: no kernel for device {x.device}")
-    return conv3d_winograd_kernel(x, w)
+    return conv3d_winograd_op(x, w)
 
 
 conv3d_winograd.launches = 0

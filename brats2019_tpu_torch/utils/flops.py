@@ -14,7 +14,8 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
-from ..configs.presets import TrainConfig, UNetConfig
+from ..configs.presets import ExperimentConfig, TrainConfig, UNetConfig
+from ..infer.tiling import tile_origins
 
 
 def _conv_flops(out_spatial, c_in: int, c_out: int, k: int = 3) -> float:
@@ -45,6 +46,25 @@ def unet_forward_flops(cfg: UNetConfig, spatial: Tuple[int, int, int]) -> float:
         total += _conv_flops(sp, c_in + enc_feats[lvl], f) + _conv_flops(sp, f, f)
         c_in = f
     total += _conv_flops(sp, c_in, cfg.num_classes * r ** 3, k=1)
+    return total
+
+
+def predict_program_flops(exp: ExperimentConfig,
+                          canvas: Tuple[int, int, int]) -> float:
+    """FLOPs of the whole-volume predict program (reference :56-75): the
+    coarse forward on the coarse grid when cascading, plus the fine forward
+    on every tile of the sweep (the ROI, or the canvas without a cascade;
+    ``infer/tiling.py`` grid) for each TTA flip."""
+    total = 0.0
+    if exp.infer.cascade and exp.coarse_unet is not None:
+        total += unet_forward_flops(exp.coarse_unet, tuple(exp.infer.coarse_shape))
+        sweep = tuple(min(r, c) for r, c in zip(exp.infer.roi_shape, canvas))
+    else:
+        sweep = tuple(canvas)
+    n_tiles = len(tile_origins(sweep, tuple(exp.infer.tile), exp.infer.overlap))
+    n_flips = 8 if exp.infer.tta_flips else 1
+    total += n_tiles * n_flips * unet_forward_flops(exp.unet,
+                                                    tuple(exp.infer.tile))
     return total
 
 

@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout (``--phases 2`` stops after the kernel checks,
-``--phases 9`` or ``--phases 10`` runs phase 1, phase 3's set-up and predict
-run, and phase 9 or phase 10 alone; none of these prints result lines).
+``--phases 9``, ``10`` or ``11`` runs phase 1, phase 3's set-up and predict
+run, and that phase alone; none of these prints result lines).
 Phases:
 
 1. Setup: torch/CUDA versions, the card's name and power limit, TF32 off for
@@ -285,6 +285,23 @@ Phases:
    device, losses and grads within DP_GRAD_TOL of the step over ``cpu,
    cpu``, the card shard's IN, up and down backwards counted on their
    kernels; then ``train_stage`` with the teachers over that mesh, 2 steps.
+
+11. The program export (``infer/export_hlo.py``), after phase 10 so that
+   phases 3-10 meet the card as before, on phase 3's weights and cases: (1)
+   ``cli.export --preset cascade --stablehlo --stablehlo-check`` on the card
+   (from checkpoints holding phase 3's weights): exit code 0, a manifest of
+   ``stage_roi`` and ``stage_fine``, checked, on the card, the direct
+   backend; every ``.pt2`` without a parameter or buffer input and without
+   an aten convolution (its bytes printed); for each phase-3 case canvas the
+   exported program's labels and start (``run_exported``) bitwise the eager
+   split cascade's; the launches of one exported volume by route (conv on
+   the wgmma instance with the statistics epilogue, IN from partials, up
+   into the concat, down) equal to the eager volume's and to what the nets
+   give; (2) the same for serve's program, the Winograd backend with
+   ``postproc="device"`` (its connected components a ``while_loop`` in the
+   program); (3) the same for one ``predict.pt2``, ``cascade --no-tta`` (the
+   monolithic program); device ms/vol of each exported program and of the
+   eager one, in turns (nothing is claimed).
 
 The line before the last holds the kernels' JSON record (forward kernels:
 launches on the predict slice, times per volume; backward kernels: launches
@@ -4794,8 +4811,260 @@ def phase10(exp, work, case_dirs, first, dev, card):
     print(f"  phase 10 took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ----------------------------------------------------------------- phase 11 --
+
+EXPORT_TURNS = 2   # (eager, exported, exported, eager) rounds timed in phase 11
+
+
+def _export_routes():
+    """The forward kernels' route counters that an exported program must
+    reproduce, launch for launch."""
+    from brats2019_tpu_torch import ops
+
+    return {
+        "conv3d": ops.conv3d.launches,
+        "conv3d on conv3d_wgmma.cu": ops.conv3d.launches_wgmma,
+        "conv3d with the statistics epilogue": ops.conv3d.launches_stats,
+        "conv3d_winograd": ops.conv3d_winograd.launches,
+        "conv3d_winograd on winograd3d_wgmma.cu": ops.conv3d_winograd.launches_wgmma,
+        "instance_norm_act": ops.instance_norm_act.launches,
+        "instance_norm_act from partials": ops.instance_norm_act.launches_partials,
+        "upsample2x": ops.upsample2x.launches,
+        "upsample2x into the concat": ops.upsample2x.launches_concat,
+        "downsample2x": ops.downsample2x.launches,
+    }
+
+
+def _program_inputs(ep):
+    """(kinds of the program's non-user inputs, its op nodes by target)."""
+    kinds = sorted({s.kind.name for s in ep.graph_signature.input_specs
+                    if s.kind.name != "USER_INPUT"})
+    nodes = {}
+    for n in ep.graph.nodes:
+        if n.op == "call_function":
+            nodes[str(n.target)] = nodes.get(str(n.target), 0) + 1
+    return kinds, nodes
+
+
+def exported_against_eager(what, pred, out_dir, canvases, calls, card,
+                           winograd=False):
+    """One exported program against the eager one on the card: each
+    canvas's labels and start bitwise (``run_exported`` on the first, the
+    program loaded once on the rest), one volume's launches by route equal to
+    the eager volume's and to what the program's nets give, no parameter or
+    buffer input in any ``.pt2``, and device ms/vol of both in turns.
+    Returns (eager, exported) medians."""
+    import torch
+
+    from brats2019_tpu_torch import ops
+    from brats2019_tpu_torch.infer import export_hlo
+
+    man = json.load(open(os.path.join(out_dir, "manifest.json")))
+    for mod, entry in man["modules"].items():
+        ep = torch.export.load(os.path.join(out_dir, entry["file"]))
+        kinds, nodes = _program_inputs(ep)
+        mine = {k: v for k, v in nodes.items() if k.startswith("brats_torch.")}
+        check(not set(kinds) & {"PARAMETER", "BUFFER"}
+              and not any("convolution" in k for k in nodes),
+              f"{what}: {entry['file']} ({entry['bytes']} bytes, "
+              f"{len(entry['inputs_flat'])} inputs) holds no parameter or "
+              f"buffer input (other inputs: {kinds}) and no aten convolution; "
+              f"its kernel nodes {mine}")
+    pf = export_hlo.flat_params(pred.fine)
+    pc = None if pred.coarse is None else export_hlo.flat_params(pred.coarse)
+    run = export_hlo.load_exported(out_dir)
+    expect = {k: sum(1 for n, _ in calls if n == k)
+              for k in ("conv3d", "instance_norm_act", "upsample2x",
+                        "downsample2x")}
+    conv = "conv3d_winograd" if winograd else "conv3d"
+    want = dict.fromkeys(_export_routes(), 0)
+    want.update({conv: expect["conv3d"],
+                 f"{conv} on {'winograd3d' if winograd else 'conv3d'}_wgmma.cu":
+                     expect["conv3d"],
+                 "instance_norm_act": expect["instance_norm_act"],
+                 "upsample2x": expect["upsample2x"],
+                 "upsample2x into the concat": expect["upsample2x"],
+                 "downsample2x": expect["downsample2x"]})
+    if not winograd:   # the direct conv's epilogue feeds every IN
+        want["conv3d with the statistics epilogue"] = expect["conv3d"]
+        want["instance_norm_act from partials"] = expect["instance_norm_act"]
+    for i, canvas in enumerate(canvases):
+        ops.reset_launch_counts()
+        live = pred.predict_device(canvas)
+        torch.cuda.synchronize()
+        eager_routes = _export_routes()
+        ops.reset_launch_counts()
+        got = (export_hlo.run_exported(out_dir, pf, pc, canvas) if i == 0
+               else run(pf, pc, canvas))
+        torch.cuda.synchronize()
+        exported_routes = _export_routes()
+        same = all(a.dtype == b.dtype and a.shape == b.shape
+                   and bool(torch.equal(a, b)) for a, b in zip(live, got))
+        check(same, f"{what}, case {i}: the exported program's labels "
+                    f"{tuple(got[0].shape)} and start {got[1].tolist()} "
+                    f"bitwise the eager program's")
+        if i == 0:
+            print(f"  {what}: launches of one volume by route, eager "
+                  f"{eager_routes}, exported {exported_routes}", flush=True)
+            check(exported_routes == eager_routes == want,
+                  f"{what}: one exported volume's launches by route equal the "
+                  f"eager volume's and the program's ({want})")
+    times = {"eager": [], "exported": []}
+    for _ in range(EXPORT_TURNS):
+        for arm in ("eager", "exported", "exported", "eager"):
+            for canvas in canvases:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                if arm == "eager":
+                    pred.predict_device(canvas)
+                else:
+                    run(pf, pc, canvas)
+                ev[1].record()
+                torch.cuda.synchronize()
+                times[arm].append(ev[0].elapsed_time(ev[1]))
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    print(f"  {what}: device ms/vol, in turns: eager median {med['eager']:.3f} "
+          f"(all {[round(t, 3) for t in times['eager']]}), exported median "
+          f"{med['exported']:.3f} (all {[round(t, 3) for t in times['exported']]})"
+          f" on {card}", flush=True)
+    export_breakdown(what, {"eager": lambda: pred.predict_device(canvases[0]),
+                            "exported": lambda: run(pf, pc, canvases[0])}, card)
+    return med["eager"], med["exported"]
+
+
+def export_breakdown(what, arms, card):
+    """Where an exported volume's extra time goes: per arm, one volume under
+    torch.profiler (the device kernels' time and launches, by name under
+    OUT), and the host clock of one call until it returns (the launches
+    issued) and until the card is done."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    got = {}
+    for arm, fn in arms.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        issued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        done = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = sorted((e for e in prof.key_averages() if _kernel_us(e) > 0),
+                      key=_kernel_us, reverse=True)
+        got[arm] = (sum(_kernel_us(e) for e in rows) / 1e3,
+                    sum(e.count for e in rows), 1e3 * issued, 1e3 * done)
+        os.makedirs(OUT, exist_ok=True)
+        name = "".join(c if c.isalnum() else "_" for c in what)
+        with open(os.path.join(OUT, f"export_profile_{name}_{arm}.txt"), "w") as f:
+            for e in rows:
+                f.write(f"{_kernel_us(e):12.1f} us  {e.count:5d}  {e.key}\n")
+    print(f"  {what}: one volume, eager / exported: device kernels "
+          f"{got['eager'][0]:.3f} / {got['exported'][0]:.3f} ms in "
+          f"{got['eager'][1]} / {got['exported'][1]} launches (profiler); host "
+          f"clock until the call returns {got['eager'][2]:.3f} / "
+          f"{got['exported'][2]:.3f} ms, until the card is done "
+          f"{got['eager'][3]:.3f} / {got['exported'][3]:.3f} ms on {card}",
+          flush=True)
+
+
+def phase11(exp, work, case_dirs, first, dev, card):
+    """Phase 11: the program export (module docstring)."""
+    import dataclasses
+
+    import torch
+
+    from brats2019_tpu_torch import ops
+    from brats2019_tpu_torch.cli import export as export_cli
+    from brats2019_tpu_torch.data.case import load_case
+    from brats2019_tpu_torch.infer import export_hlo
+    from brats2019_tpu_torch.infer.predictor import Predictor
+    from brats2019_tpu_torch.train.checkpoint import CheckpointManager
+    from brats2019_tpu_torch.utils.weights import build_unet
+
+    t0 = time.perf_counter()
+    # 11.1: the flagship export through the CLI, from checkpoints holding
+    # phase 3's weights (the CLI re-exports the params from checkpoints)
+    w11 = os.path.join(WORK, "export11")
+    for stage, cfg in (("fine", exp.unet), ("coarse", exp.coarse_unet)):
+        CheckpointManager(os.path.join(w11, stage)).maybe_save_best(
+            0, build_unet(cfg, os.path.join(work, stage, "params.npz")), 0.0)
+    t1 = time.perf_counter()
+    rc, _ = run_cli(export_cli.main, ["--preset", "cascade", "--workdir", w11,
+                                      "--stablehlo", "--stablehlo-check"])
+    out = os.path.join(w11, "torch_export")
+    man = json.load(open(os.path.join(out, "manifest.json")))
+    check(rc == 0 and set(man["modules"]) == {"stage_roi", "stage_fine"}
+          and man["checked"] is True and man["device"].startswith("cuda")
+          and man["backend"] == "direct",
+          f"export --preset cascade --stablehlo --stablehlo-check on the card: "
+          f"exit code {rc}, modules {sorted(man['modules'])}, checked "
+          f"{man['checked']}, device {man['device']}, backend {man['backend']}, "
+          f"{time.perf_counter() - t1:.1f} s; .pt2 bytes "
+          f"{ {k: v['bytes'] for k, v in man['modules'].items()} }")
+    pred = Predictor(exp, os.path.join(work, "fine", "params.npz"),
+                     os.path.join(work, "coarse", "params.npz"), device=dev)
+    canvases = [pred.prepare(load_case(d).image)[0] for d in case_dirs]
+    calls = (unet_calls(exp.coarse_unet, 1, exp.infer.coarse_shape)
+             + unet_calls(exp.unet, 8, exp.infer.roi_shape))
+    times = {"split cascade": exported_against_eager(
+        "split cascade (stage_roi.pt2, stage_fine.pt2)", pred, out, canvases,
+        calls, card)}
+    print(f"  11.1 (the flagship export) took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # 11.2: serve's program (the Winograd backend, device postprocessing)
+    t1 = time.perf_counter()
+    wexp = dataclasses.replace(exp, infer=dataclasses.replace(
+        exp.infer, postproc="device"))
+    ops.set_backend("winograd")
+    try:
+        wpred = Predictor(wexp, os.path.join(work, "fine", "params.npz"),
+                          os.path.join(work, "coarse", "params.npz"), device=dev)
+        wout = os.path.join(WORK, "export11_winograd")
+        export_hlo.export_predict_program(wpred, wout, check=True)
+        wman = json.load(open(os.path.join(wout, "manifest.json")))
+        check(wman["backend"] == "winograd" and wman["postproc"] == "device"
+              and wman["checked"] is True,
+              f"serve's program exported: backend {wman['backend']}, postproc "
+              f"{wman['postproc']}, checked {wman['checked']}")
+        times["winograd, device postprocessing"] = exported_against_eager(
+            "winograd + postproc=device", wpred, wout, canvases, calls, card,
+            winograd=True)
+    finally:
+        ops.set_backend("direct")
+    print(f"  11.2 (serve's program) took {time.perf_counter() - t1:.1f} s",
+          flush=True)
+
+    # 11.3: one predict.pt2 (cascade --no-tta: the monolithic program)
+    t1 = time.perf_counter()
+    mexp = dataclasses.replace(exp, infer=dataclasses.replace(
+        exp.infer, tta_flips=False))
+    mpred = Predictor(mexp, os.path.join(work, "fine", "params.npz"),
+                      os.path.join(work, "coarse", "params.npz"), device=dev)
+    mout = os.path.join(WORK, "export11_monolithic")
+    written = export_hlo.export_predict_program(mpred, mout, check=True)
+    check(type(mpred.program).__name__ == "Monolithic"
+          and sorted(map(os.path.basename, written)) == ["manifest.json",
+                                                        "predict.pt2"],
+          f"cascade --no-tta exported as {sorted(map(os.path.basename, written))} "
+          f"({type(mpred.program).__name__})")
+    times["monolithic (cascade --no-tta)"] = exported_against_eager(
+        "monolithic (predict.pt2)", mpred, mout, canvases, program_calls(mexp),
+        card)
+    print(f"  11.3 (predict.pt2) took {time.perf_counter() - t1:.1f} s",
+          flush=True)
+    for k, (e, x) in times.items():
+        print(f"  exported program, device ms/vol (median, in turns): {k}: "
+              f"eager {e:.3f}, exported {x:.3f} on {card}", flush=True)
+    torch.cuda.empty_cache()
+    print(f"  phase 11 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def phase_alone(phase, exp, dev, card) -> int:
-    """``--phases 9`` / ``--phases 10``: phase 3's weights, cases and
+    """``--phases 9``, ``10`` or ``11``: phase 3's weights, cases and
     predict CLI run (the masks the phase compares with), then that phase
     alone; no result lines."""
     from brats2019_tpu_torch.cli import predict as predict_cli
@@ -4816,8 +5085,8 @@ def phase_alone(phase, exp, dev, card) -> int:
                            "--workdir", work, "--device", "cuda"])
     check(rc == 0, f"predict CLI exit code {rc}")
     print(f"== phase {phase} alone", flush=True)
-    (phase9 if phase == 9 else phase10)(exp, work, case_dirs,
-                                        read_labels(case_dirs), dev, card)
+    {9: phase9, 10: phase10, 11: phase11}[phase](
+        exp, work, case_dirs, read_labels(case_dirs), dev, card)
     shutil.rmtree(WORK, ignore_errors=True)
     print(f"== stopped after phase {phase} as asked; {len(FAILURES)} failure(s)",
           flush=True)
@@ -4833,10 +5102,10 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch port "
                                  "on one CUDA card; no argument runs it whole.")
-    ap.add_argument("--phases", type=int, choices=(2, 5, 9, 10), default=5,
-                    help="2: stop after the kernel checks of phase 2; 9 or "
-                         "10: phase 1, phase 3's cases, weights and predict "
-                         "CLI run, then phase 9 or phase 10 alone (none of "
+    ap.add_argument("--phases", type=int, choices=(2, 5, 9, 10, 11), default=5,
+                    help="2: stop after the kernel checks of phase 2; 9, 10 "
+                         "or 11: phase 1, phase 3's cases, weights and "
+                         "predict CLI run, then that phase alone (none of "
                          "these prints result lines); 5 (default): everything")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -4891,7 +5160,7 @@ def main() -> int:
     }
     eval_calls = (unet_calls(exp.coarse_unet, 1, coarse_canvas)
                   + unet_calls(exp.unet, 1, exp.train.pool_shape))
-    if args.phases in (9, 10):
+    if args.phases in (9, 10, 11):
         return phase_alone(args.phases, exp, dev, card)
     print("== phase 2: kernels vs plain torch at the flagship shapes", flush=True)
     t0 = time.perf_counter()
@@ -5123,6 +5392,10 @@ def main() -> int:
     print("== phase 10: volume pairing, the int8 transfer, the RSS recycle, "
           "KD over cuda:0 and the CPU", flush=True)
     phase10(exp, work, case_dirs, first, dev, card)
+
+    print("== phase 11: the program export (torch.export over the kernel "
+          "operators)", flush=True)
+    phase11(exp, work, case_dirs, first, dev, card)
 
     record = []
     for k, (route, source, replaces) in KERNELS.items():

@@ -143,6 +143,7 @@ def test_port_runtime_imports_no_jax():
         "import brats2019_tpu_torch.parallel.spatial_unet\n"
         "import brats2019_tpu_torch.parallel.multiprocess\n"
         "import brats2019_tpu_torch.infer.multichip\n"
+        "import brats2019_tpu_torch.infer.export_hlo, brats2019_tpu_torch.ops.library\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'ml_dtypes', 'safetensors',"

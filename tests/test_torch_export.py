@@ -8,7 +8,8 @@ exports the tracker's tensors, ``--average 2`` the f32 mean of the two
 retained steps, a plain export the latest checkpoint even when an older
 export exists; ``predict`` loads each; the JAX package's ``import_params``
 reads the files (the format is its own); the refusals and exit codes are the
-reference's, ``--stablehlo`` refused with item 7b named."""
+reference's, and ``--stablehlo --device cpu`` writes the program export
+(``tests/test_torch_program_export.py`` tests it in full)."""
 
 import os
 
@@ -135,8 +136,11 @@ def test_refusals(trained, tmp_path, capsys):
     assert _run_export(work, "--average", "0") == 2
     assert export_cli.main(["--preset", "unit", "--workdir", work,
                             "--stage", "coarse"]) == 2
-    assert _run_export(work, "--stablehlo") == 2
-    assert "7b" in capsys.readouterr().err
+    # --stablehlo runs: the unit program (monolithic) as a torch.export
+    # program on the CPU, beside the params export
+    assert _run_export(work, "--stablehlo", "--device", "cpu") == 0
+    out = os.path.join(work, "torch_export")
+    assert sorted(os.listdir(out)) == ["manifest.json", "predict.pt2"]
     empty = str(tmp_path / "none")
     assert _run_export(empty) == 1
     assert _run_export(empty, "--ema") == 1

@@ -503,3 +503,24 @@ def test_info_reports_devices_flops_and_artifacts(tmp_path, monkeypatch, capsys)
     fine = got["artifacts"]["fine"]
     assert fine["export"].endswith("params.safetensors") and not fine["export_stale"]
     assert got["preset"]["unet"] == dataclasses.asdict(unit.unet)
+
+
+def test_info_reports_the_program_export_manifest(tmp_path, monkeypatch, capsys):
+    """``stablehlo_manifest`` (the reference's key) points at the manifest of
+    a program export under ``<workdir>/torch_export/``, once there is one."""
+    from brats2019_tpu_torch.cli import info
+    from brats2019_tpu_torch.infer.export_hlo import export_predict_program
+    from brats2019_tpu_torch.infer.predictor import Predictor
+
+    monkeypatch.chdir(tmp_path)
+    unit = presets.get_preset("unit")
+    assert info.main(["--preset", "unit"]) == 0
+    assert "stablehlo_manifest" not in json.loads(capsys.readouterr().out)["artifacts"]
+    one_tile = dataclasses.replace(unit, infer=dataclasses.replace(
+        unit.infer, tile=(32, 32, 32)))
+    out = os.path.join(unit.workdir, "torch_export")
+    export_predict_program(Predictor(one_tile, weights.init_params(unit.unet),
+                                     device="cpu"), out)
+    assert info.main(["--preset", "unit"]) == 0
+    got = json.loads(capsys.readouterr().out)["artifacts"]["stablehlo_manifest"]
+    assert got == os.path.join(out, "manifest.json") and os.path.exists(got)
