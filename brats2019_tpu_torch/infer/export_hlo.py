@@ -18,8 +18,9 @@ Artifacts, written to ``<out_dir>`` (the CLI's ``<workdir>/torch_export/``):
 * every other program (the staged sweep, the monolithic one): one
   ``predict.pt2`` (params_fine, params_coarse or None, image) ->
   (labels_roi, start);
-* ``manifest.json``: the torch version, preset, canvas, tile, device, conv
-  backend, postprocessing, the pipeline, and per program its file, bytes and
+* ``manifest.json``: the torch version, preset, canvas, tile, device (and
+  the card's name and the SM count its conv plans assume), conv backend,
+  postprocessing, the pipeline, and per program its file, bytes and
   flat input signature (name, shape, dtype in input order), so a consumer
   can wire buffers without tracing anything.
 
@@ -188,6 +189,9 @@ def export_predict_program(predictor, out_dir: str,
         "canvas": list(canvas),
         "tile": list(exp.infer.tile),
         "device": str(dev),
+        "card": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                 else None),
+        "sm_count": _plan_sms(dev),
         "backend": ops.get_backend(),
         "postproc": exp.infer.postproc,
         "modules": {},
@@ -221,22 +225,45 @@ def export_predict_program(predictor, out_dir: str,
             "predict(params_fine, params_coarse_or_none, image)"
             " -> (labels_roi, start)"
         ]
-    if check:
-        _roundtrip_check(predictor, out_dir)
-    manifest["checked"] = bool(check)
     man_path = os.path.join(out_dir, "manifest.json")
-    with open(man_path, "w") as f:
-        json.dump(manifest, f, indent=1)
+    manifest["checked"] = False
+    _write_json(man_path, manifest)
+    if check:   # the loader reads the manifest just written
+        _roundtrip_check(predictor, out_dir)
+        manifest["checked"] = True
+        _write_json(man_path, manifest)
     written.append(man_path)
     return written
+
+
+def _write_json(path: str, obj) -> None:
+    with open(path, "w") as f:
+        json.dump(obj, f, indent=1)
+
+
+def _plan_sms(device) -> int:
+    """The SM count the conv plans of ``device`` assume: the card's, or off
+    a card the H100's that ``ops.conv`` plans for."""
+    from ..ops import conv
+
+    device = torch.device(device)
+    return conv.SM_COUNT if device.type != "cuda" else conv._sm_count(device)
 
 
 def load_exported(out_dir: str):
     """The exported program(s) of ``out_dir`` as one callable
     ``(params_fine, params_coarse, image) -> (labels_roi, start)``, loaded
     once. Like :func:`run_exported` it needs the ``brats_torch::`` operator
-    definitions (``brats2019_tpu_torch.ops``) and none of the model code."""
+    definitions (``brats2019_tpu_torch.ops``) and none of the model code.
+
+    A program holds the shapes of the conv's InstanceNorm partials, which a
+    card's plan sizes by its SM count, so a call on a device whose SM count
+    differs from the manifest's (another card model) raises: export the
+    program again there."""
     from .. import ops  # noqa: F401  (defines the brats_torch:: operators)
+
+    with open(os.path.join(out_dir, "manifest.json")) as f:
+        manifest = json.load(f)
 
     def load(name):
         return torch.export.load(os.path.join(out_dir, name)).module()
@@ -255,6 +282,13 @@ def load_exported(out_dir: str):
                         params_input(params_coarse, image.device), image)
 
     def call(params_fine, params_coarse, image):
+        sms = _plan_sms(image.device)
+        if sms != manifest["sm_count"]:
+            raise RuntimeError(
+                f"{out_dir} was exported for {manifest['device']} "
+                f"({manifest['card'] or 'no card'}, plans for "
+                f"{manifest['sm_count']} SMs); {image.device} plans for {sms} "
+                f"SMs: export the program again on this device")
         with torch.no_grad():
             return run(params_fine, params_coarse, image)
 

@@ -47,7 +47,6 @@ full-resolution ``tta_reduce``; ``stage_sweep_probs`` :322-323;
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -58,6 +57,7 @@ from ..data.preprocess import centered_crop_start, mask_bbox_center, zscore
 from ..infer.tiling import blend_weight, sliding_window_probs, tile_origins
 from ..infer.tta import FLIPS, store_dtype, tta_probs, tta_reduce, tta_stack
 from ..ops.connected_components import postprocess_device
+from ..ops.library import device_const
 from ..ops.resize import resize_trilinear
 from .unet3d import UNet3D
 
@@ -82,24 +82,16 @@ def coarse_locate(
     return crop_region(image, start, roi), start
 
 
+_GRID_SCALES: dict = {}
+
+
 def _grid_scale(canvas, coarse_shape, device) -> torch.Tensor:
-    """Canvas / coarse-grid ratio per axis, f32, built once per device (the
-    host-to-device copy that builds it waits for the card); a traced program
-    (``torch.export``) gets its own constant and leaves the cache alone."""
-    if torch.compiler.is_compiling():
-        return _grid_scale_tensor(canvas, coarse_shape, device)
-    return _grid_scale_cached(canvas, coarse_shape, device)
-
-
-def _grid_scale_tensor(canvas, coarse_shape, device) -> torch.Tensor:
-    return torch.tensor([c / s for c, s in zip(canvas, coarse_shape)],
-                        dtype=torch.float32, device=device)
-
-
-@functools.lru_cache(maxsize=64)
-def _grid_scale_cached(canvas, coarse_shape, device) -> torch.Tensor:
-    with torch.inference_mode(False):
-        return _grid_scale_tensor(canvas, coarse_shape, device)
+    """Canvas / coarse-grid ratio per axis, f32, built once per device
+    (``ops.library.device_const``)."""
+    return device_const(
+        _GRID_SCALES, (canvas, coarse_shape, device),
+        lambda: torch.tensor([c / s for c, s in zip(canvas, coarse_shape)],
+                             dtype=torch.float32, device=device))
 
 
 def crop_region(image: torch.Tensor, start: torch.Tensor,
@@ -287,17 +279,11 @@ class _Program:
         self._consts: dict = {}
 
     def _const(self, name: str, array: np.ndarray, device) -> torch.Tensor:
-        """``array`` on ``device``, copied there once (the copy waits for the
-        card); not an inference tensor. A traced program (``torch.export``)
-        gets its own constant and leaves the cache alone."""
-        if torch.compiler.is_compiling():
-            return torch.from_numpy(np.ascontiguousarray(array)).to(device)
-        key = (name, str(device))
-        if key not in self._consts:
-            with torch.inference_mode(False):
-                self._consts[key] = torch.from_numpy(
-                    np.ascontiguousarray(array)).to(device)
-        return self._consts[key]
+        """``array`` on ``device``, copied there once
+        (``ops.library.device_const``)."""
+        return device_const(
+            self._consts, (name, str(device)),
+            lambda: torch.from_numpy(np.ascontiguousarray(array)).to(device))
 
     def _region(self, image: torch.Tensor):
         """z-score, then the coarse ROI when cascading, else the canvas."""

@@ -25,9 +25,9 @@ they are reached:
   to phase 2 is the reference's. Under ``torch.export`` both phases become
   ``torch._higher_order_ops.while_loop``s with the same chunks, so an
   exported program gives the same ids.
-* the sizes use ``searchsorted`` and a ``scatter_add`` count per root (a
-  static shape: no host read) instead of the reference's chunked
-  compare-sum (a TPU economy).
+* the sizes use ``searchsorted`` and a histogram of the matched voxels over
+  the roots (a static shape: no host read) instead of the reference's
+  chunked compare-sum (a TPU economy).
 """
 
 from __future__ import annotations
@@ -156,9 +156,12 @@ def component_sizes(labels: torch.Tensor,
     pos = torch.searchsorted(asc, flat).clamp_max(asc.numel() - 1)
     fg = flat > 0
     matched = fg & (asc[pos] == flat)
-    # a count per root, of static shape: no host read, and traceable
-    counts = torch.zeros(asc.numel(), dtype=torch.int64,
-                         device=flat.device).scatter_add(0, pos, matched.long())
+    # a count per root, of static shape: no host read, and traceable; a
+    # histogram skips the unmatched voxels (out of its range), where a
+    # scatter_add would send every background voxel's atomic to one count
+    k = asc.numel()
+    counts = torch.histc(torch.where(matched, pos, -1).float(), bins=k,
+                         min=0, max=k).long()
     big = torch.full_like(flat, BIG)
     sizes = torch.where(matched, counts[pos], big)
     sizes = torch.where(fg, sizes, torch.zeros_like(flat))

@@ -15,6 +15,9 @@ The operators are defined where their implementations live
 (``ops/conv.py``, ``ops/winograd.py``, ``ops/norm.py``, ``ops/resize.py``);
 importing ``brats2019_tpu_torch.ops`` defines them all, which is all that a
 consumer of an exported program needs of this package.
+
+:func:`device_const` is the one place where a cached device constant meets
+tracing.
 """
 
 from __future__ import annotations
@@ -24,7 +27,6 @@ from typing import Callable
 import torch
 
 NAMESPACE = "brats_torch"
-DEFINED: list = []   # the qualified names defined so far, in order
 
 
 def define_op(name: str, schema: str, cpu: Callable, cuda: Callable,
@@ -37,6 +39,20 @@ def define_op(name: str, schema: str, cpu: Callable, cuda: Callable,
     torch.library.impl(qual, "CPU", cpu)
     torch.library.impl(qual, "CUDA", cuda)
     torch.library.register_fake(qual, fake)
-    DEFINED.append(qual)
     return getattr(getattr(torch.ops, NAMESPACE), name).default
 
+
+
+def device_const(cache: dict, key, build: Callable[[], torch.Tensor]
+                 ) -> torch.Tensor:
+    """``build()``, a constant on a device, kept in ``cache`` under ``key``:
+    built once (the host-to-device copy that builds it waits for the card),
+    and not as an inference tensor, so autograd may save it whichever mode
+    first asked for it. A traced program (``torch.export``) builds its own
+    and leaves the cache alone, so no traced tensor reaches an eager call."""
+    if torch.compiler.is_compiling():
+        return build()
+    if key not in cache:
+        with torch.inference_mode(False):
+            cache[key] = build()
+    return cache[key]

@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from . import _build, library
+from .library import device_const
 from .conv import check_dtype, f32_counter
 
 _SIG = {
@@ -637,21 +638,15 @@ def linear_weight_matrix(n_in: int, n_out: int) -> np.ndarray:
     return np.where(inside[None, :], weights, 0).astype(f32)
 
 
-@functools.lru_cache(maxsize=64)
-def _weight_matrix_cached(n_in: int, n_out: int, device) -> torch.Tensor:
-    with torch.inference_mode(False):
-        return torch.from_numpy(linear_weight_matrix(n_in, n_out)).to(device)
+_WEIGHT_MATRICES: dict = {}
 
 
 def _weight_matrix(n_in: int, n_out: int, device) -> torch.Tensor:
-    """:func:`linear_weight_matrix` on ``device``, built once per device (the
-    host-to-device copy that builds it waits for the card). Not an inference
-    tensor, so autograd may save it whichever mode first asked for it. A
-    traced program (``torch.export``) gets its own constant and leaves the
-    cache alone, so no traced tensor reaches an eager call."""
-    if torch.compiler.is_compiling():
-        return torch.from_numpy(linear_weight_matrix(n_in, n_out)).to(device)
-    return _weight_matrix_cached(n_in, n_out, device)
+    """:func:`linear_weight_matrix` on ``device``, built once per device
+    (``library.device_const``)."""
+    return device_const(
+        _WEIGHT_MATRICES, (n_in, n_out, device),
+        lambda: torch.from_numpy(linear_weight_matrix(n_in, n_out)).to(device))
 
 
 def resize_trilinear(x: torch.Tensor, spatial: Sequence[int]) -> torch.Tensor:

@@ -290,8 +290,8 @@ Phases:
    phases 3-10 meet the card as before, on phase 3's weights and cases: (1)
    ``cli.export --preset cascade --stablehlo --stablehlo-check`` on the card
    (from checkpoints holding phase 3's weights): exit code 0, a manifest of
-   ``stage_roi`` and ``stage_fine``, checked, on the card, the direct
-   backend; every ``.pt2`` without a parameter or buffer input and without
+   ``stage_roi`` and ``stage_fine``, checked, on the card (its name and SM
+   count recorded), the direct backend; every ``.pt2`` without a parameter or buffer input and without
    an aten convolution (its bytes printed); for each phase-3 case canvas the
    exported program's labels and start (``run_exported``) bitwise the eager
    split cascade's; the launches of one exported volume by route (conv on
@@ -4998,10 +4998,13 @@ def phase11(exp, work, case_dirs, first, dev, card):
     man = json.load(open(os.path.join(out, "manifest.json")))
     check(rc == 0 and set(man["modules"]) == {"stage_roi", "stage_fine"}
           and man["checked"] is True and man["device"].startswith("cuda")
-          and man["backend"] == "direct",
+          and man["backend"] == "direct"
+          and man["card"] == torch.cuda.get_device_name(0)
+          and man["sm_count"] == torch.cuda.get_device_properties(0).multi_processor_count,
           f"export --preset cascade --stablehlo --stablehlo-check on the card: "
           f"exit code {rc}, modules {sorted(man['modules'])}, checked "
-          f"{man['checked']}, device {man['device']}, backend {man['backend']}, "
+          f"{man['checked']}, device {man['device']} ({man['card']}, "
+          f"{man['sm_count']} SMs), backend {man['backend']}, "
           f"{time.perf_counter() - t1:.1f} s; .pt2 bytes "
           f"{ {k: v['bytes'] for k, v in man['modules'].items()} }")
     pred = Predictor(exp, os.path.join(work, "fine", "params.npz"),

@@ -114,6 +114,7 @@ def test_split_path_export_roundtrip(tmp_path, params):
     assert (man["device"], man["backend"], man["postproc"]) == ("cpu", "direct",
                                                                 "host")
     assert man["torch_version"] == torch.__version__ and man["canvas"] == [32] * 3
+    assert (man["card"], man["sm_count"]) == (None, 132)   # the H100's plans
     roi_sig = man["modules"]["stage_roi"]["inputs_flat"]
     assert roi_sig[-1] == {"name": "image", "shape": [32, 32, 32, 4],
                            "dtype": "bfloat16"}
@@ -199,6 +200,22 @@ def test_reexport_cleans_stale_modules(tmp_path, params):
     export_hlo.export_predict_program(
         Predictor(_exp(presets, **MONO), pf, device="cpu"), out)
     assert sorted(os.listdir(out)) == ["manifest.json", "predict.pt2"]
+
+
+def test_exported_program_refuses_another_sm_count(tmp_path, params):
+    """The conv partials' shapes in a program follow the SM count its plans
+    assumed, so a program whose manifest names another count (an H100 PCIe's
+    114 SMs) refuses to run rather than mis-size them."""
+    pf = params[0][1]
+    out = str(tmp_path / "torch_export")
+    export_hlo.export_predict_program(
+        Predictor(_exp(presets, **MONO), pf, device="cpu"), out)
+    path = os.path.join(out, "manifest.json")
+    man = json.load(open(path))
+    json.dump({**man, "sm_count": 114}, open(path, "w"))
+    with pytest.raises(RuntimeError, match="export the program again"):
+        export_hlo.run_exported(out, pf, None, torch.from_numpy(
+            _image(3)).to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("backend", ["direct", "winograd"])
@@ -288,6 +305,33 @@ def test_device_constants_in_either_order(tmp_path):
     eager_a, exported_a = got["export_first"]
     eager_b, exported_b = got["eager_first"]
     assert eager_a == exported_a == eager_b == exported_b
+
+
+def test_device_const_caches_eagerly_and_builds_fresh_when_traced():
+    """``ops.library.device_const``: an eager call builds once and keeps a
+    tensor that is not an inference tensor, even under inference mode; a
+    traced call builds its own and leaves the cache as it was."""
+    from brats2019_tpu_torch.ops.library import device_const
+
+    cache, built = {}, []
+
+    def build():
+        built.append(1)
+        return torch.arange(3.0)
+
+    with torch.inference_mode():
+        first = device_const(cache, "eager", build)
+    assert not first.is_inference()
+    assert device_const(cache, "eager", build) is first and len(built) == 1
+
+    class Add(torch.nn.Module):
+        def forward(self, x):
+            return x + device_const(cache, "traced", build)
+
+    with torch.no_grad():
+        ep = torch.export.export(Add(), (torch.zeros(3),), strict=False)
+    assert set(cache) == {"eager"} and len(built) == 2
+    assert torch.equal(ep.module()(torch.ones(3)), torch.arange(3.0) + 1)
 
 
 class _Post(torch.nn.Module):
