@@ -38,6 +38,7 @@ from ..configs.presets import ExperimentConfig
 from ..data.preprocess import (brain_bbox_fast_np, crop_cast_fit_np,
                                uncrop_from_canvas_np, zscore)
 from ..parallel.mesh import MeshEnv, make_mesh
+from ..utils import profile
 from ..utils.weights import build_unet, load_params, state_dict_from_flat
 from .postprocess import postprocess_labels
 from .tiling import blend_weight, tile_origins
@@ -180,11 +181,14 @@ class MultichipPredictor:
 
     # ----------------------------------------------------------- the device --
 
+    @profile.entry
     def _run(self, canvas_img: torch.Tensor):
         """The mesh program on a (X, Y, Z, C) canvas: the label canvas (or
         the ROI labels and their start in cascade mode), on the first
-        shard's device."""
-        with torch.inference_mode():
+        shard's device; a ``predict.program`` span with device edges
+        (``utils/profile.py``)."""
+        with torch.inference_mode(), profile.span("predict.program",
+                                                  device_edges=True):
             if self._members is not None:
                 return self._ensemble(canvas_img, self._member_nets()), None
             if self.mode == "cascade":

@@ -35,6 +35,16 @@ i on lane (i // 2) mod n) and an odd tail runs the single-volume
 advisory once per predictor when the host-to-device copy of the payloads,
 timed alone, takes most of the pipeline's cadence.
 
+Spans (``utils/profile.py``; all of one volume share its request id, the
+call's number and the volume's index): ``predict.call`` around a call;
+in the prep threads ``predict.prep`` (children ``prep.decode`` on the
+directory path, ``prep.encode``, ``prep.copy``); on the dispatch thread
+``predict.await_prep`` (the wait for a prepared canvas), ``predict.program``
+(the device program; with pairing, an odd tail's ``stage_finish`` is a
+second one of its volume) and, at the call's end, ``predict.await_post``
+(the drain), each with device edges; in the post threads ``predict.post``
+(children ``post.fetch``, ``post.finish``, ``post.write``).
+
 The probability path (:628-695): ``predict_probs_arrays``, ``probs_for_dir``
 (through the payload cache) and ``predict_probs_dir`` run the program's
 ``probs`` (the mean class probabilities the labels are argmaxed from), paste
@@ -71,6 +81,7 @@ from ..data.preprocess import (
     uncrop_from_canvas_np,
 )
 from ..models.cascade import make_predict_fn
+from ..utils import profile
 from ..utils.nifti import read_header, write_nifti
 from ..utils.weights import build_unet, load_params, state_dict_from_flat
 from .payload_cache import load_payload, payload_cache_path, store_payload
@@ -142,27 +153,31 @@ class _PairDispatcher:
 
     def __init__(self, predictor: "Predictor"):
         self.p = predictor
-        self.pending: dict = {}  # lane -> [(emit, tiles, start), ...]
+        self.pending: dict = {}  # lane -> [(emit, tiles, start, req), ...]
 
-    def dispatch(self, prepped, lane: int, emit) -> None:
+    def dispatch(self, prepped, lane: int, emit, req=None) -> None:
         program, ctx = self.p._program_on(lane)
         with ctx, torch.inference_mode():
-            tiles, start = program.stage_roi(self.p._await_canvas(*prepped))
-            buf = self.pending.setdefault(lane, [])
-            buf.append((emit, tiles, start))
-            if len(buf) == 2:
-                (e0, t0, s0), (e1, t1, s1) = buf
+            with profile.span("predict.program", req, device_edges=True):
+                tiles, start = program.stage_roi(self.p._await_canvas(*prepped))
+                buf = self.pending.setdefault(lane, [])
+                buf.append((emit, tiles, start, req))
+                if len(buf) < 2:
+                    return
+                (e0, t0, s0, _), (e1, t1, s1, _) = buf
                 buf.clear()
                 la, sa, lb, sb = program.stage_finish_pair(t0, t1, s0, s1)
-                e0(_start_host_copy(la, sa))
-                e1(_start_host_copy(lb, sb))
+            e0(_start_host_copy(la, sa))
+            e1(_start_host_copy(lb, sb))
 
     def flush(self) -> None:
         for lane, buf in self.pending.items():
             program, ctx = self.p._program_on(lane)
             with ctx, torch.inference_mode():
-                for emit, tiles, start in buf:
-                    emit(_start_host_copy(*program.stage_finish(tiles, start)))
+                for emit, tiles, start, req in buf:
+                    with profile.span("predict.program", req, device_edges=True):
+                        out = program.stage_finish(tiles, start)
+                    emit(_start_host_copy(*out))
             buf.clear()
 
 
@@ -473,8 +488,10 @@ class Predictor:
         """Host encode (memoized) + transfer to the lane's device: ((canvas,
         event), cropped shape, bbox). Runs in a prep thread on the serving
         path."""
-        small, dst, bbox = self._memo_encode(image, meta)
-        moved = self._payload_to_device(small, dst, lane)
+        with profile.span("prep.encode"):
+            small, dst, bbox = self._memo_encode(image, meta)
+        with profile.span("prep.copy"):
+            moved = self._payload_to_device(small, dst, lane)
         return moved, bbox.shape, bbox
 
     def _note_copy(self, timing) -> None:
@@ -527,18 +544,23 @@ class Predictor:
         payload is bitwise what the uncached path ships. Returns
         ``(case_name, header, (canvas, event), cropped_shape, bbox)``."""
         path = self._cache_path(case_dir)
-        payload = load_payload(path) if path is not None else None
+        with profile.span("prep.decode"):
+            payload = load_payload(path) if path is not None else None
+            if payload is not None:
+                name = os.path.basename(os.path.normpath(case_dir))
+                header = read_header(modality_paths(case_dir)[0])
+            else:
+                case = load_case(case_dir)
+                name, header = case.name, case.header
         if payload is not None:
             small, dst, bbox = payload
-            name = os.path.basename(os.path.normpath(case_dir))
-            header = read_header(modality_paths(case_dir)[0])
         else:
-            case = load_case(case_dir)
-            name, header = case.name, case.header
-            small, dst, bbox = self._encode_host(case.image, case.meta)
-            if path is not None:
-                store_payload(path, small, dst, bbox)
-        moved = self._payload_to_device(small, dst, lane)
+            with profile.span("prep.encode"):
+                small, dst, bbox = self._encode_host(case.image, case.meta)
+                if path is not None:
+                    store_payload(path, small, dst, bbox)
+        with profile.span("prep.copy"):
+            moved = self._payload_to_device(small, dst, lane)
         return name, header, moved, bbox.shape, bbox
 
     def prefill_payload_cache(self, case_dir: str) -> bool:
@@ -570,33 +592,41 @@ class Predictor:
         device program already did it): the one tail of every path (:329).
         ``fetched`` is ``_start_host_copy``'s return."""
         (labels_r, start), event = fetched
-        if event is not None:
-            event.synchronize()
-        labels_c = self._paste_roi(labels_r.cpu().numpy(), start.cpu().numpy())
-        labels = uncrop_from_canvas_np(labels_c, cropped_shape, bbox, self.canvas)
-        if self.exp.infer.postproc == "device":
-            return labels
-        return postprocess_labels(
-            labels,
-            min_component_voxels=self.exp.infer.min_component_voxels,
-            et_min_voxels=self.exp.infer.et_min_voxels,
-        )
+        with profile.span("post.fetch"):
+            if event is not None:
+                event.synchronize()
+            labels_r, start = labels_r.cpu().numpy(), start.cpu().numpy()
+        with profile.span("post.finish"):
+            labels_c = self._paste_roi(labels_r, start)
+            labels = uncrop_from_canvas_np(labels_c, cropped_shape, bbox,
+                                           self.canvas)
+            if self.exp.infer.postproc == "device":
+                return labels
+            return postprocess_labels(
+                labels,
+                min_component_voxels=self.exp.infer.min_component_voxels,
+                et_min_voxels=self.exp.infer.et_min_voxels,
+            )
 
     def _finish_and_write(self, fetched, name, header, shape, bbox, case_dir,
                           out) -> str:
         labels = self._finish(fetched, shape, bbox)
         if out is None:
             out = os.path.join(case_dir, f"{name}_pred.nii.gz")
-        write_nifti(out, internal_to_disk(labels).astype(np.uint8), like=header)
+        with profile.span("post.write"):
+            write_nifti(out, internal_to_disk(labels).astype(np.uint8),
+                        like=header)
         return out
 
     # ------------------------------------------------------------ entry points --
 
-    def predict_device(self, canvas_img: torch.Tensor, lane: int = 0):
+    @profile.entry
+    def predict_device(self, canvas_img: torch.Tensor, lane: int = 0, req=None):
         """Lane ``lane``'s device program on an embedded canvas:
-        (labels_roi, start)."""
+        (labels_roi, start). ``req``: the volume's request id."""
         program, ctx = self._program_on(lane)
-        with ctx, torch.inference_mode():
+        with ctx, torch.inference_mode(), profile.span(
+                "predict.program", req, device_edges=True):
             return program(canvas_img)
 
     def probs_device(self, canvas_img: torch.Tensor):
@@ -605,63 +635,95 @@ class Predictor:
         with torch.inference_mode():
             return self.program.probs(canvas_img)
 
-    def _dispatch(self, prepped, lane: int = 0):
+    def _dispatch(self, prepped, lane: int = 0, req=None):
         """Wait for a prepared canvas, launch the lane's device program on it
         and start the readback. Called from one thread only."""
         _, ctx = self._program_on(lane)
         with ctx:
             canvas = self._await_canvas(*prepped)
-            return _start_host_copy(*self.predict_device(canvas, lane))
+            return _start_host_copy(*self.predict_device(canvas, lane, req))
 
-    def _launch(self, pair, prepped, lane: int, emit) -> None:
-        """Dispatch one prepared case: alone (``emit`` gets its readback at
-        once) or through the pair dispatcher."""
-        if pair is None:
-            emit(self._dispatch(prepped, lane))
-        else:
-            pair.dispatch(prepped, lane, emit)
-
+    @profile.entry
     def predict_arrays(
         self, image: np.ndarray, meta: Optional[dict] = None
     ) -> Tuple[np.ndarray, PredictionStats]:
         """image: raw (X, Y, Z, 4) float32 -> internal labels (X, Y, Z) uint8;
         ``meta``: the native decoder's (its fused bbox), when it read it."""
-        t0 = time.time()
-        prepped, cropped_shape, bbox = self._prep_to(image, meta)
-        t1 = time.time()
-        fetched = self._dispatch(prepped)
-        if fetched[1] is not None:
-            fetched[1].synchronize()
-        t2 = time.time()
-        labels = self._finish(fetched, cropped_shape, bbox)
+        req = (profile.call_number(), 0)
+        with profile.span("predict.call", req):
+            t0 = time.time()
+            with profile.span("predict.prep"):
+                prepped, cropped_shape, bbox = self._prep_to(image, meta)
+            t1 = time.time()
+            fetched = self._dispatch(prepped, req=req)
+            if fetched[1] is not None:
+                fetched[1].synchronize()
+            t2 = time.time()
+            with profile.span("predict.post"):
+                labels = self._finish(fetched, cropped_shape, bbox)
         return labels, PredictionStats(t1 - t0, t2 - t1, time.time() - t2)
 
+    def _pipelined(self, n: int, prep, finish) -> list:
+        """The serving pipeline over ``n`` cases (:344): prep threads run
+        ``prep(i, lane) -> (prepped, job)``, this thread launches the device
+        programs in order (paired when ``batch_volumes`` is 2), post threads
+        run ``finish(i, fetched, job)``. Returns the finishes' results in
+        order."""
+        depth = max(1, self.exp.infer.serving_depth)
+        pair = _PairDispatcher(self) if self._pairs else None
+        call = profile.call_number()
+
+        def prep_one(i, lane):
+            with profile.span("predict.prep", (call, i)):
+                return prep(i, lane)
+
+        def post_one(i, fetched, job):
+            with profile.span("predict.post", (call, i)):
+                return finish(i, fetched, job)
+
+        t_wall = time.time()
+        with profile.span("predict.call", (call, None)), \
+                ThreadPoolExecutor(depth) as prep_pool, \
+                ThreadPoolExecutor(depth) as post_pool:
+            preps = [prep_pool.submit(profile.carry(prep_one), i,
+                                      self._lane_of(i, pair))
+                     for i in range(n)]
+            posts: dict = {}
+            for i, fut in enumerate(preps):
+                req = (call, i)
+                with profile.span("predict.await_prep", req, device_edges=True):
+                    prepped, job = fut.result()
+
+                def emit(fetched, i=i, job=job):
+                    posts[i] = post_pool.submit(profile.carry(post_one), i,
+                                                fetched, job)
+
+                lane = self._lane_of(i, pair)
+                if pair is None:
+                    emit(self._dispatch(prepped, lane, req))
+                else:
+                    pair.dispatch(prepped, lane, emit, req)
+            if pair is not None:
+                pair.flush()
+            with profile.span("predict.await_post", (call, None),
+                              device_edges=True):
+                results = [posts[i].result() for i in range(n)]
+        self._maybe_transfer_hint(n, time.time() - t_wall)
+        return results
+
+    @profile.entry
     def predict_arrays_many(self, images) -> list:
         """Pipelined batch prediction (:344): prep threads encode and
         transfer, this thread launches the device programs in order (paired
         when ``batch_volumes`` is 2), post threads fetch and postprocess.
         Returns the label volumes in order."""
-        depth = max(1, self.exp.infer.serving_depth)
-        pair = _PairDispatcher(self) if self._pairs else None
-        t_wall = time.time()
-        with ThreadPoolExecutor(depth) as prep_pool, \
-                ThreadPoolExecutor(depth) as post_pool:
-            preps = [prep_pool.submit(self._prep_to, img, None,
-                                      self._lane_of(i, pair))
-                     for i, img in enumerate(images)]
-            posts: dict = {}
-            for i, fut in enumerate(preps):
-                prepped, shape, bbox = fut.result()
 
-                def emit(fetched, i=i, job=(shape, bbox)):
-                    posts[i] = post_pool.submit(self._finish, fetched, *job)
+        def prep(i, lane):
+            moved, shape, bbox = self._prep_to(images[i], None, lane)
+            return moved, (shape, bbox)
 
-                self._launch(pair, prepped, self._lane_of(i, pair), emit)
-            if pair is not None:
-                pair.flush()
-            results = [posts[i].result() for i in range(len(images))]
-        self._maybe_transfer_hint(len(images), time.time() - t_wall)
-        return results
+        return self._pipelined(len(images), prep,
+                               lambda i, fetched, job: self._finish(fetched, *job))
 
     def predict_case(self, case) -> Tuple[np.ndarray, PredictionStats]:
         """``predict_arrays`` on a loaded case, with its decoder meta
@@ -728,50 +790,45 @@ class Predictor:
 
     # ----------------------------------------------------------- many cases --
 
+    @profile.entry
     def predict_dirs(self, case_dirs, output_paths=None) -> list:
         """Pipelined multi-case path (:700), the one ``serve`` and the
         multi-case CLI use: decode (or payload-cache hit), the device
         program, and postprocess + NIfTI write overlap. ``output_paths[i]``
         overrides where case i's prediction goes (default
-        ``<case_dir>/<case>_pred.nii.gz``). Returns the output paths."""
+        ``<case_dir>/<case>_pred.nii.gz``). Returns the output paths; serve
+        and the multi-case predict CLI come through here, so the transfer
+        advisory fires here too."""
         if output_paths is None:
             output_paths = [None] * len(case_dirs)
-        depth = max(1, self.exp.infer.serving_depth)
-        pair = _PairDispatcher(self) if self._pairs else None
-        t_wall = time.time()
-        with ThreadPoolExecutor(depth) as prep_pool, \
-                ThreadPoolExecutor(depth) as post_pool:
-            preps = [prep_pool.submit(self._prep_dir_to, d, self._lane_of(i, pair))
-                     for i, d in enumerate(case_dirs)]
-            posts: dict = {}
-            for i, (fut, d, out) in enumerate(zip(preps, case_dirs, output_paths)):
-                name, header, prepped, shape, bbox = fut.result()
 
-                def emit(fetched, i=i, job=(name, header, shape, bbox, d, out)):
-                    posts[i] = post_pool.submit(self._finish_and_write,
-                                                fetched, *job)
+        def prep(i, lane):
+            name, header, moved, shape, bbox = self._prep_dir_to(case_dirs[i], lane)
+            return moved, (name, header, shape, bbox)
 
-                self._launch(pair, prepped, self._lane_of(i, pair), emit)
-            if pair is not None:
-                pair.flush()
-            results = [posts[i].result() for i in range(len(case_dirs))]
-        # serve and the multi-case predict CLI come through this path, so the
-        # advisory fires here too
-        self._maybe_transfer_hint(len(case_dirs), time.time() - t_wall)
-        return results
+        def finish(i, fetched, job):
+            return self._finish_and_write(fetched, *job, case_dirs[i],
+                                          output_paths[i])
 
+        return self._pipelined(len(case_dirs), prep, finish)
+
+    @profile.entry
     def predict_dir(
         self, case_dir: str, output_path: Optional[str] = None
     ) -> Tuple[str, PredictionStats]:
         """Predict one BraTS case directory and write ``<case>_pred.nii.gz``
         (BraTS disk labels, input header) next to it or at output_path."""
-        t0 = time.time()
-        name, header, prepped, shape, bbox = self._prep_dir_to(case_dir)
-        t1 = time.time()
-        fetched = self._dispatch(prepped)
-        if fetched[1] is not None:
-            fetched[1].synchronize()
-        t2 = time.time()
-        out = self._finish_and_write(fetched, name, header, shape, bbox,
-                                     case_dir, output_path)
+        req = (profile.call_number(), 0)
+        with profile.span("predict.call", req):
+            t0 = time.time()
+            with profile.span("predict.prep"):
+                name, header, prepped, shape, bbox = self._prep_dir_to(case_dir)
+            t1 = time.time()
+            fetched = self._dispatch(prepped, req=req)
+            if fetched[1] is not None:
+                fetched[1].synchronize()
+            t2 = time.time()
+            with profile.span("predict.post"):
+                out = self._finish_and_write(fetched, name, header, shape, bbox,
+                                             case_dir, output_path)
         return out, PredictionStats(t1 - t0, t2 - t1, time.time() - t2)

@@ -43,6 +43,12 @@ probabilities the labels are argmaxed from, before any postprocessing
 full-resolution ``tta_reduce``; ``stage_sweep_probs`` :322-323;
 ``predict_probs_monolithic`` :170-174). The ensemble
 (``infer/ensemble.py``) averages them.
+
+Spans (``utils/profile.py``): ``program.sweep`` around the fine forwards
+and their TTA reduce (every tile of the staged sweep, the monolithic
+window, the split cascade's fine stage), ``program.cc`` around the device
+postprocessing (its host reads are ``cc.sync`` spans,
+``ops/connected_components.py``).
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ from ..infer.tta import FLIPS, store_dtype, tta_probs, tta_reduce, tta_stack
 from ..ops.connected_components import postprocess_device
 from ..ops.library import device_const
 from ..ops.resize import resize_trilinear
+from ..utils import profile
 from .unet3d import UNet3D
 
 
@@ -176,7 +183,9 @@ class SplitCascade:
     def _fine_logits(self, tiles: torch.Tensor) -> torch.Tensor:
         """The fine forward: up to the pre-depth-to-space head with stem > 1
         (for the low-res reduce), at full resolution with stem 1."""
-        return self.fine(tiles, subpixel=False) if self.stem > 1 else self.fine(tiles)
+        with profile.span("program.sweep"):
+            return (self.fine(tiles, subpixel=False) if self.stem > 1
+                    else self.fine(tiles))
 
     def _reduce(self, logits: torch.Tensor) -> torch.Tensor:
         """One volume's flip batch of logits -> ROI labels (uint8): the
@@ -193,9 +202,10 @@ class SplitCascade:
             probs = tta_reduce(probs8.to(self.store_dt))
             labels = torch.argmax(probs, dim=-1).to(torch.uint8)
         if self.cfg.postproc == "device":
-            labels = postprocess_device(
-                labels, self.cfg.min_component_voxels, self.cfg.et_min_voxels
-            )
+            with profile.span("program.cc"):
+                labels = postprocess_device(
+                    labels, self.cfg.min_component_voxels, self.cfg.et_min_voxels
+                )
         return labels
 
     def stage_finish(
@@ -295,8 +305,9 @@ class _Program:
 
     def _finish_one(self, labels: torch.Tensor) -> torch.Tensor:
         if self.cfg.postproc == "device":
-            return postprocess_device(labels, self.cfg.min_component_voxels,
-                                      self.cfg.et_min_voxels)
+            with profile.span("program.cc"):
+                return postprocess_device(labels, self.cfg.min_component_voxels,
+                                          self.cfg.et_min_voxels)
         return labels
 
 
@@ -311,10 +322,11 @@ class Monolithic(_Program):
         ``predict_probs_monolithic`` (:170-174)."""
         region, start = self._region(image)
         weight = self._const("weight", self.weight_np, region.device)
-        probs = sliding_window_probs(
-            lambda p: tta_probs(self.fine, p, enabled=self.cfg.tta_flips,
-                                precision=self.cfg.tta_precision),
-            region, self.origins, self.tile, weight, self.num_classes)
+        with profile.span("program.sweep"):
+            probs = sliding_window_probs(
+                lambda p: tta_probs(self.fine, p, enabled=self.cfg.tta_flips,
+                                    precision=self.cfg.tta_precision),
+                region, self.origins, self.tile, weight, self.num_classes)
         return probs.float(), start
 
     def __call__(self, image: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -353,14 +365,15 @@ class StagedSweep(_Program):
                              device=dev)
         wsum = torch.zeros(sweep_lr + (r, r, r, 1), dtype=torch.float32,
                            device=dev)
-        for chunk, (o0, o1, o2) in zip(stacks, (self.origins // r).tolist()):
-            probs = lowres_mean_probs(self.fine(chunk, subpixel=False), r, k,
-                                      self.store_dt)
-            sl = (slice(o0, o0 + tile_lr[0]), slice(o1, o1 + tile_lr[1]),
-                  slice(o2, o2 + tile_lr[2]))
-            canvas[sl] += probs * w_lr
-            wsum[sl] += w_lr
-        return canvas / torch.clamp(wsum, min=1e-8)
+        with profile.span("program.sweep"):
+            for chunk, (o0, o1, o2) in zip(stacks, (self.origins // r).tolist()):
+                probs = lowres_mean_probs(self.fine(chunk, subpixel=False), r, k,
+                                          self.store_dt)
+                sl = (slice(o0, o0 + tile_lr[0]), slice(o1, o1 + tile_lr[1]),
+                      slice(o2, o2 + tile_lr[2]))
+                canvas[sl] += probs * w_lr
+                wsum[sl] += w_lr
+            return canvas / torch.clamp(wsum, min=1e-8)
 
     def stage_sweep_finish(self, stacks: torch.Tensor, start: torch.Tensor):
         blk = torch.argmax(self.sweep_probs_lr(stacks), dim=-1).to(torch.uint8)

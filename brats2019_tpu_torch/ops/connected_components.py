@@ -28,6 +28,10 @@ they are reached:
 * the sizes use ``searchsorted`` and a histogram of the matched voxels over
   the roots (a static shape: no host read) instead of the reference's
   chunked compare-sum (a TPU economy).
+
+Each host read of the eager form is a ``cc.sync`` span with device edges
+(``utils/profile.py``): the time the stream stands empty while the host
+waits for the flag and enqueues nothing.
 """
 
 from __future__ import annotations
@@ -35,6 +39,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..utils import profile
 
 BIG = 2 ** 30
 
@@ -91,12 +97,15 @@ def label_components(fg: torch.Tensor, max_pool_iters: int = 192,
         n = min(check_every, max_pool_iters - it)
         labels, flag = _pool_passes(labels, fg, zero, n)
         it += n
-        changed = bool(flag)
+        with profile.span("cc.sync", device_edges=True):
+            changed = bool(flag)
 
     rounds = 0
     while changed and rounds < max_jump_rounds:
         new = _jump_round(labels, fg, zero)
-        changed = bool((new != labels).any())
+        flag = (new != labels).any()
+        with profile.span("cc.sync", device_edges=True):
+            changed = bool(flag)
         labels = new
         rounds += 1
     return labels.to(torch.int32)

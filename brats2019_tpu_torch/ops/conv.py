@@ -26,10 +26,12 @@ package (its gradient was XLA's), so the port builds one:
   :func:`conv3d` itself, so on CUDA it is the hand-written kernel and counts
   in ``conv3d.launches``; it is skipped where the input needs no grad (the
   stem's input).
-* wgrad: plain torch (``aten.convolution_backward`` with only the weight
-  mask), as the JAX package computed it outside any Pallas kernel. On CUDA
-  it runs on the operands in their dtype (cuDNN, f32 accumulation) with
-  TF32 off and deterministic algorithms; on the CPU in f32.
+* wgrad: the operator ``brats_torch::conv3d_wgrad`` (x, gy, w) over
+  ``aten.convolution_backward`` with only the weight mask, as the JAX
+  package computed it outside any Pallas kernel. On CUDA it runs on the
+  operands in their dtype (cuDNN, f32 accumulation) with TF32 off and
+  deterministic algorithms; on the CPU in f32. The operator is the seam a
+  profiler trace selects the wgrad calls by.
 
 ``conv3d(x, w, stats=True)`` returns ``(y, partials)``: on the bf16 wgmma
 instance and on the f32 FFMA instance ``partials`` is the f32 (3, N, boxes,
@@ -590,20 +592,28 @@ def dgrad_weight(w: torch.Tensor) -> torch.Tensor:
     return w.flip(0, 1, 2).transpose(3, 4).contiguous()
 
 
-def conv3d_wgrad(x: torch.Tensor, gy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """dL/dw (DHWIO, w.dtype) of the SAME 3^3 conv for input x and output
-    gradient gy (both NDHWC)."""
-    on_cpu = x.device.type == "cpu"
-    xc = (x.float() if on_cpu else x).permute(0, 4, 1, 2, 3)
-    gc = (gy.float() if on_cpu else gy).permute(0, 4, 1, 2, 3)
-    wc = (w.float() if on_cpu else w).permute(4, 3, 0, 1, 2)
+def _wgrad(x: torch.Tensor, gy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """dL/dw (DHWIO, the operands' dtype) of the SAME 3^3 conv for input x
+    and output gradient gy (both NDHWC)."""
+    xc = x.permute(0, 4, 1, 2, 3)
+    gc = gy.permute(0, 4, 1, 2, 3)
+    wc = w.permute(4, 3, 0, 1, 2)
     with torch.backends.cudnn.flags(enabled=True, benchmark=False,
                                     deterministic=True, allow_tf32=False):
         _, dw, _ = torch.ops.aten.convolution_backward(
             gc, xc, wc, None, [1, 1, 1], [1, 1, 1], [1, 1, 1], False,
             [0, 0, 0], 1, [False, True, False],
         )
-    return dw.permute(2, 3, 4, 1, 0).to(w.dtype)
+    return dw.permute(2, 3, 4, 1, 0)
+
+
+# brats_torch::conv3d_wgrad (x, gy, w) -> dw in w.dtype: f32 math on the
+# CPU, cuDNN on the operands in their dtype on CUDA
+conv3d_wgrad = library.define_op(
+    "conv3d_wgrad", "(Tensor x, Tensor gy, Tensor w) -> Tensor",
+    lambda x, gy, w: _wgrad(x.float(), gy.float(), w.float()).to(w.dtype),
+    lambda x, gy, w: _wgrad(x, gy, w).to(w.dtype),
+    lambda x, gy, w: w.new_empty(w.shape))
 
 
 class _Conv3d(torch.autograd.Function):

@@ -1,9 +1,9 @@
-"""The forward kernels of the predict path as ``torch.library`` operators,
-in the port's namespace ``brats_torch``.
+"""The forward kernels of the predict path, and the conv's weight gradient,
+as ``torch.library`` operators, in the port's namespace ``brats_torch``.
 
 Each operator has a CPU implementation (the plain torch version), a CUDA
 implementation (the hand-written kernel's wrapper: its planner, its launch
-counters) and a fake implementation that gives only the outputs' shapes
+counters; for the weight gradient, the cuDNN call) and a fake implementation that gives only the outputs' shapes
 and dtypes, which is what ``torch.export`` traces with. So the dispatcher
 is the device seam, and an exported program (``infer/export_hlo.py``) holds
 one ``brats_torch::`` node per kernel call, which launches the same kernel

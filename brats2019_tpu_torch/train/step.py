@@ -38,6 +38,10 @@ of shards. DDP is not used: it all-reduces every microbatch unless told
 shards on one card. The optimizer (and its EMA) stays one replicated copy,
 updated on the first shard's device from the averaged grads; every process
 computes the same update.
+
+Spans (``utils/profile.py``): ``train.step`` around a step; inside it
+``train.sample`` (one per microbatch and shard), ``train.forward`` (the
+loss), ``train.backward`` and ``train.update`` (clip, AdamW, EMA).
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ import torch
 from ..configs.presets import TrainConfig
 from ..data.augment import apply_augment, draw_augment
 from ..data.sampling import sample_patch_impl
+from ..utils import profile
 from .loss import segmentation_loss, segmentation_loss_lowres
 
 
@@ -202,8 +207,10 @@ def shard_grads(model: torch.nn.Module, loss_fn: Callable,
     model.zero_grad(set_to_none=True)
     aux_sum: Dict[str, torch.Tensor] = {}
     for imgs, segs in microbatches:
-        loss, aux = loss_fn(model, imgs, segs)
-        loss.backward()
+        with profile.span("train.forward"):
+            loss, aux = loss_fn(model, imgs, segs)
+        with profile.span("train.backward"):
+            loss.backward()
         for name, v in aux.items():
             v = v.detach().float()
             aux_sum[name] = v if name not in aux_sum else aux_sum[name] + v
@@ -228,7 +235,8 @@ def apply_update(opt: Optimizer, bucket: torch.Tensor,
         grads[n] = bucket[off:off + p.numel()].view(p.shape)
         off += p.numel()
     out = dict(zip(aux_names, aux.unbind(0)))
-    out["grad_norm"] = opt.step(grads)
+    with profile.span("train.update"):
+        out["grad_norm"] = opt.step(grads)
     return out
 
 
@@ -248,17 +256,18 @@ def sample_microbatch(pool, cfg: TrainConfig, micro: int, shard: int = 0
     global shard ``shard``."""
     gen = step_generator(cfg.seed, micro, shard)
     imgs, segs = [], []
-    for _ in range(cfg.batch_per_device):
-        ci = int(torch.randint(0, pool.image.shape[0], (), generator=gen))
-        img, seg = sample_patch_impl(gen, pool.image[ci], pool.seg[ci],
-                                     cfg.patch, pool.fg_host[ci], cfg.fg_prob)
-        if cfg.augment:
-            aug = draw_augment(gen, img.shape[-1], cfg.intensity_scale,
-                               cfg.intensity_shift, cfg.gamma_range)
-            img, seg = apply_augment(img, seg, aug, rot90=cfg.rot90_axial)
-        imgs.append(img)
-        segs.append(seg)
-    return torch.stack(imgs), torch.stack(segs).long()
+    with profile.span("train.sample"):
+        for _ in range(cfg.batch_per_device):
+            ci = int(torch.randint(0, pool.image.shape[0], (), generator=gen))
+            img, seg = sample_patch_impl(gen, pool.image[ci], pool.seg[ci],
+                                         cfg.patch, pool.fg_host[ci], cfg.fg_prob)
+            if cfg.augment:
+                aug = draw_augment(gen, img.shape[-1], cfg.intensity_scale,
+                                   cfg.intensity_shift, cfg.gamma_range)
+                img, seg = apply_augment(img, seg, aug, rot90=cfg.rot90_axial)
+            imgs.append(img)
+            segs.append(seg)
+        return torch.stack(imgs), torch.stack(segs).long()
 
 
 class TrainStep:
@@ -290,13 +299,15 @@ class TrainStep:
             for p_r, p in zip(rep.parameters(), self.model.parameters()):
                 p_r.copy_(p)
 
+    @profile.entry
     def __call__(self, pool, step: int) -> Dict[str, torch.Tensor]:
         k = max(self.cfg.grad_accum_steps, 1)
-        if self.env is None:
-            batches = [sample_microbatch(pool, self.cfg, step * k + i)
-                       for i in range(k)]
-            return train_update(self.model, self.opt, self.loss_fn, batches)
-        return self._dp_step(pool, step, k)
+        with profile.span("train.step", step):
+            if self.env is None:
+                batches = [sample_microbatch(pool, self.cfg, step * k + i)
+                           for i in range(k)]
+                return train_update(self.model, self.opt, self.loss_fn, batches)
+            return self._dp_step(pool, step, k)
 
     def _dp_step(self, pools, step: int, k: int) -> Dict[str, torch.Tensor]:
         """The shards' buckets and aux averaged, then ``apply_update``."""

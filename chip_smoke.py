@@ -275,11 +275,12 @@ Phases:
    BURST_CASES cases (the phase-3 cases under new names; one chunk, 4 pairs
    with pairing) on the Winograd backend with ``--batch-volumes 1``,
    ``--batch-volumes 2`` and ``--transfer-dtype int8``, BURST_TURNS rounds
-   in turns: each arm's s/vol and device idle share (CUDA events around
-   every stage of the split cascade), median and spread; (3) ``serve --supervise
-   --rss-limit-mb RSS_LIMIT_MB`` as a process on the card with a burst of
-   the phase-3 cases: each answered once in the completion log, at least one
-   exit-4 recycle, SIGTERM stops the supervisor with exit code 0; (4) a KD
+   in turns: each arm's s/vol and device idle share (the CUDA-event edges
+   of the program's ``predict.program`` spans), median and spread; (3)
+   ``serve --supervise --rss-limit-mb RSS_LIMIT_MB`` as a process on the
+   card with a burst of the phase-3 cases: each answered once in the
+   completion log, at least one exit-4 recycle, SIGTERM stops the
+   supervisor with exit code 0; (4) a KD
    step of ``unit`` (f32, 2 teachers) over the mesh ``cuda:0, cpu`` (one
    card gives one distinct CUDA device): each shard's teacher replicas on its
    device, losses and grads within DP_GRAD_TOL of the step over ``cpu,
@@ -2859,6 +2860,7 @@ def serve_slice(work, case_dirs, direct_masks, expect, serial_e2e, depth, card):
     from brats2019_tpu_torch import ops
     from brats2019_tpu_torch.data.constants import VOLUME_SHAPE
     from brats2019_tpu_torch.infer import predictor as pmod
+    from brats2019_tpu_torch.utils import profile
 
     root = os.path.join(WORK, "serve")
     watch, out, cache = (os.path.join(root, d) for d in ("watch", "out", "cache"))
@@ -2868,19 +2870,6 @@ def serve_slice(work, case_dirs, direct_masks, expect, serial_e2e, depth, card):
     names = [os.path.basename(d) for d in case_dirs]
     common = ["--preset", PRESET, "--workdir", work, "--device", DEVICE,
               "--poll", "0.05"]
-
-    # the device program's span per volume, read with CUDA events
-    spans = []
-    real_predict_device = pmod.Predictor.predict_device
-
-    def timed_predict_device(self, canvas, *a):
-        ev = (torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True))
-        ev[0].record()
-        result = real_predict_device(self, canvas, *a)
-        ev[1].record()
-        spans.append(ev)
-        return result
 
     def post_case(d, answers):
         req = urllib.request.Request(
@@ -2903,7 +2892,7 @@ def serve_slice(work, case_dirs, direct_masks, expect, serial_e2e, depth, card):
             time.sleep(0.2)
         if not health.get("warm"):
             raise RuntimeError(f"the daemon never became warm: {health}")
-        spans.clear()
+        profile.clear()
         ops.reset_launch_counts()     # just before the main path is driven
         answers = {}
         t0 = time.perf_counter()
@@ -2924,13 +2913,12 @@ def serve_slice(work, case_dirs, direct_masks, expect, serial_e2e, depth, card):
                 "health": health}
 
     ops.set_backend("winograd")
-    pmod.Predictor.predict_device = timed_predict_device
     try:
-        rc, got = run_daemon(
-            [watch, *common, "--output-dir", out, "--warmup", "--http",
-             str(port), "--prep-cache", cache, "--postproc", "device"], client)
+        with profile.recording():
+            rc, got = run_daemon(
+                [watch, *common, "--output-dir", out, "--warmup", "--http",
+                 str(port), "--prep-cache", cache, "--postproc", "device"], client)
     finally:
-        pmod.Predictor.predict_device = real_predict_device
         ops.set_backend("direct")
     torch.cuda.synchronize()
     check(rc == 0, f"serve daemon drained cleanly after SIGTERM (exit code {rc})")
@@ -2976,7 +2964,7 @@ def serve_slice(work, case_dirs, direct_masks, expect, serial_e2e, depth, card):
               f"agreement with phase 3's direct-conv mask {agree:.6f} (bound "
               f"{MASK_AGREE}; {int((seg != ref).sum())} of {fg} foreground "
               f"voxels differ)")
-    span_ms = [a.elapsed_time(b) for a, b in spans]
+    span_ms = program_ms()
     burst = got["wall"]
     idle = 1.0 - sum(span_ms) / 1e3 / burst
     print(f"  burst of {n} over HTTP (serving depth {depth}, from the "
@@ -3548,44 +3536,31 @@ def native_decoder(on: bool):
         nifti_fast.available = real
 
 
-def _spans(pairs):
-    """Patch each (class, method name) of ``pairs`` to record a pair of
-    CUDA events around its calls; returns (the list the event pairs go to,
-    a function that undoes the patches)."""
-    import torch
+def program_ms():
+    """The device time of each ``predict.program`` span the recorder kept
+    (``utils/profile.py``), by its CUDA-event edges, ms."""
+    from brats2019_tpu_torch.utils import profile
 
-    events, undo = [], []
-    for cls, meth in pairs:
-        real = getattr(cls, meth)
-
-        def spanned(self, *a, _real=real, **k):
-            ev = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-            out = _real(self, *a, **k)
-            ev[1].record()
-            events.append(ev)
-            return out
-
-        setattr(cls, meth, spanned)
-        undo.append((cls, meth, real))
-    return events, lambda: [setattr(c, m, r) for c, m, r in undo]
+    return [s.device_ms for s in profile.snapshot()
+            if s.name == "predict.program" and s.device_ms is not None]
 
 
-def burst(argv, case_dirs, timed, one_scan=False):
+def burst(argv, case_dirs, one_scan=False):
     """One daemon (``argv``: the watch root, then flags; ``--warmup --http
     PORT`` added): every case POSTed at once once it is warm, the launch
     counters zeroed just before and read just after. With ``one_scan`` the
     burst waits for the deferred warmup arms too, and the client links every
     case into the watch root itself (the link a co-located POST makes) while
     it holds the daemon's scans off, so that one scan sees the whole burst
-    and it is served as one batch. ``timed``: the (class, method name) pairs
-    whose calls are spanned with CUDA events. Returns (rc, e2e s/vol, device
+    and it is served as one batch. The device idle share is the burst's wall
+    less the device time of the program's ``predict.program`` spans
+    (``utils/profile.py``, recorded here). Returns (rc, e2e s/vol, device
     idle share, counts, answers)."""
     import torch
 
     from brats2019_tpu_torch import ops
     from brats2019_tpu_torch.cli import serve as serve_cli
+    from brats2019_tpu_torch.utils import profile
 
     port = _free_port()
     base = f"http://127.0.0.1:{port}"
@@ -3613,7 +3588,7 @@ def burst(argv, case_dirs, timed, one_scan=False):
             raise RuntimeError(f"the daemon never became warm: {health}")
         if one_scan and not rest_done.wait(120):
             raise RuntimeError("the daemon's deferred warmup never ran")
-        spans.clear()
+        profile.clear()
         ops.reset_launch_counts()
         answers = {}
         t0 = time.perf_counter()
@@ -3645,18 +3620,17 @@ def burst(argv, case_dirs, timed, one_scan=False):
 
     patched = {"_finish_warmup_rest": rest, "scan": scan} if one_scan else {}
     real = {k: getattr(serve_cli.Server, k) for k in patched}
-    spans, undo = _spans(timed)
     for k, f in patched.items():
         setattr(serve_cli.Server, k, f)
     try:
-        rc, got = run_daemon([*argv, "--warmup", "--http", str(port)], client)
+        with profile.recording():
+            rc, got = run_daemon([*argv, "--warmup", "--http", str(port)], client)
     finally:
         for k, f in real.items():
             setattr(serve_cli.Server, k, f)
-        undo()
     torch.cuda.synchronize()
     n = len(case_dirs)
-    span_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+    span_s = sum(program_ms()) / 1e3
     return rc, got["wall"] / n, 1.0 - span_s / got["wall"], got["counts"], got["answers"]
 
 
@@ -3718,7 +3692,7 @@ def decoder_slice(exp, work, case_dirs, card):
                      DEVICE, "--poll", "0.05", "--output-dir",
                      os.path.join(root, f"out_{on}"), "--prep-cache",
                      os.path.join(root, f"cache_{on}"), "--postproc", "device"],
-                    case_dirs, [(pmod.Predictor, "predict_device")])
+                    case_dirs)
         finally:
             ops.set_backend("direct")
         check(rc == 0 and len(answers) == len(case_dirs)
@@ -4008,7 +3982,6 @@ def multichip_serve_burst(work, case_dirs, first, card):
     """9.3: one ``serve --multichip cascade`` burst over 2 shards of the
     card, Winograd conv backend."""
     from brats2019_tpu_torch import ops
-    from brats2019_tpu_torch.infer.multichip import MultichipPredictor
 
     root = os.path.join(WORK, "mc_serve")
     watch, out = os.path.join(root, "watch"), os.path.join(root, "out")
@@ -4018,7 +3991,7 @@ def multichip_serve_burst(work, case_dirs, first, card):
         rc, s_vol, idle, counts, answers = burst(
             [watch, "--preset", PRESET, "--workdir", work, "--device",
              "cuda:0,cuda:0", "--multichip", "cascade", "--poll", "0.05",
-             "--output-dir", out], case_dirs, [(MultichipPredictor, "_run")])
+             "--output-dir", out], case_dirs)
     finally:
         ops.set_backend("direct")
     check(rc == 0 and len(answers) == len(case_dirs)
@@ -4474,11 +4447,10 @@ def leftout_bursts(exp, work, case_dirs, first, card):
     backend (device postprocessing, a fresh payload cache each): ``--batch-
     volumes 1`` (bf16), ``--batch-volumes 2``, ``--transfer-dtype int8``,
     BURST_TURNS rounds in turns; each arm's s/vol and device idle share
-    (CUDA events around every stage of the split cascade), median and
-    spread, and the volumes each burst ran in a pair (from its Winograd
+    (the CUDA-event edges of the program's ``predict.program`` spans),
+    median and spread, and the volumes each burst ran in a pair (from its Winograd
     launches)."""
     from brats2019_tpu_torch import ops
-    from brats2019_tpu_torch.models.cascade import SplitCascade
 
     cases = burst_cases(case_dirs, BURST_CASES)
     refs = [first[k % len(first)] for k in range(len(cases))]
@@ -4501,10 +4473,7 @@ def leftout_bursts(exp, work, case_dirs, first, card):
                     [watch, "--preset", PRESET, "--workdir", work, "--device",
                      DEVICE, "--poll", "0.05", "--output-dir", served,
                      "--prep-cache", os.path.join(root, f"cache_{tag}"),
-                     "--postproc", "device", *flags], cases,
-                    [(SplitCascade, m) for m in ("stage_roi", "stage_finish",
-                                                 "stage_finish_pair")],
-                    one_scan=True)
+                     "--postproc", "device", *flags], cases, one_scan=True)
             finally:
                 ops.set_backend("direct")
             sizes, batches = [r["batch_size"] for r in serve_log(served)], []
