@@ -47,8 +47,9 @@ full-resolution ``tta_reduce``; ``stage_sweep_probs`` :322-323;
 Spans (``utils/profile.py``): ``program.sweep`` around the fine forwards
 and their TTA reduce (every tile of the staged sweep, the monolithic
 window, the split cascade's fine stage), ``program.cc`` around the device
-postprocessing (its host reads are ``cc.sync`` spans,
-``ops/connected_components.py``).
+postprocessing (``ops/connected_components.py``: on the card the kernel
+makes no host read; on the CPU the plain form's host reads are ``cc.sync``
+spans).
 """
 
 from __future__ import annotations

@@ -1,10 +1,11 @@
 """Kernel seams. Each op runs its plain torch version on a CPU tensor and its
 hand-written Hopper kernel on a CUDA tensor, and counts its launches. The
-forward kernels of the predict path are ``torch.library`` operators in the
-namespace ``brats_torch`` (``ops/library.py``), defined when this package is
-imported: a consumer of an exported program needs this import and nothing
-else of the port."""
+forward kernels of the predict path and the device connected components are
+``torch.library`` operators in the namespace ``brats_torch``
+(``ops/library.py``), defined when this package is imported: a consumer of an
+exported program needs this import and nothing else of the port."""
 
+from .connected_components import label_components
 from .conv import conv3d, get_backend, set_backend
 from .norm import instance_norm_act, instance_norm_act_bwd, instance_norm_partials
 from .resize import (
@@ -19,7 +20,8 @@ from .winograd import conv3d_winograd
 
 # the kernel wrappers by name: the four forwards of the predict path (the
 # conv's dgrad counts under conv3d), then the three backward kernels of
-# the training path, then the Winograd conv (the conv seam's second backend)
+# the training path, then the Winograd conv (the conv seam's second backend),
+# then the device connected components (a call each)
 KERNEL_WRAPPERS = {
     "conv3d": conv3d,
     "instance_norm_act": instance_norm_act,
@@ -29,6 +31,7 @@ KERNEL_WRAPPERS = {
     "downsample2x_bwd": downsample2x_bwd,
     "upsample2x_bwd": upsample2x_bwd,
     "conv3d_winograd": conv3d_winograd,
+    "label_components": label_components,
 }
 
 
@@ -64,6 +67,7 @@ __all__ = [
     "instance_norm_act",
     "instance_norm_act_bwd",
     "instance_norm_partials",
+    "label_components",
     "launch_counts",
     "reset_launch_counts",
     "resize_trilinear",

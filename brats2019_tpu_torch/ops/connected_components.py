@@ -1,48 +1,80 @@
-"""Connected components on the device by two-phase label propagation
-(reference: ``brats2019_tpu/ops/connected_components.py``, plain
-``lax.reduce_window`` / ``top_k`` there, plain torch here).
+"""Connected components on the device (reference:
+``brats2019_tpu/ops/connected_components.py``, plain ``lax.reduce_window`` /
+``top_k`` there; it has no Pallas kernel).
 
-1. seed every foreground voxel with its linear index + 1;
-2. phase 1: id <- 26-neighbourhood max, up to ``max_pool_iters`` times or
-   until nothing changes;
-3. phase 2, entered only when phase 1 hit its cap without converging
-   (serpentine paths): pool + pointer jump (id <- id[id]) rounds;
-4. sizes without a histogram over all voxels: the root ids (voxels whose seed
-   equals their label) by ``topk``, a count per root, mapped back per voxel.
-   Components beyond ``max_components`` read 2^30 and are kept by the filter.
+:func:`label_components` labels the 26-connected components of a boolean
+mask: every foreground voxel reads its component's largest linear index + 1,
+background 0. It calls the ``torch.library`` operator
+``brats_torch::label_components`` (``ops/library.py``), which takes one of
+two routes by the tensor's device:
 
-The ids, sizes and filtered labels equal the reference's. What differs is how
-they are reached:
+* CPU, the plain form (:func:`_label_plain`), the reference's two-phase
+  propagation:
 
-* ``F.max_pool3d`` has no int32 kernel on CUDA, so ids are pooled as f32; they
-  stay below 2^24 (6.9 M on the whole (192,224,160) canvas), hence exact, and
-  leave as int32.
-* the reference's ``lax.while_loop`` tests for a change every iteration on the
-  device; eagerly that is a host sync per iteration. Phase 1 here tests every
-  ``check_every`` iterations whether the last one still changed anything. A
-  converged labelling is a fixed point, so the extra iterations change
-  nothing, the cap falls on a multiple of ``check_every``, and the flag handed
-  to phase 2 is the reference's. Under ``torch.export`` both phases become
-  ``torch._higher_order_ops.while_loop``s with the same chunks, so an
-  exported program gives the same ids.
-* the sizes use ``searchsorted`` and a histogram of the matched voxels over
-  the roots (a static shape: no host read) instead of the reference's
-  chunked compare-sum (a TPU economy).
+  1. seed every foreground voxel with its linear index + 1;
+  2. phase 1: id <- 26-neighbourhood max, up to ``max_pool_iters`` times or
+     until nothing changes;
+  3. phase 2, entered only when phase 1 hit its cap without converging
+     (serpentine paths): pool + pointer jump (id <- max(id, id[id])) rounds,
+     up to ``max_jump_rounds``.
 
-Each host read of the eager form is a ``cc.sync`` span with device edges
-(``utils/profile.py``): the time the stream stands empty while the host
-waits for the flag and enqueues nothing.
+  ``F.max_pool3d`` has no int32 kernel, so ids are pooled as f32; they stay
+  below 2^24 (6.9 M on the whole (192,224,160) canvas), hence exact, and
+  leave as int32. The reference's ``lax.while_loop`` tests for a change
+  every iteration on the device; eagerly that is a host read per iteration.
+  Phase 1 here tests every ``check_every`` iterations whether the last one
+  still changed anything. A converged labelling is a fixed point, so the
+  extra iterations change nothing, the cap falls on a multiple of
+  ``check_every``, and the flag handed to phase 2 is the reference's. Each
+  host read is a ``cc.sync`` span with device edges (``utils/profile.py``).
+* CUDA, the kernel (:func:`label_components_kernel`,
+  ``csrc/connected_components.cu``): union-find over 2x2x2 blocks in three
+  launches, with no host read. It has no caps and always gives the converged
+  labelling (each component's largest linear index + 1). That is the
+  reference's result wherever the reference's phase 2 converges; its
+  pointer jumping is meant to take O(log diameter) rounds, under the cap of
+  64. The card tests hold the two routes bitwise equal at the default caps
+  on every mask of ``tests/cc_masks.py`` and on the whole canvas (random
+  masks at foreground shares 0.05 and 0.5, a serpentine that needs phase 2),
+  and ``chip_smoke.py`` phase 12 on the cohort's canvases; there the ids,
+  the sizes and the filtered labels on the card are those of the CPU form.
+  Where a caller's caps stop phase 2 short, the routes differ: the CPU
+  returns the capped labelling and the card the converged one
+  (``test_label_components_kernel_ignores_the_plain_caps``). Every caller
+  in the port leaves the caps at their defaults.
+  ``label_components.launches`` counts its calls.
+
+Traced (``torch.export``), the operator is one node (its fake gives int32 of
+the mask's shape), which takes the route of the device the program runs on.
+
+:func:`component_sizes` measures the components without a histogram over all
+voxels: the root ids (voxels whose seed equals their label) by ``topk``, a
+count per root by ``searchsorted`` and a histogram of the matched voxels (a
+static shape: no host read, where the reference has a chunked compare-sum,
+a TPU economy), mapped back per voxel. Components beyond ``max_components``
+read 2^30 and are kept by the filter.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import _build, library
 from ..utils import profile
 
 BIG = 2 ** 30
+
+_SIG = {"label_components_3d": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+        + [ctypes.c_void_p]}
+
+
+def _lib() -> ctypes.CDLL:
+    return _build.load_library("connected_components",
+                               ["connected_components.cu"], _SIG)
 
 
 def _maxpool3(x: torch.Tensor) -> torch.Tensor:
@@ -71,25 +103,14 @@ def _jump_round(labels: torch.Tensor, fg: torch.Tensor,
     return torch.maximum(flat, jumped).reshape(pooled.shape)
 
 
-def label_components(fg: torch.Tensor, max_pool_iters: int = 192,
-                     max_jump_rounds: int = 64,
-                     check_every: int = 8) -> torch.Tensor:
-    """Label the connected components (26-connectivity) of a boolean mask
-    (D, H, W). Returns int32 ids, 0 = background, one id per component: the
-    largest linear index in it + 1. Traced (``torch.export``), both phases
-    are ``while_loop``s whose conditions stay on the device
-    (:func:`_label_traced`); the ids are the same."""
-    if fg.numel() + 1 >= 2 ** 24:
-        raise ValueError(
-            f"label_components: {fg.numel()} voxels do not fit exact f32 ids")
-    fg = fg.bool()
+def _label_plain(fg: torch.Tensor, max_pool_iters: int, max_jump_rounds: int,
+                 check_every: int) -> torch.Tensor:
+    """The plain form, the operator's CPU implementation: the two phases of
+    the module docstring on a boolean (D, H, W) mask."""
     seeds = torch.arange(1, fg.numel() + 1, dtype=torch.float32,
                          device=fg.device).reshape(fg.shape)
     zero = torch.zeros((), dtype=torch.float32, device=fg.device)
     labels = torch.where(fg, seeds, zero)
-    if torch.compiler.is_compiling():
-        return _label_traced(labels, fg, zero, max_pool_iters,
-                             max_jump_rounds, check_every)
 
     changed = True
     it = 0
@@ -111,44 +132,69 @@ def label_components(fg: torch.Tensor, max_pool_iters: int = 192,
     return labels.to(torch.int32)
 
 
-def _label_traced(labels, fg, zero, max_pool_iters: int, max_jump_rounds: int,
-                  check_every: int) -> torch.Tensor:
-    """The two phases of :func:`label_components` as ``while_loop``s, the
-    form ``torch.export`` records: phase 1 runs whole chunks of
-    ``check_every`` iterations while the last one changed something, then the
-    cap's remainder when it did; phase 2 as eagerly. A converged labelling is
-    a fixed point, so running the remainder's iterations unconditionally and
-    keeping them only where ``changed`` held gives the eager ids bitwise."""
-    from torch._higher_order_ops import while_loop
+def label_components_kernel(fg: torch.Tensor, max_pool_iters: int,
+                            max_jump_rounds: int,
+                            check_every: int) -> torch.Tensor:
+    """The operator's CUDA implementation: ``csrc/connected_components.cu``
+    on a contiguous boolean (D, H, W) mask, on the current stream. The caps
+    bound the plain form's work and are not read: the kernel always reaches
+    the converged labelling (module docstring)."""
+    what = "label_components_kernel"
+    if fg.device.type != "cuda":
+        raise RuntimeError(f"{what}: needs a CUDA tensor, not {fg.device}")
+    if fg.dtype != torch.bool:
+        raise TypeError(f"{what}: needs a bool mask, not {fg.dtype}")
+    if fg.dim() != 3:
+        raise ValueError(f"{what}: needs a (D, H, W) mask, not {tuple(fg.shape)}")
+    if not fg.is_contiguous():
+        raise ValueError(f"{what}: the mask must be contiguous")
+    out = torch.empty(fg.shape, dtype=torch.int32, device=fg.device)
+    if fg.numel() == 0:
+        return out
+    d, h, w = fg.shape
+    n = -(-d // 2) * -(-h // 2) * -(-w // 2)
+    # a 2x2x2 block's parent and key (int32) and occupancy (a byte)
+    scratch = torch.empty(2 * n + -(-n // 4), dtype=torch.int32,
+                          device=fg.device)
+    with torch.cuda.device(fg.device):
+        stream = torch.cuda.current_stream(fg.device).cuda_stream
+        rc = _lib().label_components_3d(fg.data_ptr(), out.data_ptr(),
+                                        scratch.data_ptr(), d, h, w, stream)
+    _build.check(rc, "label_components (connected_components.cu)")
+    _build.count_launch(label_components)
+    return out
 
-    dev = labels.device
-    chunks, rest = divmod(max_pool_iters, check_every)
 
-    def pool_cond(lab, changed, it):
-        return changed & (it < chunks)
+def _label_fake(fg: torch.Tensor, max_pool_iters: int, max_jump_rounds: int,
+                check_every: int) -> torch.Tensor:
+    return fg.new_empty(fg.shape, dtype=torch.int32)
 
-    def pool_body(lab, changed, it):
-        lab, changed = _pool_passes(lab, fg, zero, check_every)
-        return lab, changed, it + 1
 
-    start = (labels, torch.ones((), dtype=torch.bool, device=dev),
-             torch.zeros((), dtype=torch.int64, device=dev))
-    labels, changed, _ = while_loop(pool_cond, pool_body, start)
-    if rest:
-        new, flag = _pool_passes(labels, fg, zero, rest)
-        labels = torch.where(changed, new, labels)
-        changed = changed & flag
+# the three ints are the plain form's caps and check interval: the CPU
+# implementation reads them, the CUDA one does not
+label_components_op = library.define_op(
+    "label_components",
+    "(Tensor fg, int max_pool_iters, int max_jump_rounds, int check_every)"
+    " -> Tensor",
+    _label_plain, label_components_kernel, _label_fake)
 
-    def jump_cond(lab, changed, rounds):
-        return changed & (rounds < max_jump_rounds)
 
-    def jump_body(lab, changed, rounds):
-        new = _jump_round(lab, fg, zero)
-        return new, (new != lab).any(), rounds + 1
+def label_components(fg: torch.Tensor, max_pool_iters: int = 192,
+                     max_jump_rounds: int = 64,
+                     check_every: int = 8) -> torch.Tensor:
+    """Label the connected components (26-connectivity) of a boolean mask
+    (D, H, W). Returns int32 ids, 0 = background, one id per component: the
+    largest linear index in it + 1. The caps and the check interval bound
+    the plain form's work on the CPU; the kernel on a CUDA tensor does not
+    read them (module docstring)."""
+    if fg.numel() + 1 >= 2 ** 24:
+        raise ValueError(
+            f"label_components: {fg.numel()} voxels do not fit exact f32 ids")
+    return label_components_op(fg.bool().contiguous(), max_pool_iters,
+                               max_jump_rounds, check_every)
 
-    labels, _, _ = while_loop(jump_cond, jump_body, (
-        labels, changed, torch.zeros((), dtype=torch.int64, device=dev)))
-    return labels.to(torch.int32)
+
+label_components.launches = 0
 
 
 def component_sizes(labels: torch.Tensor,

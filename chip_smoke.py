@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout (``--phases 2`` stops after the kernel checks,
-``--phases 9``, ``10`` or ``11`` runs phase 1, phase 3's set-up and predict
-run, and that phase alone; none of these prints result lines).
+``--phases 9``, ``10``, ``11`` or ``12`` runs phase 1, phase 3's set-up and
+predict run, and that phase alone; none of these prints result lines).
 Phases:
 
 1. Setup: torch/CUDA versions, the card's name and power limit, TF32 off for
@@ -297,17 +297,36 @@ Phases:
    exported program's labels and start (``run_exported``) bitwise the eager
    split cascade's; the launches of one exported volume by route (conv on
    the wgmma instance with the statistics epilogue, IN from partials, up
-   into the concat, down) equal to the eager volume's and to what the nets
-   give; (2) the same for serve's program, the Winograd backend with
-   ``postproc="device"`` (its connected components a ``while_loop`` in the
-   program); (3) the same for one ``predict.pt2``, ``cascade --no-tta`` (the
-   monolithic program); device ms/vol of each exported program and of the
-   eager one, in turns (nothing is claimed).
+   into the concat, down, the connected components) equal to the eager
+   volume's and to what the nets give; (2) the same for serve's program, the
+   Winograd backend with ``postproc="device"`` (its connected components one
+   ``brats_torch::label_components`` node in the program); (3) the same for
+   one ``predict.pt2``, ``cascade --no-tta`` (the monolithic program); device
+   ms/vol of each exported program and of the eager one, in turns (nothing is
+   claimed).
+
+12. The device connected components on the whole canvas, after phase 11:
+   the ``single_chip`` program (seeded random weights, the benchmark's
+   cohort program) predicts the phase-3 cases; on each canvas's foreground
+   mask (192, 224, 160) the kernel (``csrc/connected_components.cu``) gives
+   the plain form's ids bitwise (the plain form run on the card, its pooling
+   passes and jump rounds printed; the record's ``max_abs_err`` is the
+   largest id difference). Timed in turns (plain, kernel, kernel, plain):
+   the kernel by CUDA events over ``CC_REPLAYS`` replays of one CUDA graph
+   (``ms``) and eagerly (``wall_ms``), the plain form by CUDA events, its
+   flag reads included (``plain_ms``), and by the host clock around a
+   synchronised call (``plain_wall_ms``), host scipy's ``ndimage.label`` on
+   the same mask as the yardstick; the program with ``postproc="device"``
+   counts one ``label_components`` call a volume (the record's
+   ``launches``, over the phase-3 cases); then that whole program, device
+   ms/vol, with the kernel and with the plain form in its place, in turns.
+   Its row joins the kernel record.
 
 The line before the last holds the kernels' JSON record (forward kernels:
 launches on the predict slice, times per volume; backward kernels: launches
 on the training slice, times per fine train step; the Winograd conv:
-launches on the serving slice, times per volume; the f32 instances
+launches on the serving slice, times per volume; the connected components:
+calls on phase 12's canvases, times per volume; the f32 instances
 (``*_f32``): forward launches on phase 7's accuracy arms (the f32 Winograd:
 on its Winograd-backend predicts), times per
 accuracy-config tile batch, backward launches on phase 7's ``smoke``
@@ -4801,6 +4820,7 @@ def _export_routes():
         "upsample2x": ops.upsample2x.launches,
         "upsample2x into the concat": ops.upsample2x.launches_concat,
         "downsample2x": ops.downsample2x.launches,
+        "label_components": ops.label_components.launches,
     }
 
 
@@ -4854,6 +4874,9 @@ def exported_against_eager(what, pred, out_dir, canvases, calls, card,
                  "upsample2x": expect["upsample2x"],
                  "upsample2x into the concat": expect["upsample2x"],
                  "downsample2x": expect["downsample2x"]})
+    inf = pred.exp.infer   # the device postprocessing labels once a volume
+    want["label_components"] = int(inf.postproc == "device"
+                                   and inf.min_component_voxels > 1)
     if not winograd:   # the direct conv's epilogue feeds every IN
         want["conv3d with the statistics epilogue"] = expect["conv3d"]
         want["instance_norm_act from partials"] = expect["instance_norm_act"]
@@ -5035,8 +5058,141 @@ def phase11(exp, work, case_dirs, first, dev, card):
     print(f"  phase 11 took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ----------------------------------------------------------------- phase 12 --
+
+CC_REPLAYS = 20   # kernel calls replayed from one CUDA graph per reading
+
+
+def phase12(exp, work, case_dirs, first, dev, card):
+    """Phase 12: the device connected components on the whole canvas
+    (module docstring). Returns the kernel table's record."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from scipy import ndimage
+
+    from brats2019_tpu_torch import ops
+    from brats2019_tpu_torch.configs.presets import get_preset
+    from brats2019_tpu_torch.data.case import load_case
+    from brats2019_tpu_torch.infer.predictor import Predictor
+    from brats2019_tpu_torch.ops import connected_components as cc
+    from brats2019_tpu_torch.utils.weights import init_params
+
+    t0 = time.perf_counter()
+    sc = get_preset("single_chip")
+    fine = init_params(sc.unet, SEED)
+    preds = {pp: Predictor(dataclasses.replace(
+        sc, infer=dataclasses.replace(sc.infer, postproc=pp)), fine, None,
+        device=dev) for pp in ("host", "device")}
+    canvases = [preds["host"].prepare(load_case(d).image)[0] for d in case_dirs]
+    med = lambda v: sorted(v)[len(v) // 2]
+
+    def events(fn, reps=1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(reps):
+            fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1]) / reps
+
+    def plain_on_card(fg, *caps):
+        return cc._label_plain(fg, *caps)
+
+    def host_ms(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t)
+
+    times = {"kernel": [], "kernel eager": [], "plain": [], "plain wall": [],
+             "scipy": []}
+    errs = []
+    for d, canvas in zip(case_dirs, canvases):
+        labels, _ = preds["host"].predict_device(canvas)
+        fg = (labels > 0).contiguous()
+        passes, rounds = [], []
+        real_pool, real_jump = cc._pool_passes, cc._jump_round
+        cc._pool_passes = lambda lab, f, z, n: passes.append(n) or real_pool(lab, f, z, n)
+        cc._jump_round = lambda *a: rounds.append(1) or real_jump(*a)
+        try:
+            want = cc._label_plain(fg, 192, 64, 8)
+        finally:
+            cc._pool_passes, cc._jump_round = real_pool, real_jump
+        got = cc.label_components(fg)
+        errs.append(int((got.long() - want.long()).abs().max()))
+        fg_np = fg.cpu().numpy()
+        n_comp = int(torch.unique(got).numel()) - 1
+        check(got.dtype == torch.int32 and bool(torch.equal(got, want)),
+              f"{os.path.basename(d)}: the kernel's ids on the canvas "
+              f"{tuple(fg.shape)} ({int(fg_np.sum())} foreground voxels, "
+              f"{n_comp} components) bitwise the plain form's, which took "
+              f"{sum(passes)} pooling passes and {len(rounds)} jump rounds")
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            cc.label_components(fg)
+        for arm in ("plain", "kernel", "kernel", "plain"):
+            if arm == "plain":
+                times["plain"].append(events(lambda: cc._label_plain(fg, 192, 64, 8)))
+                times["plain wall"].append(host_ms(lambda: cc._label_plain(fg, 192, 64, 8)))
+            else:
+                times["kernel"].append(events(graph.replay, CC_REPLAYS))
+                times["kernel eager"].append(events(lambda: cc.label_components(fg)))
+        t = time.perf_counter()
+        ndimage.label(fg_np, structure=np.ones((3, 3, 3), bool))
+        times["scipy"].append(1e3 * (time.perf_counter() - t))
+        del graph
+    n_vox = canvases[0].shape[0] * canvases[0].shape[1] * canvases[0].shape[2]
+    bound = n_vox * (1 + 4) / 3.35e12 * 1e3   # the mask read, the ids written
+    for k, v in times.items():
+        print(f"  connected components on the canvas, {k}: median {med(v):.4f} "
+              f"ms (all {[round(x, 4) for x in v]}) on {card}", flush=True)
+    ops.reset_launch_counts()
+    for canvas in canvases:
+        preds["device"].predict_device(canvas)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()["label_components"]
+    check(launches == len(canvases),
+          f"single_chip with postproc=device: label_components counted "
+          f"{launches} calls for {len(canvases)} volumes")
+    # the whole single_chip program with device postprocessing, the kernel
+    # against the plain form on the same card, in turns
+    prog = {"kernel": [], "plain": []}
+    real_op = cc.label_components_op
+    for arm in ("plain", "kernel", "kernel", "plain") * 2:
+        cc.label_components_op = plain_on_card if arm == "plain" else real_op
+        try:
+            for canvas in canvases:
+                prog[arm].append(events(lambda: preds["device"].predict_device(canvas)))
+        finally:
+            cc.label_components_op = real_op
+    print(f"  single_chip program with postproc=device, device ms/vol in turns: "
+          f"kernel median {med(prog['kernel']):.3f} (all "
+          f"{[round(x, 3) for x in prog['kernel']]}), plain CC median "
+          f"{med(prog['plain']):.3f} (all {[round(x, 3) for x in prog['plain']]}) "
+          f"on {card}", flush=True)
+    print(f"  phase 12 took {time.perf_counter() - t0:.1f} s", flush=True)
+    del preds
+    torch.cuda.empty_cache()
+    return {
+        "name": "label_components", "route": "cuda",
+        "source": "brats2019_tpu_torch/csrc/connected_components.cu",
+        "replaces": "none (brats2019_tpu/ops/connected_components.py "
+                    "label_components, plain lax.reduce_window propagation)",
+        "launches": launches, "max_abs_err": float(max(errs)), "calls": 1,
+        "unit": "vol", "ms": med(times["kernel"]), "plain_ms": med(times["plain"]),
+        "wall_ms": med(times["kernel eager"]),
+        "plain_wall_ms": med(times["plain wall"]),
+        "bound_ms": bound, "bound_by": "bytes", "bound_bytes_ms": bound,
+        "bound_operations_ms": 0.0, "library_ms": med(times["scipy"]),
+        "library": "host scipy.ndimage.label (26-connectivity)",
+    }
+
+
 def phase_alone(phase, exp, dev, card) -> int:
-    """``--phases 9``, ``10`` or ``11``: phase 3's weights, cases and
+    """``--phases 9``, ``10``, ``11`` or ``12``: phase 3's weights, cases and
     predict CLI run (the masks the phase compares with), then that phase
     alone; no result lines."""
     from brats2019_tpu_torch.cli import predict as predict_cli
@@ -5057,7 +5213,7 @@ def phase_alone(phase, exp, dev, card) -> int:
                            "--workdir", work, "--device", "cuda"])
     check(rc == 0, f"predict CLI exit code {rc}")
     print(f"== phase {phase} alone", flush=True)
-    {9: phase9, 10: phase10, 11: phase11}[phase](
+    {9: phase9, 10: phase10, 11: phase11, 12: phase12}[phase](
         exp, work, case_dirs, read_labels(case_dirs), dev, card)
     shutil.rmtree(WORK, ignore_errors=True)
     print(f"== stopped after phase {phase} as asked; {len(FAILURES)} failure(s)",
@@ -5074,9 +5230,9 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch port "
                                  "on one CUDA card; no argument runs it whole.")
-    ap.add_argument("--phases", type=int, choices=(2, 5, 9, 10, 11), default=5,
-                    help="2: stop after the kernel checks of phase 2; 9, 10 "
-                         "or 11: phase 1, phase 3's cases, weights and "
+    ap.add_argument("--phases", type=int, choices=(2, 5, 9, 10, 11, 12), default=5,
+                    help="2: stop after the kernel checks of phase 2; 9, 10, "
+                         "11 or 12: phase 1, phase 3's cases, weights and "
                          "predict CLI run, then that phase alone (none of "
                          "these prints result lines); 5 (default): everything")
     args = ap.parse_args()
@@ -5090,6 +5246,7 @@ def main() -> int:
     from brats2019_tpu_torch.data import synthetic
     from brats2019_tpu_torch.data.constants import VOLUME_SHAPE
     from brats2019_tpu_torch.ops import _build, conv, norm, resize, winograd
+    from brats2019_tpu_torch.ops import connected_components as cc
     from brats2019_tpu_torch.train.loop import stage_config
     from brats2019_tpu_torch.utils.weights import init_params, save_params_npz
 
@@ -5107,13 +5264,14 @@ def main() -> int:
     t0 = time.perf_counter()
     # one nvcc each, side by side
     _build.build_all([conv._lib_wgmma, conv._lib, winograd._lib_wgmma,
-                      winograd._lib, resize._lib, norm._lib]
+                      winograd._lib, resize._lib, norm._lib, cc._lib]
                      + [lambda k=k: in_bwd_probe_lib(k) for k in range(5)])
     print(f"  built conv3d_wgmma.cu, conv3d.cu, winograd3d_wgmma.cu, "
-          f"winograd3d.cu, resize2x.cu and in_act_bwd.cu (and its five probe "
-          f"builds) with nvcc in {time.perf_counter() - t0:.1f} s", flush=True)
+          f"winograd3d.cu, resize2x.cu, in_act_bwd.cu (and its five probe "
+          f"builds) and connected_components.cu with nvcc in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     for lib in ("conv3d_wgmma", "conv3d", "winograd3d_wgmma", "winograd3d",
-                "resize2x", "in_act_bwd"):
+                "resize2x", "in_act_bwd", "connected_components"):
         # registers, spills and warnings; not the per-function banners
         log = [ln.strip() for ln in
                _build.build_logs.get(lib, "(cached)").splitlines()
@@ -5132,7 +5290,7 @@ def main() -> int:
     }
     eval_calls = (unet_calls(exp.coarse_unet, 1, coarse_canvas)
                   + unet_calls(exp.unet, 1, exp.train.pool_shape))
-    if args.phases in (9, 10, 11):
+    if args.phases in (9, 10, 11, 12):
         return phase_alone(args.phases, exp, dev, card)
     print("== phase 2: kernels vs plain torch at the flagship shapes", flush=True)
     t0 = time.perf_counter()
@@ -5369,6 +5527,10 @@ def main() -> int:
           "operators)", flush=True)
     phase11(exp, work, case_dirs, first, dev, card)
 
+    print("== phase 12: the device connected components on the whole canvas",
+          flush=True)
+    cc_record = phase12(exp, work, case_dirs, first, dev, card)
+
     record = []
     for k, (route, source, replaces) in KERNELS.items():
         errs = [r[1] for (n, _), r in results.items() if n == k]
@@ -5479,6 +5641,7 @@ def main() -> int:
         "direct_ms": sum(r[9] for r in mine),
         "direct_source": "brats2019_tpu_torch/csrc/conv3d.cu (conv3d_ndhwc_f32)",
     })
+    record.append(cc_record)   # per volume of single_chip, on the whole canvas
     for r in record:
         unit = r.get("unit") or ("fine train step" if r["name"] in BACKWARD
                                  else "vol")

@@ -11,46 +11,7 @@ from brats2019_tpu.infer.postprocess import postprocess_labels as ref_postproces
 from brats2019_tpu.models.cascade import _postprocess_device as ref_postprocess_device
 from brats2019_tpu.ops import connected_components as ref_cc
 from brats2019_tpu_torch.ops import connected_components as cc
-
-
-def _random_blobs(seed, shape=(24, 24, 24), p=0.12):
-    return np.random.default_rng(seed).random(shape) < p
-
-
-def _snake(shape, axis_plane):
-    """A boustrophedon 1-voxel path: one component of large graph diameter."""
-    m = np.zeros(shape, bool)
-    rows, cols = (shape[1], shape[2]) if axis_plane == 0 else (shape[0], shape[1])
-    for r in range(0, rows, 2):
-        end = (cols - 1) if (r // 2) % 2 == 0 else 0
-        if axis_plane == 0:
-            m[0, r, :] = True
-            if r + 1 < rows:
-                m[0, r + 1, end] = True
-        else:
-            m[r, :, 1] = True
-            if r + 1 < rows:
-                m[r + 1, end, 1] = True
-    return m
-
-
-def _sparse_grid():
-    vol = np.zeros((16, 16, 16), bool)
-    vol[1::4, 1::4, 1::4] = True          # 64 single-voxel components
-    return vol
-
-
-MASKS = {
-    "blobs0": (_random_blobs(0), {}),
-    "blobs1": (_random_blobs(1), {}),
-    "blobs2": (_random_blobs(2), {}),
-    "sparse_grid": (_sparse_grid(), {}),
-    "snake_plane": (_snake((1, 24, 24), 0), {}),
-    # diameter ~512 >> the 24-iteration pool cap: phase 2 must finish it
-    "snake_needs_jump": (_snake((32, 32, 3), 1), {"max_pool_iters": 24}),
-    "empty": (np.zeros((8, 8, 8), bool), {}),
-    "full": (np.ones((6, 7, 5), bool), {}),
-}
+from cc_masks import MASKS
 
 
 @pytest.mark.parametrize("name", sorted(MASKS))
@@ -166,3 +127,29 @@ def test_tiny_et_relabelled_to_ncr():
 def test_too_many_voxels_for_exact_ids_raise():
     with pytest.raises(ValueError, match="exact"):
         cc.label_components(torch.zeros((256, 256, 256), dtype=torch.bool))
+
+
+def test_label_components_is_an_operator_with_a_fake():
+    """``brats_torch::label_components`` is registered: on the CPU it runs
+    the plain form and counts no kernel call; its fake gives int32 of the
+    mask's shape, which is what ``torch.export`` traces with."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    op = torch.ops.brats_torch.label_components.default
+    assert cc.label_components_op is op
+    fg = torch.from_numpy(MASKS["blobs0"][0])
+    before = cc.label_components.launches
+    got = op(fg, 192, 64, 8)
+    assert cc.label_components.launches == before
+    np.testing.assert_array_equal(got.numpy(), cc._label_plain(fg, 192, 64, 8).numpy())
+    with FakeTensorMode():
+        fake = op(torch.empty((6, 7, 5), dtype=torch.bool), 192, 64, 8)
+    assert fake.dtype == torch.int32 and tuple(fake.shape) == (6, 7, 5)
+
+
+def test_label_components_kernel_refuses_a_cpu_tensor():
+    """The CUDA implementation raises on what it does not take; a CPU tensor
+    never reaches it through the operator."""
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cc.label_components_kernel(torch.zeros((4, 4, 4), dtype=torch.bool),
+                                   192, 64, 8)

@@ -7,11 +7,14 @@ suite's conftest (which imports jax):
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 """
 
+import numpy as np
 import pytest
 import torch
 
 from brats2019_tpu_torch import ops
+from brats2019_tpu_torch.ops import connected_components as cc
 from brats2019_tpu_torch.ops import conv, norm, resize, winograd
+from cc_masks import MASKS, snake
 
 pytestmark = pytest.mark.gpu
 
@@ -650,6 +653,112 @@ def test_device_connected_components_on_the_card_equal_cpu(dev):
     assert torch.equal(got.cpu(), want)
     assert torch.equal(cc.label_components(labels.to(dev) > 0).cpu(),
                        cc.label_components(labels > 0))
+
+
+
+# ---------------------------------------- the device connected components --
+
+CANVAS = (192, 224, 160)   # the flagship's whole canvas
+
+
+@pytest.mark.parametrize("name", sorted(MASKS))
+def test_label_components_kernel_equals_cpu(dev, name):
+    """``csrc/connected_components.cu`` gives the CPU form's ids bitwise on
+    the masks of ``tests/test_torch_cc.py`` (odd extents, one- and
+    two-voxel-thick axes, a snake that needs phase 2 at its cap, empty,
+    full); the kernel counts one call on the card and none on the CPU."""
+    fg, kw = MASKS[name]
+    fg = torch.from_numpy(fg)
+    before = cc.label_components.launches
+    want = cc.label_components(fg, **kw)
+    assert cc.label_components.launches == before
+    got = cc.label_components(fg.to(dev), **kw)
+    torch.cuda.synchronize()
+    assert cc.label_components.launches == before + 1
+    assert got.dtype == torch.int32 and got.is_cuda
+    assert torch.equal(got.cpu(), want)
+
+
+def _max_index_labels(fg: np.ndarray) -> np.ndarray:
+    """The converged labelling computed apart from both forms: scipy's
+    26-connected labels, each component's largest linear index + 1."""
+    from scipy import ndimage
+
+    comp, n = ndimage.label(fg, structure=np.ones((3, 3, 3), bool))
+    top = np.zeros(n + 1, np.int64)
+    np.maximum.at(top, comp.ravel(), np.arange(1, fg.size + 1))
+    top[0] = 0
+    return top[comp].astype(np.int32)
+
+
+@pytest.mark.parametrize("mask", ["random_0.05", "random_0.5", "serpentine"])
+def test_label_components_kernel_on_the_canvas(dev, monkeypatch, mask):
+    """On the whole canvas the kernel's ids are bitwise the plain form's at
+    its default caps, which converges there (phase 2 runs on the serpentine
+    and on the random mask at 0.5). The plain form runs on the card: its
+    arithmetic is the CPU's (an f32 max-pool of integer ids below 2^24 is
+    exact), and on the CPU it takes minutes a mask. scipy's labelling
+    confirms both; two runs of the kernel are bitwise equal, whatever order
+    its atomics take."""
+    if mask == "serpentine":
+        fg_np = snake(CANVAS, 0)
+    else:
+        rng = np.random.default_rng(5)
+        fg_np = rng.random(CANVAS, dtype=np.float32) < float(mask.split("_")[1])
+    fg = torch.from_numpy(fg_np).to(dev)
+    rounds = []
+    real = cc._jump_round
+    monkeypatch.setattr(cc, "_jump_round", lambda *a: rounds.append(1) or real(*a))
+    want = cc._label_plain(fg, 192, 64, 8)
+    got = cc.label_components(fg)
+    again = cc.label_components(fg)
+    torch.cuda.synchronize()
+    assert len(rounds) < 64, "the plain form stopped at its cap"
+    if mask != "random_0.05":
+        assert rounds, "phase 2 did not run"
+    assert torch.equal(got, want)
+    assert torch.equal(again, got)
+    assert np.array_equal(got.cpu().numpy(), _max_index_labels(fg_np))
+
+
+def test_label_components_kernel_ignores_the_plain_caps(dev, monkeypatch):
+    """Where the caller's caps stop the plain form's phase 2 short, the
+    routes differ as the module docstring says: the CPU returns the capped
+    labelling (one component still split over several ids), the card the
+    converged one, which is the CPU form's at its default caps."""
+    fg_np, _ = MASKS["snake_needs_jump"]
+    fg = torch.from_numpy(fg_np)
+    caps = dict(max_pool_iters=8, max_jump_rounds=2, check_every=8)
+    rounds = []
+    real = cc._jump_round
+    monkeypatch.setattr(cc, "_jump_round", lambda *a: rounds.append(1) or real(*a))
+    capped = cc.label_components(fg, **caps)
+    assert len(rounds) == caps["max_jump_rounds"], "phase 2 did not hit its cap"
+    converged = cc.label_components(fg)
+    assert torch.unique(converged).numel() == 2       # background and one id
+    assert torch.unique(capped).numel() > 2
+    got = cc.label_components(fg.to(dev), **caps)
+    assert torch.equal(got.cpu(), converged)
+    assert np.array_equal(got.cpu().numpy(), _max_index_labels(fg_np))
+
+
+def test_label_components_kernel_replays_in_a_cuda_graph(dev):
+    """Three launches and no host read: the kernel captures in a CUDA graph,
+    and a replay on a new mask in the captured buffer labels that mask."""
+    rng = np.random.default_rng(6)
+    masks = [torch.from_numpy(rng.random((40, 47, 33)) < p).to(dev)
+             for p in (0.1, 0.4)]
+    fg = masks[0].clone()
+    cc.label_components(fg)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = cc.label_components(fg)
+    for m in masks:
+        fg.copy_(m)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, cc.label_components(m))
 
 
 # --------------------------- the IN+act backward and the up backward in CUDA --

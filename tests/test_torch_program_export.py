@@ -372,12 +372,14 @@ def _serpentine():
 
 @pytest.mark.parametrize("case", ["postprocess", "serpentine", "program"])
 def test_device_postprocessing_exports_bitwise(tmp_path, params, case):
-    """The while_loop form of the connected components (traced) gives eager
-    ``postprocess_device``'s labels bitwise: on crafted labels with more
+    """The connected components, traced, are one
+    ``brats_torch::label_components`` node, and the exported program gives
+    eager ``postprocess_device``'s labels bitwise: on crafted labels with more
     components than are measured and a tiny ET; on a serpentine mask with a
     small pool cap and a cap that is no multiple of check_every (phase 1's
-    remainder, then phase 2); and through the split cascade with
-    ``postproc="device"`` (check=True: the program's labels and start)."""
+    remainder, then phase 2: the node keeps the caps); and through the split
+    cascade with ``postproc="device"`` (check=True: the program's labels and
+    start)."""
     if case == "program":
         pf, pc = params[0][1], params[1][1]
         pred = Predictor(_exp(presets, postproc="device",
@@ -386,7 +388,7 @@ def test_device_postprocessing_exports_bitwise(tmp_path, params, case):
         out = str(tmp_path / "torch_export")
         export_hlo.export_predict_program(pred, out, check=True)
         counts, _ = _op_counts(out, "stage_fine.pt2")
-        assert any("while_loop" in k for k in counts), counts
+        assert counts["brats_torch.label_components.default"] == 1, counts
         return
     if case == "postprocess":
         fn = lambda lab: cc.postprocess_device(lab, 3, 10)
@@ -403,7 +405,9 @@ def test_device_postprocessing_exports_bitwise(tmp_path, params, case):
         np.testing.assert_array_equal(want.numpy(), full.numpy())
     with torch.no_grad():
         ep = torch.export.export(_Post(fn), (x,), strict=False)
-    assert any("while_loop" in str(n.target) for n in ep.graph.nodes)
+    targets = [str(n.target) for n in ep.graph.nodes if n.op == "call_function"]
+    assert targets.count("brats_torch.label_components.default") == 1, targets
+    assert not any("while_loop" in t for t in targets), targets
     path = str(tmp_path / "post.pt2")
     torch.export.save(ep, path)
     got = torch.export.load(path).module()(x)
