@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from . import synth, trace
-from .reference import unet as ref_unet
+from .reference import networks, unet as ref_unet
 
 
 @dataclasses.dataclass
@@ -81,10 +81,13 @@ def free(device) -> None:
         torch.cuda.empty_cache()
 
 
-def flat_params(config_net: dict, seed: int, tag: str, device) -> Dict[str, np.ndarray]:
-    """A U-Net's weights made on ``device`` from the seed, as the flat
-    export dict the program loads."""
-    made = synth.params(ref_unet.param_shapes(config_net), seed, tag, device)
+def flat_params(exp: dict, seed: int, device, coarse: bool = False) -> Dict[str, np.ndarray]:
+    """The fine network's weights (``exp``: the configuration file's
+    ``experiment``), or with ``coarse`` the coarse U-Net's, made on
+    ``device`` from the seed, as the flat export dict the program loads."""
+    net, section, tag = ((ref_unet, "coarse_unet", "coarse") if coarse
+                         else (networks.reference(exp), "unet", "fine"))
+    made = synth.params(net.param_shapes(exp[section]), seed, tag, device)
     return {k: v.cpu().numpy() for k, v in made.items()}
 
 

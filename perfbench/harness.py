@@ -6,7 +6,9 @@ or cell is found by name under the benchmark's folder of the checkout
 
 * ``BENCHMARK.json``: the cells, the metrics and which cells report them;
 * ``perfbench/configs/<config>.json`` (the file ``BENCHMARK.json`` names):
-  the configuration as it is run, under ``experiment``;
+  the configuration as it is run, under ``experiment``, whose optional
+  ``network`` section names the fine network's config class and plain
+  reference (``perfbench/reference/networks.py``);
 * ``perfbench/traffic/<mix>.json``: the mix's parameters, whose ``kind``
   names the driver that reads them, ``perfbench/traffic/<kind>.py``;
 * ``perfbench/metrics/<metric>.py``: a per-layer metric's reader, a function
@@ -18,6 +20,7 @@ or cell is found by name under the benchmark's folder of the checkout
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import importlib.util
 import json
 import sys
@@ -27,6 +30,7 @@ from typing import Dict, Optional
 import torch
 
 from . import drivers
+from .reference import networks
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "brats2019_tpu")
 
@@ -75,16 +79,27 @@ def _section(cls, values: dict):
     return cls(**{k: tuple(v) if isinstance(v, list) else v for k, v in values.items()})
 
 
+def network_class(e: dict):
+    """The program's config class of the fine network that ``e`` (a file's
+    ``experiment``) names, refused before its import where its top-level
+    package is forbidden."""
+    module, _, name = networks.section(e)["config"].partition(":")
+    if module.split(".")[0] in FORBIDDEN:
+        raise ValueError(f"network.config {module!r} is in a forbidden package {FORBIDDEN}")
+    return getattr(importlib.import_module(module), name)
+
+
 def experiment(config: dict):
     """The program's ExperimentConfig built from the file's ``experiment``
-    (every section, field by field)."""
+    (every section, field by field; ``unet`` is the fine network's section,
+    of the class that ``network.config`` names)."""
     from brats2019_tpu_torch.configs.presets import (ExperimentConfig, InferenceConfig,
                                                      TrainConfig, UNetConfig)
 
     e = config["experiment"]
     return ExperimentConfig(
         name=e.get("name", config["preset"]),
-        unet=_section(UNetConfig, e["unet"]),
+        unet=_section(network_class(e), e["unet"]),
         coarse_unet=_section(UNetConfig, e["coarse_unet"]) if e.get("coarse_unet") else None,
         train=_section(TrainConfig, e["train"]),
         infer=_section(InferenceConfig, e["infer"]),

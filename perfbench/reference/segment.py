@@ -13,9 +13,10 @@ worked out here from the raw volume and the weights alone:
    U-Net, a voxel is tumour when a tumour class has the highest probability,
    the ROI centred on the tumour's bounding box (the grid's centre when there
    is none), scaled to the canvas and clamped inside it;
-4. the fine U-Net over the 8 axis flips of the ROI (or of every tile of the
-   whole-canvas sweep, blended by a Gaussian weight), softmax, un-flipped and
-   averaged; labels are the argmax;
+4. the fine network (the U-Net, or the one that the file's ``network``
+   section names: :mod:`networks`) over the 8 axis flips of the ROI (or of
+   every tile of the whole-canvas sweep, blended by a Gaussian weight),
+   softmax, un-flipped and averaged; labels are the argmax;
 5. postprocessing: foreground components (26-connectivity) under
    ``min_component_voxels`` are cleared, among the 128 components with the
    largest root (largest linear index in the component) -- the program's
@@ -49,7 +50,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from . import unet
+from . import networks, unet
 
 FLIPS = tuple(itertools.product((False, True), repeat=3))
 MAX_COMPONENTS = 128   # components measured by the postprocessing filter
@@ -233,6 +234,7 @@ class Segmenter:
                  quant: Optional[unet.Quant] = None):
         self.exp, self.inf = exp, exp["infer"]
         self.device, self.quant = torch.device(device), quant
+        self.net = networks.reference(exp)
         to = lambda p: {k: torch.as_tensor(np.asarray(v, np.float32)).to(self.device)
                         for k, v in p.items()}
         self.fine = to(fine)
@@ -267,8 +269,8 @@ class Segmenter:
         for f in FLIPS:
             axes = [a for a, on in enumerate(f) if on]
             x = torch.flip(tile, axes) if axes else tile
-            p = torch.softmax(unet.forward(self.fine, self.exp["unet"], x[None],
-                                           self.quant)[0], dim=-1)
+            p = torch.softmax(self.net.forward(self.fine, self.exp["unet"], x[None],
+                                               self.quant)[0], dim=-1)
             p = torch.flip(p, axes) if axes else p
             acc = p if acc is None else acc + p
         return acc / len(FLIPS)
@@ -286,12 +288,14 @@ class Segmenter:
             raise ValueError("the reference blends with the Gaussian weight only")
         w = torch.from_numpy(gaussian_weight(tile, self.inf["gaussian_sigma_frac"])
                              .astype(np.float32)).to(self.device)[..., None]
-        k = self.exp["unet"]["num_classes"]
-        acc = torch.zeros(region.shape[:3] + (k,), device=self.device)
+        acc = None
         wsum = torch.zeros(region.shape[:3] + (1,), device=self.device)
         for o in origins:
             sl = tuple(slice(a, a + t) for a, t in zip(o, tile))
-            acc[sl] += self._tta(region[sl]) * w
+            p = self._tta(region[sl])
+            if acc is None:   # the network's class count, as its logits give it
+                acc = torch.zeros(region.shape[:3] + p.shape[-1:], device=self.device)
+            acc[sl] += p * w
             wsum[sl] += w
         return acc / wsum
 
@@ -347,17 +351,38 @@ def removal_gap(gap0: np.ndarray, candidates: np.ndarray, kept: np.ndarray,
     return float(steps[lo])
 
 
-def _capacity_gap(free: np.ndarray, tgap: np.ndarray, need: int) -> float:
-    """The least gap g at which the voxels of ``free`` with ``tgap`` <= g
-    hold ``need`` separate components, each of which the program may have
-    taken as tumour and cleared; 1.0 when no g does. The count is not
-    monotone in g (components merge as g grows), so g climbs a ladder of
-    ratio 1.25 from 1e-4 to the first that holds enough, then is bisected
-    over the gaps that occur since the rung below."""
+def _capacity_gap(free: np.ndarray, tgap: np.ndarray, gap0: np.ndarray,
+                  need: int) -> float:
+    """The least gap g at which the voxels of ``free`` can hold ``need``
+    separate components, each of which the program may have taken as tumour
+    and cleared; 1.0 when no g does. At g a voxel is background where
+    ``tgap`` > g, tumour where ``gap0`` (the best probability minus
+    background's) > g, and either where both are <= g (a near tie). The
+    count at g is the larger of two takings open to the program, so it
+    never exceeds what the program could have made: every voxel that may be
+    tumour, and the forced ones with the near ties that touch none of them,
+    the near ties along a forced voxel taken as background (a near tie
+    taken as background can cut a component in two). The count is not
+    monotone in g, so g climbs a ladder of ratio 1.25 from 1e-4 to the
+    first rung that holds enough, then is bisected over the gaps that occur
+    since the rung below. ``free`` lies after a linear index, so the search
+    is cut to the slab of rows from its first."""
     from scipy import ndimage
 
+    rows = np.flatnonzero(free.any(axis=(1, 2)))
+    if rows.size == 0:
+        return 1.0
+    slab = slice(int(rows[0]), int(rows[-1]) + 1)
+    free, tgap, gap0 = free[slab], tgap[slab], gap0[slab]
     cube = np.ones((3, 3, 3), bool)
-    count = lambda g: ndimage.label(free & (tgap <= g), structure=cube)[1]
+
+    def count(g: float) -> int:
+        may = free & (tgap <= g)
+        forced = may & (gap0 > g)
+        cut = forced | (may & ~ndimage.binary_dilation(forced, structure=cube))
+        return max(ndimage.label(may, structure=cube)[1],
+                   ndimage.label(cut, structure=cube)[1])
+
     ladder = [0.0] + list(1e-4 * 1.25 ** np.arange(42)) + [1.0]
     for lo_g, hi_g in zip([0.0] + ladder, ladder):
         if count(hi_g) >= need:
@@ -366,7 +391,7 @@ def _capacity_gap(free: np.ndarray, tgap: np.ndarray, need: int) -> float:
         return 1.0
     if hi_g == 0.0:
         return 0.0
-    vals = tgap[free]
+    vals = np.concatenate([tgap[free], gap0[free]])
     steps = np.unique(vals[(vals > lo_g) & (vals <= hi_g)])
     lo, hi = 0, len(steps) - 1
     while lo < hi:
@@ -379,11 +404,13 @@ def _capacity_gap(free: np.ndarray, tgap: np.ndarray, need: int) -> float:
 
 
 def kept_gap(served: np.ndarray, seen: np.ndarray, tgap: np.ndarray,
-             etgap: np.ndarray, min_voxels: int, et_min: int) -> Dict[str, float]:
+             gap0: np.ndarray, etgap: np.ndarray, min_voxels: int,
+             et_min: int) -> Dict[str, float]:
     """The least gap that explains what the served labels keep against the
     postprocessing's post-condition, in the program's region (``served``
     trusted where ``seen``; ``tgap``: the reference's best probability minus
-    its best tumour class's, ``etgap``: minus enhancing tumour's).
+    its best tumour class's, ``gap0``: minus background's, ``etgap``: minus
+    enhancing tumour's).
 
     The filter clears whole components, so a served foreground component
     under ``min_voxels`` is one the program's filter kept: unmeasured (at
@@ -392,7 +419,7 @@ def kept_gap(served: np.ndarray, seen: np.ndarray, tgap: np.ndarray,
     explained at the least of: the gap at which voxels neither served as
     tumour nor next to it, with larger linear indices, hold the components
     that the served ones with larger roots lack of 128 (cleared ones, taken
-    as tumour by the program); and the least ``tgap`` of an unseen voxel next
+    as tumour by the program: :func:`_capacity_gap`); and the least ``tgap`` of an unseen voxel next
     to it. An enhancing tumour count in (0, ``et_min``) is explained by
     unseen voxels taken as enhancing tumour, at the gap of the one that
     makes up the count."""
@@ -419,7 +446,7 @@ def kept_gap(served: np.ndarray, seen: np.ndarray, tgap: np.ndarray,
             b = float(np.min(joined[comp == c + 1]))
             if b <= small_gap:
                 continue
-            a = _capacity_gap(free & (lin > roots[c]), tgap, need)
+            a = _capacity_gap(free & (lin > roots[c]), tgap, gap0, need)
             small_gap = max(small_gap, min(a, b, 1.0))
             if a <= small_gap:       # later components need no more
                 break
@@ -465,7 +492,7 @@ def judge(ref: Segmenter, z: torch.Tensor, geo: Geometry, margin,
                           ref.inf["min_component_voxels"])
     tgap = (top - p[..., 1:].amax(-1)).cpu().numpy()
     etgap = (top - p[..., 3]).cpu().numpy() if p.shape[-1] > 3 else np.ones_like(tgap)
-    kept = kept_gap(served, seen, tgap, etgap, ref.inf["min_component_voxels"],
+    kept = kept_gap(served, seen, tgap, gap0, etgap, ref.inf["min_component_voxels"],
                     ref.inf["et_min_voxels"])
     g_kept = max(kept["small_gap"], kept["et_gap"])
     return {"gap": max(g_roi, g_label, g_clear, g_kept), "roi_gap": g_roi,

@@ -14,7 +14,8 @@ Parameters are a flat dict in the export naming (``params/DoubleConv_<i>/
 ConvNormAct_<j>/Conv_0/kernel`` as DHWIO, ``in_scale``, ``in_bias``,
 ``head/kernel`` (1, 1, 1, Ci, Co), ``head/bias``). :func:`param_shapes` lists
 them from a configuration alone, so the benchmark makes the weights without
-asking the program.
+asking the program. :func:`program_flops` is the frozen yardstick's count of
+a volume's predict program.
 
 ``quant`` (a :class:`Quant`) rounds every conv's input and weight, and in a
 backward every conv's output gradient, to a lower precision: the control of
@@ -28,6 +29,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from .. import yardstick
 
 EPS_IN = 1e-5
 
@@ -61,6 +64,12 @@ def param_shapes(cfg: dict) -> Dict[str, Tuple[int, ...]]:
     out["params/head/kernel"] = (1, 1, 1, c, cfg["num_classes"] * r ** 3)
     out["params/head/bias"] = (cfg["num_classes"] * r ** 3,)
     return out
+
+
+def program_flops(exp: dict) -> float:
+    """The conv FLOPs of one volume's predict program (``exp``: the
+    configuration file's ``experiment``)."""
+    return yardstick.predict_program_flops(exp)
 
 
 @contextlib.contextmanager

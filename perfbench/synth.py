@@ -8,9 +8,10 @@
 * :func:`training_pool`: such cases z-scored over the brain, cropped to it
   and centre-fitted into the pool canvas in bf16, with their labels and a
   table of foreground voxels to centre patches on;
-* :func:`params`: a U-Net's weights in one draw per kind: kernels truncated
-  normal scaled by 1/sqrt(fan-in) (LeCun), norm scales 1 + 0.1 N, norm and
-  head biases 0.1 N.
+* :func:`params`: a network's weights in one draw per kind: kernels
+  truncated normal scaled by 1/sqrt(fan-in) (LeCun), norm scales (names
+  ending in ``scale``) 1 + 0.1 N, every other vector, such as the norm and
+  head biases, 0.1 N.
 
 Every draw comes from a ``torch.Generator`` on the device, seeded from the
 run's seed and a tag, so a seed gives the same inputs and weights on every
@@ -159,6 +160,6 @@ def params(shapes: Dict[str, Tuple[int, ...]], seed: int, tag: str,
     for k in vectors:
         n = math.prod(shapes[k])
         v = flat_v[off:off + n].reshape(shapes[k])
-        out[k] = v + 1.0 if k.endswith("in_scale") else v.clone()
+        out[k] = v + 1.0 if k.endswith("scale") else v.clone()
         off += n
     return {k: out[k] for k in shapes}

@@ -44,19 +44,6 @@ def preset_config(name: str) -> dict:
     return {"preset": name, "experiment": e}
 
 
-def preset_config(name: str) -> dict:
-    """A configuration file as ``perfbench/configs`` holds one, built from the
-    program's preset ``name`` (for the reference's paths that no committed
-    cell runs, such as the cascade's)."""
-    import dataclasses
-
-    from brats2019_tpu_torch.configs import get_preset
-
-    e = json.loads(json.dumps(dataclasses.asdict(get_preset(name))))
-    e["infer"]["postproc"] = "device"
-    return {"preset": name, "experiment": e}
-
-
 def make_root(dst: Path, f32: bool = False) -> Path:
     """``dst`` holding BENCHMARK.json and perfbench's data files, drivers and
     metric readers, the configurations and mixes cut to the tiny size."""

@@ -142,9 +142,8 @@ def test_reference_segmenter_agrees_with_predictor(preset):
 
     cfg = _tiny_config(preset=preset)
     exp, e = harness.experiment(cfg), cfg["experiment"]
-    fine = drivers.flat_params(e["unet"], 5, "fine", "cpu")
-    coarse = drivers.flat_params(e["coarse_unet"], 5, "coarse", "cpu") if e.get(
-        "coarse_unet") else None
+    fine = drivers.flat_params(e, 5, "cpu")
+    coarse = drivers.flat_params(e, 5, "cpu", coarse=True) if e.get("coarse_unet") else None
     # bf16 values: the program sends the volume in bf16 whatever it computes in
     vols = [torch.from_numpy(v).bfloat16().float().numpy()
             for v in synth.volumes(2, (36, 36, 28), 5, "cpu")]
@@ -306,8 +305,9 @@ def test_kept_gap_reads_the_postprocessing_post_condition():
     seen = np.ones(shape, bool)
     tgap = np.full(shape, 0.5, np.float32)
     tgap[served > 0] = 0.0
+    gap0 = np.where(tgap == 0.0, 0.5, 0.0).astype(np.float32)
     etgap = np.full(shape, 0.5, np.float32)
-    kept = lambda lab, sn=seen: segment.kept_gap(lab, sn, tgap, etgap, 16, 32)
+    kept = lambda lab, sn=seen: segment.kept_gap(lab, sn, tgap, gap0, etgap, 16, 32)
     assert kept(served)["small_gap"] == 1.0
     cleared = served.copy()
     cleared[13, 13, 13] = 0
@@ -323,6 +323,31 @@ def test_kept_gap_reads_the_postprocessing_post_condition():
     hidden[10:, 10:, 10:] = False
     etgap[~hidden] = np.linspace(0.01, 0.3, int((~hidden).sum()))
     assert 0.01 < kept(et, hidden)["et_gap"] < 0.3
+
+
+@pytest.mark.parametrize("tie", [0.01, 0.3])
+def test_kept_gap_counts_the_pieces_near_ties_can_cut(tie):
+    """A speck whose root is the largest served is kept unmeasured only if
+    128 components with larger roots were cleared. Where those could lie is
+    one blob of the reference's tumour: sure voxels on a lattice, with ties
+    of tumour and background to within ``tie`` between them. Taking the
+    ties as background cuts the blob into enough pieces, at that gap; where
+    no voxel may be cut, it stays one piece and the speck reads 1."""
+    shape = (24, 24, 24)
+    served = np.zeros(shape, np.uint8)
+    served[1, 1, 1] = 1
+    seen = np.ones(shape, bool)
+    seen[4:20] = False                                  # the blob is not served
+    tgap = np.full(shape, 0.5, np.float32)
+    gap0 = np.zeros(shape, np.float32)
+    tgap[4:20], gap0[4:20] = 0.0, tie
+    gap0[4:20:2, ::2, ::2] = 0.9                        # 8 x 12 x 12 sure voxels
+    etgap = np.full(shape, 0.5, np.float32)
+    got = segment.kept_gap(served, seen, tgap, gap0, etgap, 16, 32)
+    assert got["measured_small"] == 1
+    assert got["small_gap"] == pytest.approx(tie)
+    gap0[4:20] = 0.9                                    # no voxel of it may be cut
+    assert segment.kept_gap(served, seen, tgap, gap0, etgap, 16, 32)["small_gap"] == 1.0
 
 
 def test_tiny_cell_on_the_card(card, tmp_path):

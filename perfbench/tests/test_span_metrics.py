@@ -15,8 +15,8 @@ from perfbench import harness, trace, yardstick
 
 PREDICT = {"kind": "predict"}
 TRAIN = {"kind": "train"}
-READERS = ("prep_wait_ms.predict", "prep_span_ms.predict", "cc_sync_idle_ms.predict",
-           "cc_host_ms.predict", "sample_ms.train", "conv_roofline.train")
+READERS = ("prep_wait_ms.predict", "prep_span_ms.predict", "cc_host_ms.predict",
+           "sample_ms.train", "conv_roofline.train")
 
 
 def _span(name, host_ms, device_ms=None, parent=None):
@@ -64,7 +64,6 @@ def test_predict_readers(snapshot):
     snapshot += _predict_spans()
     assert _read("prep_wait_ms.predict", PREDICT) == pytest.approx(3.0)
     assert _read("prep_span_ms.predict", PREDICT) == pytest.approx(130.0)
-    assert _read("cc_sync_idle_ms.predict", PREDICT) == pytest.approx(2.0)
     assert _read("cc_host_ms.predict", PREDICT) == pytest.approx(25.0)
 
 
@@ -106,11 +105,10 @@ def test_none_outside_its_kind_or_without_spans(snapshot, name):
         assert _read(name, own, _profile(calls)) is None
 
 
-@pytest.mark.parametrize("name", ("prep_wait_ms.predict", "cc_sync_idle_ms.predict"))
-def test_device_edge_readers_none_without_edges(snapshot, name):
+def test_device_edge_reader_none_without_edges(snapshot):
     """A run without a card keeps spans without device edges."""
     snapshot += [_span(s.name, s.host_ms, parent=s.parent) for s in _predict_spans()]
-    assert _read(name, PREDICT) is None
+    assert _read("prep_wait_ms.predict", PREDICT) is None
 
 
 def test_readers_none_where_the_program_has_no_recorder(monkeypatch):
@@ -119,6 +117,6 @@ def test_readers_none_where_the_program_has_no_recorder(monkeypatch):
     from brats2019_tpu_torch.utils import profile
 
     monkeypatch.delattr(profile, "snapshot")
-    for name in READERS[:5]:
+    for name in READERS[:4]:
         readings = TRAIN if name.endswith(".train") else PREDICT
         assert _read(name, readings) is None

@@ -20,10 +20,10 @@ from typing import List
 import numpy as np
 import torch
 
-from perfbench import synth, trace, yardstick
+from perfbench import synth, trace
 from perfbench.drivers import (Context, Outcome, device_seconds, flat_params, free,
                                peak_bytes, sync)
-from perfbench.reference import segment
+from perfbench.reference import networks, segment
 
 
 class _Starts:
@@ -80,9 +80,8 @@ def setup(ctx: Context):
     from brats2019_tpu_torch.infer.predictor import Predictor
 
     cfg, dev = ctx.config, ctx.device
-    fine = flat_params(cfg["unet"], ctx.seed, "fine", dev)
-    coarse = (flat_params(cfg["coarse_unet"], ctx.seed, "coarse", dev)
-              if cfg.get("coarse_unet") else None)
+    fine = flat_params(cfg, ctx.seed, dev)
+    coarse = flat_params(cfg, ctx.seed, dev, coarse=True) if cfg.get("coarse_unet") else None
     vols = synth.volumes(ctx.mix["volumes"], ctx.mix["shape"], ctx.seed, dev)
     free(dev)
     if dev.type == "cuda":
@@ -141,7 +140,7 @@ def run(ctx: Context) -> Outcome:
             dev, lambda: [pred.predict_device(c) for c in canvases])
         del canvases
         readings.update(host_prep_s=prep, program_s=program_s / len(vols),
-                        volume_flops=yardstick.predict_program_flops(ctx.config))
+                        volume_flops=networks.reference(ctx.config).program_flops(ctx.config))
     peak = peak_bytes(dev)
     del pred, keeper
     free(dev)

@@ -2,7 +2,8 @@
 
 ``TrainStep`` steps at the mix's ``batch_per_device`` on a pool of
 ``pool_cases`` synthetic cases (from the seed), the configuration's
-``TrainConfig`` otherwise. Set-up builds the one step object the window
+``TrainConfig`` otherwise. It trains the U-Net and refuses a configuration
+that names another network. Set-up builds the one step object the window
 drives and runs its first ``checked_steps`` steps, which the plain reference
 follows; the window counts patches over its wall time to a final
 synchronise. The traced run times ``trace_timed_steps`` steps by CUDA events
@@ -20,7 +21,7 @@ import torch
 from perfbench import synth, trace, yardstick
 from perfbench.drivers import (Context, Outcome, device_seconds, free, peak_bytes,
                                sync)
-from perfbench.reference import train as ref_train, unet as ref_unet
+from perfbench.reference import networks, train as ref_train, unet as ref_unet
 
 
 def _train_config(ctx: Context) -> dict:
@@ -38,6 +39,8 @@ def setup(ctx: Context):
                                                 make_microbatch_loss)
 
     dev, cfg = ctx.device, ctx.config
+    if networks.section(cfg) != networks.DEFAULT:
+        raise ValueError(f"the train driver trains the U-Net only, not {networks.section(cfg)}")
     tdict = _train_config(ctx)
     tcfg = dataclasses.replace(ctx.exp.train, **{
         k: tdict[k] for k in ("batch_per_device", "pool_cases_per_device", "seed")})
