@@ -43,7 +43,7 @@ from ..configs.presets import ExperimentConfig
 from ..data.constants import NUM_MODALITIES, internal_to_disk
 from ..models.cascade import make_predict_fn
 from ..utils.nifti import write_nifti
-from ..utils.weights import build_unet
+from ..utils.weights import build_network, require_unet
 from .postprocess import postprocess_labels
 from .predictor import (
     PredictionStats,
@@ -70,6 +70,7 @@ class EnsemblePredictor:
         device: Union[str, torch.device] = "cuda",
         devices: Optional[Sequence] = None,
     ):
+        require_unet(exp.unet, "the ensemble")
         if not members:
             raise ValueError("EnsemblePredictor needs at least one member")
         pf0, pc0 = members[0]
@@ -95,13 +96,13 @@ class EnsemblePredictor:
         member without coarse params reuses the primary's coarse net, on
         its device)."""
         exp, p = self.exp, self._p
-        fine = build_unet(exp.unet, params_fine, device)
+        fine = build_network(exp.unet, params_fine, device)
         coarse = p.coarse
         if coarse is not None:
             if params_coarse is not None:
-                coarse = build_unet(exp.coarse_unet, params_coarse, device)
+                coarse = build_network(exp.coarse_unet, params_coarse, device)
             elif next(coarse.parameters()).device != torch.device(device):
-                coarse = build_unet(exp.coarse_unet, {
+                coarse = build_network(exp.coarse_unet, {
                     "params/" + k.replace(".", "/"): v.detach().cpu().numpy()
                     for k, v in coarse.state_dict().items()}, device)
         return make_predict_fn(fine, exp.infer, p.canvas,

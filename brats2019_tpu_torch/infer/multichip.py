@@ -39,7 +39,7 @@ from ..data.preprocess import (brain_bbox_fast_np, crop_cast_fit_np,
                                uncrop_from_canvas_np, zscore)
 from ..parallel.mesh import MeshEnv, make_mesh
 from ..utils import profile
-from ..utils.weights import build_unet, load_params, state_dict_from_flat
+from ..utils.weights import build_network, load_params, require_unet, state_dict_from_flat
 from .postprocess import postprocess_labels
 from .tiling import blend_weight, tile_origins
 
@@ -62,7 +62,7 @@ class _Replicas:
             # built outside inference mode (a sweep asks for a replica from
             # inside it), so a reload can load into the parameters
             with torch.inference_mode(False):
-                self._on[dev] = build_unet(self.cfg, self.flat, dev)
+                self._on[dev] = build_network(self.cfg, self.flat, dev)
         return self._on[dev]
 
     def reload(self, params) -> None:
@@ -85,6 +85,7 @@ class MultichipPredictor:
         params_coarse=None,
         members=None,
     ):
+        require_unet(exp.unet, "the multichip predictor")
         if mode not in ("spatial", "sweep", "cascade"):
             raise ValueError(
                 f"multichip mode must be spatial|sweep|cascade, got {mode!r}")

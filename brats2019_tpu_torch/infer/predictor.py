@@ -83,7 +83,7 @@ from ..data.preprocess import (
 from ..models.cascade import make_predict_fn
 from ..utils import profile
 from ..utils.nifti import read_header, write_nifti
-from ..utils.weights import build_unet, load_params, state_dict_from_flat
+from ..utils.weights import build_network, load_params, state_dict_from_flat
 from .payload_cache import load_payload, payload_cache_path, store_payload
 from .postprocess import postprocess_labels
 
@@ -218,7 +218,10 @@ class PredictionStats:
 
 class Predictor:
     """Reusable whole-volume predictor. ``params_fine``/``params_coarse`` are
-    flat export dicts or ``params.npz`` paths (``utils/weights.py``)."""
+    flat export dicts or ``params.npz`` paths (``utils/weights.py``). The
+    fine network is the one ``exp.unet``'s class names (``build_network``:
+    the U-Net, or the Swin UNETR of ``configs/swin_unetr.py``); the coarse
+    net is a U-Net."""
 
     def __init__(
         self,
@@ -236,11 +239,11 @@ class Predictor:
             )
         self.device = resolve_device(device)
         self.canvas = tuple(exp.infer.canvas or exp.train.pool_shape)
-        self.fine = build_unet(exp.unet, params_fine, self.device)
+        self.fine = build_network(exp.unet, params_fine, self.device)
         self.coarse = None
         if (exp.infer.cascade and exp.coarse_unet is not None
                 and params_coarse is not None):
-            self.coarse = build_unet(exp.coarse_unet, params_coarse, self.device)
+            self.coarse = build_network(exp.coarse_unet, params_coarse, self.device)
         self.program = make_predict_fn(
             self.fine, exp.infer, self.canvas,
             num_classes=exp.unet.num_classes, coarse=self.coarse,
@@ -273,7 +276,7 @@ class Predictor:
         with self._lane_lock:
             if j not in self._lanes:
                 dev = self.devices[j]
-                copy = lambda m, cfg: None if m is None else build_unet(
+                copy = lambda m, cfg: None if m is None else build_network(
                     cfg, {"params/" + k.replace(".", "/"): v.detach().cpu().numpy()
                           for k, v in m.state_dict().items()}, dev)
                 program = make_predict_fn(

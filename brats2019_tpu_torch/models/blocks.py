@@ -21,9 +21,26 @@ from torch import nn
 from ..ops import conv3d, instance_norm_act
 
 
-# guards every Conv3x3's cached compute-dtype kernel: a serving process has
-# prep and post threads beside the thread that runs the forward
+# guards every cached compute-dtype copy (Conv3x3's kernel, the Swin UNETR's
+# linears): a serving process has prep and post threads beside the thread
+# that runs the forward
 _cast_lock = threading.Lock()
+
+
+def cached_cast(owner: nn.Module, attr: str, params, make):
+    """``make()``, the compute-dtype copy of ``params``, kept as
+    ``owner.<attr>`` and made again once a parameter has changed: the key is
+    each parameter's version counter (None for one made under
+    ``torch.inference_mode``, which has none and cannot be updated outside
+    it), storage and device, kept as ``owner._cast_key``."""
+    key = tuple((None if p.is_inference() else p._version, p.data_ptr(), p.device)
+                for p in params)
+    with _cast_lock:
+        if owner._cast_key != key or getattr(owner, attr) is None:
+            with torch.no_grad():
+                setattr(owner, attr, make())
+            owner._cast_key = key
+        return getattr(owner, attr)
 
 
 class Conv3x3(nn.Module):
@@ -45,17 +62,8 @@ class Conv3x3(nn.Module):
         module.cached_kernel()
 
     def cached_kernel(self) -> torch.Tensor:
-        k = self.kernel
-        # a kernel made under torch.inference_mode has no version counter
-        # (and cannot be updated outside it)
-        version = None if k.is_inference() else k._version
-        key = (version, k.data_ptr(), k.device)
-        with _cast_lock:
-            if self._cast_key != key or self.kernel_c is None:
-                with torch.no_grad():
-                    self.kernel_c = k.detach().to(self.compute_dtype)
-                self._cast_key = key
-            return self.kernel_c
+        return cached_cast(self, "kernel_c", (self.kernel,),
+                           lambda: self.kernel.detach().to(self.compute_dtype))
 
     def forward(self, x: torch.Tensor, stats: bool = False):
         """y, or with ``stats`` (y, the InstanceNorm partials of y or None):

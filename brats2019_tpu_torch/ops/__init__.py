@@ -1,6 +1,8 @@
 """Kernel seams. Each op runs its plain torch version on a CPU tensor and its
 hand-written Hopper kernel on a CUDA tensor, and counts its launches. The
-forward kernels of the predict path and the device connected components are
+forward kernels of the predict path, the device connected components and the
+Swin UNETR's window attention (whose ``launches`` counts its calls on either
+device, ``launches_cuda`` its kernel's launches) are
 ``torch.library`` operators in the namespace ``brats_torch``
 (``ops/library.py``), defined when this package is imported: a consumer of an
 exported program needs this import and nothing else of the port."""
@@ -17,6 +19,7 @@ from .resize import (
     upsample2x_concat,
 )
 from .winograd import conv3d_winograd
+from .window_attention import window_attention
 
 # the kernel wrappers by name: the four forwards of the predict path (the
 # conv's dgrad counts under conv3d), then the three backward kernels of
@@ -32,6 +35,7 @@ KERNEL_WRAPPERS = {
     "upsample2x_bwd": upsample2x_bwd,
     "conv3d_winograd": conv3d_winograd,
     "label_components": label_components,
+    "window_attention": window_attention,
 }
 
 
@@ -49,6 +53,9 @@ def reset_launch_counts() -> None:
     instance_norm_act_bwd.launches_cuda = 0   # the IN+act backward on in_act_bwd.cu
     upsample2x_bwd.launches_cuda = 0     # the 2x up backward on resize2x.cu
     downsample2x_bwd.launches_cuda = 0   # the 2x down backward on resize2x.cu (f32)
+    window_attention.launches_cuda = 0   # window_attention.cu launches (the calls count either device)
+    window_attention.tokens = 0          # window tokens attended, padding included
+    window_attention.padded_tokens = 0   # of those, the padding's
     for fn in KERNEL_WRAPPERS.values():
         fn.launches_f32 = 0              # those on the f32 routes
 
@@ -75,4 +82,5 @@ __all__ = [
     "upsample2x",
     "upsample2x_bwd",
     "upsample2x_concat",
+    "window_attention",
 ]

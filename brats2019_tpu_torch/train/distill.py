@@ -31,7 +31,7 @@ import torch
 
 from ..configs.presets import TrainConfig, UNetConfig
 from ..parallel.mesh import _as_device
-from ..utils.weights import build_unet
+from ..utils.weights import build_network, require_unet
 from .loss import segmentation_loss
 
 
@@ -72,7 +72,8 @@ def build_teachers(unet_cfg: UNetConfig,
                    params: Sequence[Dict[str, np.ndarray]],
                    device) -> list:
     """One frozen ``UNet3D`` per flat export dict, on ``device``."""
-    return [build_unet(unet_cfg, p, device) for p in params]
+    require_unet(unet_cfg, "knowledge distillation")
+    return [build_network(unet_cfg, p, device) for p in params]
 
 
 def teacher_replicas(teachers: Sequence[torch.nn.Module],

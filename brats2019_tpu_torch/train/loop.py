@@ -47,7 +47,7 @@ from ..utils.flops import mfu as _mfu, train_step_flops
 from ..utils.logging import MetricsLogger
 from ..utils.profile import start_trace, stop_trace
 from ..utils.weights import (flat_from_state_dict, import_params, init_params,
-                             state_dict_from_flat)
+                             require_unet, state_dict_from_flat)
 from .checkpoint import CheckpointManager
 from .metrics import region_dice_np
 from .step import Optimizer, TrainStep, eval_labels, make_microbatch_loss
@@ -70,6 +70,7 @@ def stage_config(exp: ExperimentConfig, stage: str):
     unet_cfg = exp.unet if stage == "fine" else exp.coarse_unet
     if unet_cfg is None:
         raise ValueError(f"no unet config for stage '{stage}'")
+    require_unet(unet_cfg, "training")
     if stage == "coarse":
         m = unet_cfg.min_spatial
         canvas = tuple(max(m, (s // 2 // m) * m) for s in cfg.pool_shape)

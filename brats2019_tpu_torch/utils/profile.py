@@ -18,6 +18,16 @@ time the stream stood empty while the host was in the span. Counts are span
 counts (volumes, CC flag reads, steps). Span names never start with
 ``brats_torch::``, the namespace of the program's operators.
 
+The spans the port opens: ``predict.call``, ``predict.prep`` (``prep.decode``,
+``prep.encode``, ``prep.copy``), ``predict.await_prep``, ``predict.program``,
+``predict.await_post``, ``predict.post`` (``post.fetch``, ``post.finish``,
+``post.write``) in ``infer/predictor.py``; ``program.sweep`` and
+``program.cc`` in ``models/cascade.py``, ``cc.sync`` in
+``ops/connected_components.py``; ``train.step``, ``train.sample``,
+``train.forward``, ``train.backward``, ``train.update`` in
+``train/step.py``; ``swin.encoder`` and ``swin.decoder`` (device edges)
+around the two halves of a Swin UNETR forward in ``models/swin_unetr.py``.
+
 On or off. A call into the port (a function decorated with :func:`entry`:
 ``Predictor.predict_arrays_many``, ``predict_dirs``, ``predict_arrays``,
 ``predict_dir``, ``predict_device``, ``MultichipPredictor._run``,

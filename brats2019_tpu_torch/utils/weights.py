@@ -10,7 +10,10 @@ deep-supervision net); on disk ``<workdir>/<stage>/params.npz`` or
 ``params.safetensors``, chosen by extension as ``export_params`` does. The
 port's modules carry the same names, so a key maps to a state-dict key by
 dropping ``params/`` and turning ``/`` into ``.``; tensors keep the JAX
-layouts.
+layouts. A Swin UNETR (``models/swin_unetr.py``, which the JAX package does
+not have) is named the same way after its module tree
+(``params/swinViT/layers1/blocks_0/attn/qkv/kernel``, ...);
+:func:`build_network` builds either network from its config's class.
 
 The card's machine has no ``safetensors`` package, so the format is read
 and written here in NumPy: a little-endian u64 header length, a JSON header
@@ -30,6 +33,8 @@ import numpy as np
 import torch
 
 from ..configs.presets import UNetConfig
+from ..configs.swin_unetr import SwinUNETRConfig
+from ..models.swin_unetr import SwinUNETR
 from ..models.unet3d import UNet3D
 
 _PREFIX = "params/"
@@ -170,6 +175,7 @@ def init_params(cfg: UNetConfig, seed: int = 0) -> Dict[str, np.ndarray]:
     lecun-normal (truncated normal, fan_in) kernels, IN scale 1 and bias 0,
     zero head bias. Draws go in state-dict order from one torch.Generator
     (the numbers differ from jax.random's for the same seed)."""
+    require_unet(cfg, "init_params")
     g = torch.Generator().manual_seed(seed)
     sd = {}
     for name, p in UNet3D(cfg).named_parameters():
@@ -186,15 +192,27 @@ def init_params(cfg: UNetConfig, seed: int = 0) -> Dict[str, np.ndarray]:
     return flat_from_state_dict(sd)
 
 
-def build_unet(
-    cfg: UNetConfig,
+def require_unet(cfg, what: str) -> None:
+    """Refuse, in one line, a network other than the U-Net on a path that
+    runs the U-Net only."""
+    if not isinstance(cfg, UNetConfig):
+        raise TypeError(f"{what} runs the U-Net only, not a {type(cfg).__name__}")
+
+
+def build_network(
+    cfg: Union[UNetConfig, SwinUNETRConfig],
     params: Union[str, Dict[str, np.ndarray]],
     device: Union[str, torch.device] = "cpu",
-) -> UNet3D:
-    """A UNet3D in eval mode on ``device`` holding ``params`` (a flat export
-    dict or a ``params.{npz,safetensors}`` path); every key must match
-    (strict load)."""
+) -> torch.nn.Module:
+    """The network of ``cfg``'s class (``UNet3D`` or ``SwinUNETR``) in eval
+    mode on ``device`` holding ``params`` (a flat export dict or a
+    ``params.{npz,safetensors}`` path); every key must match (strict load)."""
+    model = SwinUNETR(cfg) if isinstance(cfg, SwinUNETRConfig) else UNet3D(cfg)
     flat = load_params(params) if isinstance(params, str) else params
-    model = UNet3D(cfg)
     model.load_state_dict(state_dict_from_flat(flat), strict=True)
     return model.to(device).eval().requires_grad_(False)
+
+
+# the name the U-Net paths and tests build by; a path that runs the U-Net
+# only refuses another network once, with :func:`require_unet`, first
+build_unet = build_network

@@ -5,7 +5,8 @@
 
 Run from the root of a checkout (``--phases 2`` stops after the kernel checks,
 ``--phases 9``, ``10``, ``11`` or ``12`` runs phase 1, phase 3's set-up and
-predict run, and that phase alone; none of these prints result lines).
+predict run, and that phase alone, ``--phases 13`` phase 1 and phase 13; none
+of these prints result lines).
 Phases:
 
 1. Setup: torch/CUDA versions, the card's name and power limit, TF32 off for
@@ -322,11 +323,25 @@ Phases:
    ms/vol, with the kernel and with the plain form in its place, in turns.
    Its row joins the kernel record.
 
+13. The Swin UNETR's window attention (``csrc/window_attention.cu``), after
+   phase 12: at the four stages of a 128^3 tile at batch 8 (the padded grids
+   70^3, 35^3, 21^3, 14^3; 3, 6, 12, 24 heads), shifted and not, the kernel
+   against the plain form (f32 math on the same bf16 qkv, the table at unit
+   scale): max error within 2e-2 of the largest output and mean error
+   within 4e-3 of the mean output, a repeat bitwise, one call and one kernel
+   launch a call; device ms by CUDA-graph replay beside the plain form,
+   ``F.scaled_dot_product_attention`` with B + M materialised and the bound;
+   then the Swin Predictor (``perfbench/configs/swin_unetr.json``, seeded
+   weights) on two synthetic cases with the counters set to 0 just before:
+   96 calls and 96 kernel launches a volume. Its row (per batch-8 forward)
+   joins the kernel record.
+
 The line before the last holds the kernels' JSON record (forward kernels:
 launches on the predict slice, times per volume; backward kernels: launches
 on the training slice, times per fine train step; the Winograd conv:
 launches on the serving slice, times per volume; the connected components:
-calls on phase 12's canvases, times per volume; the f32 instances
+calls on phase 12's canvases, times per volume; the window attention:
+launches on phase 13's Swin predictor run, times per batch-8 forward; the f32 instances
 (``*_f32``): forward launches on phase 7's accuracy arms (the f32 Winograd:
 on its Winograd-backend predicts), times per
 accuracy-config tile batch, backward launches on phase 7's ``smoke``
@@ -5191,6 +5206,176 @@ def phase12(exp, work, case_dirs, first, dev, card):
     }
 
 
+# ----------------------------------------------------------------- phase 13 --
+
+# (grid, heads) of the Swin UNETR's four stages on a 128^3 tile: the padded
+# grids 70^3, 35^3, 21^3, 14^3; batch 8 (the 8 flips of a tile)
+SWIN_STAGES = [((64, 64, 64), 3), ((32, 32, 32), 6), ((16, 16, 16), 12),
+               ((8, 8, 8), 24)]
+SWIN_SHIFT = 3
+SWIN_CASES = 2   # volumes of the Swin predictor run
+WA_MAX, WA_MEAN = 2e-2, 4e-3   # kernel vs plain: max err / max, mean err / mean
+
+
+def window_attention_inputs(dims, heads, shift, dev, n=8, seed=SEED):
+    """(qkv bf16, table f32 at unit scale, window, shift) of one call."""
+    import torch
+
+    from brats2019_tpu_torch.ops.window_attention import padded, window_and_shift
+
+    ws, ss = window_and_shift(dims, 7, shift)
+    nw = n * math.prod(p // w for p, w in zip(padded(dims, ws), ws))
+    g = torch.Generator(device=dev).manual_seed(seed + sum(dims) + shift)
+    qkv = torch.randn(nw, math.prod(ws), 3 * heads * 16, generator=g, device=dev)
+    table = torch.randn(13 ** 3, heads, generator=g, device=dev)
+    return qkv.bfloat16(), table, ws, ss
+
+
+def window_attention_library(qkv, table, dims, ws, ss, heads, scale):
+    """``F.scaled_dot_product_attention`` with B + M materialised per window
+    and head, a sample at a time (a sample's windows share them; the mask
+    built outside what is timed)."""
+    import torch
+    import torch.nn.functional as F
+
+    from brats2019_tpu_torch.ops.window_attention import (padded, relative_index,
+                                                          shift_mask)
+
+    t = math.prod(ws)
+    b = table[relative_index(tuple(ws), 7).to(qkv.device).reshape(-1)]
+    b = b.reshape(t, t, heads).permute(2, 0, 1)
+    m = shift_mask(padded(dims, ws), tuple(ws), tuple(ss))
+    m = torch.zeros(1, t, t) if m is None else m
+    mask = (b[None] + m.to(qkv.device)[:, None]).bfloat16()
+    q, k, v = qkv.reshape(qkv.shape[0], t, 3, heads, 16).permute(2, 0, 3, 1, 4)
+    per = mask.shape[0]
+
+    def run():
+        for i in range(0, qkv.shape[0], per):
+            sl = slice(i, i + per)
+            F.scaled_dot_product_attention(q[sl], k[sl], v[sl], attn_mask=mask,
+                                           scale=scale)
+    return run, mask.numel() * 2
+
+
+def phase13(dev, card):
+    """The Swin UNETR's window attention (``csrc/window_attention.cu``,
+    row 10): the kernel against the plain form at the four stages of a
+    128^3 tile at batch 8, shifted and not (max error within WA_MAX of the
+    largest output, mean error within WA_MEAN of the mean output, a repeat
+    bitwise, one call and one kernel launch a call); device ms of each by
+    CUDA-graph replay beside the plain form (CUDA events), SDPA with B + M
+    materialised (the library call) and the call's bound (its qkv, table
+    and output bytes over 3.35 TB/s, or 4 windows heads T^2 16 FLOPs over
+    989 TFLOP/s); then the Swin Predictor (``perfbench/configs/
+    swin_unetr.json``'s experiment, its seeded weights) on SWIN_CASES
+    synthetic cases with the counters set to 0 just before: 96 calls a
+    volume (12 tiles x 8 flips at batch 8, 8 blocks a forward), every one a
+    launch of the kernel. Returns row 10 of the kernel record, per batch-8
+    forward."""
+    import torch
+
+    from brats2019_tpu_torch import ops
+    from brats2019_tpu_torch.infer.predictor import Predictor
+    from brats2019_tpu_torch.ops.window_attention import window_attention_plain
+    import numpy as np
+
+    from perfbench import drivers, harness, synth
+
+    t0 = time.perf_counter()
+    rows, errs = [], []
+    for dims, heads in SWIN_STAGES:
+        for shift in (0, SWIN_SHIFT):
+            qkv, table, ws, ss = window_attention_inputs(dims, heads, shift, dev)
+            scale = 16 ** -0.5
+            kern = lambda: ops.window_attention(qkv, table, dims, ws, ss, scale)
+            plain = lambda: window_attention_plain(qkv.float(), table, dims, ws, ss,
+                                                   scale)
+            before = (ops.window_attention.launches, ops.window_attention.launches_cuda)
+            got, again = kern(), kern()
+            took = (ops.window_attention.launches - before[0],
+                    ops.window_attention.launches_cuda - before[1])
+            want = plain()
+            torch.cuda.synchronize()
+            err = (got.float() - want).abs()
+            mx = err.max().item() / want.abs().max().item()
+            mean = err.mean().item() / want.abs().mean().item()
+            errs.append(err.max().item())
+            what = f"window_attention at {dims}, heads {heads}, shift {ss}, batch 8"
+            check(mx <= WA_MAX and mean <= WA_MEAN,
+                  f"{what}: max err/max {mx:.3e} (<= {WA_MAX}), mean err/mean "
+                  f"{mean:.3e} (<= {WA_MEAN})")
+            check(torch.equal(got, again) and took == (2, 2),
+                  f"{what}: a repeat bitwise {torch.equal(got, again)}, (calls, "
+                  f"launches) {took} for 2 calls")
+            del got, again, want
+            library, mask_bytes = window_attention_library(qkv, table, dims, ws, ss,
+                                                           heads, scale)
+            nw, t = qkv.shape[:2]
+            nbytes = (qkv.numel() + nw * t * heads * 16) * 2 + table.numel() * 4
+            flops = 4 * nw * heads * t * t * 16
+            row = {"dims": dims, "shift": ss, "windows": nw,
+                   "ms": device_ms(kern, 5), "wall_ms": cuda_ms(kern, 5),
+                   "plain_ms": cuda_ms(plain, 2), "library_ms": device_ms(library, 1),
+                   "bytes_ms": 1e3 * nbytes / PEAK_BW,
+                   "ops_ms": 1e3 * flops / PEAK_BF16, "mask_bytes": mask_bytes}
+            rows.append(row)
+            print(f"  {what}: kernel {row['ms']:.4f} ms (eager {row['wall_ms']:.4f}), "
+                  f"plain {row['plain_ms']:.4f}, SDPA with B + M materialised "
+                  f"({mask_bytes / 2 ** 20:.0f} MiB) {row['library_ms']:.4f}, bound "
+                  f"{max(row['bytes_ms'], row['ops_ms']):.4f} (bytes "
+                  f"{row['bytes_ms']:.4f}, FLOPs {row['ops_ms']:.4f}) on {card}",
+                  flush=True)
+            del qkv, library
+            torch.cuda.empty_cache()
+    total = {k: sum(r[k] for r in rows) for k in ("ms", "wall_ms", "plain_ms",
+                                                 "library_ms", "bytes_ms", "ops_ms")}
+    bound = sum(max(r["bytes_ms"], r["ops_ms"]) for r in rows)
+    print(f"  window_attention a batch-8 forward (8 calls): kernel {total['ms']:.4f} "
+          f"ms, plain {total['plain_ms']:.4f}, SDPA with B + M {total['library_ms']:.4f}, "
+          f"bound {bound:.4f} ({100 * bound / total['ms']:.2f}% of roofline) on {card}",
+          flush=True)
+
+    config = json.load(open(os.path.join(ROOT, "perfbench", "configs",
+                                         "swin_unetr.json")))
+    exp = harness.experiment(config)
+    fine = drivers.flat_params(config["experiment"], SEED, dev)
+    vols = synth.volumes(SWIN_CASES, (240, 240, 155), SEED, dev)
+    pred = Predictor(exp, fine, None, device=dev)
+    pred.predict_arrays_many(vols[:1])   # builds and warms every shape
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    labels = pred.predict_arrays_many(vols)
+    torch.cuda.synchronize()
+    calls = ops.launch_counts()["window_attention"]
+    launches = ops.window_attention.launches_cuda
+    want = 96 * SWIN_CASES
+    check(calls == launches == want,
+          f"Swin predictor on {SWIN_CASES} cases: window_attention calls {calls}, "
+          f"kernel launches {launches} (expected {want})")
+    vals = sorted({int(v) for lab in labels for v in np.unique(lab)})
+    check(all(lab.shape == (240, 240, 155) for lab in labels)
+          and set(vals) <= {0, 1, 2, 3, 4},
+          f"Swin predictor labels: shapes {[lab.shape for lab in labels]}, values {vals}")
+    del pred
+    torch.cuda.empty_cache()
+    print(f"  phase 13 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return {
+        "name": "window_attention", "route": "cuda",
+        "source": "brats2019_tpu_torch/csrc/window_attention.cu",
+        "replaces": "none (the JAX package has no attention)",
+        "launches": launches, "max_abs_err": float(max(errs)), "calls": len(rows),
+        "unit": "forward", "ms": total["ms"], "plain_ms": total["plain_ms"],
+        "wall_ms": total["wall_ms"], "plain_wall_ms": total["plain_ms"],
+        "bound_ms": bound,
+        "bound_by": "bytes" if total["bytes_ms"] >= total["ops_ms"] else "operations",
+        "bound_bytes_ms": total["bytes_ms"], "bound_operations_ms": total["ops_ms"],
+        "library_ms": total["library_ms"],
+        "library": "F.scaled_dot_product_attention with B + M materialised",
+        "stages": rows,
+    }
+
+
 def phase_alone(phase, exp, dev, card) -> int:
     """``--phases 9``, ``10``, ``11`` or ``12``: phase 3's weights, cases and
     predict CLI run (the masks the phase compares with), then that phase
@@ -5230,11 +5415,12 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch port "
                                  "on one CUDA card; no argument runs it whole.")
-    ap.add_argument("--phases", type=int, choices=(2, 5, 9, 10, 11, 12), default=5,
+    ap.add_argument("--phases", type=int, choices=(2, 5, 9, 10, 11, 12, 13), default=5,
                     help="2: stop after the kernel checks of phase 2; 9, 10, "
                          "11 or 12: phase 1, phase 3's cases, weights and "
-                         "predict CLI run, then that phase alone (none of "
-                         "these prints result lines); 5 (default): everything")
+                         "predict CLI run, then that phase alone; 13: phase 1, "
+                         "then phase 13 (none of these prints result lines); "
+                         "5 (default): everything")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("error: torch.cuda.is_available() is False; this smoke test "
@@ -5247,6 +5433,7 @@ def main() -> int:
     from brats2019_tpu_torch.data.constants import VOLUME_SHAPE
     from brats2019_tpu_torch.ops import _build, conv, norm, resize, winograd
     from brats2019_tpu_torch.ops import connected_components as cc
+    from brats2019_tpu_torch.ops.window_attention import _lib as window_attention_lib
     from brats2019_tpu_torch.train.loop import stage_config
     from brats2019_tpu_torch.utils.weights import init_params, save_params_npz
 
@@ -5264,14 +5451,14 @@ def main() -> int:
     t0 = time.perf_counter()
     # one nvcc each, side by side
     _build.build_all([conv._lib_wgmma, conv._lib, winograd._lib_wgmma,
-                      winograd._lib, resize._lib, norm._lib, cc._lib]
+                      winograd._lib, resize._lib, norm._lib, cc._lib, window_attention_lib]
                      + [lambda k=k: in_bwd_probe_lib(k) for k in range(5)])
     print(f"  built conv3d_wgmma.cu, conv3d.cu, winograd3d_wgmma.cu, "
           f"winograd3d.cu, resize2x.cu, in_act_bwd.cu (and its five probe "
-          f"builds) and connected_components.cu with nvcc in "
+          f"builds), connected_components.cu and window_attention.cu with nvcc in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for lib in ("conv3d_wgmma", "conv3d", "winograd3d_wgmma", "winograd3d",
-                "resize2x", "in_act_bwd", "connected_components"):
+                "resize2x", "in_act_bwd", "connected_components", "window_attention"):
         # registers, spills and warnings; not the per-function banners
         log = [ln.strip() for ln in
                _build.build_logs.get(lib, "(cached)").splitlines()
@@ -5292,6 +5479,14 @@ def main() -> int:
                   + unet_calls(exp.unet, 1, exp.train.pool_shape))
     if args.phases in (9, 10, 11, 12):
         return phase_alone(args.phases, exp, dev, card)
+    if args.phases == 13:
+        print("== phase 13 alone: the Swin UNETR's window attention", flush=True)
+        phase13(dev, card)
+        print(f"== stopped after phase 13 as asked; {len(FAILURES)} failure(s)",
+              flush=True)
+        for f in FAILURES:
+            print(f"FAILED: {f}", file=sys.stderr)
+        return 1 if FAILURES else 0
     print("== phase 2: kernels vs plain torch at the flagship shapes", flush=True)
     t0 = time.perf_counter()
     wino_calls = [("conv3d_winograd", shape) for n, shape in calls if n == "conv3d"]
@@ -5531,6 +5726,10 @@ def main() -> int:
           flush=True)
     cc_record = phase12(exp, work, case_dirs, first, dev, card)
 
+    print("== phase 13: the Swin UNETR's window attention and its predictor",
+          flush=True)
+    wa_record = phase13(dev, card)
+
     record = []
     for k, (route, source, replaces) in KERNELS.items():
         errs = [r[1] for (n, _), r in results.items() if n == k]
@@ -5642,6 +5841,7 @@ def main() -> int:
         "direct_source": "brats2019_tpu_torch/csrc/conv3d.cu (conv3d_ndhwc_f32)",
     })
     record.append(cc_record)   # per volume of single_chip, on the whole canvas
+    record.append(wa_record)   # per batch-8 forward of the Swin UNETR
     for r in record:
         unit = r.get("unit") or ("fine train step" if r["name"] in BACKWARD
                                  else "vol")

@@ -1736,3 +1736,53 @@ def test_shard_statistics_merge_to_the_volume_statistics(dev, dtype, shape, part
         assert _ulps(got, ref) <= 2
     else:
         assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("dims,heads,n,shift", [
+    ((16, 16, 16), 3, 2, 3),     # padded to 21^3, shifted: the three regions
+    ((16, 16, 16), 3, 2, 0),     # padded, no mask
+    ((9, 10, 11), 2, 1, 3),      # ragged: each axis pads differently
+    ((4, 4, 4), 4, 2, 3),        # clamped to the axis: a 64-token window, no shift
+    ((8, 3, 14), 1, 1, 3),       # one axis clamped, the others shifted
+    ((2, 2, 2), 2, 3, 3),        # an 8-token window: one query tile, 24 keys past T
+])
+def test_window_attention_kernel_matches_plain(dev, dims, heads, n, shift):
+    """The kernel (``csrc/window_attention.cu``) against the plain form (f32
+    math on the same bf16 qkv), with the table at unit scale so that B moves
+    the scores as much as q k^T does: the output within 2% of its largest
+    magnitude and its mean error within 0.4% of its mean magnitude (p rounded
+    to bf16 for the p v product, the output rounded to bf16), a repeat
+    bitwise, one call and one kernel launch a call."""
+    from brats2019_tpu_torch.ops.window_attention import (padded, window_and_shift,
+                                                          window_attention_plain)
+
+    ws, ss = window_and_shift(dims, 7, shift)
+    nw = n * int(np.prod([p // w for p, w in zip(padded(dims, ws), ws)]))
+    g = torch.Generator(device=dev).manual_seed(sum(dims))
+    qkv = torch.randn(nw, int(np.prod(ws)), 3 * heads * 16, generator=g,
+                      device=dev).bfloat16()
+    table = torch.randn(13 ** 3, heads, generator=g, device=dev)
+    before = (ops.window_attention.launches, ops.window_attention.launches_cuda)
+    got = ops.window_attention(qkv, table, dims, ws, ss, 0.25)
+    again = ops.window_attention(qkv, table, dims, ws, ss, 0.25)
+    assert (ops.window_attention.launches - before[0],
+            ops.window_attention.launches_cuda - before[1]) == (2, 2)
+    want = window_attention_plain(qkv.float(), table, dims, ws, ss, 0.25)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    err = (got.float() - want).abs()
+    assert err.max().item() <= 2e-2 * want.abs().max().item()
+    assert err.mean().item() <= 4e-3 * want.abs().mean().item()
+
+
+def test_window_attention_kernel_refuses_what_it_does_not_take(dev):
+    qkv = torch.randn(8, 343, 3 * 2 * 8, device=dev)
+    table = torch.randn(13 ** 3, 2, device=dev)
+    with pytest.raises(TypeError, match="bf16 only"):
+        ops.window_attention(qkv, table, (14, 14, 7), (7, 7, 7), (3, 3, 3), 0.25)
+    with pytest.raises(ValueError, match="head dim 8"):
+        ops.window_attention(qkv.bfloat16(), table, (14, 14, 7), (7, 7, 7), (3, 3, 3),
+                             0.25)
+    wide = torch.randn(8, 343, 3 * 2 * 16, device=dev).bfloat16()
+    with pytest.raises(ValueError, match="window of 8"):
+        ops.window_attention(wide, torch.randn(15 ** 3, 2, device=dev), (14, 14, 7),
+                             (7, 7, 7), (3, 3, 3), 0.25)
